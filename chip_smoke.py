@@ -148,14 +148,20 @@ def check_k4(torch, params, ctx, Tg: int, gen, label: str, swiglu=False,
     iters = 50 if Tg <= 64 else 10
     ms = time_ms(torch, kernel, iters)
     plain_ms = time_ms(torch, plain, max(3, iters // 5))
-    rows = int(valid.sum())
+    # the bound counts the work the output needs: the rows with a nonzero
+    # combine weight (Tg * top_k), and the weights of the experts they pick.
+    # The dense gather layout computes every row of a picked expert's
+    # segment (computed_rows); the rows past weighted_rows are wasted work.
+    computed_rows = int(valid.sum())
+    weighted_rows = int((w != 0).sum())
     active = int((valid > 0).sum())
     nbytes = (Tg * d * 2 + tok.numel() * 4 + w.numel() * 4 + E * 4
               + active * 2 * d * f * 2 + Tg * d * 4)
-    flops = 2 * rows * 2 * d * f
+    flops = 2 * weighted_rows * 2 * d * f
     b_ms, b_by = bound_ms(nbytes, flops)
     return {"layout": label, "Tg": Tg, "slots": tok.numel(),
-            "active_experts": active, "rows": rows, "max_abs_err": err,
+            "active_experts": active, "computed_rows": computed_rows,
+            "weighted_rows": weighted_rows, "max_abs_err": err,
             "atol": K4_ATOL, "rtol": K4_RTOL, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 

@@ -13,6 +13,7 @@ raises ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from collections.abc import Callable
 
 import torch
@@ -104,14 +105,21 @@ class DispatchEngine:
                              device=x.device)
             fb[0] = 1.0
         dropped = metrics.get("dropped", 0.0)
-        if not torch.is_tensor(dropped):     # a fill, not a host copy
-            dropped = torch.full((), float(dropped), device=x.device)
+        if not torch.is_tensor(dropped):
+            dropped = _constant(float(dropped), x.device)
         out = {"aux_loss": metrics["aux_loss"],
                "frac_by_level": fb.to(torch.float32),
                "frac_near": fb[0],
                "frac_far": 1.0 - fb[0],
                "dropped": dropped.to(torch.float32)}
         return y, out
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(value: float, device) -> torch.Tensor:
+    """A read-only float32 scalar on ``device``, made once: a path's
+    constant metric then costs no launch and no host copy per call."""
+    return torch.tensor(value, dtype=torch.float32, device=device)
 
 
 def make_engine(name: str, *, cfg: MoEConfig, ep: EPSpec,

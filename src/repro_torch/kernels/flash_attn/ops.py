@@ -18,16 +18,15 @@ from repro_torch.kernels import backend
 from repro_torch.kernels.flash_attn.ref import flash_attention_ref
 
 KERNEL = "flash_attn.flash_attention"
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+#: the only variant the kernel builds: gpt3_medium_moe's serving path
+HEAD_DIM, DTYPE = 64, torch.bfloat16
 _V, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.lru_cache(maxsize=1)
 def _entry():
     return backend.bind("flash_attn", "flash_attention_fwd",
-                        [_V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _V])
+                        [_V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _I, _I, _V])
 
 
 def _flash_cuda(q, k, v, causal: bool, sliding_window: int):
@@ -41,13 +40,12 @@ def _flash_cuda(q, k, v, causal: bool, sliding_window: int):
                          f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
     if K == 0 or H % K:
         raise ValueError(f"{KERNEL}: {H} query heads over {K} kv heads")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"{KERNEL}: head_dim {hd} not in {_HEAD_DIMS}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise TypeError(f"{KERNEL}: q/k/v must share one of "
-                        f"{tuple(_DTYPE_CODES)}, got {q.dtype}/{k.dtype}/"
-                        f"{v.dtype}")
+    if hd != HEAD_DIM:
+        raise ValueError(f"{KERNEL}: head_dim {hd}; the kernel is built "
+                         f"for {HEAD_DIM} only")
+    if (q.dtype, k.dtype, v.dtype) != (DTYPE,) * 3:
+        raise TypeError(f"{KERNEL}: q/k/v must be {DTYPE}, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{KERNEL}: {name} on {t.device}, q on "
@@ -59,8 +57,7 @@ def _flash_cuda(q, k, v, causal: bool, sliding_window: int):
         return o
     err = _entry()(backend.ptr(q), backend.ptr(k), backend.ptr(v),
                    backend.ptr(o), B, Sq, Sk, H, K, hd, int(bool(causal)),
-                   int(sliding_window), _DTYPE_CODES[q.dtype],
-                   backend.stream_ptr(q.device))
+                   int(sliding_window), backend.stream_ptr(q.device))
     backend.check(KERNEL, err)
     backend.record_launch(KERNEL)
     return o
@@ -69,7 +66,8 @@ def _flash_cuda(q, k, v, causal: bool, sliding_window: int):
 def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
                     use_pallas=None):
     """q: [B, Sq, H, hd]; k/v: [B, Sk, K, hd] -> [B, Sq, H, hd] in q's
-    dtype."""
+    dtype.  The CUDA kernel takes bfloat16 with hd = 64 and raises on
+    anything else; the plain version (CPU tensors) takes any."""
     if not backend.kernels_active(use_pallas, q.device):
         return flash_attention_ref(q, k, v, causal=causal,
                                    sliding_window=sliding_window)

@@ -16,6 +16,7 @@ tensors with ``pos`` advanced.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -64,9 +65,11 @@ def norm_apply(params, x, kind: str, eps: float = 1e-5):
 # ---------------------------------------------------------------------------
 
 
-def rope_freqs(head_dim: int, theta: float, device="cpu"):
-    """float32 [head_dim / 2] inverse frequencies, computed in float64 on
-    ``device`` (no host-to-device copy on the decode path)."""
+@functools.lru_cache(maxsize=None)
+def rope_freqs(head_dim: int, theta: float, device):
+    """float32 [head_dim / 2] inverse frequencies on ``device``, computed
+    in float64 once per (head_dim, theta, device): later calls cost no
+    launch and no host-to-device copy.  Read-only."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float64,
                         device=device) / head_dim
     return (1.0 / (theta ** exps)).to(torch.float32)
