@@ -13,32 +13,52 @@ Phases, each printing JSON lines:
 2. build   — compiles every CUDA source under ``src/repro_torch/csrc``
    with nvcc for sm_90a (one nvcc per source, all started together);
 3. checks  — holds each kernel against its plain PyTorch version on the
-   card in bf16 at the full-width shapes the serve phase gives it: the
+   card in bf16 at the full-width shapes its main path gives it: the
    fused local-MoE kernel (K4) at the decode layout (8 slots x 64
    experts) and the prefill layout (4 x 128 tokens x 64 experts), flash
    attention (K5) at the prefill shape [4, 128, 16, 64] (plus ragged and
-   windowed edge shapes), with kernel, plain, bound and library times;
-4. serve   — gpt3_medium_moe at full width (12 layers, d=1024, 64
+   windowed edge shapes), and permute (K1), unpermute (K2) and the ragged
+   grouped FFN (K3) on rank (0, 0)'s indices of the 2x2 training plan
+   (1024 tokens, caps (120, 16), 16 experts a rank), with kernel, plain,
+   bound and library times;
+4. backward checks — each K1-K4 ``autograd.Function`` on the card
+   against autograd of its plain version at a small shape;
+5. serve   — gpt3_medium_moe at full width (12 layers, d=1024, 64
    experts top-2, vocab 50304, bf16, random weights from a seed) through
    ``ServingEngine.run``: 8 requests, 8 slots, packs of 4, prompt bucket
    128, cache 256.  Checks every stream's budget and vocabulary, that the
    launch counters show every MoE layer of every step went through K4 and
    every prefill attention through K5, and that on a small input the
    kernel path is as close to a float32 plain run as the bf16 plain path;
-5. profile — host-clock step times and a torch.profiler breakdown
+6. profile — host-clock step times and a torch.profiler breakdown
    (device busy share, top kernels) of one prefill pack and one decode
    step;
-6. kernels — one ``{"kernels": [...]}`` line.
+7. train_1rank — in a child process, ``trainer.train`` of full-width
+   gpt3_medium_moe on one rank: ``dispatch="a2a"``, ``aux_mode="ta"``,
+   seq 512, batch 4, AdamW, 3 steps.  K4 must launch once per layer and
+   forward (36 times), and the first step's loss must agree with the plain
+   path's (kernels off) on the same weights and batch;
+8. train_2x2 — the same on a 2x2 (pod x data) EP world of four spawned
+   ranks that share the card over gloo, batch 8 (1024 tokens a rank):
+   every rank must launch K1, K2 and K3 36 times each and K4 never, the
+   ranks must agree on the world-mean losses, and the first step's loss
+   must agree with the plain path's;
+9. kernels — one ``{"kernels": [...]}`` line for K1-K5, launches summed
+   over the main paths (serve, train_1rank, every rank of train_2x2).
 
 Any failed phase raises (exit code non-zero).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
+import gc
 import json
 import math
+import multiprocessing as mp
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -57,6 +77,32 @@ PEAK_BF16_FLOP_PER_S = 989e12
 K4_ATOL, K4_RTOL = 3e-2, 2e-2
 # K5: both run in f32 and round the output to bf16 once: one bf16 ulp.
 K5_ATOL, K5_RTOL = 1e-2, 1e-2
+# K2: both sum K = 2 weighted bf16 rows in f32; the kernel fuses each
+# multiply-add (one rounding fewer): an f32 ulp or two of |out| ~ 1.
+K2_ATOL, K2_RTOL = 1e-5, 1e-5
+# K3: as K4 (bf16 output of f32 sums taken in another order).  K1 copies
+# rows and must be bit-equal.
+K3_ATOL, K3_RTOL = 3e-2, 2e-2
+# backward checks: a Function on the card against autograd of its plain
+# version, |got - want| <= ATOL + RTOL * max|want| per tensor.  f32 (K1,
+# K2): scatter-adds by atomics in another order.  bf16 inputs (K3, K4):
+# the same plain arithmetic, but autograd's scatter-add of the weight
+# gradients over an expert's segments runs in bf16 with atomics, so the
+# order of those sums (a few bf16 ulps of the largest entry) changes from
+# run to run.
+BWD_F32_ATOL, BWD_F32_RTOL = 1e-5, 1e-5
+BWD_BF16_ATOL, BWD_BF16_RTOL = 1e-2, 3e-2
+# training phases: full width, seq 512, 3 steps; one rank with batch 4
+# (2048 tokens, caps (128,)), the 2x2 world with batch 8 (1024 tokens a
+# rank, caps (120, 16))
+TRAIN_SEQ, TRAIN_STEPS = 512, 3
+TRAIN_BATCH_1, TRAIN_BATCH_22 = 4, 8
+WORLD_22 = (2, 2)
+# first-step world-mean loss, kernel path against the plain path, both in
+# bf16: the kernels round and sum in other orders, which can flip a few
+# near-tied top-2 picks in later layers; the loss is a mean over 2048
+# tokens (4096 in the world), so it moves far less than one token's share
+LOSS_RTOL = 1e-2
 # end to end after 12 bf16 layers, relative Frobenius error of the logits
 # against a float32 plain run: the kernel path may be at most E2E_RATIO
 # times as far from it as the plain bf16 path (both differ from float32 by
@@ -208,6 +254,372 @@ def check_k5(torch, shape, gen, causal=True, window=0, timed=True):
                library_ms=time_ms(torch, library, 100),
                bound_ms=b_ms, bound_by=b_by)
     return out
+
+
+def staged_case(torch, params, arch, gen):
+    """Rank (0, 0)'s view of the 2x2 training phase's plan: a real
+    ``route`` + ``build_indices`` of 1024 random tokens through layer 0's
+    gate, the 2x2 EP spec and its Eq. (7) plan (caps (120, 16)).  The
+    rank's send buffer, read back through an identity exchange, stands in
+    for the receive buffer of the ragged grouped FFN (K3)."""
+    from repro_torch.core.dispatch import routing, transport
+    from repro_torch.kernels.moe_permute.ref import permute_ref
+    from repro_torch.launch.mesh import EPWorld
+    from repro_torch.models import model as model_lib
+    world = EPWorld(axis_names=("pod", "data"), axis_sizes=WORLD_22,
+                    coords=(0, 0), device="cuda")
+    ctx = model_lib.build_ctx(arch, world, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH_22, aux_mode="ta",
+                              device="cuda")
+    T = TRAIN_SEQ * TRAIN_BATCH_22 // world.size
+    d = arch.d_model
+    p = params["layers"][0]["ffn"]
+    x = torch.randn((T, d), generator=gen, device="cuda").to(torch.bfloat16)
+    routed = routing.route(p, x, ctx.moe_cfg, ctx.ep, ctx.plan, ctx.gate_cfg,
+                           world.coords)
+    di = routing.build_indices(routed.sels, routed.gate_out["topk_idx"], T)
+    stages = transport.plan_stages(ctx.plan, ctx.ep)
+    flat = permute_ref(x, di.slot_to_token)
+
+    def ident(t, axis, dim):
+        return t
+
+    parts, cnts = [], []
+    for stage, (_, off, shape), (_, coff, cshape) in zip(
+            stages, di.stage_spans(), di.expert_spans()):
+        n = math.prod(shape)
+        parts.append(transport.dispatch_chain(
+            flat[off:off + n].reshape(shape + (d,)), stage, ident))
+        c = di.rows_per_expert[coff:coff + math.prod(cshape)].reshape(cshape)
+        k = len(stage.axis_names)
+        cnts.append(c.permute((k,) + tuple(range(k))).reshape(
+            c.shape[k], stage.num_dests))
+    E_l = ctx.plan.experts_per_rank
+    segs, exps = transport.stage_segments(
+        E_l, tuple((s.num_dests, shape[-1])
+                   for s, (_, _, shape) in zip(stages, di.stage_spans())))
+    return {"x": x, "di": di, "caps": ctx.plan.caps,
+            "xin": torch.cat(parts, dim=1).reshape(-1, d).contiguous(),
+            "rows_valid": torch.cat(cnts, dim=1).reshape(-1).contiguous(),
+            "segs": segs, "exps": exps,
+            "w_in": p["w_in"][:E_l].contiguous(),
+            "w_out": p["w_out"][:E_l].contiguous()}
+
+
+def check_k1(torch, case):
+    """K1 permute at the 2x2 phase's rank-0 shapes: a row copy, so the
+    kernel must equal the plain version bit for bit."""
+    from repro_torch.kernels.moe_permute import ops as p_ops
+    from repro_torch.kernels.moe_permute.ref import permute_ref
+    x, tok = case["x"], case["di"].slot_to_token
+    T, d = x.shape
+
+    def kernel():
+        return p_ops.permute(x, tok, use_pallas=True)
+
+    def plain():
+        return permute_ref(x, tok)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.equal(got, want):
+        raise SystemExit(f"K1: kernel disagrees with plain (max abs err "
+                         f"{err})")
+    x_pad = torch.cat([x, x.new_zeros((1, d))])
+    idx = tok.long()
+    S = tok.numel()
+    used = int(torch.unique(tok[tok < T]).numel())
+    nbytes = used * d * 2 + S * 4 + S * d * 2
+    b_ms, b_by = bound_ms(nbytes, 0.0)
+    return {"T": T, "S": S, "d": d, "tokens_read": used, "max_abs_err": err,
+            "atol": 0.0, "ms": time_ms(torch, kernel, 200),
+            "plain_ms": time_ms(torch, plain, 50),
+            "library_ms": time_ms(torch, lambda: x_pad.index_select(0, idx),
+                                  200),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_k2(torch, case, gen):
+    """K2 unpermute at the 2x2 phase's rank-0 shapes, on random bf16 slot
+    rows."""
+    from repro_torch.kernels.moe_permute import ops as p_ops
+    from repro_torch.kernels.moe_permute.ref import unpermute_ref
+    di = case["di"]
+    S, d = di.num_slots, case["x"].shape[1]
+    y = torch.randn((S, d), generator=gen, device="cuda").to(torch.bfloat16)
+
+    def kernel():
+        return p_ops.unpermute(y, di.inv_idx, di.inv_w, use_pallas=True)
+
+    def plain():
+        return unpermute_ref(y, di.inv_idx, di.inv_w)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    ok, err = close(torch, got, want, K2_ATOL, K2_RTOL)
+    if not ok:
+        raise SystemExit(f"K2: kernel disagrees with plain (max abs err "
+                         f"{err})")
+    T, K = di.inv_idx.shape
+    picks = int(((di.inv_idx < S) & (di.inv_w != 0)).sum())
+    b_ms, b_by = bound_ms(picks * d * 2 + T * K * 8 + T * d * 4,
+                          2.0 * picks * d)
+    return {"T": T, "K": K, "S": S, "picks": picks, "max_abs_err": err,
+            "atol": K2_ATOL, "rtol": K2_RTOL,
+            "ms": time_ms(torch, kernel, 200),
+            "plain_ms": time_ms(torch, plain, 50), "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_k3(torch, case):
+    """K3 ragged grouped FFN on the 2x2 phase's receive layout: 16
+    experts, 96 segments of width 120 or 16, tanh-gelu."""
+    from repro_torch.kernels.moe_gemm import ops as g_ops
+    from repro_torch.kernels.moe_gemm.ref import grouped_ffn_ragged_ref
+    xin, valid = case["xin"], case["rows_valid"]
+    segs, exps = case["segs"], case["exps"]
+    w_in, w_out = case["w_in"], case["w_out"]
+
+    def kernel():
+        return g_ops.grouped_ffn_ragged(xin, segs, exps, valid, w_in, None,
+                                        w_out, activation="gelu",
+                                        use_pallas=True)
+
+    def plain():
+        return grouped_ffn_ragged_ref(xin, segs, exps, valid, w_in, None,
+                                      w_out, activation="gelu")
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    ok, err = close(torch, got, want, K3_ATOL, K3_RTOL)
+    R, d = xin.shape
+    f = w_in.shape[2]
+    offs = torch.as_tensor(segs, device="cuda")
+    widths = offs[1:] - offs[:-1]
+    rows = torch.arange(R, device="cuda")
+    seg_of = torch.searchsorted(offs[1:], rows, right=True)
+    dead = (rows - offs[seg_of]) >= valid[seg_of].long()
+    zeros_exact = bool((got[dead] == 0).all())
+    if not ok or not zeros_exact:
+        raise SystemExit(f"K3: kernel disagrees with plain (max abs err "
+                         f"{err}, rows past nvalid zero: {zeros_exact})")
+    nvalid = int(valid.sum())
+    per_expert = torch.zeros(w_in.shape[0], device="cuda").index_add_(
+        0, torch.as_tensor(exps, device="cuda"), valid.float())
+    active = int((per_expert > 0).sum())
+    nbytes = (nvalid * d * 2 + active * 2 * d * f * 2 + R * d * 2
+              + valid.numel() * 4)
+    b_ms, b_by = bound_ms(nbytes, 2.0 * nvalid * 2 * d * f)
+    return {"R": R, "segments": len(exps), "experts": w_in.shape[0],
+            "segment_widths": sorted({int(w) for w in widths.tolist()}),
+            "valid_rows": nvalid, "active_experts": active,
+            "max_abs_err": err, "atol": K3_ATOL, "rtol": K3_RTOL,
+            "ms": time_ms(torch, kernel, 20),
+            "plain_ms": time_ms(torch, plain, 5), "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def backward_checks(torch, gen):
+    """Each kernel's ``autograd.Function`` on the card against autograd of
+    its plain version, at a small shape: K1 and K2 in float32 (their
+    backwards are written by hand), K3 and K4 on bf16 inputs (their
+    kernels take bf16 only; their backwards are autograd through the plain
+    version)."""
+    from repro_torch.core.dispatch import transport
+    from repro_torch.kernels.moe_fused import ops as f_ops
+    from repro_torch.kernels.moe_fused.ref import local_moe_ref
+    from repro_torch.kernels.moe_gemm import ops as g_ops
+    from repro_torch.kernels.moe_gemm.ref import grouped_ffn_ragged_ref
+    from repro_torch.kernels.moe_permute import ops as p_ops
+    from repro_torch.kernels.moe_permute.ref import (permute_ref,
+                                                     unpermute_ref)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    def randint(hi, shape):
+        return torch.randint(0, hi, shape, generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    def grads(fn, inputs, g):
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        out = fn(*leaves)
+        out.backward(g)
+        return out.detach(), [t.grad for t in leaves]
+
+    def compare(name, kernel_fn, plain_fn, inputs, g, atol, rtol):
+        out_k, g_k = grads(kernel_fn, inputs, g)
+        out_p, g_p = grads(plain_fn, inputs, g)
+        torch.cuda.synchronize()
+        errs = []
+        for a, b in zip([out_k] + g_k, [out_p] + g_p):
+            ok, err = close(torch, a, b, atol + rtol * float(b.abs().max()),
+                            0.0)
+            if not ok:
+                raise SystemExit(f"{name} backward: kernel Function and "
+                                 f"plain autograd disagree (max abs err "
+                                 f"{err})")
+            errs.append(err)
+        return {"max_abs_err": max(errs), "atol": atol, "rtol": rtol}
+
+    T, S, K, d, f, E = 64, 100, 2, 128, 128, 3
+    out = {}
+    tok = randint(T + 1, (S,))
+    out["K1"] = compare(
+        "K1", lambda x: p_ops.permute(x, tok, use_pallas=True),
+        lambda x: permute_ref(x, tok), [randn(T, d)], randn(S, d),
+        BWD_F32_ATOL, BWD_F32_RTOL)
+    inv_idx = randint(S + 1, (T, K))
+    inv_w = torch.where(inv_idx < S, randn(T, K).abs(), 0.0)
+    out["K2"] = compare(
+        "K2", lambda y, w: p_ops.unpermute(y, inv_idx, w, use_pallas=True),
+        lambda y, w: unpermute_ref(y, inv_idx, w), [randn(S, d), inv_w],
+        randn(T, d), BWD_F32_ATOL, BWD_F32_RTOL)
+    segs, exps = transport.stage_segments(E, ((2, 24), (4, 8)))
+    widths = torch.as_tensor(segs[1:], device="cuda") - torch.as_tensor(
+        segs[:-1], device="cuda")
+    valid = (torch.rand(len(exps), generator=gen, device="cuda")
+             * (widths + 1)).to(torch.int32)
+    R = segs[-1]
+    w3 = [randn(E, d, f, dtype=torch.bfloat16, scale=d ** -0.5),
+          randn(E, f, d, dtype=torch.bfloat16, scale=f ** -0.5)]
+    out["K3"] = compare(
+        "K3", lambda x, wi, wo: g_ops.grouped_ffn_ragged(
+            x, segs, exps, valid, wi, None, wo, activation="gelu",
+            use_pallas=True),
+        lambda x, wi, wo: grouped_ffn_ragged_ref(
+            x, segs, exps, valid, wi, None, wo, activation="gelu"),
+        [randn(R, d, dtype=torch.bfloat16)] + w3,
+        randn(R, d, dtype=torch.bfloat16), BWD_BF16_ATOL, BWD_BF16_RTOL)
+    s_tok = torch.arange(T, device="cuda", dtype=torch.int32).repeat(E)
+    s_w = torch.where(torch.rand(E * T, generator=gen, device="cuda") < 0.3,
+                      torch.rand(E * T, generator=gen, device="cuda"), 0.0)
+    s_valid = torch.full((E,), T, dtype=torch.int32, device="cuda")
+    offs = transport.expert_segments(E, T)
+    out["K4"] = compare(
+        "K4", lambda x, w, wi, wo: f_ops.local_moe(
+            x, s_tok, w, offs, tuple(range(E)), s_valid, wi, None, wo,
+            activation="gelu", use_pallas=True),
+        lambda x, w, wi, wo: local_moe_ref(
+            x, s_tok, w, offs, tuple(range(E)), s_valid, wi, None, wo,
+            activation="gelu"),
+        [randn(T, d, dtype=torch.bfloat16), s_w] + w3, randn(T, d),
+        BWD_BF16_ATOL, BWD_BF16_RTOL)
+    return out
+
+
+def train_phase(world, out_path: str, global_batch: int) -> None:
+    """Full-width gpt3_medium_moe through ``trainer.train`` on this rank
+    (``world`` None: one rank), ``dispatch="a2a"``, ``aux_mode="ta"``,
+    AdamW, TRAIN_STEPS steps; writes this rank's report to ``out_path``.
+
+    Before the run, the plain path (kernels off) computes the first step's
+    loss from the same initial parameters and batch.  The launch counters
+    are set to 0 just before ``train`` and read just after.  One more step
+    on the trained state runs under torch.profiler (not counted)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import RunConfig, get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch
+    from repro_torch.kernels import backend
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import transformer
+    from repro_torch.training import trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    arch = get_config(ARCH_ID)
+    run = RunConfig(seq_len=TRAIN_SEQ, global_batch=global_batch,
+                    warmup_steps=1, aux_mode="ta", dispatch="a2a", seed=0)
+    rank = 0 if world is None else world.rank
+
+    def ctx_for(use_pallas):
+        return model_lib.build_ctx(arch, world, seq_len=TRAIN_SEQ,
+                                   global_batch=global_batch,
+                                   aux_mode=run.aux_mode,
+                                   dispatch=run.dispatch,
+                                   use_pallas=use_pallas, device="cuda")
+
+    plain_ctx = ctx_for(False)
+    params = model_lib.init_params(
+        plain_ctx, torch.Generator(device="cuda").manual_seed(run.seed))
+    data = SyntheticLM(DataConfig(vocab_size=arch.vocab_size,
+                                  seq_len=TRAIN_SEQ,
+                                  global_batch=global_batch, seed=run.seed))
+    with torch.no_grad():
+        _, m = transformer.loss_fn(params, shard_batch(data.batch(0), world,
+                                                       "cuda"),
+                                   plain_ctx, aux_weight=run.aux_weight)
+        plain_loss = float(trainer.world_mean_metrics(m, world)["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    backend.reset_launches()
+    res = trainer.train(arch, run, world, steps=TRAIN_STEPS, log_every=1,
+                        verbose=rank == 0, params=params, device="cuda")
+    launches = dict(backend.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    step = trainer.make_train_step(ctx_for(None), run)
+    batch = shard_batch(data.batch(TRAIN_STEPS), world, "cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(res.params, res.opt_state, batch)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    report = {
+        "rank": rank, "coords": None if world is None else list(world.coords),
+        "losses": res.losses,
+        "nll": [h["nll"] for h in res.metrics_history],
+        "aux": [h["aux"] for h in res.metrics_history],
+        "frac_by_level": [h["frac_by_level"] for h in res.metrics_history],
+        "grad_norm": [h["grad_norm"] for h in res.metrics_history],
+        "plain_first_loss": plain_loss,
+        "step_wall_s": res.step_seconds, "launches": launches,
+        "max_memory_allocated_gb": peak_gb,
+        "profiled_step": {
+            "wall_ms": prof_wall_ms, "device_ms": dev_ms,
+            "device_busy_share": dev_ms / prof_wall_ms,
+            "kernel_launches": sum(e.count for e in events),
+            "top": [{"name": e.key[:60], "count": e.count,
+                     "ms": e.self_device_time_total / 1e3} for e in top]}}
+    with open(out_path, "w") as fh:
+        json.dump(report, fh)
+
+
+def train_rank(world, out_dir: str, global_batch: int) -> None:
+    train_phase(world, os.path.join(out_dir, f"rank{world.rank}.json"),
+                global_batch)
+
+
+def check_training(reports, want: dict, label: str) -> dict:
+    """Launch counts, finite losses, agreement of the ranks' world means,
+    and the kernel path's first-step loss against the plain path's."""
+    for r in reports:
+        for name, n in want.items():
+            if r["launches"][name] != n:
+                raise SystemExit(f"{label} rank {r['rank']}: {name} "
+                                 f"launched {r['launches'][name]} times, "
+                                 f"the path needs {n}")
+        if len(r["losses"]) != TRAIN_STEPS or not all(
+                math.isfinite(v) for v in r["losses"]):
+            raise SystemExit(f"{label} rank {r['rank']}: losses "
+                             f"{r['losses']}")
+        if r["losses"] != reports[0]["losses"]:
+            raise SystemExit(f"{label}: ranks disagree on the world-mean "
+                             f"losses")
+    first, plain = reports[0]["losses"][0], reports[0]["plain_first_loss"]
+    rel = abs(first - plain) / abs(plain)
+    if not rel <= LOSS_RTOL:
+        raise SystemExit(f"{label}: first-step loss {first} (kernels) vs "
+                         f"{plain} (plain): relative {rel} > {LOSS_RTOL}")
+    return {"first_loss_kernel": first, "first_loss_plain": plain,
+            "rel_diff": rel, "rtol": LOSS_RTOL}
 
 
 def serve_requests(rng, vocab: int, n: int):
@@ -389,8 +801,15 @@ def main() -> int:
                           timed=False),
                  check_k5(torch, (1, 50, 4, hd), gen, causal=False,
                           timed=False)]
+        case = staged_case(torch, params, arch, gen)
+        k1 = check_k1(torch, case)
+        k2 = check_k2(torch, case, gen)
+        k3 = check_k3(torch, case)
+        del case
     emit({"phase": "checks", "K4": k4, "K4_edges": k4_edges, "K5": k5,
-          "K5_edges": edges})
+          "K5_edges": edges, "K1": k1, "K2": k2, "K3": k3})
+    bwd = backward_checks(torch, gen)
+    emit({"phase": "backward_checks", **bwd})
 
     # 4. serve
     with torch.no_grad():
@@ -439,23 +858,112 @@ def main() -> int:
 
     with torch.no_grad():
         emit({"phase": "profile", **profile_steps(torch, params, ctx)})
+    serve_launches = launches
+    del params, eng, report
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 5. kernels
+    # 6. training, one rank, in a child process (it frees the card when it
+    # ends); the kernels were built above, so the child only loads them
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    t0 = time.time()
+    child = mp.get_context("spawn").Process(
+        target=train_phase, args=(None, os.path.join(tmp, "rank0.json"),
+                                  TRAIN_BATCH_1))
+    child.start()
+    child.join()
+    if child.exitcode != 0:
+        raise SystemExit(f"train_1rank: the child process failed (exit "
+                         f"{child.exitcode})")
+    with open(os.path.join(tmp, "rank0.json")) as fh:
+        one = json.load(fh)
+    n_layers = arch.num_layers
+    zero = {k: 0 for k in ("moe_permute.permute", "moe_permute.unpermute",
+                           "moe_gemm.grouped_ffn_ragged")}
+    check1 = check_training(
+        [one], dict(zero, **{"moe_fused.local_moe": n_layers * TRAIN_STEPS}),
+        "train_1rank")
+    emit({"phase": "train_1rank", "seconds": time.time() - t0,
+          "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_1,
+          "steps": TRAIN_STEPS, **check1, **one})
+
+    # 7. training, 2x2 EP world: four ranks share the card over gloo
+    from repro_torch.launch import mesh
+    t0 = time.time()
+    mesh.spawn(train_rank, WORLD_22, "gloo", "cuda",
+               args=(tmp, TRAIN_BATCH_22))
+    ranks = []
+    for r in range(math.prod(WORLD_22)):
+        with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    per_layer = {k: n_layers * TRAIN_STEPS for k in zero}
+    check22 = check_training(ranks,
+                             dict(per_layer, **{"moe_fused.local_moe": 0}),
+                             "train_2x2")
+    emit({"phase": "train_2x2", "seconds": time.time() - t0,
+          "world": list(WORLD_22), "backend": "gloo",
+          "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_22,
+          "steps": TRAIN_STEPS, **check22, "ranks": ranks})
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    # 8. kernels: launches summed over every main path and rank
+    def total(name):
+        return (serve_launches[name] + one["launches"][name]
+                + sum(r["launches"][name] for r in ranks))
+
+    def by_path(name):
+        return {"serve": serve_launches[name],
+                "train_1rank": one["launches"][name],
+                "train_2x2": [r["launches"][name] for r in ranks]}
+
     kp = k4["prefill"]
     emit({"kernels": [
+        {"name": "moe_permute.permute", "route": "cuda",
+         "source": "src/repro_torch/csrc/moe_permute.cu",
+         "replaces": "src/repro/kernels/moe_permute/kernel.py:54",
+         "launches": total("moe_permute.permute"),
+         "launches_by_path": by_path("moe_permute.permute"),
+         "max_abs_err": k1["max_abs_err"],
+         "backward_max_abs_err": bwd["K1"]["max_abs_err"],
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+         "library_ms": k1["library_ms"]},
+        {"name": "moe_permute.unpermute", "route": "cuda",
+         "source": "src/repro_torch/csrc/moe_permute.cu",
+         "replaces": "src/repro/kernels/moe_permute/kernel.py:88",
+         "launches": total("moe_permute.unpermute"),
+         "launches_by_path": by_path("moe_permute.unpermute"),
+         "max_abs_err": k2["max_abs_err"],
+         "backward_max_abs_err": bwd["K2"]["max_abs_err"],
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "library_ms": None},
+        {"name": "moe_gemm.grouped_ffn_ragged", "route": "cuda",
+         "source": "src/repro_torch/csrc/moe_gemm.cu",
+         "replaces": "src/repro/kernels/moe_gemm/kernel.py:228",
+         "launches": total("moe_gemm.grouped_ffn_ragged"),
+         "launches_by_path": by_path("moe_gemm.grouped_ffn_ragged"),
+         "max_abs_err": k3["max_abs_err"],
+         "backward_max_abs_err": bwd["K3"]["max_abs_err"],
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+         "library_ms": None},
         {"name": "moe_fused.local_moe", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_fused.cu",
          "replaces": "src/repro/kernels/moe_fused/kernel.py:123",
-         "launches": launches["moe_fused.local_moe"],
+         "launches": total("moe_fused.local_moe"),
+         "launches_by_path": by_path("moe_fused.local_moe"),
          "max_abs_err": max([k4["decode"]["max_abs_err"], kp["max_abs_err"]]
                             + [e["max_abs_err"] for e in k4_edges]),
+         "backward_max_abs_err": bwd["K4"]["max_abs_err"],
          "ms": kp["ms"], "plain_ms": kp["plain_ms"],
          "bound_ms": kp["bound_ms"], "bound_by": kp["bound_by"],
          "library_ms": None, "layouts": k4},
         {"name": "flash_attn.flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attn.cu",
          "replaces": "src/repro/kernels/flash_attn/kernel.py:65",
-         "launches": launches["flash_attn.flash_attention"],
+         "launches": total("flash_attn.flash_attention"),
+         "launches_by_path": by_path("flash_attn.flash_attention"),
          "max_abs_err": max([k5["max_abs_err"]]
                             + [e["max_abs_err"] for e in edges]),
          "ms": k5["ms"], "plain_ms": k5["plain_ms"],

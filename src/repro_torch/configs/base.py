@@ -95,6 +95,32 @@ class ArchConfig:
             moe=moe, dtype="float32")
 
 
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Training-run hyperparameters (the reference's ``RunConfig``, same
+    fields and defaults; the trainer raises for the options whose code is
+    not ported yet)."""
+    seq_len: int = 4096
+    global_batch: int = 256
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    aux_weight: float = 1.0       # paper: 1.0
+    aux_mode: str = "ta"          # lb | ta | hir | none
+    seed: int = 0
+    microbatch: int = 0           # 0 = no grad accumulation
+    remat: bool = False
+    dispatch: str = "a2a"
+    a2a_num_chunks: int = 0
+    dispatch_override: tuple = ()
+    use_pallas: bool | None = None   # None = auto (CUDA kernels on the card)
+    wire_codec: str = ""
+    resilience: object | None = None
+    topology: tuple = ()
+
+
 ARCH_IDS = ("gpt3_medium_moe",)
 
 

@@ -3,11 +3,22 @@ counterpart of ``repro/core/dispatch/engine.py``).
 
 Every path returns ``(y, metrics)`` with the uniform schema
 :data:`METRIC_KEYS`; the engine fills missing keys with neutral defaults.
-This slice registers the weights-stationary ``gather`` path — the one
-prefill and decode resolve every MoE layer to.  The staged ``a2a`` /
-``a2a_pipelined`` paths (with the topology and capacity planning they
-need) and the ``einsum`` baseline are not ported yet: resolving them
-raises ``NotImplementedError``.
+Registered paths:
+
+    a2a      staged hierarchical all-to-all (training): the software
+             pipeline at num_chunks=1; stages with one destination fuse
+             into the local megakernel (K4), the others run permute (K1) ->
+             all-to-all chain -> ragged grouped FFN (K3) -> reverse chain
+             -> unpermute (K2)
+    gather   weights-stationary path of prefill and decode (one rank)
+    einsum   the GShard one-hot [T, N, C] baseline, shard-local: the
+             equivalence oracle of the tests
+
+The chunked ``a2a_pipelined`` schedule needs the communication model
+(``core/comm_model.py``) and is not ported yet: resolving it raises
+``NotImplementedError``.  An engine runs on one EP rank with its local
+expert shard; ``world`` (``launch.mesh.EPWorld``, None for the unit
+world) gives the rank's coordinates and the collectives.
 """
 
 from __future__ import annotations
@@ -17,19 +28,22 @@ import functools
 from collections.abc import Callable
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import gating
-from repro_torch.core.dispatch import routing, transport
+from repro_torch.core.dispatch import routing, schedule, transport
 from repro_torch.core.dispatch.base import (EPSpec, MoEConfig, expert_ffn,
                                             expert_ffn_flat, shared_ffn)
+from repro_torch.core.dispatch.routing import _prod
 from repro_torch.kernels.moe_fused import ops as moe_fused_ops
-from repro_torch.kernels.moe_permute.ref import unpermute_ref
+from repro_torch.kernels.moe_gemm import ops as moe_gemm_ops
+from repro_torch.kernels.moe_permute import ops as permute_ops
 
 METRIC_KEYS = ("aux_loss", "frac_by_level", "frac_near", "frac_far",
                "dropped")
 
 #: paths of the reference registry that this package does not have yet
-UNPORTED_PATHS = ("a2a", "a2a_pipelined", "einsum")
+UNPORTED_PATHS = ("a2a_pipelined",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,9 +82,9 @@ def get_path(name: str) -> DispatchPath:
     except KeyError:
         if name in UNPORTED_PATHS:
             raise NotImplementedError(
-                f"dispatch {name!r} is not ported yet (it needs "
-                f"core/topology.py, core/capacity.py and the staged a2a "
-                f"transport); ported paths: {available()}") from None
+                f"dispatch {name!r} is not ported yet (its chunk count comes "
+                f"from the communication model, core/comm_model.py); "
+                f"ported paths: {available()}") from None
         raise ValueError(f"unknown dispatch {name!r}; registered paths: "
                          f"{available()}") from None
 
@@ -85,8 +99,10 @@ class DispatchEngine:
     ep: EPSpec
     gate_cfg: gating.GateConfig
     plan: object | None = None
+    capacity: int | None = None       # einsum buffer capacity (None = cf rule)
     tokens_replicated: bool = False
     use_pallas: bool | None = None
+    world: object | None = None       # launch.mesh.EPWorld; None = unit
 
     @property
     def name(self) -> str:
@@ -124,15 +140,176 @@ def _constant(value: float, device) -> torch.Tensor:
 
 def make_engine(name: str, *, cfg: MoEConfig, ep: EPSpec,
                 gate_cfg: gating.GateConfig, plan=None,
+                capacity: int | None = None,
                 tokens_replicated: bool = False,
-                use_pallas: bool | None = None) -> DispatchEngine:
+                use_pallas: bool | None = None,
+                world=None) -> DispatchEngine:
     """Resolve ``name`` against the registry and bind the static config."""
     path = get_path(name)
     if path.needs_plan and plan is None:
         raise ValueError(f"dispatch {name!r} requires a DispatchPlan")
     return DispatchEngine(path=path, cfg=cfg, ep=ep, gate_cfg=gate_cfg,
-                          plan=plan, tokens_replicated=tokens_replicated,
-                          use_pallas=use_pallas)
+                          plan=plan, capacity=capacity,
+                          tokens_replicated=tokens_replicated,
+                          use_pallas=use_pallas, world=world)
+
+
+def _world(eng: DispatchEngine, device):
+    if eng.world is not None:
+        return eng.world
+    from repro_torch.launch.mesh import unit_world
+    if eng.ep.ep_world != 1:
+        raise ValueError(f"an EP spec over {eng.ep.ep_world} ranks needs the "
+                         f"EP world (launch.mesh.make_hierarchical_mesh)")
+    return unit_world(device)
+
+
+# ---------------------------------------------------------------------------
+# staged a2a path (sync == the pipeline at num_chunks 1)
+# ---------------------------------------------------------------------------
+
+
+def _staged_a2a(params, x, eng: DispatchEngine, num_chunks: int):
+    """The staged implementation behind ``a2a``: shared routing, the
+    shared sort-based buffer builder (``routing.build_indices`` + the
+    moe_permute entries), the stage-list transport and the software
+    pipeline.
+
+    Stages whose delivery chain is the identity (``num_dests == 1``: the
+    folded-in self level of a unit axis, so every stage on one rank) run
+    as one fused ``moe_fused.local_moe`` call when the kernel branch is
+    wanted; the others dispatch through permute -> all-to-all chain ->
+    grouped FFN -> reverse chain -> unpermute.  A (token, expert) pair
+    holds at most one slot globally, so the local and remote outputs add.
+    With the kernel branch wanted, the per-(destination, expert) valid-row
+    counts ride each remote stage's chain (``dispatch_counts``) and the
+    expert compute goes through the occupancy-aware ragged entry.
+    """
+    cfg, ep, plan, gate_cfg = eng.cfg, eng.ep, eng.plan, eng.gate_cfg
+    T, d = x.shape
+    world = _world(eng, x.device)
+    tr = transport.A2ATransport(ep=ep, world=world, codec=cfg.wire_codec)
+    stages = transport.plan_stages(plan, ep)
+    quant = cfg.wire_codec is not None and cfg.wire_codec.quantize_compute
+
+    routed = routing.route(params, x, cfg, ep, plan, gate_cfg, world.coords)
+    kept_unpadded = sum(sel.valid.sum() for _, sel in routed.sels)
+    num_chunks = max(1, int(num_chunks))
+    topk_idx = routed.gate_out["topk_idx"]
+
+    # split the active stages: purely local delivery fuses, the rest keep
+    # the staged transport.  Per remote stage: (transport stage, padded
+    # selection, capacity axis, per-chunk capacity, expert rows per chunk)
+    fused_on = moe_fused_ops.use_fused(eng.use_pallas, x.device)
+    local_work, work = [], []
+    for (s, sel), stage in zip(routed.sels, stages):
+        if fused_on and stage.num_dests == 1:
+            local_work.append((stage, sel))
+            continue
+        cap_axis = s + 2
+        sel = routing.pad_selection(sel, axis=cap_axis, multiple=num_chunks)
+        cpc = sel.idx.shape[cap_axis] // num_chunks
+        work.append((stage, sel, cap_axis, cpc, stage.num_dests * cpc))
+
+    out_local = None
+    if local_work:
+        E_l = params["w_in"].shape[0]
+        li = routing.build_indices(
+            tuple((stage.index, sel) for stage, sel in local_work),
+            topk_idx, T)
+        offs, exps = [0], []
+        for _stage, sel in local_work:
+            width = sel.idx.shape[-1]
+            for e in range(E_l):
+                offs.append(offs[-1] + width)
+                exps.append(e)
+        out_local = expert_ffn_flat(
+            params, x, tuple(offs), cfg, ep, seg_experts=tuple(exps),
+            rows_valid=li.rows_per_expert, slot_to_token=li.slot_to_token,
+            slot_w=li.slot_w, use_pallas=eng.use_pallas)        # [T, d] f32
+
+    # chunk j's capacity slice of every remote stage, flattened into one
+    # sort-order index set (sync == chunk 0)
+    indices = [routing.build_indices(
+        tuple((stage.index,
+               routing.slice_selection(sel, cap_axis, j * cpc, cpc))
+              for stage, sel, cap_axis, cpc, _ in work),
+        topk_idx, T) for j in range(num_chunks)] if work else []
+    ragged = moe_gemm_ops.use_ragged(eng.use_pallas, x.device)
+
+    def dispatch(j):
+        di = indices[j]
+        flat = permute_ops.permute(x, di.slot_to_token,
+                                   use_pallas=eng.use_pallas)      # [S_j, d]
+        parts, cnts = [], None
+        for (stage, *_), (_, off, shape) in zip(work, di.stage_spans()):
+            buf = flat[off:off + _prod(shape)]
+            parts.append(tr.dispatch(buf.reshape(shape + (d,)), stage))
+        if ragged:
+            cnts = tuple(
+                tr.dispatch_counts(
+                    di.rows_per_expert[off:off + _prod(shape)].reshape(shape),
+                    stage)
+                for (stage, *_), (_, off, shape) in zip(work,
+                                                        di.expert_spans()))
+        xin = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        return xin, cnts
+
+    def compute(j, v):
+        xin, cnts = v
+        E_l, R, _ = xin.shape
+        if cnts is None:
+            segs, exps, valid = transport.expert_segments(E_l, R), None, None
+        else:
+            segs, exps = transport.stage_segments(
+                E_l, tuple((stage.num_dests, cpc)
+                           for stage, _, _, cpc, _ in work))
+            valid = (torch.cat(cnts, dim=1) if len(cnts) > 1
+                     else cnts[0]).reshape(-1).contiguous()
+        y = expert_ffn_flat(params, xin.reshape(E_l * R, d), segs, cfg, ep,
+                            seg_experts=exps, rows_valid=valid,
+                            use_pallas=eng.use_pallas, quantized=quant)
+        return y.reshape(E_l, R, d)
+
+    def combine(out, j, y_exp):
+        if out is None:
+            out = torch.zeros((T, d), dtype=y_exp.dtype, device=x.device)
+        di = indices[j]
+        flats, off = [], 0
+        for stage, _, _, _, rows in work:
+            back = tr.combine(y_exp[:, off:off + rows], stage)
+            off += rows
+            flats.append(back.reshape(-1, d))
+        y_flat = flats[0] if len(flats) == 1 else torch.cat(flats, 0)
+        mixed = permute_ops.unpermute(y_flat.contiguous(), di.inv_idx,
+                                      di.inv_w, use_pallas=eng.use_pallas)
+        return out + mixed.to(out.dtype)
+
+    if work:
+        out = schedule.software_pipeline(num_chunks, dispatch, compute,
+                                         combine, None)
+    else:
+        out = torch.zeros((T, d), dtype=x.dtype, device=x.device)
+    if out_local is not None:
+        out = out + out_local.to(out.dtype)
+    if cfg.num_shared_experts:
+        out = out + shared_ffn(params, x, cfg, ep).to(out.dtype)
+
+    frac = gating.dispatch_fractions(topk_idx, cfg.num_experts)
+    metrics = {
+        "aux_loss": routed.aux,
+        "frac_by_level": gating.frac_by_level(frac, routed.levels,
+                                              plan.num_stages),
+        "dropped": 1.0 - torch.clamp(
+            kept_unpadded / (T * gate_cfg.top_k), max=1.0),
+    }
+    return out.to(x.dtype), metrics
+
+
+@register("a2a", needs_plan=True)
+def _a2a_path(params, x, eng: DispatchEngine):
+    """Sync staged all-to-all: the pipeline schedule at num_chunks=1."""
+    return _staged_a2a(params, x, eng, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -177,7 +354,8 @@ def _gather_path(params, x, eng: DispatchEngine):
         xin = xg.expand(E_l, Tg, d)                              # [E_l, Tg, d]
         y = expert_ffn(params, xin, cfg, ep)
         inv_idx, inv_w = routing.gather_inverse(gate_out, my_rank, E_l, Tg)
-        y = unpermute_ref(y.reshape(E_l * Tg, -1), inv_idx, inv_w)
+        y = permute_ops.unpermute(y.reshape(E_l * Tg, -1), inv_idx, inv_w,
+                                  use_pallas=eng.use_pallas)
     y = y.to(x.dtype)
 
     y = tr.reduce(y)
@@ -191,4 +369,55 @@ def _gather_path(params, x, eng: DispatchEngine):
                "frac_by_level": gating.frac_by_level(frac, levels,
                                                      eng.num_stages),
                "dropped": 0.0}
+    return y.to(x.dtype), metrics
+
+
+# ---------------------------------------------------------------------------
+# GShard/DeepSpeed-style einsum dispatch (the paper's §2 baseline)
+# ---------------------------------------------------------------------------
+
+
+@register("einsum")
+def _einsum_path(params, x, eng: DispatchEngine):
+    """One-hot dispatch/combine tensors of shape [T, N, C] route tokens
+    through a zero-padded [N, C, d] buffer.  Shard-local (no collectives):
+    single-rank only, the equivalence oracle of the selection-based paths.
+    """
+    cfg, ep, gate_cfg = eng.cfg, eng.ep, eng.gate_cfg
+    T, d = x.shape
+    N, K = cfg.num_experts, cfg.top_k
+    capacity = eng.capacity
+    if capacity is None:
+        capacity = max(1, int(T * K * cfg.capacity_factor / N))
+    dev = x.device
+
+    gate_out = gating.gate_forward(params["gate"], x, gate_cfg, None)
+    aux = gating.aux_loss(gate_out, gate_cfg, None)
+    topk_idx, topk_w = gate_out["topk_idx"], gate_out["topk_weight"]
+
+    dispatch = torch.zeros((T, N, capacity), dtype=torch.float32, device=dev)
+    combine = torch.zeros((T, N, capacity), dtype=torch.float32, device=dev)
+    counts = torch.zeros((N,), dtype=torch.int64, device=dev)
+    slots = torch.arange(capacity, device=dev)
+    for s in range(K):
+        e = topk_idx[:, s].long()                              # [T]
+        onehot = F.one_hot(e, N)                               # [T, N]
+        pos_in_e = (torch.cumsum(onehot, dim=0) - 1) * onehot
+        pos = pos_in_e.sum(dim=1) + counts[e]                  # [T]
+        keep = pos < capacity
+        slot = (pos[:, None] == slots[None, :]).to(torch.float32)
+        mask = onehot.to(torch.float32) * keep[:, None].to(torch.float32)
+        d_s = mask[:, :, None] * slot[:, None, :]              # [T, N, C]
+        dispatch = dispatch + d_s
+        combine = combine + d_s * topk_w[:, s].to(torch.float32)[:, None,
+                                                                 None]
+        counts = counts + torch.sum(onehot * keep[:, None], dim=0)
+
+    xin = torch.einsum("tnc,td->ncd", dispatch, x.to(torch.float32))
+    y_exp = expert_ffn(params, xin.to(x.dtype), cfg, ep)       # [N, C, d]
+    y = torch.einsum("tnc,ncd->td", combine, y_exp.to(torch.float32))
+    if cfg.num_shared_experts:
+        y = y + shared_ffn(params, x, cfg, ep).to(y.dtype)
+    metrics = {"aux_loss": aux,
+               "dropped": 1.0 - dispatch.sum() / (T * K)}
     return y.to(x.dtype), metrics

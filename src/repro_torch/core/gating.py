@@ -102,3 +102,27 @@ def aux_loss(gate_out, cfg: GateConfig, levels=None) -> torch.Tensor:
                               device=probs.device)[levels]
         return cfg.num_experts * torch.sum(pen * m * f)
     return cfg.num_experts * torch.sum(m * f)
+
+
+def ta_penalties(ratios: tuple, norm: str = "sum",
+                 level_sizes: tuple | None = None) -> tuple:
+    """Per-level penalty weights p_l = Norm(1/c_hat_l) of Eq. (8), from the
+    per-level capacity multipliers of ``topology.per_level_ratios``.
+    Normalized to population mean 1 over experts (weighted by
+    ``level_sizes`` when given); ``norm="softmax"`` reweights the
+    mean-normalized inverse capacities and renormalizes the same way."""
+    inv = np.array([1.0 / max(r, 1e-9) for r in ratios], dtype=np.float64)
+
+    def _pop_mean(v):
+        if level_sizes is not None:
+            w = np.asarray(level_sizes, dtype=np.float64)
+            return float((v * w).sum() / max(w.sum(), 1.0))
+        return float(v.mean())
+
+    p = inv / max(_pop_mean(inv), 1e-12)
+    if norm == "softmax":
+        e = np.exp(p - p.max())
+        p = e / max(_pop_mean(e), 1e-12)
+    elif norm != "sum":
+        raise ValueError(f"unknown norm {norm!r}; expected 'sum' or 'softmax'")
+    return tuple(float(v) for v in p)

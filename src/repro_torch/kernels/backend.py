@@ -49,7 +49,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: kernel name -> launches since the last :func:`reset_launches`
-LAUNCHES: dict[str, int] = {"moe_fused.local_moe": 0,
+LAUNCHES: dict[str, int] = {"moe_permute.permute": 0,
+                            "moe_permute.unpermute": 0,
+                            "moe_gemm.grouped_ffn_ragged": 0,
+                            "moe_fused.local_moe": 0,
                             "flash_attn.flash_attention": 0}
 
 
@@ -99,7 +102,8 @@ def reset_launches() -> None:
 
 
 def check_no_grad(name: str, *tensors) -> None:
-    """The kernels are forward-only in this slice."""
+    """Refuse a call that would need a backward the kernel does not have
+    (the flash-attention kernel is forward-only)."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(

@@ -5,9 +5,11 @@
 (``slot_to_token`` / ``slot_w``), the static segment layout and its
 runtime ``rows_valid`` occupancy, and returns the [T, d] float32 combined
 output.  For CUDA tensors (with kernels wanted) it launches the
-hand-written kernel of ``csrc/moe_fused.cu``; for CPU tensors it runs the
-plain :func:`ref.local_moe_ref`.  The kernel is forward-only in this
-slice.
+hand-written kernel of ``csrc/moe_fused.cu`` inside a
+``torch.autograd.Function`` whose backward is autograd through
+:func:`ref.local_moe_ref` with the cotangent in float32, as the
+reference's ``_fused_bwd`` is ``jax.vjp`` of it; for CPU tensors it runs
+the plain version.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ def plan_tiles(seg_offsets: tuple, seg_experts: tuple,
 
 
 @functools.lru_cache(maxsize=64)
-def _tiles_on(seg_offsets: tuple, seg_experts: tuple, device: str):
+def tiles_on(seg_offsets: tuple, seg_experts: tuple, device: str):
     return torch.as_tensor(plan_tiles(seg_offsets, seg_experts),
                            device=device)
 
@@ -79,9 +81,10 @@ def _check(name, t, dtype, device, ndim):
         raise ValueError(f"{KERNEL}: {name} must be contiguous")
 
 
-def _local_moe_cuda(x, slot_to_token, slot_w, offs, exps, rows_valid, w_in,
-                    w_gate, w_out, swiglu: bool):
-    backend.check_no_grad(KERNEL, x, slot_w, w_in, w_gate, w_out)
+def _local_moe_cuda(static, x, slot_to_token, slot_w, rows_valid, w_in,
+                    w_gate, w_out):
+    offs, exps, activation = static
+    swiglu = activation == "swiglu"
     dev = x.device
     T, d = x.shape
     E, d_in, f = w_in.shape
@@ -106,7 +109,7 @@ def _local_moe_cuda(x, slot_to_token, slot_w, offs, exps, rows_valid, w_in,
     if rows_valid.shape[0] != len(exps) or max(exps) >= E or min(exps) < 0:
         raise ValueError(f"{KERNEL}: rows_valid / seg_experts do not fit "
                          f"{E} experts")
-    tiles = _tiles_on(offs, exps, str(dev))
+    tiles = tiles_on(offs, exps, str(dev))
     n_tiles = tiles.shape[0]
     h = torch.empty((n_tiles * TILE_ROWS, f), dtype=torch.bfloat16,
                     device=dev)
@@ -121,6 +124,45 @@ def _local_moe_cuda(x, slot_to_token, slot_w, offs, exps, rows_valid, w_in,
     backend.check(KERNEL, err)
     backend.record_launch(KERNEL)
     return out
+
+
+class LocalMoE(torch.autograd.Function):
+    """``impl(static, x, slot_to_token, slot_w, rows_valid, w_in, w_gate,
+    w_out)`` forward (the CUDA kernel, or the plain version when a test
+    drives the backward on the CPU); backward: autograd through
+    ``local_moe_ref`` with the cotangent in float32.  ``static`` is
+    ``(seg_offsets, seg_experts, activation)``."""
+
+    @staticmethod
+    def forward(ctx, x, slot_to_token, slot_w, rows_valid, w_in, w_gate,
+                w_out, static, impl):
+        ctx.static = static
+        ctx.save_for_backward(x, slot_to_token, slot_w, rows_valid, w_in,
+                              w_gate, w_out)
+        return impl(static, x, slot_to_token, slot_w, rows_valid, w_in,
+                    w_gate, w_out)
+
+    @staticmethod
+    def backward(ctx, g):
+        offs, exps, activation = ctx.static
+        x, tok, slot_w, rows_valid, w_in, w_gate, w_out = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        wg_in = w_gate if activation == "swiglu" else None
+        inputs = [t.detach().requires_grad_(need) if t is not None else None
+                  for t, need in zip((x, slot_w, w_in, wg_in, w_out),
+                                     (needs[0], needs[2], needs[4], needs[5],
+                                      needs[6]))]
+        with torch.enable_grad():
+            y = local_moe_ref(inputs[0], tok, inputs[1], offs, exps,
+                              rows_valid, inputs[2], inputs[3], inputs[4],
+                              activation=activation)
+            wanted = [t for t in inputs if t is not None and t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wanted, g.to(torch.float32))
+                         if wanted else ())
+        gx, gsw, gwi, gwg, gwo = (next(grads)
+                                  if t is not None and t.requires_grad
+                                  else None for t in inputs)
+        return gx, None, gsw, None, gwi, gwg, gwo, None, None
 
 
 def local_moe(x, slot_to_token, slot_w, seg_offsets, seg_experts, rows_valid,
@@ -152,5 +194,7 @@ def local_moe(x, slot_to_token, slot_w, seg_offsets, seg_experts, rows_valid,
         return local_moe_ref(x, slot_to_token, slot_w, offs, exps,
                              rows_valid, w_in, w_gate if swiglu else None,
                              w_out, activation=activation)
-    return _local_moe_cuda(x, slot_to_token, slot_w, offs, exps, rows_valid,
-                           w_in, w_gate, w_out, swiglu)
+    static = (offs, exps, "swiglu" if swiglu else "gelu")
+    return LocalMoE.apply(x, slot_to_token, slot_w, rows_valid, w_in,
+                          w_gate if swiglu else None, w_out, static,
+                          _local_moe_cuda)

@@ -48,7 +48,7 @@ def main(argv=None):
     arch = get_config(args.arch)
     if args.reduced:
         arch = arch.reduced()
-    ctx = model_lib.build_ctx(arch, dims, seq_len=args.cache_len,
+    ctx = model_lib.build_ctx(arch, None, seq_len=args.cache_len,
                               global_batch=args.batch, aux_mode="none",
                               device=args.device)
     gen = torch.Generator(device=args.device).manual_seed(0)

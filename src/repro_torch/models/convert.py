@@ -3,8 +3,9 @@ with the same weights.
 
 The JAX params pytree (converted leaf by leaf to numpy arrays) stacks the
 repeated layer group on a leading ``groups`` axis; this port keeps one
-dict per layer.  :func:`params_from_numpy` unstacks it.  bfloat16 numpy
-arrays (the ``ml_dtypes`` type) are reinterpreted bit for bit.
+dict per layer.  :func:`params_from_numpy` unstacks it and, on a rank of
+an EP world, keeps the rank's shard of the expert tensors.  bfloat16
+numpy arrays (the ``ml_dtypes`` type) are reinterpreted bit for bit.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.dispatch.base import EXPERT_PARAMS
 from repro_torch.models import transformer
 
 
@@ -45,5 +47,12 @@ def params_from_numpy(tree, ctx: transformer.ModelCtx, device=None):
             per_layer.append(_map(tree["groups"][f"sub{j}"],
                                   lambda a, g=g: _tensor(np.asarray(a)[g],
                                                          device)))
+    if ctx.arch.is_moe:
+        lo, hi = ctx.expert_range
+        for layer, sub in zip(per_layer, transformer.layer_list(ctx.arch)):
+            if sub.ffn == "moe":
+                for name in EXPERT_PARAMS:
+                    if name in layer["ffn"]:
+                        layer["ffn"][name] = layer["ffn"][name][lo:hi].clone()
     out["layers"] = per_layer
     return out

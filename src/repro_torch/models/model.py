@@ -1,13 +1,14 @@
 """Top-level model API: context building and parameter init (the
-counterpart of ``repro/models/model.py``: ``make_ep_spec``,
+counterpart of ``repro/models/model.py``: ``make_ep_spec``, ``make_plan``,
 ``make_gate_cfg``, ``build_ctx``, ``init_params``).
 
-Single device in this slice: ``mesh`` is None (or a mesh shape whose
-extents are all 1), the EP spec is the unit spec and ``plan`` stays None —
-the gather path never reads it, and ``ModelCtx.frac_levels`` falls back to
-``ep.num_stages``.  ``build_ctx`` takes the reference's keywords and
-raises ``NotImplementedError`` for the options whose code is not ported
-yet.
+``mesh`` is the EP world of this rank (``launch.mesh.EPWorld``) or None
+for one rank: its axes play the part of the reference's mesh hierarchy
+axes (there is no tensor-parallel ``model`` axis in the port yet).
+Parameters are this rank's: replicated tensors whole, expert tensors the
+rank's shard of the expert axis.  ``build_ctx`` takes the reference's
+keywords and raises ``NotImplementedError`` for the options whose code is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -15,44 +16,69 @@ from __future__ import annotations
 import math
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import gating
+from repro_torch.core import capacity, gating, topology
 from repro_torch.core.dispatch import base as moe_base
 from repro_torch.core.dispatch import engine as dispatch_lib
 from repro_torch.models import transformer
 
 
-def _check_single_device(mesh) -> None:
+def _hierarchy(mesh) -> tuple:
+    """(axis names, axis sizes) of the EP world's hierarchy, outermost
+    first; one ``data`` axis of size 1 without a world."""
     if mesh is None:
-        return
-    shape = tuple(mesh.values()) if isinstance(mesh, dict) else tuple(mesh)
-    if math.prod(int(s) for s in shape) != 1:
-        raise NotImplementedError(
-            f"mesh {mesh!r}: multi-device meshes need the torch.distributed "
-            f"transport, not ported yet (pass None or an all-ones shape)")
+        return ("data",), (1,)
+    return tuple(mesh.axis_names), tuple(mesh.axis_sizes)
 
 
 def make_ep_spec(arch: ArchConfig, mesh=None) -> moe_base.EPSpec | None:
-    """The EP hierarchy; on one device the unit spec."""
+    """EP hierarchy for one world: experts span the longest *suffix* of
+    the axes (innermost outward) whose extent divides the expert count —
+    the whole hierarchy when possible, fewer tiers otherwise."""
     if not arch.is_moe:
         return None
-    _check_single_device(mesh)
-    return moe_base.EPSpec()
+    axes, sizes = _hierarchy(mesh)
+    while len(sizes) > 1 and sizes[0] == 1:   # degenerate outer tiers
+        axes, sizes = axes[1:], sizes[1:]
+    n = arch.moe.num_experts
+    for k in range(len(axes)):                # longest suffix first
+        world = math.prod(sizes[k:])
+        if k == len(axes) - 1 or (n % world == 0 and n >= world):
+            return moe_base.EPSpec.from_axes(axes[k:], sizes[k:])
+    return moe_base.EPSpec.from_axes(axes[-1:], sizes[-1:])
+
+
+def make_plan(arch: ArchConfig, mesh, seq_len: int, global_batch: int,
+              mode: str) -> capacity.DispatchPlan | None:
+    if not arch.is_moe:
+        return None
+    ep = make_ep_spec(arch, mesh)
+    nshard = math.prod(_hierarchy(mesh)[1])
+    tokens_per_device = max(1, (global_batch * seq_len) // nshard)
+    return capacity.make_dispatch_plan(
+        tokens_per_device=tokens_per_device,
+        num_experts=arch.moe.num_experts, top_k=arch.moe.top_k,
+        capacity_factor=arch.moe.capacity_factor,
+        axis_sizes=ep.axis_sizes, axis_names=ep.axis_names, mode=mode,
+        comm=topology.tree_topology_nd(ep.axis_sizes))
 
 
 def make_gate_cfg(arch: ArchConfig, plan, ep, aux_mode: str,
                   ) -> gating.GateConfig | None:
-    """Gate config; without a plan every level's penalty is 1 (on one
-    device all experts sit at level 0, where the reference's normalized
-    Eq. (8) penalty is 1 too)."""
+    """Gate config; under ``aux_mode="ta"`` the Eq. (8) penalties come from
+    the plan's full ratio vector and per-level member counts."""
     if not arch.is_moe:
         return None
-    if plan is not None:
-        raise NotImplementedError("topology-derived penalties need "
-                                  "core/capacity.py, not ported yet")
+    n_levels = max(3, len(plan.ratios) if plan is not None else 3)
+    penalties = (1.0,) * n_levels
+    if aux_mode == "ta" and plan is not None:
+        penalties = gating.ta_penalties(plan.ratios,
+                                        level_sizes=plan.level_sizes)
+        if len(penalties) < 3:
+            penalties = penalties + (penalties[-1],) * (3 - len(penalties))
     return gating.GateConfig(
         num_experts=arch.moe.num_experts, top_k=arch.moe.top_k,
         capacity_factor=arch.moe.capacity_factor, aux_mode=aux_mode,
-        penalty_by_level=(1.0, 1.0, 1.0))
+        penalty_by_level=penalties)
 
 
 def build_ctx(arch: ArchConfig, mesh=None, *, seq_len: int = 0,
@@ -64,17 +90,17 @@ def build_ctx(arch: ArchConfig, mesh=None, *, seq_len: int = 0,
               use_pallas=None, wire_codec="", resilience=None,
               device="cuda") -> transformer.ModelCtx:
     """The model context.  ``seq_len`` / ``global_batch`` size the a2a
-    capacity plan and ``a2a_num_chunks`` its pipelining in the reference;
-    they are unused until that path is ported.  ``device`` is where
-    parameters and caches live."""
+    capacity plan (tokens per rank = global tokens / world size);
+    ``a2a_num_chunks`` would size the pipelined schedule, which is not
+    ported yet.  ``device`` is where parameters and caches live."""
     if aux_mode not in ("lb", "ta", "hir", "none"):
         raise ValueError(f"unknown aux_mode {aux_mode!r}")
     if remat:
         raise NotImplementedError("remat applies to the training forward, "
                                   "not ported yet")
     if use_moe_kernel:
-        raise NotImplementedError("use_moe_kernel (the dense grouped FFN "
-                                  "kernel) is not ported yet")
+        raise NotImplementedError("use_moe_kernel needs the dense grouped "
+                                  "FFN kernel (K6), not ported yet")
     if measured_comm:
         raise NotImplementedError("measured_comm needs core/comm_model.py, "
                                   "not ported yet")
@@ -89,10 +115,14 @@ def build_ctx(arch: ArchConfig, mesh=None, *, seq_len: int = 0,
         dispatch_override = tuple(sorted(dict(dispatch_override).items()))
     for name in (dispatch,) + tuple(n for _, n in dispatch_override):
         dispatch_lib.check_name(name)
+    dispatch_mode = {"lb": "even", "ta": "ta", "hir": "hir",
+                     "none": "even"}[aux_mode]
+    plan = make_plan(arch, mesh, seq_len, global_batch, dispatch_mode)
     ep = make_ep_spec(arch, mesh)
-    gate_cfg = make_gate_cfg(arch, None, ep, aux_mode)
+    gate_cfg = make_gate_cfg(arch, plan, ep, aux_mode)
     return transformer.ModelCtx(
-        arch=arch, ep=ep, plan=None, gate_cfg=gate_cfg, use_flash=use_flash,
+        arch=arch, mesh=mesh, ep=ep, plan=plan, gate_cfg=gate_cfg,
+        use_flash=use_flash,
         decode_replicated=decode_replicated, dispatch=dispatch,
         dispatch_override=dispatch_override,
         use_pallas=use_pallas, wire_codec=codec, device=str(device))
@@ -100,7 +130,10 @@ def build_ctx(arch: ArchConfig, mesh=None, *, seq_len: int = 0,
 
 def init_params(ctx: transformer.ModelCtx, generator, device=None):
     """Fresh parameters from an explicit ``torch.Generator`` (which must
-    live on ``device``, default ``ctx.device``)."""
+    live on ``device``, default ``ctx.device``).  Every rank draws the
+    whole model from the same generator state and keeps its expert shard,
+    so replicated tensors agree across ranks and the global model does not
+    depend on the world size."""
     return transformer.init_model(ctx, generator, device or ctx.device)
 
 

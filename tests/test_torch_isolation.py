@@ -123,9 +123,64 @@ def test_cpu_serve_never_counts_a_launch():
 
 
 def test_kernel_wrappers_refuse_grad():
+    """The flash-attention kernel (K5) is forward-only and refuses a call
+    that needs a gradient; K1-K4 give one: each ``autograd.Function``
+    (driven here with its plain forward) backpropagates like autograd of
+    its plain version."""
     from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.kernels.moe_fused import ops as f_ops
+    from repro_torch.kernels.moe_fused.ref import local_moe_ref
+    from repro_torch.kernels.moe_gemm import ops as g_ops
+    from repro_torch.kernels.moe_gemm.ref import grouped_ffn_ragged_ref
+    from repro_torch.kernels.moe_permute import ops as p_ops
+    from repro_torch.kernels.moe_permute.ref import (permute_ref,
+                                                     unpermute_ref)
     q = torch.randn(1, 4, 2, 32, requires_grad=True)
     with pytest.raises(NotImplementedError):
         backend.check_no_grad(fa_ops.KERNEL, q)
     with torch.no_grad():
         backend.check_no_grad(fa_ops.KERNEL, q)
+
+    gen = torch.Generator().manual_seed(0)
+    T, S, E, d, f = 6, 10, 2, 8, 16
+    tok = torch.randint(0, T + 1, (S,), generator=gen, dtype=torch.int32)
+    inv_idx = torch.randint(0, S + 1, (T, 2), generator=gen,
+                            dtype=torch.int32)
+    offs, exps = (0, 4, 10), (0, 1)
+    valid = torch.tensor([3, 6], dtype=torch.int32)
+    x, y, inv_w, w_s, wi, wo = (
+        torch.randn(s, generator=gen) for s in
+        ((T, d), (S, d), (T, 2), (S,), (E, d, f), (E, f, d)))
+    cases = {
+        "K1": (lambda a: p_ops.Permute.apply(a, tok, permute_ref),
+               lambda a: permute_ref(a, tok), (x,)),
+        "K2": (lambda a, w: p_ops.Unpermute.apply(a, inv_idx, w,
+                                                  unpermute_ref),
+               lambda a, w: unpermute_ref(a, inv_idx, w), (y, inv_w)),
+        "K3": (lambda a, i, o: g_ops.GroupedFFNRagged.apply(
+                   a, valid, i, None, o, (offs, exps, "gelu"),
+                   lambda st, *t: grouped_ffn_ragged_ref(
+                       t[0], st[0], st[1], t[1], t[2], t[3], t[4],
+                       activation=st[2])),
+               lambda a, i, o: grouped_ffn_ragged_ref(
+                   a, offs, exps, valid, i, None, o, activation="gelu"),
+               (y, wi, wo)),
+        "K4": (lambda a, w, i, o: f_ops.LocalMoE.apply(
+                   a, tok, w, valid, i, None, o, (offs, exps, "gelu"),
+                   lambda st, *t: local_moe_ref(
+                       t[0], t[1], t[2], st[0], st[1], t[3], t[4], t[5],
+                       t[6], activation=st[2])),
+               lambda a, w, i, o: local_moe_ref(
+                   a, tok, w, offs, exps, valid, i, None, o,
+                   activation="gelu"),
+               (x, w_s, wi, wo)),
+    }
+    for name, (fn, plain, inputs) in cases.items():
+        got, want = ([t.clone().requires_grad_(True) for t in inputs]
+                     for _ in range(2))
+        fn(*got).sum().backward()
+        plain(*want).sum().backward()
+        for a, b in zip(got, want):
+            assert a.grad is not None, name
+            torch.testing.assert_close(a.grad, b.grad, rtol=1e-6, atol=1e-6,
+                                       msg=name)
