@@ -169,6 +169,23 @@ def _world(eng: DispatchEngine, device):
 # ---------------------------------------------------------------------------
 
 
+def local_layout(local_work, topk_idx, T: int, num_experts: int):
+    """Slot maps and segments of the stages that deliver to this rank only
+    (``local_work``: ``(stage, selection)`` pairs with ``num_dests == 1``),
+    which run as one fused ``local_moe`` call.  Returns ``(indices,
+    seg_offsets, seg_experts)``: one segment per (stage, expert), stage
+    major, as wide as the stage's capacity."""
+    li = routing.build_indices(
+        tuple((stage.index, sel) for stage, sel in local_work), topk_idx, T)
+    offs, exps = [0], []
+    for _stage, sel in local_work:
+        width = sel.idx.shape[-1]
+        for e in range(num_experts):
+            offs.append(offs[-1] + width)
+            exps.append(e)
+    return li, tuple(offs), tuple(exps)
+
+
 def _staged_a2a(params, x, eng: DispatchEngine, num_chunks: int):
     """The staged implementation behind ``a2a``: shared routing, the
     shared sort-based buffer builder (``routing.build_indices`` + the
@@ -213,18 +230,10 @@ def _staged_a2a(params, x, eng: DispatchEngine, num_chunks: int):
 
     out_local = None
     if local_work:
-        E_l = params["w_in"].shape[0]
-        li = routing.build_indices(
-            tuple((stage.index, sel) for stage, sel in local_work),
-            topk_idx, T)
-        offs, exps = [0], []
-        for _stage, sel in local_work:
-            width = sel.idx.shape[-1]
-            for e in range(E_l):
-                offs.append(offs[-1] + width)
-                exps.append(e)
+        li, offs, exps = local_layout(local_work, topk_idx, T,
+                                      params["w_in"].shape[0])
         out_local = expert_ffn_flat(
-            params, x, tuple(offs), cfg, ep, seg_experts=tuple(exps),
+            params, x, offs, cfg, ep, seg_experts=exps,
             rows_valid=li.rows_per_expert, slot_to_token=li.slot_to_token,
             slot_w=li.slot_w, use_pallas=eng.use_pallas)        # [T, d] f32
 

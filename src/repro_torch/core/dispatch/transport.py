@@ -95,6 +95,18 @@ def dispatch_chain(buf, stage: Stage, exchange):
     return buf.permute(perm).reshape(E_l, stage.num_dests * C, d)
 
 
+def counts_chain(cnt, stage: Stage, exchange):
+    """[*sizes, E_l] per-(destination, expert) valid-row counts ->
+    ``exchange`` over each axis of the chain -> [E_l, num_dests]
+    per-(expert, source) counts at the receiver: the chain and transpose of
+    :func:`dispatch_chain` without the row axes."""
+    k = len(stage.axis_names)
+    for i in range(k):
+        cnt = exchange(cnt, stage.axis_names[i], i)
+    return cnt.permute((k,) + tuple(range(k))).reshape(cnt.shape[k],
+                                                       stage.num_dests)
+
+
 def combine_chain(y, stage: Stage, exchange):
     """Inverse (== transpose) of :func:`dispatch_chain`: [E_l,
     num_dests * C, d] -> reverse chain -> [*sizes, E_l, C, d]."""
@@ -169,11 +181,7 @@ class A2ATransport:
         [E_l, num_dests] per-(expert, source) counts at the receiver, over
         the same chain and transpose as :meth:`dispatch`, exact (int32, no
         wire cast, no gradient)."""
-        k = len(stage.axis_names)
-        for i, ax in enumerate(stage.axis_names):
-            cnt = self.world.all_to_all(cnt, ax, i)
-        perm = (k,) + tuple(range(k))
-        return cnt.permute(perm).reshape(cnt.shape[k], stage.num_dests)
+        return counts_chain(cnt, stage, self.world.all_to_all)
 
 
 @dataclasses.dataclass(frozen=True)

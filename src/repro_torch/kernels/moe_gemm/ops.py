@@ -88,13 +88,16 @@ def _entry():
                         [_V, _I, _I, _V, _V, _I, _V, _V, _V, _V, _V, _I, _V])
 
 
-def _check(name, t, dtype, device, ndim):
+def _check(name, t, dtype, device, ndim, vectors=True):
+    """``vectors``: the kernel reads ``t`` through 16-byte vectors."""
     if t.device != device:
         raise ValueError(f"{KERNEL}: {name} is on {t.device}, x on {device}")
     if t.dtype != dtype:
         raise TypeError(f"{KERNEL}: {name} must be {dtype}, got {t.dtype}")
-    if t.dim() != ndim or not t.is_contiguous():
-        raise ValueError(f"{KERNEL}: {name} must be a contiguous {ndim}-D "
+    if t.dim() != ndim or not t.is_contiguous() or (
+            vectors and t.data_ptr() % 16):
+        raise ValueError(f"{KERNEL}: {name} must be a contiguous"
+                         f"{', 16-byte aligned' if vectors else ''} {ndim}-D "
                          f"tensor, got {tuple(t.shape)}")
 
 
@@ -105,7 +108,7 @@ def _ragged_cuda(static, x, rows_valid, w_in, w_gate, w_out):
     R, d = x.shape
     E, d_in, f = w_in.shape
     _check("x", x, torch.bfloat16, dev, 2)
-    _check("rows_valid", rows_valid, torch.int32, dev, 1)
+    _check("rows_valid", rows_valid, torch.int32, dev, 1, vectors=False)
     _check("w_in", w_in, torch.bfloat16, dev, 3)
     _check("w_out", w_out, torch.bfloat16, dev, 3)
     if swiglu:
