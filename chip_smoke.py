@@ -20,11 +20,15 @@ Phases, each printing JSON lines:
    128 slots, partly filled), flash attention (K5) at the prefill shape
    [4, 128, 16, 64] (plus ragged and windowed edge shapes), and permute (K1), unpermute (K2) and the ragged
    grouped FFN (K3) on rank (0, 0)'s indices of the 2x2 training plan
-   (1024 tokens, caps (120, 16), 16 experts a rank), with kernel, plain,
-   bound and library times (K1 ``index_select``, K2 ``embedding_bag``,
-   K5 ``scaled_dot_product_attention``);
-4. backward checks — each K1-K4 ``autograd.Function`` on the card
-   against autograd of its plain version at a small shape;
+   (1024 tokens, caps (120, 16), 16 experts a rank), and the int8 ragged
+   grouped FFN (K7) on rank (0, 0)'s chunk 0 of the pipelined int8 plan
+   (8 chunks of 15 + 2 slots, int8-encoded payload, counts through the
+   chains), with kernel, plain, bound and library times (K1
+   ``index_select``, K2 ``embedding_bag``, K5
+   ``scaled_dot_product_attention``);
+4. backward checks — each K1-K4 and K7 ``autograd.Function`` on the card
+   against autograd of its plain version (K7: of the full-precision plain
+   version, its straight-through rule) at a small shape;
 5. serve   — gpt3_medium_moe at full width (12 layers, d=1024, 64
    experts top-2, vocab 50304, bf16, random weights from a seed) through
    ``ServingEngine.run``: 8 requests, 8 slots, packs of 4, prompt bucket
@@ -45,8 +49,15 @@ Phases, each printing JSON lines:
    every rank must launch K1, K2 and K3 36 times each and K4 never, the
    ranks must agree on the world-mean losses, and the first step's loss
    must agree with the plain path's;
-9. kernels — one ``{"kernels": [...]}`` line for K1-K5, launches summed
-   over the main paths (serve, train_1rank, every rank of train_2x2).
+9. train_2x2_pipelined — the same world through ``dispatch=
+   "a2a_pipelined"`` with the int8 wire codec and the overlap model's
+   chunk count (8), 2 steps: every rank must launch K1, K2 and K7 192
+   times each (12 layers x 8 chunks x 2 steps) and K3 and K4 never, and
+   the first step's loss must agree with the plain path's within
+   LOSS_RTOL_INT8;
+10. kernels — one ``{"kernels": [...]}`` line for K1-K5 and K7, launches
+   summed over the main paths (serve, train_1rank, every rank of
+   train_2x2 and train_2x2_pipelined).
 
 Any failed phase raises (exit code non-zero).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -72,6 +83,7 @@ NUM_REQUESTS = 8
 # H100 SXM published dense peaks (NVIDIA data sheet), used for bound_ms
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_INT8_OPS_PER_S = 1979e12
 # kernel vs plain tolerances in bf16: |kernel - plain| <= ATOL + RTOL*|plain|.
 # K4: the plain version rounds each expert row to bf16 before the weighted
 # combine (the kernel combines its f32 accumulator), and f32 sums run in
@@ -85,6 +97,10 @@ K2_ATOL, K2_RTOL = 1e-5, 1e-5
 # K3: as K4 (bf16 output of f32 sums taken in another order).  K1 copies
 # rows and must be bit-equal.
 K3_ATOL, K3_RTOL = 3e-2, 2e-2
+# K7: its integer sums are exact on both sides and both dequantize with the
+# same f32 factors; the rest is K3's (bf16 hidden and output, f32 sums of
+# the down-projection in another order)
+K7_ATOL, K7_RTOL = K3_ATOL, K3_RTOL
 # backward checks: a Function on the card against autograd of its plain
 # version, |got - want| <= ATOL + RTOL * max|want| per tensor.  f32 (K1,
 # K2): scatter-adds by atomics in another order.  bf16 inputs (K3, K4):
@@ -98,6 +114,10 @@ BWD_BF16_ATOL, BWD_BF16_RTOL = 1e-2, 3e-2
 # (2048 tokens, caps (128,)), the 2x2 world with batch 8 (1024 tokens a
 # rank, caps (120, 16))
 TRAIN_SEQ, TRAIN_STEPS = 512, 3
+# the pipelined phase's steps take about 10 s each over gloo; two keep the
+# whole smoke near its earlier length and still check a step that starts
+# from updated weights
+PIPELINED_STEPS = 2
 TRAIN_BATCH_1, TRAIN_BATCH_22 = 4, 8
 WORLD_22 = (2, 2)
 # first-step world-mean loss, kernel path against the plain path, both in
@@ -106,6 +126,16 @@ WORLD_22 = (2, 2)
 # tokens (4096 in the world), so it moves far less than one token's share.
 # Sound runs on an H100 gave 9.3e-5 (one rank) and 1.4e-4 (2x2 world).
 LOSS_RTOL = 1e-3
+# the int8 wire's phase: the kernel path quantizes each (expert, stage,
+# source) segment with its own scale, the plain path each expert's chunk
+# span with one, so the two first-step losses differ by more than bf16
+# rounding: 3.0e-4 relative in sound runs on an H100.  Faults planted in
+# K7's per-segment scales (chip_k7_guard.py) moved it by 8.1e-3 (stage-1
+# segments x1.25), 1.1e-2 (stage-1 zeroed, or every segment x1.1) and
+# 3.5e-2 (stage-1 x2); the limit sits 5x above the sound gap and 5x below
+# the smallest of those.
+LOSS_RTOL_INT8 = 1.5e-3
+PIPELINED_CHUNKS = 8      # the overlap model's pick for the 2x2 plan
 # end to end after 12 bf16 layers, relative Frobenius error of the logits
 # against a float32 plain run: the kernel path may be at most E2E_RATIO
 # times as far from it as the plain bf16 path (both differ from float32 by
@@ -146,9 +176,9 @@ def close(torch, got, want, atol, rtol):
     return ok, float(err.max())
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, int8_ops: float = 0.0):
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_BF16_FLOP_PER_S
+    t_ops = flops / PEAK_BF16_FLOP_PER_S + int8_ops / PEAK_INT8_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -454,10 +484,7 @@ def check_k3(torch, case):
     f = w_in.shape[2]
     offs = torch.as_tensor(segs, device="cuda")
     widths = offs[1:] - offs[:-1]
-    rows = torch.arange(R, device="cuda")
-    seg_of = torch.searchsorted(offs[1:], rows, right=True)
-    dead = (rows - offs[seg_of]) >= valid[seg_of].long()
-    zeros_exact = bool((got[dead] == 0).all())
+    zeros_exact = bool((got[dead_rows(torch, segs, valid, R)] == 0).all())
     if not ok or not zeros_exact:
         raise SystemExit(f"K3: kernel disagrees with plain (max abs err "
                          f"{err}, rows past nvalid zero: {zeros_exact})")
@@ -477,17 +504,145 @@ def check_k3(torch, case):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+def pipelined_case(torch, params, arch, gen):
+    """Rank (0, 0)'s view of chunk 0 of the train_2x2_pipelined phase: a
+    real ``route`` + ``build_indices`` of 1024 random tokens through layer
+    0's gate on the 2x2 EP spec and the int8 wire's chunk-aligned plan
+    (caps (120, 16), 8 chunks: 15 and 2 slots of the two stages a chunk),
+    the payload int8-encoded and decoded and the valid-row counts moved
+    through the transport's chains, as the engine does.  An identity
+    exchange stands in for the all-to-alls: the rank's send buffer is the
+    receive buffer of the int8 ragged grouped FFN (K7)."""
+    import types
+    from repro_torch.core.dispatch import routing, transport
+    from repro_torch.kernels.moe_permute.ref import permute_ref
+    from repro_torch.launch.mesh import EPWorld
+    from repro_torch.models import model as model_lib
+    world = EPWorld(axis_names=("pod", "data"), axis_sizes=WORLD_22,
+                    coords=(0, 0), device="cuda")
+    ctx = model_lib.build_ctx(arch, world, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH_22, aux_mode="ta",
+                              dispatch="a2a_pipelined", wire_codec="int8",
+                              device="cuda")
+    k = ctx.a2a_num_chunks
+    if k != PIPELINED_CHUNKS:
+        raise SystemExit(f"pipelined plan: {k} chunks, expected "
+                         f"{PIPELINED_CHUNKS}")
+    T = TRAIN_SEQ * TRAIN_BATCH_22 // world.size
+    d = arch.d_model
+    p = params["layers"][0]["ffn"]
+    x = torch.randn((T, d), generator=gen, device="cuda").to(torch.bfloat16)
+    routed = routing.route(p, x, ctx.moe_cfg, ctx.ep, ctx.plan, ctx.gate_cfg,
+                           world.coords)
+    stages = transport.plan_stages(ctx.plan, ctx.ep)
+    work = []
+    for (s, sel), stage in zip(routed.sels, stages):
+        sel = routing.pad_selection(sel, axis=s + 2, multiple=k)
+        cpc = sel.idx.shape[s + 2] // k
+        work.append((stage, routing.slice_selection(sel, s + 2, 0, cpc), cpc))
+    di = routing.build_indices(tuple((st.index, sel) for st, sel, _ in work),
+                               routed.gate_out["topk_idx"], T)
+    tr = transport.A2ATransport(
+        ep=ctx.ep, world=types.SimpleNamespace(
+            all_to_all=lambda t, axis, dim: t), codec=ctx.wire_codec)
+    flat = permute_ref(x, di.slot_to_token)
+    parts, cnts = [], []
+    for (stage, _, _), (_, off, shape), (_, coff, cshape) in zip(
+            work, di.stage_spans(), di.expert_spans()):
+        parts.append(tr.dispatch(
+            flat[off:off + math.prod(shape)].reshape(shape + (d,)), stage))
+        cnts.append(tr.dispatch_counts(
+            di.rows_per_expert[coff:coff + math.prod(cshape)].reshape(cshape),
+            stage))
+    E_l = ctx.plan.experts_per_rank
+    segs, exps = transport.stage_segments(
+        E_l, tuple((stage.num_dests, cpc) for stage, _, cpc in work))
+    return {"caps": ctx.plan.caps, "chunks": k,
+            "chunk_caps": [cpc for _, _, cpc in work],
+            "xin": torch.cat(parts, dim=1).reshape(-1, d).contiguous(),
+            "rows_valid": torch.cat(cnts, dim=1).reshape(-1).contiguous(),
+            "segs": segs, "exps": exps,
+            "w_in": p["w_in"][:E_l].contiguous(),
+            "w_out": p["w_out"][:E_l].contiguous()}
+
+
+def dead_rows(torch, segs, valid, R):
+    """[R] bool: the rows at or past their segment's valid count."""
+    offs = torch.as_tensor(segs, device="cuda")
+    rows = torch.arange(R, device="cuda")
+    seg_of = torch.searchsorted(offs[1:], rows, right=True)
+    return (rows - offs[seg_of]) >= valid[seg_of].long()
+
+
+def check_k7(torch, case):
+    """K7 on chunk 0 of the pipelined int8 plan against its plain version
+    on the same segments (so the same per-segment and per-expert scales),
+    with kernel, plain, bound times and the time of the plain-torch
+    quantization the wrapper runs before the launch."""
+    from repro_torch.kernels.moe_gemm import ops as g_ops
+    from repro_torch.kernels.moe_gemm.ref import (grouped_ffn_ragged_quant_ref,
+                                                  quantize_experts,
+                                                  quantize_segments)
+    xin, valid = case["xin"], case["rows_valid"]
+    segs, exps = case["segs"], case["exps"]
+    w_in, w_out = case["w_in"], case["w_out"]
+
+    def kernel():
+        return g_ops.grouped_ffn_ragged_quant(xin, segs, exps, valid, w_in,
+                                              None, w_out, activation="gelu",
+                                              use_pallas=True)
+
+    def plain():
+        return grouped_ffn_ragged_quant_ref(xin, segs, exps, valid, w_in,
+                                            None, w_out, activation="gelu")
+
+    def quantize():
+        return quantize_segments(xin, segs), quantize_experts(w_in)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    ok, err = close(torch, got, want, K7_ATOL, K7_RTOL)
+    R, d = xin.shape
+    f = w_in.shape[2]
+    zeros_exact = bool((got[dead_rows(torch, segs, valid, R)] == 0).all())
+    if not ok or not zeros_exact:
+        raise SystemExit(f"K7: kernel disagrees with plain (max abs err "
+                         f"{err}, rows past nvalid zero: {zeros_exact})")
+    nvalid = int(valid.sum())
+    per_expert = torch.zeros(w_in.shape[0], device="cuda").index_add_(
+        0, torch.as_tensor(exps, device="cuda"), valid.float())
+    active = int((per_expert > 0).sum())
+    # int8 valid rows, the int8 w_in and bf16 w_out of the experts used, the
+    # bf16 [R, d] output; 2df int8 and 2fd bf16 operations a valid row
+    nbytes = nvalid * d + active * (d * f + f * d * 2) + R * d * 2
+    b_ms, b_by = bound_ms(nbytes, 2.0 * nvalid * f * d,
+                          int8_ops=2.0 * nvalid * d * f)
+    widths = {offs1 - offs0 for offs0, offs1 in zip(segs[:-1], segs[1:])}
+    return {"R": R, "segments": len(exps), "experts": w_in.shape[0],
+            "caps": list(case["caps"]), "chunks": case["chunks"],
+            "chunk_caps": case["chunk_caps"],
+            "segment_widths": sorted(widths), "valid_rows": nvalid,
+            "active_experts": active, "max_abs_err": err, "atol": K7_ATOL,
+            "rtol": K7_RTOL, "ms": time_ms(torch, kernel, 20),
+            "quantize_ms": time_ms(torch, quantize, 20),
+            "plain_ms": time_ms(torch, plain, 5), "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
 def backward_checks(torch, gen):
     """Each kernel's ``autograd.Function`` on the card against autograd of
     its plain version, at a small shape: K1 and K2 in float32 (their
-    backwards are written by hand), K3 and K4 on bf16 inputs (their
+    backwards are written by hand), K3, K4 and K7 on bf16 inputs (their
     kernels take bf16 only; their backwards are autograd through the plain
-    version)."""
+    version).  K7's gradients are held against autograd of the
+    full-precision plain version (the straight-through rule) and its
+    output against the quantized plain version."""
     from repro_torch.core.dispatch import transport
     from repro_torch.kernels.moe_fused import ops as f_ops
     from repro_torch.kernels.moe_fused.ref import local_moe_ref
     from repro_torch.kernels.moe_gemm import ops as g_ops
-    from repro_torch.kernels.moe_gemm.ref import grouped_ffn_ragged_ref
+    from repro_torch.kernels.moe_gemm.ref import (grouped_ffn_ragged_quant_ref,
+                                                  grouped_ffn_ragged_ref)
     from repro_torch.kernels.moe_permute import ops as p_ops
     from repro_torch.kernels.moe_permute.ref import (permute_ref,
                                                      unpermute_ref)
@@ -506,9 +661,14 @@ def backward_checks(torch, gen):
         out.backward(g)
         return out.detach(), [t.grad for t in leaves]
 
-    def compare(name, kernel_fn, plain_fn, inputs, g, atol, rtol):
+    def compare(name, kernel_fn, plain_fn, inputs, g, atol, rtol,
+                plain_out=None):
+        """``plain_out``: the forward's plain version when it is not
+        ``plain_fn`` (K7)."""
         out_k, g_k = grads(kernel_fn, inputs, g)
         out_p, g_p = grads(plain_fn, inputs, g)
+        if plain_out is not None:
+            out_p = plain_out(*inputs)
         torch.cuda.synchronize()
         errs = []
         for a, b in zip([out_k] + g_k, [out_p] + g_p):
@@ -550,6 +710,20 @@ def backward_checks(torch, gen):
             x, segs, exps, valid, wi, None, wo, activation="gelu"),
         [randn(R, d, dtype=torch.bfloat16)] + w3,
         randn(R, d, dtype=torch.bfloat16), BWD_BF16_ATOL, BWD_BF16_RTOL)
+    # K7 on the same layout, with zero rows past each segment's valid count
+    # (the zero-slot convention its per-segment scales rely on)
+    x7 = randn(R, d, dtype=torch.bfloat16)
+    x7[dead_rows(torch, segs, valid, R)] = 0
+    out["K7"] = compare(
+        "K7", lambda x, wi, wo: g_ops.grouped_ffn_ragged_quant(
+            x, segs, exps, valid, wi, None, wo, activation="gelu",
+            use_pallas=True),
+        lambda x, wi, wo: grouped_ffn_ragged_ref(
+            x, segs, exps, valid, wi, None, wo, activation="gelu"),
+        [x7] + w3, randn(R, d, dtype=torch.bfloat16), BWD_BF16_ATOL,
+        BWD_BF16_RTOL,
+        plain_out=lambda x, wi, wo: grouped_ffn_ragged_quant_ref(
+            x, segs, exps, valid, wi, None, wo, activation="gelu"))
     # K4 at the a2a layout's occupancy: each expert's segment holds a
     # random number of realized rows with a gate weight each, then
     # sentinel slots (token T, weight 0)
@@ -573,10 +747,14 @@ def backward_checks(torch, gen):
     return out
 
 
-def train_phase(world, out_path: str, global_batch: int) -> None:
+def train_phase(world, out_path: str, global_batch: int,
+                dispatch: str = "a2a", wire_codec: str = "",
+                steps: int = TRAIN_STEPS) -> None:
     """Full-width gpt3_medium_moe through ``trainer.train`` on this rank
-    (``world`` None: one rank), ``dispatch="a2a"``, ``aux_mode="ta"``,
-    AdamW, TRAIN_STEPS steps; writes this rank's report to ``out_path``.
+    (``world`` None: one rank), ``aux_mode="ta"``, AdamW, ``steps``
+    steps, the given dispatch path and wire codec (the pipelined path's
+    chunk count from the overlap model); writes this rank's report to
+    ``out_path``.
 
     Before the run, the plain path (kernels off) computes the first step's
     loss from the same initial parameters and batch.  The launch counters
@@ -595,7 +773,8 @@ def train_phase(world, out_path: str, global_batch: int) -> None:
     torch.backends.cudnn.allow_tf32 = False
     arch = get_config(ARCH_ID)
     run = RunConfig(seq_len=TRAIN_SEQ, global_batch=global_batch,
-                    warmup_steps=1, aux_mode="ta", dispatch="a2a", seed=0)
+                    warmup_steps=1, aux_mode="ta", dispatch=dispatch,
+                    a2a_num_chunks=0, wire_codec=wire_codec, seed=0)
     rank = 0 if world is None else world.rank
 
     def ctx_for(use_pallas):
@@ -603,6 +782,8 @@ def train_phase(world, out_path: str, global_batch: int) -> None:
                                    global_batch=global_batch,
                                    aux_mode=run.aux_mode,
                                    dispatch=run.dispatch,
+                                   a2a_num_chunks=run.a2a_num_chunks,
+                                   wire_codec=run.wire_codec,
                                    use_pallas=use_pallas, device="cuda")
 
     plain_ctx = ctx_for(False)
@@ -619,13 +800,13 @@ def train_phase(world, out_path: str, global_batch: int) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     backend.reset_launches()
-    res = trainer.train(arch, run, world, steps=TRAIN_STEPS, log_every=1,
+    res = trainer.train(arch, run, world, steps=steps, log_every=1,
                         verbose=rank == 0, params=params, device="cuda")
     launches = dict(backend.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     step = trainer.make_train_step(ctx_for(None), run)
-    batch = shard_batch(data.batch(TRAIN_STEPS), world, "cuda")
+    batch = shard_batch(data.batch(steps), world, "cuda")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -637,7 +818,8 @@ def train_phase(world, out_path: str, global_batch: int) -> None:
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     report = {
         "rank": rank, "coords": None if world is None else list(world.coords),
-        "losses": res.losses,
+        "a2a_num_chunks": plain_ctx.a2a_num_chunks,
+        "caps": list(plain_ctx.plan.caps), "losses": res.losses,
         "nll": [h["nll"] for h in res.metrics_history],
         "aux": [h["aux"] for h in res.metrics_history],
         "frac_by_level": [h["frac_by_level"] for h in res.metrics_history],
@@ -655,12 +837,14 @@ def train_phase(world, out_path: str, global_batch: int) -> None:
         json.dump(report, fh)
 
 
-def train_rank(world, out_dir: str, global_batch: int) -> None:
+def train_rank(world, out_dir: str, global_batch: int, dispatch: str = "a2a",
+               wire_codec: str = "", steps: int = TRAIN_STEPS) -> None:
     train_phase(world, os.path.join(out_dir, f"rank{world.rank}.json"),
-                global_batch)
+                global_batch, dispatch, wire_codec, steps)
 
 
-def check_training(reports, want: dict, label: str) -> dict:
+def check_training(reports, want: dict, label: str,
+                   rtol: float = LOSS_RTOL, steps: int = TRAIN_STEPS) -> dict:
     """Launch counts, finite losses, agreement of the ranks' world means,
     and the kernel path's first-step loss against the plain path's."""
     for r in reports:
@@ -669,7 +853,7 @@ def check_training(reports, want: dict, label: str) -> dict:
                 raise SystemExit(f"{label} rank {r['rank']}: {name} "
                                  f"launched {r['launches'][name]} times, "
                                  f"the path needs {n}")
-        if len(r["losses"]) != TRAIN_STEPS or not all(
+        if len(r["losses"]) != steps or not all(
                 math.isfinite(v) for v in r["losses"]):
             raise SystemExit(f"{label} rank {r['rank']}: losses "
                              f"{r['losses']}")
@@ -678,11 +862,27 @@ def check_training(reports, want: dict, label: str) -> dict:
                              f"losses")
     first, plain = reports[0]["losses"][0], reports[0]["plain_first_loss"]
     rel = abs(first - plain) / abs(plain)
-    if not rel <= LOSS_RTOL:
+    if not rel <= rtol:
         raise SystemExit(f"{label}: first-step loss {first} (kernels) vs "
-                         f"{plain} (plain): relative {rel} > {LOSS_RTOL}")
+                         f"{plain} (plain): relative {rel} > {rtol}")
     return {"first_loss_kernel": first, "first_loss_plain": plain,
-            "rel_diff": rel, "rtol": LOSS_RTOL}
+            "rel_diff": rel, "rtol": rtol}
+
+
+def overlap_terms(arch) -> dict:
+    """The overlap model's inputs and verdict for the 2x2 plan under the
+    int8 wire (the reference's link and peak constants)."""
+    from repro_torch.core import comm_model
+    from repro_torch.launch.mesh import EPWorld
+    from repro_torch.models import model as model_lib
+    world = EPWorld(axis_names=("pod", "data"), axis_sizes=WORLD_22,
+                    coords=(0, 0), device="cuda")
+    plan = model_lib.make_plan(arch, world, TRAIN_SEQ, TRAIN_BATCH_22, "ta")
+    terms = comm_model.moe_overlap_terms(
+        plan, d_model=arch.d_model, d_ff=arch.moe.d_ff_expert,
+        bytes_per_el=2, activation=arch.activation, codec="int8")
+    return dict(terms, chunks=comm_model.choose_num_chunks(**terms),
+                caps=list(plan.caps), ratios=list(plan.ratios))
 
 
 def serve_requests(rng, vocab: int, n: int):
@@ -872,10 +1072,11 @@ def main() -> int:
         k2 = check_k2(torch, case, gen)
         k3 = check_k3(torch, case)
         del case
+        k7 = check_k7(torch, pipelined_case(torch, params, arch, gen))
         k4["train_1rank"] = check_k4(
             torch, *train1_k4_case(torch, params, arch, gen), "train_1rank")
     emit({"phase": "checks", "K4": k4, "K4_edges": k4_edges, "K5": k5,
-          "K5_edges": edges, "K1": k1, "K2": k2, "K3": k3})
+          "K5_edges": edges, "K1": k1, "K2": k2, "K3": k3, "K7": k7})
     bwd = backward_checks(torch, gen)
     emit({"phase": "backward_checks", **bwd})
 
@@ -949,7 +1150,8 @@ def main() -> int:
     zero = {k: 0 for k in ("moe_permute.permute", "moe_permute.unpermute",
                            "moe_gemm.grouped_ffn_ragged")}
     check1 = check_training(
-        [one], dict(zero, **{"moe_fused.local_moe": n_layers * TRAIN_STEPS}),
+        [one], dict(zero, **{"moe_fused.local_moe": n_layers * TRAIN_STEPS,
+                             "moe_gemm.grouped_ffn_ragged_quant": 0}),
         "train_1rank")
     emit({"phase": "train_1rank", "seconds": time.time() - t0,
           "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_1,
@@ -965,24 +1167,56 @@ def main() -> int:
         with open(os.path.join(tmp, f"rank{r}.json")) as fh:
             ranks.append(json.load(fh))
     per_layer = {k: n_layers * TRAIN_STEPS for k in zero}
-    check22 = check_training(ranks,
-                             dict(per_layer, **{"moe_fused.local_moe": 0}),
-                             "train_2x2")
+    check22 = check_training(
+        ranks, dict(per_layer, **{"moe_fused.local_moe": 0,
+                                  "moe_gemm.grouped_ffn_ragged_quant": 0}),
+        "train_2x2")
     emit({"phase": "train_2x2", "seconds": time.time() - t0,
           "world": list(WORLD_22), "backend": "gloo",
           "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_22,
           "steps": TRAIN_STEPS, **check22, "ranks": ranks})
+
+    # 8. training, 2x2 EP world, pipelined dispatch over the int8 wire
+    t0 = time.time()
+    pipe_dir = os.path.join(tmp, "pipelined")
+    os.makedirs(pipe_dir)
+    mesh.spawn(train_rank, WORLD_22, "gloo", "cuda",
+               args=(pipe_dir, TRAIN_BATCH_22, "a2a_pipelined", "int8",
+                     PIPELINED_STEPS))
+    pipe = []
+    for r in range(math.prod(WORLD_22)):
+        with open(os.path.join(pipe_dir, f"rank{r}.json")) as fh:
+            pipe.append(json.load(fh))
+    for r in pipe:
+        if r["a2a_num_chunks"] != PIPELINED_CHUNKS:
+            raise SystemExit(f"train_2x2_pipelined rank {r['rank']}: "
+                             f"{r['a2a_num_chunks']} chunks, the overlap "
+                             f"model gives {PIPELINED_CHUNKS}")
+    per_chunk = {k: n_layers * PIPELINED_CHUNKS * PIPELINED_STEPS
+                 for k in ("moe_permute.permute", "moe_permute.unpermute",
+                           "moe_gemm.grouped_ffn_ragged_quant")}
+    check_p = check_training(
+        pipe, dict(per_chunk, **{"moe_gemm.grouped_ffn_ragged": 0,
+                                 "moe_fused.local_moe": 0}),
+        "train_2x2_pipelined", LOSS_RTOL_INT8, PIPELINED_STEPS)
+    emit({"phase": "train_2x2_pipelined", "seconds": time.time() - t0,
+          "world": list(WORLD_22), "backend": "gloo", "wire_codec": "int8",
+          "overlap_terms": overlap_terms(arch), "seq_len": TRAIN_SEQ,
+          "global_batch": TRAIN_BATCH_22, "steps": PIPELINED_STEPS,
+          **check_p,
+          "ranks": pipe})
     shutil.rmtree(tmp, ignore_errors=True)
 
-    # 8. kernels: launches summed over every main path and rank
+    # 9. kernels: launches summed over every main path and rank
     def total(name):
         return (serve_launches[name] + one["launches"][name]
-                + sum(r["launches"][name] for r in ranks))
+                + sum(r["launches"][name] for r in ranks + pipe))
 
     def by_path(name):
         return {"serve": serve_launches[name],
                 "train_1rank": one["launches"][name],
-                "train_2x2": [r["launches"][name] for r in ranks]}
+                "train_2x2": [r["launches"][name] for r in ranks],
+                "train_2x2_pipelined": [r["launches"][name] for r in pipe]}
 
     kp = k4["prefill"]
     emit({"kernels": [
@@ -1015,6 +1249,16 @@ def main() -> int:
          "backward_max_abs_err": bwd["K3"]["max_abs_err"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+         "library_ms": None},
+        {"name": "moe_gemm.grouped_ffn_ragged_quant", "route": "cuda",
+         "source": "src/repro_torch/csrc/moe_gemm.cu",
+         "replaces": "src/repro/kernels/moe_gemm/kernel.py:312",
+         "launches": total("moe_gemm.grouped_ffn_ragged_quant"),
+         "launches_by_path": by_path("moe_gemm.grouped_ffn_ragged_quant"),
+         "max_abs_err": k7["max_abs_err"],
+         "backward_max_abs_err": bwd["K7"]["max_abs_err"],
+         "ms": k7["ms"], "plain_ms": k7["plain_ms"],
+         "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
          "library_ms": None},
         {"name": "moe_fused.local_moe", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_fused.cu",

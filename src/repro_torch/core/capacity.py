@@ -14,6 +14,7 @@ import dataclasses
 import math
 
 from repro_torch.core import topology as topo_lib
+from repro_torch.core.dispatch import wire
 
 
 def _round_to(x: float, multiple: int) -> int:
@@ -237,23 +238,23 @@ def a2a_bytes(plan: DispatchPlan, d_model: int, bytes_per_el: int,
     """Bytes each device moves per all-to-all stage (send side).
 
     Returns ``by_level`` (one entry per dispatch stage) plus the 2-level
-    ``near_bytes`` / ``far_bytes`` sums.  ``codec`` (a cast codec of
-    ``core.dispatch.base`` or its registered name) sets the payload element
-    size to the wire dtype's; the port has no scaled codecs yet, so there
-    is no scale sideband.
+    ``near_bytes`` / ``far_bytes`` sums.  ``codec`` (a
+    ``core.dispatch.wire`` codec or its registered name) sets the payload
+    element size to the wire dtype's and, for scaled codecs, adds the f32
+    scale sideband: one scale per (destination, expert) segment.
     """
-    payload_b = bytes_per_el
-    if codec is not None:
-        from repro_torch.core.dispatch import base   # lazy: no cycle
-        codec = base.resolve_codec(codec)
-        if codec is not None:
-            payload_b = codec.wire_bytes_per_elem
+    codec = wire.get_codec(codec)
+    payload_b = bytes_per_el if codec is None else codec.wire_bytes_per_elem
+    scaled = codec is not None and codec.scaled
     E = plan.experts_per_rank
 
     def stage_bytes(s: int) -> int:
         if not plan.caps[s]:
             return 0
-        return plan.caps[s] * E * plan.stage_dests(s) * d_model * payload_b
+        b = plan.caps[s] * E * plan.stage_dests(s) * d_model * payload_b
+        if scaled:
+            b += E * plan.stage_dests(s) * 4   # one f32 scale per segment
+        return b
 
     by_level = tuple(stage_bytes(s) for s in range(plan.num_stages))
     return {"by_level": by_level,

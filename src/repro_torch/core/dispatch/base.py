@@ -4,8 +4,8 @@ config, parameter init and the expert FFNs.
 
 Everything here runs on one EP rank with its local expert shard.  There
 is no tensor-parallel ``model`` axis in the port yet, so the reference's
-model-axis reductions are identities.  Only the raw and ``bf16`` cast wire
-codecs exist; the scaled int8/fp8 codecs are not ported yet.
+model-axis reductions are identities.  ``MoEConfig.wire_codec`` resolves
+through ``core.dispatch.wire``.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import gating
+from repro_torch.core.dispatch import wire
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,37 +57,6 @@ class EPSpec:
 
 
 @dataclasses.dataclass(frozen=True)
-class CastCodec:
-    """Cast-only wire codec: payloads travel in ``dtype``."""
-    name: str
-    dtype: torch.dtype
-    quantize_compute: bool = False
-
-    @property
-    def wire_bytes_per_elem(self) -> int:
-        return torch.empty((), dtype=self.dtype).element_size()
-
-
-CODECS = {"bf16": CastCodec("bf16", torch.bfloat16)}
-_UNPORTED_CODECS = ("int8", "fp8e4m3")
-
-
-def resolve_codec(codec) -> CastCodec | None:
-    """``""``/None -> raw model-dtype wire; a registered name or codec."""
-    if codec is None or codec == "":
-        return None
-    if isinstance(codec, CastCodec):
-        return codec
-    if codec in CODECS:
-        return CODECS[codec]
-    if codec in _UNPORTED_CODECS:
-        raise NotImplementedError(f"wire codec {codec!r} (scaled payloads) "
-                                  f"is not ported yet")
-    raise ValueError(f"unknown wire codec {codec!r}; registered: "
-                     f"{sorted(CODECS)}")
-
-
-@dataclasses.dataclass(frozen=True)
 class MoEConfig:
     d_model: int
     d_ff: int                     # per-expert intermediate size
@@ -104,7 +74,8 @@ class MoEConfig:
             raise NotImplementedError(
                 "MoEConfig.use_kernel needs the dense grouped FFN kernel "
                 "(K6, moe_gemm/kernel.py:185), not ported yet")
-        object.__setattr__(self, "wire_codec", resolve_codec(self.wire_codec))
+        object.__setattr__(self, "wire_codec",
+                           wire.get_codec(self.wire_codec))
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +146,11 @@ def expert_ffn_flat(params, x_flat, seg_offsets, cfg: MoEConfig, ep: EPSpec,
     the raw [T, d] token buffer and dispatch gather, expert FFN and
     gate-weighted combine run as one ``moe_fused.local_moe`` call returning
     the [T, d] float32 combined output.
+
+    ``quantized=True`` (set by the engine when the wire codec opts
+    delivered rows into low-precision compute) routes every non-fused call
+    through the int8 ragged entry (K7), whatever the kernel policy; its
+    backward is full precision (straight-through).
 
     Otherwise, with the kernel branch wanted (``moe_gemm.ops.use_ragged``)
     the call goes through the occupancy-aware ragged entry; with it off the

@@ -5,20 +5,25 @@ Every path returns ``(y, metrics)`` with the uniform schema
 :data:`METRIC_KEYS`; the engine fills missing keys with neutral defaults.
 Registered paths:
 
-    a2a      staged hierarchical all-to-all (training): the software
-             pipeline at num_chunks=1; stages with one destination fuse
-             into the local megakernel (K4), the others run permute (K1) ->
-             all-to-all chain -> ragged grouped FFN (K3) -> reverse chain
-             -> unpermute (K2)
-    gather   weights-stationary path of prefill and decode (one rank)
-    einsum   the GShard one-hot [T, N, C] baseline, shard-local: the
-             equivalence oracle of the tests
+    a2a            staged hierarchical all-to-all (training): the
+                   software pipeline at num_chunks=1; stages with one
+                   destination fuse into the local megakernel (K4), the
+                   others run permute (K1) -> all-to-all chain -> ragged
+                   grouped FFN (K3, or K7 under the int8 wire) -> reverse
+                   chain -> unpermute (K2)
+    a2a_pipelined  the same routing and capacities, the capacity axis cut
+                   into ``num_chunks`` chunks run through the 3-stage
+                   schedule (``model.build_ctx`` picks the count with
+                   ``core/comm_model.py``)
+    gather         weights-stationary path of prefill and decode (one rank)
+    einsum         the GShard one-hot [T, N, C] baseline, shard-local: the
+                   equivalence oracle of the tests
 
-The chunked ``a2a_pipelined`` schedule needs the communication model
-(``core/comm_model.py``) and is not ported yet: resolving it raises
-``NotImplementedError``.  An engine runs on one EP rank with its local
-expert shard; ``world`` (``launch.mesh.EPWorld``, None for the unit
-world) gives the rank's coordinates and the collectives.
+An engine runs on one EP rank with its local expert shard; ``world``
+(``launch.mesh.EPWorld``, None for the unit world) gives the rank's
+coordinates and the collectives.  Eager PyTorch issues the collectives in
+program order, so the pipelined schedule does not overlap a chunk's
+exchange with another's compute yet.
 """
 
 from __future__ import annotations
@@ -41,10 +46,6 @@ from repro_torch.kernels.moe_permute import ops as permute_ops
 
 METRIC_KEYS = ("aux_loss", "frac_by_level", "frac_near", "frac_far",
                "dropped")
-
-#: paths of the reference registry that this package does not have yet
-UNPORTED_PATHS = ("a2a_pipelined",)
-
 
 @dataclasses.dataclass(frozen=True)
 class DispatchPath:
@@ -69,9 +70,8 @@ def available() -> tuple:
 
 
 def check_name(name: str) -> None:
-    """ValueError for names no registry knows; names of paths not ported
-    yet pass (a ctx may carry them as its training-time default)."""
-    if name not in _REGISTRY and name not in UNPORTED_PATHS:
+    """ValueError for names the registry does not know."""
+    if name not in _REGISTRY:
         raise ValueError(f"unknown dispatch {name!r}; registered paths: "
                          f"{available()}")
 
@@ -80,11 +80,6 @@ def get_path(name: str) -> DispatchPath:
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in UNPORTED_PATHS:
-            raise NotImplementedError(
-                f"dispatch {name!r} is not ported yet (its chunk count comes "
-                f"from the communication model, core/comm_model.py); "
-                f"ported paths: {available()}") from None
         raise ValueError(f"unknown dispatch {name!r}; registered paths: "
                          f"{available()}") from None
 
@@ -99,6 +94,7 @@ class DispatchEngine:
     ep: EPSpec
     gate_cfg: gating.GateConfig
     plan: object | None = None
+    num_chunks: int = 1               # a2a_pipelined schedule depth
     capacity: int | None = None       # einsum buffer capacity (None = cf rule)
     tokens_replicated: bool = False
     use_pallas: bool | None = None
@@ -140,7 +136,7 @@ def _constant(value: float, device) -> torch.Tensor:
 
 def make_engine(name: str, *, cfg: MoEConfig, ep: EPSpec,
                 gate_cfg: gating.GateConfig, plan=None,
-                capacity: int | None = None,
+                num_chunks: int = 1, capacity: int | None = None,
                 tokens_replicated: bool = False,
                 use_pallas: bool | None = None,
                 world=None) -> DispatchEngine:
@@ -149,7 +145,8 @@ def make_engine(name: str, *, cfg: MoEConfig, ep: EPSpec,
     if path.needs_plan and plan is None:
         raise ValueError(f"dispatch {name!r} requires a DispatchPlan")
     return DispatchEngine(path=path, cfg=cfg, ep=ep, gate_cfg=gate_cfg,
-                          plan=plan, capacity=capacity,
+                          plan=plan, num_chunks=max(1, int(num_chunks)),
+                          capacity=capacity,
                           tokens_replicated=tokens_replicated,
                           use_pallas=use_pallas, world=world)
 
@@ -165,7 +162,7 @@ def _world(eng: DispatchEngine, device):
 
 
 # ---------------------------------------------------------------------------
-# staged a2a path (sync == the pipeline at num_chunks 1)
+# staged a2a paths (sync == num_chunks 1, pipelined == num_chunks k)
 # ---------------------------------------------------------------------------
 
 
@@ -187,10 +184,10 @@ def local_layout(local_work, topk_idx, T: int, num_experts: int):
 
 
 def _staged_a2a(params, x, eng: DispatchEngine, num_chunks: int):
-    """The staged implementation behind ``a2a``: shared routing, the
-    shared sort-based buffer builder (``routing.build_indices`` + the
-    moe_permute entries), the stage-list transport and the software
-    pipeline.
+    """The staged implementation behind ``a2a`` and ``a2a_pipelined``:
+    shared routing, the shared sort-based buffer builder
+    (``routing.build_indices`` + the moe_permute entries), chunk-sliced
+    stage-list transport and the software pipeline.
 
     Stages whose delivery chain is the identity (``num_dests == 1``: the
     folded-in self level of a unit axis, so every stage on one rank) run
@@ -200,7 +197,9 @@ def _staged_a2a(params, x, eng: DispatchEngine, num_chunks: int):
     holds at most one slot globally, so the local and remote outputs add.
     With the kernel branch wanted, the per-(destination, expert) valid-row
     counts ride each remote stage's chain (``dispatch_counts``) and the
-    expert compute goes through the occupancy-aware ragged entry.
+    expert compute goes through the occupancy-aware ragged entry.  A wire
+    codec with ``quantize_compute`` (int8) sends the remote stages' expert
+    compute through the int8 ragged entry (K7).
     """
     cfg, ep, plan, gate_cfg = eng.cfg, eng.ep, eng.plan, eng.gate_cfg
     T, d = x.shape
@@ -275,6 +274,9 @@ def _staged_a2a(params, x, eng: DispatchEngine, num_chunks: int):
                            for stage, _, _, cpc, _ in work))
             valid = (torch.cat(cnts, dim=1) if len(cnts) > 1
                      else cnts[0]).reshape(-1).contiguous()
+        # The reference pads chunk slices to 128-row kernel blocks
+        # (chunk_granular); the port's kernels mask any segment width inside
+        # 64-row tiles, so chunk slices need no padding here.
         y = expert_ffn_flat(params, xin.reshape(E_l * R, d), segs, cfg, ep,
                             seg_experts=exps, rows_valid=valid,
                             use_pallas=eng.use_pallas, quantized=quant)
@@ -319,6 +321,12 @@ def _staged_a2a(params, x, eng: DispatchEngine, num_chunks: int):
 def _a2a_path(params, x, eng: DispatchEngine):
     """Sync staged all-to-all: the pipeline schedule at num_chunks=1."""
     return _staged_a2a(params, x, eng, 1)
+
+
+@register("a2a_pipelined", needs_plan=True)
+def _a2a_pipelined_path(params, x, eng: DispatchEngine):
+    """The chunked schedule over the same routing."""
+    return _staged_a2a(params, x, eng, eng.num_chunks)
 
 
 # ---------------------------------------------------------------------------

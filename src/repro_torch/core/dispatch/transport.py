@@ -8,8 +8,11 @@
   (``launch.mesh.EPWorld.all_to_all``).  ``dist.all_to_all_single`` has no
   autograd, so dispatch and combine are ``torch.autograd.Function``\\ s
   whose backward is the other's chain: the combine chain is the exact
-  transpose of the dispatch chain.  The wire codec is raw or the ``bf16``
-  cast: the payload is cast before the chain and back after it.
+  transpose of the dispatch chain.  The wire codec (``wire.py``) is raw,
+  a cast (cast before the chain, back after it) or scaled: encode once,
+  move the payload and its ``[*sizes, E_l]`` f32 scales through the same
+  chain, decode after the final transpose; its backward moves
+  full-precision cotangents (straight-through).
 * :class:`GatherTransport` — the weights-stationary decode regime, on one
   rank only in this port (gather, reduce and slice are identities).
 
@@ -83,41 +86,51 @@ def stage_segments(num_experts: int, stage_widths) -> tuple:
     return tuple(offs), tuple(exps)
 
 
+def _hops(t, stage: Stage, exchange, reverse: bool = False):
+    """``exchange`` over each axis of the chain on dim ``i`` of a
+    ``[*sizes, ...]`` tensor: outermost hop first, or innermost first for
+    the reverse chain."""
+    k = len(stage.axis_names)
+    for i in (range(k - 1, -1, -1) if reverse else range(k)):
+        t = exchange(t, stage.axis_names[i], i)
+    return t
+
+
 def dispatch_chain(buf, stage: Stage, exchange):
     """[*sizes, E_l, C, d] -> ``exchange`` over each axis of the chain
     (outermost hop first) -> [E_l, num_dests * C, d].  ``exchange(x, axis,
     dim)`` is the EP world's tiled all-to-all."""
     k = len(stage.axis_names)
-    for i in range(k):
-        buf = exchange(buf, stage.axis_names[i], i)
+    buf = _hops(buf, stage, exchange)
     E_l, C, d = buf.shape[k:]
     perm = (k,) + tuple(range(k)) + (k + 1, k + 2)
     return buf.permute(perm).reshape(E_l, stage.num_dests * C, d)
 
 
 def counts_chain(cnt, stage: Stage, exchange):
-    """[*sizes, E_l] per-(destination, expert) valid-row counts ->
-    ``exchange`` over each axis of the chain -> [E_l, num_dests]
-    per-(expert, source) counts at the receiver: the chain and transpose of
-    :func:`dispatch_chain` without the row axes."""
+    """[*sizes, E_l] per-(destination, expert) values (valid-row counts,
+    wire scales) -> ``exchange`` over each axis of the chain -> [E_l,
+    num_dests] per-(expert, source) values at the receiver: the chain and
+    transpose of :func:`dispatch_chain` without the row axes."""
     k = len(stage.axis_names)
-    for i in range(k):
-        cnt = exchange(cnt, stage.axis_names[i], i)
+    cnt = _hops(cnt, stage, exchange)
     return cnt.permute((k,) + tuple(range(k))).reshape(cnt.shape[k],
                                                        stage.num_dests)
+
+
+def _send_layout(y, stage: Stage):
+    """[E_l, num_dests * C, d] -> [*sizes, E_l, C, d]."""
+    sizes = stage.axis_sizes
+    k = len(sizes)
+    E_l, R, d = y.shape
+    y = y.reshape((E_l,) + tuple(sizes) + (R // stage.num_dests, d))
+    return y.permute(tuple(range(1, k + 1)) + (0, k + 1, k + 2))
 
 
 def combine_chain(y, stage: Stage, exchange):
     """Inverse (== transpose) of :func:`dispatch_chain`: [E_l,
     num_dests * C, d] -> reverse chain -> [*sizes, E_l, C, d]."""
-    sizes = stage.axis_sizes
-    k = len(sizes)
-    E_l, R, d = y.shape
-    y = y.reshape((E_l,) + tuple(sizes) + (R // stage.num_dests, d))
-    y = y.permute(tuple(range(1, k + 1)) + (0, k + 1, k + 2))
-    for i in range(k - 1, -1, -1):
-        y = exchange(y, stage.axis_names[i], i)
-    return y
+    return _hops(_send_layout(y, stage), stage, exchange, reverse=True)
 
 
 class _Dispatch(torch.autograd.Function):
@@ -144,24 +157,76 @@ class _Combine(torch.autograd.Function):
             None, None
 
 
+def _identity(t, axis, dim):
+    return t
+
+
+class _DispatchScaled(torch.autograd.Function):
+    """Scaled-codec dispatch: encode the [*sizes, E_l, C, d] buffer once
+    (one scale per [C, d] block), move the payload through the chain and
+    the [*sizes, E_l] scales through the counts' chain, decode at the
+    receiver.  ``round`` and the narrow cast have no gradient, and the
+    forward is a permutation up to rounding, so the backward is the
+    full-precision reverse chain (straight-through)."""
+
+    @staticmethod
+    def forward(ctx, buf, codec, stage, exchange):
+        ctx.stage, ctx.exchange = stage, exchange
+        payload, scale = codec.encode(buf, block_ndim=2)
+        out = dispatch_chain(payload, stage, exchange)
+        s = counts_chain(scale, stage, exchange)            # [E_l, dests]
+        E_l, R, d = out.shape
+        out = out.reshape(E_l, stage.num_dests, R // stage.num_dests, d)
+        return codec.decode(out, s[:, :, None, None], buf.dtype).reshape(
+            E_l, R, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        return combine_chain(g, ctx.stage, ctx.exchange).contiguous(), \
+            None, None, None
+
+
+class _CombineScaled(torch.autograd.Function):
+    """Scaled-codec combine: transpose back to the send layout, encode,
+    reverse chain for payload and scales, decode at the source;
+    straight-through backward (the full-precision dispatch chain)."""
+
+    @staticmethod
+    def forward(ctx, y, codec, stage, exchange):
+        ctx.stage, ctx.exchange = stage, exchange
+        payload, scale = codec.encode(_send_layout(y, stage), block_ndim=2)
+        payload = _hops(payload, stage, exchange, reverse=True)
+        scale = _hops(scale, stage, exchange, reverse=True)
+        return codec.decode(payload, scale[..., None, None], y.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return dispatch_chain(g, ctx.stage, ctx.exchange).contiguous(), \
+            None, None, None
+
+
 @dataclasses.dataclass(frozen=True)
 class A2ATransport:
     """Equal-split staged all-to-all over the EP world's axes.
 
     ``world`` is the ``launch.mesh.EPWorld`` of this rank; ``codec`` a
-    cast codec of ``base`` (or None for the raw model-dtype wire).  A
-    stage with one destination exchanges nothing: its chain is a plain
-    reshape, differentiated by autograd.
+    ``wire`` codec (or None for the raw model-dtype wire).  A stage with
+    one destination exchanges nothing: its chain is a plain reshape (the
+    scaled codec still encodes and decodes, as the reference's does).
     """
 
     ep: EPSpec
     world: object
     codec: object = None
 
-    def _chain(self, fn, x, stage, plain):
-        wire = x if self.codec is None else x.to(self.codec.dtype)
+    def _chain(self, fn, scaled, x, stage, plain):
+        if self.codec is not None and self.codec.scaled:
+            exchange = (_identity if stage.num_dests == 1
+                        else self.world.all_to_all)
+            return scaled.apply(x, self.codec, stage, exchange)
+        wire = x if self.codec is None else self.codec.encode(x)[0]
         if stage.num_dests == 1:
-            out = plain(wire, stage, lambda t, axis, dim: t)
+            out = plain(wire, stage, _identity)
         else:
             out = fn.apply(wire, stage, self.world.all_to_all)
         return out.to(x.dtype)
@@ -169,12 +234,13 @@ class A2ATransport:
     def dispatch(self, buf, stage: Stage):
         """[*sizes, E_l, C, d] local buffer -> [E_l, num_dests * C, d]
         expert rows at the receiver."""
-        return self._chain(_Dispatch, buf, stage, dispatch_chain)
+        return self._chain(_Dispatch, _DispatchScaled, buf, stage,
+                           dispatch_chain)
 
     def combine(self, y, stage: Stage):
         """[E_l, num_dests * C, d] expert outputs -> [*sizes, E_l, C, d]
         back at the source (reverse chain, innermost hop first)."""
-        return self._chain(_Combine, y, stage, combine_chain)
+        return self._chain(_Combine, _CombineScaled, y, stage, combine_chain)
 
     def dispatch_counts(self, cnt, stage: Stage):
         """[*sizes, E_l] per-(destination, expert) valid-row counts ->

@@ -1,11 +1,13 @@
-// Occupancy-aware ragged grouped expert FFN (K3) for Hopper, sm_90a.  Built
-// by repro_torch/kernels/backend.py with nvcc into a shared library with a
-// plain C interface; called through ctypes from
-// repro_torch/kernels/moe_gemm/ops.py (grouped_ffn_ragged).
+// Occupancy-aware ragged grouped expert FFN for Hopper, sm_90a: K3 (bf16)
+// and K7 (int8 up-projections).  Built by repro_torch/kernels/backend.py
+// with nvcc into a shared library with a plain C interface; called through
+// ctypes from repro_torch/kernels/moe_gemm/ops.py (grouped_ffn_ragged and
+// grouped_ffn_ragged_quant).
 //
 // Replaces: src/repro/kernels/moe_gemm/kernel.py, grouped_ffn_ragged_pallas
-// (the Pallas TPU kernel over a (row-block, f-block) grid with
-// scalar-prefetched block_row / block_eid / block_nvalid vectors).
+// (K3) and grouped_ffn_ragged_quant_pallas (K7): Pallas TPU kernels over a
+// (row-block, f-block) grid with scalar-prefetched block_row / block_eid /
+// block_nvalid vectors (and, for K7, per-block f32 dequant factors).
 //
 // What it computes, on a flat [R, d] buffer of static contiguous segments
 // (segment s owns rows seg_offsets[s]:seg_offsets[s+1] and multiplies expert
@@ -40,6 +42,20 @@
 // MMA (WMMA 16x16x16 bf16, f32 accumulate) on 64x64x32 tiles staged through
 // shared memory with 16-byte loads, without a copy pipeline; wgmma, TMA and
 // a persistent schedule are later work.
+//
+// K7 (the int8 wire codec's expert compute) takes int8 activations xq [R, d]
+// (one scale per segment) and int8 w_in / w_gate [E, d, f] (one scale per
+// expert), quantized by the wrapper in plain torch as the reference does
+// outside its kernel, and the bf16 w_out.  Its up launch runs int8 tensor
+// cores (WMMA 16x16x16 signed char, int32 accumulate: exact) on 64x64x64
+// tiles, multiplies each tile's accumulator by its f32 factor s1[tile] =
+// scale_x[segment] * scale_w[expert] (sg for the gate), applies the
+// activation in f32 and writes bf16 h; its down launch is K3's, unchanged.
+// WMMA wants 256-bit aligned fragment pointers, and a 16-value int8 step is
+// only 16 bytes, so the tiles are staged as 16-value chunks on a 32-byte
+// row stride.  At the 2x2 pipelined plan's chunk (15- and 2-row segments,
+// so at most 15 valid rows of each 64-row tile) it is bound by the experts'
+// weight bytes, and far from that bound: the tile is mostly masked rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -255,6 +271,138 @@ ragged_down_kernel(int d, int f, const int* __restrict__ rows_valid,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K7: int8 up-projection
+// ---------------------------------------------------------------------------
+
+constexpr int QK = 64;     // int8 reduction depth per shared-memory stage
+constexpr int QC = 16;     // int8 values per WMMA step (k) and column chunk
+constexpr int QLD = 32;    // bytes per staged 16-value row (see above)
+
+typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
+                       wmma::row_major> QFragA;
+typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
+                       wmma::row_major> QFragB;
+typedef wmma::fragment<wmma::accumulator, 16, 16, 16, int> QFragC;
+
+// Rows [row0, row0 + nv) x columns [k0, k0 + QK) of a row-major [., d] int8
+// matrix into smem as QK / QC chunks of [BM][QLD]; rows past nv are zeros.
+__device__ __forceinline__ void load_qa_tile(signed char (*dst)[BM][QLD],
+                                             const signed char* src, int d,
+                                             int row0, int nv, int k0,
+                                             int tid) {
+  for (int c = tid; c < BM * (QK / QC); c += THREADS) {
+    int r = c / (QK / QC), q = c % (QK / QC);
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < nv)
+      v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * d + k0 +
+                                          q * QC);
+    *reinterpret_cast<uint4*>(&dst[q][r][0]) = v;
+  }
+}
+
+// Rows [k0, k0 + QK) x columns [n0, n0 + BN) of a row-major [d, f] int8
+// matrix into smem as BN / QC column chunks of [QK][QLD].
+__device__ __forceinline__ void load_qb_tile(signed char (*dst)[QK][QLD],
+                                             const signed char* src, int f,
+                                             int k0, int n0, int tid) {
+  for (int c = tid; c < QK * (BN / QC); c += THREADS) {
+    int r = c / (BN / QC), q = c % (BN / QC);
+    *reinterpret_cast<uint4*>(&dst[q][r][0]) =
+        *reinterpret_cast<const uint4*>(src + (size_t)(k0 + r) * f + n0 +
+                                        q * QC);
+  }
+}
+
+template <bool SWIGLU>
+__global__ void __launch_bounds__(THREADS)
+ragged_quant_up_kernel(const signed char* __restrict__ xq, int d, int f,
+                       const int* __restrict__ rows_valid,
+                       const int* __restrict__ tiles,
+                       const float* __restrict__ s1,
+                       const float* __restrict__ sg,
+                       const signed char* __restrict__ q_in,
+                       const signed char* __restrict__ q_gate,
+                       bf16* __restrict__ h) {
+  const int b = blockIdx.x;
+  const int n0 = blockIdx.y * BN;
+  const int nv = tile_nvalid(tiles, rows_valid, b);
+  if (nv == 0) return;                       // slack tile: no loads, no MMA
+  const int row0 = tiles[b * TILE_INTS + 0];
+  const int eid = tiles[b * TILE_INTS + 1];
+
+  __shared__ __align__(128) signed char As[QK / QC][BM][QLD];
+  __shared__ __align__(128) signed char Bs[BN / QC][QK][QLD];
+  __shared__ __align__(128) signed char Gs[SWIGLU ? BN / QC : 1][QK][QLD];
+  __shared__ __align__(128) int Cs[BM][C_LD];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
+  QFragC acc[2][2], gacc[2][2];
+  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 2; ++j) {
+      wmma::fill_fragment(acc[i][j], 0);
+      if (SWIGLU) wmma::fill_fragment(gacc[i][j], 0);
+    }
+  const signed char* wi = q_in + (size_t)eid * d * f;
+  const signed char* wg = SWIGLU ? q_gate + (size_t)eid * d * f : nullptr;
+
+  for (int k0 = 0; k0 < d; k0 += QK) {
+    load_qa_tile(As, xq, d, row0, nv, k0, tid);
+    load_qb_tile(Bs, wi, f, k0, n0, tid);
+    if (SWIGLU) load_qb_tile(Gs, wg, f, k0, n0, tid);
+    __syncthreads();
+    for (int kc = 0; kc < QK / QC; ++kc) {
+      QFragA a[2];
+      QFragB bw[2];
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], &As[kc][wm + i * 16][0], QLD);
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(bw[j], &Bs[wn / QC + j][kc * QC][0], QLD);
+      for (int i = 0; i < 2; ++i)
+        for (int j = 0; j < 2; ++j)
+          wmma::mma_sync(acc[i][j], a[i], bw[j], acc[i][j]);
+      if (SWIGLU) {
+        for (int j = 0; j < 2; ++j)
+          wmma::load_matrix_sync(bw[j], &Gs[wn / QC + j][kc * QC][0], QLD);
+        for (int i = 0; i < 2; ++i)
+          for (int j = 0; j < 2; ++j)
+            wmma::mma_sync(gacc[i][j], a[i], bw[j], gacc[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // dequantize and activate elementwise on the accumulators (same-type
+  // fragments share their element mapping); the f32 result travels through
+  // the int fragment and smem as its bit pattern
+  const float f1 = s1[b];
+  const float fg = SWIGLU ? sg[b] : 0.0f;
+  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 2; ++j) {
+      for (int e = 0; e < acc[i][j].num_elements; ++e) {
+        float hv = (float)acc[i][j].x[e] * f1;
+        float v = SWIGLU ? silu((float)gacc[i][j].x[e] * fg) * hv
+                         : gelu_tanh(hv);
+        acc[i][j].x[e] = __float_as_int(v);
+      }
+      wmma::store_matrix_sync(&Cs[wm + i * 16][wn + j * 16], acc[i][j], C_LD,
+                              wmma::mem_row_major);
+    }
+  __syncthreads();
+  bf16* hb = h + (size_t)b * BM * f;
+  for (int c = tid; c < BM * (BN / 8); c += THREADS) {
+    int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
+    if (r >= nv) continue;
+    __align__(16) bf16 v[8];
+    for (int e = 0; e < 8; ++e)
+      v[e] = __float2bfloat16(__int_as_float(Cs[r][nc + e]));
+    *reinterpret_cast<uint4*>(hb + (size_t)r * f + n0 + nc) =
+        *reinterpret_cast<const uint4*>(v);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -285,6 +433,41 @@ int grouped_ffn_ragged(const void* x, int d, int f, const void* rows_valid,
     ragged_up_kernel<false><<<grid_up, THREADS, 0, s>>>(
         xb, d, f, rv, ti, static_cast<const bf16*>(w_in), nullptr,
         static_cast<bf16*>(h));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ragged_down_kernel<<<grid_down, THREADS, 0, s>>>(
+      d, f, rv, ti, static_cast<const bf16*>(h),
+      static_cast<const bf16*>(w_out), static_cast<bf16*>(y));
+  return (int)cudaGetLastError();
+}
+
+// K7.  xq [R, d] int8; rows_valid and tiles as above; s1 / sg [n_tiles] f32
+// dequant factors (sg unused unless swiglu); q_in / q_gate [E, d, f] int8;
+// w_out [E, f, d] bf16; h scratch [n_tiles * 64, f] bf16; y [R, d] bf16,
+// every row written.  d and f must be multiples of 64.
+int grouped_ffn_ragged_quant(const void* xq, int d, int f,
+                             const void* rows_valid, const void* tiles,
+                             int n_tiles, const void* s1, const void* sg,
+                             const void* q_in, const void* q_gate,
+                             const void* w_out, void* h, void* y, int swiglu,
+                             void* stream) {
+  if (d % BN || f % BN || d % QK || f % BK) return (int)cudaErrorInvalidValue;
+  if (n_tiles == 0) return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid_up(n_tiles, f / BN), grid_down(n_tiles, d / BN);
+  const signed char* xb = static_cast<const signed char*>(xq);
+  const int* rv = static_cast<const int*>(rows_valid);
+  const int* ti = static_cast<const int*>(tiles);
+  const float* f1 = static_cast<const float*>(s1);
+  if (swiglu)
+    ragged_quant_up_kernel<true><<<grid_up, THREADS, 0, s>>>(
+        xb, d, f, rv, ti, f1, static_cast<const float*>(sg),
+        static_cast<const signed char*>(q_in),
+        static_cast<const signed char*>(q_gate), static_cast<bf16*>(h));
+  else
+    ragged_quant_up_kernel<false><<<grid_up, THREADS, 0, s>>>(
+        xb, d, f, rv, ti, f1, nullptr, static_cast<const signed char*>(q_in),
+        nullptr, static_cast<bf16*>(h));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   ragged_down_kernel<<<grid_down, THREADS, 0, s>>>(

@@ -52,6 +52,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: dict[str, int] = {"moe_permute.permute": 0,
                             "moe_permute.unpermute": 0,
                             "moe_gemm.grouped_ffn_ragged": 0,
+                            "moe_gemm.grouped_ffn_ragged_quant": 0,
                             "moe_fused.local_moe": 0,
                             "flash_attn.flash_attention": 0}
 

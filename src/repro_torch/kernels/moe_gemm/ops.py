@@ -1,5 +1,5 @@
 """Grouped-FFN entries with the backend policy and autograd (the counterpart
-of ``repro/kernels/moe_gemm/ops.py``, non-quantized branches).
+of ``repro/kernels/moe_gemm/ops.py``).
 
 * :func:`grouped_ffn_ragged` — the occupancy-aware entry over a flat
   [R, d] buffer of static contiguous segments with runtime per-segment
@@ -8,18 +8,26 @@ of ``repro/kernels/moe_gemm/ops.py``, non-quantized branches).
   backward is autograd through :func:`ref.grouped_ffn_ragged_ref`, as the
   reference's ``_ragged_bwd`` is ``jax.vjp`` of it; CPU tensors take the
   plain version.
+* :func:`grouped_ffn_ragged_quant` — the int8 entry (K7, the ``int8``
+  wire codec): per-segment int8 activations x per-expert int8 ``w_in``
+  (and ``w_gate``), exact integer sums, f32 dequant, bf16 down-projection.
+  Quantization is plain torch outside the kernel, as in the reference.
+  The forward launches K7 of ``csrc/moe_gemm.cu`` for CUDA tensors and
+  runs :func:`ref.grouped_ffn_ragged_quant_ref` for CPU tensors; either
+  way inside the Function whose backward is autograd through the
+  full-precision ``grouped_ffn_ragged_ref`` (straight-through).
 * :func:`grouped_ffn_segments` — the segment-offset surface the dispatch
-  engine calls: equal fully-occupied per-expert spans reshape onto the
-  dense plain grouped FFN when the kernels are off; everything else goes
-  through :func:`grouped_ffn_ragged`.
+  engine calls: ``quantized=True`` goes to the int8 entry; equal
+  fully-occupied per-expert spans reshape onto the dense plain grouped
+  FFN when the kernels are off; everything else goes through
+  :func:`grouped_ffn_ragged`.
 * :func:`plan_blocks` — the reference's gcd-divisor block decomposition,
   kept so the port can state the reference's block layout; the CUDA
   kernels tile with fixed 64-row tiles instead (``moe_fused.ops.plan_tiles``)
   because the gcd rule gives 8-row blocks for the 2x2 plan's widths.
 
-The dense Pallas kernel (K6, ``MoEConfig.use_kernel``) and the int8 ragged
-kernel (K7, the ``int8`` wire codec) are not ported yet: asking for either
-raises ``NotImplementedError``.
+The dense Pallas kernel (K6, ``MoEConfig.use_kernel``) is not ported yet:
+asking for it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,10 +41,14 @@ import torch
 
 from repro_torch.kernels import backend
 from repro_torch.kernels.moe_fused.ops import TILE_ROWS, tiles_on
-from repro_torch.kernels.moe_gemm.ref import (grouped_ffn_ragged_ref,
-                                              grouped_ffn_ref)
+from repro_torch.kernels.moe_gemm.ref import (grouped_ffn_ragged_quant_ref,
+                                              grouped_ffn_ragged_ref,
+                                              grouped_ffn_ref,
+                                              quantize_experts,
+                                              quantize_segments)
 
 KERNEL = "moe_gemm.grouped_ffn_ragged"
+KERNEL_QUANT = "moe_gemm.grouped_ffn_ragged_quant"
 _V, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -88,42 +100,60 @@ def _entry():
                         [_V, _I, _I, _V, _V, _I, _V, _V, _V, _V, _V, _I, _V])
 
 
-def _check(name, t, dtype, device, ndim, vectors=True):
+@functools.lru_cache(maxsize=1)
+def _quant_entry():
+    _entry()                                 # loads and checks the tiling
+    return backend.bind("moe_gemm", "grouped_ffn_ragged_quant",
+                        [_V, _I, _I, _V, _V, _I, _V, _V, _V, _V, _V, _V, _V,
+                         _I, _V])
+
+
+def _check(kernel, name, t, dtype, device, ndim, vectors=True):
     """``vectors``: the kernel reads ``t`` through 16-byte vectors."""
     if t.device != device:
-        raise ValueError(f"{KERNEL}: {name} is on {t.device}, x on {device}")
+        raise ValueError(f"{kernel}: {name} is on {t.device}, x on {device}")
     if t.dtype != dtype:
-        raise TypeError(f"{KERNEL}: {name} must be {dtype}, got {t.dtype}")
+        raise TypeError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
     if t.dim() != ndim or not t.is_contiguous() or (
             vectors and t.data_ptr() % 16):
-        raise ValueError(f"{KERNEL}: {name} must be a contiguous"
+        raise ValueError(f"{kernel}: {name} must be a contiguous"
                          f"{', 16-byte aligned' if vectors else ''} {ndim}-D "
                          f"tensor, got {tuple(t.shape)}")
 
 
-def _ragged_cuda(static, x, rows_valid, w_in, w_gate, w_out):
+def _check_layout(kernel, static, x, rows_valid, w_in, w_gate, w_out):
+    """The checks K3 and K7 share: device, dtypes, shapes and alignment of
+    the bf16 inputs, and the segment table against the experts."""
     offs, exps, activation = static
-    swiglu = activation == "swiglu"
     dev = x.device
     R, d = x.shape
     E, d_in, f = w_in.shape
-    _check("x", x, torch.bfloat16, dev, 2)
-    _check("rows_valid", rows_valid, torch.int32, dev, 1, vectors=False)
-    _check("w_in", w_in, torch.bfloat16, dev, 3)
-    _check("w_out", w_out, torch.bfloat16, dev, 3)
-    if swiglu:
-        _check("w_gate", w_gate, torch.bfloat16, dev, 3)
+    _check(kernel, "x", x, torch.bfloat16, dev, 2)
+    _check(kernel, "rows_valid", rows_valid, torch.int32, dev, 1,
+           vectors=False)
+    _check(kernel, "w_in", w_in, torch.bfloat16, dev, 3)
+    _check(kernel, "w_out", w_out, torch.bfloat16, dev, 3)
+    if activation == "swiglu":
+        _check(kernel, "w_gate", w_gate, torch.bfloat16, dev, 3)
         if w_gate.shape != w_in.shape:
-            raise ValueError(f"{KERNEL}: w_gate {tuple(w_gate.shape)} != "
+            raise ValueError(f"{kernel}: w_gate {tuple(w_gate.shape)} != "
                              f"w_in {tuple(w_in.shape)}")
     if d_in != d or tuple(w_out.shape) != (E, f, d):
-        raise ValueError(f"{KERNEL}: weights {tuple(w_in.shape)} / "
+        raise ValueError(f"{kernel}: weights {tuple(w_in.shape)} / "
                          f"{tuple(w_out.shape)} do not fit d={d}")
     if d % 64 or f % 64:
-        raise ValueError(f"{KERNEL}: d={d} and f={f} must be multiples of 64")
+        raise ValueError(f"{kernel}: d={d} and f={f} must be multiples of 64")
     if rows_valid.shape[0] != len(exps) or max(exps) >= E or min(exps) < 0:
-        raise ValueError(f"{KERNEL}: rows_valid / seg_experts do not fit "
+        raise ValueError(f"{kernel}: rows_valid / seg_experts do not fit "
                          f"{E} experts")
+
+
+def _ragged_cuda(static, x, rows_valid, w_in, w_gate, w_out):
+    _check_layout(KERNEL, static, x, rows_valid, w_in, w_gate, w_out)
+    offs, exps, activation = static
+    swiglu = activation == "swiglu"
+    dev = x.device
+    (R, d), f = x.shape, w_in.shape[2]
     tiles = tiles_on(offs, exps, str(dev))
     n_tiles = tiles.shape[0]
     h = torch.empty((n_tiles * TILE_ROWS, f), dtype=torch.bfloat16,
@@ -139,11 +169,51 @@ def _ragged_cuda(static, x, rows_valid, w_in, w_gate, w_out):
     return y
 
 
+def _ragged_quant_cuda(static, x, rows_valid, w_in, w_gate, w_out):
+    """K7: quantize (plain torch, as the reference does outside its
+    kernel), resolve one dequant factor per tile, launch."""
+    _check_layout(KERNEL_QUANT, static, x, rows_valid, w_in, w_gate, w_out)
+    offs, exps, activation = static
+    swiglu = activation == "swiglu"
+    dev = x.device
+    (R, d), f = x.shape, w_in.shape[2]
+    xq, sx = quantize_segments(x, offs)
+    q_in, s_in = quantize_experts(w_in)
+    tiles = tiles_on(offs, exps, str(dev))
+    n_tiles = tiles.shape[0]
+    t_seg, t_eid = tiles[:, 2].long(), tiles[:, 1].long()
+    # per-tile dequant factors: segment scale x expert scale, in f32
+    s1 = (sx[t_seg] * s_in[t_eid]).contiguous()
+    q_g = sg = None
+    if swiglu:
+        q_g, s_g = quantize_experts(w_gate)
+        sg = (sx[t_seg] * s_g[t_eid]).contiguous()
+    h = torch.empty((n_tiles * TILE_ROWS, f), dtype=torch.bfloat16,
+                    device=dev)
+    y = torch.empty((R, d), dtype=torch.bfloat16, device=dev)
+    err = _quant_entry()(backend.ptr(xq), d, f, backend.ptr(rows_valid),
+                         backend.ptr(tiles), n_tiles, backend.ptr(s1),
+                         backend.ptr(sg), backend.ptr(q_in),
+                         backend.ptr(q_g), backend.ptr(w_out),
+                         backend.ptr(h), backend.ptr(y), int(swiglu),
+                         backend.stream_ptr(dev))
+    backend.check(KERNEL_QUANT, err)
+    backend.record_launch(KERNEL_QUANT)
+    return y
+
+
+def _ragged_quant_plain(static, x, rows_valid, w_in, w_gate, w_out):
+    offs, exps, activation = static
+    return grouped_ffn_ragged_quant_ref(x, offs, exps, rows_valid, w_in,
+                                        w_gate, w_out, activation=activation)
+
+
 class GroupedFFNRagged(torch.autograd.Function):
-    """``impl(static, x, rows_valid, w_in, w_gate, w_out)`` forward (the
-    CUDA kernel, or the plain version when a test drives the backward on
-    the CPU); backward: autograd through ``grouped_ffn_ragged_ref``.
-    ``static`` is ``(seg_offsets, seg_experts, activation)``."""
+    """``impl(static, x, rows_valid, w_in, w_gate, w_out)`` forward (K3 or
+    K7, or a plain version on the CPU); backward: autograd through the
+    full-precision ``grouped_ffn_ragged_ref`` (for K7 the straight-through
+    rule: round and clip are ignored).  ``static`` is ``(seg_offsets,
+    seg_experts, activation)``."""
 
     @staticmethod
     def forward(ctx, x, rows_valid, w_in, w_gate, w_out, static, impl):
@@ -174,6 +244,25 @@ class GroupedFFNRagged(torch.autograd.Function):
         return gx, None, gwi, gwg, gwo, None, None
 
 
+def _static_args(x, seg_offsets, seg_experts, rows_valid, w_gate,
+                 activation):
+    """``(static, rows_valid)`` of a ragged call: the checked segment
+    layout with the activation it runs (gelu without ``w_gate``), and the
+    valid counts (every row when None)."""
+    offs = tuple(int(o) for o in seg_offsets)
+    exps = tuple(int(e) for e in seg_experts)
+    R = x.shape[0]
+    if not (len(offs) == len(exps) + 1 and offs[0] == 0 and offs[-1] == R):
+        raise ValueError(f"bad segment layout {offs} for {len(exps)} "
+                         f"segments and {R} rows")
+    swiglu = activation == "swiglu" and w_gate is not None
+    if rows_valid is None:
+        rows_valid = torch.as_tensor(
+            [offs[s + 1] - offs[s] for s in range(len(exps))],
+            dtype=torch.int32, device=x.device)
+    return (offs, exps, "swiglu" if swiglu else "gelu"), rows_valid
+
+
 def grouped_ffn_ragged(x, seg_offsets, seg_experts, rows_valid, w_in, w_gate,
                        w_out, *, activation: str = "swiglu", use_pallas=None):
     """Occupancy-aware grouped FFN over a flat [R, d] segment-sorted buffer.
@@ -183,27 +272,38 @@ def grouped_ffn_ragged(x, seg_offsets, seg_experts, rows_valid, w_in, w_gate,
     int32, or None = fully occupied) its realized row count.  Rows at or
     past the count come back as exact zeros.  Returns [R, d] in x's dtype.
     """
-    offs = tuple(int(o) for o in seg_offsets)
-    exps = tuple(int(e) for e in seg_experts)
-    R = x.shape[0]
-    if not (len(offs) == len(exps) + 1 and offs[0] == 0 and offs[-1] == R):
-        raise ValueError(f"bad segment layout {offs} for {len(exps)} "
-                         f"segments and {R} rows")
-    if R == 0:
+    static, rows_valid = _static_args(x, seg_offsets, seg_experts,
+                                      rows_valid, w_gate, activation)
+    if x.shape[0] == 0:
         return x
-    swiglu = activation == "swiglu" and w_gate is not None
-    if rows_valid is None:
-        rows_valid = torch.as_tensor(
-            [offs[s + 1] - offs[s] for s in range(len(exps))],
-            dtype=torch.int32, device=x.device)
+    w_gate = w_gate if static[2] == "swiglu" else None
     if not backend.kernels_active(use_pallas, x.device):
-        return grouped_ffn_ragged_ref(x, offs, exps, rows_valid, w_in,
-                                      w_gate if swiglu else None, w_out,
-                                      activation=activation)
-    static = (offs, exps, "swiglu" if swiglu else "gelu")
-    return GroupedFFNRagged.apply(x, rows_valid, w_in,
-                                  w_gate if swiglu else None, w_out, static,
+        return grouped_ffn_ragged_ref(x, *static[:2], rows_valid, w_in,
+                                      w_gate, w_out, activation=activation)
+    return GroupedFFNRagged.apply(x, rows_valid, w_in, w_gate, w_out, static,
                                   _ragged_cuda)
+
+
+def grouped_ffn_ragged_quant(x, seg_offsets, seg_experts, rows_valid, w_in,
+                             w_gate, w_out, *, activation: str = "swiglu",
+                             use_pallas=None):
+    """The int8 ragged grouped FFN, same surface as
+    :func:`grouped_ffn_ragged`: per-segment int8 activations x per-expert
+    int8 up-projection weights with exact integer sums, dequantized before
+    the activation; the down-projection in the model dtype with f32 sums.
+    The backward is full precision (straight-through).  K7 for CUDA
+    tensors with kernels wanted; the quantized plain version otherwise, so
+    the arithmetic is the same on every device."""
+    static, rows_valid = _static_args(x, seg_offsets, seg_experts,
+                                      rows_valid, w_gate, activation)
+    if x.shape[0] == 0:
+        return x
+    impl = (_ragged_quant_cuda
+            if backend.kernels_active(use_pallas, x.device)
+            else _ragged_quant_plain)
+    return GroupedFFNRagged.apply(
+        x, rows_valid, w_in, w_gate if static[2] == "swiglu" else None,
+        w_out, static, impl)
 
 
 def grouped_ffn_segments(x, seg_offsets, w_in, w_gate, w_out, *,
@@ -213,13 +313,10 @@ def grouped_ffn_segments(x, seg_offsets, w_in, w_gate, w_out, *,
     """Segment-offset grouped FFN over a flat [R, d] row buffer: segment
     ``s`` owns rows ``seg_offsets[s]:seg_offsets[s + 1]`` and multiplies
     expert ``seg_experts[s]`` (default: one segment per expert, in order).
-    Equal fully-occupied per-expert spans with the kernels off reshape
-    onto the dense plain grouped FFN; every other call goes through
-    :func:`grouped_ffn_ragged`."""
-    if quantized:
-        raise NotImplementedError(
-            "quantized expert compute needs the int8 ragged grouped FFN "
-            "kernel (K7, moe_gemm/kernel.py:312), not ported yet")
+    ``quantized`` sends every call to :func:`grouped_ffn_ragged_quant`;
+    otherwise equal fully-occupied per-expert spans with the kernels off
+    reshape onto the dense plain grouped FFN, and every other call goes
+    through :func:`grouped_ffn_ragged`."""
     offs = tuple(int(o) for o in seg_offsets)
     E = w_in.shape[0]
     if seg_experts is None:
@@ -228,6 +325,11 @@ def grouped_ffn_segments(x, seg_offsets, w_in, w_gate, w_out, *,
         seg_experts = tuple(range(E))
     if not (offs[0] == 0 and offs[-1] == x.shape[0]):
         raise ValueError(f"bad segment layout {offs} for {x.shape[0]} rows")
+    if quantized:
+        return grouped_ffn_ragged_quant(x, offs, seg_experts, rows_valid,
+                                        w_in, w_gate, w_out,
+                                        activation=activation,
+                                        use_pallas=use_pallas)
     widths = [offs[s + 1] - offs[s] for s in range(len(seg_experts))]
     d = x.shape[-1]
     dense = (rows_valid is None and len(set(widths)) == 1

@@ -11,7 +11,8 @@ gives that device and the experts ``r * E_l : (r + 1) * E_l``.
 The caller names the collective backend: ``"gloo"`` for ranks on the CPU
 or sharing one card, ``"nccl"`` for one card a rank.  Nothing switches
 backends on its own.  Under gloo every collective stages CUDA tensors
-through pinned host buffers, so ranks may hold CUDA tensors.
+through pinned host buffers, so ranks may hold CUDA tensors.  One-byte
+float payloads (the fp8 wire) travel as their ``uint8`` bytes.
 """
 
 from __future__ import annotations
@@ -80,6 +81,8 @@ class EPWorld:
             raise ValueError(f"all_to_all over {axis!r} ({n} ranks) needs "
                              f"dim {dim} of size {n}, got {tuple(x.shape)}")
         src = x.movedim(dim, 0).contiguous()
+        if src.dtype.is_floating_point and src.dtype.itemsize == 1:
+            src = src.view(torch.uint8)      # gloo has no float8 types
         staged = self._staged(src)
         if staged:
             src = self._to_host(src)
@@ -87,7 +90,7 @@ class EPWorld:
         dist.all_to_all_single(out, src, group=self.groups[axis])
         if staged:
             out = out.to(x.device)
-        return out.movedim(0, dim)
+        return out.view(x.dtype).movedim(0, dim)
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """Sum of ``t`` over every rank of the world (a new tensor)."""

@@ -15,10 +15,13 @@ from __future__ import annotations
 
 import math
 
+import torch
+
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import capacity, gating, topology
+from repro_torch.core import capacity, comm_model, gating, topology
 from repro_torch.core.dispatch import base as moe_base
 from repro_torch.core.dispatch import engine as dispatch_lib
+from repro_torch.core.dispatch import wire
 from repro_torch.models import transformer
 
 
@@ -81,6 +84,21 @@ def make_gate_cfg(arch: ArchConfig, plan, ep, aux_mode: str,
         penalty_by_level=penalties)
 
 
+def resolve_num_chunks(arch: ArchConfig, plan, num_chunks: int = 0, *,
+                       wire_codec=None) -> int:
+    """Chunk count of the pipelined dispatch; 0 picks it with the overlap
+    model (``comm_model``, the reference's link and peak constants).
+    ``wire_codec`` rescales the exchange bytes to the wire encoding, so a
+    codec swap can change the verdict."""
+    if num_chunks > 0:
+        return int(num_chunks)
+    terms = comm_model.moe_overlap_terms(
+        plan, d_model=arch.d_model, d_ff=arch.moe.d_ff_expert,
+        bytes_per_el=2 if arch.torch_dtype == torch.bfloat16 else 4,
+        activation=arch.activation, codec=wire_codec)
+    return comm_model.choose_num_chunks(**terms)
+
+
 def build_ctx(arch: ArchConfig, mesh=None, *, seq_len: int = 0,
               global_batch: int = 0, aux_mode: str = "ta",
               remat: bool = False, decode_replicated: bool = False,
@@ -90,9 +108,11 @@ def build_ctx(arch: ArchConfig, mesh=None, *, seq_len: int = 0,
               use_pallas=None, wire_codec="", resilience=None,
               device="cuda") -> transformer.ModelCtx:
     """The model context.  ``seq_len`` / ``global_batch`` size the a2a
-    capacity plan (tokens per rank = global tokens / world size);
-    ``a2a_num_chunks`` would size the pipelined schedule, which is not
-    ported yet.  ``device`` is where parameters and caches live."""
+    capacity plan (tokens per rank = global tokens / world size).  When
+    any layer takes ``a2a_pipelined``, ``a2a_num_chunks`` (0: the overlap
+    model's pick) sets the chunk count and the plan's capacities round up
+    to a multiple of it.  ``device`` is where parameters and caches
+    live."""
     if aux_mode not in ("lb", "ta", "hir", "none"):
         raise ValueError(f"unknown aux_mode {aux_mode!r}")
     if remat:
@@ -102,11 +122,12 @@ def build_ctx(arch: ArchConfig, mesh=None, *, seq_len: int = 0,
         raise NotImplementedError("use_moe_kernel needs the dense grouped "
                                   "FFN kernel (K6), not ported yet")
     if measured_comm:
-        raise NotImplementedError("measured_comm needs core/comm_model.py, "
+        raise NotImplementedError("measured_comm needs the link "
+                                  "micro-benchmark (comm_model.measure_link), "
                                   "not ported yet")
     if resilience is not None:
         raise NotImplementedError("the resilient runtime is not ported yet")
-    codec = moe_base.resolve_codec(wire_codec)
+    codec = wire.get_codec(wire_codec)
     if arch.is_moe and arch.moe.dispatch_override:
         merged = dict(arch.moe.dispatch_override)
         merged.update(dict(dispatch_override))
@@ -120,11 +141,18 @@ def build_ctx(arch: ArchConfig, mesh=None, *, seq_len: int = 0,
     plan = make_plan(arch, mesh, seq_len, global_batch, dispatch_mode)
     ep = make_ep_spec(arch, mesh)
     gate_cfg = make_gate_cfg(arch, plan, ep, aux_mode)
+    num_chunks = 1
+    pipelined = (dispatch == "a2a_pipelined"
+                 or any(n == "a2a_pipelined" for _, n in dispatch_override))
+    if plan is not None and pipelined:
+        num_chunks = resolve_num_chunks(arch, plan, a2a_num_chunks,
+                                        wire_codec=codec)
+        plan = capacity.align_to_chunks(plan, num_chunks)
     return transformer.ModelCtx(
         arch=arch, mesh=mesh, ep=ep, plan=plan, gate_cfg=gate_cfg,
         use_flash=use_flash,
         decode_replicated=decode_replicated, dispatch=dispatch,
-        dispatch_override=dispatch_override,
+        a2a_num_chunks=num_chunks, dispatch_override=dispatch_override,
         use_pallas=use_pallas, wire_codec=codec, device=str(device))
 
 

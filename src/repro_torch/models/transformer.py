@@ -45,6 +45,7 @@ class ModelCtx:
     use_flash: bool = False
     decode_replicated: bool = False
     dispatch: str = "a2a"             # training-time default path
+    a2a_num_chunks: int = 1           # pipelined chunks, set by build_ctx
     dispatch_override: tuple = ()
     # kernel switch of the hot path: None = auto (CUDA kernels for CUDA
     # tensors, plain versions on the CPU); True/False force it
@@ -164,7 +165,8 @@ def _moe_block(p, x, ctx: ModelCtx, decode: bool, layer_idx=None):
     name = ctx.dispatch_for_layer(layer_idx, decode)
     eng = dispatch_lib.make_engine(
         name, cfg=ctx.moe_cfg, ep=ctx.ep, gate_cfg=ctx.gate_cfg,
-        plan=ctx.plan, tokens_replicated=ctx.decode_replicated and decode,
+        plan=ctx.plan, num_chunks=max(1, ctx.a2a_num_chunks),
+        tokens_replicated=ctx.decode_replicated and decode,
         use_pallas=ctx.use_pallas, world=ctx.mesh)
     y, metrics = eng(p, x.reshape(-1, d))
     if ctx.mesh is not None and ctx.mesh.size > 1:

@@ -1,5 +1,5 @@
-"""The port stands alone: no file of ``src/repro_torch`` (nor
-``chip_smoke.py``) imports ``jax`` or the JAX package ``repro``; every
+"""The port stands alone: no file of ``src/repro_torch`` (nor the
+``chip_*.py`` scripts) imports ``jax`` or the JAX package ``repro``; every
 port module imports with ``jax`` blocked; ``chip_smoke.py`` fails without
 a card instead of falling back to the CPU; and the kernel policy sends
 CPU tensors to the plain versions.
@@ -23,7 +23,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + sorted(REPO.glob("chip_*.py"))
 
 
 def imported_roots(path):

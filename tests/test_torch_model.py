@@ -24,6 +24,7 @@ torch = pytest.importorskip("torch")
 from repro import sharding
 from repro.configs.base import get_config as jax_get_config
 from repro.core import gating as jgating
+from repro.core.dispatch import engine as jdispatch_lib
 from repro.models import decode as jdecode
 from repro.models import layers as jlayers
 from repro.models import model as jmodel
@@ -95,6 +96,14 @@ def test_configs_match_reference():
         (jr.num_layers, jr.d_model, jr.moe.num_experts, jr.dtype)
     # layer_plan ignores moe_period in both packages: every layer is MoE
     assert [s.ffn for s in transformer.layer_list(arch)] == ["moe"] * 12
+    # every path of the reference registry is ported; others are refused
+    assert dispatch_lib.available() == jdispatch_lib.available()
+    ctx = model.build_ctx(r, device="cpu")
+    with pytest.raises(ValueError, match="registered paths"):
+        dispatch_lib.make_engine("nope", cfg=ctx.moe_cfg, ep=ctx.ep,
+                                 gate_cfg=ctx.gate_cfg)
+    with pytest.raises(ValueError, match="registered paths"):
+        model.build_ctx(r, dispatch="nope", device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -168,16 +177,6 @@ def test_gather_path_parity(mesh11, weights, aux_mode, fused):
     assert set(m) == set(dispatch_lib.METRIC_KEYS) == set(jm)
     for k in dispatch_lib.METRIC_KEYS:
         close(m[k], jm[k])
-
-
-def test_gather_path_rejects_unported_paths():
-    ctx = model.build_ctx(get_config(ARCH_ID).reduced(), device="cpu")
-    for name in dispatch_lib.UNPORTED_PATHS:
-        with pytest.raises(NotImplementedError, match=name):
-            dispatch_lib.make_engine(name, cfg=ctx.moe_cfg, ep=ctx.ep,
-                                     gate_cfg=ctx.gate_cfg)
-    with pytest.raises(ValueError):
-        model.build_ctx(ctx.arch, dispatch="nope", device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,8 @@ from repro.kernels.moe_permute import ops as jpermute_ops
 from repro_torch.core import capacity, gating
 from repro_torch.core.dispatch import base, routing, transport
 from repro_torch.kernels.moe_gemm import ops as gemm_ops
-from repro_torch.kernels.moe_gemm.ref import grouped_ffn_ragged_ref
+from repro_torch.kernels.moe_gemm.ref import (grouped_ffn_ragged_quant_ref,
+                                              grouped_ffn_ragged_ref)
 from repro_torch.kernels.moe_permute import ops as permute_ops
 from repro_torch.kernels.moe_permute.ref import permute_ref, unpermute_ref
 
@@ -284,8 +285,12 @@ def test_segments_entry_and_unported_branches():
     ragged = gemm_ops.grouped_ffn_segments(x, offs, wi, None, wo,
                                            activation="gelu", use_pallas=True)
     close(dense, ragged)
-    with pytest.raises(NotImplementedError, match="K7"):
-        gemm_ops.grouped_ffn_segments(x, offs, wi, None, wo, quantized=True)
+    # quantized=True takes the int8 entry (K7's plain version on the CPU)
+    quant = gemm_ops.grouped_ffn_segments(x, offs, wi, None, wo,
+                                          activation="gelu", quantized=True)
+    equal(quant, grouped_ffn_ragged_quant_ref(x, offs, tuple(range(E)), None,
+                                              wi, None, wo,
+                                              activation="gelu"))
     with pytest.raises(NotImplementedError, match="K6"):
         base.MoEConfig(d_model=d, d_ff=f, num_experts=E, top_k=1,
                        use_kernel=True)

@@ -183,9 +183,9 @@ def test_a2a_engine_matches_reference_and_oracle(mesh11, weights, aux_mode,
 def test_unported_paths_and_options_raise():
     ctx = model.build_ctx(get_config(ARCH_ID).reduced(), seq_len=SEQ,
                           global_batch=BATCH, device="cpu")
-    with pytest.raises(NotImplementedError, match="comm_model"):
-        dispatch_lib.make_engine("a2a_pipelined", cfg=ctx.moe_cfg, ep=ctx.ep,
-                                 gate_cfg=ctx.gate_cfg, plan=ctx.plan)
+    with pytest.raises(NotImplementedError, match="measure_link"):
+        model.build_ctx(ctx.arch, dispatch="a2a_pipelined",
+                        measured_comm=True, device="cpu")
     with pytest.raises(NotImplementedError, match="fused_xent"):
         batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
                  "labels": torch.zeros((1, 4), dtype=torch.int32)}
