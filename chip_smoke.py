@@ -23,12 +23,19 @@ Phases, each printing JSON lines:
    (1024 tokens, caps (120, 16), 16 experts a rank), and the int8 ragged
    grouped FFN (K7) on rank (0, 0)'s chunk 0 of the pipelined int8 plan
    (8 chunks of 15 + 2 slots, int8-encoded payload, counts through the
-   chains), with kernel, plain, bound and library times (K1
-   ``index_select``, K2 ``embedding_bag``, K5
-   ``scaled_dot_product_attention``);
-4. backward checks — each K1-K4 and K7 ``autograd.Function`` on the card
-   against autograd of its plain version (K7: of the full-precision plain
-   version, its straight-through rule) at a small shape;
+   chains), the dense grouped FFN (K6) at the einsum phase's [64, 128,
+   1024] buffer (rows past each expert's count of a top-2 route of
+   random tokens zero; plus swiglu and C = 100 edge shapes), and decode attention (K8)
+   at B = 32 requests against a 32768-row cache (16 heads of 64, NaN in
+   every row past a request's length; plus GQA, window, L = 1000 and
+   length-0 edge cases), with kernel, plain, bound and library times (K1
+   ``index_select``, K2 ``embedding_bag``, K5 and K8
+   ``scaled_dot_product_attention``; K6 has no one-call library
+   counterpart, and the cuBLAS chain bmm -> gelu -> bmm is timed beside
+   it as ``bmm_chain_ms``);
+4. backward checks — each K1-K4, K6 and K7 ``autograd.Function`` on the
+   card against autograd of its plain version (K7: of the full-precision
+   plain version, its straight-through rule) at a small shape;
 5. serve   — gpt3_medium_moe at full width (12 layers, d=1024, 64
    experts top-2, vocab 50304, bf16, random weights from a seed) through
    ``ServingEngine.run``: 8 requests, 8 slots, packs of 4, prompt bucket
@@ -55,10 +62,21 @@ Phases, each printing JSON lines:
    times each (12 layers x 8 chunks x 2 steps) and K3 and K4 never, and
    the first step's loss must agree with the plain path's within
    LOSS_RTOL_INT8;
-10. kernels — one ``{"kernels": [...]}`` line for K1-K5 and K7, launches
+10. train_einsum_k6 — in a child process, full-width gpt3_medium_moe on
+   one rank through the paper's einsum baseline (``dispatch="einsum"``,
+   ``aux_mode="lb"``, ``build_ctx(use_moe_kernel=True)``, capacity 128)
+   with ``trainer.make_train_step``: seq 512, batch 4, AdamW, 3 steps.  K6
+   must launch once per layer and forward (36 times), and the first
+   step's loss must agree with the plain path's (``REPRO_TORCH_KERNELS=0``:
+   ``grouped_ffn_ref``) on the same weights and batch;
+11. kernels — one ``{"kernels": [...]}`` line for K1-K8, launches
    summed over the main paths (serve, train_1rank, every rank of
-   train_2x2 and train_2x2_pipelined).
+   train_2x2 and train_2x2_pipelined, train_einsum_k6).  K8 lies on no
+   path (no model calls it, as in the reference): its row gives the
+   launches of its checks as ``check_launches``.
 
+Every earlier phase must show no launch of K6 and K8, and no training
+phase's plain run may launch any kernel.
 Any failed phase raises (exit code non-zero).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -101,6 +119,26 @@ K3_ATOL, K3_RTOL = 3e-2, 2e-2
 # same f32 factors; the rest is K3's (bf16 hidden and output, f32 sums of
 # the down-projection in another order)
 K7_ATOL, K7_RTOL = K3_ATOL, K3_RTOL
+# K6: K3's arithmetic on equal, full segments (bf16 hidden and output of f32
+# sums taken in another order)
+K6_ATOL, K6_RTOL = K3_ATOL, K3_RTOL
+# K8: f32 inside on both sides, then one bf16 rounding of the output.  The
+# split combine sums in another order than the plain softmax, which leaves
+# the two f32 results a few f32 ulps apart; the rounding then puts them at
+# most one bf16 ulp apart, at most 2^-7 of the value, which RTOL covers.
+# ATOL is kept small because the outputs are: a request of length n averages n
+# unit-variance v rows, so |out| ~ n^-1/2, about 0.013 at the main shape's
+# median length.  Sound H100 runs read at most 2.4e-4 max abs error, all
+# of it within RTOL (4.1e-9 beyond it).  A planted fault that drops one
+# 512-row split from each request longer than 24k rows needed an atol of
+# 5.3e-3 on an H100: caught here, not by K5's 1e-2 + 1e-2*|plain|.
+K8_ATOL, K8_RTOL = 1e-4, 1e-2
+# the library call SDPA is only the K8 row's yardstick: its check against
+# the plain version keeps K5's tolerance
+K8_LIB_ATOL, K8_LIB_RTOL = K5_ATOL, K5_RTOL
+# K8's main check: the reference's decode_32k cache length, gpt3_medium_moe's
+# heads, 32 requests (a 4.3 GB bf16 cache)
+DECODE_B, DECODE_L = 32, 32768
 # backward checks: a Function on the card against autograd of its plain
 # version, |got - want| <= ATOL + RTOL * max|want| per tensor.  f32 (K1,
 # K2): scatter-adds by atomics in another order.  bf16 inputs (K3, K4):
@@ -141,6 +179,9 @@ PIPELINED_CHUNKS = 8      # the overlap model's pick for the 2x2 plan
 # times as far from it as the plain bf16 path (both differ from float32 by
 # bf16 rounding, which random-weight layers amplify), or E2E_FLOOR
 E2E_RATIO, E2E_FLOOR = 1.5, 1e-2
+# kernels no earlier phase may launch: K6 runs only on the einsum phase, K8
+# on no path
+OFF_PATH = ("moe_gemm.grouped_ffn", "decode_attn.decode_attention")
 
 
 def emit(obj) -> None:
@@ -174,6 +215,12 @@ def close(torch, got, want, atol, rtol):
     ok = bool(torch.isfinite(got).all()) and bool(
         (err <= atol + rtol * want.abs()).all())
     return ok, float(err.max())
+
+
+def atol_needed(torch, got, want, rtol) -> float:
+    """The least atol with which ``close(got, want, atol, rtol)`` holds."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() - rtol * want.abs()).max().clamp(min=0))
 
 
 def bound_ms(nbytes: float, flops: float, int8_ops: float = 0.0):
@@ -629,10 +676,165 @@ def check_k7(torch, case):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+def einsum_k6_case(torch, params, arch, gen):
+    """K6's input at the einsum phase's shape: the [64, 128, 1024] bf16
+    capacity buffer of 2048 random tokens routed top-2 through layer 0's
+    gate (capacity 128 by the capacity-factor rule), with each expert's
+    rows past its count (capped at the capacity) zero, as the one-hot
+    dispatch leaves them; layer 0's w_in and w_out.  The occupancy is
+    these random tokens' (about half the rows), not the phase's, whose
+    batches drop more picks; K6 computes every row of the buffer either
+    way, so its time does not depend on it."""
+    from repro_torch.core import gating
+    from repro_torch.models import model as model_lib
+    ctx = model_lib.build_ctx(arch, None, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH_1, aux_mode="lb",
+                              dispatch="einsum", use_moe_kernel=True,
+                              device="cuda")
+    moe = ctx.moe_cfg
+    T = TRAIN_SEQ * TRAIN_BATCH_1
+    E, d = moe.num_experts, moe.d_model
+    C = int(T * moe.top_k * moe.capacity_factor / E)
+    p = params["layers"][0]["ffn"]
+    tokens = torch.randn((T, d), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    gate_out = gating.gate_forward(p["gate"], tokens, ctx.gate_cfg)
+    counts = torch.bincount(gate_out["topk_idx"].reshape(-1).long(),
+                            minlength=E).clamp(max=C)
+    x = torch.randn((E, C, d), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    x[torch.arange(C, device="cuda")[None, :] >= counts[:, None]] = 0
+    return x, p["w_in"], p["w_out"], int(counts.sum())
+
+
+def check_k6(torch, x, w_in, w_gate, w_out, label: str, filled=None,
+             timed=True):
+    """K6 (``grouped_ffn``, which launches the kernel for CUDA tensors)
+    against its plain version; when timed, with kernel, plain and bound
+    times and the cuBLAS chain bmm -> gelu -> bmm on the same inputs."""
+    from repro_torch.kernels.moe_gemm import ops as g_ops
+    from repro_torch.kernels.moe_gemm.ref import grouped_ffn_ref
+    F = torch.nn.functional
+    act = "gelu" if w_gate is None else "swiglu"
+    E, C, d = x.shape
+    f = w_in.shape[2]
+
+    def kernel():
+        return g_ops.grouped_ffn(x, w_in, w_gate, w_out, activation=act)
+
+    def plain():
+        return grouped_ffn_ref(x, w_in, w_gate, w_out, activation=act)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    ok, err = close(torch, got, want, K6_ATOL, K6_RTOL)
+    if not ok:
+        raise SystemExit(f"K6 {label}: kernel disagrees with plain (max abs "
+                         f"err {err})")
+    out = {"layout": label, "shape": [E, C, d], "f": f, "activation": act,
+           "max_abs_err": err, "atol": K6_ATOL, "rtol": K6_RTOL}
+    if not timed:
+        return out
+
+    def bmm_chain():
+        return torch.bmm(F.gelu(torch.bmm(x, w_in), approximate="tanh"),
+                         w_out)
+
+    _, chain_err = close(torch, bmm_chain(), want, K6_ATOL, K6_RTOL)
+    filled = E * C if filled is None else filled
+    n_w = 3 if w_gate is not None else 2
+    nbytes = 2 * E * C * d * 2 + n_w * E * d * f * 2
+    b_ms, b_by = bound_ms(nbytes, 2.0 * filled * n_w * d * f)
+    out.update(filled_rows=filled, ms=time_ms(torch, kernel, 20),
+               plain_ms=time_ms(torch, plain, 5), library_ms=None,
+               bmm_chain_ms=time_ms(torch, bmm_chain, 20),
+               bmm_chain_max_abs_err=chain_err, bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
+def check_k8(torch, gen, B: int, L: int, H: int, K: int, lengths=None,
+             window: int = 0, timed=False):
+    """K8 (``decode_attention``) against its plain version on a bf16 cache
+    with NaN in every k/v row past its request's length, compared on the
+    requests with a valid row; the requests with none must come out as
+    exact zeros.  ``lengths`` None draws them in [1, L] with one at L and
+    one at 1.  When timed, with plain, bound and SDPA times (SDPA on a copy
+    of the cache with the NaN rows zeroed, checked first)."""
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.decode_attn import ops as d_ops
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    F = torch.nn.functional
+    hd = d_ops.HEAD_DIM
+    if lengths is None:
+        lengths = torch.randint(1, L + 1, (B,), generator=gen, device="cuda")
+        lengths[0], lengths[1] = L, 1
+    lens = torch.as_tensor(lengths, device="cuda").to(torch.int32)
+    q = torch.randn((B, H, hd), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((B, L, K, hd), generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    pos = torch.arange(L, device="cuda")
+    past = pos[None, :] >= lens[:, None].long()              # [B, L]
+    k[past], v[past] = float("nan"), float("nan")
+    launches0 = backend.LAUNCHES[d_ops.KERNEL]
+
+    def kernel():
+        return d_ops.decode_attention(q, k, v, lens, sliding_window=window)
+
+    def plain():
+        return decode_attention_ref(q, k, v, lens, sliding_window=window)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    live = lens > 0
+    ok, err = close(torch, got[live], want[live], K8_ATOL, K8_RTOL)
+    need = atol_needed(torch, got[live], want[live], K8_RTOL)
+    zeros_exact = bool((got[~live] == 0).all())
+    if not ok or not zeros_exact:
+        raise SystemExit(f"K8 B={B} L={L} H={H} K={K} window={window}: "
+                         f"kernel disagrees with plain (max abs err {err}, "
+                         f"atol needed {need} > {K8_ATOL}, length-0 "
+                         f"requests zero: {zeros_exact})")
+    valid = ~past
+    if window:
+        valid &= pos[None, :] >= lens[:, None].long() - window
+    rows = int(valid.sum())
+    out = {"B": B, "L": L, "H": H, "K": K, "window": window,
+           "zero_length_requests": int((~live).sum()), "valid_rows": rows,
+           "max_abs_err": err, "atol_needed": need, "atol": K8_ATOL,
+           "rtol": K8_RTOL}
+    if timed:
+        keep = valid[:, :, None, None]
+        kc, vc = (torch.where(keep, t, 0).transpose(1, 2) for t in (k, v))
+        mask = valid[:, None, None, :]
+
+        def library():
+            return F.scaled_dot_product_attention(q[:, :, None], kc, vc,
+                                                  attn_mask=mask)[:, :, 0]
+
+        lib_ok, lib_err = close(torch, library()[live], want[live],
+                                K8_LIB_ATOL, K8_LIB_RTOL)
+        if not lib_ok:
+            raise SystemExit(f"K8: the library call scaled_dot_product_"
+                             f"attention disagrees with plain (max abs err "
+                             f"{lib_err})")
+        # the valid rows' k and v, q, the lengths and the output once; two
+        # products of hd a valid row and query head
+        nbytes = rows * K * hd * 2 * 2 + 2 * B * H * hd * 2 + B * 4
+        b_ms, b_by = bound_ms(nbytes, 4.0 * rows * (H // K) * K * hd)
+        out.update(ms=time_ms(torch, kernel, 20),
+                   plain_ms=time_ms(torch, plain, 3),
+                   library_ms=time_ms(torch, library, 10),
+                   library_max_abs_err=lib_err, bound_ms=b_ms, bound_by=b_by)
+        del kc, vc
+    out["launches"] = backend.LAUNCHES[d_ops.KERNEL] - launches0
+    return out
+
+
 def backward_checks(torch, gen):
     """Each kernel's ``autograd.Function`` on the card against autograd of
     its plain version, at a small shape: K1 and K2 in float32 (their
-    backwards are written by hand), K3, K4 and K7 on bf16 inputs (their
+    backwards are written by hand), K3, K4, K6 and K7 on bf16 inputs (their
     kernels take bf16 only; their backwards are autograd through the plain
     version).  K7's gradients are held against autograd of the
     full-precision plain version (the straight-through rule) and its
@@ -642,7 +844,8 @@ def backward_checks(torch, gen):
     from repro_torch.kernels.moe_fused.ref import local_moe_ref
     from repro_torch.kernels.moe_gemm import ops as g_ops
     from repro_torch.kernels.moe_gemm.ref import (grouped_ffn_ragged_quant_ref,
-                                                  grouped_ffn_ragged_ref)
+                                                  grouped_ffn_ragged_ref,
+                                                  grouped_ffn_ref)
     from repro_torch.kernels.moe_permute import ops as p_ops
     from repro_torch.kernels.moe_permute.ref import (permute_ref,
                                                      unpermute_ref)
@@ -724,6 +927,15 @@ def backward_checks(torch, gen):
         BWD_BF16_RTOL,
         plain_out=lambda x, wi, wo: grouped_ffn_ragged_quant_ref(
             x, segs, exps, valid, wi, None, wo, activation="gelu"))
+    # K6 on an [E, 40, d] buffer: one 64-row tile an expert, masked at 40
+    xg = randn(E, 40, d, dtype=torch.bfloat16)
+    out["K6"] = compare(
+        "K6", lambda x, wi, wo: g_ops.grouped_ffn(x, wi, None, wo,
+                                                  activation="gelu"),
+        lambda x, wi, wo: grouped_ffn_ref(x, wi, None, wo,
+                                          activation="gelu"),
+        [xg] + w3, randn(E, 40, d, dtype=torch.bfloat16), BWD_BF16_ATOL,
+        BWD_BF16_RTOL)
     # K4 at the a2a layout's occupancy: each expert's segment holds a
     # random number of realized rows with a gate weight each, then
     # sentinel slots (token T, weight 0)
@@ -749,19 +961,25 @@ def backward_checks(torch, gen):
 
 def train_phase(world, out_path: str, global_batch: int,
                 dispatch: str = "a2a", wire_codec: str = "",
-                steps: int = TRAIN_STEPS) -> None:
-    """Full-width gpt3_medium_moe through ``trainer.train`` on this rank
-    (``world`` None: one rank), ``aux_mode="ta"``, AdamW, ``steps``
-    steps, the given dispatch path and wire codec (the pipelined path's
-    chunk count from the overlap model); writes this rank's report to
-    ``out_path``.
+                steps: int = TRAIN_STEPS, aux_mode: str = "ta",
+                use_moe_kernel: bool = False) -> None:
+    """Full-width gpt3_medium_moe on this rank (``world`` None: one rank),
+    AdamW, ``steps`` steps, the given dispatch path, wire codec and
+    auxiliary loss (the pipelined path's chunk count from the overlap
+    model); writes this rank's report to ``out_path``.  The run goes
+    through ``trainer.train``, or, with ``use_moe_kernel`` (the dense
+    grouped FFN kernel, which ``trainer.train`` does not take, as the
+    reference's does not), through ``build_ctx(use_moe_kernel=True)`` and
+    ``trainer.make_train_step`` on the batches ``trainer.train`` builds.
 
-    Before the run, the plain path (kernels off) computes the first step's
-    loss from the same initial parameters and batch.  The launch counters
-    are set to 0 just before ``train`` and read just after.  One more step
-    on the trained state runs under torch.profiler (not counted)."""
+    Before the run, the plain path computes the first step's loss from the
+    same initial parameters and batch, with the kernels switched off by
+    ``use_pallas=False`` and by the backend's ``REPRO_TORCH_KERNELS=0``
+    (``grouped_ffn`` reads only the latter, as the reference's entry
+    ignores ``use_pallas``).  The launch counters are set to 0 just before
+    the run and read just after.  One more step on the trained state runs
+    under torch.profiler (not counted)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import RunConfig, get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch
     from repro_torch.kernels import backend
@@ -773,7 +991,7 @@ def train_phase(world, out_path: str, global_batch: int,
     torch.backends.cudnn.allow_tf32 = False
     arch = get_config(ARCH_ID)
     run = RunConfig(seq_len=TRAIN_SEQ, global_batch=global_batch,
-                    warmup_steps=1, aux_mode="ta", dispatch=dispatch,
+                    warmup_steps=1, aux_mode=aux_mode, dispatch=dispatch,
                     a2a_num_chunks=0, wire_codec=wire_codec, seed=0)
     rank = 0 if world is None else world.rank
 
@@ -784,7 +1002,9 @@ def train_phase(world, out_path: str, global_batch: int,
                                    dispatch=run.dispatch,
                                    a2a_num_chunks=run.a2a_num_chunks,
                                    wire_codec=run.wire_codec,
-                                   use_pallas=use_pallas, device="cuda")
+                                   use_pallas=use_pallas,
+                                   use_moe_kernel=use_moe_kernel,
+                                   device="cuda")
 
     plain_ctx = ctx_for(False)
     params = model_lib.init_params(
@@ -792,49 +1012,94 @@ def train_phase(world, out_path: str, global_batch: int,
     data = SyntheticLM(DataConfig(vocab_size=arch.vocab_size,
                                   seq_len=TRAIN_SEQ,
                                   global_batch=global_batch, seed=run.seed))
+    backend.reset_launches()
+    os.environ[backend.ENV_VAR] = "0"
     with torch.no_grad():
         _, m = transformer.loss_fn(params, shard_batch(data.batch(0), world,
                                                        "cuda"),
                                    plain_ctx, aux_weight=run.aux_weight)
         plain_loss = float(trainer.world_mean_metrics(m, world)["loss"])
+    del os.environ[backend.ENV_VAR]
+    plain_launches = dict(backend.LAUNCHES)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     backend.reset_launches()
-    res = trainer.train(arch, run, world, steps=steps, log_every=1,
-                        verbose=rank == 0, params=params, device="cuda")
+    kernel_ctx = ctx_for(None)
+    if use_moe_kernel:
+        res = steps_through(torch, kernel_ctx, run, params, data, steps)
+    else:
+        res = trainer.train(arch, run, world, steps=steps, log_every=1,
+                            verbose=rank == 0, params=params, device="cuda")
     launches = dict(backend.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    step = trainer.make_train_step(ctx_for(None), run)
-    batch = shard_batch(data.batch(steps), world, "cuda")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(res.params, res.opt_state, batch)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    step = trainer.make_train_step(kernel_ctx, run)
+    profiled = profile_train_step(torch, step, res.params, res.opt_state,
+                                  shard_batch(data.batch(steps), world,
+                                              "cuda"))
+    hist = res.metrics_history
     report = {
         "rank": rank, "coords": None if world is None else list(world.coords),
         "a2a_num_chunks": plain_ctx.a2a_num_chunks,
         "caps": list(plain_ctx.plan.caps), "losses": res.losses,
-        "nll": [h["nll"] for h in res.metrics_history],
-        "aux": [h["aux"] for h in res.metrics_history],
-        "frac_by_level": [h["frac_by_level"] for h in res.metrics_history],
-        "grad_norm": [h["grad_norm"] for h in res.metrics_history],
-        "plain_first_loss": plain_loss,
+        "nll": [h["nll"] for h in hist], "aux": [h["aux"] for h in hist],
+        "frac_by_level": [h.get("frac_by_level") for h in hist],
+        "dropped": [h.get("dropped") for h in hist],
+        "grad_norm": [h["grad_norm"] for h in hist],
+        "plain_first_loss": plain_loss, "plain_launches": plain_launches,
         "step_wall_s": res.step_seconds, "launches": launches,
-        "max_memory_allocated_gb": peak_gb,
-        "profiled_step": {
-            "wall_ms": prof_wall_ms, "device_ms": dev_ms,
-            "device_busy_share": dev_ms / prof_wall_ms,
-            "kernel_launches": sum(e.count for e in events),
-            "top": [{"name": e.key[:60], "count": e.count,
-                     "ms": e.self_device_time_total / 1e3} for e in top]}}
+        "max_memory_allocated_gb": peak_gb, "profiled_step": profiled}
     with open(out_path, "w") as fh:
         json.dump(report, fh)
+
+
+def steps_through(torch, ctx, run, params, data, steps: int):
+    """``trainer.train``'s loop on one rank from a context it does not
+    build: the same optimizer state, batches, step timing and metrics."""
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.optim import adamw
+    from repro_torch.training import trainer
+    for p in adamw.tree_leaves(params):
+        p.requires_grad_(True)
+    opt_state = adamw.init_state(params)
+    step = trainer.make_train_step(ctx, run)
+    losses, history, step_s = [], [], []
+    for i in range(steps):
+        batch = shard_batch(data.batch(i), None, "cuda")
+        ts = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - ts)
+        h = {k: float(v) if v.dim() == 0 else [float(x) for x in v]
+             for k, v in metrics.items()}
+        losses.append(h["loss"])
+        history.append(h)
+        print(f"step {i:5d} loss {h['loss']:.4f} nll {h['nll']:.4f} aux "
+              f"{h['aux']:.4f} dropped {h['dropped']:.4f}", flush=True)
+    return trainer.TrainResult(losses=losses, metrics_history=history,
+                               steps_per_sec=steps / sum(step_s),
+                               params=params, opt_state=opt_state,
+                               step_seconds=step_s)
+
+
+def profile_train_step(torch, step, params, opt_state, batch) -> dict:
+    """One more training step under torch.profiler (not counted): wall
+    and device time, busy share, launches and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    return {"wall_ms": wall_ms, "device_ms": dev_ms,
+            "device_busy_share": dev_ms / wall_ms,
+            "kernel_launches": sum(e.count for e in events),
+            "top": [{"name": e.key[:60], "count": e.count,
+                     "ms": e.self_device_time_total / 1e3} for e in top]}
 
 
 def train_rank(world, out_dir: str, global_batch: int, dispatch: str = "a2a",
@@ -845,9 +1110,13 @@ def train_rank(world, out_dir: str, global_batch: int, dispatch: str = "a2a",
 
 def check_training(reports, want: dict, label: str,
                    rtol: float = LOSS_RTOL, steps: int = TRAIN_STEPS) -> dict:
-    """Launch counts, finite losses, agreement of the ranks' world means,
-    and the kernel path's first-step loss against the plain path's."""
+    """Launch counts (none on the plain path), finite losses, agreement of
+    the ranks' world means, and the kernel path's first-step loss against
+    the plain path's."""
     for r in reports:
+        if any(r["plain_launches"].values()):
+            raise SystemExit(f"{label} rank {r['rank']}: the plain path "
+                             f"launched {r['plain_launches']}")
         for name, n in want.items():
             if r["launches"][name] != n:
                 raise SystemExit(f"{label} rank {r['rank']}: {name} "
@@ -1075,8 +1344,26 @@ def main() -> int:
         k7 = check_k7(torch, pipelined_case(torch, params, arch, gen))
         k4["train_1rank"] = check_k4(
             torch, *train1_k4_case(torch, params, arch, gen), "train_1rank")
+        x6, w_in6, w_out6, filled = einsum_k6_case(torch, params, arch, gen)
+        k6 = check_k6(torch, x6, w_in6, None, w_out6, "einsum", filled)
+        w_gate6 = (torch.randn(w_in6.shape, generator=gen, device="cuda")
+                   * arch.d_model ** -0.5).to(torch.bfloat16)
+        k6_edges = [check_k6(torch, x6, w_in6, w_gate6, w_out6, "swiglu",
+                             timed=False),
+                    check_k6(torch, x6[:, :100].contiguous(), w_in6, None,
+                             w_out6, "C=100", timed=False)]
+        del x6, w_gate6
+        H, K = arch.num_heads, arch.num_kv_heads
+        k8 = check_k8(torch, gen, DECODE_B, DECODE_L, H, K, timed=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        k8_edges = [check_k8(torch, gen, 4, 4096, H, 4),
+                    check_k8(torch, gen, 4, 8192, H, K, window=4096),
+                    check_k8(torch, gen, 4, 1000, H, K,
+                             lengths=[0, 1, 537, 1000])]
     emit({"phase": "checks", "K4": k4, "K4_edges": k4_edges, "K5": k5,
-          "K5_edges": edges, "K1": k1, "K2": k2, "K3": k3, "K7": k7})
+          "K5_edges": edges, "K1": k1, "K2": k2, "K3": k3, "K7": k7,
+          "K6": k6, "K6_edges": k6_edges, "K8": k8, "K8_edges": k8_edges})
     bwd = backward_checks(torch, gen)
     emit({"phase": "backward_checks", **bwd})
 
@@ -1114,6 +1401,10 @@ def main() -> int:
         raise SystemExit(f"K5 launched "
                          f"{launches['flash_attn.flash_attention']} times, "
                          f"the path needs >= {want_k5}")
+    for name in OFF_PATH:
+        if launches[name]:
+            raise SystemExit(f"serve: {name} launched {launches[name]} "
+                             f"times, the path needs none")
     emit({"phase": "serve", "requests": len(report.streams),
           "new_tokens": report.total_new_tokens,
           "prompt_tokens": sum(len(r.tokens) for r in reqs),
@@ -1149,9 +1440,11 @@ def main() -> int:
     n_layers = arch.num_layers
     zero = {k: 0 for k in ("moe_permute.permute", "moe_permute.unpermute",
                            "moe_gemm.grouped_ffn_ragged")}
+    off = {k: 0 for k in OFF_PATH}
     check1 = check_training(
-        [one], dict(zero, **{"moe_fused.local_moe": n_layers * TRAIN_STEPS,
-                             "moe_gemm.grouped_ffn_ragged_quant": 0}),
+        [one], dict(zero, **off,
+                    **{"moe_fused.local_moe": n_layers * TRAIN_STEPS,
+                       "moe_gemm.grouped_ffn_ragged_quant": 0}),
         "train_1rank")
     emit({"phase": "train_1rank", "seconds": time.time() - t0,
           "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_1,
@@ -1168,8 +1461,9 @@ def main() -> int:
             ranks.append(json.load(fh))
     per_layer = {k: n_layers * TRAIN_STEPS for k in zero}
     check22 = check_training(
-        ranks, dict(per_layer, **{"moe_fused.local_moe": 0,
-                                  "moe_gemm.grouped_ffn_ragged_quant": 0}),
+        ranks, dict(per_layer, **off,
+                    **{"moe_fused.local_moe": 0,
+                       "moe_gemm.grouped_ffn_ragged_quant": 0}),
         "train_2x2")
     emit({"phase": "train_2x2", "seconds": time.time() - t0,
           "world": list(WORLD_22), "backend": "gloo",
@@ -1196,8 +1490,9 @@ def main() -> int:
                  for k in ("moe_permute.permute", "moe_permute.unpermute",
                            "moe_gemm.grouped_ffn_ragged_quant")}
     check_p = check_training(
-        pipe, dict(per_chunk, **{"moe_gemm.grouped_ffn_ragged": 0,
-                                 "moe_fused.local_moe": 0}),
+        pipe, dict(per_chunk, **off,
+                   **{"moe_gemm.grouped_ffn_ragged": 0,
+                      "moe_fused.local_moe": 0}),
         "train_2x2_pipelined", LOSS_RTOL_INT8, PIPELINED_STEPS)
     emit({"phase": "train_2x2_pipelined", "seconds": time.time() - t0,
           "world": list(WORLD_22), "backend": "gloo", "wire_codec": "int8",
@@ -1205,18 +1500,41 @@ def main() -> int:
           "global_batch": TRAIN_BATCH_22, "steps": PIPELINED_STEPS,
           **check_p,
           "ranks": pipe})
-    shutil.rmtree(tmp, ignore_errors=True)
 
-    # 9. kernels: launches summed over every main path and rank
+    # 9. training through the einsum baseline with K6, in a child process
+    t0 = time.time()
+    child = mp.get_context("spawn").Process(
+        target=train_phase, args=(None, os.path.join(tmp, "einsum.json"),
+                                  TRAIN_BATCH_1, "einsum", "", TRAIN_STEPS,
+                                  "lb", True))
+    child.start()
+    child.join()
+    if child.exitcode != 0:
+        raise SystemExit(f"train_einsum_k6: the child process failed (exit "
+                         f"{child.exitcode})")
+    with open(os.path.join(tmp, "einsum.json")) as fh:
+        ein = json.load(fh)
+    shutil.rmtree(tmp, ignore_errors=True)
+    check_e = check_training(
+        [ein], {k: (n_layers * TRAIN_STEPS if k == "moe_gemm.grouped_ffn"
+                    else 0) for k in backend.LAUNCHES},
+        "train_einsum_k6")
+    emit({"phase": "train_einsum_k6", "seconds": time.time() - t0,
+          "dispatch": "einsum", "aux_mode": "lb", "use_moe_kernel": True,
+          "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_1,
+          "steps": TRAIN_STEPS, **check_e, **ein})
+
+    # 10. kernels: launches summed over every main path and rank
     def total(name):
-        return (serve_launches[name] + one["launches"][name]
-                + sum(r["launches"][name] for r in ranks + pipe))
+        return sum(sum(v) if isinstance(v, list) else v
+                   for v in by_path(name).values())
 
     def by_path(name):
         return {"serve": serve_launches[name],
                 "train_1rank": one["launches"][name],
                 "train_2x2": [r["launches"][name] for r in ranks],
-                "train_2x2_pipelined": [r["launches"][name] for r in pipe]}
+                "train_2x2_pipelined": [r["launches"][name] for r in pipe],
+                "train_einsum_k6": ein["launches"][name]}
 
     kp = k4["prefill"]
     emit({"kernels": [
@@ -1281,6 +1599,27 @@ def main() -> int:
          "ms": k5["ms"], "plain_ms": k5["plain_ms"],
          "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
          "library_ms": k5["library_ms"]},
+        {"name": "moe_gemm.grouped_ffn", "route": "cuda",
+         "source": "src/repro_torch/csrc/moe_gemm.cu",
+         "replaces": "src/repro/kernels/moe_gemm/kernel.py:185",
+         "launches": total("moe_gemm.grouped_ffn"),
+         "launches_by_path": by_path("moe_gemm.grouped_ffn"),
+         "max_abs_err": max(e["max_abs_err"] for e in [k6] + k6_edges),
+         "backward_max_abs_err": bwd["K6"]["max_abs_err"],
+         "ms": k6["ms"], "plain_ms": k6["plain_ms"],
+         "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
+         "library_ms": None, "bmm_chain_ms": k6["bmm_chain_ms"]},
+        {"name": "decode_attn.decode_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attn.cu",
+         "replaces": "src/repro/kernels/decode_attn/kernel.py:65",
+         "path": "none: no model calls it, as in the reference",
+         "launches": total("decode_attn.decode_attention"),
+         "launches_by_path": by_path("decode_attn.decode_attention"),
+         "check_launches": sum(e["launches"] for e in [k8] + k8_edges),
+         "max_abs_err": max(e["max_abs_err"] for e in [k8] + k8_edges),
+         "ms": k8["ms"], "plain_ms": k8["plain_ms"],
+         "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"],
+         "library_ms": k8["library_ms"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -66,14 +66,10 @@ class MoEConfig:
     num_shared_experts: int = 0
     activation: str = "swiglu"    # "swiglu" | "gelu"
     dtype: torch.dtype = torch.bfloat16
-    use_kernel: bool = False      # the dense grouped FFN kernel (K6)
+    use_kernel: bool = False      # the dense grouped FFN entry (K6)
     wire_codec: object = None
 
     def __post_init__(self):
-        if self.use_kernel:
-            raise NotImplementedError(
-                "MoEConfig.use_kernel needs the dense grouped FFN kernel "
-                "(K6, moe_gemm/kernel.py:185), not ported yet")
         object.__setattr__(self, "wire_codec",
                            wire.get_codec(self.wire_codec))
 
@@ -127,7 +123,14 @@ def _act(cfg: MoEConfig, xin, params):
 
 def expert_ffn(params, xin, cfg: MoEConfig, ep: EPSpec):
     """Grouped expert FFN on [E_local, C, d] -> [E_local, C, d] in the
-    model dtype (plain tensor products)."""
+    model dtype: ``moe_gemm.ops.grouped_ffn`` (K6 on the card) when
+    ``cfg.use_kernel`` is set, else plain tensor products."""
+    if cfg.use_kernel:
+        from repro_torch.kernels.moe_gemm import ops as moe_gemm_ops
+        return moe_gemm_ops.grouped_ffn(xin, params["w_in"],
+                                        params.get("w_gate"),
+                                        params["w_out"],
+                                        activation=cfg.activation)
     h = _act(cfg, xin, params)
     return torch.einsum("ecf,efd->ecd", h, params["w_out"])
 
@@ -153,7 +156,9 @@ def expert_ffn_flat(params, x_flat, seg_offsets, cfg: MoEConfig, ep: EPSpec,
     backward is full precision (straight-through).
 
     Otherwise, with the kernel branch wanted (``moe_gemm.ops.use_ragged``)
-    the call goes through the occupancy-aware ragged entry; with it off the
+    or ``cfg.use_kernel`` set, the call goes through
+    ``moe_gemm.ops.grouped_ffn_segments`` (the occupancy-aware ragged entry,
+    or with the kernels off the dense ``grouped_ffn``); otherwise the
     (contiguous, expert-major) segments collapse to per-expert spans — the
     zero-filled slack rows make the dense compute equal the masked one —
     and equal spans run as one dense product, as in the reference.
@@ -169,7 +174,8 @@ def expert_ffn_flat(params, x_flat, seg_offsets, cfg: MoEConfig, ep: EPSpec,
             x_flat, slot_to_token, slot_w, offs, seg_experts, rows_valid,
             params["w_in"], params.get("w_gate"), params["w_out"],
             activation=cfg.activation, use_pallas=use_pallas)
-    if quantized or moe_gemm_ops.use_ragged(use_pallas, x_flat.device):
+    if (quantized or moe_gemm_ops.use_ragged(use_pallas, x_flat.device)
+            or cfg.use_kernel):
         return moe_gemm_ops.grouped_ffn_segments(
             x_flat, offs, params["w_in"], params.get("w_gate"),
             params["w_out"], activation=cfg.activation,

@@ -1,0 +1,256 @@
+// Flash-decoding attention (one query token a request against a KV cache,
+// GQA, sliding window) for Hopper, sm_90a: K8.  Built by
+// repro_torch/kernels/backend.py with nvcc into a shared library with a
+// plain C interface; called through ctypes from
+// repro_torch/kernels/decode_attn/ops.py (decode_attention).
+//
+// Replaces: src/repro/kernels/decode_attn/kernel.py:65,
+// decode_attention_pallas (the Pallas TPU kernel, grid (B, L / block_l)
+// with the cache axis sequential, so the running max m, normaliser l and
+// output of each request stay resident in its output blocks).
+//
+// What it computes: q [B, H, 64], k/v [B, L, K, 64] in bfloat16, lengths
+// [B] int32 ->
+//   o[b, h] = softmax_j(q_h . k_j / sqrt(64)) @ v_j over the KV head
+//   h // (H / K) and the rows j in [lengths[b] - window, lengths[b]) (from
+//   0 when window is 0), clipped to [0, L);
+// float32 inside, output in bfloat16.  Rows outside that range are never
+// loaded, so a cache may hold anything there, NaN included (the TPU kernel
+// zeroes them after loading).  A request with no valid row (lengths[b] ==
+// 0) gives exact zeros, as the TPU kernel does (l == 0 is read as 1); the
+// plain version (kernels/decode_attn/ref.py) keeps the JAX reference's
+// arithmetic there and returns the mean of the request's v rows, so the
+// two are compared only on requests with lengths >= 1.
+//
+// Design: the TPU's sequential cache axis cannot carry state across blocks
+// here, so the cache is split and combined (flash-decoding):
+//   1. split launch: a block per (L split of 512 rows, KV head, request)
+//      streams the valid rows of its split through shared memory, 64 rows
+//      at a time (16-byte loads, converted to f32), and for the G = H / K
+//      query heads of its KV head keeps the online-softmax state (m, l and
+//      the unnormalised 64-wide output) in registers, one warp per head
+//      (four heads a warp at most); it writes the f32 partial (o, m, l).
+//      A split with no valid row returns at once and writes nothing.
+//   2. combine launch: a block per (request, query head) rescales the
+//      partials of the splits that hold valid rows by exp(m_s - max m),
+//      sums them, divides by the summed l and writes bfloat16.
+// The split count is ceil(L / 512): fixed 512-row splits keep every
+// block's work alike whatever a request's length (short requests simply
+// have fewer live splits), and at the decode_32k shape (B = 32, L = 32768,
+// K = 16) they give 32768 blocks, 64 per (request, KV head), enough to
+// keep all 132 SMs streaming.
+//
+// What bounds it on this card: bytes.  Each valid row's k and v (2 x 128
+// bytes a KV head) is read once; the products are 2 x 64 f32 FMAs a row
+// and query head, far below the card's rate.  At B = 32, L = 32768, mean
+// length about 16k, that is about 2.1 GB, 0.64 ms at 3.35 TB/s.  This first
+// version does not pipeline its loads (a block waits for each 64-row tile
+// before computing on it) and leaves three of four warps idle in the
+// softmax update when G = 1; cp.async or TMA double buffering is later
+// work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int HD = 64;             // head dim (gpt3_medium_moe's)
+constexpr int SPLIT_ROWS = 512;    // cache rows of one split block
+constexpr int TL = 64;             // rows staged in shared memory at a time
+constexpr int NWARPS = 4;
+constexpr int THREADS = NWARPS * 32;
+constexpr int MAX_G = 16;          // query heads a KV head may serve
+constexpr int HPW = MAX_G / NWARPS;  // heads whose state a warp keeps
+constexpr float NEG_INF = -1e30f;  // the reference's mask value
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// the valid rows [lo, hi) of a request of length len
+__device__ __forceinline__ void valid_range(int len, int window, int L,
+                                            int* lo, int* hi) {
+  *hi = min(max(len, 0), L);
+  *lo = window > 0 ? max(len - window, 0) : 0;
+}
+
+__global__ void __launch_bounds__(THREADS)
+decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v,
+                    const int* __restrict__ lengths,
+                    float* __restrict__ o_part, float* __restrict__ ml_part,
+                    int L, int H, int K, int window, int n_split,
+                    float scale) {
+  const int s = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  int lo, hi;
+  valid_range(lengths[b], window, L, &lo, &hi);
+  const int r_begin = max(lo, s * SPLIT_ROWS);
+  const int r_end = min(hi, (s + 1) * SPLIT_ROWS);
+  if (r_begin >= r_end) return;              // the combine skips it too
+  const int G = H / K;
+
+  __shared__ float Qs[MAX_G][HD];            // pre-scaled queries
+  __shared__ float Ks[TL][HD + 1];           // +1: lanes on 32 banks
+  __shared__ float Vs[TL][HD];
+  __shared__ float Ps[MAX_G][TL];            // scores, then weights
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  for (int idx = tid; idx < G * HD; idx += THREADS) {
+    int g = idx / HD, j = idx % HD;
+    Qs[g][j] = __bfloat162float(q[((size_t)b * H + kh * G + g) * HD + j]) *
+               scale;
+  }
+  float m[HPW], l[HPW], o0[HPW], o1[HPW];
+#pragma unroll
+  for (int i = 0; i < HPW; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.0f;
+    o0[i] = o1[i] = 0.0f;
+  }
+  const size_t row_stride = (size_t)K * HD;
+  const bf16* kb = k + ((size_t)b * L * K + kh) * HD;
+  const bf16* vb = v + ((size_t)b * L * K + kh) * HD;
+
+  for (int t0 = r_begin; t0 < r_end; t0 += TL) {
+    const int nrows = min(TL, r_end - t0);
+    __syncthreads();                         // Qs ready / last tile read
+    for (int c = tid; c < nrows * (HD / 8); c += THREADS) {
+      int r = c / (HD / 8), j = (c % (HD / 8)) * 8;
+      size_t off = (size_t)(t0 + r) * row_stride + j;
+      uint4 k4 = *reinterpret_cast<const uint4*>(kb + off);
+      uint4 v4 = *reinterpret_cast<const uint4*>(vb + off);
+      const bf16* kk = reinterpret_cast<const bf16*>(&k4);
+      const bf16* vv = reinterpret_cast<const bf16*>(&v4);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        Ks[r][j + e] = __bfloat162float(kk[e]);
+        Vs[r][j + e] = __bfloat162float(vv[e]);
+      }
+    }
+    __syncthreads();
+    for (int idx = tid; idx < G * TL; idx += THREADS) {
+      int g = idx / TL, r = idx % TL;
+      float sc = NEG_INF;
+      if (r < nrows) {
+        float acc = 0.0f;
+#pragma unroll 16
+        for (int j = 0; j < HD; ++j) acc += Qs[g][j] * Ks[r][j];
+        sc = acc;
+      }
+      Ps[g][r] = sc;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < HPW; ++i) {
+      const int g = warp + NWARPS * i;
+      if (g < G) {
+        float s0 = Ps[g][lane], s1 = Ps[g][lane + 32];
+        float m_new = fmaxf(m[i], warp_max(fmaxf(s0, s1)));
+        float p0 = lane < nrows ? expf(s0 - m_new) : 0.0f;
+        float p1 = lane + 32 < nrows ? expf(s1 - m_new) : 0.0f;
+        float alpha = expf(m[i] - m_new);
+        l[i] = l[i] * alpha + warp_sum(p0 + p1);
+        m[i] = m_new;
+        __syncwarp();
+        Ps[g][lane] = p0;
+        Ps[g][lane + 32] = p1;
+        __syncwarp();
+        float a0 = o0[i] * alpha, a1 = o1[i] * alpha;
+        for (int r = 0; r < nrows; ++r) {
+          float p = Ps[g][r];
+          a0 += p * Vs[r][lane];
+          a1 += p * Vs[r][lane + 32];
+        }
+        o0[i] = a0;
+        o1[i] = a1;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < HPW; ++i) {
+    const int g = warp + NWARPS * i;
+    if (g < G) {
+      size_t p = ((size_t)b * H + kh * G + g) * n_split + s;
+      o_part[p * HD + lane] = o0[i];
+      o_part[p * HD + lane + 32] = o1[i];
+      if (lane == 0) {
+        ml_part[p * 2] = m[i];
+        ml_part[p * 2 + 1] = l[i];
+      }
+    }
+  }
+}
+
+// one block per (request, query head), one thread per output dimension
+__global__ void __launch_bounds__(HD)
+decode_combine_kernel(const float* __restrict__ o_part,
+                      const float* __restrict__ ml_part,
+                      const int* __restrict__ lengths, bf16* __restrict__ out,
+                      int L, int H, int window, int n_split) {
+  const int bh = blockIdx.x, b = bh / H, j = threadIdx.x;
+  int lo, hi;
+  valid_range(lengths[b], window, L, &lo, &hi);
+  // the splits that hold valid rows, as decode_split_kernel decides
+  const int s0 = lo / SPLIT_ROWS;
+  const int s1 = hi > lo ? (hi - 1) / SPLIT_ROWS + 1 : s0;
+  const size_t base = (size_t)bh * n_split;
+  float mx = NEG_INF;
+  for (int s = s0; s < s1; ++s) mx = fmaxf(mx, ml_part[(base + s) * 2]);
+  float lsum = 0.0f, acc = 0.0f;
+  for (int s = s0; s < s1; ++s) {
+    float w = expf(ml_part[(base + s) * 2] - mx);
+    lsum += ml_part[(base + s) * 2 + 1] * w;
+    acc += o_part[(base + s) * HD + j] * w;
+  }
+  if (lsum == 0.0f) lsum = 1.0f;             // no valid row: zeros
+  out[(size_t)bh * HD + j] = __float2bfloat16(acc / lsum);
+}
+
+}  // namespace
+
+extern "C" {
+
+int decode_attn_split_rows() { return SPLIT_ROWS; }
+
+// All pointers are device pointers on the current device.  q [B, H, hd],
+// k/v [B, L, K, hd] bf16, contiguous; lengths [B] int32; o_part [B, H,
+// n_split, hd] and ml_part [B, H, n_split, 2] f32 scratch (no zeroing
+// needed); out [B, H, hd] bf16.  hd must be 64, H a multiple of K with at
+// most 16 query heads a KV head, n_split * 512 >= L.
+int decode_attention_fwd(const void* q, const void* k, const void* v,
+                         const void* lengths, void* o_part, void* ml_part,
+                         void* out, int B, int L, int H, int K, int hd,
+                         int window, int n_split, void* stream) {
+  if (hd != HD || K <= 0 || H % K || H / K > MAX_G || window < 0 ||
+      n_split < 1 || (long long)n_split * SPLIT_ROWS < L)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || H == 0) return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* len = static_cast<const int*>(lengths);
+  dim3 grid(n_split, K, B);
+  decode_split_kernel<<<grid, THREADS, 0, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), len, static_cast<float*>(o_part),
+      static_cast<float*>(ml_part), L, H, K, window, n_split,
+      1.0f / sqrtf((float)HD));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  decode_combine_kernel<<<B * H, HD, 0, s>>>(
+      static_cast<const float*>(o_part), static_cast<const float*>(ml_part),
+      len, static_cast<bf16*>(out), L, H, window, n_split);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

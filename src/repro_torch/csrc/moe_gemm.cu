@@ -1,13 +1,16 @@
-// Occupancy-aware ragged grouped expert FFN for Hopper, sm_90a: K3 (bf16)
-// and K7 (int8 up-projections).  Built by repro_torch/kernels/backend.py
-// with nvcc into a shared library with a plain C interface; called through
-// ctypes from repro_torch/kernels/moe_gemm/ops.py (grouped_ffn_ragged and
-// grouped_ffn_ragged_quant).
+// Grouped expert FFNs for Hopper, sm_90a: the occupancy-aware ragged K3
+// (bf16) and K7 (int8 up-projections), and the dense equal-capacity K6.
+// Built by repro_torch/kernels/backend.py with nvcc into a shared library
+// with a plain C interface; called through ctypes from
+// repro_torch/kernels/moe_gemm/ops.py (grouped_ffn_ragged,
+// grouped_ffn_ragged_quant and grouped_ffn).
 //
 // Replaces: src/repro/kernels/moe_gemm/kernel.py, grouped_ffn_ragged_pallas
 // (K3) and grouped_ffn_ragged_quant_pallas (K7): Pallas TPU kernels over a
 // (row-block, f-block) grid with scalar-prefetched block_row / block_eid /
-// block_nvalid vectors (and, for K7, per-block f32 dequant factors).
+// block_nvalid vectors (and, for K7, per-block f32 dequant factors); and
+// grouped_ffn_pallas (K6, moe_gemm/kernel.py:185), an (E, C-block,
+// f-block) grid over a dense [E, C, d] buffer.
 //
 // What it computes, on a flat [R, d] buffer of static contiguous segments
 // (segment s owns rows seg_offsets[s]:seg_offsets[s+1] and multiplies expert
@@ -56,6 +59,22 @@
 // row stride.  At the 2x2 pipelined plan's chunk (15- and 2-row segments,
 // so at most 15 valid rows of each 64-row tile) it is bound by the experts'
 // weight bytes, and far from that bound: the tile is mostly masked rows.
+//
+// K6 (MoEConfig.use_kernel: the einsum dispatch's [E, C, d] buffer) is the
+// same FFN on equal, fully-occupied segments, so it runs K3's kernels
+// (up_kernel, down_kernel with DENSE set) from a grid of (E * ceil(C /
+// 64), columns / 64) blocks read straight from blockIdx: no tile list, no
+// rows_valid, no skip predicate; the rows of the last tile past C are
+// masked, and h is [E, C, f].  Only the tile header differs between the
+// two instantiations: lifting the bodies into device functions called by
+// separate kernels instead put K3's gelu up launch at 96 registers (80
+// here) and cost K3 10% on an H100 (PERF.md, chip_ab.py).  At the einsum path's shape (64 experts, C = 128, d = 1024, f =
+// 2048, tanh-gelu) it is bound by bytes: the 64 experts' w_in and w_out,
+// about 537 MB, over the memory rate (0.17 ms), against 0.07 ms of bf16
+// tensor-core operations.  Each expert's weights are read once per 64-row
+// tile (twice at C = 128), through the same unpipelined WMMA tiles as K3;
+// wgmma, TMA and a schedule that reads each expert's weights once are
+// later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,19 +142,37 @@ __device__ __forceinline__ void load_a_tile(bf16 (*dst)[A_LD], const bf16* src,
   }
 }
 
-template <bool SWIGLU>
+// K6's tile b over an [E, C, .] buffer: ceil(C / 64) tiles an expert,
+// every row valid, the last tile masked at C.
+__device__ __forceinline__ void dense_tile(int C, int b, int* nv, int* row0,
+                                           int* eid) {
+  const int tpe = (C + BM - 1) / BM, r0 = (b % tpe) * BM;
+  *eid = b / tpe;
+  *row0 = *eid * C + r0;
+  *nv = min(BM, C - r0);
+}
+
+// The up launch over 64-row tiles: rows [row0, row0 + nv) of x times
+// columns [n0, n0 + 64) of expert eid's w_in (and w_gate), the activation
+// in f32, rounded to bf16 into h.  K3 and K7's tiles come from the tile
+// list, K6's (DENSE) from blockIdx over an [E, C, d] buffer (dense_tile).
+template <bool SWIGLU, bool DENSE>
 __global__ void __launch_bounds__(THREADS)
-ragged_up_kernel(const bf16* __restrict__ x, int d, int f,
-                 const int* __restrict__ rows_valid,
-                 const int* __restrict__ tiles,
-                 const bf16* __restrict__ w_in, const bf16* __restrict__ w_gate,
-                 bf16* __restrict__ h) {
+up_kernel(const bf16* __restrict__ x, int C, int d, int f,
+          const int* __restrict__ rows_valid, const int* __restrict__ tiles,
+          const bf16* __restrict__ w_in, const bf16* __restrict__ w_gate,
+          bf16* __restrict__ h) {
   const int b = blockIdx.x;
   const int n0 = blockIdx.y * BN;
-  const int nv = tile_nvalid(tiles, rows_valid, b);
-  if (nv == 0) return;                       // slack tile: no loads, no math
-  const int row0 = tiles[b * TILE_INTS + 0];
-  const int eid = tiles[b * TILE_INTS + 1];
+  int nv, row0, eid;
+  if (DENSE) {
+    dense_tile(C, b, &nv, &row0, &eid);
+  } else {
+    nv = tile_nvalid(tiles, rows_valid, b);
+    if (nv == 0) return;                     // slack tile: no loads, no math
+    row0 = tiles[b * TILE_INTS + 0];
+    eid = tiles[b * TILE_INTS + 1];
+  }
 
   __shared__ __align__(128) bf16 As[BM][A_LD];
   __shared__ __align__(128) bf16 Bs[BK][B_LD];
@@ -192,7 +229,7 @@ ragged_up_kernel(const bf16* __restrict__ x, int d, int f,
                               wmma::mem_row_major);
     }
   __syncthreads();
-  bf16* hb = h + (size_t)b * BM * f;
+  bf16* hb = h + (size_t)(DENSE ? row0 : b * BM) * f;
   for (int c = tid; c < BM * (BN / 8); c += THREADS) {
     int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
     if (r >= nv) continue;
@@ -203,26 +240,37 @@ ragged_up_kernel(const bf16* __restrict__ x, int d, int f,
   }
 }
 
+// The down launch: h's rows of the tile times columns [n0, n0 + 64) of
+// w_out[eid] with an f32 accumulator; the tile's rows of y are written,
+// those at or past nv as exact zeros (the zero-slot convention).  K3, K6
+// (DENSE) and K7 share it.
+template <bool DENSE>
 __global__ void __launch_bounds__(THREADS)
-ragged_down_kernel(int d, int f, const int* __restrict__ rows_valid,
-                   const int* __restrict__ tiles,
-                   const bf16* __restrict__ h, const bf16* __restrict__ w_out,
-                   bf16* __restrict__ y) {
+down_kernel(int C, int d, int f, const int* __restrict__ rows_valid,
+            const int* __restrict__ tiles,
+            const bf16* __restrict__ h, const bf16* __restrict__ w_out,
+            bf16* __restrict__ y) {
   const int b = blockIdx.x;
   const int n0 = blockIdx.y * BN;
-  const int nv = tile_nvalid(tiles, rows_valid, b);
-  const int row0 = tiles[b * TILE_INTS + 0];
-  const int rows = tiles[b * TILE_INTS + 4];
   const int tid = threadIdx.x;
-  if (nv == 0) {                             // slack tile: zero rows only
-    for (int c = tid; c < rows * (BN / 8); c += THREADS) {
-      int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
-      *reinterpret_cast<uint4*>(y + (size_t)(row0 + r) * d + n0 + nc) =
-          make_uint4(0u, 0u, 0u, 0u);
+  int nv, row0, rows, eid;
+  if (DENSE) {
+    dense_tile(C, b, &nv, &row0, &eid);
+    rows = nv;
+  } else {
+    nv = tile_nvalid(tiles, rows_valid, b);
+    row0 = tiles[b * TILE_INTS + 0];
+    rows = tiles[b * TILE_INTS + 4];
+    if (nv == 0) {                           // slack tile: zero rows only
+      for (int c = tid; c < rows * (BN / 8); c += THREADS) {
+        int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
+        *reinterpret_cast<uint4*>(y + (size_t)(row0 + r) * d + n0 + nc) =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+      return;
     }
-    return;
+    eid = tiles[b * TILE_INTS + 1];
   }
-  const int eid = tiles[b * TILE_INTS + 1];
 
   __shared__ __align__(128) bf16 As[BM][A_LD];
   __shared__ __align__(128) bf16 Bs[BK][B_LD];
@@ -233,7 +281,7 @@ ragged_down_kernel(int d, int f, const int* __restrict__ rows_valid,
   FragC acc[2][2];
   for (int i = 0; i < 2; ++i)
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-  const bf16* hb = h + (size_t)b * BM * f;
+  const bf16* hb = h + (size_t)(DENSE ? row0 : b * BM) * f;
   const bf16* wo = w_out + (size_t)eid * f * d;
 
   for (int k0 = 0; k0 < f; k0 += BK) {
@@ -426,17 +474,45 @@ int grouped_ffn_ragged(const void* x, int d, int f, const void* rows_valid,
   const int* rv = static_cast<const int*>(rows_valid);
   const int* ti = static_cast<const int*>(tiles);
   if (swiglu)
-    ragged_up_kernel<true><<<grid_up, THREADS, 0, s>>>(
-        xb, d, f, rv, ti, static_cast<const bf16*>(w_in),
+    up_kernel<true, false><<<grid_up, THREADS, 0, s>>>(
+        xb, 0, d, f, rv, ti, static_cast<const bf16*>(w_in),
         static_cast<const bf16*>(w_gate), static_cast<bf16*>(h));
   else
-    ragged_up_kernel<false><<<grid_up, THREADS, 0, s>>>(
-        xb, d, f, rv, ti, static_cast<const bf16*>(w_in), nullptr,
+    up_kernel<false, false><<<grid_up, THREADS, 0, s>>>(
+        xb, 0, d, f, rv, ti, static_cast<const bf16*>(w_in), nullptr,
         static_cast<bf16*>(h));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ragged_down_kernel<<<grid_down, THREADS, 0, s>>>(
-      d, f, rv, ti, static_cast<const bf16*>(h),
+  down_kernel<false><<<grid_down, THREADS, 0, s>>>(
+      0, d, f, rv, ti, static_cast<const bf16*>(h),
+      static_cast<const bf16*>(w_out), static_cast<bf16*>(y));
+  return (int)cudaGetLastError();
+}
+
+// K6.  x [E, C, d] bf16; w_in/w_gate [E, d, f] bf16 (w_gate unused unless
+// swiglu); w_out [E, f, d] bf16; h scratch [E, C, f] bf16; y [E, C, d]
+// bf16, every row written.  d and f must be multiples of 64.
+int grouped_ffn_dense(const void* x, int E, int C, int d, int f,
+                      const void* w_in, const void* w_gate, const void* w_out,
+                      void* h, void* y, int swiglu, void* stream) {
+  if (d % BN || f % BN || d % BK || f % BK) return (int)cudaErrorInvalidValue;
+  if (E == 0 || C == 0) return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tiles = E * ((C + BM - 1) / BM);
+  dim3 grid_up(tiles, f / BN), grid_down(tiles, d / BN);
+  const bf16* xb = static_cast<const bf16*>(x);
+  if (swiglu)
+    up_kernel<true, true><<<grid_up, THREADS, 0, s>>>(
+        xb, C, d, f, nullptr, nullptr, static_cast<const bf16*>(w_in),
+        static_cast<const bf16*>(w_gate), static_cast<bf16*>(h));
+  else
+    up_kernel<false, true><<<grid_up, THREADS, 0, s>>>(
+        xb, C, d, f, nullptr, nullptr, static_cast<const bf16*>(w_in), nullptr,
+        static_cast<bf16*>(h));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  down_kernel<true><<<grid_down, THREADS, 0, s>>>(
+      C, d, f, nullptr, nullptr, static_cast<const bf16*>(h),
       static_cast<const bf16*>(w_out), static_cast<bf16*>(y));
   return (int)cudaGetLastError();
 }
@@ -470,8 +546,8 @@ int grouped_ffn_ragged_quant(const void* xq, int d, int f,
         nullptr, static_cast<bf16*>(h));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ragged_down_kernel<<<grid_down, THREADS, 0, s>>>(
-      d, f, rv, ti, static_cast<const bf16*>(h),
+  down_kernel<false><<<grid_down, THREADS, 0, s>>>(
+      0, d, f, rv, ti, static_cast<const bf16*>(h),
       static_cast<const bf16*>(w_out), static_cast<bf16*>(y));
   return (int)cudaGetLastError();
 }

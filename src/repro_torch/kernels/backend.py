@@ -53,8 +53,10 @@ LAUNCHES: dict[str, int] = {"moe_permute.permute": 0,
                             "moe_permute.unpermute": 0,
                             "moe_gemm.grouped_ffn_ragged": 0,
                             "moe_gemm.grouped_ffn_ragged_quant": 0,
+                            "moe_gemm.grouped_ffn": 0,
                             "moe_fused.local_moe": 0,
-                            "flash_attn.flash_attention": 0}
+                            "flash_attn.flash_attention": 0,
+                            "decode_attn.decode_attention": 0}
 
 
 def env_kernels() -> bool | None:
@@ -104,7 +106,7 @@ def reset_launches() -> None:
 
 def check_no_grad(name: str, *tensors) -> None:
     """Refuse a call that would need a backward the kernel does not have
-    (the flash-attention kernel is forward-only)."""
+    (the attention kernels are forward-only)."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(

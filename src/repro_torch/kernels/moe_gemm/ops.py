@@ -1,6 +1,19 @@
 """Grouped-FFN entries with the backend policy and autograd (the counterpart
 of ``repro/kernels/moe_gemm/ops.py``).
 
+* :func:`grouped_ffn` — the dense equal-capacity [E, C, d] grouped FFN
+  (``MoEConfig.use_kernel``).  It decides by the shared policy alone (any
+  ``use_pallas`` of the caller is not read, as in the reference): for
+  CUDA tensors it launches K6 of ``csrc/moe_gemm.cu`` inside a
+  ``torch.autograd.Function`` whose backward is autograd through
+  :func:`ref.grouped_ffn_ref` (the reference's ``custom_vjp``); CPU
+  tensors take the plain version.
+  The reference's ``grouped_ffn_chunk`` (the capacity axis zero-padded to
+  a multiple of ``row_align`` for its MXU blocks) has no counterpart: K6
+  masks the rows of its last 64-row tile, so any C runs as it is, and
+  zero rows give the same numbers; the reference calls it only behind
+  ``expert_ffn(chunk_granular=)``, which the port lacks for that reason
+  too (``core/dispatch/engine.py``).
 * :func:`grouped_ffn_ragged` — the occupancy-aware entry over a flat
   [R, d] buffer of static contiguous segments with runtime per-segment
   valid-row counts.  For CUDA tensors (with kernels wanted) it launches K3
@@ -25,9 +38,6 @@ of ``repro/kernels/moe_gemm/ops.py``).
   kept so the port can state the reference's block layout; the CUDA
   kernels tile with fixed 64-row tiles instead (``moe_fused.ops.plan_tiles``)
   because the gcd rule gives 8-row blocks for the 2x2 plan's widths.
-
-The dense Pallas kernel (K6, ``MoEConfig.use_kernel``) is not ported yet:
-asking for it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ from repro_torch.kernels.moe_gemm.ref import (grouped_ffn_ragged_quant_ref,
                                               quantize_segments)
 
 KERNEL = "moe_gemm.grouped_ffn_ragged"
+KERNEL_DENSE = "moe_gemm.grouped_ffn"
 KERNEL_QUANT = "moe_gemm.grouped_ffn_ragged_quant"
 _V, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -108,6 +119,12 @@ def _quant_entry():
                          _I, _V])
 
 
+@functools.lru_cache(maxsize=1)
+def _dense_entry():
+    return backend.bind("moe_gemm", "grouped_ffn_dense",
+                        [_V, _I, _I, _I, _I, _V, _V, _V, _V, _V, _I, _V])
+
+
 def _check(kernel, name, t, dtype, device, ndim, vectors=True):
     """``vectors``: the kernel reads ``t`` through 16-byte vectors."""
     if t.device != device:
@@ -146,6 +163,84 @@ def _check_layout(kernel, static, x, rows_valid, w_in, w_gate, w_out):
     if rows_valid.shape[0] != len(exps) or max(exps) >= E or min(exps) < 0:
         raise ValueError(f"{kernel}: rows_valid / seg_experts do not fit "
                          f"{E} experts")
+
+
+def _dense_cuda(activation, x, w_in, w_gate, w_out):
+    """K6: the checks, then the two launches over (expert, 64-row tile).
+    ``x`` may be a strided view (the einsum dispatch's product is one)."""
+    x = x.contiguous()
+    dev = x.device
+    E, C, d = x.shape
+    f = w_in.shape[-1]
+    swiglu = activation == "swiglu"
+    _check(KERNEL_DENSE, "x", x, torch.bfloat16, dev, 3)
+    _check(KERNEL_DENSE, "w_in", w_in, torch.bfloat16, dev, 3)
+    _check(KERNEL_DENSE, "w_out", w_out, torch.bfloat16, dev, 3)
+    if swiglu:
+        _check(KERNEL_DENSE, "w_gate", w_gate, torch.bfloat16, dev, 3)
+        if w_gate.shape != w_in.shape:
+            raise ValueError(f"{KERNEL_DENSE}: w_gate {tuple(w_gate.shape)} "
+                             f"!= w_in {tuple(w_in.shape)}")
+    if tuple(w_in.shape) != (E, d, f) or tuple(w_out.shape) != (E, f, d):
+        raise ValueError(f"{KERNEL_DENSE}: weights {tuple(w_in.shape)} / "
+                         f"{tuple(w_out.shape)} do not fit x "
+                         f"{tuple(x.shape)}")
+    if d % 64 or f % 64:
+        raise ValueError(f"{KERNEL_DENSE}: d={d} and f={f} must be "
+                         f"multiples of 64")
+    h = torch.empty((E, C, f), dtype=torch.bfloat16, device=dev)
+    y = torch.empty_like(x)
+    err = _dense_entry()(backend.ptr(x), E, C, d, f, backend.ptr(w_in),
+                         backend.ptr(w_gate if swiglu else None),
+                         backend.ptr(w_out), backend.ptr(h), backend.ptr(y),
+                         int(swiglu), backend.stream_ptr(dev))
+    backend.check(KERNEL_DENSE, err)
+    backend.record_launch(KERNEL_DENSE)
+    return y
+
+
+def _dense_plain(activation, x, w_in, w_gate, w_out):
+    return grouped_ffn_ref(x, w_in, w_gate, w_out, activation=activation)
+
+
+class GroupedFFN(torch.autograd.Function):
+    """``impl(activation, x, w_in, w_gate, w_out)`` forward (K6, or the
+    plain version); backward: autograd through ``grouped_ffn_ref``, so the
+    forward kernel is not launched again."""
+
+    @staticmethod
+    def forward(ctx, x, w_in, w_gate, w_out, activation, impl):
+        ctx.activation = activation
+        ctx.save_for_backward(x, w_in, w_gate, w_out)
+        return impl(activation, x, w_in, w_gate, w_out)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_in, w_gate, w_out = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(need) if t is not None else None
+                  for t, need in zip((x, w_in, w_gate, w_out),
+                                     ctx.needs_input_grad[:4])]
+        with torch.enable_grad():
+            y = grouped_ffn_ref(*inputs, activation=ctx.activation)
+            wanted = [t for t in inputs if t is not None and t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wanted, g.to(y.dtype))
+                         if wanted else ())
+        return tuple(next(grads) if t is not None and t.requires_grad
+                     else None for t in inputs) + (None, None)
+
+
+def grouped_ffn(x, w_in, w_gate, w_out, *, activation: str = "swiglu"):
+    """Dense grouped FFN: x [E, C, d]; w_in / w_gate [E, d, f]; w_out
+    [E, f, d] -> [E, C, d] in x's dtype (the hidden activation rounded to
+    it, f32 sums).  K6 for CUDA tensors with the kernels wanted (bf16
+    only: anything else raises), the plain version otherwise; gelu when
+    ``w_gate`` is None."""
+    swiglu = activation == "swiglu" and w_gate is not None
+    act = "swiglu" if swiglu else "gelu"
+    w_gate = w_gate if swiglu else None
+    impl = (_dense_cuda if backend.kernels_active(None, x.device)
+            else _dense_plain)
+    return GroupedFFN.apply(x, w_in, w_gate, w_out, act, impl)
 
 
 def _ragged_cuda(static, x, rows_valid, w_in, w_gate, w_out):
@@ -337,8 +432,8 @@ def grouped_ffn_segments(x, seg_offsets, w_in, w_gate, w_out, *,
              and tuple(seg_experts) == tuple(range(E))
              and not use_ragged(use_pallas, x.device))
     if dense:
-        y = grouped_ffn_ref(x.reshape(E, widths[0], d), w_in, w_gate, w_out,
-                            activation=activation)
+        y = grouped_ffn(x.reshape(E, widths[0], d), w_in, w_gate, w_out,
+                        activation=activation)
         return y.reshape(-1, d)
     return grouped_ffn_ragged(x, offs, seg_experts, rows_valid, w_in, w_gate,
                               w_out, activation=activation,

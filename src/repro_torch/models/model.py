@@ -118,9 +118,6 @@ def build_ctx(arch: ArchConfig, mesh=None, *, seq_len: int = 0,
     if remat:
         raise NotImplementedError("remat applies to the training forward, "
                                   "not ported yet")
-    if use_moe_kernel:
-        raise NotImplementedError("use_moe_kernel needs the dense grouped "
-                                  "FFN kernel (K6), not ported yet")
     if measured_comm:
         raise NotImplementedError("measured_comm needs the link "
                                   "micro-benchmark (comm_model.measure_link), "
@@ -150,7 +147,7 @@ def build_ctx(arch: ArchConfig, mesh=None, *, seq_len: int = 0,
         plan = capacity.align_to_chunks(plan, num_chunks)
     return transformer.ModelCtx(
         arch=arch, mesh=mesh, ep=ep, plan=plan, gate_cfg=gate_cfg,
-        use_flash=use_flash,
+        use_flash=use_flash, use_moe_kernel=use_moe_kernel,
         decode_replicated=decode_replicated, dispatch=dispatch,
         a2a_num_chunks=num_chunks, dispatch_override=dispatch_override,
         use_pallas=use_pallas, wire_codec=codec, device=str(device))

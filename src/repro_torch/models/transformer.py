@@ -43,6 +43,7 @@ class ModelCtx:
     plan: object | None = None        # level-indexed a2a capacities
     gate_cfg: gating.GateConfig | None = None
     use_flash: bool = False
+    use_moe_kernel: bool = False      # MoEConfig.use_kernel: grouped_ffn
     decode_replicated: bool = False
     dispatch: str = "a2a"             # training-time default path
     a2a_num_chunks: int = 1           # pipelined chunks, set by build_ctx
@@ -83,7 +84,7 @@ class ModelCtx:
             capacity_factor=a.moe.capacity_factor,
             num_shared_experts=a.moe.num_shared_experts,
             activation=a.activation, dtype=a.torch_dtype,
-            wire_codec=self.wire_codec)
+            use_kernel=self.use_moe_kernel, wire_codec=self.wire_codec)
 
     @property
     def frac_levels(self) -> int:

@@ -291,6 +291,17 @@ def test_segments_entry_and_unported_branches():
     equal(quant, grouped_ffn_ragged_quant_ref(x, offs, tuple(range(E)), None,
                                               wi, None, wo,
                                               activation="gelu"))
-    with pytest.raises(NotImplementedError, match="K6"):
-        base.MoEConfig(d_model=d, d_ff=f, num_experts=E, top_k=1,
-                       use_kernel=True)
+    # MoEConfig(use_kernel=True) (K6's dense entry, its plain version on
+    # the CPU) through expert_ffn_flat, against the JAX package's
+    kw = dict(d_model=d, d_ff=f, num_experts=E, top_k=1, activation="gelu",
+              use_kernel=True)
+    cfg = base.MoEConfig(dtype=torch.float32, **kw)
+    jcfg = jdispatch.MoEConfig(dtype=jnp.float32, **kw)
+    ep = base.EPSpec.from_axes(("data",), (1,))
+    jep = jdispatch.EPSpec.from_axes(("data",), (1,))
+    got = base.expert_ffn_flat({"w_in": wi, "w_out": wo}, x, offs, cfg, ep)
+    want = jdispatch.expert_ffn_flat(
+        {"w_in": jnp.asarray(wi.numpy()), "w_out": jnp.asarray(wo.numpy())},
+        jnp.asarray(x.numpy()), offs, jcfg, jep)
+    close(got, want)
+    close(got, dense)
