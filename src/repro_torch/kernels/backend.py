@@ -90,9 +90,16 @@ def want_kernels(use_pallas=None, device="cuda") -> bool:
 
 def kernels_active(use_pallas=None, device="cuda") -> bool:
     """Whether a wrapper launches its CUDA kernel for tensors on
-    ``device``: never for the CPU."""
-    return _device_type(device) == "cuda" and want_kernels(use_pallas,
-                                                           device)
+    ``device``: never for the CPU.  Called on every kernel launch, so it
+    reads the device type and the environment once each."""
+    dev_type = (device.type if isinstance(device, torch.device)
+                else _device_type(device))
+    if dev_type != "cuda":
+        return False
+    if use_pallas is not None:
+        return bool(use_pallas)
+    env = env_kernels()
+    return True if env is None else env
 
 
 def record_launch(name: str) -> None:
@@ -216,9 +223,13 @@ def bind(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
     return f
 
 
-def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
-    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+def ptr(t: torch.Tensor | None) -> int:
+    """A tensor's address for an entry argument declared ``c_void_p``
+    (ctypes takes a plain int there)."""
+    return 0 if t is None else t.data_ptr()
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream_ptr(device: torch.device) -> int:
+    """The current CUDA stream of ``device`` (a CUDA tensor's device, so
+    its index is set) as a plain int."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -327,7 +327,8 @@ class GroupedFFNRagged(torch.autograd.Function):
                                       ctx.needs_input_grad[2],
                                       ctx.needs_input_grad[3],
                                       ctx.needs_input_grad[4]))]
-        with torch.enable_grad():
+        with torch.enable_grad(), torch.profiler.record_function(
+                "moe_gemm.grouped_ffn_ragged.backward"):
             y = grouped_ffn_ragged_ref(inputs[0], offs, exps, rows_valid,
                                        inputs[1], inputs[2], inputs[3],
                                        activation=activation)

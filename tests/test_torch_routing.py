@@ -13,7 +13,12 @@ JAX package on the CPU.
   versions against the JAX kernels under the Pallas interpreter, forward
   and ``jax.vjp``; the port's ``autograd.Function`` backwards (driven on
   the CPU with the plain forward) against the same ``jax.vjp``.
-  Tolerance rtol = atol = 1e-4 in float32.
+  Tolerance rtol = atol = 1e-4 in float32; 1e-5 for K1 and K2 on the
+  sentinel-heavy layouts of a real route on a reduced 2x2 plan (71% of
+  the slots sentinels, 14% of the picks dropped), with every slot a
+  sentinel and with every pick dropped, where the backwards' discard rows
+  must give the reference's ``mode="drop"`` gradients and no row of
+  their buffers may take more than K adds.
 """
 
 import jax
@@ -176,9 +181,70 @@ def permute_case(seed=0, T=12, S=20, K=2, d=16):
     return x, tok, y, inv_idx, inv_w, g_perm, g_un
 
 
-@pytest.mark.parametrize("seed", [0, 1])
+TOL_2X2 = dict(rtol=1e-5, atol=1e-5)
+
+
+def layout_2x2(layout, d=16):
+    """``permute_case``'s arrays on the indices of a real ``route`` +
+    ``build_indices`` as rank 0 of a reduced 2x2 plan (64 tokens, 16
+    experts, top-2, capacity factor 2.0: caps (32, 8), 384 slots, 71% of
+    them sentinels, 14% of the picks dropped); ``all_sentinel`` and
+    ``all_dropped`` keep its shapes with every slot a sentinel and every
+    pick dropped (``inv_w`` kept: a dropped pick's weight gets gradient
+    0)."""
+    T, N, K = 64, 16, 2
+    sizes = (2, 2)
+    plan = capacity.make_dispatch_plan(
+        tokens_per_device=T, num_experts=N, top_k=K, capacity_factor=2.0,
+        axis_sizes=sizes, mode="ta")
+    pen = gating.ta_penalties(plan.ratios, level_sizes=plan.level_sizes)
+    pen = tuple(pen) + (pen[-1],) * max(0, 3 - len(pen))
+    cfg = base.MoEConfig(d_model=d, d_ff=16, num_experts=N, top_k=K,
+                         dtype=torch.float32)
+    ep = base.EPSpec.from_axes(_names(2), sizes)
+    gate = gating.GateConfig(num_experts=N, top_k=K, aux_mode="ta",
+                             penalty_by_level=pen)
+    rng = np.random.default_rng(0)
+    gw = rng.standard_normal((d, N)).astype(np.float32)
+    x = rng.standard_normal((T, d)).astype(np.float32)
+    routed = routing.route({"gate": {"w": t(gw)}}, t(x), cfg, ep, plan, gate,
+                           coords=(0, 0))
+    di = routing.build_indices(routed.sels, routed.gate_out["topk_idx"], T)
+    S = di.num_slots
+    tok = di.slot_to_token.numpy().copy()
+    inv_idx = di.inv_idx.numpy().copy()
+    inv_w = rng.uniform(0, 1, (T, K)).astype(np.float32)
+    if layout == "all_sentinel":
+        tok[:] = T
+    elif layout == "all_dropped":
+        inv_idx[:] = S
+    else:
+        inv_w[inv_idx == S] = 0.0
+        assert (tok == T).mean() > 0.6 and (inv_idx == S).any()
+    y = rng.standard_normal((S, d)).astype(np.float32)
+    g_perm = rng.standard_normal((S, d)).astype(np.float32)
+    g_un = rng.standard_normal((T, d)).astype(np.float32)
+    return x, tok, y, inv_idx, inv_w, g_perm, g_un
+
+
+def case_for(layout, K=2):
+    """A seed: ``permute_case``'s random indices; a name: ``layout_2x2``."""
+    if isinstance(layout, int):
+        return permute_case(layout, K=K), TOL
+    return layout_2x2(layout), TOL_2X2
+
+
+def assert_at_most_adds(idx, n, k):
+    """No row of a discard-row backward's buffer takes more than ``k``
+    adds from the scatters over ``idx`` (all columns together)."""
+    rows = torch.cat([permute_ops._discard_rows(c, n)
+                      for c in t(idx).reshape(t(idx).shape[0], -1).T])
+    assert int(torch.bincount(rows).max()) <= k
+
+
+@pytest.mark.parametrize("seed", [0, 1, "route_2x2", "all_sentinel"])
 def test_permute_matches_jax_kernel_fwd_and_vjp(seed):
-    x, tok, _, _, _, g, _ = permute_case(seed)
+    (x, tok, _, _, _, g, _), tol = case_for(seed)
     jy, vjp = jax.vjp(lambda a: jpermute_ops.permute(
         a, jnp.asarray(tok), use_pallas=True), jnp.asarray(x))
     (jgx,) = vjp(jnp.asarray(g))
@@ -189,13 +255,17 @@ def test_permute_matches_jax_kernel_fwd_and_vjp(seed):
         else:
             y = permute_ops.Permute.apply(xt, t(tok), permute_ref)
         y.backward(t(g))
-        close(y, jy)
-        close(xt.grad, jgx)
+        close(y, jy, **tol)
+        close(xt.grad, jgx, **tol)
+    if not isinstance(seed, int):
+        # each sentinel slot into its own discard row; a routed token holds
+        # at most top-k (2) slots
+        assert_at_most_adds(tok, x.shape[0], 2)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("seed", [0, 1, "route_2x2", "all_dropped"])
 def test_unpermute_matches_jax_kernel_fwd_and_vjp(seed):
-    _, _, y, inv_idx, inv_w, _, g = permute_case(seed, K=3)
+    (_, _, y, inv_idx, inv_w, _, g), tol = case_for(seed, K=3)
     jout, vjp = jax.vjp(lambda a, w: jpermute_ops.unpermute(
         a, jnp.asarray(inv_idx), w, use_pallas=True), jnp.asarray(y),
         jnp.asarray(inv_w))
@@ -209,9 +279,13 @@ def test_unpermute_matches_jax_kernel_fwd_and_vjp(seed):
             out = permute_ops.Unpermute.apply(yt, t(inv_idx), wt,
                                               unpermute_ref)
         out.backward(t(g))
-        close(out, jout)
-        close(yt.grad, jgy)
-        close(wt.grad, jgw)
+        close(out, jout, **tol)
+        close(yt.grad, jgy, **tol)
+        close(wt.grad, jgw, **tol)
+    if not isinstance(seed, int):
+        # a slot is one (token, pick); a dropped pick's discard row is its
+        # token's, which takes at most K adds
+        assert_at_most_adds(inv_idx, y.shape[0], inv_idx.shape[1])
 
 
 # ---------------------------------------------------------------------------
