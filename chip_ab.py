@@ -18,27 +18,40 @@ with ROOT's package, whose kernels it builds from ROOT's own sources:
   calls made as the training path makes them: grad enabled, the inputs
   requiring grad), ``host_us`` (the host clock over the same calls with
   no synchronize inside: the enqueue cost), beside ``bound_ms``.
-* K3 (``grouped_ffn_ragged``), K7 (``grouped_ffn_ragged_quant``) and,
-  where the checkout has it, K6 (``grouped_ffn``) through ROOT's
-  ``chip_smoke.py`` checks, on the same seeded inputs: the staged 2x2
-  plan's rank-0 buffer, the pipelined int8 plan's chunk and the einsum
-  phase's [64, 128, 1024] buffer.
+* K3 (``grouped_ffn_ragged``) on the staged 2x2 plan's rank-0 receive
+  buffer (S = 4864) and K7 (``grouped_ffn_ragged_quant``) on chunk 0 of
+  the pipelined int8 plan (S = 608), on the same saved inputs, each held
+  against its plain version and read as training calls it (``device_ms``,
+  ``call_ms``, ``host_us``, with ``kernel_device_ms`` the device time of
+  the checkout's own kernels, told apart by the ``__global__`` names of
+  its ``csrc/moe_gemm.cu``).  K7 is read in three parts: the whole call,
+  the quantization one call runs (``quantize``) and, where the checkout
+  quantizes each layer's expert weights once a forward
+  (``quantize_expert_weights``), that quantization (``weights``);
+  ``layer_device_ms`` sums a layer forward's eight calls and its weight
+  quantization.
+* K5 (``flash_attention``, causal) at the serve prefill shape [4, 128, 16,
+  64] and at [4, 512, 16, 64], with its yardstick
+  ``scaled_dot_product_attention`` read alike.
+* K6 (``grouped_ffn``) through ROOT's ``chip_smoke.py`` check on the
+  einsum phase's [64, 128, 1024] buffer.
 
 Each run prints one JSON line with the root, the card (``nvidia-smi``'s
 name and power limit) and each reading, with its error against the plain
 version.  A last line (``interleaved``) takes ``host_us`` and ``call_ms``
-of K1 and K2 again with every root's package loaded in one process and
-the roots read in turns: the host is shared and drifts between processes
-by more than the launch paths differ.  Exits non-zero if there is no card
-or any check fails.
+of K1, K2 and K5 (at [4, 128, 16, 64]) again with every root's package
+loaded in one process and the roots read in turns: the host is shared and
+drifts between processes by more than the launch paths differ.  Exits
+non-zero if there is no card or any check fails.
 
-The K1/K2 reading functions below are ``chip_smoke.py``'s too.
+The reading functions below are ``chip_smoke.py``'s too.
 """
 
 import functools
 import gc
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -50,6 +63,7 @@ ITERS, REPEATS = 200, 11
 
 LAYOUTS = r"""
 import sys, torch
+FFN_KEYS = ("xin", "rows_valid", "segs", "exps", "w_in", "w_out")
 import chip_smoke as cs
 from repro_torch.configs.base import get_config
 from repro_torch.models import model as model_lib
@@ -64,15 +78,19 @@ gen = torch.Generator(device="cuda").manual_seed(1)
 with torch.no_grad():
     cases = {"S=4864": cs.staged_case(torch, params, arch, gen),
              "S=608": cs.pipelined_case(torch, params, arch, gen)}
-out = {}
+out, ffn = {}, {}
 for label, c in cases.items():
     di = c["di"]
     y = torch.randn((di.num_slots, c["x"].shape[1]), generator=gen,
                     device="cuda").to(torch.bfloat16)
     out[label] = {"x": c["x"], "slot_to_token": di.slot_to_token,
                   "inv_idx": di.inv_idx, "inv_w": di.inv_w, "y": y}
-torch.save({k: {n: t.cpu() for n, t in v.items()} for k, v in out.items()},
-           sys.argv[1])
+    ffn[label] = {k: c[k] for k in FFN_KEYS}
+cpu = lambda v: v.cpu() if torch.is_tensor(v) else v
+torch.save({"perm": {k: {n: cpu(t) for n, t in v.items()}
+                     for k, v in out.items()},
+            "ffn": {k: {n: cpu(t) for n, t in v.items()}
+                    for k, v in ffn.items()}}, sys.argv[1])
 """
 
 INTERLEAVED = r"""
@@ -83,7 +101,7 @@ import chip_smoke as cs
 spec = importlib.util.spec_from_file_location("chip_ab_readings", sys.argv[1])
 ab = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(ab)
-ops = {}
+ops, flash = {}, {}
 for root in sys.argv[3:]:
     # each checkout's package in turn; a module keeps its own globals once
     # it is loaded, so the earlier roots' entries go on working
@@ -91,10 +109,12 @@ for root in sys.argv[3:]:
         del sys.modules[name]
     sys.path.insert(0, os.path.join(root, "src"))
     ops[root] = importlib.import_module("repro_torch.kernels.moe_permute.ops")
+    flash[root] = importlib.import_module("repro_torch.kernels.flash_attn.ops")
     sys.path.pop(0)
 out = {label: ab.interleaved_readings(
            torch, ops, {k: v.cuda() for k, v in lay.items()}, cs.time_ms)
-       for label, lay in torch.load(sys.argv[2]).items()}
+       for label, lay in torch.load(sys.argv[2])["perm"].items()}
+out["K5"] = ab.interleaved_flash(torch, flash, ab.K5_SHAPES[0], cs.time_ms)
 print(json.dumps({"interleaved": out, "nvidia_smi": cs.nvidia_smi_line()}),
       flush=True)
 """
@@ -106,6 +126,8 @@ sys.path.insert(0, root)
 import torch
 import chip_smoke as cs
 from repro_torch.configs.base import get_config
+from repro_torch.kernels.flash_attn import ops as fa_ops
+from repro_torch.kernels.moe_gemm import ops as g_ops
 from repro_torch.kernels.moe_permute import ops as p_ops
 from repro_torch.models import model as model_lib
 
@@ -114,8 +136,9 @@ ab = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(ab)
 torch.backends.cuda.matmul.allow_tf32 = False
 t0 = time.time()
+saved = torch.load(sys.argv[2])
 perm = {}
-for label, lay in torch.load(sys.argv[2]).items():
+for label, lay in saved["perm"].items():
     lay = {k: v.cuda() for k, v in lay.items()}
     perm[label] = {
         "K1": ab.permute_readings(torch, p_ops, lay["x"],
@@ -124,6 +147,19 @@ for label, lay in torch.load(sys.argv[2]).items():
         "K2": ab.unpermute_readings(torch, p_ops, lay["y"], lay["inv_idx"],
                                     lay["inv_w"], cs.time_ms, cs.bound_ms,
                                     cs.K2_ATOL, cs.K2_RTOL)}
+ffn = {label: {k: v.cuda() if torch.is_tensor(v) else v
+               for k, v in c.items()} for label, c in saved["ffn"].items()}
+del saved
+ours = ab.kernel_names(root, "moe_gemm")
+k3 = ab.ragged_readings(torch, g_ops, ffn["S=4864"], ours, cs.time_ms,
+                        cs.bound_ms, cs.K3_ATOL, cs.K3_RTOL)
+k7 = ab.quant_readings(torch, g_ops, ffn["S=608"], ours, cs.time_ms,
+                       cs.bound_ms, cs.K7_ATOL, cs.K7_RTOL)
+del ffn
+k5 = {"x".join(map(str, shape)): ab.flash_readings(
+          torch, fa_ops, shape, ab.kernel_names(root, "flash_attn"),
+          cs.time_ms, cs.bound_ms, cs.K5_ATOL, cs.K5_RTOL)
+      for shape in ab.K5_SHAPES}
 arch = get_config(cs.ARCH_ID)
 ctx = model_lib.build_ctx(arch, device="cuda", use_flash=True,
                           aux_mode="none", seq_len=cs.CACHE_LEN,
@@ -132,22 +168,20 @@ params = model_lib.init_params(
     ctx, torch.Generator(device="cuda").manual_seed(0))
 gen = torch.Generator(device="cuda").manual_seed(1)
 with torch.no_grad():
-    k3 = cs.check_k3(torch, cs.staged_case(torch, params, arch, gen))
-    k7 = cs.check_k7(torch, cs.pipelined_case(torch, params, arch, gen))
-    k6 = None
-    if hasattr(cs, "check_k6"):
-        x6, w_in6, w_out6, filled = cs.einsum_k6_case(torch, params, arch,
-                                                      gen)
-        k6 = cs.check_k6(torch, x6, w_in6, None, w_out6, "einsum", filled)
+    x6, w_in6, w_out6, filled = cs.einsum_k6_case(torch, params, arch, gen)
+    k6 = cs.check_k6(torch, x6, w_in6, None, w_out6, "einsum", filled)
 keys = ("ms", "plain_ms", "bound_ms", "max_abs_err")
 out = {"root": root, "nvidia_smi": cs.nvidia_smi_line(),
        "seconds": time.time() - t0, "permute_pair": perm,
-       "K3": {k: k3[k] for k in keys},
-       "K7": {k: k7[k] for k in keys + ("quantize_ms",)}}
-if k6 is not None:
-    out["K6"] = {k: k6[k] for k in keys + ("bmm_chain_ms",)}
+       "K3": k3, "K7": k7, "K5": k5,
+       "K6": {k: k6[k] for k in keys + ("bmm_chain_ms",)}}
 print(json.dumps(out), flush=True)
 """
+
+#: K5's shapes [B, S, H, hd], causal: the serve prefill pack, and the
+#: training sequence length (for information: training attends through the
+#: plain ``_sdpa``)
+K5_SHAPES = ((4, 128, 16, 64), (4, 512, 16, 64))
 
 
 # ---------------------------------------------------------------------------
@@ -158,12 +192,12 @@ print(json.dumps(out), flush=True)
 def device_ms(torch, fn, iters: int = ITERS):
     """The card's time of one call of ``fn``: the durations of every CUDA
     kernel, copy and memset that ``iters`` calls launch, summed by
-    torch.profiler (no launch gaps), over ``iters``; and the device
-    activities a call launches, by name.  The window follows a warm-up
-    window of as many calls, since the tracer starts late.  A window in
-    which an activity's count is not a whole number a call (the profiler
-    drops a few events now and then on an H100) is taken again, up to
-    three times in all."""
+    torch.profiler (no launch gaps), over ``iters``; and each device
+    activity a call launches, by name: ``{name: (per call, ms a call)}``.
+    The window follows a warm-up window of as many calls, since the tracer
+    starts late.  A window in which an activity's count is not a whole
+    number a call (the profiler drops a few events now and then on an
+    H100) is taken again, up to three times in all."""
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
@@ -177,15 +211,38 @@ def device_ms(torch, fn, iters: int = ITERS):
                     fn()
                 torch.cuda.synchronize()
                 prof.step()
-        # the step's own range also shows as a device-side span
-        events = [e for e in prof.key_averages()
-                  if e.device_type.name == "CUDA"
-                  and not e.key.startswith("ProfilerStep")]
+        # a range (the profiler's step, a record_function) also shows as a
+        # device-side span under its host-side name; only kernels, copies
+        # and memsets count
+        averages = prof.key_averages()
+        host = {e.key for e in averages if e.device_type.name == "CPU"}
+        events = [e for e in averages
+                  if e.device_type.name == "CUDA" and e.key not in host]
         if events and all(e.count % iters == 0 for e in events):
             return (sum(e.self_device_time_total for e in events) / 1e3
-                    / iters, {e.key[:60]: e.count // iters for e in events})
+                    / iters,
+                    {e.key: (e.count // iters,
+                             e.self_device_time_total / 1e3 / iters)
+                     for e in events})
     raise SystemExit("chip_ab: the profiler dropped device activity in "
                      "three windows")
+
+
+def kernel_names(root: str, source: str) -> tuple:
+    """The ``__global__`` functions of ROOT's ``csrc/<source>.cu``: the
+    hand-written kernels, told apart from PyTorch's in a profile."""
+    path = os.path.join(root, "src", "repro_torch", "csrc", f"{source}.cu")
+    with open(path) as fh:
+        text = fh.read()
+    return tuple(sorted(set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)",
+        text))))
+
+
+def ours_ms(by_key: dict, names) -> float:
+    """The device time a call spends in the kernels named ``names``."""
+    pat = re.compile(r"\b(" + "|".join(map(re.escape, names)) + r")\b")
+    return sum(ms for key, (_, ms) in by_key.items() if pat.search(key))
 
 
 def host_us(torch, fn, iters: int = ITERS) -> float:
@@ -207,19 +264,25 @@ def host_us(torch, fn, iters: int = ITERS) -> float:
     return 1e6 * t / iters
 
 
-def readings(torch, fn, time_ms) -> dict:
+def readings(torch, fn, time_ms, ours=()) -> dict:
     """``device_ms``, ``call_ms`` and ``host_us`` of ``fn``, every call
     made with grad enabled.  The host-clocked two are the least of
     REPEATS readings: the host is shared, and its neighbours only ever
-    add time (their median and largest are kept beside)."""
+    add time (their median and largest are kept beside).  With ``ours``
+    (kernel names), ``kernel_device_ms`` is the device time of those
+    kernels alone."""
     with torch.enable_grad():
-        dev, launched = device_ms(torch, fn)
+        dev, by_key = device_ms(torch, fn)
         calls = sorted(time_ms(torch, fn, ITERS) for _ in range(REPEATS))
         hosts = sorted(host_us(torch, fn) for _ in range(REPEATS))
-    return {"device_ms": dev, "device_launches": launched,
-            "call_ms": calls[0], "host_us": hosts[0],
-            "call_ms_median_max": [calls[REPEATS // 2], calls[-1]],
-            "host_us_median_max": [hosts[REPEATS // 2], hosts[-1]]}
+    out = {"device_ms": dev,
+           "device_launches": {k[:60]: n for k, (n, _) in by_key.items()},
+           "call_ms": calls[0], "host_us": hosts[0],
+           "call_ms_median_max": [calls[REPEATS // 2], calls[-1]],
+           "host_us_median_max": [hosts[REPEATS // 2], hosts[-1]]}
+    if ours:
+        out["kernel_device_ms"] = ours_ms(by_key, ours)
+    return out
 
 
 def permute_readings(torch, p_ops, x, tok, time_ms, bound_ms) -> dict:
@@ -329,6 +392,179 @@ def interleaved_readings(torch, ops, lay, time_ms) -> dict:
                                 time_ms(torch, fn, ITERS))
     return {k: {root: {"host_us": host[root, k], "call_ms": call[root, k]}
                 for root in ops} for k in ("K1", "K2")}
+
+
+def _held(torch, name, got, want, atol, rtol, dead=None) -> float:
+    """Max abs error of ``got`` against ``want``; exits unless it is within
+    ``atol`` + ``rtol``·|want| everywhere and the ``dead`` rows are exact
+    zeros."""
+    err = (got.float() - want.float()).abs()
+    ok = bool(torch.isfinite(got).all()) and bool(
+        (err <= atol + rtol * want.float().abs()).all())
+    if dead is not None:
+        ok = ok and bool((got[dead] == 0).all())
+    if not ok:
+        raise SystemExit(f"{name}: disagrees with plain (max abs err "
+                         f"{float(err.max())})")
+    return float(err.max())
+
+
+def _dead_rows(torch, segs, valid, R):
+    offs = torch.as_tensor(segs, device=valid.device)
+    rows = torch.arange(R, device=valid.device)
+    seg_of = torch.searchsorted(offs[1:], rows, right=True)
+    return (rows - offs[seg_of]) >= valid[seg_of].long()
+
+
+def _ffn_bytes(case):
+    """(valid rows, experts holding one, R, d, f) of a ragged FFN case."""
+    valid, exps, w_in = case["rows_valid"], case["exps"], case["w_in"]
+    per_expert = [0] * w_in.shape[0]
+    for e, v in zip(exps, valid.tolist()):
+        per_expert[e] += v
+    R, d = case["xin"].shape
+    return (int(valid.sum()), sum(v > 0 for v in per_expert), R, d,
+            w_in.shape[2])
+
+
+def ragged_readings(torch, g_ops, case, ours, time_ms, bound_ms, atol,
+                    rtol) -> dict:
+    """K3 (``g_ops.grouped_ffn_ragged``) on a staged receive buffer, held
+    against its plain version, then read as training calls it (x and the
+    weights requiring grad); ``kernel_device_ms`` is its launch pair's
+    device time.  ``bound_ms`` as ``chip_smoke.check_k3``'s."""
+    from repro_torch.kernels.moe_gemm.ref import grouped_ffn_ragged_ref
+    xin, valid, segs, exps = (case[k] for k in ("xin", "rows_valid", "segs",
+                                                "exps"))
+    w_in, w_out = case["w_in"], case["w_out"]
+    xg, wi, wo = (t.detach().clone().requires_grad_(True)
+                  for t in (xin, w_in, w_out))
+
+    def call():
+        return g_ops.grouped_ffn_ragged(xg, segs, exps, valid, wi, None, wo,
+                                        activation="gelu", use_pallas=True)
+
+    with torch.no_grad():
+        err = _held(torch, "K3", call(), grouped_ffn_ragged_ref(
+            xin, segs, exps, valid, w_in, None, w_out, activation="gelu"),
+            atol, rtol, _dead_rows(torch, segs, valid, xin.shape[0]))
+    nvalid, active, R, d, f = _ffn_bytes(case)
+    b_ms, b_by = bound_ms(nvalid * d * 2 + active * 2 * d * f * 2
+                          + R * d * 2 + valid.numel() * 4,
+                          2.0 * nvalid * 2 * d * f)
+    return {"R": R, "valid_rows": nvalid, "max_abs_err": err,
+            "bound_ms": b_ms, "bound_by": b_by,
+            **readings(torch, call, time_ms, ours)}
+
+
+def quant_readings(torch, g_ops, case, ours, time_ms, bound_ms, atol,
+                   rtol, chunks: int = 8) -> dict:
+    """K7 (``g_ops.grouped_ffn_ragged_quant``) on one chunk of the
+    pipelined int8 plan, read in three parts: ``call`` (the whole call as
+    training makes it, under grad; with ``kernel_device_ms``, the launches
+    alone), ``quantize`` (the plain-torch quantization one call runs) and,
+    where the checkout quantizes each layer's expert weights once a
+    forward (``quantize_expert_weights``), ``weights`` (that once-a-layer
+    quantization).  ``layer_device_ms`` is a layer forward's device time
+    over ``chunks`` calls: chunks x call, plus the weights once."""
+    from repro_torch.kernels.moe_gemm import ref
+    xin, valid, segs, exps = (case[k] for k in ("xin", "rows_valid", "segs",
+                                                "exps"))
+    w_in, w_out = case["w_in"], case["w_out"]
+    xg, wi, wo = (t.detach().clone().requires_grad_(True)
+                  for t in (xin, w_in, w_out))
+    hoisted = hasattr(g_ops, "quantize_expert_weights")
+    kw = {"qweights": g_ops.quantize_expert_weights(w_in, None)} \
+        if hoisted else {}
+
+    def call():
+        return g_ops.grouped_ffn_ragged_quant(xg, segs, exps, valid, wi,
+                                              None, wo, activation="gelu",
+                                              use_pallas=True, **kw)
+
+    def quantize():
+        if hoisted:
+            return ref.quantize_segments(xin, segs)
+        return ref.quantize_segments(xin, segs), ref.quantize_experts(w_in)
+
+    with torch.no_grad():
+        err = _held(torch, "K7", call(), ref.grouped_ffn_ragged_quant_ref(
+            xin, segs, exps, valid, w_in, None, w_out, activation="gelu"),
+            atol, rtol, _dead_rows(torch, segs, valid, xin.shape[0]))
+    nvalid, active, R, d, f = _ffn_bytes(case)
+    b_ms, b_by = bound_ms(nvalid * d + active * (d * f + f * d * 2)
+                          + R * d * 2, 2.0 * nvalid * f * d,
+                          int8_ops=2.0 * nvalid * d * f)
+    out = {"R": R, "valid_rows": nvalid, "max_abs_err": err,
+           "bound_ms": b_ms, "bound_by": b_by, "hoisted": hoisted,
+           "call": readings(torch, call, time_ms, ours),
+           "quantize": readings(torch, quantize, time_ms)}
+    layer = chunks * out["call"]["device_ms"]
+    if hoisted:
+        out["weights"] = readings(
+            torch, lambda: g_ops.quantize_expert_weights(w_in, None),
+            time_ms)
+        layer += out["weights"]["device_ms"]
+    out["layer_device_ms"] = layer
+    return out
+
+
+def flash_inputs(torch, shape):
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    return tuple(torch.randn(shape, generator=gen, device="cuda")
+                 .to(torch.bfloat16) for _ in range(3))
+
+
+def flash_readings(torch, fa_ops, shape, ours, time_ms, bound_ms, atol,
+                   rtol) -> dict:
+    """K5 (``fa_ops.flash_attention``, causal) at ``shape`` [B, S, H, hd]
+    and its yardstick ``scaled_dot_product_attention`` (on the same tensors
+    viewed [B, H, S, hd]), both held against the plain version and read
+    alike.  ``bound_ms`` counts q, k, v and o once and the causal pairs'
+    two products."""
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    F = torch.nn.functional
+    B, S, H, hd = shape
+    q, k, v = flash_inputs(torch, shape)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def kernel():
+        return fa_ops.flash_attention(q, k, v, causal=True, use_pallas=True)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    with torch.no_grad():
+        want = flash_attention_ref(q, k, v, causal=True)
+        err = _held(torch, f"K5 {shape}", kernel(), want, atol, rtol)
+        lib_err = _held(torch, f"SDPA {shape}", library().transpose(1, 2),
+                        want, atol, rtol)
+    b_ms, b_by = bound_ms(4 * B * S * H * hd * 2,
+                          2 * 2 * B * H * hd * S * (S + 1) // 2)
+    return {"shape": list(shape), "max_abs_err": err, "bound_ms": b_ms,
+            "bound_by": b_by, **readings(torch, kernel, time_ms, ours),
+            "library": {"call": "scaled_dot_product_attention",
+                        "max_abs_err": lib_err,
+                        **readings(torch, library, time_ms)}}
+
+
+def interleaved_flash(torch, ops, shape, time_ms) -> dict:
+    """``host_us`` and ``call_ms`` of K5 of every checkout in ``ops``
+    (root -> its ``flash_attn.ops``) at ``shape``, read in turns as
+    :func:`interleaved_readings` reads K1 and K2."""
+    q, k, v = flash_inputs(torch, shape)
+    host, call = {}, {}
+    with torch.enable_grad():
+        for _ in range(REPEATS):
+            for root, m in ops.items():
+                fn = functools.partial(m.flash_attention, q, k, v,
+                                       causal=True, use_pallas=True)
+                host[root] = min(host.get(root, math.inf),
+                                 host_us(torch, fn))
+                call[root] = min(call.get(root, math.inf),
+                                 time_ms(torch, fn, ITERS))
+    return {root: {"host_us": host[root], "call_ms": call[root]}
+            for root in ops}
 
 
 def main(roots) -> int:

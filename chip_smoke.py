@@ -18,7 +18,8 @@ Phases, each printing JSON lines:
    experts), the prefill layout (4 x 128 tokens x 64 experts) and the
    one-rank training layout (a real route of 2048 tokens, 64 segments of
    128 slots, partly filled), flash attention (K5) at the prefill shape
-   [4, 128, 16, 64] (plus ragged and windowed edge shapes), permute
+   [4, 128, 16, 64] and at [4, 512, 16, 64] (plus ragged, windowed,
+   non-causal and GQA edge shapes), permute
    (K1) and unpermute (K2) on rank (0, 0)'s indices of the 2x2 training
    plan and of chunk 0 of the pipelined int8 plan (S = 4864 and 608 slots;
    plus edge cases: other element types and row widths, S = 0, all
@@ -31,7 +32,9 @@ Phases, each printing JSON lines:
    (1024 tokens, caps (120, 16), 16 experts a rank), and the int8 ragged
    grouped FFN (K7) on rank (0, 0)'s chunk 0 of the pipelined int8 plan
    (8 chunks of 15 + 2 slots, int8-encoded payload, counts through the
-   chains), the dense grouped FFN (K6) at the einsum phase's [64, 128,
+   chains) and on the whole staged 2x2 buffer (S = 4864), with the
+   weights quantized once as the engine does and in the call, the dense
+   grouped FFN (K6) at the einsum phase's [64, 128,
    1024] buffer (rows past each expert's count of a top-2 route of
    random tokens zero; plus swiglu and C = 100 edge shapes), and decode attention (K8)
    at B = 32 requests against a 32768-row cache (16 heads of 64, NaN in
@@ -40,7 +43,8 @@ Phases, each printing JSON lines:
    ``index_select``, K2 ``embedding_bag``, K5 and K8
    ``scaled_dot_product_attention``; K6 has no one-call library
    counterpart, and the cuBLAS chain bmm -> gelu -> bmm is timed beside
-   it as ``bmm_chain_ms``);
+   it as ``bmm_chain_ms``), and every kernel's and yardstick's
+   ``device_ms`` (the card's time only, ``chip_ab.device_ms``);
 4. backward checks — each K1-K4, K6 and K7 ``autograd.Function`` on the
    card against autograd of its plain version (K7: of the full-precision
    plain version, its straight-through rule) at a small shape, and K1's
@@ -67,7 +71,8 @@ Phases, each printing JSON lines:
    must agree with the plain path's.  Each rank profiles one more step
    twice: as shipped, and with the earlier spare-row backwards of K1 and
    K2 (``spare_row_backwards``), reporting the device time inside each
-   backward's profiler range (``BACKWARD_RANGES``);
+   profiler range of ``PROFILED_RANGES`` (the backwards; on the pipelined
+   phase K7's forward and its weight quantization too);
 9. train_2x2_pipelined — the same world through ``dispatch=
    "a2a_pipelined"`` with the int8 wire codec and the overlap model's
    chunk count (8), 2 steps: every rank must launch K1, K2 and K7 192
@@ -119,7 +124,11 @@ PEAK_INT8_OPS_PER_S = 1979e12
 # combine (the kernel combines its f32 accumulator), and f32 sums run in
 # another order (atomics in the kernel): a few bf16 ulps of |y| ~ 1.
 K4_ATOL, K4_RTOL = 3e-2, 2e-2
-# K5: both run in f32 and round the output to bf16 once: one bf16 ulp.
+# K5: scores, softmax and output sums in f32 on both sides, but the kernel
+# rounds each probability to bf16 for the tensor cores' P.V product (the
+# plain version keeps it f32): a relative error of up to 2^-9 a weight,
+# which averages out over the keys of a row, then one bf16 rounding of the
+# output; together at most a bf16 ulp or two of |out|, which RTOL covers.
 K5_ATOL, K5_RTOL = 1e-2, 1e-2
 # K2: both sum K = 2 weighted bf16 rows in f32; the kernel fuses each
 # multiply-add (one rounding fewer): an f32 ulp or two of |out| ~ 1.
@@ -194,12 +203,16 @@ E2E_RATIO, E2E_FLOOR = 1.5, 1e-2
 # kernels no earlier phase may launch: K6 runs only on the einsum phase, K8
 # on no path
 OFF_PATH = ("moe_gemm.grouped_ffn", "decode_attn.decode_attention")
-# the profiler ranges of the backwards written for K1 and K2 and of the
-# ragged FFN's (K3's and K7's) backward, whose device time a profiled
-# training step reports
-BACKWARD_RANGES = ("moe_permute.permute.backward",
+# the profiler ranges whose device time a profiled training step reports:
+# the backwards written for K1 and K2, the ragged FFN's (K3's and K7's)
+# backward, and K7's forward (of it the profiler credits the x
+# quantization's operators, not the ctypes launches) and its weight
+# quantization (once a layer forward)
+PROFILED_RANGES = ("moe_permute.permute.backward",
                    "moe_permute.unpermute.backward",
-                   "moe_gemm.grouped_ffn_ragged.backward")
+                   "moe_gemm.grouped_ffn_ragged.backward",
+                   "moe_gemm.grouped_ffn_ragged_quant.forward",
+                   "moe_gemm.quantize_expert_weights")
 
 
 def emit(obj) -> None:
@@ -239,6 +252,13 @@ def atol_needed(torch, got, want, rtol) -> float:
     """The least atol with which ``close(got, want, atol, rtol)`` holds."""
     got, want = got.float(), want.float()
     return float(((got - want).abs() - rtol * want.abs()).max().clamp(min=0))
+
+
+def dev_ms(torch, fn, iters: int) -> float:
+    """The card's time of one call of ``fn`` (``chip_ab.device_ms``: the
+    profiler's kernel, copy and memset durations, launch gaps left out)."""
+    import chip_ab
+    return chip_ab.device_ms(torch, fn, iters)[0]
 
 
 def bound_ms(nbytes: float, flops: float, int8_ops: float = 0.0):
@@ -329,6 +349,7 @@ def check_k4(torch, args, act: str, label: str, timed=True):
                 "max_abs_err": err, "atol": K4_ATOL, "rtol": K4_RTOL}
     iters = 50 if Tg <= 64 else 10
     ms = time_ms(torch, kernel, iters)
+    kernel_dev = dev_ms(torch, kernel, iters)
     plain_ms = time_ms(torch, plain, max(3, iters // 5))
     # the bound counts the work the output needs: the rows with a nonzero
     # combine weight, and the weights of the experts that hold valid rows.
@@ -345,17 +366,23 @@ def check_k4(torch, args, act: str, label: str, timed=True):
             "segments": len(exps), "active_experts": active,
             "computed_rows": computed_rows, "weighted_rows": weighted_rows,
             "max_abs_err": err, "atol": K4_ATOL, "rtol": K4_RTOL, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+            "device_ms": kernel_dev, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
 
 
-def check_k5(torch, shape, gen, causal=True, window=0, timed=True):
+def check_k5(torch, shape, gen, causal=True, window=0, timed=True,
+             kv_heads=None):
+    """K5 against its plain version on random bf16 q [B, S, H, hd] and k, v
+    [B, S, kv_heads (default H), hd]; when timed, with kernel, plain, bound
+    and ``scaled_dot_product_attention`` times (events), and the kernel's
+    and SDPA's ``device_ms``."""
     from repro_torch.kernels.flash_attn import ops as fa_ops
     from repro_torch.kernels.flash_attn.ref import flash_attention_ref
     F = torch.nn.functional
     B, S, H, hd = shape
-    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
-               .to(torch.bfloat16) for _ in range(3))
+    kv_shape = (B, S, kv_heads or H, hd)
+    q, k, v = (torch.randn(sh, generator=gen, device="cuda")
+               .to(torch.bfloat16) for sh in (shape, kv_shape, kv_shape))
 
     def kernel():
         return fa_ops.flash_attention(q, k, v, causal=causal,
@@ -371,10 +398,12 @@ def check_k5(torch, shape, gen, causal=True, window=0, timed=True):
     torch.cuda.synchronize()
     ok, err = close(torch, got, want, K5_ATOL, K5_RTOL)
     if not ok:
-        raise SystemExit(f"K5 {shape} causal={causal} window={window}: "
-                         f"kernel disagrees with plain (max abs err {err})")
-    out = {"shape": list(shape), "causal": causal, "window": window,
-           "max_abs_err": err, "atol": K5_ATOL, "rtol": K5_RTOL}
+        raise SystemExit(f"K5 {shape} kv_heads={kv_heads} causal={causal} "
+                         f"window={window}: kernel disagrees with plain "
+                         f"(max abs err {err})")
+    out = {"shape": list(shape), "kv_heads": kv_heads or H, "causal": causal,
+           "window": window, "max_abs_err": err, "atol": K5_ATOL,
+           "rtol": K5_RTOL}
     if not timed:
         return out
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -387,8 +416,10 @@ def check_k5(torch, shape, gen, causal=True, window=0, timed=True):
     flops = 2 * 2 * B * H * hd * pairs
     b_ms, b_by = bound_ms(nbytes, flops)
     out.update(ms=time_ms(torch, kernel, 100),
+               device_ms=dev_ms(torch, kernel, 100),
                plain_ms=time_ms(torch, plain, 20),
                library_ms=time_ms(torch, library, 100),
+               library_device_ms=dev_ms(torch, library, 100),
                bound_ms=b_ms, bound_by=b_by)
     return out
 
@@ -621,6 +652,7 @@ def check_k3(torch, case):
             "valid_rows": nvalid, "active_experts": active,
             "max_abs_err": err, "atol": K3_ATOL, "rtol": K3_RTOL,
             "ms": time_ms(torch, kernel, 20),
+            "device_ms": dev_ms(torch, kernel, 20),
             "plain_ms": time_ms(torch, plain, 5), "library_ms": None,
             "bound_ms": b_ms, "bound_by": b_by}
 
@@ -696,39 +728,52 @@ def dead_rows(torch, segs, valid, R):
 
 
 def check_k7(torch, case):
-    """K7 on chunk 0 of the pipelined int8 plan against its plain version
-    on the same segments (so the same per-segment and per-expert scales),
-    with kernel, plain, bound times and the time of the plain-torch
-    quantization the wrapper runs before the launch."""
+    """K7 on one layout of the pipelined int8 plan's rank (0, 0) (chunk 0,
+    S = 608, or the whole staged buffer, S = 4864, whose expert spans of
+    304 rows cross 64-row tiles) against its plain version on the same
+    segments (so the same per-segment and per-expert scales): called as
+    the dispatch engine calls it, with the weights quantized once
+    (``quantize_expert_weights``), and with them quantized in the call;
+    rows past each segment's count must be exact zeros.  With kernel
+    (events and ``device_ms``; ``kernel_device_ms`` the launch pair
+    alone), plain and bound times, and the times of the quantizations:
+    ``quantize_ms`` (x, each call) and ``weights_quantize_ms`` (the
+    weights, once a layer forward)."""
+    import chip_ab
+    from repro_torch.kernels.moe_fused.ops import plan_expert_tiles
     from repro_torch.kernels.moe_gemm import ops as g_ops
     from repro_torch.kernels.moe_gemm.ref import (grouped_ffn_ragged_quant_ref,
-                                                  quantize_experts,
                                                   quantize_segments)
     xin, valid = case["xin"], case["rows_valid"]
     segs, exps = case["segs"], case["exps"]
     w_in, w_out = case["w_in"], case["w_out"]
+    qw = g_ops.quantize_expert_weights(w_in)
 
-    def kernel():
+    def kernel(qweights=qw):
         return g_ops.grouped_ffn_ragged_quant(xin, segs, exps, valid, w_in,
                                               None, w_out, activation="gelu",
-                                              use_pallas=True)
+                                              use_pallas=True,
+                                              qweights=qweights)
 
     def plain():
         return grouped_ffn_ragged_quant_ref(xin, segs, exps, valid, w_in,
                                             None, w_out, activation="gelu")
 
-    def quantize():
-        return quantize_segments(xin, segs), quantize_experts(w_in)
-
-    got, want = kernel(), plain()
-    torch.cuda.synchronize()
-    ok, err = close(torch, got, want, K7_ATOL, K7_RTOL)
     R, d = xin.shape
     f = w_in.shape[2]
-    zeros_exact = bool((got[dead_rows(torch, segs, valid, R)] == 0).all())
-    if not ok or not zeros_exact:
-        raise SystemExit(f"K7: kernel disagrees with plain (max abs err "
-                         f"{err}, rows past nvalid zero: {zeros_exact})")
+    want = plain()
+    dead = dead_rows(torch, segs, valid, R)
+    errs = []
+    for label, got in (("weights quantized once", kernel()),
+                       ("weights quantized in the call", kernel(None))):
+        torch.cuda.synchronize()
+        ok, err = close(torch, got, want, K7_ATOL, K7_RTOL)
+        zeros_exact = bool((got[dead] == 0).all())
+        if not ok or not zeros_exact:
+            raise SystemExit(f"K7 at S={R}, {label}: kernel disagrees with "
+                             f"plain (max abs err {err}, rows past nvalid "
+                             f"zero: {zeros_exact})")
+        errs.append(err)
     nvalid = int(valid.sum())
     per_expert = torch.zeros(w_in.shape[0], device="cuda").index_add_(
         0, torch.as_tensor(exps, device="cuda"), valid.float())
@@ -739,13 +784,23 @@ def check_k7(torch, case):
     b_ms, b_by = bound_ms(nbytes, 2.0 * nvalid * f * d,
                           int8_ops=2.0 * nvalid * d * f)
     widths = {offs1 - offs0 for offs0, offs1 in zip(segs[:-1], segs[1:])}
+    call_dev, by_key = chip_ab.device_ms(torch, kernel, 20)
     return {"R": R, "segments": len(exps), "experts": w_in.shape[0],
-            "caps": list(case["caps"]), "chunks": case["chunks"],
-            "chunk_caps": case["chunk_caps"],
+            "caps": list(case["caps"]), "chunks": case.get("chunks", 1),
+            "chunk_caps": case.get("chunk_caps"),
             "segment_widths": sorted(widths), "valid_rows": nvalid,
-            "active_experts": active, "max_abs_err": err, "atol": K7_ATOL,
-            "rtol": K7_RTOL, "ms": time_ms(torch, kernel, 20),
-            "quantize_ms": time_ms(torch, quantize, 20),
+            "active_experts": active,
+            "tiles": len(plan_expert_tiles(tuple(segs), tuple(exps))),
+            "max_abs_err": max(errs), "atol": K7_ATOL, "rtol": K7_RTOL,
+            "ms": time_ms(torch, kernel, 20), "device_ms": call_dev,
+            "kernel_device_ms": chip_ab.ours_ms(
+                by_key, chip_ab.kernel_names(REPO, "moe_gemm")),
+            "quantize_ms": time_ms(
+                torch, lambda: quantize_segments(xin, segs), 20),
+            "weights_quantize_ms": time_ms(
+                torch, lambda: g_ops.quantize_expert_weights(w_in), 20),
+            "weights_quantize_device_ms": dev_ms(
+                torch, lambda: g_ops.quantize_expert_weights(w_in), 20),
             "plain_ms": time_ms(torch, plain, 5), "library_ms": None,
             "bound_ms": b_ms, "bound_by": b_by}
 
@@ -820,8 +875,10 @@ def check_k6(torch, x, w_in, w_gate, w_out, label: str, filled=None,
     nbytes = 2 * E * C * d * 2 + n_w * E * d * f * 2
     b_ms, b_by = bound_ms(nbytes, 2.0 * filled * n_w * d * f)
     out.update(filled_rows=filled, ms=time_ms(torch, kernel, 20),
+               device_ms=dev_ms(torch, kernel, 20),
                plain_ms=time_ms(torch, plain, 5), library_ms=None,
                bmm_chain_ms=time_ms(torch, bmm_chain, 20),
+               bmm_chain_device_ms=dev_ms(torch, bmm_chain, 20),
                bmm_chain_max_abs_err=chain_err, bound_ms=b_ms, bound_by=b_by)
     return out
 
@@ -897,8 +954,10 @@ def check_k8(torch, gen, B: int, L: int, H: int, K: int, lengths=None,
         nbytes = rows * K * hd * 2 * 2 + 2 * B * H * hd * 2 + B * 4
         b_ms, b_by = bound_ms(nbytes, 4.0 * rows * (H // K) * K * hd)
         out.update(ms=time_ms(torch, kernel, 20),
+                   device_ms=dev_ms(torch, kernel, 20),
                    plain_ms=time_ms(torch, plain, 3),
                    library_ms=time_ms(torch, library, 10),
+                   library_device_ms=dev_ms(torch, library, 10),
                    library_max_abs_err=lib_err, bound_ms=b_ms, bound_by=b_by)
         del kc, vc
     out["launches"] = backend.LAUNCHES[d_ops.KERNEL] - launches0
@@ -1012,7 +1071,7 @@ def backward_checks(torch, gen, layout22):
     out["K7"] = compare(
         "K7", lambda x, wi, wo: g_ops.grouped_ffn_ragged_quant(
             x, segs, exps, valid, wi, None, wo, activation="gelu",
-            use_pallas=True),
+            use_pallas=True, qweights=g_ops.quantize_expert_weights(wi)),
         lambda x, wi, wo: grouped_ffn_ragged_ref(
             x, segs, exps, valid, wi, None, wo, activation="gelu"),
         [x7] + w3, randn(R, d, dtype=torch.bfloat16), BWD_BF16_ATOL,
@@ -1191,10 +1250,18 @@ def steps_through(torch, ctx, run, params, data, steps: int):
 
 def profile_train_step(torch, step, params, opt_state, batch) -> dict:
     """One more training step under torch.profiler (not counted): wall
-    and device time, busy share, launches, the top kernels, and the device
-    time of the kernels launched inside each backward's profiler range
-    (BACKWARD_RANGES: K1's and K2's scatters apart from the ragged FFN's
-    weight scatters)."""
+    and device time, busy share, launches, the top kernels, the device
+    time of the kernels launched inside each profiler range of
+    PROFILED_RANGES (K1's and K2's scatters apart from the ragged FFN's
+    weight scatters; K7's forward apart from its weight quantization), and
+    each hand-written kernel's launches and device time by name
+    (``port_kernels``).  The profiler credits a range with the PyTorch
+    operators' kernels only: a kernel launched through ctypes is in
+    ``port_kernels``, not in its range."""
+    import re
+
+    import chip_ab
+    from repro_torch.kernels import backend
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1205,19 +1272,28 @@ def profile_train_step(torch, step, params, opt_state, batch) -> dict:
     averages = prof.key_averages()
     # the ranges also appear as device-side spans; only kernels count
     events = [e for e in averages if e.device_type.name == "CUDA"
-              and e.key not in BACKWARD_RANGES]
+              and e.key not in PROFILED_RANGES]
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    port = {}
+    for name in (n for src in backend.sources()
+                 for n in chip_ab.kernel_names(REPO, src)):
+        hits = [e for e in events if re.search(rf"\b{name}\b", e.key)]
+        if hits:
+            port[name] = {"count": sum(e.count for e in hits),
+                          "device_ms": sum(e.self_device_time_total
+                                           for e in hits) / 1e3}
     return {"wall_ms": wall_ms, "device_ms": dev_ms,
             "device_busy_share": dev_ms / wall_ms,
             "kernel_launches": sum(e.count for e in events),
             "top": [{"name": e.key[:60], "count": e.count,
                      "ms": e.self_device_time_total / 1e3} for e in top],
-            "backward_ranges": {
+            "port_kernels": port,
+            "ranges": {
                 e.key: {"count": e.count,
                         "device_ms": e.device_time_total / 1e3}
                 for e in averages
-                if e.key in BACKWARD_RANGES and e.device_type.name == "CPU"}}
+                if e.key in PROFILED_RANGES and e.device_type.name == "CPU"}}
 
 
 def spare_row_backwards(torch):
@@ -1230,7 +1306,7 @@ def spare_row_backwards(torch):
 
     def permute_bwd(ctx, g):
         (slot_to_token,) = ctx.saved_tensors
-        with torch.profiler.record_function(BACKWARD_RANGES[0]):
+        with torch.profiler.record_function(PROFILED_RANGES[0]):
             gx = g.new_zeros((ctx.num_tokens + 1, g.shape[-1]))
             gx.index_add_(0, slot_to_token.long(), g)
             return gx[:ctx.num_tokens], None, None
@@ -1238,7 +1314,7 @@ def spare_row_backwards(torch):
     def unpermute_bwd(ctx, g):
         y, inv_idx, inv_w = ctx.saved_tensors
         S, d = y.shape
-        with torch.profiler.record_function(BACKWARD_RANGES[1]):
+        with torch.profiler.record_function(PROFILED_RANGES[1]):
             g = g.to(torch.float32)
             y_z = _with_zero_row(y)
             gy = torch.zeros((S + 1, d), dtype=torch.float32,
@@ -1484,12 +1560,19 @@ def main() -> int:
                     for Tg, label in ((NUM_SLOTS, "decode"), (100, "ragged"))]
         hd = arch.head_dim_
         k5 = check_k5(torch, (PACK, BUCKET, arch.num_heads, hd), gen)
+        # the training sequence length, for information (training attends
+        # through the plain _sdpa)
+        k5_512 = check_k5(torch, (PACK, TRAIN_SEQ, arch.num_heads, hd), gen)
         edges = [check_k5(torch, (2, 100, arch.num_heads, hd), gen,
                           timed=False),
                  check_k5(torch, (1, 77, 4, hd), gen, window=16,
                           timed=False),
                  check_k5(torch, (1, 50, 4, hd), gen, causal=False,
-                          timed=False)]
+                          timed=False),
+                 check_k5(torch, (2, 96, arch.num_heads, hd), gen,
+                          kv_heads=4, timed=False),
+                 check_k5(torch, (2, 200, arch.num_heads, hd), gen,
+                          window=70, kv_heads=8, timed=False)]
         # K1 and K2 at rank 0's layouts of the 2x2 world: the staged plan
         # (train_2x2) and chunk 0 of the pipelined int8 plan
         # (train_2x2_pipelined)
@@ -1505,6 +1588,9 @@ def main() -> int:
         k1_edges = permute_edges(torch, gen)
         k2_edges = unpermute_edges(torch, gen)
         k3 = check_k3(torch, case)
+        # K7 on the whole staged buffer too: its expert spans of 304 rows
+        # cross 64-row tiles, which chunk 0's spans of 38 do not
+        k7_full = check_k7(torch, case)
         layout22 = (case["x"].shape[0], case["di"])
         del case
         k7 = check_k7(torch, pcase)
@@ -1529,8 +1615,9 @@ def main() -> int:
                     check_k8(torch, gen, 4, 1000, H, K,
                              lengths=[0, 1, 537, 1000])]
     emit({"phase": "checks", "K4": k4, "K4_edges": k4_edges, "K5": k5,
-          "K5_edges": edges, "K1": k1, "K1_edges": k1_edges, "K2": k2,
-          "K2_edges": k2_edges, "K3": k3, "K7": k7,
+          "K5_S512": k5_512, "K5_edges": edges, "K1": k1,
+          "K1_edges": k1_edges, "K2": k2, "K2_edges": k2_edges, "K3": k3,
+          "K7": k7, "K7_S4864": k7_full,
           "K6": k6, "K6_edges": k6_edges, "K8": k8, "K8_edges": k8_edges})
     bwd = backward_checks(torch, gen, layout22)
     emit({"phase": "backward_checks", **bwd})
@@ -1746,7 +1833,8 @@ def main() -> int:
          "launches_by_path": by_path("moe_gemm.grouped_ffn_ragged"),
          "max_abs_err": k3["max_abs_err"],
          "backward_max_abs_err": bwd["K3"]["max_abs_err"],
-         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "ms": k3["ms"], "device_ms": k3["device_ms"],
+         "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
          "library_ms": None},
         {"name": "moe_gemm.grouped_ffn_ragged_quant", "route": "cuda",
@@ -1754,11 +1842,17 @@ def main() -> int:
          "replaces": "src/repro/kernels/moe_gemm/kernel.py:312",
          "launches": total("moe_gemm.grouped_ffn_ragged_quant"),
          "launches_by_path": by_path("moe_gemm.grouped_ffn_ragged_quant"),
-         "max_abs_err": k7["max_abs_err"],
+         "max_abs_err": max(k7["max_abs_err"], k7_full["max_abs_err"]),
          "backward_max_abs_err": bwd["K7"]["max_abs_err"],
-         "ms": k7["ms"], "plain_ms": k7["plain_ms"],
+         "ms": k7["ms"], "device_ms": k7["device_ms"],
+         "kernel_device_ms": k7["kernel_device_ms"],
+         "quantize_ms": k7["quantize_ms"],
+         "weights_quantize_ms": k7["weights_quantize_ms"],
+         "weights_quantize_device_ms": k7["weights_quantize_device_ms"],
+         "plain_ms": k7["plain_ms"],
          "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
-         "library_ms": None},
+         "library_ms": None,
+         "layouts": {"S=608": k7, "S=4864": k7_full}},
         {"name": "moe_fused.local_moe", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_fused.cu",
          "replaces": "src/repro/kernels/moe_fused/kernel.py:123",
@@ -1767,7 +1861,8 @@ def main() -> int:
          "max_abs_err": max(e["max_abs_err"]
                             for e in list(k4.values()) + k4_edges),
          "backward_max_abs_err": bwd["K4"]["max_abs_err"],
-         "ms": kp["ms"], "plain_ms": kp["plain_ms"],
+         "ms": kp["ms"], "device_ms": kp["device_ms"],
+         "plain_ms": kp["plain_ms"],
          "bound_ms": kp["bound_ms"], "bound_by": kp["bound_by"],
          "library_ms": None, "layouts": k4},
         {"name": "flash_attn.flash_attention", "route": "cuda",
@@ -1775,11 +1870,14 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attn/kernel.py:65",
          "launches": total("flash_attn.flash_attention"),
          "launches_by_path": by_path("flash_attn.flash_attention"),
-         "max_abs_err": max([k5["max_abs_err"]]
+         "max_abs_err": max([k5["max_abs_err"], k5_512["max_abs_err"]]
                             + [e["max_abs_err"] for e in edges]),
-         "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+         "ms": k5["ms"], "device_ms": k5["device_ms"],
+         "plain_ms": k5["plain_ms"],
          "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
-         "library_ms": k5["library_ms"]},
+         "library_ms": k5["library_ms"],
+         "library_device_ms": k5["library_device_ms"],
+         "shapes": {"4x128x16x64": k5, "4x512x16x64": k5_512}},
         {"name": "moe_gemm.grouped_ffn", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_gemm.cu",
          "replaces": "src/repro/kernels/moe_gemm/kernel.py:185",
@@ -1787,9 +1885,11 @@ def main() -> int:
          "launches_by_path": by_path("moe_gemm.grouped_ffn"),
          "max_abs_err": max(e["max_abs_err"] for e in [k6] + k6_edges),
          "backward_max_abs_err": bwd["K6"]["max_abs_err"],
-         "ms": k6["ms"], "plain_ms": k6["plain_ms"],
+         "ms": k6["ms"], "device_ms": k6["device_ms"],
+         "plain_ms": k6["plain_ms"],
          "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
-         "library_ms": None, "bmm_chain_ms": k6["bmm_chain_ms"]},
+         "library_ms": None, "bmm_chain_ms": k6["bmm_chain_ms"],
+         "bmm_chain_device_ms": k6["bmm_chain_device_ms"]},
         {"name": "decode_attn.decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn/kernel.py:65",
@@ -1798,9 +1898,11 @@ def main() -> int:
          "launches_by_path": by_path("decode_attn.decode_attention"),
          "check_launches": sum(e["launches"] for e in [k8] + k8_edges),
          "max_abs_err": max(e["max_abs_err"] for e in [k8] + k8_edges),
-         "ms": k8["ms"], "plain_ms": k8["plain_ms"],
+         "ms": k8["ms"], "device_ms": k8["device_ms"],
+         "plain_ms": k8["plain_ms"],
          "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"],
-         "library_ms": k8["library_ms"]},
+         "library_ms": k8["library_ms"],
+         "library_device_ms": k8["library_device_ms"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -137,7 +137,8 @@ def expert_ffn(params, xin, cfg: MoEConfig, ep: EPSpec):
 
 def expert_ffn_flat(params, x_flat, seg_offsets, cfg: MoEConfig, ep: EPSpec,
                     *, seg_experts=None, rows_valid=None, use_pallas=None,
-                    slot_to_token=None, slot_w=None, quantized: bool = False):
+                    slot_to_token=None, slot_w=None, quantized: bool = False,
+                    qweights=None):
     """Segment-offset grouped expert FFN on a flat [R, d] row buffer.
 
     ``seg_offsets`` is the static offset vector of the contiguous sorted
@@ -153,7 +154,10 @@ def expert_ffn_flat(params, x_flat, seg_offsets, cfg: MoEConfig, ep: EPSpec,
     ``quantized=True`` (set by the engine when the wire codec opts
     delivered rows into low-precision compute) routes every non-fused call
     through the int8 ragged entry (K7), whatever the kernel policy; its
-    backward is full precision (straight-through).
+    backward is full precision (straight-through).  ``qweights`` hands it
+    the expert weights already quantized
+    (``moe_gemm.ops.quantize_expert_weights``), as the engine does once a
+    layer forward.
 
     Otherwise, with the kernel branch wanted (``moe_gemm.ops.use_ragged``)
     or ``cfg.use_kernel`` set, the call goes through
@@ -180,7 +184,7 @@ def expert_ffn_flat(params, x_flat, seg_offsets, cfg: MoEConfig, ep: EPSpec,
             x_flat, offs, params["w_in"], params.get("w_gate"),
             params["w_out"], activation=cfg.activation,
             seg_experts=seg_experts, rows_valid=rows_valid,
-            use_pallas=use_pallas, quantized=quantized)
+            use_pallas=use_pallas, quantized=quantized, qweights=qweights)
     if seg_experts is None:
         per_expert = offs
     else:

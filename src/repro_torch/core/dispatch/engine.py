@@ -244,6 +244,14 @@ def _staged_a2a(params, x, eng: DispatchEngine, num_chunks: int):
               for stage, sel, cap_axis, cpc, _ in work),
         topk_idx, T) for j in range(num_chunks)] if work else []
     ragged = moe_gemm_ops.use_ragged(eng.use_pallas, x.device)
+    # int8 compute: the layer's expert weights are quantized once here and
+    # shared by every chunk's call (the reference quantizes inside its
+    # jitted step, where XLA can fold the repeats; eager PyTorch cannot)
+    qweights = None
+    if quant and work:
+        qweights = moe_gemm_ops.quantize_expert_weights(
+            params["w_in"],
+            params.get("w_gate") if cfg.activation == "swiglu" else None)
 
     def dispatch(j):
         di = indices[j]
@@ -279,7 +287,8 @@ def _staged_a2a(params, x, eng: DispatchEngine, num_chunks: int):
         # 64-row tiles, so chunk slices need no padding here.
         y = expert_ffn_flat(params, xin.reshape(E_l * R, d), segs, cfg, ep,
                             seg_experts=exps, rows_valid=valid,
-                            use_pallas=eng.use_pallas, quantized=quant)
+                            use_pallas=eng.use_pallas, quantized=quant,
+                            qweights=qweights)
         return y.reshape(E_l, R, d)
 
     def combine(out, j, y_exp):

@@ -10,27 +10,45 @@
 // What it computes: q [B, Sq, H, 64], k/v [B, Sk, K, 64] in bfloat16 ->
 //   o[b, i, h] = softmax_j(mask(q_i . k_j / sqrt(hd))) @ v_j  over the kv head
 //   h // (H / K), with the mask causal (i >= j), windowed (i - j < window)
-//   and ragged (j < Sk); positions of q and k both start at 0.  float32
-//   inside, output in bfloat16.  Only bf16 with hd = 64 (gpt3_medium_moe's
-//   serving path) is built: other variants come with a configuration that
-//   needs them and a card check that holds them.  NaN scores (garbage K rows) are scrubbed to
-//   the mask value; fully-masked rows give 0.
+//   and ragged (j < Sk); positions of q and k both start at 0.  Scores,
+//   softmax and the output sum in float32; the probabilities are rounded
+//   to bfloat16 for the tensor cores' P.V product; output in bfloat16.
+//   Only bf16 with hd = 64 (gpt3_medium_moe's serving path) is built:
+//   other variants come with a configuration that needs them and a card
+//   check that holds them.  NaN scores (garbage K rows) are scrubbed to the
+//   mask value; fully-masked rows give 0.
 //
-// Design: one block per (q tile of 32 rows, head, batch).  The TPU's
-// sequential fourth grid axis becomes a loop inside the block over 32-key
-// tiles staged in shared memory as float32; k-tiles wholly above the causal
-// diagonal or wholly outside the window are skipped.  Each warp owns 4 query
-// rows; a lane scores one key of the tile (dot product over hd from shared
-// memory, K rows padded by one float so the 32 lanes hit 32 banks), the warp
-// reduces max and sum with shuffles, and each lane accumulates hd/32 output
-// dimensions, so the running max m and normaliser l stay in registers.
+// Design (a FlashAttention-2 forward on mma.sync): one block of four warps
+// per (q tile of 64 rows, head, batch); each warp owns 16 query rows.  The
+// TPU's sequential fourth grid axis becomes a loop inside the block over
+// 64-key tiles; tiles wholly above the causal diagonal or wholly outside
+// the window are skipped, for the block and, inside a computed tile, for
+// each warp.
+//   * Q is loaded once and kept in registers as bf16 A-fragments of
+//     mma.m16n8k16 (ldmatrix from shared memory) for the whole loop.
+//   * K and V tiles (64 x 64 bf16, 8 KB each) arrive through a two-stage
+//     cp.async ring (16 bytes a thread and copy): tile t + 1 loads while
+//     tile t computes.  Rows are 128 bytes, stored with their eight 16-byte
+//     chunks XOR-swizzled by the row (chunk c of row r at c ^ (r & 7)), so
+//     every ldmatrix phase hits eight distinct bank groups.  Keys past Sk
+//     are zero-filled by the copy and never read from memory.
+//   * S = Q.K^T and O += P.V run on the bf16 tensor cores with f32
+//     accumulators (ldmatrix for K, ldmatrix.trans for V).  The online
+//     softmax (running max m and sum l of each row, in the log2 domain)
+//     stays in registers: a row lives in one quad of lanes, so its
+//     reductions are two shuffles.
+//     P is re-packed from the S accumulators into A-fragments in registers,
+//     never through shared memory.
+//   * The output is normalised in registers, staged through the warp's own
+//     rows of the Q tile in shared memory and stored in 16-byte pieces.
+// Shared memory is 40 KB, static: no opt-in attribute is needed.
 //
-// What bounds it on this card: at the prefill shapes it serves (Sq = Sk <=
-// a few hundred, hd = 64) neither bytes (q, k, v, o once: a few MB) nor
-// tensor-core operations; this first version runs the products on the
-// float32 CUDA cores, so its time is bounded by float32 FMA issue and the
-// launch, not by the card's bf16 roofline.  Tensor-core MMA tiles are later
-// work, for when the prompt buckets grow.
+// What bounds it on this card: at the serve prefill shape [4, 128, 16, 64]
+// the bound is q, k, v and o once (2 MB, 0.00125 ms), and a single wave of
+// 128 blocks, each one or two key tiles deep, is bound by latency (the
+// copy of its first tile, the dependent MMA and shuffle chain) and the
+// launch; at [4, 512, 16, 64] 512 blocks of up to 8 tiles overlap copies
+// with the products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,47 +59,102 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BQ = 32;             // query rows per block
-constexpr int BKEYS = 32;          // keys per tile: one per lane
-constexpr int NWARPS = 8;
-constexpr int RPW = BQ / NWARPS;   // query rows per warp
+constexpr int BQ = 64;             // query rows per block
+constexpr int BKV = 64;            // keys per tile
+constexpr int NWARPS = BQ / 16;    // 16 query rows per warp
+constexpr int THREADS = NWARPS * 32;
 constexpr int HD = 64;             // head dim (gpt3_medium_moe's)
+constexpr int CHUNKS = HD / 8;     // 16-byte chunks per row
 constexpr float NEG_INF = -1e30f;  // the reference's mask value
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// element offset of 16-byte chunk c of row r in a swizzled [rows][64] tile
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * HD + ((c ^ (r & 7)) << 3);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(NWARPS * 32)
+// 16 bytes global -> shared; src_bytes 0 fills zeros and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a (16x16 bf16, row) . b (16x8 bf16, col), f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats as a bf16 pair, lo in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// rows [0, nvalid) of a [64, 64] tile whose row 0 is at g (row stride ld
+// elements) into the swizzled tile s; rows past nvalid are zero-filled
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, size_t ld,
+                                          int nvalid, int tid) {
+  for (int i = tid; i < 64 * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS, c = i % CHUNKS;
+    const bool ok = r < nvalid;
+    cp_async16(smem_u32(s + swz(r, c)), g + (size_t)(ok ? r : 0) * ld + c * 8,
+               ok ? 16 : 0);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
 flash_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o, int Sq,
-                  int Sk, int H, int K, float scale, int causal, int window) {
-  constexpr int DPL = HD / 32;     // output dims per lane
-  extern __shared__ float smem[];
-  float* Qs = smem;                         // [BQ][HD], pre-scaled
-  float* Ks = Qs + BQ * HD;                 // [BKEYS][HD + 1]
-  float* Vs = Ks + BKEYS * (HD + 1);        // [BKEYS][HD]
+                  int Sk, int H, int K, float scale_log2, int causal,
+                  int window) {
+  __shared__ __align__(128) bf16 Qs[BQ * HD];
+  __shared__ __align__(128) bf16 Ks[2][BKV * HD];
+  __shared__ __align__(128) bf16 Vs[2][BKV * HD];
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kh = h / (H / K);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
-  for (int idx = tid; idx < BQ * HD; idx += NWARPS * 32) {
-    int r = idx / HD, c = idx % HD;
-    int qi = q0 + r;
-    Qs[idx] = qi < Sq
-        ? __bfloat162float(q[(((size_t)b * Sq + qi) * H + h) * HD + c]) * scale
-        : 0.0f;
-  }
+  const size_t q_ld = (size_t)H * HD, kv_ld = (size_t)K * HD;
+  const bf16* qg = q + ((size_t)b * Sq + q0) * q_ld + (size_t)h * HD;
+  const bf16* kg = k + (size_t)b * Sk * kv_ld + (size_t)kh * HD;
+  const bf16* vg = v + (size_t)b * Sk * kv_ld + (size_t)kh * HD;
 
   // key-tile range this query tile can see
   const int q_last = min(q0 + BQ, Sq) - 1;
@@ -89,107 +162,183 @@ flash_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (causal) k_end = min(k_end, q_last + 1);
   int k_begin = 0;
   if (window) k_begin = max(0, q0 - window + 1);
-  const int t_begin = k_begin / BKEYS;
-  const int t_end = (k_end + BKEYS - 1) / BKEYS;
+  const int t_begin = k_begin / BKV;
+  const int t_end = (k_end + BKV - 1) / BKV;
 
-  float m[RPW], l[RPW], acc[RPW][DPL];
-  for (int rr = 0; rr < RPW; ++rr) {
-    m[rr] = NEG_INF;
-    l[rr] = 0.0f;
-    for (int j = 0; j < DPL; ++j) acc[rr][j] = 0.0f;
+  load_tile(Qs, qg, q_ld, Sq - q0, tid);
+  cp_async_commit();
+  if (t_begin < t_end) {
+    const size_t off = (size_t)t_begin * BKV * kv_ld;
+    load_tile(Ks[0], kg + off, kv_ld, Sk - t_begin * BKV, tid);
+    load_tile(Vs[0], vg + off, kv_ld, Sk - t_begin * BKV, tid);
   }
+  cp_async_commit();
+  cp_async_wait<1>();                       // Q has landed
+  __syncthreads();
 
-  for (int t = t_begin; t < t_end; ++t) {
-    const int kbase = t * BKEYS;
-    __syncthreads();                        // previous tile fully consumed
-    for (int idx = tid; idx < BKEYS * HD; idx += NWARPS * 32) {
-      int r = idx / HD, c = idx % HD;
-      int kp = kbase + r;
-      float kv = 0.0f, vv = 0.0f;
-      if (kp < Sk) {                        // ragged end: never read past Sk
-        size_t off = (((size_t)b * Sk + kp) * K + kh) * HD + c;
-        kv = __bfloat162float(k[off]);
-        vv = __bfloat162float(v[off]);
-      }
-      Ks[r * (HD + 1) + c] = kv;
-      Vs[r * HD + c] = vv;
+  // this warp's 16 rows of Q as A-fragments, one per 16-wide hd step
+  uint32_t qf[HD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    ldsm_x4(qf[kk], smem_u32(Qs + swz(warp * 16 + (lane & 15),
+                                      kk * 2 + (lane >> 4))));
+
+  const int r_lo = q0 + warp * 16 + lane / 4;   // rows of c0,c1 (+8: c2,c3)
+  const int w_first = q0 + warp * 16, w_last = w_first + 15;
+  const bool warp_live = w_first < Sq;
+  float o_acc[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+    o_acc[n][0] = o_acc[n][1] = o_acc[n][2] = o_acc[n][3] = 0.0f;
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.0f, 0.0f};
+
+  for (int t = t_begin, it = 0; t < t_end; ++t, ++it) {
+    const int st = it & 1;
+    if (t + 1 < t_end) {                    // next tile into the other stage
+      const size_t off = (size_t)(t + 1) * BKV * kv_ld;
+      load_tile(Ks[st ^ 1], kg + off, kv_ld, Sk - (t + 1) * BKV, tid);
+      load_tile(Vs[st ^ 1], vg + off, kv_ld, Sk - (t + 1) * BKV, tid);
     }
+    cp_async_commit();
+    cp_async_wait<1>();                     // tile t has landed
     __syncthreads();
 
-    const int kp = kbase + lane;
+    const int kbase = t * BKV;
+    // the warp's rows see none of this tile: skip (warp-uniform)
+    const bool skip = !warp_live || (causal && w_last < kbase) ||
+                      (window && kbase + BKV - 1 <= w_first - window);
+    if (!skip) {
+      const bf16* Kt = Ks[st];
+      const bf16* Vt = Vs[st];
+      float s[BKV / 8][4];
 #pragma unroll
-    for (int rr = 0; rr < RPW; ++rr) {
-      const int r = warp * RPW + rr;
-      const int qi = q0 + r;
-      if (qi >= Sq) continue;               // warp-uniform
-      const float* qrow = Qs + r * HD;
-      const float* krow = Ks + lane * (HD + 1);
-      float s = 0.0f;
-#pragma unroll 16
-      for (int c = 0; c < HD; ++c) s = fmaf(qrow[c], krow[c], s);
-      bool live = kp < Sk;
-      if (causal) live = live && qi >= kp;
-      if (window) live = live && (qi - kp) < window;
-      if (!live || isnan(s)) s = NEG_INF;
-      const float m_new = fmaxf(m[rr], warp_max(s));
-      const float p = live ? expf(s - m_new) : 0.0f;
-      const float alpha = expf(m[rr] - m_new);
-      l[rr] = alpha * l[rr] + warp_sum(p);
-      m[rr] = m_new;
+      for (int n = 0; n < BKV / 8; ++n)
+        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) acc[rr][j] *= alpha;
-#pragma unroll 8
-      for (int jj = 0; jj < BKEYS; ++jj) {
-        const float pj = __shfl_sync(0xffffffffu, p, jj);
-        const float* vrow = Vs + jj * HD;
-        for (int j = 0; j < DPL; ++j)
-          acc[rr][j] = fmaf(pj, vrow[lane + 32 * j], acc[rr][j]);
+      for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+        for (int n2 = 0; n2 < BKV / 16; ++n2) {
+          uint32_t bf[4];
+          ldsm_x4(bf, smem_u32(Kt + swz(n2 * 16 + (lane & 7) +
+                                            ((lane >> 4) << 3),
+                                        kk * 2 + ((lane >> 3) & 1))));
+          mma_bf16(s[2 * n2], qf[kk], bf[0], bf[1]);
+          mma_bf16(s[2 * n2 + 1], qf[kk], bf[2], bf[3]);
+        }
+      }
+
+      // mask, scrub, online softmax (rows r_lo and r_lo + 8); scores in
+      // the log2 domain, scale * log2(e) folded into one multiply
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = r_lo + hr * 8;
+        float mx = m_r[hr];
+#pragma unroll
+        for (int n = 0; n < BKV / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = kbase + n * 8 + 2 * (lane % 4) + e;
+            bool live = j < Sk;
+            if (causal) live = live && row >= j;
+            if (window) live = live && row - j < window;
+            float x = s[n][2 * hr + e] * scale_log2;
+            if (isnan(x)) x = NEG_INF;
+            // a masked key weighs exactly 0 (exp2(-inf)); a live NaN key
+            // takes the mask value, as in the plain version
+            x = live ? x : -INFINITY;
+            s[n][2 * hr + e] = x;
+            mx = fmaxf(mx, x);
+          }
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float alpha = exp2f(m_r[hr] - mx);
+        m_r[hr] = mx;
+        float sum = 0.0f;
+#pragma unroll
+        for (int n = 0; n < BKV / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = exp2f(s[n][2 * hr + e] - mx);
+            s[n][2 * hr + e] = p;
+            sum += p;
+          }
+          o_acc[n][2 * hr] *= alpha;
+          o_acc[n][2 * hr + 1] *= alpha;
+        }
+        l_r[hr] = l_r[hr] * alpha + sum;    // this lane's share of the row
+      }
+
+      // O += P.V, P re-packed from the S accumulators as bf16 A-fragments
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        uint32_t a[4];
+        a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+        for (int n2 = 0; n2 < HD / 16; ++n2) {
+          uint32_t bf[4];
+          ldsm_x4_trans(bf, smem_u32(Vt + swz(kk * 16 + (lane & 7) +
+                                                  (((lane >> 3) & 1) << 3),
+                                              n2 * 2 + (lane >> 4))));
+          mma_bf16(o_acc[2 * n2], a, bf[0], bf[1]);
+          mma_bf16(o_acc[2 * n2 + 1], a, bf[2], bf[3]);
+        }
       }
     }
+    __syncthreads();                        // stage st free for tile t + 2
   }
+  cp_async_wait<0>();
 
+  // normalise, stage through this warp's own rows of Qs, store 16 bytes
+  float inv[2];
 #pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int qi = q0 + warp * RPW + rr;
-    if (qi >= Sq) continue;
-    const float inv = 1.0f / (l[rr] == 0.0f ? 1.0f : l[rr]);
-    bf16* orow = o + (((size_t)b * Sq + qi) * H + h) * HD;
-    for (int j = 0; j < DPL; ++j)
-      orow[lane + 32 * j] = __float2bfloat16(acc[rr][j] * inv);
+  for (int hr = 0; hr < 2; ++hr) {
+    float l = l_r[hr];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[hr] = 1.0f / (l == 0.0f ? 1.0f : l);
   }
-}
-
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Sq, int Sk, int H, int K, int causal,
-                   int window, cudaStream_t s) {
-  const size_t smem =
-      sizeof(float) * (BQ * HD + BKEYS * (HD + 1) + BKEYS * HD);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attn_kernel<<<grid, NWARPS * 32, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, H, K,
-      1.0f / sqrtf((float)HD), causal, window);
-  return cudaGetLastError();
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = warp * 16 + lane / 4 + hr * 8;
+      *reinterpret_cast<uint32_t*>(Qs + swz(r, n) + 2 * (lane % 4)) =
+          pack_bf16(o_acc[n][2 * hr] * inv[hr],
+                    o_acc[n][2 * hr + 1] * inv[hr]);
+    }
+  __syncwarp();
+  for (int i = lane; i < 16 * CHUNKS; i += 32) {
+    const int r = warp * 16 + i / CHUNKS, c = i % CHUNKS;
+    const int qi = q0 + r;
+    if (qi < Sq)
+      *reinterpret_cast<uint4*>(o + ((size_t)b * Sq + qi) * q_ld +
+                                (size_t)h * HD + c * 8) =
+          *reinterpret_cast<const uint4*>(Qs + swz(r, c));
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// q [B, Sq, H, hd], k/v [B, Sk, K, hd], o [B, Sq, H, hd]; contiguous
-// bfloat16 device tensors with hd = 64 (the only variant built until a
-// configuration needs another); H a multiple of K.
+// q [B, Sq, H, hd], k/v [B, Sk, K, hd], o [B, Sq, H, hd]; contiguous,
+// 16-byte aligned bfloat16 device tensors with hd = 64 (the only variant
+// built until a configuration needs another); H a multiple of K.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int B, int Sq, int Sk, int H, int K, int hd,
                         int causal, int window, void* stream) {
   if (hd != HD || K <= 0 || H % K || B <= 0 || Sq <= 0 || Sk <= 0)
     return (int)cudaErrorInvalidValue;
-  return (int)launch(q, k, v, o, B, Sq, Sk, H, K, causal, window,
-                     static_cast<cudaStream_t>(stream));
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  flash_attn_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, H, K,
+      LOG2E / sqrtf((float)HD), causal, window);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

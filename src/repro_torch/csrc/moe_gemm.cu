@@ -47,18 +47,32 @@
 // a persistent schedule are later work.
 //
 // K7 (the int8 wire codec's expert compute) takes int8 activations xq [R, d]
-// (one scale per segment) and int8 w_in / w_gate [E, d, f] (one scale per
-// expert), quantized by the wrapper in plain torch as the reference does
-// outside its kernel, and the bf16 w_out.  Its up launch runs int8 tensor
-// cores (WMMA 16x16x16 signed char, int32 accumulate: exact) on 64x64x64
-// tiles, multiplies each tile's accumulator by its f32 factor s1[tile] =
-// scale_x[segment] * scale_w[expert] (sg for the gate), applies the
-// activation in f32 and writes bf16 h; its down launch is K3's, unchanged.
-// WMMA wants 256-bit aligned fragment pointers, and a 16-value int8 step is
-// only 16 bytes, so the tiles are staged as 16-value chunks on a 32-byte
-// row stride.  At the 2x2 pipelined plan's chunk (15- and 2-row segments,
-// so at most 15 valid rows of each 64-row tile) it is bound by the experts'
-// weight bytes, and far from that bound: the tile is mostly masked rows.
+// (one scale per segment, quantized by the wrapper in plain torch each
+// call) and int8 w_in / w_gate [E, d, f] (one scale per expert, quantized
+// once a layer forward by the dispatch engine and shared by every chunk),
+// and the bf16 w_out.  The delivered buffer is ordered (expert, stage,
+// destination, slot), so at the pipelined plan's chunk 0 each expert's 38
+// rows lie in 6 segments (2 of 15 rows, 4 of 2).  Tiling by segment read
+// each expert's weights once a segment (6x the bytes the bound counts) for
+// at most 15 valid rows of a 64-row MMA; K7 instead cuts each expert's
+// span of segments into 64-row tiles (moe_fused.ops.plan_expert_tiles: 16
+// tiles, not 96, at chunk 0), which may cross segments but never experts.
+// Each row finds its segment on the device (row_seg; no host sync): it is
+// computed when below its segment's count, dequantized by its own
+// segment's factor sx[s] * s_w[e] (f32, as the plain version), and written
+// as an exact zero otherwise.  Two launches of its own over those tiles:
+//   1. up:   int8 tensor cores (WMMA 16x16x16 signed char, int32
+//            accumulate: exact) on 64x64x64 stages, the activation in f32,
+//            bf16 h;
+//   2. down: bf16 WMMA with an f32 accumulator, bf16 y.
+// Both stream the weights through a cp.async ring (4 stages; 3 for the
+// swiglu up launch, which holds two weight tiles a stage), so the next
+// slices load while this one multiplies.  WMMA wants 256-bit aligned
+// fragment pointers and a 16-value int8 step is only 16 bytes, so int8
+// stages hold 16-value chunks, each a [64][16] block.  At chunk 0 the pair
+// is bound by the weights' bytes: 16 experts' int8 w_in (32 MB, which the
+// 50 MB L2 holds) and bf16 w_out (64 MB, which it does not).  K3's kernels
+// are not shared: K3 tiles by segment, as before.
 //
 // K6 (MoEConfig.use_kernel: the einsum dispatch's [E, C, d] buffer) is the
 // same FFN on equal, fully-occupied segments, so it runs K3's kernels
@@ -154,7 +168,7 @@ __device__ __forceinline__ void dense_tile(int C, int b, int* nv, int* row0,
 
 // The up launch over 64-row tiles: rows [row0, row0 + nv) of x times
 // columns [n0, n0 + 64) of expert eid's w_in (and w_gate), the activation
-// in f32, rounded to bf16 into h.  K3 and K7's tiles come from the tile
+// in f32, rounded to bf16 into h.  K3's tiles come from the tile
 // list, K6's (DENSE) from blockIdx over an [E, C, d] buffer (dense_tile).
 template <bool SWIGLU, bool DENSE>
 __global__ void __launch_bounds__(THREADS)
@@ -242,8 +256,8 @@ up_kernel(const bf16* __restrict__ x, int C, int d, int f,
 
 // The down launch: h's rows of the tile times columns [n0, n0 + 64) of
 // w_out[eid] with an f32 accumulator; the tile's rows of y are written,
-// those at or past nv as exact zeros (the zero-slot convention).  K3, K6
-// (DENSE) and K7 share it.
+// those at or past nv as exact zeros (the zero-slot convention).  K3 and
+// K6 (DENSE) share it.
 template <bool DENSE>
 __global__ void __launch_bounds__(THREADS)
 down_kernel(int C, int d, int f, const int* __restrict__ rows_valid,
@@ -320,135 +334,349 @@ down_kernel(int C, int d, int f, const int* __restrict__ rows_valid,
 }
 
 // ---------------------------------------------------------------------------
-// K7: int8 up-projection
+// K7: the int8 ragged FFN over expert-span tiles
 // ---------------------------------------------------------------------------
+//
+// Tiles are 64-row pieces of each expert's span (its consecutive segments),
+// so a tile may cross segment boundaries but never experts.  A tile's rows
+// take their segment from row_seg: row r is delivered when it lies below
+// its segment's count (r - seg_start[s] < rows_valid[s]), and the up
+// launch dequantizes it by its own segment's factor sx[s] * s_w[e], the
+// product taken in f32 as the plain version takes it.  Both launches keep
+// the next weight tiles in flight during the MMA through a cp.async ring.
 
-constexpr int QK = 64;     // int8 reduction depth per shared-memory stage
-constexpr int QC = 16;     // int8 values per WMMA step (k) and column chunk
-constexpr int QLD = 32;    // bytes per staged 16-value row (see above)
+constexpr int SPAN_INTS = 3;  // per span tile: first row, expert, rows
+constexpr int QK = 64;        // int8 reduction depth (bytes) per ring stage
+constexpr int QTILE = BM * QK;  // bytes of one int8 [64][64] stage tile
+constexpr int DBK = 64;       // bf16 reduction depth per down stage
+constexpr int DSTAGES = 4;    // ring depth of the bf16 down launch
+constexpr int DA_LD = DBK + 8;  // padded leading dims of the down stages
+constexpr int D_A_BYTES = BM * DA_LD * 2, D_B_BYTES = DBK * B_LD * 2;
+constexpr int DOWN_SMEM = DSTAGES * (D_A_BYTES + D_B_BYTES);  // 73,728 B
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
-                       wmma::row_major> QFragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                       wmma::row_major> QFragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, int> QFragC;
-
-// Rows [row0, row0 + nv) x columns [k0, k0 + QK) of a row-major [., d] int8
-// matrix into smem as QK / QC chunks of [BM][QLD]; rows past nv are zeros.
-__device__ __forceinline__ void load_qa_tile(signed char (*dst)[BM][QLD],
-                                             const signed char* src, int d,
-                                             int row0, int nv, int k0,
-                                             int tid) {
-  for (int c = tid; c < BM * (QK / QC); c += THREADS) {
-    int r = c / (QK / QC), q = c % (QK / QC);
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nv)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * d + k0 +
-                                          q * QC);
-    *reinterpret_cast<uint4*>(&dst[q][r][0]) = v;
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Rows [k0, k0 + QK) x columns [n0, n0 + BN) of a row-major [d, f] int8
-// matrix into smem as BN / QC column chunks of [QK][QLD].
-__device__ __forceinline__ void load_qb_tile(signed char (*dst)[QK][QLD],
-                                             const signed char* src, int f,
-                                             int k0, int n0, int tid) {
-  for (int c = tid; c < QK * (BN / QC); c += THREADS) {
-    int r = c / (BN / QC), q = c % (BN / QC);
-    *reinterpret_cast<uint4*>(&dst[q][r][0]) =
-        *reinterpret_cast<const uint4*>(src + (size_t)(k0 + r) * f + n0 +
-                                        q * QC);
-  }
+// 16 bytes global -> shared; src_bytes 0 fills zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a (16x32 s8, row) . b (32x8 s8, col), exact s32 accumulate
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Byte offset of 16-byte chunk c of row r in an int8 [64][64] stage tile:
+// rows are 64 bytes, and the chunk is XOR-swizzled by r / 2 so that the
+// eight rows an ldmatrix phase reads fall in eight distinct bank groups.
+__device__ __forceinline__ int qswz(int r, int c) {
+  return r * QK + ((c ^ ((r >> 1) & 3)) << 4);
+}
+
+// The span tile's row header in shared memory: valid[r] (row r of the tile
+// lies in the tile and below its segment's count) and, with FACTORS, the
+// row's f32 dequant factors f1[r] = sx[s] * s_in[e] (fg[r] for the gate).
+// Returns whether any row is valid (the same in every thread).
+template <bool FACTORS, bool SWIGLU>
+__device__ __forceinline__ bool span_header(
+    int row0, int rows, int eid, const int* __restrict__ row_seg,
+    const int* __restrict__ seg_start, const int* __restrict__ rows_valid,
+    const float* __restrict__ sx, const float* __restrict__ s_in,
+    const float* __restrict__ s_g, int* valid, float* f1, float* fg,
+    int tid) {
+  int ok = 0;
+  if (tid < BM) {
+    if (tid < rows) {
+      const int r = row0 + tid;
+      const int s = row_seg[r];
+      ok = r - seg_start[s] < rows_valid[s];
+      if (FACTORS) {
+        f1[tid] = sx[s] * s_in[eid];
+        if (SWIGLU) fg[tid] = sx[s] * s_g[eid];
+      }
+    }
+    valid[tid] = ok;
+  }
+  return __syncthreads_or(ok) != 0;
+}
+
+// K7's up launch: the tile's valid rows of int8 xq times columns [n0, n0 +
+// 64) of expert eid's int8 w_in (and w_gate), read from their transposes
+// q_in [E, f, d] (the reduction axis innermost, as the wrapper quantizes
+// them), on mma.m16n8k32 s8 tensor cores with exact int32 sums fed by
+// ldmatrix; each warp owns a 32 x 32 quarter of the tile.  Each row is
+// dequantized by its own factor, activated in f32 and rounded to bf16
+// into h, straight from the accumulators (their element layout is fixed).
 template <bool SWIGLU>
 __global__ void __launch_bounds__(THREADS)
-ragged_quant_up_kernel(const signed char* __restrict__ xq, int d, int f,
-                       const int* __restrict__ rows_valid,
-                       const int* __restrict__ tiles,
-                       const float* __restrict__ s1,
-                       const float* __restrict__ sg,
-                       const signed char* __restrict__ q_in,
-                       const signed char* __restrict__ q_gate,
-                       bf16* __restrict__ h) {
+quant_span_up_kernel(const signed char* __restrict__ xq, int d, int f,
+                     const int* __restrict__ row_seg,
+                     const int* __restrict__ seg_start,
+                     const int* __restrict__ rows_valid,
+                     const int* __restrict__ tiles,
+                     const float* __restrict__ sx,
+                     const float* __restrict__ s_in,
+                     const float* __restrict__ s_g,
+                     const signed char* __restrict__ q_in,
+                     const signed char* __restrict__ q_gate,
+                     bf16* __restrict__ h) {
+  constexpr int STAGES = SWIGLU ? 3 : 4;
+  constexpr int NW = SWIGLU ? 2 : 1;        // weight tiles a stage
+  __shared__ __align__(128) signed char ring[STAGES][1 + NW][QTILE];
+  __shared__ int valid[BM];
+  __shared__ float f1[BM], fg[SWIGLU ? BM : 1];
+
   const int b = blockIdx.x;
   const int n0 = blockIdx.y * BN;
-  const int nv = tile_nvalid(tiles, rows_valid, b);
-  if (nv == 0) return;                       // slack tile: no loads, no MMA
-  const int row0 = tiles[b * TILE_INTS + 0];
-  const int eid = tiles[b * TILE_INTS + 1];
-
-  __shared__ __align__(128) signed char As[QK / QC][BM][QLD];
-  __shared__ __align__(128) signed char Bs[BN / QC][QK][QLD];
-  __shared__ __align__(128) signed char Gs[SWIGLU ? BN / QC : 1][QK][QLD];
-  __shared__ __align__(128) int Cs[BM][C_LD];
-
   const int tid = threadIdx.x;
+  const int row0 = tiles[b * SPAN_INTS + 0];
+  const int eid = tiles[b * SPAN_INTS + 1];
+  const int rows = tiles[b * SPAN_INTS + 2];
+  if (!span_header<true, SWIGLU>(row0, rows, eid, row_seg, seg_start,
+                                 rows_valid, sx, s_in, s_g, valid, f1, fg,
+                                 tid))
+    return;                                  // no delivered row: no work
+
+  const signed char* wsrc[2] = {
+      q_in + ((size_t)eid * f + n0) * d,
+      SWIGLU ? q_gate + ((size_t)eid * f + n0) * d : nullptr};
+  auto load_stage = [&](int st, int k0) {
+    for (int c = tid; c < BM * (QK / 16); c += THREADS) {
+      const int r = c / (QK / 16), q = c % (QK / 16);
+      const bool ok = valid[r];
+      cp_async16(&ring[st][0][qswz(r, q)],
+                 xq + (size_t)(row0 + (ok ? r : 0)) * d + k0 + q * 16,
+                 ok ? 16 : 0);
+      for (int w = 0; w < NW; ++w)           // weight row r = column n0 + r
+        cp_async16(&ring[st][1 + w][qswz(r, q)],
+                   wsrc[w] + (size_t)r * d + k0 + q * 16, 16);
+    }
+  };
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
+  int acc[2][4][4], gacc[2][4][4];      // gacc: swiglu only
+  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 4; ++j)
+      for (int e = 0; e < 4; ++e) {
+        acc[i][j][e] = 0;
+        if (SWIGLU) gacc[i][j][e] = 0;
+      }
+
+  const int KT = d / QK;
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < KT) load_stage(st, st * QK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<STAGES - 2>();             // stage kt has landed
+    __syncthreads();                         // and kt - 1's slot is free
+    if (kt + STAGES - 1 < KT)
+      load_stage((kt + STAGES - 1) % STAGES, (kt + STAGES - 1) * QK);
+    cp_async_commit();
+    const int st = kt % STAGES;
+#pragma unroll
+    for (int kk = 0; kk < QK / 32; ++kk) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        ldsm_x4(a[i], &ring[st][0][qswz(wm + i * 16 + (lane & 15),
+                                        kk * 2 + (lane >> 4))]);
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {        // columns wn + 16p .. + 15
+          uint32_t bf[4];
+          ldsm_x4(bf, &ring[st][1 + w][qswz(
+                          wn + p * 16 + (lane & 7) + ((lane >> 4) << 3),
+                          kk * 2 + ((lane >> 3) & 1))]);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            if (w == 0) {
+              mma_s8(acc[i][2 * p], a[i], bf[0], bf[1]);
+              mma_s8(acc[i][2 * p + 1], a[i], bf[2], bf[3]);
+            } else {
+              mma_s8(gacc[i][2 * p], a[i], bf[0], bf[1]);
+              mma_s8(gacc[i][2 * p + 1], a[i], bf[2], bf[3]);
+            }
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // accumulator element e of (i, j): row wm + 16i + lane/4 + 8(e/2),
+  // column wn + 8j + 2(lane%4) + e%2
+  bf16* hb = h + (size_t)b * BM * f + n0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = wm + i * 16 + lane / 4 + hr * 8;
+      if (!valid[r]) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float v[2];
+        for (int e = 0; e < 2; ++e) {
+          const float hv = (float)acc[i][j][2 * hr + e] * f1[r];
+          v[e] = SWIGLU ? silu((float)gacc[i][j][2 * hr + e] * fg[r]) * hv
+                        : gelu_tanh(hv);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(
+            hb + (size_t)r * f + wn + j * 8 + 2 * (lane % 4)) =
+            __floats2bfloat162_rn(v[0], v[1]);
+      }
+    }
+}
+
+// K7's down launch over the same span tiles: the tile's valid rows of h
+// times columns [n0, n0 + 64) of w_out[eid] with an f32 accumulator (bf16
+// WMMA), the next DSTAGES - 1 slices of 64 rows of h and w_out in flight
+// during the MMA (dynamic shared memory: DOWN_SMEM); the tile's rows of y
+// are written, those not delivered as exact zeros.
+__global__ void __launch_bounds__(THREADS)
+quant_span_down_kernel(int d, int f, const int* __restrict__ row_seg,
+                       const int* __restrict__ seg_start,
+                       const int* __restrict__ rows_valid,
+                       const int* __restrict__ tiles,
+                       const bf16* __restrict__ h,
+                       const bf16* __restrict__ w_out,
+                       bf16* __restrict__ y) {
+  extern __shared__ __align__(128) unsigned char dsmem[];
+  __shared__ int valid[BM];
+
+  const int b = blockIdx.x;
+  const int n0 = blockIdx.y * BN;
+  const int tid = threadIdx.x;
+  const int row0 = tiles[b * SPAN_INTS + 0];
+  const int eid = tiles[b * SPAN_INTS + 1];
+  const int rows = tiles[b * SPAN_INTS + 2];
+  if (!span_header<false, false>(row0, rows, eid, row_seg, seg_start,
+                                 rows_valid, nullptr, nullptr, nullptr,
+                                 valid, nullptr, nullptr, tid)) {
+    for (int c = tid; c < rows * (BN / 8); c += THREADS) {
+      const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
+      *reinterpret_cast<uint4*>(y + (size_t)(row0 + r) * d + n0 + nc) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
+
+  auto a_tile = [&](int st) {
+    return reinterpret_cast<bf16 (*)[DA_LD]>(dsmem + st * D_A_BYTES);
+  };
+  auto b_tile = [&](int st) {
+    return reinterpret_cast<bf16 (*)[B_LD]>(dsmem + DSTAGES * D_A_BYTES +
+                                            st * D_B_BYTES);
+  };
+  const bf16* hb = h + (size_t)b * BM * f;
+  const bf16* wo = w_out + (size_t)eid * f * d;
+  auto load_stage = [&](int st, int k0) {
+    bf16 (*A)[DA_LD] = a_tile(st);
+    for (int c = tid; c < BM * (DBK / 8); c += THREADS) {
+      const int r = c / (DBK / 8), kc = (c % (DBK / 8)) * 8;
+      const bool ok = valid[r];
+      cp_async16(&A[r][kc], hb + (size_t)(ok ? r : 0) * f + k0 + kc,
+                 ok ? 16 : 0);
+    }
+    bf16 (*B)[B_LD] = b_tile(st);
+    for (int c = tid; c < DBK * (BN / 8); c += THREADS) {
+      const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
+      cp_async16(&B[r][nc], wo + (size_t)(k0 + r) * d + n0 + nc, 16);
+    }
+  };
+
   const int warp = tid / 32;
   const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  QFragC acc[2][2], gacc[2][2];
+  FragC acc[2][2];
   for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j) {
-      wmma::fill_fragment(acc[i][j], 0);
-      if (SWIGLU) wmma::fill_fragment(gacc[i][j], 0);
-    }
-  const signed char* wi = q_in + (size_t)eid * d * f;
-  const signed char* wg = SWIGLU ? q_gate + (size_t)eid * d * f : nullptr;
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
-  for (int k0 = 0; k0 < d; k0 += QK) {
-    load_qa_tile(As, xq, d, row0, nv, k0, tid);
-    load_qb_tile(Bs, wi, f, k0, n0, tid);
-    if (SWIGLU) load_qb_tile(Gs, wg, f, k0, n0, tid);
+  const int KT = f / DBK;
+  for (int st = 0; st < DSTAGES - 1; ++st) {
+    if (st < KT) load_stage(st, st * DBK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<DSTAGES - 2>();
     __syncthreads();
-    for (int kc = 0; kc < QK / QC; ++kc) {
-      QFragA a[2];
-      QFragB bw[2];
+    if (kt + DSTAGES - 1 < KT)
+      load_stage((kt + DSTAGES - 1) % DSTAGES, (kt + DSTAGES - 1) * DBK);
+    cp_async_commit();
+    bf16 (*A)[DA_LD] = a_tile(kt % DSTAGES);
+    bf16 (*B)[B_LD] = b_tile(kt % DSTAGES);
+#pragma unroll
+    for (int kk = 0; kk < DBK; kk += 16) {
+      FragA a[2];
+      FragB bw[2];
       for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &As[kc][wm + i * 16][0], QLD);
+        wmma::load_matrix_sync(a[i], &A[wm + i * 16][kk], DA_LD);
       for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bw[j], &Bs[wn / QC + j][kc * QC][0], QLD);
+        wmma::load_matrix_sync(bw[j], &B[kk][wn + j * 16], B_LD);
       for (int i = 0; i < 2; ++i)
         for (int j = 0; j < 2; ++j)
           wmma::mma_sync(acc[i][j], a[i], bw[j], acc[i][j]);
-      if (SWIGLU) {
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(bw[j], &Gs[wn / QC + j][kc * QC][0], QLD);
-        for (int i = 0; i < 2; ++i)
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(gacc[i][j], a[i], bw[j], gacc[i][j]);
-      }
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
+  __syncthreads();                           // the ring becomes the sums
 
-  // dequantize and activate elementwise on the accumulators (same-type
-  // fragments share their element mapping); the f32 result travels through
-  // the int fragment and smem as its bit pattern
-  const float f1 = s1[b];
-  const float fg = SWIGLU ? sg[b] : 0.0f;
+  float (*Cs)[C_LD] = reinterpret_cast<float (*)[C_LD]>(dsmem);
   for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j) {
-      for (int e = 0; e < acc[i][j].num_elements; ++e) {
-        float hv = (float)acc[i][j].x[e] * f1;
-        float v = SWIGLU ? silu((float)gacc[i][j].x[e] * fg) * hv
-                         : gelu_tanh(hv);
-        acc[i][j].x[e] = __float_as_int(v);
-      }
+    for (int j = 0; j < 2; ++j)
       wmma::store_matrix_sync(&Cs[wm + i * 16][wn + j * 16], acc[i][j], C_LD,
                               wmma::mem_row_major);
-    }
   __syncthreads();
-  bf16* hb = h + (size_t)b * BM * f;
-  for (int c = tid; c < BM * (BN / 8); c += THREADS) {
-    int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
-    if (r >= nv) continue;
+  for (int c = tid; c < rows * (BN / 8); c += THREADS) {
+    const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
     __align__(16) bf16 v[8];
     for (int e = 0; e < 8; ++e)
-      v[e] = __float2bfloat16(__int_as_float(Cs[r][nc + e]));
-    *reinterpret_cast<uint4*>(hb + (size_t)r * f + n0 + nc) =
+      v[e] = __float2bfloat16(valid[r] ? Cs[r][nc + e] : 0.0f);
+    *reinterpret_cast<uint4*>(y + (size_t)(row0 + r) * d + n0 + nc) =
         *reinterpret_cast<const uint4*>(v);
   }
+}
+
+// The down launch's opt-in to DOWN_SMEM bytes of dynamic shared memory,
+// made once a device (the attribute holds for the process's lifetime).
+cudaError_t down_smem_opt_in() {
+  static unsigned long long done = 0;        // one bit a device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && (done >> dev & 1ull)) return cudaSuccess;
+  err = cudaFuncSetAttribute(quant_span_down_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             DOWN_SMEM);
+  if (err == cudaSuccess && dev < 64) done |= 1ull << dev;
+  return err;
 }
 
 }  // namespace
@@ -517,37 +745,49 @@ int grouped_ffn_dense(const void* x, int E, int C, int d, int f,
   return (int)cudaGetLastError();
 }
 
-// K7.  xq [R, d] int8; rows_valid and tiles as above; s1 / sg [n_tiles] f32
-// dequant factors (sg unused unless swiglu); q_in / q_gate [E, d, f] int8;
-// w_out [E, f, d] bf16; h scratch [n_tiles * 64, f] bf16; y [R, d] bf16,
-// every row written.  d and f must be multiples of 64.
+// K7.  xq [R, d] int8; row_seg [R] i32 (each row's segment); seg_start [S]
+// i32 (each segment's first row); rows_valid [S] i32; tiles [n_tiles, 3]
+// i32 expert-span tiles (first row, expert, rows) covering every row of xq
+// once; sx [S] f32 segment scales; s_in / s_g [E] f32 expert scales (s_g
+// unused unless swiglu); q_in / q_gate [E, f, d] int8, each expert's
+// quantized w_in / w_gate transposed (q_gate unused unless swiglu); w_out
+// [E, f, d] bf16; h scratch [n_tiles * 64, f] bf16; y [R, d] bf16, every row
+// written.  d and f must be multiples of 64.
 int grouped_ffn_ragged_quant(const void* xq, int d, int f,
+                             const void* row_seg, const void* seg_start,
                              const void* rows_valid, const void* tiles,
-                             int n_tiles, const void* s1, const void* sg,
-                             const void* q_in, const void* q_gate,
-                             const void* w_out, void* h, void* y, int swiglu,
-                             void* stream) {
-  if (d % BN || f % BN || d % QK || f % BK) return (int)cudaErrorInvalidValue;
+                             int n_tiles, const void* sx, const void* s_in,
+                             const void* s_g, const void* q_in,
+                             const void* q_gate, const void* w_out, void* h,
+                             void* y, int swiglu, void* stream) {
+  if (d % BN || f % BN || d % QK || f % DBK)
+    return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   dim3 grid_up(n_tiles, f / BN), grid_down(n_tiles, d / BN);
   const signed char* xb = static_cast<const signed char*>(xq);
+  const int* rs = static_cast<const int*>(row_seg);
+  const int* ss = static_cast<const int*>(seg_start);
   const int* rv = static_cast<const int*>(rows_valid);
   const int* ti = static_cast<const int*>(tiles);
-  const float* f1 = static_cast<const float*>(s1);
+  const float* fx = static_cast<const float*>(sx);
+  const float* fi = static_cast<const float*>(s_in);
   if (swiglu)
-    ragged_quant_up_kernel<true><<<grid_up, THREADS, 0, s>>>(
-        xb, d, f, rv, ti, f1, static_cast<const float*>(sg),
+    quant_span_up_kernel<true><<<grid_up, THREADS, 0, s>>>(
+        xb, d, f, rs, ss, rv, ti, fx, fi, static_cast<const float*>(s_g),
         static_cast<const signed char*>(q_in),
         static_cast<const signed char*>(q_gate), static_cast<bf16*>(h));
   else
-    ragged_quant_up_kernel<false><<<grid_up, THREADS, 0, s>>>(
-        xb, d, f, rv, ti, f1, nullptr, static_cast<const signed char*>(q_in),
-        nullptr, static_cast<bf16*>(h));
+    quant_span_up_kernel<false><<<grid_up, THREADS, 0, s>>>(
+        xb, d, f, rs, ss, rv, ti, fx, fi, nullptr,
+        static_cast<const signed char*>(q_in), nullptr,
+        static_cast<bf16*>(h));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  down_kernel<false><<<grid_down, THREADS, 0, s>>>(
-      0, d, f, rv, ti, static_cast<const bf16*>(h),
+  err = down_smem_opt_in();
+  if (err != cudaSuccess) return (int)err;
+  quant_span_down_kernel<<<grid_down, THREADS, DOWN_SMEM, s>>>(
+      d, f, rs, ss, rv, ti, static_cast<const bf16*>(h),
       static_cast<const bf16*>(w_out), static_cast<bf16*>(y));
   return (int)cudaGetLastError();
 }

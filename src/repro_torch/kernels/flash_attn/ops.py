@@ -50,8 +50,10 @@ def _flash_cuda(q, k, v, causal: bool, sliding_window: int):
         if t.device != q.device:
             raise ValueError(f"{KERNEL}: {name} on {t.device}, q on "
                              f"{q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{KERNEL}: {name} must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{KERNEL}: {name} must be contiguous and "
+                             f"16-byte aligned (the kernel copies 16-byte "
+                             f"pieces)")
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o

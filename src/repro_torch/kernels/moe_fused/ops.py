@@ -56,6 +56,41 @@ def tiles_on(seg_offsets: tuple, seg_experts: tuple, device: str):
                            device=device)
 
 
+@functools.lru_cache(maxsize=64)
+def plan_expert_tiles(seg_offsets: tuple, seg_experts: tuple,
+                      rows: int = TILE_ROWS) -> np.ndarray:
+    """Expert-span tiling of a segment layout: int32 [n_tiles, 3] rows of
+    (first row, expert, rows in the tile).  The consecutive non-empty
+    segments of one expert form a span, cut into ``ceil(width / rows)``
+    tiles with the last one row-masked: a tile may cross segment
+    boundaries but never experts.  Zero-width segments and experts with
+    no rows add no tile."""
+    out, start, expert = [], None, None
+    bounds = [(int(seg_offsets[s]), int(seg_offsets[s + 1]), int(e))
+              for s, e in enumerate(seg_experts)
+              if seg_offsets[s + 1] > seg_offsets[s]]
+    for lo, hi, e in bounds + [(None, None, None)]:
+        if start is not None and (e != expert or lo != end):
+            for r in range(start, end, rows):
+                out.append((r, expert, min(rows, end - r)))
+            start = None
+        if lo is not None:
+            if start is None:
+                start, expert = lo, e
+            end = hi
+    return np.asarray(out, np.int32).reshape(-1, 3)
+
+
+@functools.lru_cache(maxsize=64)
+def expert_tiles_on(seg_offsets: tuple, seg_experts: tuple, device: str):
+    """:func:`plan_expert_tiles` and each segment's first row (int32 [S])
+    on ``device``, made once per layout and device."""
+    return (torch.as_tensor(plan_expert_tiles(seg_offsets, seg_experts),
+                            device=device),
+            torch.as_tensor(seg_offsets[:-1], dtype=torch.int32,
+                            device=device))
+
+
 @functools.lru_cache(maxsize=1)
 def _entry():
     lib = backend.load("moe_fused")

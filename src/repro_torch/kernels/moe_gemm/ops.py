@@ -24,8 +24,11 @@ of ``repro/kernels/moe_gemm/ops.py``).
 * :func:`grouped_ffn_ragged_quant` — the int8 entry (K7, the ``int8``
   wire codec): per-segment int8 activations x per-expert int8 ``w_in``
   (and ``w_gate``), exact integer sums, f32 dequant, bf16 down-projection.
-  Quantization is plain torch outside the kernel, as in the reference.
-  The forward launches K7 of ``csrc/moe_gemm.cu`` for CUDA tensors and
+  Quantization is plain torch outside the kernel, as in the reference:
+  x per call, the weights by :func:`quantize_expert_weights`, which the
+  dispatch engine runs once a layer forward and passes to every chunk's
+  call (``qweights=``).  The forward launches K7 of
+  ``csrc/moe_gemm.cu`` for CUDA tensors and
   runs :func:`ref.grouped_ffn_ragged_quant_ref` for CPU tensors; either
   way inside the Function whose backward is autograd through the
   full-precision ``grouped_ffn_ragged_ref`` (straight-through).
@@ -50,12 +53,14 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import backend
-from repro_torch.kernels.moe_fused.ops import TILE_ROWS, tiles_on
+from repro_torch.kernels.moe_fused.ops import (TILE_ROWS, expert_tiles_on,
+                                               tiles_on)
+from repro_torch.kernels.moe_gemm import ref as gemm_ref
 from repro_torch.kernels.moe_gemm.ref import (grouped_ffn_ragged_quant_ref,
                                               grouped_ffn_ragged_ref,
                                               grouped_ffn_ref,
-                                              quantize_experts,
-                                              quantize_segments)
+                                              quantize_segments,
+                                              segment_ids_on)
 
 KERNEL = "moe_gemm.grouped_ffn_ragged"
 KERNEL_DENSE = "moe_gemm.grouped_ffn"
@@ -115,8 +120,8 @@ def _entry():
 def _quant_entry():
     _entry()                                 # loads and checks the tiling
     return backend.bind("moe_gemm", "grouped_ffn_ragged_quant",
-                        [_V, _I, _I, _V, _V, _I, _V, _V, _V, _V, _V, _V, _V,
-                         _I, _V])
+                        [_V, _I, _I, _V, _V, _V, _V, _I, _V, _V, _V, _V, _V,
+                         _V, _V, _V, _I, _V])
 
 
 @functools.lru_cache(maxsize=1)
@@ -264,43 +269,90 @@ def _ragged_cuda(static, x, rows_valid, w_in, w_gate, w_out):
     return y
 
 
-def _ragged_quant_cuda(static, x, rows_valid, w_in, w_gate, w_out):
-    """K7: quantize (plain torch, as the reference does outside its
-    kernel), resolve one dequant factor per tile, launch."""
+def quantize_expert_weights(w_in, w_gate=None):
+    """A layer's expert weights in int8, once: ``(q_in, s_in, q_gate,
+    s_gate)``, each ``q`` the :func:`ref.quantize_experts` of an [E, d, f]
+    weight stored transposed, [E, f, d] (the reduction axis innermost, as
+    K7's int8 tensor cores read it), each ``s`` its [E] f32 scales; the
+    gate's None without ``w_gate``; under no_grad.  The dispatch engine
+    calls it once a forward and hands the result to every chunk's
+    :func:`grouped_ffn_ragged_quant` (``qweights=``): the same numbers as
+    quantizing in each call, which the backward never reads
+    (straight-through).  The reference quantizes inside its jitted step,
+    where XLA can fold the repeats; the eager port hoists them by hand."""
+    out = []
+    with torch.no_grad(), torch.profiler.record_function(
+            "moe_gemm.quantize_expert_weights"):
+        for w in (w_in, w_gate):
+            if w is None:
+                out += [None, None]
+                continue
+            q, s = gemm_ref.quantize_experts(w)
+            out += [q.transpose(1, 2).contiguous(), s]
+    return tuple(out)
+
+
+def _check_qweights(qweights, w_in, swiglu):
+    q_in, s_in, q_g, s_g = qweights
+    dev, (E, d, f) = w_in.device, w_in.shape
+    pairs = [("q_in", q_in, "s_in", s_in)]
+    if swiglu:
+        pairs.append(("q_gate", q_g, "s_gate", s_g))
+    for qn, q, sn, sc in pairs:
+        if q is None or sc is None:
+            raise ValueError(f"{KERNEL_QUANT}: qweights lack {qn} / {sn}")
+        _check(KERNEL_QUANT, qn, q, torch.int8, dev, 3)
+        _check(KERNEL_QUANT, sn, sc, torch.float32, dev, 1, vectors=False)
+        if tuple(q.shape) != (E, f, d) or sc.shape[0] != E:
+            raise ValueError(f"{KERNEL_QUANT}: {qn} {tuple(q.shape)} / {sn} "
+                             f"{tuple(sc.shape)} do not fit w_in "
+                             f"{tuple(w_in.shape)} transposed")
+
+
+def _ragged_quant_cuda(static, x, rows_valid, w_in, w_gate, w_out,
+                       qweights=None):
+    """K7: quantize x per segment (plain torch, as the reference does
+    outside its kernel) and the weights unless ``qweights`` holds them,
+    then the two launches over expert-span tiles; each row's segment
+    scale and count are read on the device."""
     _check_layout(KERNEL_QUANT, static, x, rows_valid, w_in, w_gate, w_out)
     offs, exps, activation = static
     swiglu = activation == "swiglu"
     dev = x.device
     (R, d), f = x.shape, w_in.shape[2]
-    xq, sx = quantize_segments(x, offs)
-    q_in, s_in = quantize_experts(w_in)
-    tiles = tiles_on(offs, exps, str(dev))
-    n_tiles = tiles.shape[0]
-    t_seg, t_eid = tiles[:, 2].long(), tiles[:, 1].long()
-    # per-tile dequant factors: segment scale x expert scale, in f32
-    s1 = (sx[t_seg] * s_in[t_eid]).contiguous()
-    q_g = sg = None
-    if swiglu:
-        q_g, s_g = quantize_experts(w_gate)
-        sg = (sx[t_seg] * s_g[t_eid]).contiguous()
-    h = torch.empty((n_tiles * TILE_ROWS, f), dtype=torch.bfloat16,
-                    device=dev)
-    y = torch.empty((R, d), dtype=torch.bfloat16, device=dev)
-    err = _quant_entry()(backend.ptr(xq), d, f, backend.ptr(rows_valid),
-                         backend.ptr(tiles), n_tiles, backend.ptr(s1),
-                         backend.ptr(sg), backend.ptr(q_in),
-                         backend.ptr(q_g), backend.ptr(w_out),
-                         backend.ptr(h), backend.ptr(y), int(swiglu),
-                         backend.stream_ptr(dev))
+    if qweights is None:
+        qweights = quantize_expert_weights(w_in, w_gate if swiglu else None)
+    _check_qweights(qweights, w_in, swiglu)
+    q_in, s_in, q_g, s_g = qweights
+    with torch.profiler.record_function(f"{KERNEL_QUANT}.forward"):
+        xq, sx = quantize_segments(x, offs)
+        tiles, seg_start = expert_tiles_on(offs, exps, str(dev))
+        row_seg = segment_ids_on(offs, str(dev), torch.int32)
+        n_tiles = tiles.shape[0]
+        h = torch.empty((n_tiles * TILE_ROWS, f), dtype=torch.bfloat16,
+                        device=dev)
+        y = torch.empty((R, d), dtype=torch.bfloat16, device=dev)
+        err = _quant_entry()(backend.ptr(xq), d, f, backend.ptr(row_seg),
+                             backend.ptr(seg_start), backend.ptr(rows_valid),
+                             backend.ptr(tiles), n_tiles, backend.ptr(sx),
+                             backend.ptr(s_in),
+                             backend.ptr(s_g if swiglu else None),
+                             backend.ptr(q_in),
+                             backend.ptr(q_g if swiglu else None),
+                             backend.ptr(w_out), backend.ptr(h),
+                             backend.ptr(y), int(swiglu),
+                             backend.stream_ptr(dev))
     backend.check(KERNEL_QUANT, err)
     backend.record_launch(KERNEL_QUANT)
     return y
 
 
-def _ragged_quant_plain(static, x, rows_valid, w_in, w_gate, w_out):
+def _ragged_quant_plain(static, x, rows_valid, w_in, w_gate, w_out,
+                        qweights=None):
     offs, exps, activation = static
     return grouped_ffn_ragged_quant_ref(x, offs, exps, rows_valid, w_in,
-                                        w_gate, w_out, activation=activation)
+                                        w_gate, w_out, activation=activation,
+                                        qweights=qweights)
 
 
 class GroupedFFNRagged(torch.autograd.Function):
@@ -382,14 +434,16 @@ def grouped_ffn_ragged(x, seg_offsets, seg_experts, rows_valid, w_in, w_gate,
 
 def grouped_ffn_ragged_quant(x, seg_offsets, seg_experts, rows_valid, w_in,
                              w_gate, w_out, *, activation: str = "swiglu",
-                             use_pallas=None):
+                             use_pallas=None, qweights=None):
     """The int8 ragged grouped FFN, same surface as
     :func:`grouped_ffn_ragged`: per-segment int8 activations x per-expert
     int8 up-projection weights with exact integer sums, dequantized before
     the activation; the down-projection in the model dtype with f32 sums.
     The backward is full precision (straight-through).  K7 for CUDA
     tensors with kernels wanted; the quantized plain version otherwise, so
-    the arithmetic is the same on every device."""
+    the arithmetic is the same on every device.  ``qweights``: the weights
+    already quantized by :func:`quantize_expert_weights` (None: quantized
+    in this call)."""
     static, rows_valid = _static_args(x, seg_offsets, seg_experts,
                                       rows_valid, w_gate, activation)
     if x.shape[0] == 0:
@@ -397,6 +451,8 @@ def grouped_ffn_ragged_quant(x, seg_offsets, seg_experts, rows_valid, w_in,
     impl = (_ragged_quant_cuda
             if backend.kernels_active(use_pallas, x.device)
             else _ragged_quant_plain)
+    if qweights is not None:
+        impl = functools.partial(impl, qweights=qweights)
     return GroupedFFNRagged.apply(
         x, rows_valid, w_in, w_gate if static[2] == "swiglu" else None,
         w_out, static, impl)
@@ -405,14 +461,15 @@ def grouped_ffn_ragged_quant(x, seg_offsets, seg_experts, rows_valid, w_in,
 def grouped_ffn_segments(x, seg_offsets, w_in, w_gate, w_out, *,
                          activation: str = "swiglu", seg_experts=None,
                          rows_valid=None, use_pallas=None,
-                         quantized: bool = False):
+                         quantized: bool = False, qweights=None):
     """Segment-offset grouped FFN over a flat [R, d] row buffer: segment
     ``s`` owns rows ``seg_offsets[s]:seg_offsets[s + 1]`` and multiplies
     expert ``seg_experts[s]`` (default: one segment per expert, in order).
-    ``quantized`` sends every call to :func:`grouped_ffn_ragged_quant`;
-    otherwise equal fully-occupied per-expert spans with the kernels off
-    reshape onto the dense plain grouped FFN, and every other call goes
-    through :func:`grouped_ffn_ragged`."""
+    ``quantized`` sends every call to :func:`grouped_ffn_ragged_quant`
+    (with the pre-quantized ``qweights``, if given); otherwise equal
+    fully-occupied per-expert spans with the kernels off reshape onto the
+    dense plain grouped FFN, and every other call goes through
+    :func:`grouped_ffn_ragged`."""
     offs = tuple(int(o) for o in seg_offsets)
     E = w_in.shape[0]
     if seg_experts is None:
@@ -425,7 +482,8 @@ def grouped_ffn_segments(x, seg_offsets, w_in, w_gate, w_out, *,
         return grouped_ffn_ragged_quant(x, offs, seg_experts, rows_valid,
                                         w_in, w_gate, w_out,
                                         activation=activation,
-                                        use_pallas=use_pallas)
+                                        use_pallas=use_pallas,
+                                        qweights=qweights)
     widths = [offs[s + 1] - offs[s] for s in range(len(seg_experts))]
     d = x.shape[-1]
     dense = (rows_valid is None and len(set(widths)) == 1

@@ -9,6 +9,8 @@ run in float64, which holds their sums exactly (CUDA has no integer
 matmul in torch, and a float32 product would be exact only with TF32 off).
 """
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -82,15 +84,24 @@ def _absmax_scale(absmax, qmax: float):
                        torch.full_like(absmax, qmax)) / qmax
 
 
+@functools.lru_cache(maxsize=64)
+def segment_ids_on(seg_offsets: tuple, device: str, dtype=torch.int64):
+    """Each row's segment of a flat segment layout (``[R]``, ``dtype``) on
+    ``device``, made once per layout and device: a call then costs no
+    host-to-device copy.  Read-only."""
+    offs = np.asarray(seg_offsets, np.int64)
+    return torch.as_tensor(
+        np.searchsorted(offs[1:], np.arange(int(offs[-1])), side="right"),
+        dtype=dtype, device=device)
+
+
 def quantize_segments(x, seg_offsets, *, qmax: float = 127.0):
     """Per-segment symmetric int8 quantization of a flat [R, d] buffer: one
     f32 scale per contiguous segment (its absmax / ``qmax``; 1 for an
     all-zero or empty segment).  Returns ``(q int8 [R, d], scale [S])``."""
-    offs = np.asarray([int(o) for o in seg_offsets], np.int64)
+    offs = tuple(int(o) for o in seg_offsets)
     S = len(offs) - 1
-    seg_ids = torch.as_tensor(
-        np.searchsorted(offs[1:], np.arange(int(offs[-1])), side="right"),
-        device=x.device)
+    seg_ids = segment_ids_on(offs, str(x.device))
     xf = x.to(torch.float32)
     row_max = xf.abs().amax(dim=-1)
     absmax = torch.zeros(S, dtype=torch.float32, device=x.device) \
@@ -124,13 +135,17 @@ def _per_expert(a, w, exps, dtype):
 
 def grouped_ffn_ragged_quant_ref(x, seg_offsets, seg_experts, rows_valid,
                                  w_in, w_gate, w_out, *,
-                                 activation: str = "swiglu"):
+                                 activation: str = "swiglu", qweights=None):
     """The int8 ragged grouped FFN (K7's plain version): the segment layout
     and zero-row contract of :func:`grouped_ffn_ragged_ref`, with the up
     projections as per-segment int8 activations x per-expert int8 weights,
     exact integer sums dequantized by ``scale_x[s] * scale_w[e]`` in f32
     before the activation; the down-projection stays in the model dtype
-    with f32 sums."""
+    with f32 sums.  ``qweights`` = ``(q_in, s_in, q_gate, s_gate)``, the
+    weights already quantized by :func:`quantize_experts` and stored
+    transposed, [E, f, d] (``moe_gemm.ops.quantize_expert_weights``, which
+    the dispatch engine runs once a layer forward); None quantizes them
+    here."""
     offs = np.asarray([int(o) for o in seg_offsets], np.int64)
     exps = tuple(int(e) for e in seg_experts)
     S = len(exps)
@@ -152,12 +167,19 @@ def grouped_ffn_ragged_quant_ref(x, seg_offsets, seg_experts, rows_valid,
     sx = _absmax_scale(xf.abs().amax(dim=(1, 2)), qmax)          # [S]
     xq = torch.clamp(torch.round(xf / sx[:, None, None]), -qmax, qmax)
     eid = torch.as_tensor(exps, dtype=torch.int64, device=dev)
-    q_in, s_in = quantize_experts(w_in, qmax=qmax)
+    swiglu = activation == "swiglu" and w_gate is not None
+    if qweights is None:
+        q_in, s_in = quantize_experts(w_in, qmax=qmax)
+        q_g, s_g = (quantize_experts(w_gate, qmax=qmax) if swiglu
+                    else (None, None))
+    else:
+        q_in, s_in, q_g, s_g = qweights
+        q_in = q_in.transpose(1, 2)
+        q_g = None if q_g is None else q_g.transpose(1, 2)
     h = _per_expert(xq, q_in, exps, torch.float64).to(torch.float32) \
         * (sx * s_in[eid])[:, None, None]
     g = None
-    if activation == "swiglu" and w_gate is not None:
-        q_g, s_g = quantize_experts(w_gate, qmax=qmax)
+    if swiglu:
         g = _per_expert(xq, q_g, exps, torch.float64).to(torch.float32) \
             * (sx * s_g[eid])[:, None, None]
     h = _activate(h, g, activation).to(w_out.dtype)
