@@ -30,6 +30,14 @@ with ROOT's package, whose kernels it builds from ROOT's own sources:
   (``quantize_expert_weights``), that quantization (``weights``);
   ``layer_device_ms`` sums a layer forward's eight calls and its weight
   quantization.
+* K4 (``local_moe``) at its three layouts of full-width gpt3_medium_moe,
+  built by this checkout's ``chip_smoke.gather_k4_case`` /
+  ``train1_k4_case`` and saved with layer 0's expert weights: decode (8
+  tokens), prefill (a 4 x 128 pack) and the one-rank training layout
+  (2048 tokens), each held against ``local_moe_ref`` and read as training
+  calls it (x, ``slot_w`` and the weights requiring grad), with
+  ``kernel_device_ms`` its own launches and, where the checkout has
+  ``compact_slots``, the rows its FFN launches compute.
 * K5 (``flash_attention``, causal) at the serve prefill shape [4, 128, 16,
   64] and at [4, 512, 16, 64], with its yardstick
   ``scaled_dot_product_attention`` read alike.
@@ -39,10 +47,11 @@ with ROOT's package, whose kernels it builds from ROOT's own sources:
 Each run prints one JSON line with the root, the card (``nvidia-smi``'s
 name and power limit) and each reading, with its error against the plain
 version.  A last line (``interleaved``) takes ``host_us`` and ``call_ms``
-of K1, K2 and K5 (at [4, 128, 16, 64]) again with every root's package
-loaded in one process and the roots read in turns: the host is shared and
-drifts between processes by more than the launch paths differ.  Exits
-non-zero if there is no card or any check fails.
+of K1, K2, K5 (at [4, 128, 16, 64]) and K4 (at the decode layout) again
+with every root's package loaded in one process and the roots read in
+turns: the host is shared and drifts between processes by more than the
+launch paths differ.  Exits non-zero if there is no card or any check
+fails.
 
 The reading functions below are ``chip_smoke.py``'s too.
 """
@@ -64,6 +73,7 @@ ITERS, REPEATS = 200, 11
 LAYOUTS = r"""
 import sys, torch
 FFN_KEYS = ("xin", "rows_valid", "segs", "exps", "w_in", "w_out")
+K4_KEYS = ("x", "tok", "w", "offs", "exps", "valid")
 import chip_smoke as cs
 from repro_torch.configs.base import get_config
 from repro_torch.models import model as model_lib
@@ -86,11 +96,21 @@ for label, c in cases.items():
     out[label] = {"x": c["x"], "slot_to_token": di.slot_to_token,
                   "inv_idx": di.inv_idx, "inv_w": di.inv_w, "y": y}
     ffn[label] = {k: c[k] for k in FFN_KEYS}
+with torch.no_grad():
+    k4 = {"decode": cs.gather_k4_case(torch, params, ctx, cs.NUM_SLOTS, gen),
+          "prefill": cs.gather_k4_case(torch, params, ctx,
+                                       cs.PACK * cs.BUCKET, gen),
+          "train_1rank": cs.train1_k4_case(torch, params, arch, gen)}
 cpu = lambda v: v.cpu() if torch.is_tensor(v) else v
+p0 = params["layers"][0]["ffn"]
 torch.save({"perm": {k: {n: cpu(t) for n, t in v.items()}
                      for k, v in out.items()},
             "ffn": {k: {n: cpu(t) for n, t in v.items()}
-                    for k, v in ffn.items()}}, sys.argv[1])
+                    for k, v in ffn.items()},
+            "fused": {k: {n: cpu(t) for n, t in zip(K4_KEYS, args[:6])}
+                      for k, (args, _) in k4.items()},
+            "fused_w": {"w_in": cpu(p0["w_in"]), "w_out": cpu(p0["w_out"])}},
+           sys.argv[1])
 """
 
 INTERLEAVED = r"""
@@ -101,7 +121,7 @@ import chip_smoke as cs
 spec = importlib.util.spec_from_file_location("chip_ab_readings", sys.argv[1])
 ab = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(ab)
-ops, flash = {}, {}
+ops, flash, fused = {}, {}, {}
 for root in sys.argv[3:]:
     # each checkout's package in turn; a module keeps its own globals once
     # it is loaded, so the earlier roots' entries go on working
@@ -110,11 +130,15 @@ for root in sys.argv[3:]:
     sys.path.insert(0, os.path.join(root, "src"))
     ops[root] = importlib.import_module("repro_torch.kernels.moe_permute.ops")
     flash[root] = importlib.import_module("repro_torch.kernels.flash_attn.ops")
+    fused[root] = importlib.import_module("repro_torch.kernels.moe_fused.ops")
     sys.path.pop(0)
+saved = torch.load(sys.argv[2])
 out = {label: ab.interleaved_readings(
            torch, ops, {k: v.cuda() for k, v in lay.items()}, cs.time_ms)
-       for label, lay in torch.load(sys.argv[2])["perm"].items()}
+       for label, lay in saved["perm"].items()}
 out["K5"] = ab.interleaved_flash(torch, flash, ab.K5_SHAPES[0], cs.time_ms)
+out["K4_decode"] = ab.interleaved_fused(
+    torch, fused, ab.fused_case(torch, saved, "decode"), cs.time_ms)
 print(json.dumps({"interleaved": out, "nvidia_smi": cs.nvidia_smi_line()}),
       flush=True)
 """
@@ -127,6 +151,7 @@ import torch
 import chip_smoke as cs
 from repro_torch.configs.base import get_config
 from repro_torch.kernels.flash_attn import ops as fa_ops
+from repro_torch.kernels.moe_fused import ops as f_ops
 from repro_torch.kernels.moe_gemm import ops as g_ops
 from repro_torch.kernels.moe_permute import ops as p_ops
 from repro_torch.models import model as model_lib
@@ -149,6 +174,11 @@ for label, lay in saved["perm"].items():
                                     cs.K2_ATOL, cs.K2_RTOL)}
 ffn = {label: {k: v.cuda() if torch.is_tensor(v) else v
                for k, v in c.items()} for label, c in saved["ffn"].items()}
+k4 = {label: ab.fused_readings(
+          torch, f_ops, ab.fused_case(torch, saved, label),
+          ab.kernel_names(root, "moe_fused"), cs.time_ms, cs.bound_ms,
+          cs.K4_ATOL, cs.K4_RTOL)
+      for label in saved["fused"]}
 del saved
 ours = ab.kernel_names(root, "moe_gemm")
 k3 = ab.ragged_readings(torch, g_ops, ffn["S=4864"], ours, cs.time_ms,
@@ -173,7 +203,7 @@ with torch.no_grad():
 keys = ("ms", "plain_ms", "bound_ms", "max_abs_err")
 out = {"root": root, "nvidia_smi": cs.nvidia_smi_line(),
        "seconds": time.time() - t0, "permute_pair": perm,
-       "K3": k3, "K7": k7, "K5": k5,
+       "K4": k4, "K3": k3, "K7": k7, "K5": k5,
        "K6": {k: k6[k] for k in keys + ("bmm_chain_ms",)}}
 print(json.dumps(out), flush=True)
 """
@@ -197,11 +227,12 @@ def device_ms(torch, fn, iters: int = ITERS):
     The window follows a warm-up window of as many calls, since the tracer
     starts late.  A window in which an activity's count is not a whole
     number a call (the profiler drops a few events now and then on an
-    H100) is taken again, up to three times in all."""
+    H100, and once in three windows running at K4's decode reading) is
+    taken again, up to five times in all."""
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
@@ -225,7 +256,7 @@ def device_ms(torch, fn, iters: int = ITERS):
                              e.self_device_time_total / 1e3 / iters)
                      for e in events})
     raise SystemExit("chip_ab: the profiler dropped device activity in "
-                     "three windows")
+                     "five windows")
 
 
 def kernel_names(root: str, source: str) -> tuple:
@@ -507,6 +538,91 @@ def quant_readings(torch, g_ops, case, ours, time_ms, bound_ms, atol,
         layer += out["weights"]["device_ms"]
     out["layer_device_ms"] = layer
     return out
+
+
+def fused_case(torch, saved, label) -> dict:
+    """One K4 layout of the layouts file on the card: ``args`` in
+    ``local_moe``'s order (gelu, layer 0's weights)."""
+    c = {k: v.cuda() if torch.is_tensor(v) else v
+         for k, v in saved["fused"][label].items()}
+    w = saved["fused_w"]
+    return {"label": label,
+            "args": (c["x"], c["tok"], c["w"], tuple(c["offs"]),
+                     tuple(c["exps"]), c["valid"], w["w_in"].cuda(), None,
+                     w["w_out"].cuda())}
+
+
+def fused_bound(torch, args, bound_ms):
+    """K4's ``(bound_ms, bound_by, rows)`` on one layout: the bytes of the
+    tokens, the slot maps and counts, the [T, d] f32 output and the
+    weights of the experts that hold valid rows, and the operations of the
+    rows with a nonzero combine weight (the work the output needs);
+    ``rows`` counts those, the rows below the counts (what a dense tiling
+    computes) and the active experts."""
+    x, tok, w, offs, exps, valid, w_in, _, _ = args
+    T, d = x.shape
+    f = w_in.shape[2]
+    weighted = int((w != 0).sum())
+    active = len({e for e, v in zip(exps, valid.tolist()) if v > 0})
+    nbytes = (T * d * 2 + tok.numel() * 4 + w.numel() * 4 + len(exps) * 4
+              + active * 2 * d * f * 2 + T * d * 4)
+    b_ms, b_by = bound_ms(nbytes, 2 * weighted * 2 * d * f)
+    return b_ms, b_by, {"weighted_rows": weighted,
+                        "dense_rows": int(valid.sum()),
+                        "active_experts": active}
+
+
+def fused_readings(torch, f_ops, case, ours, time_ms, bound_ms, atol,
+                   rtol) -> dict:
+    """K4 (``f_ops.local_moe``, gelu) on one saved layout, held against its
+    plain version, then read as training calls it (x, ``slot_w`` and the
+    weights requiring grad); ``kernel_device_ms`` is the device time of
+    its own launches.  ``computed_rows`` (where the checkout has
+    ``compact_slots``): the rows its FFN launches compute."""
+    from repro_torch.kernels.moe_fused.ref import local_moe_ref
+    args = case["args"]
+    x, tok, w, offs, exps, valid, w_in, _, w_out = args
+    xg, wg, wi, wo = (t.detach().clone().requires_grad_(True)
+                      for t in (x, w, w_in, w_out))
+
+    def call():
+        return f_ops.local_moe(xg, tok, wg, offs, exps, valid, wi, None, wo,
+                               activation="gelu", use_pallas=True)
+
+    with torch.no_grad():
+        err = _held(torch, f"K4 {case['label']}", call(),
+                    local_moe_ref(*args, activation="gelu"), atol, rtol)
+        computed = (int(f_ops.compact_slots(tok, w, offs, valid,
+                                            x.shape[0])[1].sum())
+                    if hasattr(f_ops, "compact_slots") else None)
+    b_ms, b_by, rows = fused_bound(torch, args, bound_ms)
+    return {"T": x.shape[0], "slots": tok.numel(), "segments": len(exps),
+            "computed_rows": computed, **rows, "max_abs_err": err,
+            "bound_ms": b_ms, "bound_by": b_by,
+            **readings(torch, call, time_ms, ours)}
+
+
+def interleaved_fused(torch, ops, case, time_ms) -> dict:
+    """``host_us`` and ``call_ms`` of K4 of every checkout in ``ops``
+    (root -> its ``moe_fused.ops``) on one saved layout, called as
+    :func:`fused_readings` calls it, read in turns as
+    :func:`interleaved_readings` reads K1 and K2."""
+    x, tok, w, offs, exps, valid, w_in, _, w_out = case["args"]
+    xg, wg, wi, wo = (t.detach().clone().requires_grad_(True)
+                      for t in (x, w, w_in, w_out))
+    host, call = {}, {}
+    with torch.enable_grad():
+        for _ in range(REPEATS):
+            for root, m in ops.items():
+                fn = functools.partial(m.local_moe, xg, tok, wg, offs, exps,
+                                       valid, wi, None, wo,
+                                       activation="gelu", use_pallas=True)
+                host[root] = min(host.get(root, math.inf),
+                                 host_us(torch, fn))
+                call[root] = min(call.get(root, math.inf),
+                                 time_ms(torch, fn, ITERS))
+    return {root: {"host_us": host[root], "call_ms": call[root]}
+            for root in ops}
 
 
 def flash_inputs(torch, shape):

@@ -17,7 +17,14 @@ Phases, each printing JSON lines:
    fused local-MoE kernel (K4) at the decode layout (8 slots x 64
    experts), the prefill layout (4 x 128 tokens x 64 experts) and the
    one-rank training layout (a real route of 2048 tokens, 64 segments of
-   128 slots, partly filled), flash attention (K5) at the prefill shape
+   128 slots, partly filled), each with the rows its FFN launches compute
+   (the compacted counts) beside the weighted rows, and read by
+   ``chip_ab.fused_readings`` (``device_ms``, ``call_ms``, ``host_us``);
+   plus edges at Tg = 100 (a picked expert whose every weight is 0, a
+   weighted sentinel slot inside a count, a segment with every slot live;
+   gelu and swiglu) and swiglu at Tg = 8 and 100; its compaction launch
+   (``ops.compact_slots``) bit-equal to ``ref.compact_slots`` at every one
+   of those layouts; flash attention (K5) at the prefill shape
    [4, 128, 16, 64] and at [4, 512, 16, 64] (plus ragged, windowed,
    non-causal and GQA edge shapes), permute
    (K1) and unpermute (K2) on rank (0, 0)'s indices of the 2x2 training
@@ -29,7 +36,10 @@ Phases, each printing JSON lines:
    ``host_us`` (the enqueue cost) beside its library call, by
    ``chip_ab.py``'s reading functions, the ragged
    grouped FFN (K3) on rank (0, 0)'s indices of the 2x2 training plan
-   (1024 tokens, caps (120, 16), 16 experts a rank), and the int8 ragged
+   (1024 tokens, caps (120, 16), 16 experts a rank; read by
+   ``chip_ab.ragged_readings``) and on a ragged layout (R = 1888, a
+   zero-count segment inside an expert's span; gelu and swiglu), and the
+   int8 ragged
    grouped FFN (K7) on rank (0, 0)'s chunk 0 of the pipelined int8 plan
    (8 chunks of 15 + 2 slots, int8-encoded payload, counts through the
    chains) and on the whole staged 2x2 buffer (S = 4864), with the
@@ -323,12 +333,17 @@ def train1_k4_case(torch, params, arch, gen):
 
 def check_k4(torch, args, act: str, label: str, timed=True):
     """K4 against its plain version on one layout's inputs (``args`` in
-    ``local_moe``'s order), with kernel, plain and bound times."""
+    ``local_moe``'s order).  ``computed_rows`` is the rows the kernel's FFN
+    launches compute (the compacted counts' sum), beside
+    ``weighted_rows`` (the rows with a nonzero combine weight) and
+    ``dense_rows`` (every row below the counts).  When timed (gelu), with
+    ``chip_ab.fused_readings`` (device, call and host times under grad,
+    the bound) and kernel (events) and plain times."""
+    import chip_ab
     from repro_torch.kernels.moe_fused import ops as fused_ops
     from repro_torch.kernels.moe_fused.ref import local_moe_ref
-    x, tok, w, offs, exps, valid, w_in, _, _ = args
-    Tg, d = x.shape
-    f = w_in.shape[2]
+    x, tok, w, offs, exps, valid = args[:6]
+    Tg = x.shape[0]
 
     def kernel():
         return fused_ops.local_moe(*args, activation=act, use_pallas=True)
@@ -344,30 +359,67 @@ def check_k4(torch, args, act: str, label: str, timed=True):
     if not ok:
         raise SystemExit(f"K4 {label}: kernel disagrees with plain "
                          f"(max abs err {err})")
+    computed = int(fused_ops.compact_slots(tok, w, offs, valid,
+                                           Tg)[1].sum())
+    _, _, rows = chip_ab.fused_bound(torch, args, bound_ms)
+    out = {"layout": label, "Tg": Tg, "activation": act,
+           "slots": tok.numel(), "segments": len(exps),
+           "computed_rows": computed, **rows, "max_abs_err": err,
+           "atol": K4_ATOL, "rtol": K4_RTOL}
     if not timed:
-        return {"layout": label, "Tg": Tg, "activation": act,
-                "max_abs_err": err, "atol": K4_ATOL, "rtol": K4_RTOL}
+        return out
     iters = 50 if Tg <= 64 else 10
-    ms = time_ms(torch, kernel, iters)
-    kernel_dev = dev_ms(torch, kernel, iters)
-    plain_ms = time_ms(torch, plain, max(3, iters // 5))
-    # the bound counts the work the output needs: the rows with a nonzero
-    # combine weight, and the weights of the experts that hold valid rows.
-    # Rows the kernel computes past weighted_rows (the dense gather layout
-    # computes every row of a picked expert's segment) are wasted work.
-    computed_rows = int(valid.sum())
-    weighted_rows = int((w != 0).sum())
-    active = len({e for e, v in zip(exps, valid.tolist()) if v > 0})
-    nbytes = (Tg * d * 2 + tok.numel() * 4 + w.numel() * 4 + len(exps) * 4
-              + active * 2 * d * f * 2 + Tg * d * 4)
-    flops = 2 * weighted_rows * 2 * d * f
-    b_ms, b_by = bound_ms(nbytes, flops)
-    return {"layout": label, "Tg": Tg, "slots": tok.numel(),
-            "segments": len(exps), "active_experts": active,
-            "computed_rows": computed_rows, "weighted_rows": weighted_rows,
-            "max_abs_err": err, "atol": K4_ATOL, "rtol": K4_RTOL, "ms": ms,
-            "device_ms": kernel_dev, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+    out.update(chip_ab.fused_readings(
+        torch, fused_ops, {"label": label, "args": args},
+        chip_ab.kernel_names(REPO, "moe_fused"), time_ms, bound_ms, K4_ATOL,
+        K4_RTOL))
+    out.update(ms=time_ms(torch, kernel, iters),
+               plain_ms=time_ms(torch, plain, max(3, iters // 5)),
+               library_ms=None)
+    return out
+
+
+def k4_edge_case(torch, params, ctx, gen, swiglu=False):
+    """The gather layout at Tg = 100 (not a multiple of 64) with three
+    edges planted: a picked expert whose every combine weight is 0, a
+    sentinel slot with a nonzero weight inside its segment's count, and a
+    segment whose every slot carries a weight (100 live rows: two tiles)."""
+    args, act = gather_k4_case(torch, params, ctx, 100, gen, swiglu)
+    x, tok, w, offs, exps, valid, w_in, w_gate, w_out = args
+    Tg = x.shape[0]
+    tok, w, valid = tok.clone(), w.clone(), valid.clone()
+    picked = [e for e, v in enumerate(valid.tolist()) if v > 0]
+    if len(picked) < 3:
+        raise SystemExit(f"K4 edges: {len(picked)} experts picked of "
+                         f"{len(exps)}, 3 needed")
+    zero_e, sent_e, full_e = picked[:3]
+    w[offs[zero_e]:offs[zero_e + 1]] = 0
+    tok[offs[sent_e] + 3] = Tg
+    w[offs[sent_e] + 3] = 0.7
+    w[offs[full_e]:offs[full_e + 1]] = 0.1 + 0.9 * torch.rand(
+        Tg, generator=gen, device="cuda")
+    return (x, tok, w, offs, exps, valid, w_in, w_gate, w_out), act
+
+
+def check_compaction(torch, args, label: str):
+    """K4's compaction launch alone (``ops.compact_slots``) bit-equal to
+    its plain mirror on one layout."""
+    from repro_torch.kernels.moe_fused import ops as fused_ops
+    from repro_torch.kernels.moe_fused import ref as fused_ref
+    x, tok, w, offs, exps, valid = args[:6]
+    T = x.shape[0]
+    live, count = fused_ops.compact_slots(tok, w, offs, valid, T,
+                                          use_pallas=True)
+    want_live, want_count = fused_ref.compact_slots(tok, w, offs, valid, T)
+    torch.cuda.synchronize()
+    if not (torch.equal(live, want_live) and torch.equal(count, want_count)):
+        bad = int((live != want_live).sum()) + int(
+            (count != want_count).sum())
+        raise SystemExit(f"compact_slots {label}: kernel differs from plain "
+                         f"in {bad} entries")
+    return {"layout": label, "slots": tok.numel(),
+            "live_rows": int(count.sum()),
+            "live_segments": int((count > 0).sum())}
 
 
 def check_k5(torch, shape, gen, causal=True, window=0, timed=True,
@@ -613,7 +665,11 @@ def unpermute_edges(torch, gen):
 
 def check_k3(torch, case):
     """K3 ragged grouped FFN on the 2x2 phase's receive layout: 16
-    experts, 96 segments of width 120 or 16, tanh-gelu."""
+    experts, 96 segments of width 120 or 16, tanh-gelu; read by
+    ``chip_ab.ragged_readings`` (device, call and host times under grad,
+    ``kernel_device_ms`` its launch pair alone, the bound)."""
+    import chip_ab
+    from repro_torch.kernels.moe_fused.ops import plan_expert_tiles
     from repro_torch.kernels.moe_gemm import ops as g_ops
     from repro_torch.kernels.moe_gemm.ref import grouped_ffn_ragged_ref
     xin, valid = case["xin"], case["rows_valid"]
@@ -629,32 +685,62 @@ def check_k3(torch, case):
         return grouped_ffn_ragged_ref(xin, segs, exps, valid, w_in, None,
                                       w_out, activation="gelu")
 
-    got, want = kernel(), plain()
-    torch.cuda.synchronize()
-    ok, err = close(torch, got, want, K3_ATOL, K3_RTOL)
-    R, d = xin.shape
-    f = w_in.shape[2]
-    offs = torch.as_tensor(segs, device="cuda")
-    widths = offs[1:] - offs[:-1]
-    zeros_exact = bool((got[dead_rows(torch, segs, valid, R)] == 0).all())
-    if not ok or not zeros_exact:
-        raise SystemExit(f"K3: kernel disagrees with plain (max abs err "
-                         f"{err}, rows past nvalid zero: {zeros_exact})")
-    nvalid = int(valid.sum())
-    per_expert = torch.zeros(w_in.shape[0], device="cuda").index_add_(
-        0, torch.as_tensor(exps, device="cuda"), valid.float())
-    active = int((per_expert > 0).sum())
-    nbytes = (nvalid * d * 2 + active * 2 * d * f * 2 + R * d * 2
-              + valid.numel() * 4)
-    b_ms, b_by = bound_ms(nbytes, 2.0 * nvalid * 2 * d * f)
-    return {"R": R, "segments": len(exps), "experts": w_in.shape[0],
-            "segment_widths": sorted({int(w) for w in widths.tolist()}),
-            "valid_rows": nvalid, "active_experts": active,
-            "max_abs_err": err, "atol": K3_ATOL, "rtol": K3_RTOL,
+    r = chip_ab.ragged_readings(torch, g_ops, case,
+                                chip_ab.kernel_names(REPO, "moe_gemm"),
+                                time_ms, bound_ms, K3_ATOL, K3_RTOL)
+    widths = {b - a for a, b in zip(segs[:-1], segs[1:])}
+    active = len({e for e, v in zip(exps, valid.tolist()) if v > 0})
+    return {**r, "segments": len(exps), "experts": w_in.shape[0],
+            "segment_widths": sorted(widths), "active_experts": active,
+            "tiles": len(plan_expert_tiles(tuple(segs), tuple(exps))),
+            "atol": K3_ATOL, "rtol": K3_RTOL,
             "ms": time_ms(torch, kernel, 20),
-            "device_ms": dev_ms(torch, kernel, 20),
-            "plain_ms": time_ms(torch, plain, 5), "library_ms": None,
-            "bound_ms": b_ms, "bound_by": b_by}
+            "plain_ms": time_ms(torch, plain, 5), "library_ms": None}
+
+
+def k3_edges(torch, case, gen):
+    """K3 against its plain version on a ragged layout of the rank's 16
+    experts: stages (2, 45) and (4, 7), so each expert's span is 118 rows
+    (two tiles, the second crossing segments) and R = 1888 is not a
+    multiple of 64; random counts, and a zero-count segment inside expert
+    0's span (its second); gelu and swiglu."""
+    from repro_torch.core.dispatch import transport
+    from repro_torch.kernels.moe_gemm import ops as g_ops
+    from repro_torch.kernels.moe_gemm.ref import grouped_ffn_ragged_ref
+    w_in, w_out = case["w_in"], case["w_out"]
+    E_l, d, f = w_in.shape
+    segs, exps = transport.stage_segments(E_l, ((2, 45), (4, 7)))
+    if not exps[0] == exps[1] == exps[2]:
+        raise SystemExit(f"K3 edges: segment 1 is not inside expert "
+                         f"{exps[0]}'s span")
+    R = segs[-1]
+    widths = torch.as_tensor(segs[1:], device="cuda") - torch.as_tensor(
+        segs[:-1], device="cuda")
+    valid = (torch.rand(len(exps), generator=gen, device="cuda")
+             * (widths + 1)).to(torch.int32)
+    valid[1] = 0
+    valid[0] = widths[0]
+    xin = torch.randn((R, d), generator=gen, device="cuda").to(torch.bfloat16)
+    w_gate = (torch.randn(w_in.shape, generator=gen, device="cuda")
+              * d ** -0.5).to(torch.bfloat16)
+    dead = dead_rows(torch, segs, valid, R)
+    out = []
+    for act, wg in (("gelu", None), ("swiglu", w_gate)):
+        got = g_ops.grouped_ffn_ragged(xin, segs, exps, valid, w_in, wg,
+                                       w_out, activation=act,
+                                       use_pallas=True)
+        want = grouped_ffn_ragged_ref(xin, segs, exps, valid, w_in, wg,
+                                      w_out, activation=act)
+        torch.cuda.synchronize()
+        ok, err = close(torch, got, want, K3_ATOL, K3_RTOL)
+        zeros_exact = bool((got[dead] == 0).all())
+        if not ok or not zeros_exact:
+            raise SystemExit(f"K3 edges, {act}: kernel disagrees with plain "
+                             f"(max abs err {err}, rows past nvalid zero: "
+                             f"{zeros_exact})")
+        out.append({"R": R, "segments": len(exps), "activation": act,
+                    "valid_rows": int(valid.sum()), "max_abs_err": err})
+    return out
 
 
 def pipelined_case(torch, params, arch, gen):
@@ -1548,16 +1634,24 @@ def main() -> int:
           "seconds": time.time() - t0})
     gen = torch.Generator(device="cuda").manual_seed(1)
     with torch.no_grad():
-        k4 = {"decode": check_k4(
-                  torch, *gather_k4_case(torch, params, ctx, NUM_SLOTS, gen),
-                  "decode"),
-              "prefill": check_k4(
-                  torch, *gather_k4_case(torch, params, ctx, PACK * BUCKET,
-                                         gen), "prefill")}
-        k4_edges = [check_k4(torch, *gather_k4_case(torch, params, ctx, Tg,
-                                                    gen, swiglu=True),
-                             label, timed=False)
-                    for Tg, label in ((NUM_SLOTS, "decode"), (100, "ragged"))]
+        k4_cases = {
+            "decode": gather_k4_case(torch, params, ctx, NUM_SLOTS, gen),
+            "prefill": gather_k4_case(torch, params, ctx, PACK * BUCKET, gen)}
+        k4 = {label: check_k4(torch, *c, label)
+              for label, c in k4_cases.items()}
+        k4_edge_cases = {
+            "decode_swiglu": gather_k4_case(torch, params, ctx, NUM_SLOTS,
+                                            gen, swiglu=True),
+            "ragged_swiglu": gather_k4_case(torch, params, ctx, 100, gen,
+                                            swiglu=True),
+            "edges_gelu": k4_edge_case(torch, params, ctx, gen),
+            "edges_swiglu": k4_edge_case(torch, params, ctx, gen,
+                                         swiglu=True)}
+        k4_edges = [check_k4(torch, *c, label, timed=False)
+                    for label, c in k4_edge_cases.items()]
+        compaction = [check_compaction(torch, c[0], label)
+                      for label, c in {**k4_cases, **k4_edge_cases}.items()]
+        del k4_cases, k4_edge_cases
         hd = arch.head_dim_
         k5 = check_k5(torch, (PACK, BUCKET, arch.num_heads, hd), gen)
         # the training sequence length, for information (training attends
@@ -1588,6 +1682,7 @@ def main() -> int:
         k1_edges = permute_edges(torch, gen)
         k2_edges = unpermute_edges(torch, gen)
         k3 = check_k3(torch, case)
+        k3e = k3_edges(torch, case, gen)
         # K7 on the whole staged buffer too: its expert spans of 304 rows
         # cross 64-row tiles, which chunk 0's spans of 38 do not
         k7_full = check_k7(torch, case)
@@ -1595,8 +1690,10 @@ def main() -> int:
         del case
         k7 = check_k7(torch, pcase)
         del pcase
-        k4["train_1rank"] = check_k4(
-            torch, *train1_k4_case(torch, params, arch, gen), "train_1rank")
+        train1 = train1_k4_case(torch, params, arch, gen)
+        k4["train_1rank"] = check_k4(torch, *train1, "train_1rank")
+        compaction.append(check_compaction(torch, train1[0], "train_1rank"))
+        del train1
         x6, w_in6, w_out6, filled = einsum_k6_case(torch, params, arch, gen)
         k6 = check_k6(torch, x6, w_in6, None, w_out6, "einsum", filled)
         w_gate6 = (torch.randn(w_in6.shape, generator=gen, device="cuda")
@@ -1614,9 +1711,11 @@ def main() -> int:
                     check_k8(torch, gen, 4, 8192, H, K, window=4096),
                     check_k8(torch, gen, 4, 1000, H, K,
                              lengths=[0, 1, 537, 1000])]
-    emit({"phase": "checks", "K4": k4, "K4_edges": k4_edges, "K5": k5,
+    emit({"phase": "checks", "K4": k4, "K4_edges": k4_edges,
+          "K4_compaction": compaction, "K5": k5,
           "K5_S512": k5_512, "K5_edges": edges, "K1": k1,
           "K1_edges": k1_edges, "K2": k2, "K2_edges": k2_edges, "K3": k3,
+          "K3_edges": k3e,
           "K7": k7, "K7_S4864": k7_full,
           "K6": k6, "K6_edges": k6_edges, "K8": k8, "K8_edges": k8_edges})
     bwd = backward_checks(torch, gen, layout22)
@@ -1831,11 +1930,12 @@ def main() -> int:
          "replaces": "src/repro/kernels/moe_gemm/kernel.py:228",
          "launches": total("moe_gemm.grouped_ffn_ragged"),
          "launches_by_path": by_path("moe_gemm.grouped_ffn_ragged"),
-         "max_abs_err": k3["max_abs_err"],
+         "max_abs_err": max([k3["max_abs_err"]]
+                            + [e["max_abs_err"] for e in k3e]),
          "backward_max_abs_err": bwd["K3"]["max_abs_err"],
-         "ms": k3["ms"], "device_ms": k3["device_ms"],
-         "plain_ms": k3["plain_ms"],
-         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+         **{n: k3[n] for n in ("ms", "device_ms", "kernel_device_ms",
+                               "call_ms", "host_us", "plain_ms", "bound_ms",
+                               "bound_by", "tiles")},
          "library_ms": None},
         {"name": "moe_gemm.grouped_ffn_ragged_quant", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_gemm.cu",
@@ -1861,10 +1961,16 @@ def main() -> int:
          "max_abs_err": max(e["max_abs_err"]
                             for e in list(k4.values()) + k4_edges),
          "backward_max_abs_err": bwd["K4"]["max_abs_err"],
-         "ms": kp["ms"], "device_ms": kp["device_ms"],
-         "plain_ms": kp["plain_ms"],
-         "bound_ms": kp["bound_ms"], "bound_by": kp["bound_by"],
-         "library_ms": None, "layouts": k4},
+         **{n: kp[n] for n in ("ms", "device_ms", "kernel_device_ms",
+                               "call_ms", "host_us", "plain_ms", "bound_ms",
+                               "bound_by", "computed_rows",
+                               "weighted_rows")},
+         "library_ms": None,
+         "layouts": {label: {n: r[n] for n in (
+             "ms", "device_ms", "kernel_device_ms", "call_ms", "host_us",
+             "plain_ms", "bound_ms", "bound_by", "computed_rows",
+             "weighted_rows", "dense_rows", "max_abs_err")}
+             for label, r in k4.items()}},
         {"name": "flash_attn.flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attn.cu",
          "replaces": "src/repro/kernels/flash_attn/kernel.py:65",

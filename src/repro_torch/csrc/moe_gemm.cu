@@ -25,26 +25,37 @@
 // What the TPU design relied on, and what this one does instead:
 //   * The TPU kernel holds a [bc, d] f32 accumulator across its sequential
 //     f-blocks (512 KiB at bc = 128, d = 1024), more than a Hopper block's
-//     227 KB of shared memory.  Here the FFN is two launches over one tile
-//     list, as in csrc/moe_fused.cu (K4) without its gather and scatter:
+//     227 KB of shared memory.  Here each FFN is two launches over one
+//     tile list, as in csrc/moe_fused.cu (K4) without its gather and
+//     scatter:
 //       1. up:   x rows @ w_in (and w_gate), activation, round to bf16,
 //                write h [tiles * 64, f];
 //       2. down: h @ w_out with an f32 accumulator, bf16 store of the valid
 //                rows, exact zeros for the rest.
 //   * plan_blocks' gcd rule gives 8-row blocks for the 2x2 plan's segment
-//     widths 120 and 16.  Fixed 64-row tiles with row masks replace it; no
-//     tile straddles two segments.
-//   * Each tile's valid-row count is computed on the device from rows_valid
-//     (no host synchronisation).  A tile with none returns before any load;
-//     the down launch writes its zero rows without reading anything.
+//     widths 120 and 16.  K3 and K7 instead cut each expert's span of
+//     consecutive segments into 64-row tiles (moe_fused.ops.
+//     plan_expert_tiles: at the 2x2 plan's rank-0 buffer, S = 4864, 5
+//     tiles an expert and 80 in all, where tiling by segment gave 8 and
+//     128), so each tile streams its expert's weights once for up to 64
+//     rows.  A tile may cross segments but never experts: each row finds
+//     its segment on the device (row_seg; no host synchronisation), is
+//     computed when below its segment's count, and written as an exact
+//     zero otherwise.  A tile with no such row does no loads.
 //
-// What bounds it on this card: at the shapes of the 2x2 training plan
+// What bounds them on this card: at the shapes of the 2x2 training plan
 // (16 experts a rank, about 2k valid rows of 4.9k) the expert weights'
 // bytes, so the memory rate; at full occupancy and many rows an expert, the
-// bf16 tensor-core rate.  This first version uses warp-level tensor-core
-// MMA (WMMA 16x16x16 bf16, f32 accumulate) on 64x64x32 tiles staged through
-// shared memory with 16-byte loads, without a copy pipeline; wgmma, TMA and
-// a persistent schedule are later work.
+// tensor-core rate.  Every launch of K3 and K7 streams its weights through
+// a cp.async ring, so the next slices load while this one multiplies:
+//   * K3's up launch is the bf16 tile product of csrc/moe_mma.cuh (also
+//     K4's): mma.m16n8k16 fed by ldmatrix (x rows) and ldmatrix.trans (the
+//     row-major w_in / w_gate, read as stored), the activation applied to
+//     the accumulators in registers, and only the 16-row fragments up to
+//     the tile's last valid row multiplied.
+//   * K3's and K7's down launch (span_down_kernel) is bf16 WMMA with an
+//     f32 accumulator on 64-deep ring stages, staged through shared memory
+//     for the bf16 store.
 //
 // K7 (the int8 wire codec's expert compute) takes int8 activations xq [R, d]
 // (one scale per segment, quantized by the wrapper in plain torch each
@@ -52,42 +63,27 @@
 // once a layer forward by the dispatch engine and shared by every chunk),
 // and the bf16 w_out.  The delivered buffer is ordered (expert, stage,
 // destination, slot), so at the pipelined plan's chunk 0 each expert's 38
-// rows lie in 6 segments (2 of 15 rows, 4 of 2).  Tiling by segment read
-// each expert's weights once a segment (6x the bytes the bound counts) for
-// at most 15 valid rows of a 64-row MMA; K7 instead cuts each expert's
-// span of segments into 64-row tiles (moe_fused.ops.plan_expert_tiles: 16
-// tiles, not 96, at chunk 0), which may cross segments but never experts.
-// Each row finds its segment on the device (row_seg; no host sync): it is
-// computed when below its segment's count, dequantized by its own
-// segment's factor sx[s] * s_w[e] (f32, as the plain version), and written
-// as an exact zero otherwise.  Two launches of its own over those tiles:
-//   1. up:   int8 tensor cores (WMMA 16x16x16 signed char, int32
-//            accumulate: exact) on 64x64x64 stages, the activation in f32,
-//            bf16 h;
-//   2. down: bf16 WMMA with an f32 accumulator, bf16 y.
-// Both stream the weights through a cp.async ring (4 stages; 3 for the
-// swiglu up launch, which holds two weight tiles a stage), so the next
-// slices load while this one multiplies.  WMMA wants 256-bit aligned
-// fragment pointers and a 16-value int8 step is only 16 bytes, so int8
-// stages hold 16-value chunks, each a [64][16] block.  At chunk 0 the pair
-// is bound by the weights' bytes: 16 experts' int8 w_in (32 MB, which the
-// 50 MB L2 holds) and bf16 w_out (64 MB, which it does not).  K3's kernels
-// are not shared: K3 tiles by segment, as before.
+// rows lie in 6 segments (2 of 15 rows, 4 of 2): 16 span tiles, not 96
+// segment tiles.  Its up launch runs int8 tensor cores (mma.m16n8k32 s8,
+// exact int32 sums) on 64x64x64 stages of a 4-stage ring (3 for swiglu,
+// which holds two weight tiles a stage), the weights read from their
+// transposes so ldmatrix feeds the MMA, and dequantizes each row by its
+// own segment's factor sx[s] * s_w[e] (f32, as the plain version) in the
+// epilogue.  At chunk 0 the pair is bound by the weights' bytes: 16
+// experts' int8 w_in (32 MB, which the 50 MB L2 holds) and bf16 w_out (64
+// MB, which it does not).
 //
 // K6 (MoEConfig.use_kernel: the einsum dispatch's [E, C, d] buffer) is the
-// same FFN on equal, fully-occupied segments, so it runs K3's kernels
-// (up_kernel, down_kernel with DENSE set) from a grid of (E * ceil(C /
-// 64), columns / 64) blocks read straight from blockIdx: no tile list, no
-// rows_valid, no skip predicate; the rows of the last tile past C are
-// masked, and h is [E, C, f].  Only the tile header differs between the
-// two instantiations: lifting the bodies into device functions called by
-// separate kernels instead put K3's gelu up launch at 96 registers (80
-// here) and cost K3 10% on an H100 (PERF.md, chip_ab.py).  At the einsum path's shape (64 experts, C = 128, d = 1024, f =
-// 2048, tanh-gelu) it is bound by bytes: the 64 experts' w_in and w_out,
-// about 537 MB, over the memory rate (0.17 ms), against 0.07 ms of bf16
-// tensor-core operations.  Each expert's weights are read once per 64-row
-// tile (twice at C = 128), through the same unpipelined WMMA tiles as K3;
-// wgmma, TMA and a schedule that reads each expert's weights once are
+// same FFN on equal, fully-occupied segments: up_kernel and down_kernel
+// over a grid of (E * ceil(C / 64), columns / 64) blocks read straight from
+// blockIdx: no tile list, no rows_valid, no skip predicate; the rows of
+// the last tile past C are masked, and h is [E, C, f].  At the einsum
+// path's shape (64 experts, C = 128, d = 1024, f = 2048, tanh-gelu) it is
+// bound by bytes: the 64 experts' w_in and w_out, about 537 MB, over the
+// memory rate (0.17 ms), against 0.07 ms of bf16 tensor-core operations.
+// Each expert's weights are read once per 64-row tile (twice at C = 128),
+// through unpipelined WMMA (16x16x16 bf16, f32 accumulate) on 64x64x32
+// tiles staged through shared memory with 16-byte loads; its redesign is
 // later work.
 
 #include <cuda_bf16.h>
@@ -95,42 +91,32 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "moe_mma.cuh"
+
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
+using moe_mma::cp_async16;
+using moe_mma::cp_async_commit;
+using moe_mma::cp_async_wait;
+using moe_mma::gelu_tanh;
+using moe_mma::ldsm_x4;
+using moe_mma::silu;
+using moe_mma::smem_opt_in;
+
 constexpr int BM = 64;        // rows per tile
 constexpr int BN = 64;        // output columns per block
-constexpr int BK = 32;        // reduction depth per shared-memory stage
+constexpr int BK = 32;        // K6's reduction depth per shared-memory stage
 constexpr int THREADS = 128;  // 4 warps, each a 32x32 quarter of the tile
 constexpr int A_LD = BK + 8;  // padded leading dims (WMMA wants multiples
 constexpr int B_LD = BN + 8;  // of 8 bf16 / 4 f32 and 32-byte aligned rows
 constexpr int C_LD = BN + 4;  // of 16; the pads also spread the banks)
-constexpr int TILE_INTS = 5;  // per tile: first row, expert, segment,
-                              // offset into the segment, rows in the tile
 
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-  // jax.nn.gelu's default (approximate=True) form
-  const float k0 = 0.7978845608028654f;  // sqrt(2 / pi)
-  return 0.5f * x * (1.0f + tanhf(k0 * (x + 0.044715f * x * x * x)));
-}
-
-__device__ __forceinline__ float silu(float x) {
-  return x / (1.0f + expf(-x));
-}
-
-// valid rows of tile b: clamp(rows_valid[seg] - offset, 0, rows in tile)
-__device__ __forceinline__ int tile_nvalid(const int* tiles,
-                                           const int* rows_valid, int b) {
-  const int* ti = tiles + b * TILE_INTS;
-  int nv = rows_valid[ti[2]] - ti[3];
-  return max(0, min(nv, ti[4]));
-}
 
 // Load a BK x BN bf16 tile of a row-major [rows, ld] matrix into smem.
 __device__ __forceinline__ void load_b_tile(bf16 (*dst)[B_LD], const bf16* src,
@@ -166,27 +152,18 @@ __device__ __forceinline__ void dense_tile(int C, int b, int* nv, int* row0,
   *nv = min(BM, C - r0);
 }
 
-// The up launch over 64-row tiles: rows [row0, row0 + nv) of x times
+// K6's up launch over 64-row tiles: rows [row0, row0 + nv) of x times
 // columns [n0, n0 + 64) of expert eid's w_in (and w_gate), the activation
-// in f32, rounded to bf16 into h.  K3's tiles come from the tile
-// list, K6's (DENSE) from blockIdx over an [E, C, d] buffer (dense_tile).
-template <bool SWIGLU, bool DENSE>
+// in f32, rounded to bf16 into h; the tile from blockIdx (dense_tile).
+template <bool SWIGLU>
 __global__ void __launch_bounds__(THREADS)
 up_kernel(const bf16* __restrict__ x, int C, int d, int f,
-          const int* __restrict__ rows_valid, const int* __restrict__ tiles,
           const bf16* __restrict__ w_in, const bf16* __restrict__ w_gate,
           bf16* __restrict__ h) {
   const int b = blockIdx.x;
   const int n0 = blockIdx.y * BN;
   int nv, row0, eid;
-  if (DENSE) {
-    dense_tile(C, b, &nv, &row0, &eid);
-  } else {
-    nv = tile_nvalid(tiles, rows_valid, b);
-    if (nv == 0) return;                     // slack tile: no loads, no math
-    row0 = tiles[b * TILE_INTS + 0];
-    eid = tiles[b * TILE_INTS + 1];
-  }
+  dense_tile(C, b, &nv, &row0, &eid);
 
   __shared__ __align__(128) bf16 As[BM][A_LD];
   __shared__ __align__(128) bf16 Bs[BK][B_LD];
@@ -243,7 +220,7 @@ up_kernel(const bf16* __restrict__ x, int C, int d, int f,
                               wmma::mem_row_major);
     }
   __syncthreads();
-  bf16* hb = h + (size_t)(DENSE ? row0 : b * BM) * f;
+  bf16* hb = h + (size_t)row0 * f;
   for (int c = tid; c < BM * (BN / 8); c += THREADS) {
     int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
     if (r >= nv) continue;
@@ -254,37 +231,16 @@ up_kernel(const bf16* __restrict__ x, int C, int d, int f,
   }
 }
 
-// The down launch: h's rows of the tile times columns [n0, n0 + 64) of
-// w_out[eid] with an f32 accumulator; the tile's rows of y are written,
-// those at or past nv as exact zeros (the zero-slot convention).  K3 and
-// K6 (DENSE) share it.
-template <bool DENSE>
+// K6's down launch: h's rows of the tile times columns [n0, n0 + 64) of
+// w_out[eid] with an f32 accumulator, the tile's rows of y written in bf16.
 __global__ void __launch_bounds__(THREADS)
-down_kernel(int C, int d, int f, const int* __restrict__ rows_valid,
-            const int* __restrict__ tiles,
-            const bf16* __restrict__ h, const bf16* __restrict__ w_out,
-            bf16* __restrict__ y) {
+down_kernel(int C, int d, int f, const bf16* __restrict__ h,
+            const bf16* __restrict__ w_out, bf16* __restrict__ y) {
   const int b = blockIdx.x;
   const int n0 = blockIdx.y * BN;
   const int tid = threadIdx.x;
-  int nv, row0, rows, eid;
-  if (DENSE) {
-    dense_tile(C, b, &nv, &row0, &eid);
-    rows = nv;
-  } else {
-    nv = tile_nvalid(tiles, rows_valid, b);
-    row0 = tiles[b * TILE_INTS + 0];
-    rows = tiles[b * TILE_INTS + 4];
-    if (nv == 0) {                           // slack tile: zero rows only
-      for (int c = tid; c < rows * (BN / 8); c += THREADS) {
-        int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
-        *reinterpret_cast<uint4*>(y + (size_t)(row0 + r) * d + n0 + nc) =
-            make_uint4(0u, 0u, 0u, 0u);
-      }
-      return;
-    }
-    eid = tiles[b * TILE_INTS + 1];
-  }
+  int nv, row0, eid;
+  dense_tile(C, b, &nv, &row0, &eid);
 
   __shared__ __align__(128) bf16 As[BM][A_LD];
   __shared__ __align__(128) bf16 Bs[BK][B_LD];
@@ -295,7 +251,7 @@ down_kernel(int C, int d, int f, const int* __restrict__ rows_valid,
   FragC acc[2][2];
   for (int i = 0; i < 2; ++i)
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-  const bf16* hb = h + (size_t)(DENSE ? row0 : b * BM) * f;
+  const bf16* hb = h + (size_t)row0 * f;
   const bf16* wo = w_out + (size_t)eid * f * d;
 
   for (int k0 = 0; k0 < f; k0 += BK) {
@@ -321,29 +277,26 @@ down_kernel(int C, int d, int f, const int* __restrict__ rows_valid,
       wmma::store_matrix_sync(&Cs[wm + i * 16][wn + j * 16], acc[i][j], C_LD,
                               wmma::mem_row_major);
   __syncthreads();
-  // bf16 store of the tile's rows: the valid ones from the accumulator, the
-  // ones past nv as exact zeros (the zero-slot convention)
-  for (int c = tid; c < rows * (BN / 8); c += THREADS) {
+  for (int c = tid; c < nv * (BN / 8); c += THREADS) {
     int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
     __align__(16) bf16 v[8];
-    for (int e = 0; e < 8; ++e)
-      v[e] = __float2bfloat16(r < nv ? Cs[r][nc + e] : 0.0f);
+    for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16(Cs[r][nc + e]);
     *reinterpret_cast<uint4*>(y + (size_t)(row0 + r) * d + n0 + nc) =
         *reinterpret_cast<const uint4*>(v);
   }
 }
 
 // ---------------------------------------------------------------------------
-// K7: the int8 ragged FFN over expert-span tiles
+// K3 and K7: the ragged FFNs over expert-span tiles
 // ---------------------------------------------------------------------------
 //
 // Tiles are 64-row pieces of each expert's span (its consecutive segments),
 // so a tile may cross segment boundaries but never experts.  A tile's rows
 // take their segment from row_seg: row r is delivered when it lies below
-// its segment's count (r - seg_start[s] < rows_valid[s]), and the up
-// launch dequantizes it by its own segment's factor sx[s] * s_w[e], the
-// product taken in f32 as the plain version takes it.  Both launches keep
-// the next weight tiles in flight during the MMA through a cp.async ring.
+// its segment's count (r - seg_start[s] < rows_valid[s]); K7's up launch
+// dequantizes it by its own segment's factor sx[s] * s_w[e], the product
+// taken in f32 as the plain version takes it.  Every launch keeps the next
+// weight tiles in flight during the MMA through a cp.async ring.
 
 constexpr int SPAN_INTS = 3;  // per span tile: first row, expert, rows
 constexpr int QK = 64;        // int8 reduction depth (bytes) per ring stage
@@ -353,34 +306,12 @@ constexpr int DSTAGES = 4;    // ring depth of the bf16 down launch
 constexpr int DA_LD = DBK + 8;  // padded leading dims of the down stages
 constexpr int D_A_BYTES = BM * DA_LD * 2, D_B_BYTES = DBK * B_LD * 2;
 constexpr int DOWN_SMEM = DSTAGES * (D_A_BYTES + D_B_BYTES);  // 73,728 B
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; src_bytes 0 fills zeros and reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
+// K3's up launch: moe_mma.cuh's tile product on a 2-stage ring (32 KB for
+// gelu: seven blocks an SM), which measured faster on an H100 at the 2x2
+// buffer than 3 or 4 stages
+constexpr int UP_STAGES = 2;
+constexpr int UP_SMEM = moe_mma::ring_bytes(UP_STAGES, 1);          // 32 KB
+constexpr int UP_SMEM_SWIGLU = moe_mma::ring_bytes(UP_STAGES, 2);   // 48 KB
 
 // c += a (16x32 s8, row) . b (32x8 s8, col), exact s32 accumulate
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
@@ -397,6 +328,60 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
 // eight rows an ldmatrix phase reads fall in eight distinct bank groups.
 __device__ __forceinline__ int qswz(int r, int c) {
   return r * QK + ((c ^ ((r >> 1) & 3)) << 4);
+}
+
+// K3's span tile header in shared memory: a_row[r] = row0 + r for the
+// tile's delivered rows, -1 for the rest; returns the number of 16-row
+// fragments up to the last delivered row (0: none), the same in every
+// thread.
+__device__ __forceinline__ int span_rows(int row0, int rows,
+                                         const int* __restrict__ row_seg,
+                                         const int* __restrict__ seg_start,
+                                         const int* __restrict__ rows_valid,
+                                         int* a_row, unsigned* masks,
+                                         int tid) {
+  bool ok = false;
+  if (tid < BM) {
+    if (tid < rows) {
+      const int r = row0 + tid, s = row_seg[r];
+      ok = r - seg_start[s] < rows_valid[s];
+    }
+    a_row[tid] = ok ? row0 + tid : -1;
+  }
+  const unsigned m = __ballot_sync(0xffffffffu, ok);
+  if (tid < BM && tid % 32 == 0) masks[tid / 32] = m;
+  __syncthreads();
+  const unsigned long long all =
+      masks[0] | (unsigned long long)masks[1] << 32;
+  return all ? (64 - __clzll(all) + 15) / 16 : 0;
+}
+
+// K3's up launch: the tile's delivered rows of x times columns [n0, n0 +
+// 64) of expert eid's w_in (and w_gate), activated and rounded to bf16 into
+// h (moe_mma.cuh's up_tile; dynamic shared memory: its ring).
+template <bool SWIGLU>
+__global__ void __launch_bounds__(THREADS)
+span_up_kernel(const bf16* __restrict__ x, int d, int f,
+               const int* __restrict__ row_seg,
+               const int* __restrict__ seg_start,
+               const int* __restrict__ rows_valid,
+               const int* __restrict__ tiles,
+               const bf16* __restrict__ w_in,
+               const bf16* __restrict__ w_gate, bf16* __restrict__ h) {
+  extern __shared__ __align__(128) unsigned char dsmem[];
+  __shared__ int a_row[BM];
+  __shared__ unsigned masks[2];
+  const int b = blockIdx.x, n0 = blockIdx.y * BN, tid = threadIdx.x;
+  const int row0 = tiles[b * SPAN_INTS + 0];
+  const int eid = tiles[b * SPAN_INTS + 1];
+  const int mf = span_rows(row0, tiles[b * SPAN_INTS + 2], row_seg,
+                           seg_start, rows_valid, a_row, masks, tid);
+  if (mf == 0) return;                       // no delivered row: no work
+  const size_t wofs = (size_t)eid * d * f;
+  moe_mma::up_tile<SWIGLU, UP_STAGES>(dsmem, x, a_row, mf, d, f, n0,
+                                      w_in + wofs,
+                                      SWIGLU ? w_gate + wofs : nullptr,
+                                      h + (size_t)b * BM * f);
 }
 
 // The span tile's row header in shared memory: valid[r] (row r of the tile
@@ -556,13 +541,13 @@ quant_span_up_kernel(const signed char* __restrict__ xq, int d, int f,
     }
 }
 
-// K7's down launch over the same span tiles: the tile's valid rows of h
+// K3's and K7's down launch over the span tiles: the tile's valid rows of h
 // times columns [n0, n0 + 64) of w_out[eid] with an f32 accumulator (bf16
 // WMMA), the next DSTAGES - 1 slices of 64 rows of h and w_out in flight
 // during the MMA (dynamic shared memory: DOWN_SMEM); the tile's rows of y
 // are written, those not delivered as exact zeros.
 __global__ void __launch_bounds__(THREADS)
-quant_span_down_kernel(int d, int f, const int* __restrict__ row_seg,
+span_down_kernel(int d, int f, const int* __restrict__ row_seg,
                        const int* __restrict__ seg_start,
                        const int* __restrict__ rows_valid,
                        const int* __restrict__ tiles,
@@ -664,57 +649,66 @@ quant_span_down_kernel(int d, int f, const int* __restrict__ row_seg,
   }
 }
 
-// The down launch's opt-in to DOWN_SMEM bytes of dynamic shared memory,
-// made once a device (the attribute holds for the process's lifetime).
-cudaError_t down_smem_opt_in() {
-  static unsigned long long done = 0;        // one bit a device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+unsigned long long down_opt_in, up_opt_in[2];   // per-device bit masks
+
+// The span down launch (K3 and K7) over n_tiles span tiles.
+cudaError_t span_down(int n_tiles, int d, int f, const int* row_seg,
+                      const int* seg_start, const int* rows_valid,
+                      const int* tiles, const void* h, const void* w_out,
+                      void* y, cudaStream_t s) {
+  cudaError_t err = smem_opt_in(span_down_kernel, DOWN_SMEM, down_opt_in);
   if (err != cudaSuccess) return err;
-  if (dev < 64 && (done >> dev & 1ull)) return cudaSuccess;
-  err = cudaFuncSetAttribute(quant_span_down_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             DOWN_SMEM);
-  if (err == cudaSuccess && dev < 64) done |= 1ull << dev;
-  return err;
+  span_down_kernel<<<dim3(n_tiles, d / BN), THREADS, DOWN_SMEM, s>>>(
+      d, f, row_seg, seg_start, rows_valid, tiles,
+      static_cast<const bf16*>(h), static_cast<const bf16*>(w_out),
+      static_cast<bf16*>(y));
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// All pointers are device pointers on the current device.  x [R, d] bf16;
-// rows_valid [n_seg] i32; tiles [n_tiles, 5] i32 covering every row of x
+int moe_gemm_tile_rows() { return BM; }
+
+// K3.  All pointers are device pointers on the current device.  x [R, d]
+// bf16; row_seg [R] i32 (each row's segment); seg_start [S] i32 (each
+// segment's first row); rows_valid [S] i32; tiles [n_tiles, 3] i32
+// expert-span tiles (first row, expert, rows) covering every row of x
 // once; w_in/w_gate [E, d, f] bf16 (w_gate unused unless swiglu); w_out
 // [E, f, d] bf16; h scratch [n_tiles * 64, f] bf16; y [R, d] bf16, every
 // row written.  d and f must be multiples of 64.
-int moe_gemm_tile_rows() { return BM; }
-
-int grouped_ffn_ragged(const void* x, int d, int f, const void* rows_valid,
+int grouped_ffn_ragged(const void* x, int d, int f, const void* row_seg,
+                       const void* seg_start, const void* rows_valid,
                        const void* tiles, int n_tiles, const void* w_in,
                        const void* w_gate, const void* w_out, void* h,
                        void* y, int swiglu, void* stream) {
-  if (d % BN || f % BN || d % BK || f % BK) return (int)cudaErrorInvalidValue;
+  if (d % moe_mma::BK || f % BN || f % DBK) return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid_up(n_tiles, f / BN), grid_down(n_tiles, d / BN);
+  dim3 grid_up(n_tiles, f / BN);
   const bf16* xb = static_cast<const bf16*>(x);
+  const int* rs = static_cast<const int*>(row_seg);
+  const int* ss = static_cast<const int*>(seg_start);
   const int* rv = static_cast<const int*>(rows_valid);
   const int* ti = static_cast<const int*>(tiles);
-  if (swiglu)
-    up_kernel<true, false><<<grid_up, THREADS, 0, s>>>(
-        xb, 0, d, f, rv, ti, static_cast<const bf16*>(w_in),
-        static_cast<const bf16*>(w_gate), static_cast<bf16*>(h));
-  else
-    up_kernel<false, false><<<grid_up, THREADS, 0, s>>>(
-        xb, 0, d, f, rv, ti, static_cast<const bf16*>(w_in), nullptr,
-        static_cast<bf16*>(h));
-  cudaError_t err = cudaGetLastError();
+  const bf16* wi = static_cast<const bf16*>(w_in);
+  bf16* hb = static_cast<bf16*>(h);
+  cudaError_t err;
+  if (swiglu) {
+    err = smem_opt_in(span_up_kernel<true>, UP_SMEM_SWIGLU, up_opt_in[1]);
+    if (err != cudaSuccess) return (int)err;
+    span_up_kernel<true><<<grid_up, THREADS, UP_SMEM_SWIGLU, s>>>(
+        xb, d, f, rs, ss, rv, ti, wi, static_cast<const bf16*>(w_gate), hb);
+  } else {
+    err = smem_opt_in(span_up_kernel<false>, UP_SMEM, up_opt_in[0]);
+    if (err != cudaSuccess) return (int)err;
+    span_up_kernel<false><<<grid_up, THREADS, UP_SMEM, s>>>(
+        xb, d, f, rs, ss, rv, ti, wi, nullptr, hb);
+  }
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  down_kernel<false><<<grid_down, THREADS, 0, s>>>(
-      0, d, f, rv, ti, static_cast<const bf16*>(h),
-      static_cast<const bf16*>(w_out), static_cast<bf16*>(y));
-  return (int)cudaGetLastError();
+  return (int)span_down(n_tiles, d, f, rs, ss, rv, ti, h, w_out, y, s);
 }
 
 // K6.  x [E, C, d] bf16; w_in/w_gate [E, d, f] bf16 (w_gate unused unless
@@ -730,18 +724,18 @@ int grouped_ffn_dense(const void* x, int E, int C, int d, int f,
   dim3 grid_up(tiles, f / BN), grid_down(tiles, d / BN);
   const bf16* xb = static_cast<const bf16*>(x);
   if (swiglu)
-    up_kernel<true, true><<<grid_up, THREADS, 0, s>>>(
-        xb, C, d, f, nullptr, nullptr, static_cast<const bf16*>(w_in),
+    up_kernel<true><<<grid_up, THREADS, 0, s>>>(
+        xb, C, d, f, static_cast<const bf16*>(w_in),
         static_cast<const bf16*>(w_gate), static_cast<bf16*>(h));
   else
-    up_kernel<false, true><<<grid_up, THREADS, 0, s>>>(
-        xb, C, d, f, nullptr, nullptr, static_cast<const bf16*>(w_in), nullptr,
+    up_kernel<false><<<grid_up, THREADS, 0, s>>>(
+        xb, C, d, f, static_cast<const bf16*>(w_in), nullptr,
         static_cast<bf16*>(h));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  down_kernel<true><<<grid_down, THREADS, 0, s>>>(
-      C, d, f, nullptr, nullptr, static_cast<const bf16*>(h),
-      static_cast<const bf16*>(w_out), static_cast<bf16*>(y));
+  down_kernel<<<grid_down, THREADS, 0, s>>>(
+      C, d, f, static_cast<const bf16*>(h), static_cast<const bf16*>(w_out),
+      static_cast<bf16*>(y));
   return (int)cudaGetLastError();
 }
 
@@ -764,7 +758,7 @@ int grouped_ffn_ragged_quant(const void* xq, int d, int f,
     return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid_up(n_tiles, f / BN), grid_down(n_tiles, d / BN);
+  dim3 grid_up(n_tiles, f / BN);
   const signed char* xb = static_cast<const signed char*>(xq);
   const int* rs = static_cast<const int*>(row_seg);
   const int* ss = static_cast<const int*>(seg_start);
@@ -784,12 +778,7 @@ int grouped_ffn_ragged_quant(const void* xq, int d, int f,
         static_cast<bf16*>(h));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = down_smem_opt_in();
-  if (err != cudaSuccess) return (int)err;
-  quant_span_down_kernel<<<grid_down, THREADS, DOWN_SMEM, s>>>(
-      d, f, rs, ss, rv, ti, static_cast<const bf16*>(h),
-      static_cast<const bf16*>(w_out), static_cast<bf16*>(y));
-  return (int)cudaGetLastError();
+  return (int)span_down(n_tiles, d, f, rs, ss, rv, ti, h, w_out, y, s);
 }
 
 }  // extern "C"

@@ -16,10 +16,12 @@ Policy (the counterpart of ``repro/kernels/backend.py``):
 
 Build: every ``csrc/<name>.cu`` is compiled by ``nvcc -gencode
 arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`` into
-``<repo>/build/kernels/<name>-<source hash>.so`` (gitignored) at first
-use, and loaded with ``ctypes``.  Each source exposes plain C entries that
-take ``void*`` pointers, ints and a ``cudaStream_t`` and return
-``cudaGetLastError()``; :func:`check` raises when that is not 0.
+``<repo>/build/kernels/<name>-<hash>.so`` (gitignored) at first use, and
+loaded with ``ctypes``; the hash covers the source, the ``csrc/`` headers
+it includes (``#include "..."``, recursively) and the flags.  Each source
+exposes plain C entries that take ``void*`` pointers, ints and a
+``cudaStream_t`` and return ``cudaGetLastError()``; :func:`check` raises
+when that is not 0.
 :func:`build_all` starts one nvcc per source at once.
 
 Launch counters: :data:`LAUNCHES` holds one plain integer per kernel;
@@ -32,6 +34,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -151,9 +154,27 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources_of(name: str) -> list[pathlib.Path]:
+    """``csrc/<name>.cu`` and every ``csrc/`` file it includes with
+    ``#include "..."``, recursively, each once, in the order met."""
+    seen, todo = [], [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def _lib_path(name: str) -> pathlib.Path:
-    src = CSRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256()
+    for path in _sources_of(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -5,11 +5,13 @@
 (``slot_to_token`` / ``slot_w``), the static segment layout and its
 runtime ``rows_valid`` occupancy, and returns the [T, d] float32 combined
 output.  For CUDA tensors (with kernels wanted) it launches the
-hand-written kernel of ``csrc/moe_fused.cu`` inside a
-``torch.autograd.Function`` whose backward is autograd through
+hand-written kernel of ``csrc/moe_fused.cu`` (a compaction of the slots
+that carry a combine weight, then the up and down launches over them)
+inside a ``torch.autograd.Function`` whose backward is autograd through
 :func:`ref.local_moe_ref` with the cotangent in float32, as the
 reference's ``_fused_bwd`` is ``jax.vjp`` of it; for CPU tensors it runs
-the plain version.
+the plain version.  :func:`compact_slots` is the compaction launch on its
+own, for holding it against :func:`ref.compact_slots` on the card.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import backend
-from repro_torch.kernels.moe_fused.ref import local_moe_ref
+from repro_torch.kernels.moe_fused import ref
 
 KERNEL = "moe_fused.local_moe"
 TILE_ROWS = 64            # BM of csrc/moe_fused.cu (checked at bind time)
@@ -50,10 +52,30 @@ def plan_tiles(seg_offsets: tuple, seg_experts: tuple,
     return np.asarray(out, np.int32).reshape(-1, 5)
 
 
+def down_splits(seg_offsets: tuple, f: int) -> int:
+    """Blocks the down launch splits each tile's f reduction over: 4 when
+    no segment is wider than a tile (the decode layout: a few live rows in
+    at most one tile an expert, too few blocks to fill the card otherwise),
+    else 1; halved until 64 * splits divides f."""
+    widest = max((b - a for a, b in zip(seg_offsets, seg_offsets[1:])),
+                 default=0)
+    splits = 4 if widest <= TILE_ROWS else 1
+    while f % (64 * splits):
+        splits //= 2
+    return splits
+
+
 @functools.lru_cache(maxsize=64)
-def tiles_on(seg_offsets: tuple, seg_experts: tuple, device: str):
-    return torch.as_tensor(plan_tiles(seg_offsets, seg_experts),
-                           device=device)
+def layout_on(seg_offsets: tuple, seg_experts: tuple, f: int, device: str):
+    """K4's per-layout tables on ``device``, made once per layout, width
+    and device: the segment offsets (int32 [n + 1]), :func:`plan_tiles`,
+    each segment's first tile (int32 [n]) and :func:`down_splits`."""
+    tiles = plan_tiles(seg_offsets, seg_experts)
+    tile0 = np.searchsorted(tiles[:, 2], np.arange(len(seg_experts)))
+    return (torch.as_tensor(seg_offsets, dtype=torch.int32, device=device),
+            torch.as_tensor(tiles, device=device),
+            torch.as_tensor(tile0, dtype=torch.int32, device=device),
+            down_splits(seg_offsets, f))
 
 
 @functools.lru_cache(maxsize=64)
@@ -100,8 +122,14 @@ def _entry():
         raise RuntimeError(f"moe_fused.cu tiles {rows()} rows, the wrapper "
                            f"plans {TILE_ROWS}")
     return backend.bind("moe_fused", "local_moe_fused",
-                        [_V, _I, _I, _I, _V, _V, _V, _V, _I, _V, _V, _V, _V,
-                         _V, _I, _V])
+                        [_V, _I, _I, _I, _V, _V, _V, _V, _I, _V, _V, _I, _V,
+                         _V, _V, _V, _V, _V, _V, _V, _I, _I, _V])
+
+
+@functools.lru_cache(maxsize=1)
+def _compact_entry():
+    return backend.bind("moe_fused", "compact_slots",
+                        [_V, _V, _V, _V, _I, _I, _V, _V, _V])
 
 
 def _check(name, t, dtype, device, ndim):
@@ -139,26 +167,67 @@ def _local_moe_cuda(static, x, slot_to_token, slot_w, rows_valid, w_in,
                          f"{tuple(w_out.shape)} do not fit d={d}")
     if d % 64 or f % 64:
         raise ValueError(f"{KERNEL}: d={d} and f={f} must be multiples of 64")
+    if any(t.data_ptr() % 16 for t in (x, w_in, w_out, w_gate)
+           if t is not None):
+        raise ValueError(f"{KERNEL}: x and the weights must be 16-byte "
+                         f"aligned")
     if slot_w.shape != slot_to_token.shape:
         raise ValueError(f"{KERNEL}: slot_w and slot_to_token disagree")
     if rows_valid.shape[0] != len(exps) or max(exps) >= E or min(exps) < 0:
         raise ValueError(f"{KERNEL}: rows_valid / seg_experts do not fit "
                          f"{E} experts")
-    tiles = tiles_on(offs, exps, str(dev))
-    n_tiles = tiles.shape[0]
-    h = torch.empty((n_tiles * TILE_ROWS, f), dtype=torch.bfloat16,
-                    device=dev)
+    offs_dev, tiles, tile0, splits = layout_on(offs, exps, f, str(dev))
+    n_seg, n_tiles, S = len(exps), tiles.shape[0], slot_to_token.shape[0]
+    # one scratch allocation: h [n_tiles * 64, f] bf16, then the int32
+    # live [S], count [n_seg] and tile_nv [n_tiles] of the compaction
+    h_bytes = n_tiles * TILE_ROWS * f * 2
+    scratch = torch.empty(h_bytes + 4 * (S + n_seg + n_tiles),
+                          dtype=torch.uint8, device=dev)
+    live = scratch.data_ptr() + h_bytes
     out = torch.zeros((T, d), dtype=torch.float32, device=dev)
     fn = _entry()
     err = fn(backend.ptr(x), T, d, f, backend.ptr(slot_to_token),
              backend.ptr(slot_w), backend.ptr(rows_valid),
-             backend.ptr(tiles), n_tiles, backend.ptr(w_in),
+             backend.ptr(offs_dev), n_seg, backend.ptr(tiles),
+             backend.ptr(tile0), n_tiles, backend.ptr(w_in),
              backend.ptr(w_gate if swiglu else None), backend.ptr(w_out),
-             backend.ptr(h), backend.ptr(out), int(swiglu),
-             backend.stream_ptr(dev))
+             live, live + 4 * S, live + 4 * (S + n_seg), scratch.data_ptr(),
+             backend.ptr(out), int(swiglu), splits, backend.stream_ptr(dev))
     backend.check(KERNEL, err)
     backend.record_launch(KERNEL)
     return out
+
+
+def compact_slots(slot_to_token, slot_w, seg_offsets, rows_valid,
+                  num_tokens: int, *, use_pallas=None):
+    """The live slots of a segment layout (:func:`ref.compact_slots`):
+    ``(live [S] int32, count [n] int32)``.  For CUDA tensors (with kernels
+    wanted) the compaction launch of ``csrc/moe_fused.cu`` alone, which
+    :func:`local_moe` runs first on every call; its launches are not
+    counted (they are part of K4's, and this entry lies on no path).  CPU
+    tensors take the plain version."""
+    offs = tuple(int(o) for o in seg_offsets)
+    dev = slot_to_token.device
+    if not backend.kernels_active(use_pallas, dev):
+        return ref.compact_slots(slot_to_token, slot_w, offs, rows_valid,
+                                 num_tokens)
+    S, n_seg = slot_to_token.shape[0], len(offs) - 1
+    _check("slot_to_token", slot_to_token, torch.int32, dev, 1)
+    _check("slot_w", slot_w, torch.float32, dev, 1)
+    _check("rows_valid", rows_valid, torch.int32, dev, 1)
+    if not (offs[0] == 0 and offs[-1] == S and slot_w.shape[0] == S
+            and rows_valid.shape[0] == n_seg):
+        raise ValueError(f"{KERNEL}: bad segment layout {offs} for {S} "
+                         f"slots and {rows_valid.shape[0]} counts")
+    live = torch.empty(S, dtype=torch.int32, device=dev)
+    count = torch.empty(n_seg, dtype=torch.int32, device=dev)
+    offs_dev = torch.as_tensor(offs, dtype=torch.int32, device=dev)
+    err = _compact_entry()(backend.ptr(slot_to_token), backend.ptr(slot_w),
+                           backend.ptr(rows_valid), backend.ptr(offs_dev),
+                           n_seg, int(num_tokens), backend.ptr(live),
+                           backend.ptr(count), backend.stream_ptr(dev))
+    backend.check(KERNEL, err)
+    return live, count
 
 
 class LocalMoE(torch.autograd.Function):
@@ -188,7 +257,7 @@ class LocalMoE(torch.autograd.Function):
                                      (needs[0], needs[2], needs[4], needs[5],
                                       needs[6]))]
         with torch.enable_grad():
-            y = local_moe_ref(inputs[0], tok, inputs[1], offs, exps,
+            y = ref.local_moe_ref(inputs[0], tok, inputs[1], offs, exps,
                               rows_valid, inputs[2], inputs[3], inputs[4],
                               activation=activation)
             wanted = [t for t in inputs if t is not None and t.requires_grad]
@@ -226,7 +295,7 @@ def local_moe(x, slot_to_token, slot_w, seg_offsets, seg_experts, rows_valid,
     if S == 0:
         return torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     if not backend.kernels_active(use_pallas, x.device):
-        return local_moe_ref(x, slot_to_token, slot_w, offs, exps,
+        return ref.local_moe_ref(x, slot_to_token, slot_w, offs, exps,
                              rows_valid, w_in, w_gate if swiglu else None,
                              w_out, activation=activation)
     static = (offs, exps, "swiglu" if swiglu else "gelu")

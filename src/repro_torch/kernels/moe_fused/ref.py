@@ -6,6 +6,9 @@ gather, ragged grouped FFN, weighted scatter-add combine.  The reference
 drops the sentinel ``T`` in its scatter (``mode="drop"``); ``index_add_``
 raises on an out-of-range index, so the combine scatters into one spare
 row and slices it off.
+
+:func:`compact_slots` is the plain mirror of the CUDA kernel's first
+launch: the slots that carry a combine weight, segment by segment.
 """
 
 from __future__ import annotations
@@ -30,3 +33,34 @@ def local_moe_ref(x, slot_to_token, slot_w, seg_offsets, seg_experts,
     out.index_add_(0, slot_to_token.long(),
                    ys.to(torch.float32) * slot_w[:, None].to(torch.float32))
     return out[:T]
+
+
+def compact_slots(slot_to_token, slot_w, seg_offsets, rows_valid,
+                  num_tokens: int):
+    """The live slots of a segment layout: in each segment ``s``, the slots
+    below ``rows_valid[s]`` (clamped to the segment) whose ``slot_w`` is
+    nonzero and whose token is in ``[0, num_tokens)``, in their order.
+    Returns ``(live [S] int32, count [n] int32)``: segment ``s``'s live
+    slots fill ``live[seg_offsets[s] : seg_offsets[s] + count[s]]`` and -1
+    the rest of its range.  A slot left out adds nothing to
+    :func:`local_moe_ref`'s output (weight 0, or past the count, or the
+    sentinel's dropped row), so the same call over the compacted layout
+    gives the same output."""
+    dev = slot_to_token.device
+    S, n = slot_to_token.shape[0], len(seg_offsets) - 1
+    offs = torch.as_tensor(seg_offsets, dtype=torch.int64, device=dev)
+    slots = torch.arange(S, device=dev)
+    seg = torch.searchsorted(offs[1:], slots, right=True)
+    nvalid = torch.minimum(rows_valid.to(torch.int64).clamp(min=0),
+                           offs[1:] - offs[:-1])
+    tok = slot_to_token.to(torch.int64)
+    keep = ((slots - offs[seg] < nvalid[seg]) & (slot_w != 0)
+            & (tok >= 0) & (tok < num_tokens))
+    kept = torch.cumsum(keep.to(torch.int64), 0)
+    before = torch.cat([kept.new_zeros(1), kept])[offs[:-1]]
+    rank = kept - 1 - before[seg]
+    live = torch.full((S,), -1, dtype=torch.int32, device=dev)
+    live[(offs[seg] + rank)[keep]] = slots[keep].to(torch.int32)
+    count = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
+        0, seg, keep.to(torch.int64))
+    return live, count.to(torch.int32)

@@ -39,8 +39,9 @@ of ``repro/kernels/moe_gemm/ops.py``).
   :func:`grouped_ffn_ragged`.
 * :func:`plan_blocks` — the reference's gcd-divisor block decomposition,
   kept so the port can state the reference's block layout; the CUDA
-  kernels tile with fixed 64-row tiles instead (``moe_fused.ops.plan_tiles``)
-  because the gcd rule gives 8-row blocks for the 2x2 plan's widths.
+  kernels tile with fixed 64-row tiles instead (K3 and K7 by expert span,
+  ``moe_fused.ops.plan_expert_tiles``) because the gcd rule gives 8-row
+  blocks for the 2x2 plan's widths.
 """
 
 from __future__ import annotations
@@ -53,8 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import backend
-from repro_torch.kernels.moe_fused.ops import (TILE_ROWS, expert_tiles_on,
-                                               tiles_on)
+from repro_torch.kernels.moe_fused.ops import TILE_ROWS, expert_tiles_on
 from repro_torch.kernels.moe_gemm import ref as gemm_ref
 from repro_torch.kernels.moe_gemm.ref import (grouped_ffn_ragged_quant_ref,
                                               grouped_ffn_ragged_ref,
@@ -113,7 +113,8 @@ def _entry():
         raise RuntimeError(f"moe_gemm.cu tiles {rows()} rows, the wrapper "
                            f"plans {TILE_ROWS}")
     return backend.bind("moe_gemm", "grouped_ffn_ragged",
-                        [_V, _I, _I, _V, _V, _I, _V, _V, _V, _V, _V, _I, _V])
+                        [_V, _I, _I, _V, _V, _V, _V, _I, _V, _V, _V, _V, _V,
+                         _I, _V])
 
 
 @functools.lru_cache(maxsize=1)
@@ -249,17 +250,21 @@ def grouped_ffn(x, w_in, w_gate, w_out, *, activation: str = "swiglu"):
 
 
 def _ragged_cuda(static, x, rows_valid, w_in, w_gate, w_out):
+    """K3: the checks, then the two launches over expert-span tiles; each
+    row's segment and count are read on the device."""
     _check_layout(KERNEL, static, x, rows_valid, w_in, w_gate, w_out)
     offs, exps, activation = static
     swiglu = activation == "swiglu"
     dev = x.device
     (R, d), f = x.shape, w_in.shape[2]
-    tiles = tiles_on(offs, exps, str(dev))
+    tiles, seg_start = expert_tiles_on(offs, exps, str(dev))
+    row_seg = segment_ids_on(offs, str(dev), torch.int32)
     n_tiles = tiles.shape[0]
     h = torch.empty((n_tiles * TILE_ROWS, f), dtype=torch.bfloat16,
                     device=dev)
     y = torch.empty((R, d), dtype=torch.bfloat16, device=dev)
-    err = _entry()(backend.ptr(x), d, f, backend.ptr(rows_valid),
+    err = _entry()(backend.ptr(x), d, f, backend.ptr(row_seg),
+                   backend.ptr(seg_start), backend.ptr(rows_valid),
                    backend.ptr(tiles), n_tiles, backend.ptr(w_in),
                    backend.ptr(w_gate if swiglu else None),
                    backend.ptr(w_out), backend.ptr(h), backend.ptr(y),

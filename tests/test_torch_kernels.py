@@ -6,6 +6,13 @@ JAX package's kernels and references.
   under the interpreter on the CPU (as ``tests/test_moe_fused.py`` does),
   on the gather path's slot layouts at 0/50/100% occupancy with garbage
   tokens and weights parked past ``rows_valid``.
+- K4's compaction (``ref.compact_slots``, what the CUDA kernel's first
+  launch computes): a stable partition of each segment's counted slots
+  (a hypothesis property), and ``local_moe_ref`` over the compacted
+  layout equal to both JAX versions over the dense one, on the gather
+  layouts, a sentinel prefill layout and a one-rank ``local_layout`` of a
+  real route.  K4's and K3's tile tables, and the build's hash of the
+  headers a source includes.
 - K5 ``flash_attn.flash_attention`` against ``flash_attention_pallas(...,
   interpret=True)`` and ``layers._sdpa``: causal, windowed, GQA, and an Sq
   that is not a multiple of the block.
@@ -19,6 +26,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+try:
+    from hypothesis import given, settings, strategies as st
+except ImportError:  # pragma: no cover - exercised only without hypothesis
+    from _hypothesis_fallback import given, settings, strategies as st
+
 torch = pytest.importorskip("torch")
 
 from repro.kernels.flash_attn.kernel import flash_attention_pallas
@@ -26,10 +38,12 @@ from repro.kernels.moe_fused import ops as jfused_ops
 from repro.kernels.moe_fused.ref import local_moe_ref as jlocal_moe_ref
 from repro.kernels.moe_gemm import ops as jgemm_ops
 from repro.models import layers as jlayers
-from repro_torch.core.dispatch import transport
+from repro_torch.core import capacity, gating
+from repro_torch.core.dispatch import base, engine, routing, transport
 from repro_torch.kernels import backend
 from repro_torch.kernels.flash_attn import ops as fa_ops
 from repro_torch.kernels.moe_fused import ops as fused_ops
+from repro_torch.kernels.moe_fused import ref as fused_ref
 from repro_torch.kernels.moe_gemm import ops as gemm_ops
 from repro_torch.kernels.moe_permute import ref as permute_ref
 
@@ -188,3 +202,191 @@ def test_cpu_tensors_take_the_plain_versions():
     fa_ops.flash_attention(q, q, q, use_pallas=True)
     assert out.shape == (4, 64) and out.dtype == torch.float32
     assert all(n == 0 for n in backend.LAUNCHES.values())
+
+
+@settings(max_examples=40, deadline=None)
+@given(seed=st.integers(0, 10_000), n_seg=st.integers(1, 6),
+       T=st.integers(1, 12))
+def test_compact_slots_is_a_stable_partition(seed, n_seg, T):
+    """Every counted slot with a weight and a token in [0, T) appears once,
+    in order, at the front of its own segment's range; -1 after them;
+    counts at most the clamped ``rows_valid``."""
+    rng = np.random.default_rng(seed)
+    widths = rng.integers(0, 20, n_seg)
+    offs = (0,) + tuple(int(o) for o in np.cumsum(widths))
+    S = offs[-1]
+    tok = rng.integers(-1, T + 2, S).astype(np.int32)   # T: the sentinel
+    w = rng.uniform(0.1, 1.0, S).astype(np.float32)
+    w[rng.random(S) < 0.3] = 0.0
+    w[rng.random(S) < 0.1] = -0.0
+    valid = rng.integers(-2, widths + 3).astype(np.int32)
+    live, count = fused_ref.compact_slots(
+        torch.from_numpy(tok), torch.from_numpy(w), offs,
+        torch.from_numpy(valid), T)
+    assert live.dtype == torch.int32 and count.dtype == torch.int32
+    live, count = live.numpy(), count.numpy()
+    for s in range(n_seg):
+        lo, hi = offs[s], offs[s + 1]
+        n = min(max(int(valid[s]), 0), hi - lo)
+        want = [i for i in range(lo, lo + n)
+                if w[i] != 0 and 0 <= tok[i] < T]
+        assert count[s] == len(want) <= max(int(valid[s]), 0)
+        assert live[lo:lo + len(want)].tolist() == want
+        assert (live[lo + len(want):hi] == -1).all()
+    kept = live[live >= 0]
+    assert len(set(kept.tolist())) == len(kept) == count.sum()
+
+
+def compacted(tok, w, offs, valid, T):
+    """The compacted layout of ``ref.compact_slots``: the live slots'
+    tokens and weights at the front of each segment, sentinels after, the
+    counts as ``rows_valid``."""
+    live, count = fused_ref.compact_slots(tok, w, offs, valid, T)
+    keep = live >= 0
+    ctok = torch.full_like(tok, T)
+    cw = torch.zeros_like(w)
+    ctok[keep] = tok[live[keep].long()]
+    cw[keep] = w[live[keep].long()]
+    return ctok, cw, count
+
+
+def one_rank_layout(rng, T, E, K, d):
+    """A one-rank ``local_layout`` of a real ``route`` (unit world, caps
+    from the Eq. 7 plan): E segments as wide as the capacity, partly
+    filled, sentinel slots past each expert's rows."""
+    plan = capacity.make_dispatch_plan(
+        tokens_per_device=T, num_experts=E, top_k=K, capacity_factor=1.25,
+        axis_sizes=(1,), mode="ta")
+    ep = base.EPSpec.from_axes(("data",), (1,))
+    cfg = base.MoEConfig(d_model=d, d_ff=2 * d, num_experts=E, top_k=K,
+                         dtype=torch.float32)
+    gate = gating.GateConfig(num_experts=E, top_k=K, aux_mode="ta",
+                             penalty_by_level=(0.0, 0.0, 0.0))
+    x = rng.standard_normal((T, d)).astype(np.float32)
+    gw = rng.standard_normal((d, E)).astype(np.float32)
+    routed = routing.route({"gate": {"w": torch.from_numpy(gw)}},
+                           torch.from_numpy(x), cfg, ep, plan, gate,
+                           coords=(0,))
+    stages = transport.plan_stages(plan, ep)
+    local = [(stage, sel) for (_, sel), stage in zip(routed.sels, stages)]
+    li, offs, exps = engine.local_layout(
+        local, routed.gate_out["topk_idx"], T, E)
+    return (x, li.slot_to_token.numpy(), li.slot_w.numpy(), offs, exps,
+            li.rows_per_expert.numpy())
+
+
+def k4_layout(name, rng):
+    """``(x, tok, w, offs, exps, valid)`` of one K4 test layout."""
+    Tg, E, d = 8, 4, 64
+    if name.startswith("gather"):
+        tok, w, valid = gather_layout(rng, Tg, E, float(name.split("_")[1]))
+        x = rng.standard_normal((Tg, d)).astype(np.float32)
+        return x, tok, w, transport.expert_segments(E, Tg), tuple(range(E)), \
+            valid
+    if name == "prefill_sentinels":
+        T, offs, exps = 12, (0, 16, 24, 40), (2, 0, 1)
+        tok = rng.integers(0, T + 1, offs[-1]).astype(np.int32)
+        w = rng.uniform(0.1, 1.0, offs[-1]).astype(np.float32)
+        w[rng.random(offs[-1]) < 0.2] = 0.0
+        w[rng.random(offs[-1]) < 0.1] = 0.5     # some weighted sentinels
+        valid = np.asarray([16, 5, 0], np.int32)
+        x = rng.standard_normal((T, d)).astype(np.float32)
+        return x, tok, w, offs, exps, valid
+    return one_rank_layout(rng, 32, E, 2, d)
+
+
+@pytest.mark.parametrize("activation", ["gelu", "swiglu"])
+@pytest.mark.parametrize("layout", ["gather_0.0", "gather_0.5",
+                                    "gather_1.0", "prefill_sentinels",
+                                    "one_rank"])
+def test_local_moe_over_compacted_layout_matches_jax(layout, activation):
+    """What K4 computes on the card (the FFN over the compacted live slots
+    only) equals both JAX versions over the dense layout."""
+    rng = np.random.default_rng(5)
+    x, tok, w, offs, exps, valid = k4_layout(layout, rng)
+    T, d = x.shape
+    E = max(exps) + 1
+    wi, wg, wo = weights(rng, E, d, 128)
+    wg = wg if activation == "swiglu" else None
+    ctok, cw, count = compacted(torch.from_numpy(tok), torch.from_numpy(w),
+                                offs, torch.from_numpy(valid), T)
+    assert int(count.sum()) <= int(np.minimum(
+        np.maximum(valid, 0), np.diff(offs)).sum())
+    got = fused_ref.local_moe_ref(
+        torch.from_numpy(x), ctok, cw, offs, exps, count,
+        torch.from_numpy(wi), None if wg is None else torch.from_numpy(wg),
+        torch.from_numpy(wo), activation=activation)
+    jargs = (jnp.asarray(x), jnp.asarray(tok), jnp.asarray(w), offs, exps,
+             jnp.asarray(valid), jnp.asarray(wi),
+             None if wg is None else jnp.asarray(wg), jnp.asarray(wo))
+    close(got, jlocal_moe_ref(*jargs, activation=activation))
+    close(got, jfused_ops.local_moe(*jargs, activation=activation,
+                                    use_pallas=True))
+
+
+def test_compact_slots_entry_on_the_cpu_is_the_plain_version():
+    rng = np.random.default_rng(6)
+    x, tok, w, offs, exps, valid = k4_layout("one_rank", rng)
+    args = (torch.from_numpy(tok), torch.from_numpy(w), offs,
+            torch.from_numpy(valid), x.shape[0])
+    backend.reset_launches()
+    live, count = fused_ops.compact_slots(*args, use_pallas=True)
+    want_live, want_count = fused_ref.compact_slots(*args)
+    assert torch.equal(live, want_live) and torch.equal(count, want_count)
+    assert int(count.sum()) == int((torch.from_numpy(w) != 0).sum())
+    assert all(n == 0 for n in backend.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("E,width,f,splits", [
+    (64, 8, 2048, 4),         # the decode layout
+    (64, 8, 128, 2),          # f = 128 takes two 64-deep halves at most
+    (64, 512, 2048, 1),       # the prefill pack
+    (64, 128, 2048, 1),       # the one-rank training layout
+    (3, 100, 2048, 1),        # a segment of 100: tiles of 64 and 36 rows
+])
+def test_k4_layout_tables(E, width, f, splits):
+    offs = transport.expert_segments(E, width)
+    exps = tuple(range(E))
+    assert fused_ops.down_splits(offs, f) == splits
+    offs_dev, tiles, tile0, got = fused_ops.layout_on(offs, exps, f, "cpu")
+    assert got == splits
+    assert offs_dev.dtype == torch.int32 and offs_dev.tolist() == list(offs)
+    assert tiles.shape[0] == E * -(-width // fused_ops.TILE_ROWS)
+    for s in range(E):                 # each segment's first tile
+        first = tiles[int(tile0[s])]
+        assert int(first[2]) == s and int(first[3]) == 0
+    assert fused_ops.layout_on(offs, exps, f, "cpu")[1] is tiles
+
+
+def test_k3_tiles_by_expert_span_at_the_2x2_layout():
+    """K3 at the 2x2 plan's rank-0 buffer (caps (120, 16), S = 4864): 5
+    span tiles an expert (4 x 64 + 48 rows), 80 in all, where the segment
+    tiling gave 8 an expert and 128."""
+    segs, exps = transport.stage_segments(16, ((2, 120), (4, 16)))
+    assert segs[-1] == 4864
+    span = fused_ops.plan_expert_tiles(segs, exps)
+    assert np.bincount(span[:, 1], minlength=16).tolist() == [5] * 16
+    assert sorted(set(span[:, 2].tolist())) == [48, 64]
+    assert len(span) == 80 and len(fused_ops.plan_tiles(segs, exps)) == 128
+
+
+def test_lib_path_hashes_the_headers_a_source_includes(tmp_path,
+                                                       monkeypatch):
+    """Editing a header that a source includes (directly or through
+    another header) changes the source's library name, so no stale build
+    is loaded; the port's K3 and K4 sources include the shared one."""
+    assert backend.CSRC_DIR / "moe_mma.cuh" in backend._sources_of(
+        "moe_fused")
+    assert backend.CSRC_DIR / "moe_mma.cuh" in backend._sources_of(
+        "moe_gemm")
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\nint k();\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "other.cuh").write_text("// not included\n")
+    monkeypatch.setattr(backend, "CSRC_DIR", tmp_path)
+    before = backend._lib_path("k")
+    assert backend._lib_path("k") == before
+    (tmp_path / "other.cuh").write_text("// edited\n")
+    assert backend._lib_path("k") == before
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    assert backend._lib_path("k") != before
