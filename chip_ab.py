@@ -41,8 +41,12 @@ with ROOT's package, whose kernels it builds from ROOT's own sources:
 * K5 (``flash_attention``, causal) at the serve prefill shape [4, 128, 16,
   64] and at [4, 512, 16, 64], with its yardstick
   ``scaled_dot_product_attention`` read alike.
-* K6 (``grouped_ffn``) through ROOT's ``chip_smoke.py`` check on the
-  einsum phase's [64, 128, 1024] buffer.
+* K6 (``grouped_ffn``, gelu) on the einsum phase's [64, 128, 1024]
+  capacity buffer (``chip_smoke.einsum_k6_case``, saved with the K4
+  layouts' layer-0 weights), held against its plain version and read as
+  training calls it (x and the weights requiring grad), with
+  ``kernel_ms_by_launch`` (each of the checkout's launches by name) and
+  the cuBLAS chain ``bmm`` -> ``gelu`` -> ``bmm`` read alike beside it.
 
 Each run prints one JSON line with the root, the card (``nvidia-smi``'s
 name and power limit) and each reading, with its error against the plain
@@ -101,6 +105,7 @@ with torch.no_grad():
           "prefill": cs.gather_k4_case(torch, params, ctx,
                                        cs.PACK * cs.BUCKET, gen),
           "train_1rank": cs.train1_k4_case(torch, params, arch, gen)}
+    x6, _, _, filled6 = cs.einsum_k6_case(torch, params, arch, gen)
 cpu = lambda v: v.cpu() if torch.is_tensor(v) else v
 p0 = params["layers"][0]["ffn"]
 torch.save({"perm": {k: {n: cpu(t) for n, t in v.items()}
@@ -109,7 +114,8 @@ torch.save({"perm": {k: {n: cpu(t) for n, t in v.items()}
                     for k, v in ffn.items()},
             "fused": {k: {n: cpu(t) for n, t in zip(K4_KEYS, args[:6])}
                       for k, (args, _) in k4.items()},
-            "fused_w": {"w_in": cpu(p0["w_in"]), "w_out": cpu(p0["w_out"])}},
+            "fused_w": {"w_in": cpu(p0["w_in"]), "w_out": cpu(p0["w_out"])},
+            "einsum": {"x": cpu(x6), "filled": filled6}},
            sys.argv[1])
 """
 
@@ -149,12 +155,10 @@ root = os.getcwd()
 sys.path.insert(0, root)
 import torch
 import chip_smoke as cs
-from repro_torch.configs.base import get_config
 from repro_torch.kernels.flash_attn import ops as fa_ops
 from repro_torch.kernels.moe_fused import ops as f_ops
 from repro_torch.kernels.moe_gemm import ops as g_ops
 from repro_torch.kernels.moe_permute import ops as p_ops
-from repro_torch.models import model as model_lib
 
 spec = importlib.util.spec_from_file_location("chip_ab_readings", sys.argv[1])
 ab = importlib.util.module_from_spec(spec)
@@ -179,8 +183,10 @@ k4 = {label: ab.fused_readings(
           ab.kernel_names(root, "moe_fused"), cs.time_ms, cs.bound_ms,
           cs.K4_ATOL, cs.K4_RTOL)
       for label in saved["fused"]}
-del saved
 ours = ab.kernel_names(root, "moe_gemm")
+k6 = ab.k6_readings(torch, g_ops, ab.k6_case(torch, saved), ours,
+                    cs.time_ms, cs.bound_ms, cs.K6_ATOL, cs.K6_RTOL)
+del saved
 k3 = ab.ragged_readings(torch, g_ops, ffn["S=4864"], ours, cs.time_ms,
                         cs.bound_ms, cs.K3_ATOL, cs.K3_RTOL)
 k7 = ab.quant_readings(torch, g_ops, ffn["S=608"], ours, cs.time_ms,
@@ -190,21 +196,9 @@ k5 = {"x".join(map(str, shape)): ab.flash_readings(
           torch, fa_ops, shape, ab.kernel_names(root, "flash_attn"),
           cs.time_ms, cs.bound_ms, cs.K5_ATOL, cs.K5_RTOL)
       for shape in ab.K5_SHAPES}
-arch = get_config(cs.ARCH_ID)
-ctx = model_lib.build_ctx(arch, device="cuda", use_flash=True,
-                          aux_mode="none", seq_len=cs.CACHE_LEN,
-                          global_batch=cs.NUM_SLOTS)
-params = model_lib.init_params(
-    ctx, torch.Generator(device="cuda").manual_seed(0))
-gen = torch.Generator(device="cuda").manual_seed(1)
-with torch.no_grad():
-    x6, w_in6, w_out6, filled = cs.einsum_k6_case(torch, params, arch, gen)
-    k6 = cs.check_k6(torch, x6, w_in6, None, w_out6, "einsum", filled)
-keys = ("ms", "plain_ms", "bound_ms", "max_abs_err")
 out = {"root": root, "nvidia_smi": cs.nvidia_smi_line(),
        "seconds": time.time() - t0, "permute_pair": perm,
-       "K4": k4, "K3": k3, "K7": k7, "K5": k5,
-       "K6": {k: k6[k] for k in keys + ("bmm_chain_ms",)}}
+       "K4": k4, "K3": k3, "K7": k7, "K5": k5, "K6": k6}
 print(json.dumps(out), flush=True)
 """
 
@@ -272,8 +266,21 @@ def kernel_names(root: str, source: str) -> tuple:
 
 def ours_ms(by_key: dict, names) -> float:
     """The device time a call spends in the kernels named ``names``."""
-    pat = re.compile(r"\b(" + "|".join(map(re.escape, names)) + r")\b")
-    return sum(ms for key, (_, ms) in by_key.items() if pat.search(key))
+    return sum(ours_by_launch(by_key, names).values())
+
+
+def ours_by_launch(by_key: dict, names) -> dict:
+    """The device time a call spends in each kernel named ``names``, by
+    its name (template arguments kept)."""
+    pat = re.compile(r"\b(" + "|".join(map(re.escape, names))
+                     + r")\b(<[^>]*>)?")
+    out = {}
+    for key, (_, ms) in by_key.items():
+        m = pat.search(key)
+        if m:
+            name = m.group(1) + (m.group(2) or "")
+            out[name] = out.get(name, 0.0) + ms
+    return out
 
 
 def host_us(torch, fn, iters: int = ITERS) -> float:
@@ -301,7 +308,7 @@ def readings(torch, fn, time_ms, ours=()) -> dict:
     REPEATS readings: the host is shared, and its neighbours only ever
     add time (their median and largest are kept beside).  With ``ours``
     (kernel names), ``kernel_device_ms`` is the device time of those
-    kernels alone."""
+    kernels alone and ``kernel_ms_by_launch`` each one's."""
     with torch.enable_grad():
         dev, by_key = device_ms(torch, fn)
         calls = sorted(time_ms(torch, fn, ITERS) for _ in range(REPEATS))
@@ -313,6 +320,7 @@ def readings(torch, fn, time_ms, ours=()) -> dict:
            "host_us_median_max": [hosts[REPEATS // 2], hosts[-1]]}
     if ours:
         out["kernel_device_ms"] = ours_ms(by_key, ours)
+        out["kernel_ms_by_launch"] = ours_by_launch(by_key, ours)
     return out
 
 
@@ -538,6 +546,52 @@ def quant_readings(torch, g_ops, case, ours, time_ms, bound_ms, atol,
         layer += out["weights"]["device_ms"]
     out["layer_device_ms"] = layer
     return out
+
+
+def k6_case(torch, saved) -> dict:
+    """K6's saved einsum buffer and layer 0's weights on the card."""
+    w = saved["fused_w"]
+    return {"x": saved["einsum"]["x"].cuda(),
+            "filled": saved["einsum"]["filled"],
+            "w_in": w["w_in"].cuda(), "w_out": w["w_out"].cuda()}
+
+
+def k6_readings(torch, g_ops, case, ours, time_ms, bound_ms, atol,
+                rtol) -> dict:
+    """K6 (``g_ops.grouped_ffn``, gelu) on the einsum phase's buffer, held
+    against its plain version (its all-zero rows to exact zeros), then
+    read as training calls it (x and the weights requiring grad), with
+    ``kernel_device_ms`` and ``kernel_ms_by_launch`` its own launches; and
+    the cuBLAS chain ``bmm`` -> ``gelu`` -> ``bmm`` (three calls, so no
+    one-call yardstick) checked and read alike.  ``bound_ms`` as
+    ``chip_smoke.check_k6``'s: x and y once, the 64 experts' w_in and
+    w_out, and the operations of the filled rows."""
+    from repro_torch.kernels.moe_gemm.ref import grouped_ffn_ref
+    F = torch.nn.functional
+    x, w_in, w_out = case["x"], case["w_in"], case["w_out"]
+    E, C, d = x.shape
+    f = w_in.shape[2]
+    xg, wi, wo = (t.detach().clone().requires_grad_(True)
+                  for t in (x, w_in, w_out))
+
+    def call():
+        return g_ops.grouped_ffn(xg, wi, None, wo, activation="gelu")
+
+    def chain():
+        return torch.bmm(F.gelu(torch.bmm(xg, wi), approximate="tanh"), wo)
+
+    with torch.no_grad():
+        want = grouped_ffn_ref(x, w_in, None, w_out, activation="gelu")
+        err = _held(torch, "K6", call(), want, atol, rtol,
+                    (x == 0).all(-1))
+        chain_err = _held(torch, "bmm chain", chain(), want, atol, rtol)
+    b_ms, b_by = bound_ms(2 * E * C * d * 2 + 2 * E * d * f * 2,
+                          2.0 * case["filled"] * 2 * d * f)
+    return {"shape": [E, C, d], "f": f, "filled_rows": case["filled"],
+            "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+            **readings(torch, call, time_ms, ours),
+            "bmm_chain": {"max_abs_err": chain_err,
+                          **readings(torch, chain, time_ms)}}
 
 
 def fused_case(torch, saved, label) -> dict:

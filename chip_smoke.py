@@ -46,7 +46,9 @@ Phases, each printing JSON lines:
    weights quantized once as the engine does and in the call, the dense
    grouped FFN (K6) at the einsum phase's [64, 128,
    1024] buffer (rows past each expert's count of a top-2 route of
-   random tokens zero; plus swiglu and C = 100 edge shapes), and decode attention (K8)
+   random tokens zero, whose outputs must be exact zeros; plus swiglu,
+   C = 1, 64, 100 and 200 (a last tile of 8 rows), E = 1 and a C = 200
+   swiglu buffer zero past random counts), and decode attention (K8)
    at B = 32 requests against a 32768-row cache (16 heads of 64, NaN in
    every row past a request's length; plus GQA, window, L = 1000 and
    length-0 edge cases), with kernel, plain, bound and library times (K1
@@ -922,11 +924,25 @@ def einsum_k6_case(torch, params, arch, gen):
     return x, p["w_in"], p["w_out"], int(counts.sum())
 
 
+def k6_zero_past_counts(torch, gen, E: int, C: int, d: int):
+    """A random [E, C, d] bf16 buffer whose rows past each expert's count
+    are zero, as the one-hot dispatch leaves them; the counts include 0,
+    C, and one live row in the last 64-row tile."""
+    counts = torch.randint(0, C + 1, (E,), generator=gen, device="cuda")
+    counts[:3] = torch.tensor([0, C, (C - 1) // 64 * 64 + 1])
+    x = torch.randn((E, C, d), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    x[torch.arange(C, device="cuda")[None, :] >= counts[:, None]] = 0
+    return x
+
+
 def check_k6(torch, x, w_in, w_gate, w_out, label: str, filled=None,
              timed=True):
     """K6 (``grouped_ffn``, which launches the kernel for CUDA tensors)
-    against its plain version; when timed, with kernel, plain and bound
-    times and the cuBLAS chain bmm -> gelu -> bmm on the same inputs."""
+    against its plain version, and every all-zero row of ``x`` to an exact
+    zero row (gelu(0) = silu(0) * 0 = 0); when timed, with kernel, plain
+    and bound times and the cuBLAS chain bmm -> gelu -> bmm on the same
+    inputs."""
     from repro_torch.kernels.moe_gemm import ops as g_ops
     from repro_torch.kernels.moe_gemm.ref import grouped_ffn_ref
     F = torch.nn.functional
@@ -943,11 +959,13 @@ def check_k6(torch, x, w_in, w_gate, w_out, label: str, filled=None,
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     ok, err = close(torch, got, want, K6_ATOL, K6_RTOL)
-    if not ok:
+    zero = (x == 0).all(-1)
+    if not ok or not bool((got[zero] == 0).all()):
         raise SystemExit(f"K6 {label}: kernel disagrees with plain (max abs "
-                         f"err {err})")
+                         f"err {err}) or a zero row is not zero")
     out = {"layout": label, "shape": [E, C, d], "f": f, "activation": act,
-           "max_abs_err": err, "atol": K6_ATOL, "rtol": K6_RTOL}
+           "max_abs_err": err, "atol": K6_ATOL, "rtol": K6_RTOL,
+           "zero_rows": int(zero.sum())}
     if not timed:
         return out
 
@@ -967,6 +985,29 @@ def check_k6(torch, x, w_in, w_gate, w_out, label: str, filled=None,
                bmm_chain_device_ms=dev_ms(torch, bmm_chain, 20),
                bmm_chain_max_abs_err=chain_err, bound_ms=b_ms, bound_by=b_by)
     return out
+
+
+def check_k6_edges(torch, x, w_in, w_out, gen):
+    """K6 at the edges of its tiling, untimed, on the einsum case's buffer
+    ``x`` [E, C, d] and weights: swiglu (a random gate projection), C = 1,
+    64, 65 and 100 (the buffer's first rows), C = 200 (a last tile of 8
+    rows), E = 1, and a C = 200 swiglu buffer zero past random counts."""
+    E, _, d = x.shape
+    w_gate = (torch.randn(w_in.shape, generator=gen, device="cuda")
+              * d ** -0.5).to(torch.bfloat16)
+    out = [check_k6(torch, x, w_in, w_gate, w_out, "swiglu", timed=False)]
+    for c in (1, 64, 65, 100):
+        out.append(check_k6(torch, x[:, :c].contiguous(), w_in, None, w_out,
+                            f"C={c}", timed=False))
+    return out + [
+        check_k6(torch, torch.randn((E, 200, d), generator=gen,
+                                    device="cuda").to(torch.bfloat16),
+                 w_in, None, w_out, "C=200", timed=False),
+        check_k6(torch, x[:1], w_in[:1], None, w_out[:1], "E=1",
+                 timed=False),
+        check_k6(torch, k6_zero_past_counts(torch, gen, E, 200, d), w_in,
+                 w_gate, w_out, "C=200 swiglu, zero past counts",
+                 timed=False)]
 
 
 def check_k8(torch, gen, B: int, L: int, H: int, K: int, lengths=None,
@@ -1696,13 +1737,8 @@ def main() -> int:
         del train1
         x6, w_in6, w_out6, filled = einsum_k6_case(torch, params, arch, gen)
         k6 = check_k6(torch, x6, w_in6, None, w_out6, "einsum", filled)
-        w_gate6 = (torch.randn(w_in6.shape, generator=gen, device="cuda")
-                   * arch.d_model ** -0.5).to(torch.bfloat16)
-        k6_edges = [check_k6(torch, x6, w_in6, w_gate6, w_out6, "swiglu",
-                             timed=False),
-                    check_k6(torch, x6[:, :100].contiguous(), w_in6, None,
-                             w_out6, "C=100", timed=False)]
-        del x6, w_gate6
+        k6_edges = check_k6_edges(torch, x6, w_in6, w_out6, gen)
+        del x6
         H, K = arch.num_heads, arch.num_kv_heads
         k8 = check_k8(torch, gen, DECODE_B, DECODE_L, H, K, timed=True)
         gc.collect()

@@ -74,17 +74,29 @@
 // MB, which it does not).
 //
 // K6 (MoEConfig.use_kernel: the einsum dispatch's [E, C, d] buffer) is the
-// same FFN on equal, fully-occupied segments: up_kernel and down_kernel
-// over a grid of (E * ceil(C / 64), columns / 64) blocks read straight from
-// blockIdx: no tile list, no rows_valid, no skip predicate; the rows of
-// the last tile past C are masked, and h is [E, C, f].  At the einsum
-// path's shape (64 experts, C = 128, d = 1024, f = 2048, tanh-gelu) it is
-// bound by bytes: the 64 experts' w_in and w_out, about 537 MB, over the
-// memory rate (0.17 ms), against 0.07 ms of bf16 tensor-core operations.
-// Each expert's weights are read once per 64-row tile (twice at C = 128),
-// through unpipelined WMMA (16x16x16 bf16, f32 accumulate) on 64x64x32
-// tiles staged through shared memory with 16-byte loads; its redesign is
-// later work.
+// same FFN on equal, fully-occupied segments, on the same tile product as
+// K3's up launch and K4: no tile list, no rows_valid, no skip predicate.
+// Its two launches (dense_up_kernel, dense_down_kernel) read each block's
+// expert, rows and columns from a 1-D grid (dense_block), and the rows
+// past C are neither loaded nor written; h is [E, C, f].  The up launch
+// is moe_mma.cuh's up_tile; the down launch its tile product over h's
+// rows and w_out[e]'s 64 columns, with y stored in bf16 straight from the
+// accumulators (no staging through shared memory).  Both stream 64-deep
+// slices of the rows and of the weights through a cp.async ring into
+// swizzled shared memory, B by ldmatrix.trans from the row-major weights
+// as stored, onto mma.m16n8k16.  Unlike K3 and K4 (whose tiles are mostly
+// empty rows), a K6 block takes an expert's 128 rows (C = 128) for 64
+// columns, so each weight slice leaves DRAM once, with its four warps 2 x
+// 2 (64 rows by 32 columns each: a third less shared-memory reading than
+// 1 x 4) and a 2-stage ring (48 KB, four blocks an SM); the grid walks a
+// tile's columns first, so the blocks that read one tile's rows of x or
+// h run together.  chip_k6_tune.py reads 24 geometries on an H100
+// (PERF.md): this one 0.320 ms at the einsum path's shape (64
+// experts, C = 128, d = 1024, f = 2048, tanh-gelu; up 0.170, down 0.150),
+// one 64-row tile a block with 1 x 4 warps and 3 stages 0.403, deeper
+// rings slower at every geometry (fewer blocks an SM).  The bound is the
+// bytes: the 64 experts' w_in and w_out, about 537 MB, over the memory
+// rate (0.170 ms), against 0.07 ms of bf16 tensor-core operations.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,183 +120,106 @@ using moe_mma::smem_opt_in;
 
 constexpr int BM = 64;        // rows per tile
 constexpr int BN = 64;        // output columns per block
-constexpr int BK = 32;        // K6's reduction depth per shared-memory stage
-constexpr int THREADS = 128;  // 4 warps, each a 32x32 quarter of the tile
-constexpr int A_LD = BK + 8;  // padded leading dims (WMMA wants multiples
-constexpr int B_LD = BN + 8;  // of 8 bf16 / 4 f32 and 32-byte aligned rows
-constexpr int C_LD = BN + 4;  // of 16; the pads also spread the banks)
+constexpr int THREADS = 128;  // 4 warps
+constexpr int B_LD = BN + 8;  // padded leading dims of the WMMA down
+constexpr int C_LD = BN + 4;  // launch's tiles (multiples of 8 bf16 / 4 f32)
 
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
-// Load a BK x BN bf16 tile of a row-major [rows, ld] matrix into smem.
-__device__ __forceinline__ void load_b_tile(bf16 (*dst)[B_LD], const bf16* src,
-                                            int ld, int k0, int n0, int tid) {
-  for (int c = tid; c < BK * (BN / 8); c += THREADS) {
-    int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
-    *reinterpret_cast<uint4*>(&dst[r][nc]) =
-        *reinterpret_cast<const uint4*>(src + (size_t)(k0 + r) * ld + n0 + nc);
-  }
+// ---------------------------------------------------------------------------
+// K6: the dense grouped FFN over an [E, C, d] buffer
+// ---------------------------------------------------------------------------
+
+// K6's launch geometry, the fastest of those chip_k6_tune.py reads on an
+// H100 (it rebuilds this file with other values of these three constants
+// and with every tile of a column first in dense_block).
+constexpr int K6_STAGES = 2;  // cp.async ring depth of both launches
+constexpr int K6_ROWS = 128;  // rows a block: an expert's two tiles at C = 128
+constexpr int K6_WM = 2;      // warps 2 x 2 over the block's tile
+static_assert(K6_ROWS % BM == 0, "K6_ROWS is a whole number of tiles");
+constexpr int K6_MF = K6_ROWS / 16;          // 16-row fragments a block
+constexpr int K6_AT = K6_ROWS / BM;          // A tiles a ring stage
+constexpr int K6_UP_SMEM = moe_mma::ring_bytes(K6_STAGES, 1, K6_AT);
+constexpr int K6_UP_SMEM_SWIGLU = moe_mma::ring_bytes(K6_STAGES, 2, K6_AT);
+constexpr int K6_DOWN_SMEM = moe_mma::ring_bytes(K6_STAGES, 1, K6_AT);
+
+// K6's block of a 1-D grid of tiles x ncols blocks: output columns [n0, n0
+// + 64) of rows [r0, r0 + K6_ROWS) of expert e's C rows; a_row[r] (shared)
+// = e * C + r0 + r, the row of the [E * C, .] buffer, for the rows below
+// C and -1 past it.  Returns the 16-row fragments that hold rows.  The grid
+// walks a tile's columns first, so the blocks that share the tile's rows
+// of x or h run together.
+__device__ __forceinline__ int dense_block(int C, int ncols, int* n0, int* e,
+                                           int* r0, int* a_row) {
+  const int tpe = (C + K6_ROWS - 1) / K6_ROWS;
+  const int b = blockIdx.x / ncols, col = blockIdx.x % ncols;
+  *n0 = col * BN;
+  *e = b / tpe;
+  *r0 = (b % tpe) * K6_ROWS;
+  for (int r = threadIdx.x; r < K6_ROWS; r += THREADS)
+    a_row[r] = *r0 + r < C ? *e * C + *r0 + r : -1;
+  __syncthreads();
+  return (min(K6_ROWS, C - *r0) + 15) / 16;
 }
 
-// A BM x BK tile of rows [row0, row0 + nv) of a row-major [., ld] bf16
-// matrix into smem; rows at or past nv load as zeros.
-__device__ __forceinline__ void load_a_tile(bf16 (*dst)[A_LD], const bf16* src,
-                                            int ld, int row0, int nv, int k0,
-                                            int tid) {
-  for (int c = tid; c < BM * (BK / 8); c += THREADS) {
-    int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nv)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * ld + k0 + kc);
-    *reinterpret_cast<uint4*>(&dst[r][kc]) = v;
-  }
-}
-
-// K6's tile b over an [E, C, .] buffer: ceil(C / 64) tiles an expert,
-// every row valid, the last tile masked at C.
-__device__ __forceinline__ void dense_tile(int C, int b, int* nv, int* row0,
-                                           int* eid) {
-  const int tpe = (C + BM - 1) / BM, r0 = (b % tpe) * BM;
-  *eid = b / tpe;
-  *row0 = *eid * C + r0;
-  *nv = min(BM, C - r0);
-}
-
-// K6's up launch over 64-row tiles: rows [row0, row0 + nv) of x times
-// columns [n0, n0 + 64) of expert eid's w_in (and w_gate), the activation
-// in f32, rounded to bf16 into h; the tile from blockIdx (dense_tile).
+// K6's up launch: the block's rows of x times columns [n0, n0 + 64) of
+// expert e's w_in (and w_gate), activated and rounded to bf16 into h [E *
+// C, f] (moe_mma.cuh's up_tile; dynamic shared memory: its ring).
 template <bool SWIGLU>
 __global__ void __launch_bounds__(THREADS)
-up_kernel(const bf16* __restrict__ x, int C, int d, int f,
-          const bf16* __restrict__ w_in, const bf16* __restrict__ w_gate,
-          bf16* __restrict__ h) {
-  const int b = blockIdx.x;
-  const int n0 = blockIdx.y * BN;
-  int nv, row0, eid;
-  dense_tile(C, b, &nv, &row0, &eid);
-
-  __shared__ __align__(128) bf16 As[BM][A_LD];
-  __shared__ __align__(128) bf16 Bs[BK][B_LD];
-  __shared__ __align__(128) bf16 Gs[SWIGLU ? BK : 1][B_LD];
-  __shared__ __align__(128) float Cs[BM][C_LD];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  FragC acc[2][2], gacc[2][2];
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j) {
-      wmma::fill_fragment(acc[i][j], 0.0f);
-      if (SWIGLU) wmma::fill_fragment(gacc[i][j], 0.0f);
-    }
-  const bf16* wi = w_in + (size_t)eid * d * f;
-  const bf16* wg = SWIGLU ? w_gate + (size_t)eid * d * f : nullptr;
-
-  for (int k0 = 0; k0 < d; k0 += BK) {
-    load_a_tile(As, x, d, row0, nv, k0, tid);
-    load_b_tile(Bs, wi, f, k0, n0, tid);
-    if (SWIGLU) load_b_tile(Gs, wg, f, k0, n0, tid);
-    __syncthreads();
-    for (int kk = 0; kk < BK; kk += 16) {
-      FragA a[2];
-      FragB bw[2];
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &As[wm + i * 16][kk], A_LD);
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bw[j], &Bs[kk][wn + j * 16], B_LD);
-      for (int i = 0; i < 2; ++i)
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], bw[j], acc[i][j]);
-      if (SWIGLU) {
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(bw[j], &Gs[kk][wn + j * 16], B_LD);
-        for (int i = 0; i < 2; ++i)
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(gacc[i][j], a[i], bw[j], gacc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // activation elementwise on the accumulators (same-type fragments share
-  // their element mapping), staged through smem for the bf16 store
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j) {
-      for (int e = 0; e < acc[i][j].num_elements; ++e) {
-        float hv = acc[i][j].x[e];
-        acc[i][j].x[e] = SWIGLU ? silu(gacc[i][j].x[e]) * hv : gelu_tanh(hv);
-      }
-      wmma::store_matrix_sync(&Cs[wm + i * 16][wn + j * 16], acc[i][j], C_LD,
-                              wmma::mem_row_major);
-    }
-  __syncthreads();
-  bf16* hb = h + (size_t)row0 * f;
-  for (int c = tid; c < BM * (BN / 8); c += THREADS) {
-    int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
-    if (r >= nv) continue;
-    __align__(16) bf16 v[8];
-    for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16(Cs[r][nc + e]);
-    *reinterpret_cast<uint4*>(hb + (size_t)r * f + n0 + nc) =
-        *reinterpret_cast<const uint4*>(v);
-  }
+dense_up_kernel(const bf16* __restrict__ x, int C, int d, int f,
+                const bf16* __restrict__ w_in,
+                const bf16* __restrict__ w_gate, bf16* __restrict__ h) {
+  extern __shared__ __align__(128) unsigned char dsmem[];
+  __shared__ int a_row[K6_ROWS];
+  int n0, e, r0;
+  const int mf = dense_block(C, f / BN, &n0, &e, &r0, a_row);
+  const size_t wofs = (size_t)e * d * f;
+  moe_mma::up_tile<SWIGLU, K6_STAGES, K6_MF, K6_WM>(
+      dsmem, x, a_row, mf, d, f, n0, w_in + wofs,
+      SWIGLU ? w_gate + wofs : nullptr, h + ((size_t)e * C + r0) * f);
 }
 
-// K6's down launch: h's rows of the tile times columns [n0, n0 + 64) of
-// w_out[eid] with an f32 accumulator, the tile's rows of y written in bf16.
+// K6's down launch: the block's rows of h times columns [n0, n0 + 64) of
+// w_out[e] (moe_mma.cuh's tile product, f32 sums), written to y in bf16
+// straight from the accumulators: element e of the warp's fragment (i, j)
+// is row 16 (f0 + i) + lane / 4 + 8 (e / 2), column c0 + 8j + 2 (lane %
+// 4) + e % 2 (f0, c0: the warp's origin), so each thread stores bf16
+// pairs; only rows below C are written.
 __global__ void __launch_bounds__(THREADS)
-down_kernel(int C, int d, int f, const bf16* __restrict__ h,
-            const bf16* __restrict__ w_out, bf16* __restrict__ y) {
-  const int b = blockIdx.x;
-  const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  int nv, row0, eid;
-  dense_tile(C, b, &nv, &row0, &eid);
-
-  __shared__ __align__(128) bf16 As[BM][A_LD];
-  __shared__ __align__(128) bf16 Bs[BK][B_LD];
-  __shared__ __align__(128) float Cs[BM][C_LD];
-
-  const int warp = tid / 32;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  FragC acc[2][2];
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-  const bf16* hb = h + (size_t)row0 * f;
-  const bf16* wo = w_out + (size_t)eid * f * d;
-
-  for (int k0 = 0; k0 < f; k0 += BK) {
-    load_a_tile(As, hb, f, 0, nv, k0, tid);
-    load_b_tile(Bs, wo, d, k0, n0, tid);
-    __syncthreads();
-    for (int kk = 0; kk < BK; kk += 16) {
-      FragA a[2];
-      FragB bw[2];
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &As[wm + i * 16][kk], A_LD);
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bw[j], &Bs[kk][wn + j * 16], B_LD);
-      for (int i = 0; i < 2; ++i)
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], bw[j], acc[i][j]);
+dense_down_kernel(int C, int d, int f, const bf16* __restrict__ h,
+                  const bf16* __restrict__ w_out, bf16* __restrict__ y) {
+  extern __shared__ __align__(128) unsigned char dsmem[];
+  __shared__ int a_row[K6_ROWS];
+  int n0, e, r0;
+  const int mf = dense_block(C, d / BN, &n0, &e, &r0, a_row);
+  const bf16* wb[1] = {w_out + (size_t)e * f * d + n0};
+  float acc[1][K6_MF / K6_WM][2 * K6_WM][4];
+  moe_mma::tile_product<1, K6_STAGES, K6_MF, K6_WM>(dsmem, h, a_row, f, wb,
+                                                    d, 0, f, mf, acc);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int f0 = moe_mma::warp_frag0<K6_MF, K6_WM>(warp);
+  const int col = n0 + moe_mma::warp_col0<K6_WM>(warp) + 2 * (lane % 4);
+#pragma unroll
+  for (int i = 0; i < K6_MF / K6_WM; ++i) {
+    if (f0 + i >= mf) continue;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = (f0 + i) * 16 + lane / 4 + hr * 8;
+      if (a_row[r] < 0) continue;
+      bf16* dst = y + (size_t)a_row[r] * d + col;
+#pragma unroll
+      for (int j = 0; j < 2 * K6_WM; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
+            __floats2bfloat162_rn(acc[0][i][j][2 * hr],
+                                  acc[0][i][j][2 * hr + 1]);
     }
-    __syncthreads();
-  }
-
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[wm + i * 16][wn + j * 16], acc[i][j], C_LD,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int c = tid; c < nv * (BN / 8); c += THREADS) {
-    int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
-    __align__(16) bf16 v[8];
-    for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16(Cs[r][nc + e]);
-    *reinterpret_cast<uint4*>(y + (size_t)(row0 + r) * d + n0 + nc) =
-        *reinterpret_cast<const uint4*>(v);
   }
 }
+
+unsigned long long dense_up_opt_in[2], dense_down_opt_in;  // device masks
 
 // ---------------------------------------------------------------------------
 // K3 and K7: the ragged FFNs over expert-span tiles
@@ -717,25 +652,36 @@ int grouped_ffn_ragged(const void* x, int d, int f, const void* row_seg,
 int grouped_ffn_dense(const void* x, int E, int C, int d, int f,
                       const void* w_in, const void* w_gate, const void* w_out,
                       void* h, void* y, int swiglu, void* stream) {
-  if (d % BN || f % BN || d % BK || f % BK) return (int)cudaErrorInvalidValue;
+  if (d % BN || f % BN) return (int)cudaErrorInvalidValue;
   if (E == 0 || C == 0) return (int)cudaGetLastError();
+  const long long tiles = (long long)E * ((C + K6_ROWS - 1) / K6_ROWS);
+  if (tiles * ((d > f ? d : f) / BN) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;                 // one 1-D grid each
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = E * ((C + BM - 1) / BM);
-  dim3 grid_up(tiles, f / BN), grid_down(tiles, d / BN);
+  const int grid_up = (int)(tiles * (f / BN));
+  const int grid_down = (int)(tiles * (d / BN));
   const bf16* xb = static_cast<const bf16*>(x);
-  if (swiglu)
-    up_kernel<true><<<grid_up, THREADS, 0, s>>>(
-        xb, C, d, f, static_cast<const bf16*>(w_in),
-        static_cast<const bf16*>(w_gate), static_cast<bf16*>(h));
-  else
-    up_kernel<false><<<grid_up, THREADS, 0, s>>>(
-        xb, C, d, f, static_cast<const bf16*>(w_in), nullptr,
-        static_cast<bf16*>(h));
-  cudaError_t err = cudaGetLastError();
+  const bf16* wi = static_cast<const bf16*>(w_in);
+  bf16* hb = static_cast<bf16*>(h);
+  cudaError_t err;
+  if (swiglu) {
+    err = smem_opt_in(dense_up_kernel<true>, K6_UP_SMEM_SWIGLU,
+                      dense_up_opt_in[1]);
+    if (err != cudaSuccess) return (int)err;
+    dense_up_kernel<true><<<grid_up, THREADS, K6_UP_SMEM_SWIGLU, s>>>(
+        xb, C, d, f, wi, static_cast<const bf16*>(w_gate), hb);
+  } else {
+    err = smem_opt_in(dense_up_kernel<false>, K6_UP_SMEM, dense_up_opt_in[0]);
+    if (err != cudaSuccess) return (int)err;
+    dense_up_kernel<false><<<grid_up, THREADS, K6_UP_SMEM, s>>>(
+        xb, C, d, f, wi, nullptr, hb);
+  }
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  down_kernel<<<grid_down, THREADS, 0, s>>>(
-      C, d, f, static_cast<const bf16*>(h), static_cast<const bf16*>(w_out),
-      static_cast<bf16*>(y));
+  err = smem_opt_in(dense_down_kernel, K6_DOWN_SMEM, dense_down_opt_in);
+  if (err != cudaSuccess) return (int)err;
+  dense_down_kernel<<<grid_down, THREADS, K6_DOWN_SMEM, s>>>(
+      C, d, f, hb, static_cast<const bf16*>(w_out), static_cast<bf16*>(y));
   return (int)cudaGetLastError();
 }
 

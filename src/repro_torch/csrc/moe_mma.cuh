@@ -21,6 +21,16 @@
 // fixed element layout (sum element e of fragment (i, j): row 16i + lane
 // / 4 + 8 (e / 2), column 16w + 8j + 2 (lane % 4) + e % 2), so epilogues
 // read them there.
+//
+// Two options, for K6's dense tiles (every row holds work): a tile of MF
+// 16-row fragments (a multiple of 4; 8 takes 128 rows over one weight
+// stage, and each stage then holds MF / 4 A tiles), and the warps laid
+// out WM = 2 by 2 instead of 1 by 4: warp w then owns row fragments
+// (w / 2) MF / 2 .. + MF / 2 - 1 and columns 32 (w % 2) .. + 31, so each
+// ldmatrix of A feeds four mma instead of two and shared memory is read
+// a third less a product (warp_frag0 / warp_col0 give a warp's origin;
+// fragment (i, j) is then row fragment warp_frag0 + i, columns warp_col0 +
+// 8j).
 
 #pragma once
 
@@ -35,14 +45,15 @@ typedef __nv_bfloat16 bf16;
 constexpr int BM = 64;           // rows per tile
 constexpr int BN = 64;           // output columns per block
 constexpr int BK = 64;           // reduction depth per ring stage
-constexpr int THREADS = 128;     // 4 warps, 16 columns each
+constexpr int THREADS = 128;     // 4 warps
 constexpr int MFRAGS = BM / 16;  // 16-row fragments of a tile
 constexpr int TILE_ELEMS = 64 * 64;          // one swizzled stage tile
 constexpr int TILE_BYTES = TILE_ELEMS * 2;   // 8 KB
 
-// dynamic shared memory of a ring of `stages` stages, each A and nb B tiles
-constexpr int ring_bytes(int stages, int nb) {
-  return stages * (1 + nb) * TILE_BYTES;
+// dynamic shared memory of a ring of `stages` stages, each a_tiles A and
+// nb B tiles
+constexpr int ring_bytes(int stages, int nb, int a_tiles = 1) {
+  return stages * (a_tiles + nb) * TILE_BYTES;
 }
 
 __device__ __forceinline__ float gelu_tanh(float x) {
@@ -108,6 +119,17 @@ __device__ __forceinline__ int swz(int r, int c) {
   return r * 64 + ((c ^ (r & 7)) << 3);
 }
 
+// a warp's first row fragment and first column of a tile of MF fragments
+// in warp layout WM (1: 1 x 4 warps, 2: 2 x 2)
+template <int MF, int WM>
+__device__ __forceinline__ int warp_frag0(int warp) {
+  return WM == 1 ? 0 : (warp / 2) * (MF / 2);
+}
+template <int WM>
+__device__ __forceinline__ int warp_col0(int warp) {
+  return WM == 1 ? warp * 16 : (warp % 2) * 32;
+}
+
 // Opt `kernel` in to `bytes` of dynamic shared memory once a device (the
 // attribute holds for the process's lifetime); `done` is the caller's
 // per-kernel bit mask of devices.
@@ -125,23 +147,29 @@ cudaError_t smem_opt_in(Kernel kernel, int bytes, unsigned long long& done) {
 }
 
 // acc[b] += A[tile rows, k0:k1] @ B_b[k0:k1, 64 columns] for the NB B
-// operands.  A's row r is a_base + a_row[r] * lda (a_row: 64 ints in
+// operands.  A's row r is a_base + a_row[r] * lda (a_row: 16 * MF ints in
 // shared memory; -1 leaves row r unloaded, so its sums are garbage that
 // the caller must not read); rows at or past 16 * mf are neither loaded
 // nor multiplied.  b_base[b] points at B_b's first column of the tile
-// (row stride ldb).  smem: ring_bytes(STAGES, NB) bytes, 128-byte
-// aligned.  k1 - k0 must be a multiple of BK.  Every thread of the block
-// calls it.
-template <int NB, int STAGES>
+// (row stride ldb).  smem: ring_bytes(STAGES, NB, MF / MFRAGS) bytes,
+// 128-byte aligned.  k1 - k0 must be a multiple of BK.  Every thread of
+// the block calls it.  acc[b][i][j] is the warp's fragment (i, j) in
+// layout WM (see the top of this file).
+template <int NB, int STAGES, int MF = MFRAGS, int WM = 1>
 __device__ __forceinline__ void tile_product(
     unsigned char* smem, const bf16* __restrict__ a_base, const int* a_row,
     int lda, const bf16* const (&b_base)[NB], int ldb, int k0, int k1,
-    int mf, float (&acc)[NB][MFRAGS][2][4]) {
+    int mf, float (&acc)[NB][MF / WM][2 * WM][4]) {
+  static_assert(MF % MFRAGS == 0, "whole 64-row A tiles");
+  static_assert(WM == 1 || WM == 2, "1 x 4 or 2 x 2 warps");
+  constexpr int AT = MF / MFRAGS;        // A tiles a stage
+  constexpr int MW = MF / WM, NJ = 2 * WM;   // a warp's fragments
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int f0 = warp_frag0<MF, WM>(warp), c0 = warp_col0<WM>(warp);
   bf16* ring = reinterpret_cast<bf16*>(smem);
-  auto a_tile = [&](int st) { return ring + st * (1 + NB) * TILE_ELEMS; };
+  auto a_tile = [&](int st) { return ring + st * (AT + NB) * TILE_ELEMS; };
   auto b_tile = [&](int st, int b) {
-    return ring + (st * (1 + NB) + 1 + b) * TILE_ELEMS;
+    return ring + (st * (AT + NB) + AT + b) * TILE_ELEMS;
   };
   const int a_chunks = mf * 16 * 8;
   auto load = [&](int st, int k) {
@@ -165,9 +193,9 @@ __device__ __forceinline__ void tile_product(
 #pragma unroll
   for (int b = 0; b < NB; ++b)
 #pragma unroll
-    for (int i = 0; i < MFRAGS; ++i)
+    for (int i = 0; i < MW; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[b][i][j][e] = 0.0f;
 
@@ -186,23 +214,28 @@ __device__ __forceinline__ void tile_product(
     const bf16* a = a_tile(st);
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t bf[NB][4];
+      uint32_t bf[NB][WM][4];            // 16 columns each
 #pragma unroll
       for (int b = 0; b < NB; ++b)
-        ldsm_x4_trans(bf[b], b_tile(st, b) +
-                                 swz(kk * 16 + (lane & 7) +
-                                         (((lane >> 3) & 1) << 3),
-                                     warp * 2 + (lane >> 4)));
 #pragma unroll
-      for (int i = 0; i < MFRAGS; ++i) {
-        if (i < mf) {
+        for (int p = 0; p < WM; ++p)
+          ldsm_x4_trans(bf[b][p], b_tile(st, b) +
+                                      swz(kk * 16 + (lane & 7) +
+                                              (((lane >> 3) & 1) << 3),
+                                          c0 / 8 + 2 * p + (lane >> 4)));
+#pragma unroll
+      for (int i = 0; i < MW; ++i) {
+        if (f0 + i < mf) {
           uint32_t af[4];
-          ldsm_x4(af, a + swz(i * 16 + (lane & 15), kk * 2 + (lane >> 4)));
+          ldsm_x4(af, a + swz((f0 + i) * 16 + (lane & 15),
+                              kk * 2 + (lane >> 4)));
 #pragma unroll
-          for (int b = 0; b < NB; ++b) {
-            mma_bf16(acc[b][i][0], af, bf[b][0], bf[b][1]);
-            mma_bf16(acc[b][i][1], af, bf[b][2], bf[b][3]);
-          }
+          for (int b = 0; b < NB; ++b)
+#pragma unroll
+            for (int p = 0; p < WM; ++p) {
+              mma_bf16(acc[b][i][2 * p], af, bf[b][p][0], bf[b][p][1]);
+              mma_bf16(acc[b][i][2 * p + 1], af, bf[b][p][2], bf[b][p][3]);
+            }
         }
       }
     }
@@ -214,7 +247,7 @@ __device__ __forceinline__ void tile_product(
 // w_gate) * (A @ w_in)) over the whole reduction axis d, rounded to bf16
 // into row r of h_tile (row stride f) for every row with a_row[r] >= 0,
 // straight from the accumulators.  A as in tile_product, lda = d.
-template <bool SWIGLU, int STAGES>
+template <bool SWIGLU, int STAGES, int MF = MFRAGS, int WM = 1>
 __device__ __forceinline__ void up_tile(unsigned char* smem,
                                         const bf16* __restrict__ a_base,
                                         const int* a_row, int mf, int d,
@@ -226,19 +259,21 @@ __device__ __forceinline__ void up_tile(unsigned char* smem,
   const bf16* wb[NB];
   wb[0] = w_in + n0;
   if (SWIGLU) wb[NB - 1] = w_gate + n0;
-  float acc[NB][MFRAGS][2][4];
-  tile_product<NB, STAGES>(smem, a_base, a_row, d, wb, f, 0, d, mf, acc);
+  float acc[NB][MF / WM][2 * WM][4];
+  tile_product<NB, STAGES, MF, WM>(smem, a_base, a_row, d, wb, f, 0, d, mf,
+                                   acc);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int col = n0 + warp * 16 + 2 * (lane % 4);
+  const int f0 = warp_frag0<MF, WM>(warp);
+  const int col = n0 + warp_col0<WM>(warp) + 2 * (lane % 4);
 #pragma unroll
-  for (int i = 0; i < MFRAGS; ++i) {
-    if (i >= mf) continue;
+  for (int i = 0; i < MF / WM; ++i) {
+    if (f0 + i >= mf) continue;
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      const int r = i * 16 + lane / 4 + hr * 8;
+      const int r = (f0 + i) * 16 + lane / 4 + hr * 8;
       if (a_row[r] < 0) continue;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < 2 * WM; ++j) {
         float v[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {

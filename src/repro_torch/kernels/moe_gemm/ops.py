@@ -10,7 +10,7 @@ of ``repro/kernels/moe_gemm/ops.py``).
   tensors take the plain version.
   The reference's ``grouped_ffn_chunk`` (the capacity axis zero-padded to
   a multiple of ``row_align`` for its MXU blocks) has no counterpart: K6
-  masks the rows of its last 64-row tile, so any C runs as it is, and
+  neither loads nor writes the rows past C, so any C runs as it is, and
   zero rows give the same numbers; the reference calls it only behind
   ``expert_ffn(chunk_granular=)``, which the port lacks for that reason
   too (``core/dispatch/engine.py``).
@@ -172,8 +172,9 @@ def _check_layout(kernel, static, x, rows_valid, w_in, w_gate, w_out):
 
 
 def _dense_cuda(activation, x, w_in, w_gate, w_out):
-    """K6: the checks, then the two launches over (expert, 64-row tile).
-    ``x`` may be a strided view (the einsum dispatch's product is one)."""
+    """K6: the checks, then the two launches over (expert, 128-row block,
+    64 columns).  ``x`` may be a strided view (the einsum dispatch's
+    product is one)."""
     x = x.contiguous()
     dev = x.device
     E, C, d = x.shape

@@ -3,7 +3,10 @@
 
 - ``moe_gemm.ops.grouped_ffn`` against ``grouped_ffn_pallas(...,
   interpret=True)`` and ``grouped_ffn_ref`` over ``tests/test_kernels.py``'s
-  swiglu sweep and gelu case, and its gradients (the ``autograd.Function``
+  swiglu sweep and gelu case, and over the shapes at the edges of K6's
+  64-row tiles (C = 1, 64, 65, 200; E = 1) in both activations, rows that
+  are zero coming out as exact zeros; ``ops._dense_cuda`` refusing bad
+  inputs before it builds anything; and its gradients (the ``autograd.Function``
   driven on the CPU with the plain forward) against the reference's
   ``custom_vjp``; ``grouped_ffn`` on an unpadded capacity axis against
   the JAX ``grouped_ffn_chunk`` at row alignments that pad and that do
@@ -72,12 +75,24 @@ def ffn_inputs(seed, E, C, d, f, gate=True):
     return x, wi, wg if gate else None, wo
 
 
+#: shapes at the edges of K6's 64-row tiles (E, C, d, f, block_c, block_f
+#: of the JAX kernel): one row, one whole tile, one row past it, a last
+#: tile of 8 rows, one expert
+K6_EDGES = [
+    (3, 1, 64, 128, 8, 64),
+    (2, 64, 64, 128, 64, 64),
+    (2, 65, 64, 128, 64, 64),
+    (2, 200, 64, 128, 64, 64),
+    (1, 40, 128, 64, 16, 64),
+]
+
+
 @pytest.mark.parametrize("E,C,d,f,bc,bf", [
     (1, 8, 32, 64, 8, 32),
     (3, 40, 64, 96, 16, 32),
     (4, 128, 128, 256, 64, 128),
     (2, 16, 48, 80, 16, 80),
-])
+] + K6_EDGES)
 def test_grouped_ffn_matches_pallas_and_ref_swiglu(E, C, d, f, bc, bf):
     x, wi, wg, wo = ffn_inputs(E * C, E, C, d, f)
     got = gemm_ops.grouped_ffn(t(x), t(wi), t(wg), t(wo))
@@ -95,6 +110,71 @@ def test_grouped_ffn_matches_pallas_and_ref_gelu():
     close(got, jgrouped_ffn_ref(x, wi, None, wo, activation="gelu"))
     # swiglu asked for without a gate projection runs gelu, as in JAX
     close(gemm_ops.grouped_ffn(t(x), t(wi), None, t(wo)), got)
+
+
+@pytest.mark.parametrize("E,C,d,f,bc,bf", K6_EDGES)
+def test_grouped_ffn_matches_pallas_and_ref_gelu_edges(E, C, d, f, bc, bf):
+    x, wi, _, wo = ffn_inputs(E + C, E, C, d, f, gate=False)
+    x[:, C // 2:] = 0                  # rows past a count, as dispatched
+    got = gemm_ops.grouped_ffn(t(x), t(wi), None, t(wo), activation="gelu")
+    assert got.shape == (E, C, d)
+    close(got, grouped_ffn_pallas(x, wi, None, wo, activation="gelu",
+                                  block_c=bc, block_f=bf, interpret=True))
+    close(got, jgrouped_ffn_ref(x, wi, None, wo, activation="gelu"))
+    assert bool((got[:, C // 2:] == 0).all())
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", [
+    "d_not_64", "f_not_64", "w_in_shape", "w_out_shape", "w_gate_shape",
+    "x_float32", "w_out_float32"])
+def test_dense_cuda_refuses_bad_inputs_before_building(monkeypatch, case):
+    def built():
+        raise AssertionError("the kernel was built for a bad input")
+
+    monkeypatch.setattr(gemm_ops, "_dense_entry", built)
+    E, C, d, f = 2, 8, 64, 128
+    args = {"x": _bf16(E, C, d), "w_in": _bf16(E, d, f), "w_gate": None,
+            "w_out": _bf16(E, f, d)}
+    act = "gelu"
+    if case == "d_not_64":
+        args.update(x=_bf16(E, C, 32), w_in=_bf16(E, 32, f),
+                    w_out=_bf16(E, f, 32))
+    elif case == "f_not_64":
+        args.update(w_in=_bf16(E, d, 96), w_out=_bf16(E, 96, d))
+    elif case == "w_in_shape":
+        args.update(w_in=_bf16(E + 1, d, f))
+    elif case == "w_out_shape":
+        args.update(w_out=_bf16(E, d, f))
+    elif case == "w_gate_shape":
+        act = "swiglu"
+        args.update(w_gate=_bf16(E, d, f + 64))
+    elif case == "x_float32":
+        args.update(x=torch.zeros((E, C, d)))
+    elif case == "w_out_float32":
+        args.update(w_out=torch.zeros((E, f, d)))
+    with pytest.raises((TypeError, ValueError)):
+        gemm_ops._dense_cuda(act, args["x"], args["w_in"], args["w_gate"],
+                             args["w_out"])
+
+
+def test_dense_cuda_builds_for_good_inputs(monkeypatch):
+    """The control for the refusals above: good inputs pass every check
+    and reach the build."""
+    class Built(Exception):
+        pass
+
+    def built():
+        raise Built
+
+    monkeypatch.setattr(gemm_ops, "_dense_entry", built)
+    E, C, d, f = 2, 8, 64, 128
+    with pytest.raises(Built):
+        gemm_ops._dense_cuda("swiglu", _bf16(E, C, d), _bf16(E, d, f),
+                             _bf16(E, d, f), _bf16(E, f, d))
 
 
 @pytest.mark.parametrize("activation", ["swiglu", "gelu"])
