@@ -38,7 +38,9 @@ Phases, each printing JSON lines:
    grouped FFN (K3) on rank (0, 0)'s indices of the 2x2 training plan
    (1024 tokens, caps (120, 16), 16 experts a rank; read by
    ``chip_ab.ragged_readings``) and on a ragged layout (R = 1888, a
-   zero-count segment inside an expert's span; gelu and swiglu), and the
+   zero-count segment inside an expert's span; gelu and swiglu), K1, K2
+   and K3 once more at that rank's layout after train_2x2_replan's
+   replan (caps (128, 0): one stage, the empty one dropped), and the
    int8 ragged
    grouped FFN (K7) on rank (0, 0)'s chunk 0 of the pipelined int8 plan
    (8 chunks of 15 + 2 slots, int8-encoded payload, counts through the
@@ -60,7 +62,8 @@ Phases, each printing JSON lines:
 4. backward checks — each K1-K4, K6 and K7 ``autograd.Function`` on the
    card against autograd of its plain version (K7: of the full-precision
    plain version, its straight-through rule) at a small shape, and K1's
-   and K2's at the 2x2 plan's rank-0 layout;
+   and K2's at the 2x2 plan's rank-0 layout, before and after the
+   replan;
 5. serve   — gpt3_medium_moe at full width (12 layers, d=1024, 64
    experts top-2, vocab 50304, bf16, random weights from a seed) through
    ``ServingEngine.run``: 8 requests, 8 slots, packs of 4, prompt bucket
@@ -98,9 +101,34 @@ Phases, each printing JSON lines:
    must launch once per layer and forward (36 times), and the first
    step's loss must agree with the plain path's (``REPRO_TORCH_KERNELS=0``:
    ``grouped_ffn_ref``) on the same weights and batch;
-11. kernels — one ``{"kernels": [...]}`` line for K1-K8, launches
+11. train_1rank_accum_remat — in a child process, ``trainer.train`` of
+   full-width gpt3_medium_moe on one rank with batch 8 accumulated over 2
+   microbatches of 4 and ``remat=True`` (every layer recomputed in the
+   backward), 3 steps: K4 must launch 12 x 2 x 2 x 3 = 144 times, the
+   first step's loss (the mean of the microbatches') must agree with the
+   plain path's; with remat and without, one microbatch's forward reads
+   the device memory it holds for the backward and one more step reads
+   the peak device memory (``remat_memory``);
+12. train_resilient — in a child process (``resilient_phase``): a
+   1-layer full-width model under chaos with rolling checkpoints (a
+   skipped NaN step, a spike rolled back past a corrupted checkpoint to
+   the one before, the restored tensors bit-equal to it; save, verify
+   and the rollback's restore timed), then full depth guarded against
+   unguarded on the same weights (losses within LOSS_RTOL, steady step
+   walls);
+13. train_2x2_replan — the 2x2 world at full width and depth 2 with the
+   pod axis degraded 64x: every rank must replan once, at step 2, to the
+   port planner's caps with the pod level's beta at inf (last cap 0), K1,
+   K2 and K3 must launch every layer of every step (after the replan too)
+   and K4 never, the losses must be finite, and the first step after the
+   replan must log the loss the plain path computes from the same
+   parameters and batch under the replanned context (within LOSS_RTOL);
+   each axis's measured alpha and beta (gloo all-to-alls) are reported;
+14. kernels — one ``{"kernels": [...]}`` line for K1-K8, launches
    summed over the main paths (serve, train_1rank, every rank of
-   train_2x2 and train_2x2_pipelined, train_einsum_k6).  K8 lies on no
+   train_2x2 and train_2x2_pipelined, train_einsum_k6,
+   train_1rank_accum_remat, train_resilient, every rank of
+   train_2x2_replan).  K8 lies on no
    path (no model calls it, as in the reference): its row gives the
    launches of its checks as ``check_launches``.
 
@@ -207,6 +235,23 @@ LOSS_RTOL = 1e-3
 # the smallest of those.
 LOSS_RTOL_INT8 = 1.5e-3
 PIPELINED_CHUNKS = 8      # the overlap model's pick for the 2x2 plan
+# train_1rank_accum_remat: one rank, full depth, batch 8 as 2 microbatches
+# of 4, each layer recomputed in the backward
+ACCUM_BATCH, ACCUM_MICRO = 8, 4
+# train_resilient: 9 steps of a 1-layer model with a checkpoint every 2
+# steps; step 2's gradients are NaN (skipped), the parameters are scaled
+# 10x after step 6 (the loss spikes at 7 and 8: rolled back at 8), and the
+# step-5 checkpoint is corrupted right after its save (the rollback falls
+# back to step 3); then GUARD_STEPS steps at full depth per guard run
+RESILIENT_STEPS, GUARD_STEPS = 9, 4
+RESILIENT_CHAOS = {"nan_grad_steps": (2,), "spike_steps": (6,),
+                   "corrupt_ckpt_steps": (5,)}
+# train_2x2_replan: the pod axis degrades 64x from step 1; the step-2
+# probe collapses the pod level (replan_every 2), 4 steps, depth 2
+REPLAN_LAYERS, REPLAN_STEPS = 2, 4
+REPLAN_RESILIENCE = {"replan_every": 2, "degrade_threshold": 4.0,
+                     "collapse_slowdown": 64.0}
+REPLAN_CHAOS = {"degraded_links": ((1, "pod", 64.0),)}
 # end to end after 12 bf16 layers, relative Frobenius error of the logits
 # against a float32 plain run: the kernel path may be at most E2E_RATIO
 # times as far from it as the plain bf16 path (both differ from float32 by
@@ -478,21 +523,30 @@ def check_k5(torch, shape, gen, causal=True, window=0, timed=True,
     return out
 
 
-def staged_case(torch, params, arch, gen):
+def staged_case(torch, params, arch, gen, slowdowns=None):
     """Rank (0, 0)'s view of the 2x2 training phase's plan: a real
     ``route`` + ``build_indices`` of 1024 random tokens through layer 0's
     gate, the 2x2 EP spec and its Eq. (7) plan (caps (120, 16)).  The
     rank's send buffer, read back through an identity exchange, stands in
-    for the receive buffer of the ragged grouped FFN (K3)."""
+    for the receive buffer of the ragged grouped FFN (K3).  With
+    ``slowdowns`` (per-axis link slowdowns) the plan is the one
+    ``RecoveryPolicy.replan`` gives under ``REPLAN_RESILIENCE``: the
+    train_2x2_replan phase's layout after its replan (caps (128, 0): the
+    empty second stage is dropped)."""
     from repro_torch.core.dispatch import routing, transport
     from repro_torch.kernels.moe_permute.ref import permute_ref
     from repro_torch.launch.mesh import EPWorld
     from repro_torch.models import model as model_lib
+    from repro_torch.resilience import ResilienceConfig
+    from repro_torch.resilience.policy import RecoveryPolicy
     world = EPWorld(axis_names=("pod", "data"), axis_sizes=WORLD_22,
                     coords=(0, 0), device="cuda")
     ctx = model_lib.build_ctx(arch, world, seq_len=TRAIN_SEQ,
                               global_batch=TRAIN_BATCH_22, aux_mode="ta",
                               device="cuda")
+    if slowdowns is not None:
+        ctx = RecoveryPolicy(ResilienceConfig(**REPLAN_RESILIENCE)).replan(
+            ctx, slowdowns)
     T = TRAIN_SEQ * TRAIN_BATCH_22 // world.size
     d = arch.d_model
     p = params["layers"][0]["ffn"]
@@ -743,6 +797,51 @@ def k3_edges(torch, case, gen):
         out.append({"R": R, "segments": len(exps), "activation": act,
                     "valid_rows": int(valid.sum()), "max_abs_err": err})
     return out
+
+
+def replan_layout_checks(torch, case, gen):
+    """K1, K2 and K3 against their plain versions at the train_2x2_replan
+    phase's layout after its replan (``staged_case`` with the pod axis
+    64x slower: caps (128, 0), so ``plan_stages`` keeps one stage and
+    every slot of a rank's send buffer stays in its pod): K1
+    bit-equal, K2 within K2_ATOL + K2_RTOL·|plain| on random bf16 slot
+    rows, K3 within K3_ATOL + K3_RTOL·|plain| on the receive buffer, with
+    every row past a segment's valid count exactly 0."""
+    from repro_torch.kernels.moe_gemm import ops as g_ops
+    from repro_torch.kernels.moe_gemm.ref import grouped_ffn_ragged_ref
+    from repro_torch.kernels.moe_permute import ops as p_ops
+    from repro_torch.kernels.moe_permute.ref import permute_ref, unpermute_ref
+    x, di = case["x"], case["di"]
+    tok = di.slot_to_token
+    k1 = p_ops.permute(x, tok, use_pallas=True)
+    k1_ok = torch.equal(k1, permute_ref(x, tok))
+    y = torch.randn((di.num_slots, x.shape[1]), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    k2_ok, k2_err = close(
+        torch, p_ops.unpermute(y, di.inv_idx, di.inv_w, use_pallas=True),
+        unpermute_ref(y, di.inv_idx, di.inv_w), K2_ATOL, K2_RTOL)
+    xin, valid = case["xin"], case["rows_valid"]
+    segs, exps = case["segs"], case["exps"]
+    got = g_ops.grouped_ffn_ragged(xin, segs, exps, valid, case["w_in"],
+                                   None, case["w_out"], activation="gelu",
+                                   use_pallas=True)
+    want = grouped_ffn_ragged_ref(xin, segs, exps, valid, case["w_in"], None,
+                                  case["w_out"], activation="gelu")
+    torch.cuda.synchronize()
+    k3_ok, k3_err = close(torch, got, want, K3_ATOL, K3_RTOL)
+    zeros_exact = bool((got[dead_rows(torch, segs, valid, xin.shape[0])]
+                        == 0).all())
+    if not (k1_ok and k2_ok and k3_ok and zeros_exact):
+        raise SystemExit(f"caps {case['caps']}: K1 bit-equal {k1_ok}, K2 "
+                         f"max abs err {k2_err}, K3 max abs err {k3_err}, "
+                         f"K3 rows past nvalid zero {zeros_exact}")
+    return {"caps": list(case["caps"]), "S": di.num_slots,
+            "sentinel_slots": int((tok >= x.shape[0]).sum()),
+            "R": xin.shape[0], "segments": len(exps),
+            "valid_rows": int(valid.sum()),
+            "K1_max_abs_err": 0.0, "K2_max_abs_err": k2_err,
+            "K3_max_abs_err": k3_err, "K2_atol": K2_ATOL,
+            "K2_rtol": K2_RTOL, "K3_atol": K3_ATOL, "K3_rtol": K3_RTOL}
 
 
 def pipelined_case(torch, params, arch, gen):
@@ -1091,12 +1190,14 @@ def check_k8(torch, gen, B: int, L: int, H: int, K: int, lengths=None,
     return out
 
 
-def backward_checks(torch, gen, layout22):
+def backward_checks(torch, gen, layout22, layout_replan):
     """Each kernel's ``autograd.Function`` on the card against autograd of
     its plain version, at a small shape: K1 and K2 in float32 (their
     backwards are written by hand; also at ``layout22``, ``(T, di)`` of the
     2x2 world's rank 0, a real route with about two thirds of the slots
-    sentinels and a quarter of the picks dropped, at full width), K3, K4,
+    sentinels and a quarter of the picks dropped, at full width, and at
+    ``layout_replan``, the same rank's layout after train_2x2_replan's
+    replan, caps (128, 0)), K3, K4,
     K6 and K7 on bf16 inputs (their
     kernels take bf16 only; their backwards are autograd through the plain
     version).  K7's gradients are held against autograd of the
@@ -1175,6 +1276,18 @@ def backward_checks(torch, gen, layout22):
         [randn(S22, d22), di.inv_w], randn(T22, d22), BWD_F32_ATOL,
         BWD_F32_RTOL)
     out["K2_2x2"]["dropped_picks"] = int((di.inv_idx >= S22).sum())
+    Tr, dr = layout_replan
+    out["K1_replan"] = compare(
+        "K1 (replan layout)",
+        lambda x: p_ops.permute(x, dr.slot_to_token, use_pallas=True),
+        lambda x: permute_ref(x, dr.slot_to_token), [randn(Tr, d22)],
+        randn(dr.num_slots, d22), BWD_F32_ATOL, BWD_F32_RTOL)
+    out["K2_replan"] = compare(
+        "K2 (replan layout)",
+        lambda y, w: p_ops.unpermute(y, dr.inv_idx, w, use_pallas=True),
+        lambda y, w: unpermute_ref(y, dr.inv_idx, w),
+        [randn(dr.num_slots, d22), dr.inv_w], randn(Tr, d22), BWD_F32_ATOL,
+        BWD_F32_RTOL)
     segs, exps = transport.stage_segments(E, ((2, 24), (4, 8)))
     widths = torch.as_tensor(segs[1:], device="cuda") - torch.as_tensor(
         segs[:-1], device="cuda")
@@ -1240,7 +1353,8 @@ def backward_checks(torch, gen, layout22):
 def train_phase(world, out_path: str, global_batch: int,
                 dispatch: str = "a2a", wire_codec: str = "",
                 steps: int = TRAIN_STEPS, aux_mode: str = "ta",
-                use_moe_kernel: bool = False) -> None:
+                use_moe_kernel: bool = False, microbatch: int = 0,
+                remat: bool = False) -> None:
     """Full-width gpt3_medium_moe on this rank (``world`` None: one rank),
     AdamW, ``steps`` steps, the given dispatch path, wire codec and
     auxiliary loss (the pipelined path's chunk count from the overlap
@@ -1254,9 +1368,12 @@ def train_phase(world, out_path: str, global_batch: int,
     same initial parameters and batch, with the kernels switched off by
     ``use_pallas=False`` and by the backend's ``REPRO_TORCH_KERNELS=0``
     (``grouped_ffn`` reads only the latter, as the reference's entry
-    ignores ``use_pallas``).  The launch counters are set to 0 just before
-    the run and read just after.  One more step on the trained state runs
-    under torch.profiler (not counted)."""
+    ignores ``use_pallas``); with ``microbatch`` it is the mean of the
+    microbatches' losses, as the accumulated step logs it.  The launch
+    counters are set to 0 just before the run and read just after.  One
+    more step on the trained state runs under torch.profiler (not
+    counted).  With ``remat``, two more steps read the peak device memory
+    of a step with and without it (``remat_memory``)."""
     import torch
     from repro_torch.configs.base import RunConfig, get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch
@@ -1270,8 +1387,10 @@ def train_phase(world, out_path: str, global_batch: int,
     arch = get_config(ARCH_ID)
     run = RunConfig(seq_len=TRAIN_SEQ, global_batch=global_batch,
                     warmup_steps=1, aux_mode=aux_mode, dispatch=dispatch,
-                    a2a_num_chunks=0, wire_codec=wire_codec, seed=0)
+                    a2a_num_chunks=0, wire_codec=wire_codec, seed=0,
+                    microbatch=microbatch, remat=remat)
     rank = 0 if world is None else world.rank
+    micro = microbatch if trainer.num_microbatches(run) > 1 else 0
 
     def ctx_for(use_pallas):
         return model_lib.build_ctx(arch, world, seq_len=TRAIN_SEQ,
@@ -1282,7 +1401,7 @@ def train_phase(world, out_path: str, global_batch: int,
                                    wire_codec=run.wire_codec,
                                    use_pallas=use_pallas,
                                    use_moe_kernel=use_moe_kernel,
-                                   device="cuda")
+                                   remat=run.remat, device="cuda")
 
     plain_ctx = ctx_for(False)
     params = model_lib.init_params(
@@ -1293,10 +1412,17 @@ def train_phase(world, out_path: str, global_batch: int,
     backend.reset_launches()
     os.environ[backend.ENV_VAR] = "0"
     with torch.no_grad():
-        _, m = transformer.loss_fn(params, shard_batch(data.batch(0), world,
-                                                       "cuda"),
-                                   plain_ctx, aux_weight=run.aux_weight)
-        plain_loss = float(trainer.world_mean_metrics(m, world)["loss"])
+        b0 = shard_batch(data.batch(0), world, "cuda", microbatch=micro)
+        n_mb = trainer.num_microbatches(run)
+        per = b0["tokens"].shape[0] // n_mb
+        losses = []
+        for i in range(n_mb):
+            _, m = transformer.loss_fn(
+                params, {k: v[i * per:(i + 1) * per] for k, v in b0.items()},
+                plain_ctx, aux_weight=run.aux_weight)
+            losses.append(m["loss"])
+        plain_loss = float(trainer.world_mean_metrics(
+            {"loss": sum(losses) / n_mb}, world)["loss"])
     del os.environ[backend.ENV_VAR]
     plain_launches = dict(backend.LAUNCHES)
     torch.cuda.synchronize()
@@ -1312,9 +1438,11 @@ def train_phase(world, out_path: str, global_batch: int,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     step = trainer.make_train_step(kernel_ctx, run)
-    batch = shard_batch(data.batch(steps), world, "cuda")
+    batch = shard_batch(data.batch(steps), world, "cuda", microbatch=micro)
     profiled = profile_train_step(torch, step, res.params, res.opt_state,
                                   batch)
+    memory = (remat_memory(torch, arch, run, res, batch) if remat
+              else None)
     spare_row = None
     if world is not None and dispatch == "a2a":
         # the same step once more with the earlier spare-row backwards,
@@ -1341,9 +1469,57 @@ def train_phase(world, out_path: str, global_batch: int,
         "plain_first_loss": plain_loss, "plain_launches": plain_launches,
         "step_wall_s": res.step_seconds, "launches": launches,
         "max_memory_allocated_gb": peak_gb, "profiled_step": profiled,
-        "profiled_step_spare_row_backwards": spare_row}
+        "profiled_step_spare_row_backwards": spare_row,
+        "microbatch": microbatch, "remat": remat, "step_memory": memory}
     with open(out_path, "w") as fh:
         json.dump(report, fh)
+
+
+def remat_memory(torch, arch, run, res, batch) -> dict:
+    """With remat and without, on the trained state: the device memory one
+    microbatch's forward holds for its backward (``forward_held_gb``:
+    allocated after the loss minus before it, the activations remat
+    drops), then the peak device memory (``max_memory_allocated`` after
+    ``reset_peak_memory_stats``) and wall time of one more training step
+    on the same batch."""
+    import dataclasses
+
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import transformer
+    from repro_torch.training import trainer
+    out = {}
+    rows = batch["tokens"].shape[0] // trainer.num_microbatches(run)
+    for remat in (True, False):
+        ctx = model_lib.build_ctx(arch, None, seq_len=run.seq_len,
+                                  global_batch=run.global_batch,
+                                  aux_mode=run.aux_mode, remat=remat,
+                                  device="cuda")
+        step = trainer.make_train_step(
+            ctx, dataclasses.replace(run, remat=remat))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        total, _ = transformer.loss_fn(
+            res.params, {k: v[:rows] for k, v in batch.items()}, ctx,
+            aux_weight=run.aux_weight)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        del total, _
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step(res.params, res.opt_state, batch)
+        torch.cuda.synchronize()
+        out["remat" if remat else "no_remat"] = {
+            "forward_held_gb": held / 1e9,
+            "step_s": time.perf_counter() - t0,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "above_resident_gb": (torch.cuda.max_memory_allocated() - base)
+            / 1e9}
+    out["saved_peak_gb"] = (out["no_remat"]["max_memory_allocated_gb"]
+                            - out["remat"]["max_memory_allocated_gb"])
+    out["saved_held_gb"] = (out["no_remat"]["forward_held_gb"]
+                            - out["remat"]["forward_held_gb"])
+    return out
 
 
 def steps_through(torch, ctx, run, params, data, steps: int):
@@ -1459,6 +1635,258 @@ def spare_row_backwards(torch):
     return {p_ops.Permute: permute_bwd, p_ops.Unpermute: unpermute_bwd}
 
 
+def resilient_phase(out_path: str) -> None:
+    """The resilient runtime at full width on one rank, in two parts.
+
+    1. One layer (0.32 B parameters; a checkpoint of params and AdamW
+       moments is about 3.2 GB) under ``RESILIENT_CHAOS``: rolling
+       checkpoints every 2 steps (2 kept) in a temporary directory that
+       is deleted after; a NaN-gradient step must be skipped, and the
+       spike must be rolled back at the last step to the newest
+       checkpoint that verifies: the newest (step 5) is corrupted, so the
+       step-3 one, whose tensors the returned state must equal bit for
+       bit.  Then ``ckpt.save``, ``verify`` and ``restore_into``
+       (``check_hashes=False``, as the rollback calls it after ``verify``)
+       are timed once each on the final state (bytes and seconds).
+    2. Full depth: the unguarded and the guarded loop (no chaos) on the
+       same initial weights, in turns (unguarded, guarded, guarded,
+       unguarded), ``GUARD_STEPS`` steps each: their losses must agree
+       within LOSS_RTOL, and the steady step walls give the guard's
+       cost.
+
+    Launch counters are set to 0 before each run and read after it."""
+    import dataclasses
+
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs.base import RunConfig, get_config
+    from repro_torch.kernels import backend
+    from repro_torch.optim import adamw
+    from repro_torch.resilience import ChaosConfig, ResilienceConfig
+    from repro_torch.training import trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    full = get_config(ARCH_ID)
+    arch = dataclasses.replace(full, num_layers=1)
+    base = dict(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH_1,
+                warmup_steps=1, aux_mode="ta", seed=0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    report = {}
+    try:
+        res = ResilienceConfig(rollback_on_spike=True, spike_factor=1.5,
+                               spike_patience=2, spike_warmup=3,
+                               chaos=ChaosConfig(**RESILIENT_CHAOS))
+        ck = os.path.join(tmp, "ck.npz")
+        backend.reset_launches()
+        t0 = time.perf_counter()
+        r = trainer.train(arch, RunConfig(resilience=res, **base), None,
+                          steps=RESILIENT_STEPS, log_every=1, verbose=True,
+                          ckpt_path=ck, ckpt_every=2, ckpt_keep=2,
+                          device="cuda")
+        run_s = time.perf_counter() - t0
+        launches = dict(backend.LAUNCHES)
+        if (r.skipped_steps, r.rollbacks) != (1, 1):
+            raise SystemExit(f"train_resilient: {r.skipped_steps} skipped "
+                             f"steps and {r.rollbacks} rollbacks, the chaos "
+                             f"schedule needs 1 and 1")
+        newest = os.path.join(tmp, "ck-000005.npz")
+        if ckpt.verify(newest):
+            raise SystemExit("train_resilient: the corrupted step-5 "
+                             "checkpoint verifies")
+        state = {"params": r.params, "opt": r.opt_state}
+        good = ckpt.restore(os.path.join(tmp, "ck-000003.npz"), state)
+        live = adamw.tree_leaves([state["params"], state["opt"]["mu"],
+                                  state["opt"]["nu"]])
+        saved = adamw.tree_leaves([good["params"], good["opt"]["mu"],
+                                   good["opt"]["nu"]])
+        unequal = sum(not torch.equal(a.detach(), b)
+                      for a, b in zip(live, saved))
+        if unequal or good["opt"]["step"] != r.opt_state["step"]:
+            raise SystemExit(f"train_resilient: {unequal} restored tensors "
+                             f"differ from the step-3 checkpoint")
+        del good, saved
+        torch.cuda.synchronize()
+        timed = os.path.join(tmp, "timed.npz")
+        t0 = time.perf_counter()
+        ckpt.save(timed, state, step=RESILIENT_STEPS)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ok = ckpt.verify(timed)
+        verify_s = time.perf_counter() - t0
+        # as the rollback restores: verify hashed every leaf already
+        t0 = time.perf_counter()
+        ckpt.restore_into(timed, state, check_hashes=False)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(timed)
+        if not ok:
+            raise SystemExit("train_resilient: a fresh checkpoint does not "
+                             "verify")
+        hist = r.metrics_history
+        report["chaos"] = {
+            "layers": 1, "params": sum(t.numel() for t in
+                                       adamw.tree_leaves(r.params)),
+            "steps": RESILIENT_STEPS, "chaos": RESILIENT_CHAOS,
+            "losses": r.losses, "nonfinite": [h["nonfinite"] for h in hist],
+            "skipped_steps": r.skipped_steps, "rollbacks": r.rollbacks,
+            "rolled_back_to_step": 3, "restored_bit_equal": True,
+            "launches": launches, "run_s": run_s,
+            "step_wall_s": r.step_seconds,
+            "checkpoint_bytes": nbytes, "save_s": save_s,
+            "verify_s": verify_s, "restore_s": restore_s,
+            "restore_check_hashes": False,
+            "rollback_s": verify_s + restore_s,
+            "save_gb_per_s": nbytes / 1e9 / save_s,
+            "verify_gb_per_s": nbytes / 1e9 / verify_s,
+            "restore_gb_per_s": nbytes / 1e9 / restore_s}
+        del r, state, live
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    runs, guard_launches = [], {}
+    for label in ("unguarded", "guarded", "guarded", "unguarded"):
+        run = RunConfig(resilience=ResilienceConfig() if label == "guarded"
+                        else None, **base)
+        backend.reset_launches()
+        r = trainer.train(full, run, None, steps=GUARD_STEPS, log_every=1,
+                          verbose=False, device="cuda")
+        for k, v in backend.LAUNCHES.items():
+            guard_launches[k] = guard_launches.get(k, 0) + v
+        runs.append({"label": label, "losses": r.losses,
+                     "step_wall_s": r.step_seconds})
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref = runs[0]["losses"]
+    worst = max(abs(a - b) / abs(b) for g in runs for a, b in
+                zip(g["losses"], ref))
+    if not worst <= LOSS_RTOL or not all(math.isfinite(v) for g in runs
+                                         for v in g["losses"]):
+        raise SystemExit(f"train_resilient: guarded and unguarded losses "
+                         f"differ by {worst} (relative) > {LOSS_RTOL}")
+
+    def steady(label):
+        walls = [w for g in runs if g["label"] == label
+                 for w in g["step_wall_s"][1:]]
+        return sum(walls) / len(walls)
+
+    report["guard"] = {
+        "layers": full.num_layers, "steps": GUARD_STEPS, "runs": runs,
+        "max_rel_loss_diff": worst, "rtol": LOSS_RTOL,
+        "steady_step_s_unguarded": steady("unguarded"),
+        "steady_step_s_guarded": steady("guarded"),
+        "guard_cost": steady("guarded") / steady("unguarded") - 1.0,
+        "launches": guard_launches}
+    report["launches"] = {k: report["chaos"]["launches"][k]
+                          + guard_launches[k] for k in guard_launches}
+    with open(out_path, "w") as fh:
+        json.dump(report, fh)
+
+
+def replan_rank(world, out_dir: str) -> None:
+    """One rank of the 2x2 world under the degraded-link chaos
+    (``REPLAN_RESILIENCE``): ``trainer.train`` at full width and depth
+    ``REPLAN_LAYERS``, the measured links (``comm_model.measure_link``
+    over gloo, cached per process, so the later probe reads the first
+    one's fit), the caps before and after the replan, and the caps the
+    port's planner gives with the pod level's beta scaled to inf.  The
+    step function the replan builds keeps a copy of the parameters and
+    batch of its first call; after the run the plain path (kernels off by
+    ``use_pallas=False`` and ``REPRO_TORCH_KERNELS=0``) computes that
+    step's world-mean loss from them under the replanned context, to hold
+    against the loss the run logged.  Writes ``replan<rank>.json``."""
+    import contextlib
+    import dataclasses
+    import io
+    import re
+
+    import torch
+    from repro_torch.configs.base import RunConfig, get_config
+    from repro_torch.core import capacity, comm_model, topology
+    from repro_torch.kernels import backend
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import transformer
+    from repro_torch.resilience import ChaosConfig, ResilienceConfig
+    from repro_torch.training import trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch = dataclasses.replace(get_config(ARCH_ID), num_layers=REPLAN_LAYERS)
+    res = ResilienceConfig(chaos=ChaosConfig(**REPLAN_CHAOS),
+                           **REPLAN_RESILIENCE)
+    run = RunConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH_22,
+                    warmup_steps=1, aux_mode="ta", seed=0, resilience=res)
+    ctx = model_lib.build_ctx(arch, world, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH_22, aux_mode="ta",
+                              device="cuda")
+    plan = ctx.plan
+    want = capacity.make_dispatch_plan(
+        tokens_per_device=plan.tokens_per_device,
+        num_experts=plan.num_experts, top_k=arch.moe.top_k,
+        capacity_factor=arch.moe.capacity_factor,
+        axis_sizes=plan.axis_sizes, axis_names=ctx.ep.axis_names,
+        mode=plan.mode, comm=topology.tree_topology_nd(plan.axis_sizes),
+        level_beta_scale=(1.0,) * len(plan.axis_sizes) + (math.inf,))
+    first = {}
+    guarded_step = trainer.make_guarded_train_step
+
+    def keeping_first_after_replan(c, run_cfg):
+        step = guarded_step(c, run_cfg)
+        if c.plan.caps == plan.caps:
+            return step
+
+        def kept(params, opt_state, batch, *rest):
+            if not first:
+                first.update(ctx=c, params=_clone_tree(params),
+                             batch=_clone_tree(batch))
+            return step(params, opt_state, batch, *rest)
+        return kept
+
+    log = io.StringIO()
+    trainer.make_guarded_train_step = keeping_first_after_replan
+    backend.reset_launches()
+    try:
+        with contextlib.redirect_stdout(log):
+            r = trainer.train(arch, run, world, steps=REPLAN_STEPS,
+                              log_every=1, verbose=True, device="cuda")
+    finally:
+        trainer.make_guarded_train_step = guarded_step
+    launches = dict(backend.LAUNCHES)
+    plain_loss = None
+    if first:
+        os.environ[backend.ENV_VAR] = "0"
+        with torch.no_grad():
+            _, m = transformer.loss_fn(
+                first["params"], first["batch"],
+                dataclasses.replace(first["ctx"], use_pallas=False),
+                aux_weight=run.aux_weight)
+            plain_loss = float(trainer.world_mean_metrics(
+                {"loss": m["loss"]}, world)["loss"])
+        del os.environ[backend.ENV_VAR]
+        first.clear()
+    links = comm_model.measured_ep_links(world, ctx.ep.axis_names)
+    after = re.findall(r"replan: caps -> \(([0-9, ]*)\)", log.getvalue())
+    report = {
+        "rank": world.rank, "coords": list(world.coords),
+        "layers": REPLAN_LAYERS, "losses": r.losses,
+        "replans": r.replans, "caps_before": list(plan.caps),
+        "first_replanned_step": res.replan_every,
+        "plain_first_replanned_loss": plain_loss,
+        "caps_after": [[int(c) for c in a.split(",") if c.strip()]
+                       for a in after],
+        "planner_caps_pod_beta_inf": list(want.caps),
+        "launches": launches, "step_wall_s": r.step_seconds,
+        "links": {ax: None if li is None else
+                  {"alpha_s": li.alpha, "beta_s_per_byte": li.beta,
+                   "gb_per_s": 1e-9 / li.beta, "nbytes": list(li.nbytes),
+                   "times_s": list(li.times)}
+                  for ax, li in links.items()},
+        "log": log.getvalue()}
+    with open(os.path.join(out_dir, f"replan{world.rank}.json"), "w") as fh:
+        json.dump(report, fh)
+
+
 def train_rank(world, out_dir: str, global_batch: int, dispatch: str = "a2a",
                wire_codec: str = "", steps: int = TRAIN_STEPS) -> None:
     train_phase(world, os.path.join(out_dir, f"rank{world.rank}.json"),
@@ -1518,6 +1946,14 @@ def serve_requests(rng, vocab: int, n: int):
     return [Request(uid=i, tokens=rng.integers(0, vocab, size=int(L)).tolist(),
                     max_new_tokens=int(m))
             for i, (L, m) in enumerate(zip(lens, budgets))]
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(v) for v in tree]
+    return tree.detach().clone()
 
 
 def _cast_params(params, dtype):
@@ -1724,6 +2160,15 @@ def main() -> int:
         k2_edges = unpermute_edges(torch, gen)
         k3 = check_k3(torch, case)
         k3e = k3_edges(torch, case, gen)
+        # K1-K3 at train_2x2_replan's layout after its replan
+        rcase = staged_case(torch, params, arch, gen, slowdowns={
+            ax: m for _, ax, m in REPLAN_CHAOS["degraded_links"]})
+        if rcase["caps"][-1] != 0:
+            raise SystemExit(f"the replanned layout has caps "
+                             f"{rcase['caps']}, not an empty last stage")
+        k_replan = replan_layout_checks(torch, rcase, gen)
+        layout_replan = (rcase["x"].shape[0], rcase["di"])
+        del rcase
         # K7 on the whole staged buffer too: its expert spans of 304 rows
         # cross 64-row tiles, which chunk 0's spans of 38 do not
         k7_full = check_k7(torch, case)
@@ -1751,10 +2196,10 @@ def main() -> int:
           "K4_compaction": compaction, "K5": k5,
           "K5_S512": k5_512, "K5_edges": edges, "K1": k1,
           "K1_edges": k1_edges, "K2": k2, "K2_edges": k2_edges, "K3": k3,
-          "K3_edges": k3e,
+          "K3_edges": k3e, "K1_K2_K3_replan_layout": k_replan,
           "K7": k7, "K7_S4864": k7_full,
           "K6": k6, "K6_edges": k6_edges, "K8": k8, "K8_edges": k8_edges})
-    bwd = backward_checks(torch, gen, layout22)
+    bwd = backward_checks(torch, gen, layout22, layout_replan)
     emit({"phase": "backward_checks", **bwd})
 
     # 4. serve
@@ -1904,7 +2349,6 @@ def main() -> int:
                          f"{child.exitcode})")
     with open(os.path.join(tmp, "einsum.json")) as fh:
         ein = json.load(fh)
-    shutil.rmtree(tmp, ignore_errors=True)
     check_e = check_training(
         [ein], {k: (n_layers * TRAIN_STEPS if k == "moe_gemm.grouped_ffn"
                     else 0) for k in backend.LAUNCHES},
@@ -1914,7 +2358,101 @@ def main() -> int:
           "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_1,
           "steps": TRAIN_STEPS, **check_e, **ein})
 
-    # 10. kernels: launches summed over every main path and rank
+    # 10. one rank, microbatch accumulation with remat, in a child process:
+    # K4 runs once a layer and microbatch forward and again in the
+    # recompute
+    t0 = time.time()
+    child = mp.get_context("spawn").Process(
+        target=train_phase, args=(None, os.path.join(tmp, "accum.json"),
+                                  ACCUM_BATCH),
+        kwargs={"microbatch": ACCUM_MICRO, "remat": True})
+    child.start()
+    child.join()
+    if child.exitcode != 0:
+        raise SystemExit(f"train_1rank_accum_remat: the child process failed "
+                         f"(exit {child.exitcode})")
+    with open(os.path.join(tmp, "accum.json")) as fh:
+        acc = json.load(fh)
+    n_micro = ACCUM_BATCH // ACCUM_MICRO
+    check_a = check_training(
+        [acc], dict(zero, **off,
+                    **{"moe_fused.local_moe": n_layers * n_micro * 2
+                       * TRAIN_STEPS,
+                       "moe_gemm.grouped_ffn_ragged_quant": 0}),
+        "train_1rank_accum_remat")
+    emit({"phase": "train_1rank_accum_remat", "seconds": time.time() - t0,
+          "seq_len": TRAIN_SEQ, "global_batch": ACCUM_BATCH,
+          "microbatch": ACCUM_MICRO, "remat": True, "steps": TRAIN_STEPS,
+          **check_a, **acc})
+
+    # 11. the resilient runtime on one rank, in a child process
+    t0 = time.time()
+    child = mp.get_context("spawn").Process(
+        target=resilient_phase, args=(os.path.join(tmp, "resilient.json"),))
+    child.start()
+    child.join()
+    if child.exitcode != 0:
+        raise SystemExit(f"train_resilient: the child process failed (exit "
+                         f"{child.exitcode})")
+    with open(os.path.join(tmp, "resilient.json")) as fh:
+        resil = json.load(fh)
+    want_r = {k: 0 for k in backend.LAUNCHES}
+    want_r["moe_fused.local_moe"] = (RESILIENT_STEPS
+                                     + n_layers * GUARD_STEPS * 4)
+    if resil["launches"] != want_r:
+        raise SystemExit(f"train_resilient: launches {resil['launches']}, "
+                         f"the path needs {want_r}")
+    emit({"phase": "train_resilient", "seconds": time.time() - t0,
+          "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_1, **resil})
+
+    # 12. the 2x2 world through a degraded-link replan
+    t0 = time.time()
+    mesh.spawn(replan_rank, WORLD_22, "gloo", "cuda", args=(tmp,))
+    rep = []
+    for r in range(math.prod(WORLD_22)):
+        with open(os.path.join(tmp, f"replan{r}.json")) as fh:
+            rep.append(json.load(fh))
+    shutil.rmtree(tmp, ignore_errors=True)
+    per_step = {k: REPLAN_LAYERS * REPLAN_STEPS for k in zero}
+    want_rp = dict({k: 0 for k in backend.LAUNCHES}, **per_step)
+    for r in rep:
+        if r["replans"] != 1 or len(r["caps_after"]) != 1:
+            raise SystemExit(f"train_2x2_replan rank {r['rank']}: "
+                             f"{r['replans']} replans, the chaos needs 1")
+        if (r["caps_after"][0] != r["planner_caps_pod_beta_inf"]
+                or r["caps_after"][0][-1] != 0
+                or r["caps_after"][0] == r["caps_before"]):
+            raise SystemExit(f"train_2x2_replan rank {r['rank']}: caps "
+                             f"{r['caps_before']} -> {r['caps_after']}, the "
+                             f"planner with the pod level's beta at inf "
+                             f"gives {r['planner_caps_pod_beta_inf']}")
+        if r["launches"] != want_rp:
+            raise SystemExit(f"train_2x2_replan rank {r['rank']}: launches "
+                             f"{r['launches']}, the path needs {want_rp}")
+        if len(r["losses"]) != REPLAN_STEPS or not all(
+                math.isfinite(v) for v in r["losses"]):
+            raise SystemExit(f"train_2x2_replan rank {r['rank']}: losses "
+                             f"{r['losses']}")
+        got = r["losses"][r["first_replanned_step"]]
+        plain = r["plain_first_replanned_loss"]
+        r["first_replanned_rel_diff"] = rel = (
+            math.inf if plain is None else abs(got - plain) / abs(plain))
+        if not rel <= LOSS_RTOL:
+            raise SystemExit(f"train_2x2_replan rank {r['rank']}: the first "
+                             f"step after the replan logged loss {got} "
+                             f"(kernels), the plain path gives {plain} from "
+                             f"the same state: relative {rel} > "
+                             f"{LOSS_RTOL}")
+    print(rep[0]["log"], end="", flush=True)
+    emit({"phase": "train_2x2_replan", "seconds": time.time() - t0,
+          "world": list(WORLD_22), "backend": "gloo",
+          "layers": REPLAN_LAYERS, "seq_len": TRAIN_SEQ,
+          "global_batch": TRAIN_BATCH_22, "steps": REPLAN_STEPS,
+          "resilience": REPLAN_RESILIENCE, "chaos": REPLAN_CHAOS,
+          "ranks": [{k: v for k, v in r.items() if k != "log"}
+                    for r in rep]})
+
+    # 13. kernels: launches summed over every main path and rank
     def total(name):
         return sum(sum(v) if isinstance(v, list) else v
                    for v in by_path(name).values())
@@ -1924,7 +2462,10 @@ def main() -> int:
                 "train_1rank": one["launches"][name],
                 "train_2x2": [r["launches"][name] for r in ranks],
                 "train_2x2_pipelined": [r["launches"][name] for r in pipe],
-                "train_einsum_k6": ein["launches"][name]}
+                "train_einsum_k6": ein["launches"][name],
+                "train_1rank_accum_remat": acc["launches"][name],
+                "train_resilient": resil["launches"][name],
+                "train_2x2_replan": [r["launches"][name] for r in rep]}
 
     def pair_row(k):
         """K1's or K2's times at the staged layout (S = 4864), and every

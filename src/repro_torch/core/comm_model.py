@@ -12,9 +12,12 @@ arithmetic, so both packages reach the same verdicts).
 The link constants (``topology``'s ICI/DCI ladder) and ``peak_flops``
 are the reference's TPU figures, kept as the defaults because they decide
 the chunk count and hence the capacities: the two packages must agree.
-They are not this port's hardware.  Measured links (the reference's
-``measure_link`` micro-benchmark) are not ported yet; a caller may pass
-:class:`LinkEstimate` objects of its own through ``links=``.
+They are not this port's hardware.  :func:`measure_link` /
+:func:`measured_ep_links` time the transport the port really uses (the EP
+world's all-to-all over one axis group) and fit ``t = alpha + beta *
+bytes``; ``build_ctx(measured_comm=True)`` hands them to the overlap
+model through ``links=``, and the resilient runtime's replan compares
+them against its first probe.
 """
 
 from __future__ import annotations
@@ -216,6 +219,88 @@ class LinkEstimate:
 
     def predict(self, n: float) -> float:
         return self.alpha + self.beta * n
+
+
+# measured links, per process (one EP rank), as the reference's _LINK_CACHE:
+# a later probe of the same world returns the first one's fit, so timing
+# noise cannot cross the replan's degrade threshold by itself
+_LINK_CACHE: dict = {}
+
+
+def _world_key(world, axis_name: str, sizes_bytes, iters: int) -> tuple:
+    return (world.backend, str(world.device), tuple(world.axis_names),
+            tuple(world.axis_sizes), axis_name,
+            tuple(int(s) for s in sizes_bytes), int(iters))
+
+
+def measure_link(world, axis_name: str, *,
+                 sizes_bytes=(1 << 13, 1 << 16, 1 << 19),
+                 iters: int = 3) -> LinkEstimate:
+    """Time the EP world's all-to-all over one axis group
+    (``EPWorld.all_to_all``, the transport the staged dispatch uses) at
+    the reference's per-device sizes, and fit ``t = alpha +
+    beta * bytes_per_device`` by least squares, clamped as the reference
+    clamps (``alpha >= 0``, ``beta >= 1e-15``).
+
+    A collective: every rank of the world calls it with the same
+    arguments.  Each size's time is the world mean of the ranks' readings
+    (one all-reduce), so every rank fits the same numbers and reaches the
+    same chunk count and replan verdict.  Cached per (backend, device,
+    world shape, axis)."""
+    key = _world_key(world, axis_name, sizes_bytes, iters)
+    if key in _LINK_CACHE:
+        return _LINK_CACHE[key]
+
+    import time
+
+    import torch
+
+    n = world.shape[axis_name]
+    dev = torch.device(world.device)
+    cuda = dev.type == "cuda"
+    sizes, times = [], []
+    for nbytes in sizes_bytes:
+        w = max(1, int(nbytes) // (4 * n))
+        x = torch.zeros((n, w), dtype=torch.float32, device=dev)
+        world.all_to_all(x, axis_name, 0)               # warm
+        if cuda:
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            world.all_to_all(x, axis_name, 0)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) / iters)
+        sizes.append(4 * n * w)                          # bytes a rank sends
+    mean = world.all_reduce_sum(torch.tensor(times, dtype=torch.float64,
+                                             device=dev)) / world.size
+    times = [float(t) for t in mean.cpu()]
+    beta, alpha = np.polyfit(np.asarray(sizes, np.float64),
+                             np.asarray(times, np.float64), 1)
+    est = LinkEstimate(alpha=float(max(alpha, 0.0)),
+                       beta=float(max(beta, 1e-15)),
+                       nbytes=tuple(sizes), times=tuple(times))
+    _LINK_CACHE[key] = est
+    return est
+
+
+def measured_ep_links(world, axis_names) -> dict:
+    """:func:`measure_link` once per axis of the EP hierarchy, keyed by
+    axis name; axes of size 1 (or absent, or no world) map to None, and
+    :func:`moe_overlap_terms` falls back to the ladder constants there."""
+    shape = world.shape if world is not None else {}
+    return {ax: (measure_link(world, ax) if shape.get(ax, 1) > 1 else None)
+            for ax in axis_names}
+
+
+def measured_moe_links(world, *, data_axis: str = "data",
+                       pod_axis: str | None = None) -> dict:
+    """Deprecated 2-level wrapper over :func:`measured_ep_links`: measured
+    near (intra-pod) and far (inter-pod) links."""
+    axes = ((pod_axis,) if pod_axis is not None else ()) + (data_axis,)
+    by_axis = measured_ep_links(world, axes)
+    return {"near": by_axis.get(data_axis),
+            "far": by_axis.get(pod_axis) if pod_axis is not None else None}
 
 
 def scale_links(links: dict, multipliers: dict) -> dict:

@@ -64,18 +64,29 @@ class SyntheticLM:
             step += 1
 
 
-def shard_batch(batch: dict, world=None, device="cpu") -> dict:
+def shard_batch(batch: dict, world=None, device="cpu",
+                microbatch: int = 0) -> dict:
     """This rank's rows of a global batch, on ``device``: rank ``r`` of
     ``n`` takes rows ``r * B / n : (r + 1) * B / n``, as the reference's
     ``P(("pod", "data"))`` gives them to the device at coordinates
-    ``divmod(r, ...)``."""
+    ``divmod(r, ...)``.
+
+    With ``microbatch`` ``m < B`` the global batch is ``B / m``
+    microbatches of ``m`` consecutive rows, each split over the ranks as
+    above (the reference's accumulation scan over a sharded batch): the
+    rank's rows are its share of each microbatch, microbatch after
+    microbatch."""
     n = 1 if world is None else world.size
     r = 0 if world is None else world.rank
     out = {}
     for k, v in batch.items():
-        if v.shape[0] % n:
-            raise ValueError(f"batch of {v.shape[0]} rows does not split "
-                             f"over {n} ranks")
-        per = v.shape[0] // n
-        out[k] = v[r * per:(r + 1) * per].to(device)
+        B = v.shape[0]
+        m = microbatch if 0 < microbatch < B else B
+        if B % m or m % n:
+            raise ValueError(f"batch of {B} rows does not split into "
+                             f"microbatches of {m} over {n} ranks")
+        per = m // n
+        rows = [v[i + r * per:i + (r + 1) * per] for i in range(0, B, m)]
+        out[k] = torch.cat(rows).to(device) if len(rows) > 1 else \
+            rows[0].to(device)
     return out

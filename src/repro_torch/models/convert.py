@@ -4,7 +4,9 @@ with the same weights.
 The JAX params pytree (converted leaf by leaf to numpy arrays) stacks the
 repeated layer group on a leading ``groups`` axis; this port keeps one
 dict per layer.  :func:`params_from_numpy` unstacks it and, on a rank of
-an EP world, keeps the rank's shard of the expert tensors.  bfloat16
+an EP world, keeps the rank's shard of the expert tensors.
+:func:`opt_state_from_numpy` carries the AdamW state across the same way,
+so a checkpoint the reference wrote can resume in the port.  bfloat16
 numpy arrays (the ``ml_dtypes`` type) are reinterpreted bit for bit.
 """
 
@@ -56,3 +58,13 @@ def params_from_numpy(tree, ctx: transformer.ModelCtx, device=None):
                         layer["ffn"][name] = layer["ffn"][name][lo:hi].clone()
     out["layers"] = per_layer
     return out
+
+
+def opt_state_from_numpy(tree, ctx: transformer.ModelCtx, device=None):
+    """The reference's AdamW state ``{"mu", "nu", "step"}`` (numpy, ``mu``
+    and ``nu`` in the params layout) -> the port's: the moments unstacked
+    and expert-sharded as :func:`params_from_numpy` does, the step a
+    Python int."""
+    return {"mu": params_from_numpy(tree["mu"], ctx, device),
+            "nu": params_from_numpy(tree["nu"], ctx, device),
+            "step": int(np.asarray(tree["step"]))}

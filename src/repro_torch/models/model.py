@@ -7,8 +7,7 @@ for one rank: its axes play the part of the reference's mesh hierarchy
 axes (there is no tensor-parallel ``model`` axis in the port yet).
 Parameters are this rank's: replicated tensors whole, expert tensors the
 rank's shard of the expert axis.  ``build_ctx`` takes the reference's
-keywords and raises ``NotImplementedError`` for the options whose code is
-not ported yet.
+keywords.
 """
 
 from __future__ import annotations
@@ -85,9 +84,10 @@ def make_gate_cfg(arch: ArchConfig, plan, ep, aux_mode: str,
 
 
 def resolve_num_chunks(arch: ArchConfig, plan, num_chunks: int = 0, *,
-                       wire_codec=None) -> int:
+                       links: dict | None = None, wire_codec=None) -> int:
     """Chunk count of the pipelined dispatch; 0 picks it with the overlap
-    model (``comm_model``, the reference's link and peak constants).
+    model (``comm_model``, the reference's link and peak constants, or the
+    measured ``links`` of ``comm_model.measured_ep_links``).
     ``wire_codec`` rescales the exchange bytes to the wire encoding, so a
     codec swap can change the verdict."""
     if num_chunks > 0:
@@ -95,7 +95,7 @@ def resolve_num_chunks(arch: ArchConfig, plan, num_chunks: int = 0, *,
     terms = comm_model.moe_overlap_terms(
         plan, d_model=arch.d_model, d_ff=arch.moe.d_ff_expert,
         bytes_per_el=2 if arch.torch_dtype == torch.bfloat16 else 4,
-        activation=arch.activation, codec=wire_codec)
+        activation=arch.activation, links=links, codec=wire_codec)
     return comm_model.choose_num_chunks(**terms)
 
 
@@ -110,20 +110,15 @@ def build_ctx(arch: ArchConfig, mesh=None, *, seq_len: int = 0,
     """The model context.  ``seq_len`` / ``global_batch`` size the a2a
     capacity plan (tokens per rank = global tokens / world size).  When
     any layer takes ``a2a_pipelined``, ``a2a_num_chunks`` (0: the overlap
-    model's pick) sets the chunk count and the plan's capacities round up
-    to a multiple of it.  ``device`` is where parameters and caches
+    model's pick, on links timed on ``mesh`` when ``measured_comm``; a
+    collective then, called by every rank) sets the chunk count and the
+    plan's capacities round up to a multiple of it.  ``remat`` recomputes
+    each layer's forward in the backward.  ``resilience`` is accepted as
+    the reference's is and read by nothing here: the training loop takes
+    it from ``RunConfig``.  ``device`` is where parameters and caches
     live."""
     if aux_mode not in ("lb", "ta", "hir", "none"):
         raise ValueError(f"unknown aux_mode {aux_mode!r}")
-    if remat:
-        raise NotImplementedError("remat applies to the training forward, "
-                                  "not ported yet")
-    if measured_comm:
-        raise NotImplementedError("measured_comm needs the link "
-                                  "micro-benchmark (comm_model.measure_link), "
-                                  "not ported yet")
-    if resilience is not None:
-        raise NotImplementedError("the resilient runtime is not ported yet")
     codec = wire.get_codec(wire_codec)
     if arch.is_moe and arch.moe.dispatch_override:
         merged = dict(arch.moe.dispatch_override)
@@ -142,12 +137,15 @@ def build_ctx(arch: ArchConfig, mesh=None, *, seq_len: int = 0,
     pipelined = (dispatch == "a2a_pipelined"
                  or any(n == "a2a_pipelined" for _, n in dispatch_override))
     if plan is not None and pipelined:
+        links = None
+        if measured_comm and a2a_num_chunks <= 0:
+            links = comm_model.measured_ep_links(mesh, ep.axis_names)
         num_chunks = resolve_num_chunks(arch, plan, a2a_num_chunks,
-                                        wire_codec=codec)
+                                        links=links, wire_codec=codec)
         plan = capacity.align_to_chunks(plan, num_chunks)
     return transformer.ModelCtx(
         arch=arch, mesh=mesh, ep=ep, plan=plan, gate_cfg=gate_cfg,
-        use_flash=use_flash, use_moe_kernel=use_moe_kernel,
+        remat=remat, use_flash=use_flash, use_moe_kernel=use_moe_kernel,
         decode_replicated=decode_replicated, dispatch=dispatch,
         a2a_num_chunks=num_chunks, dispatch_override=dispatch_override,
         use_pallas=use_pallas, wire_codec=codec, device=str(device))

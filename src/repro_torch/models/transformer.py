@@ -18,6 +18,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import gating
@@ -42,6 +43,7 @@ class ModelCtx:
     ep: moe_base.EPSpec | None = None
     plan: object | None = None        # level-indexed a2a capacities
     gate_cfg: gating.GateConfig | None = None
+    remat: bool = False               # recompute each layer in the backward
     use_flash: bool = False
     use_moe_kernel: bool = False      # MoEConfig.use_kernel: grouped_ffn
     decode_replicated: bool = False
@@ -223,7 +225,13 @@ def forward_features(params, batch, ctx: ModelCtx):
     """Full-sequence forward up to the final norm.  Returns ``(x, aux,
     frac_by_level, dropped)``: features, the mean aux loss per group
     layer, and the mean per-level dispatch fractions and dropped share over
-    the MoE layers (None without MoE layers)."""
+    the MoE layers (None without MoE layers).
+
+    With ``ctx.remat`` each layer runs under ``torch.utils.checkpoint``
+    (the reference's ``jax.checkpoint`` of each scanned group): its
+    activations are not kept, and the backward runs its forward again,
+    kernels and collectives included.  Every rank recomputes in the same
+    order, so the all-to-all chains still pair up."""
     a = ctx.arch
     if "frontend" in batch:
         raise NotImplementedError("modality frontends are not ported yet")
@@ -234,10 +242,16 @@ def forward_features(params, batch, ctx: ModelCtx):
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     frac = torch.zeros((ctx.frac_levels,), dtype=torch.float32, device=dev)
     drop = torch.zeros((), dtype=torch.float32, device=dev)
+    remat = ctx.remat and torch.is_grad_enabled()
     for i, sub in enumerate(layer_list(a)):
-        x, aux, frac, drop = _apply_sublayer(params["layers"][i], x, sub,
-                                             ctx, aux, frac, drop,
-                                             layer_idx=i)
+        if remat:
+            x, aux, frac, drop = checkpoint(
+                _apply_sublayer, params["layers"][i], x, sub, ctx, aux,
+                frac, drop, layer_idx=i, use_reentrant=False)
+        else:
+            x, aux, frac, drop = _apply_sublayer(params["layers"][i], x,
+                                                 sub, ctx, aux, frac, drop,
+                                                 layer_idx=i)
     x = layers.norm_apply(params["final_norm"], x, a.norm)
     aux = aux / max(1, n_groups * len(group))
     if not n_moe:

@@ -40,24 +40,59 @@ def make_decode_step(ctx: transformer.ModelCtx):
     return step
 
 
-def make_prefill(ctx: transformer.ModelCtx, *, with_cache: bool = False,
-                 cache_len: int | None = None):
-    """Fused full-sequence prefill with cache: ``prefill(params, batch) ->
-    (last_logits [B, V], cache)`` where ``batch`` is ``{"tokens": [B, S],
-    optional "lens": [B]}``.  The reference's logits-only entry
-    (``with_cache=False``) runs ``transformer.forward`` on the a2a path,
-    which comes with the training slice."""
-    if not with_cache:
-        raise NotImplementedError("make_prefill(with_cache=False) runs the "
-                                  "a2a forward, not ported yet")
-    if cache_len is None:
-        raise ValueError("with_cache=True requires cache_len")
+def _with_overrides(ctx: transformer.ModelCtx, dispatch_override):
+    """Serving-side per-layer dispatch override: entries merge per layer
+    index with the ctx's own, the serving side winning; a pipelined
+    override gets the overlap model's chunk count and a chunk-aligned plan
+    when the ctx has none."""
+    if dispatch_override is None:
+        return ctx
+    from repro_torch.core import capacity
+    from repro_torch.core.dispatch import engine as dispatch_lib
+    from repro_torch.models import model as model_lib
+    for _, name in dispatch_override:
+        dispatch_lib.check_name(name)
+    merged = dict(ctx.dispatch_override)
+    merged.update(dict(dispatch_override))
+    ctx = dataclasses.replace(ctx,
+                              dispatch_override=tuple(sorted(merged.items())))
+    if (ctx.plan is not None and ctx.a2a_num_chunks <= 1
+            and any(n == "a2a_pipelined" for _, n in ctx.dispatch_override)):
+        nc = model_lib.resolve_num_chunks(ctx.arch, ctx.plan, 0)
+        ctx = dataclasses.replace(
+            ctx, a2a_num_chunks=nc,
+            plan=capacity.align_to_chunks(ctx.plan, nc))
+    return ctx
+
+
+def make_prefill(ctx: transformer.ModelCtx, dispatch_override=None, *,
+                 with_cache: bool = False, cache_len: int | None = None):
+    """Fused full-sequence prefill.
+
+    Default (``with_cache=False``): ``prefill(params, batch) ->
+    last_logits [B, V]`` through ``transformer.forward`` (the training
+    dispatch path of each layer).  ``with_cache=True`` (requires
+    ``cache_len``): ``prefill(params, batch) -> (last_logits [B, V],
+    cache)`` where ``batch`` is ``{"tokens": [B, S], optional "lens":
+    [B]}``.  ``dispatch_override`` (``((layer, path), ...)``) merges into
+    the ctx's per-layer overrides."""
+    ctx = _with_overrides(ctx, dispatch_override)
+    if with_cache:
+        if cache_len is None:
+            raise ValueError("with_cache=True requires cache_len")
+
+        @torch.no_grad()
+        def prefill_cached(params, batch):
+            return decode_lib.prefill(params, batch, ctx,
+                                      cache_len=cache_len,
+                                      lens=batch.get("lens"))
+        return prefill_cached
 
     @torch.no_grad()
-    def prefill_cached(params, batch):
-        return decode_lib.prefill(params, batch, ctx, cache_len=cache_len,
-                                  lens=batch.get("lens"))
-    return prefill_cached
+    def prefill(params, batch):
+        logits, _ = transformer.forward(params, batch, ctx)
+        return logits[:, -1]
+    return prefill
 
 
 def sample(logits, temps, generator=None):

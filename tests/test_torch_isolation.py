@@ -1,6 +1,7 @@
 """The port stands alone: no file of ``src/repro_torch`` (nor the
-``chip_*.py`` scripts) imports ``jax`` or the JAX package ``repro``; every
-port module imports with ``jax`` blocked; ``chip_smoke.py`` fails without
+``chip_*.py`` scripts) imports ``jax``, the JAX package ``repro`` or
+``ml_dtypes`` (the card's machine has none); every port module imports
+with ``jax`` blocked; ``chip_smoke.py`` fails without
 a card instead of falling back to the CPU; and the kernel policy sends
 CPU tensors to the plain versions.
 """
@@ -19,7 +20,7 @@ from repro_torch.kernels import backend
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def port_files():
@@ -62,6 +63,7 @@ def test_every_port_module_imports_without_jax():
             for m in mods]
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\nsys.modules['jaxlib'] = None\n"
+            "sys.modules['ml_dtypes'] = None\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'repro' "
             "or m.startswith('repro.')]\n"

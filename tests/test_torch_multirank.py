@@ -37,6 +37,17 @@ METRIC_KEYS = ("aux_loss", "frac_by_level", "frac_near", "frac_far",
                "dropped")
 HISTORY_KEYS = ("loss", "nll", "aux", "frac_by_level", "dropped",
                 "grad_norm", "lr")
+# accumulation on the world: 2 microbatches of 4 rows, one row a rank each
+MICRO = 4
+# the reference's test_multidevice.py::test_degraded_link_replan_flips_
+# dispatch_local_heavy: a 64x pod degradation from step 2, probed at step 4,
+# collapses the pod level (caps (64, 0) at global batch 4)
+REPLAN_STEPS = 8
+REPLAN_RUN = ("dict(seq_len=32, global_batch=4, total_steps=8, "
+              "warmup_steps=2, aux_mode='ta', seed=0, "
+              "resilience=ResilienceConfig(replan_every=4, "
+              "degrade_threshold=4.0, collapse_slowdown=64.0, "
+              "chaos=ChaosConfig(degraded_links=((2, 'pod', 64.0),))))")
 
 REFERENCE = f"""
 import pickle, sys
@@ -71,13 +82,29 @@ run = RunConfig(seq_len={SEQ}, global_batch={BATCH}, warmup_steps=1,
                 aux_mode="ta", dispatch="a2a", seed=0)
 res = trainer.train(arch, run, mesh, steps={STEPS}, log_every=1,
                     verbose=False)
+micro = trainer.train(arch, RunConfig(microbatch={MICRO}, **{{
+    k: getattr(run, k) for k in ("seq_len", "global_batch", "warmup_steps",
+                                 "aux_mode", "dispatch", "seed")}}),
+    mesh, steps={STEPS}, log_every=1, verbose=False)
+import contextlib, io
+from repro.resilience import ChaosConfig, ResilienceConfig
+log = io.StringIO()
+with contextlib.redirect_stdout(log):
+    replan = trainer.train(arch, RunConfig(**{REPLAN_RUN}), mesh,
+                           steps={REPLAN_STEPS}, log_every=1, verbose=True)
 with open(sys.argv[1], "wb") as f:
     pickle.dump({{"params": tree, "caps": ctx.plan.caps, "x": x, "r": r,
                  "y": np.asarray(y),
                  "metrics": {{k: np.asarray(v) for k, v in m.items()}},
                  "grads": jax.tree_util.tree_map(np.asarray, g),
                  "history": res.metrics_history,
-                 "final": jax.tree_util.tree_map(np.asarray, res.params)}}, f)
+                 "final": jax.tree_util.tree_map(np.asarray, res.params),
+                 "micro_history": micro.metrics_history,
+                 "micro_final": jax.tree_util.tree_map(np.asarray,
+                                                       micro.params),
+                 "replan_history": replan.metrics_history,
+                 "replans": replan.replans, "replan_log": log.getvalue()}},
+                f)
 """
 
 
@@ -128,6 +155,48 @@ def _rank_main(world, ref_path, out_dir):
             "history": res.metrics_history,
             "final": [t.detach().numpy() for t in
                       _leaves(res.params)]}
+    from repro_torch.core import comm_model
+    mctx = model.build_ctx(arch, world, seq_len=SEQ, global_batch=BATCH,
+                           dispatch="a2a_pipelined", measured_comm=True,
+                           device="cpu")
+    links = comm_model.measured_ep_links(world, mctx.ep.axis_names)
+    out["measured"] = {
+        "chunks": mctx.a2a_num_chunks,
+        "want_chunks": model.resolve_num_chunks(
+            arch, model.make_plan(arch, world, SEQ, BATCH, "ta"),
+            links=links),
+        "links": {ax: (li.alpha, li.beta, li.nbytes, li.times)
+                  for ax, li in links.items()}}
+    out["moe_links"] = {
+        k: (li.alpha, li.beta, li.nbytes, li.times) for k, li in
+        comm_model.measured_moe_links(world, data_axis="data",
+                                      pod_axis="pod").items()}
+    micro = trainer.train(
+        arch, RunConfig(seq_len=SEQ, global_batch=BATCH, warmup_steps=1,
+                        aux_mode="ta", dispatch="a2a", seed=0,
+                        microbatch=MICRO),
+        world, steps=STEPS, log_every=1, verbose=False,
+        params=params_from_numpy(ref["params"], ctx, "cpu"), device="cpu")
+    out["micro_history"] = micro.metrics_history
+    out["micro_final"] = [t.detach().numpy() for t in _leaves(micro.params)]
+    import contextlib
+    import io
+
+    # REPLAN_RUN names ChaosConfig and ResilienceConfig: the same text
+    # builds the reference's run in its subprocess
+    from repro_torch.resilience import ChaosConfig, ResilienceConfig  # noqa: F401
+    run = RunConfig(use_pallas=True, **eval(REPLAN_RUN))
+    rctx = model.build_ctx(arch, world, seq_len=run.seq_len,
+                           global_batch=run.global_batch, device="cpu")
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        replan = trainer.train(
+            arch, run, world, steps=REPLAN_STEPS, log_every=1, verbose=True,
+            params=params_from_numpy(ref["params"], rctx, "cpu"),
+            device="cpu")
+    out["replan"] = {"history": replan.metrics_history,
+                     "replans": replan.replans, "log": log.getvalue(),
+                     "caps_before": rctx.plan.caps}
     with open(os.path.join(out_dir, f"rank{world.rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
 
@@ -147,8 +216,9 @@ def runs(tmp_path_factory):
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     env["PYTHONPATH"] = os.path.join(REPO, "src")
-    r = subprocess.run([sys.executable, "-c", textwrap.dedent(REFERENCE),
-                        ref_path], capture_output=True, text=True,
+    r = subprocess.run([sys.executable, "-c", textwrap.dedent(REFERENCE)
+                        .replace("{REPLAN_RUN}", REPLAN_RUN), ref_path],
+                       capture_output=True, text=True,
                        timeout=600, env=env)
     assert r.returncode == 0, f"stderr:\n{r.stderr[-4000:]}"
     mesh.spawn(_rank_main, SIZES, "gloo", "cpu", args=(ref_path, str(tmp)))
@@ -225,3 +295,93 @@ def test_trainer_steps_match_reference(runs, use_pallas):
         assert len(want) == len(out[use_pallas]["final"])
         for a, b in zip(out[use_pallas]["final"], want):
             close(a, b, rtol=1e-4, atol=2e-4)
+
+
+def test_microbatch_accumulation_matches_reference(runs):
+    """Accumulation over 2 microbatches of 4 rows on the world: each rank
+    takes its row of each microbatch (``shard_batch(microbatch=)``), its
+    backward runs each microbatch's chains, the gradient sync runs once;
+    the reference's ``_accum_step`` on the 2x2 mesh gives the same steps
+    (metrics 1e-4, final params atol 2e-4)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import EPWorld
+    from repro_torch.models import model
+    from repro_torch.models.convert import params_from_numpy
+    ref, ranks = runs
+    for out in ranks:
+        for got, want in zip(out["micro_history"], ref["micro_history"]):
+            for k in HISTORY_KEYS:
+                close(got[k], want[k])
+    arch = get_config(ARCH_ID).reduced()
+    for out in ranks:
+        world = EPWorld(axis_names=("pod", "data"), axis_sizes=SIZES,
+                        coords=out["coords"])
+        ctx = model.build_ctx(arch, world, seq_len=SEQ, global_batch=BATCH,
+                              device="cpu")
+        want = _leaves(params_from_numpy(ref["micro_final"], ctx, "cpu"))
+        for a, b in zip(out["micro_final"], want):
+            close(a, b, rtol=1e-4, atol=2e-4)
+
+
+def test_degraded_link_replan_matches_reference(runs):
+    """The port's resilient runtime on the world, kernel branches wanted:
+    at the step-4 probe the measured links (gloo all-to-alls, timed once
+    and cached) with the pod axis degraded 64x make every rank replan
+    once, to the reference's caps (64, 0): the pod stage is gone, stage 0
+    carries every remote token.  Every logged step, before and after the
+    replan, agrees with the reference's at 1e-4 on every rank."""
+    ref, ranks = runs
+    assert ref["replans"] == 1
+    assert "replan: caps -> (64, 0)" in ref["replan_log"]
+    for out in ranks:
+        rp = out["replan"]
+        assert rp["replans"] == 1
+        assert rp["caps_before"] != (64, 0)
+        assert "step     4 replan: caps -> (64, 0)" in rp["log"]
+        assert rp["history"][-1]["replans"] == 1
+        assert len(rp["history"]) == len(ref["replan_history"])
+        for got, want in zip(rp["history"], ref["replan_history"]):
+            for k in HISTORY_KEYS:
+                close(got[k], want[k])
+
+
+def test_train_launcher_spawns_a_world(capfd):
+    """``launch/train.py --devices 4 --mesh-shape 2,2,1`` on the CPU: four
+    gloo ranks, accumulation and remat on, rank 0 reports."""
+    from repro_torch.launch import train
+    assert train.main(["--arch", ARCH_ID, "--reduced", "--device", "cpu",
+                       "--devices", "4", "--mesh-shape", "2,2,1",
+                       "--steps", "2", "--seq-len", "16",
+                       "--global-batch", "8", "--microbatch", "4",
+                       "--remat", "--log-every", "1"]) == 0
+    out = capfd.readouterr().out
+    assert "done: 2 steps on 4 rank(s)" in out
+
+
+def test_measured_links_agree_across_ranks(runs):
+    """``build_ctx(measured_comm=True)`` on the world: every rank times
+    the gloo all-to-all over each axis at the reference's sizes and fits
+    the world mean of the readings, so all ranks hold the same links and
+    pick the same chunk count (the overlap model's verdict on those
+    links); later probes read the cache."""
+    _, ranks = runs
+    first = ranks[0]["measured"]
+    assert set(first["links"]) == {"pod", "data"}
+    for ax, (alpha, beta, nbytes, times) in first["links"].items():
+        assert alpha >= 0.0 and beta >= 1e-15
+        assert nbytes == (8192, 65536, 524288) and len(times) == 3
+        assert all(t > 0 for t in times)
+    for out in ranks:
+        assert out["measured"] == first
+        assert out["measured"]["chunks"] == out["measured"]["want_chunks"]
+
+
+def test_measured_moe_links_name_the_per_axis_probes(runs):
+    """``measured_moe_links`` (the reference's 2-level wrapper) gives the
+    data axis's link as ``near`` and the pod axis's as ``far``, read from
+    the same per-axis cache as ``measured_ep_links``."""
+    _, ranks = runs
+    for out in ranks:
+        links = out["measured"]["links"]
+        assert out["moe_links"] == {"near": links["data"],
+                                    "far": links["pod"]}

@@ -171,3 +171,31 @@ def test_launcher_runs_on_cpu(capsys):
     assert "served 3 streams" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         serve.main(["--arch", "gpt3_medium_moe", "--devices", "4"])
+
+
+@pytest.mark.parametrize("override", [None, ((1, "a2a_pipelined"),),
+                                      ((0, "einsum"),)])
+def test_logits_only_prefill_matches_jax(mesh11, setup, override):
+    """``make_prefill(with_cache=False)``: last-position logits through
+    ``transformer.forward`` on the a2a path (and with a serving-side
+    per-layer override: a pipelined layer gets the overlap model's chunk
+    count, as the reference's ``_with_overrides`` gives it), against the
+    reference's at LOGIT_ATOL."""
+    from repro.configs.base import get_config as jax_get_config
+    from repro.models import model as jmodel
+    from repro_torch.models import model
+    _, jparams, ctx0, params = setup
+    jctx = jmodel.build_ctx(jax_get_config("gpt3_medium_moe").reduced(),
+                            mesh11, seq_len=16, global_batch=4,
+                            aux_mode="none")
+    ctx = model.build_ctx(ctx0.arch, seq_len=16, global_batch=4,
+                          aux_mode="none", device="cpu")
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, ctx.arch.vocab_size, size=(4, 16)).astype(
+        np.int32)
+    want = jax.jit(jengine.make_prefill(jctx, override))(
+        jparams, {"tokens": jnp.asarray(tokens)})
+    got = engine.make_prefill(ctx, override)(
+        params, {"tokens": torch.from_numpy(tokens)})
+    assert tuple(got.shape) == (4, ctx.arch.vocab_size)
+    close(got, want, rtol=0, atol=LOGIT_ATOL)
