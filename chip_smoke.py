@@ -40,7 +40,11 @@ Phases, each printing JSON lines:
    ``chip_ab.ragged_readings``) and on a ragged layout (R = 1888, a
    zero-count segment inside an expert's span; gelu and swiglu), K1, K2
    and K3 once more at that rank's layout after train_2x2_replan's
-   replan (caps (128, 0): one stage, the empty one dropped), and the
+   replan (caps (128, 0): one stage, the empty one dropped) and at rank
+   (0, 0, 0)'s of train_2x2x2 (512 tokens, three stages, 8 experts; read
+   by ``chip_ab``'s functions too), K4 at serve_2x2's gather layouts
+   (rank (0, 0)'s 16 experts over the world's 8 gathered decode tokens
+   and over one gathered prefill pack of 4 x 128), and the
    int8 ragged
    grouped FFN (K7) on rank (0, 0)'s chunk 0 of the pipelined int8 plan
    (8 chunks of 15 + 2 slots, int8-encoded payload, counts through the
@@ -63,7 +67,7 @@ Phases, each printing JSON lines:
    card against autograd of its plain version (K7: of the full-precision
    plain version, its straight-through rule) at a small shape, and K1's
    and K2's at the 2x2 plan's rank-0 layout, before and after the
-   replan;
+   replan, and at the 2x2x2 plan's;
 5. serve   — gpt3_medium_moe at full width (12 layers, d=1024, 64
    experts top-2, vocab 50304, bf16, random weights from a seed) through
    ``ServingEngine.run``: 8 requests, 8 slots, packs of 4, prompt bucket
@@ -74,12 +78,26 @@ Phases, each printing JSON lines:
 6. profile — host-clock step times and a torch.profiler breakdown
    (device busy share, top kernels) of one prefill pack and one decode
    step;
-7. train_1rank — in a child process, ``trainer.train`` of full-width
+7. serve_2x2 — the same model and request mix on a (pod x data) = (2, 2)
+   EP world of four spawned ranks sharing the card over gloo, each with
+   its 16 experts a layer, 2 of the 8 slots and one row of each pack of
+   4; every MoE layer through the gather path.  Every rank must launch
+   K4 once per MoE layer of every prefill pack and decode step, K5 once
+   per layer of every pack and nothing else; the ranks' streams must be
+   the same; on 4 prompts (one a rank) the world's kernel path must be
+   as close to a one-rank float32 plain run as the one-rank bf16 plain
+   path is (E2E_RATIO, E2E_FLOOR); tokens/s and each rank's prefill-pack
+   and decode-step times;
+8. train_1rank — in a child process, ``trainer.train`` of full-width
    gpt3_medium_moe on one rank: ``dispatch="a2a"``, ``aux_mode="ta"``,
    seq 512, batch 4, AdamW, 3 steps.  K4 must launch once per layer and
    forward (36 times), and the first step's loss must agree with the plain
-   path's (kernels off) on the same weights and batch;
-8. train_2x2 — the same on a 2x2 (pod x data) EP world of four spawned
+   path's (kernels off) on the same weights and batch.  Then, on the
+   trained state, a forward and backward with the fused cross entropy
+   (``ctx.fused_xent``) and with the default loss: the losses within
+   LOSS_RTOL and each one's peak device memory; then one training step
+   with it (K4 12 launches, counted as ``train_1rank_fused_xent``);
+9. train_2x2 — the same on a 2x2 (pod x data) EP world of four spawned
    ranks that share the card over gloo, batch 8 (1024 tokens a rank):
    every rank must launch K1, K2 and K3 36 times each and K4 never, the
    ranks must agree on the world-mean losses, and the first step's loss
@@ -88,20 +106,20 @@ Phases, each printing JSON lines:
    K2 (``spare_row_backwards``), reporting the device time inside each
    profiler range of ``PROFILED_RANGES`` (the backwards; on the pipelined
    phase K7's forward and its weight quantization too);
-9. train_2x2_pipelined — the same world through ``dispatch=
+10. train_2x2_pipelined — the same world through ``dispatch=
    "a2a_pipelined"`` with the int8 wire codec and the overlap model's
    chunk count (8), 2 steps: every rank must launch K1, K2 and K7 192
    times each (12 layers x 8 chunks x 2 steps) and K3 and K4 never, and
    the first step's loss must agree with the plain path's within
    LOSS_RTOL_INT8;
-10. train_einsum_k6 — in a child process, full-width gpt3_medium_moe on
+11. train_einsum_k6 — in a child process, full-width gpt3_medium_moe on
    one rank through the paper's einsum baseline (``dispatch="einsum"``,
    ``aux_mode="lb"``, ``build_ctx(use_moe_kernel=True)``, capacity 128)
    with ``trainer.make_train_step``: seq 512, batch 4, AdamW, 3 steps.  K6
    must launch once per layer and forward (36 times), and the first
    step's loss must agree with the plain path's (``REPRO_TORCH_KERNELS=0``:
    ``grouped_ffn_ref``) on the same weights and batch;
-11. train_1rank_accum_remat — in a child process, ``trainer.train`` of
+12. train_1rank_accum_remat — in a child process, ``trainer.train`` of
    full-width gpt3_medium_moe on one rank with batch 8 accumulated over 2
    microbatches of 4 and ``remat=True`` (every layer recomputed in the
    backward), 3 steps: K4 must launch 12 x 2 x 2 x 3 = 144 times, the
@@ -109,14 +127,14 @@ Phases, each printing JSON lines:
    plain path's; with remat and without, one microbatch's forward reads
    the device memory it holds for the backward and one more step reads
    the peak device memory (``remat_memory``);
-12. train_resilient — in a child process (``resilient_phase``): a
+13. train_resilient — in a child process (``resilient_phase``): a
    1-layer full-width model under chaos with rolling checkpoints (a
    skipped NaN step, a spike rolled back past a corrupted checkpoint to
    the one before, the restored tensors bit-equal to it; save, verify
    and the rollback's restore timed), then full depth guarded against
    unguarded on the same weights (losses within LOSS_RTOL, steady step
    walls);
-13. train_2x2_replan — the 2x2 world at full width and depth 2 with the
+14. train_2x2_replan — the 2x2 world at full width and depth 2 with the
    pod axis degraded 64x: every rank must replan once, at step 2, to the
    port planner's caps with the pod level's beta at inf (last cap 0), K1,
    K2 and K3 must launch every layer of every step (after the replan too)
@@ -124,11 +142,25 @@ Phases, each printing JSON lines:
    replan must log the loss the plain path computes from the same
    parameters and batch under the replanned context (within LOSS_RTOL);
    each axis's measured alpha and beta (gloo all-to-alls) are reported;
-14. kernels — one ``{"kernels": [...]}`` line for K1-K8, launches
-   summed over the main paths (serve, train_1rank, every rank of
+15. train_2x2x2 — the paper's nested [[2, 2], [2, 2]] topology: eight
+   ranks over (pod, node, data) sharing the card over gloo, full width,
+   depth cut to 6 (TRAIN_222_LAYERS: at 12 the eight ranks run the card
+   out of memory), ``a2a``, ``aux_mode="ta"``, seq 512, batch 8 (512
+   tokens a rank), 3 steps: the plan's three caps > 0 and a length-3
+   frac_by_level, K1, K2 and K3 18 launches on every rank and K4 none,
+   the first step's world-mean loss within LOSS_RTOL of the plain path's;
+16. train_dp — a (pod x data) = (3, 2) world: 6 does not divide the 64
+   experts, so they span data (32 a rank) and pod is pure data
+   parallelism (three replicas); depth cut to DP_LAYERS, batch 6, 3
+   steps: K1-K3 every layer and step, K4 none, the first step's loss
+   within LOSS_RTOL of the plain path's, and every rank's expert leaves
+   bit-equal (sha256) to their replicas' on the other pods;
+17. kernels — one ``{"kernels": [...]}`` line for K1-K8, launches
+   summed over the main paths (serve, every rank of serve_2x2,
+   train_1rank and its fused cross entropy step, every rank of
    train_2x2 and train_2x2_pipelined, train_einsum_k6,
    train_1rank_accum_remat, train_resilient, every rank of
-   train_2x2_replan).  K8 lies on no
+   train_2x2_replan, train_2x2x2 and train_dp).  K8 lies on no
    path (no model calls it, as in the reference): its row gives the
    launches of its checks as ``check_launches``.
 
@@ -252,6 +284,22 @@ REPLAN_LAYERS, REPLAN_STEPS = 2, 4
 REPLAN_RESILIENCE = {"replan_every": 2, "degrade_threshold": 4.0,
                      "collapse_slowdown": 64.0}
 REPLAN_CHAOS = {"degraded_links": ((1, "pod", 64.0),)}
+# train_2x2x2: the paper's nested [[2, 2], [2, 2]] topology, eight ranks
+# sharing the card over gloo, batch 8 (512 tokens a rank).  Depth cut to 6:
+# at 12 layers each rank peaks at 9.15 GB allocated (10.3 GB reserved:
+# AdamW's f32 moments of its 0.5 B parameters, 4 GB, and K3's plain f32
+# backward), and eight of them ran the 79 GB card out of memory on an
+# H100; at 6 layers each peaks at 6.57 GB
+SPEC_222 = [[2, 2], [2, 2]]
+TRAIN_BATCH_222, TRAIN_222_LAYERS = 8, 6
+# train_dp: a (pod x data) = (3, 2) world: 6 does not divide 64 experts, so
+# the experts span data (32 a rank) and pod is pure data parallelism with
+# three replicas; batch 6 (512 tokens a rank); depth cut to 2, as
+# train_2x2_replan's, for memory (six ranks of 32 experts a layer) and time
+WORLD_DP, TRAIN_BATCH_DP, DP_LAYERS = (3, 2), 6, 2
+# serve_2x2 and the end-to-end check on it: 4 prompts of 32 tokens, one a
+# rank, prefill + 4 decode steps
+E2E_PROMPT, E2E_STEPS, E2E_ROWS = 32, 4, 4
 # end to end after 12 bf16 layers, relative Frobenius error of the logits
 # against a float32 plain run: the kernel path may be at most E2E_RATIO
 # times as far from it as the plain bf16 path (both differ from float32 by
@@ -325,25 +373,32 @@ def bound_ms(nbytes: float, flops: float, int8_ops: float = 0.0):
                                        else "operations")
 
 
-def gather_k4_case(torch, params, ctx, Tg: int, gen, swiglu=False):
+def gather_k4_case(torch, params, ctx, Tg: int, gen, swiglu=False,
+                   rank: int = 0, ep_world: int = 1):
     """K4's inputs at the gather path's slot layout for Tg tokens of layer
     0: one segment per expert, every row of a picked expert's segment
-    valid.  With ``swiglu`` (not gpt3_medium_moe's activation) a random
-    gate projection is added, to hold the kernel's swiglu branch too."""
+    valid.  With ``ep_world`` > 1 the layout is EP rank ``rank``'s on a
+    world of that many: its ``E / ep_world`` experts over the ``Tg``
+    tokens gathered from every rank, gated over all ``E``.  With
+    ``swiglu`` (not gpt3_medium_moe's activation) a random gate
+    projection is added, to hold the kernel's swiglu branch too."""
     from repro_torch.core import gating
     from repro_torch.core.dispatch import routing, transport
     p = params["layers"][0]["ffn"]
     d, E = ctx.arch.d_model, ctx.arch.moe.num_experts
+    E_l = E // ep_world
+    mine = slice(rank * E_l, (rank + 1) * E_l)
     x = torch.randn((Tg, d), generator=gen, device="cuda").to(torch.bfloat16)
     gate_out = gating.gate_forward(p["gate"], x, ctx.gate_cfg)
-    tok, w, valid = routing.gather_slots(gate_out, 0, E)
+    tok, w, valid = routing.gather_slots(gate_out, rank, E_l)
+    w_in, w_out = p["w_in"][mine].contiguous(), p["w_out"][mine].contiguous()
     w_gate, act = None, "gelu"
     if swiglu:
-        w_gate = (torch.randn(p["w_in"].shape, generator=gen, device="cuda")
+        w_gate = (torch.randn(w_in.shape, generator=gen, device="cuda")
                   * d ** -0.5).to(torch.bfloat16)
         act = "swiglu"
-    return (x, tok, w, transport.expert_segments(E, Tg), tuple(range(E)),
-            valid, p["w_in"], w_gate, p["w_out"]), act
+    return (x, tok, w, transport.expert_segments(E_l, Tg), tuple(range(E_l)),
+            valid, w_in, w_gate, w_out), act
 
 
 def train1_k4_case(torch, params, arch, gen):
@@ -523,7 +578,8 @@ def check_k5(torch, shape, gen, causal=True, window=0, timed=True,
     return out
 
 
-def staged_case(torch, params, arch, gen, slowdowns=None):
+def staged_case(torch, params, arch, gen, slowdowns=None, sizes=WORLD_22,
+                global_batch=TRAIN_BATCH_22):
     """Rank (0, 0)'s view of the 2x2 training phase's plan: a real
     ``route`` + ``build_indices`` of 1024 random tokens through layer 0's
     gate, the 2x2 EP spec and its Eq. (7) plan (caps (120, 16)).  The
@@ -532,22 +588,26 @@ def staged_case(torch, params, arch, gen, slowdowns=None):
     ``slowdowns`` (per-axis link slowdowns) the plan is the one
     ``RecoveryPolicy.replan`` gives under ``REPLAN_RESILIENCE``: the
     train_2x2_replan phase's layout after its replan (caps (128, 0): the
-    empty second stage is dropped)."""
+    empty second stage is dropped).  ``sizes`` and ``global_batch`` name
+    another world's: (2, 2, 2) and 8 give rank (0, 0, 0)'s view of
+    train_2x2x2 (512 tokens, three stages, 8 experts a rank)."""
+    from repro_torch.core.capacity import default_axis_names
     from repro_torch.core.dispatch import routing, transport
     from repro_torch.kernels.moe_permute.ref import permute_ref
     from repro_torch.launch.mesh import EPWorld
     from repro_torch.models import model as model_lib
     from repro_torch.resilience import ResilienceConfig
     from repro_torch.resilience.policy import RecoveryPolicy
-    world = EPWorld(axis_names=("pod", "data"), axis_sizes=WORLD_22,
-                    coords=(0, 0), device="cuda")
+    world = EPWorld(axis_names=default_axis_names(len(sizes)),
+                    axis_sizes=tuple(sizes), coords=(0,) * len(sizes),
+                    device="cuda")
     ctx = model_lib.build_ctx(arch, world, seq_len=TRAIN_SEQ,
-                              global_batch=TRAIN_BATCH_22, aux_mode="ta",
+                              global_batch=global_batch, aux_mode="ta",
                               device="cuda")
     if slowdowns is not None:
         ctx = RecoveryPolicy(ResilienceConfig(**REPLAN_RESILIENCE)).replan(
             ctx, slowdowns)
-    T = TRAIN_SEQ * TRAIN_BATCH_22 // world.size
+    T = TRAIN_SEQ * global_batch // world.size
     d = arch.d_model
     p = params["layers"][0]["ffn"]
     x = torch.randn((T, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -799,11 +859,11 @@ def k3_edges(torch, case, gen):
     return out
 
 
-def replan_layout_checks(torch, case, gen):
-    """K1, K2 and K3 against their plain versions at the train_2x2_replan
-    phase's layout after its replan (``staged_case`` with the pod axis
-    64x slower: caps (128, 0), so ``plan_stages`` keeps one stage and
-    every slot of a rank's send buffer stays in its pod): K1
+def layout_checks(torch, case, gen):
+    """K1, K2 and K3 against their plain versions at one ``staged_case``
+    layout (train_2x2_replan's after its replan: the pod axis 64x slower,
+    caps (128, 0), so ``plan_stages`` keeps one stage and every slot of a
+    rank's send buffer stays in its pod; train_2x2x2's: three stages): K1
     bit-equal, K2 within K2_ATOL + K2_RTOL·|plain| on random bf16 slot
     rows, K3 within K3_ATOL + K3_RTOL·|plain| on the receive buffer, with
     every row past a segment's valid count exactly 0."""
@@ -1190,14 +1250,15 @@ def check_k8(torch, gen, B: int, L: int, H: int, K: int, lengths=None,
     return out
 
 
-def backward_checks(torch, gen, layout22, layout_replan):
+def backward_checks(torch, gen, layouts):
     """Each kernel's ``autograd.Function`` on the card against autograd of
     its plain version, at a small shape: K1 and K2 in float32 (their
-    backwards are written by hand; also at ``layout22``, ``(T, di)`` of the
-    2x2 world's rank 0, a real route with about two thirds of the slots
-    sentinels and a quarter of the picks dropped, at full width, and at
-    ``layout_replan``, the same rank's layout after train_2x2_replan's
-    replan, caps (128, 0)), K3, K4,
+    backwards are written by hand; also at each of ``layouts``, ``{label:
+    (T, di)}`` at full width: "2x2", the 2x2 world's rank 0, a real route
+    with about two thirds of the slots sentinels and a quarter of the
+    picks dropped; "replan", the same rank's layout after
+    train_2x2_replan's replan, caps (128, 0); "2x2x2", rank (0, 0, 0)'s of
+    train_2x2x2, three stages), K3, K4,
     K6 and K7 on bf16 inputs (their
     kernels take bf16 only; their backwards are autograd through the plain
     version).  K7's gradients are held against autograd of the
@@ -1261,33 +1322,22 @@ def backward_checks(torch, gen, layout22, layout_replan):
         "K2", lambda y, w: p_ops.unpermute(y, inv_idx, w, use_pallas=True),
         lambda y, w: unpermute_ref(y, inv_idx, w), [randn(S, d), inv_w],
         randn(T, d), BWD_F32_ATOL, BWD_F32_RTOL)
-    T22, di = layout22
-    S22, d22 = di.num_slots, 1024
-    tok22 = di.slot_to_token
-    out["K1_2x2"] = compare(
-        "K1 (2x2 layout)", lambda x: p_ops.permute(x, tok22, use_pallas=True),
-        lambda x: permute_ref(x, tok22), [randn(T22, d22)],
-        randn(S22, d22), BWD_F32_ATOL, BWD_F32_RTOL)
-    out["K1_2x2"]["sentinel_slots"] = int((tok22 >= T22).sum())
-    out["K2_2x2"] = compare(
-        "K2 (2x2 layout)",
-        lambda y, w: p_ops.unpermute(y, di.inv_idx, w, use_pallas=True),
-        lambda y, w: unpermute_ref(y, di.inv_idx, w),
-        [randn(S22, d22), di.inv_w], randn(T22, d22), BWD_F32_ATOL,
-        BWD_F32_RTOL)
-    out["K2_2x2"]["dropped_picks"] = int((di.inv_idx >= S22).sum())
-    Tr, dr = layout_replan
-    out["K1_replan"] = compare(
-        "K1 (replan layout)",
-        lambda x: p_ops.permute(x, dr.slot_to_token, use_pallas=True),
-        lambda x: permute_ref(x, dr.slot_to_token), [randn(Tr, d22)],
-        randn(dr.num_slots, d22), BWD_F32_ATOL, BWD_F32_RTOL)
-    out["K2_replan"] = compare(
-        "K2 (replan layout)",
-        lambda y, w: p_ops.unpermute(y, dr.inv_idx, w, use_pallas=True),
-        lambda y, w: unpermute_ref(y, dr.inv_idx, w),
-        [randn(dr.num_slots, d22), dr.inv_w], randn(Tr, d22), BWD_F32_ATOL,
-        BWD_F32_RTOL)
+    for label, (Tl, di) in layouts.items():
+        tok_l = di.slot_to_token
+        out[f"K1_{label}"] = compare(
+            f"K1 ({label} layout)",
+            lambda x: p_ops.permute(x, tok_l, use_pallas=True),
+            lambda x: permute_ref(x, tok_l), [randn(Tl, 1024)],
+            randn(di.num_slots, 1024), BWD_F32_ATOL, BWD_F32_RTOL)
+        out[f"K1_{label}"]["sentinel_slots"] = int((tok_l >= Tl).sum())
+        out[f"K2_{label}"] = compare(
+            f"K2 ({label} layout)",
+            lambda y, w: p_ops.unpermute(y, di.inv_idx, w, use_pallas=True),
+            lambda y, w: unpermute_ref(y, di.inv_idx, w),
+            [randn(di.num_slots, 1024), di.inv_w], randn(Tl, 1024),
+            BWD_F32_ATOL, BWD_F32_RTOL)
+        out[f"K2_{label}"]["dropped_picks"] = int(
+            (di.inv_idx >= di.num_slots).sum())
     segs, exps = transport.stage_segments(E, ((2, 24), (4, 8)))
     widths = torch.as_tensor(segs[1:], device="cuda") - torch.as_tensor(
         segs[:-1], device="cuda")
@@ -1354,7 +1404,9 @@ def train_phase(world, out_path: str, global_batch: int,
                 dispatch: str = "a2a", wire_codec: str = "",
                 steps: int = TRAIN_STEPS, aux_mode: str = "ta",
                 use_moe_kernel: bool = False, microbatch: int = 0,
-                remat: bool = False) -> None:
+                remat: bool = False, layers: int = 0,
+                spare_row: bool = False, fused_xent: bool = False,
+                hash_experts: bool = False) -> None:
     """Full-width gpt3_medium_moe on this rank (``world`` None: one rank),
     AdamW, ``steps`` steps, the given dispatch path, wire codec and
     auxiliary loss (the pipelined path's chunk count from the overlap
@@ -1373,7 +1425,15 @@ def train_phase(world, out_path: str, global_batch: int,
     counters are set to 0 just before the run and read just after.  One
     more step on the trained state runs under torch.profiler (not
     counted).  With ``remat``, two more steps read the peak device memory
-    of a step with and without it (``remat_memory``)."""
+    of a step with and without it (``remat_memory``).  ``layers`` > 0 cuts
+    the depth.  With ``spare_row`` (a2a on a world) the profiled step runs
+    once more with the earlier spare-row backwards.  With ``fused_xent``
+    (one rank), before the profiled step, the forward and backward with
+    the fused cross entropy and with the default loss on the same state
+    and batch (``fused_xent_case``), then one training step with it,
+    counted on its own.  With ``hash_experts`` the report carries the
+    sha256 of this rank's expert leaves after the run, to hold data-
+    parallel replicas to each other."""
     import torch
     from repro_torch.configs.base import RunConfig, get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch
@@ -1385,6 +1445,9 @@ def train_phase(world, out_path: str, global_batch: int,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     arch = get_config(ARCH_ID)
+    if layers:
+        import dataclasses
+        arch = dataclasses.replace(arch, num_layers=layers)
     run = RunConfig(seq_len=TRAIN_SEQ, global_batch=global_batch,
                     warmup_steps=1, aux_mode=aux_mode, dispatch=dispatch,
                     a2a_num_chunks=0, wire_codec=wire_codec, seed=0,
@@ -1436,15 +1499,19 @@ def train_phase(world, out_path: str, global_batch: int,
                             verbose=rank == 0, params=params, device="cuda")
     launches = dict(backend.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    experts_sha256 = (expert_digest(torch, res.params, kernel_ctx)
+                      if hash_experts else None)
 
     step = trainer.make_train_step(kernel_ctx, run)
     batch = shard_batch(data.batch(steps), world, "cuda", microbatch=micro)
+    xent = (fused_xent_case(torch, kernel_ctx, run, res, batch)
+            if fused_xent else None)
     profiled = profile_train_step(torch, step, res.params, res.opt_state,
                                   batch)
     memory = (remat_memory(torch, arch, run, res, batch) if remat
               else None)
-    spare_row = None
-    if world is not None and dispatch == "a2a":
+    spare_profiled = None
+    if spare_row:
         # the same step once more with the earlier spare-row backwards,
         # for the backward scatters' device time before and after
         spare = spare_row_backwards(torch)
@@ -1452,8 +1519,8 @@ def train_phase(world, out_path: str, global_batch: int,
         for fn, bwd in spare.items():
             fn.backward = staticmethod(bwd)
         try:
-            spare_row = profile_train_step(torch, step, res.params,
-                                           res.opt_state, batch)
+            spare_profiled = profile_train_step(torch, step, res.params,
+                                                res.opt_state, batch)
         finally:
             for fn, bwd in shipped.items():
                 fn.backward = staticmethod(bwd)
@@ -1469,10 +1536,76 @@ def train_phase(world, out_path: str, global_batch: int,
         "plain_first_loss": plain_loss, "plain_launches": plain_launches,
         "step_wall_s": res.step_seconds, "launches": launches,
         "max_memory_allocated_gb": peak_gb, "profiled_step": profiled,
-        "profiled_step_spare_row_backwards": spare_row,
-        "microbatch": microbatch, "remat": remat, "step_memory": memory}
+        "profiled_step_spare_row_backwards": spare_profiled,
+        "microbatch": microbatch, "remat": remat, "step_memory": memory,
+        "layers": arch.num_layers, "fused_xent": xent,
+        "experts_sha256": experts_sha256}
     with open(out_path, "w") as fh:
         json.dump(report, fh)
+
+
+def expert_digest(torch, params, ctx) -> str:
+    """sha256 over this rank's expert leaves (``trainer.expert_mask``), in
+    tree order, as their bytes on the host."""
+    import hashlib
+
+    import numpy as np
+    from repro_torch.optim import adamw
+    from repro_torch.training import trainer
+    h = hashlib.sha256()
+    for leaf, is_expert in zip(adamw.tree_leaves(params),
+                               trainer.expert_mask(params, ctx)):
+        if is_expert:
+            raw = leaf.detach().contiguous().view(torch.uint8).cpu()
+            h.update(np.asarray(raw).tobytes())
+    return h.hexdigest()
+
+
+def fused_xent_case(torch, ctx, run, res, batch) -> dict:
+    """The fused cross entropy on the trained state: the loss and peak
+    device memory of one forward and backward with the default loss and
+    with ``fused_xent`` on the same parameters and batch (gradients
+    dropped, nothing updated), then one training step with it whose
+    launches are counted on their own (``launches``)."""
+    import dataclasses
+
+    from repro_torch.kernels import backend
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.training import trainer
+    fused = dataclasses.replace(ctx, fused_xent=True)
+    out = {}
+    for name, c in (("default", ctx), ("fused", fused)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        total, _ = transformer.loss_fn(res.params, batch, c,
+                                       aux_weight=run.aux_weight)
+        total.backward()
+        torch.cuda.synchronize()
+        out[name] = {"loss": float(total.detach()),
+                     "max_memory_allocated_gb":
+                         torch.cuda.max_memory_allocated() / 1e9,
+                     "above_resident_gb":
+                         (torch.cuda.max_memory_allocated() - base) / 1e9}
+        del total
+        for p in adamw.tree_leaves(res.params):
+            p.grad = None
+    step = trainer.make_train_step(fused, run)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    backend.reset_launches()
+    t0 = time.perf_counter()
+    _, _, m = step(res.params, res.opt_state, batch)
+    torch.cuda.synchronize()
+    out["step"] = {"loss": float(m["loss"]),
+                   "step_s": time.perf_counter() - t0,
+                   "max_memory_allocated_gb":
+                       torch.cuda.max_memory_allocated() / 1e9}
+    out["launches"] = dict(backend.LAUNCHES)
+    d, f = out["default"]["loss"], out["fused"]["loss"]
+    out["rel_diff"] = abs(f - d) / abs(d)
+    return out
 
 
 def remat_memory(torch, arch, run, res, batch) -> dict:
@@ -1888,9 +2021,12 @@ def replan_rank(world, out_dir: str) -> None:
 
 
 def train_rank(world, out_dir: str, global_batch: int, dispatch: str = "a2a",
-               wire_codec: str = "", steps: int = TRAIN_STEPS) -> None:
+               wire_codec: str = "", steps: int = TRAIN_STEPS,
+               layers: int = 0, spare_row: bool = False,
+               hash_experts: bool = False) -> None:
     train_phase(world, os.path.join(out_dir, f"rank{world.rank}.json"),
-                global_batch, dispatch, wire_codec, steps)
+                global_batch, dispatch, wire_codec, steps, layers=layers,
+                spare_row=spare_row, hash_experts=hash_experts)
 
 
 def check_training(reports, want: dict, label: str,
@@ -1964,46 +2100,40 @@ def _cast_params(params, dtype):
     return params.to(dtype) if params.is_floating_point() else params
 
 
-def end_to_end_check(torch, np, params, ctx):
-    """The kernel path against a float32 plain reference on the card: one
-    32-token prompt, prefill + 4 decode steps.  The bf16 plain path (no
-    kernels) is measured against the same reference; the kernel path must
-    be no further from it than E2E_RATIO times that, or E2E_FLOOR."""
-    import dataclasses
+def e2e_logits(torch, params, ctx, prompt, world=None):
+    """Prefill of ``prompt`` [B, S] then E2E_STEPS decode steps, each fed
+    the prompt's last token: float32 logits [E2E_STEPS + 1, B, V].  On a
+    world every rank passes the whole batch, runs its rows, and gets the
+    whole batch's logits (gathered)."""
+    from repro_torch.launch.mesh import gather_rows
     from repro_torch.serving import engine
-    rng = np.random.default_rng(7)
-    prompt = torch.as_tensor(rng.integers(0, ctx.arch.vocab_size,
-                                          size=(1, 32)),
-                             dtype=torch.int32, device="cuda")
-    plain_ctx = dataclasses.replace(ctx, use_pallas=False, use_flash=False)
-    f32_ctx = dataclasses.replace(
-        plain_ctx, arch=dataclasses.replace(ctx.arch, dtype="float32"))
-    runs = (("kernel", ctx, params), ("plain_bf16", plain_ctx, params),
-            ("plain_f32", f32_ctx, _cast_params(params, torch.float32)))
-    logits = {}
-    for name, c, p in runs:
-        prefill = engine.make_prefill(c, with_cache=True, cache_len=64)
-        step = engine.make_decode_step(c)
-        lg, cache = prefill(p, {"tokens": prompt})
-        traj = [lg]
-        tok = prompt[:, -1:]
-        for _ in range(4):
-            out, cache = step(p, cache, tok)
-            traj.append(out[:, 0])
-        logits[name] = torch.stack(traj)
-        del p, cache
-    ref = logits["plain_f32"]
+    rank, n = (0, 1) if world is None else (world.rank, world.size)
+    B = prompt.shape[0]
+    mine = prompt[rank * B // n:(rank + 1) * B // n]
+    prefill = engine.make_prefill(ctx, with_cache=True, cache_len=64)
+    step = engine.make_decode_step(ctx)
+    lg, cache = prefill(params, {"tokens": mine})
+    traj = [gather_rows(world, lg)]
+    tok = mine[:, -1:]
+    for _ in range(E2E_STEPS):
+        out, cache = step(params, cache, tok)
+        traj.append(gather_rows(world, out[:, 0]))
+    return torch.stack(traj)
 
-    def rel(name):
-        return float(torch.linalg.vector_norm(logits[name] - ref)
-                     / torch.linalg.vector_norm(ref))
 
-    rel_kernel, rel_plain = rel("kernel"), rel("plain_bf16")
-    agree = float((logits["kernel"].argmax(-1) == ref.argmax(-1))
-                  .float().mean())
+def e2e_verdict(torch, got, f32, bf16, label: str) -> dict:
+    """The kernel path's logits ``got`` against the float32 plain run's:
+    at most E2E_RATIO times as far (relative Frobenius) as the bf16 plain
+    run's ``bf16``, or E2E_FLOOR; raises otherwise."""
+    def rel(a):
+        return float(torch.linalg.vector_norm(a - f32)
+                     / torch.linalg.vector_norm(f32))
+
+    rel_kernel, rel_plain = rel(got), rel(bf16)
+    agree = float((got.argmax(-1) == f32.argmax(-1)).float().mean())
     limit = max(E2E_RATIO * rel_plain, E2E_FLOOR)
     if not (math.isfinite(rel_kernel) and rel_kernel <= limit):
-        raise SystemExit(f"end to end: kernel path logits are {rel_kernel} "
+        raise SystemExit(f"{label}: kernel path logits are {rel_kernel} "
                          f"(relative) from the float32 reference, the plain "
                          f"bf16 path {rel_plain}; limit {limit}")
     return {"rel_err_kernel_vs_f32": rel_kernel,
@@ -2011,20 +2141,54 @@ def end_to_end_check(torch, np, params, ctx):
             "argmax_agreement_kernel_vs_f32": agree}
 
 
-def profile_steps(torch, params, ctx):
+def plain_runs(torch, params, ctx, prompt, kernel=True) -> dict:
+    """``e2e_logits`` on one rank through the kernel path (with
+    ``kernel``), the bf16 plain path and a float32 plain run of the same
+    weights."""
+    import dataclasses
+    plain_ctx = dataclasses.replace(ctx, use_pallas=False, use_flash=False)
+    f32_ctx = dataclasses.replace(
+        plain_ctx, arch=dataclasses.replace(ctx.arch, dtype="float32"))
+    runs = (("plain_bf16", plain_ctx, lambda: params),
+            ("plain_f32", f32_ctx,
+             lambda: _cast_params(params, torch.float32)))
+    if kernel:
+        runs = (("kernel", ctx, lambda: params),) + runs
+    return {name: e2e_logits(torch, make(), c, prompt)
+            for name, c, make in runs}
+
+
+def end_to_end_check(torch, np, params, ctx):
+    """The kernel path against a float32 plain reference on the card: one
+    32-token prompt, prefill + 4 decode steps.  The bf16 plain path (no
+    kernels) is measured against the same reference; the kernel path must
+    be no further from it than E2E_RATIO times that, or E2E_FLOOR."""
+    rng = np.random.default_rng(7)
+    prompt = torch.as_tensor(rng.integers(0, ctx.arch.vocab_size,
+                                          size=(1, E2E_PROMPT)),
+                             dtype=torch.int32, device="cuda")
+    logits = plain_runs(torch, params, ctx, prompt)
+    return e2e_verdict(torch, logits["kernel"], logits["plain_f32"],
+                       logits["plain_bf16"], "end to end")
+
+
+def profile_steps(torch, params, ctx, world=None):
     """Step times (host clock around synchronized runs) and a
     torch.profiler breakdown of one prefill pack and one decode step at
     the serve phase's shapes: device busy share and the top kernels by
-    device time."""
+    device time.  On a world each rank runs its rows of the pack and its
+    slots, in step with the others."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import decode
     from repro_torch.serving import engine
+    rank, n = (0, 1) if world is None else (world.rank, world.size)
     gen = torch.Generator(device="cuda").manual_seed(5)
     tokens = torch.randint(0, ctx.arch.vocab_size, (PACK, BUCKET),
                            generator=gen, device="cuda", dtype=torch.int32)
+    tokens = tokens[rank * PACK // n:(rank + 1) * PACK // n]
     prefill = engine.make_prefill(ctx, with_cache=True, cache_len=CACHE_LEN)
     step = engine.make_decode_step(ctx)
-    from repro_torch.models import decode
-    cache = decode.init_cache(ctx, NUM_SLOTS, CACHE_LEN)
+    cache = decode.init_cache(ctx, NUM_SLOTS // n, CACHE_LEN)
     for layer in cache:
         layer["mixer"]["pos"].fill_(BUCKET)
     cur = tokens[:, :1].repeat(NUM_SLOTS // PACK, 1)
@@ -2035,12 +2199,12 @@ def profile_steps(torch, params, ctx):
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
-        n = 10
+        iters = 10
         t0 = time.perf_counter()
-        for _ in range(n):
+        for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -2061,6 +2225,70 @@ def profile_steps(torch, params, ctx):
     return out
 
 
+def serve_rank(world, out_dir: str) -> None:
+    """One rank of serve_2x2: full-width gpt3_medium_moe from seed 0 (this
+    rank's 16 experts a layer), ``ServeConfig`` as the serve phase's, the
+    batch sharded over the world and every MoE layer through the gather
+    path.  First the end-to-end check: the kernel path's logits for
+    E2E_ROWS prompts (one a rank, gathered) against the one-rank float32
+    and bf16 plain runs the main process saved (``e2e_reference.pt``);
+    then a warm-up request, then the serve phase's 8 requests with the
+    launch counters set to 0 just before and read just after, then the
+    prefill pack's and decode step's times on this rank.  Writes
+    ``serve<rank>.json``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import backend
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving import engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    arch = get_config(ARCH_ID)
+    ctx = model_lib.build_ctx(arch, world, device="cuda", use_flash=True,
+                              aux_mode="none", seq_len=CACHE_LEN,
+                              global_batch=NUM_SLOTS)
+    params = model_lib.init_params(
+        ctx, torch.Generator(device="cuda").manual_seed(0))
+    ref = torch.load(os.path.join(out_dir, "e2e_reference.pt"))
+    with torch.no_grad():
+        got = e2e_logits(torch, params, ctx, ref["prompt"].cuda(), world)
+    e2e = e2e_verdict(torch, got, ref["plain_f32"].cuda(),
+                      ref["plain_bf16"].cuda(), "serve_2x2 end to end")
+    del got, ref
+    eng = engine.ServingEngine(params, ctx, engine.ServeConfig(
+        num_slots=NUM_SLOTS, cache_len=CACHE_LEN, prefill_pack=PACK,
+        prompt_buckets=(BUCKET,)))
+    rng = np.random.default_rng(0)
+    eng.run(serve_requests(rng, arch.vocab_size, 1))          # warm-up
+    reqs = serve_requests(rng, arch.vocab_size, NUM_REQUESTS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    backend.reset_launches()
+    report = eng.run(reqs)
+    launches = dict(backend.LAUNCHES)
+    with torch.no_grad():
+        prof = profile_steps(torch, params, ctx, world)
+    out = {"rank": world.rank, "coords": list(world.coords),
+           "expert_range": list(ctx.expert_range), "end_to_end": e2e,
+           "streams": {s.request.uid: s.generated for s in report.streams},
+           "budgets": {s.request.uid: s.request.max_new_tokens
+                       for s in report.streams},
+           "evicted": sum(s.evicted for s in report.streams),
+           "new_tokens": report.total_new_tokens,
+           "prompt_tokens": sum(len(r.tokens) for r in reqs),
+           "decode_steps": report.decode_steps,
+           "prefill_packs": report.prefill_calls,
+           "wall_s": report.wall_time,
+           "tokens_per_s": report.tokens_per_sec, "launches": launches,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9,
+           "profile": prof}
+    with open(os.path.join(out_dir, f"serve{world.rank}.json"), "w") as fh:
+        json.dump(out, fh)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2072,6 +2300,7 @@ def main() -> int:
 
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import backend
+    from repro_torch.launch import mesh
     from repro_torch.models import model as model_lib
     from repro_torch.serving import engine
 
@@ -2129,6 +2358,16 @@ def main() -> int:
         compaction = [check_compaction(torch, c[0], label)
                       for label, c in {**k4_cases, **k4_edge_cases}.items()]
         del k4_cases, k4_edge_cases
+        # K4 on serve_2x2's gather layouts: rank (0, 0)'s 16 experts over
+        # the world's gathered decode tokens (8 slots) and one gathered
+        # prefill pack
+        for label, Tg in (("decode_2x2", NUM_SLOTS),
+                          ("prefill_2x2", PACK * BUCKET)):
+            c = gather_k4_case(torch, params, ctx, Tg, gen, rank=0,
+                               ep_world=math.prod(WORLD_22))
+            k4[label] = check_k4(torch, *c, label)
+            compaction.append(check_compaction(torch, c[0], label))
+            del c
         hd = arch.head_dim_
         k5 = check_k5(torch, (PACK, BUCKET, arch.num_heads, hd), gen)
         # the training sequence length, for information (training attends
@@ -2166,9 +2405,26 @@ def main() -> int:
         if rcase["caps"][-1] != 0:
             raise SystemExit(f"the replanned layout has caps "
                              f"{rcase['caps']}, not an empty last stage")
-        k_replan = replan_layout_checks(torch, rcase, gen)
+        k_replan = layout_checks(torch, rcase, gen)
         layout_replan = (rcase["x"].shape[0], rcase["di"])
         del rcase
+        # K1-K3 at train_2x2x2's layout: rank (0, 0, 0), three stages
+        case3 = staged_case(torch, params, arch, gen,
+                            sizes=mesh.mesh_from_topology(SPEC_222),
+                            global_batch=TRAIN_BATCH_222)
+        if len(case3["caps"]) != 3 or min(case3["caps"]) <= 0:
+            raise SystemExit(f"the 2x2x2 layout has caps {case3['caps']}, "
+                             f"not three stages")
+        di3 = case3["di"]
+        label3 = f"2x2x2 S={di3.num_slots}"
+        k1[label3] = check_k1(torch, case3["x"], di3.slot_to_token)
+        k2[label3] = check_k2(torch, torch.randn(
+            (di3.num_slots, arch.d_model), generator=gen,
+            device="cuda").to(torch.bfloat16), di3)
+        k3_222 = check_k3(torch, case3)
+        k_222 = layout_checks(torch, case3, gen)
+        layout222 = (case3["x"].shape[0], di3)
+        del case3
         # K7 on the whole staged buffer too: its expert spans of 304 rows
         # cross 64-row tiles, which chunk 0's spans of 38 do not
         k7_full = check_k7(torch, case)
@@ -2197,9 +2453,12 @@ def main() -> int:
           "K5_S512": k5_512, "K5_edges": edges, "K1": k1,
           "K1_edges": k1_edges, "K2": k2, "K2_edges": k2_edges, "K3": k3,
           "K3_edges": k3e, "K1_K2_K3_replan_layout": k_replan,
+          "K3_2x2x2": k3_222, "K1_K2_K3_2x2x2_layout": k_222,
           "K7": k7, "K7_S4864": k7_full,
           "K6": k6, "K6_edges": k6_edges, "K8": k8, "K8_edges": k8_edges})
-    bwd = backward_checks(torch, gen, layout22, layout_replan)
+    bwd = backward_checks(torch, gen, {"2x2": layout22,
+                                       "replan": layout_replan,
+                                       "2x2x2": layout222})
     emit({"phase": "backward_checks", **bwd})
 
     # 4. serve
@@ -2254,17 +2513,57 @@ def main() -> int:
     with torch.no_grad():
         emit({"phase": "profile", **profile_steps(torch, params, ctx)})
     serve_launches = launches
-    del params, eng, report
+    # the one-rank plain runs (bf16 and float32) that serve_2x2's
+    # end-to-end check holds the world's kernel path to
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    prompt = torch.as_tensor(np.random.default_rng(8).integers(
+        0, arch.vocab_size, size=(E2E_ROWS, E2E_PROMPT)), dtype=torch.int32,
+        device="cuda")
+    with torch.no_grad():
+        ref = plain_runs(torch, params, ctx, prompt, kernel=False)
+    torch.save({"prompt": prompt.cpu(),
+                **{k: v.cpu() for k, v in ref.items()}},
+               os.path.join(tmp, "e2e_reference.pt"))
+    del params, eng, report, ref
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 5. serving on the 2x2 EP world: four ranks share the card over gloo
+    t0 = time.time()
+    mesh.spawn(serve_rank, WORLD_22, "gloo", "cuda", args=(tmp,))
+    srv = []
+    for r in range(math.prod(WORLD_22)):
+        with open(os.path.join(tmp, f"serve{r}.json")) as fh:
+            srv.append(json.load(fh))
+    n_layers = arch.num_layers
+    for r in srv:
+        if r["evicted"] or len(r["streams"]) != NUM_REQUESTS or any(
+                len(toks) != r["budgets"][uid]
+                or not all(0 <= t < arch.vocab_size for t in toks)
+                for uid, toks in r["streams"].items()):
+            raise SystemExit(f"serve_2x2 rank {r['rank']}: streams "
+                             f"incomplete or outside the vocabulary")
+        if r["streams"] != srv[0]["streams"]:
+            raise SystemExit(f"serve_2x2 rank {r['rank']}: its streams "
+                             f"differ from rank 0's")
+        want_s = {k: 0 for k in backend.LAUNCHES}
+        want_s["moe_fused.local_moe"] = n_layers * (r["prefill_packs"]
+                                                    + r["decode_steps"])
+        want_s["flash_attn.flash_attention"] = n_layers * r["prefill_packs"]
+        if r["launches"] != want_s:
+            raise SystemExit(f"serve_2x2 rank {r['rank']}: launches "
+                             f"{r['launches']}, the path needs {want_s}")
+    emit({"phase": "serve_2x2", "seconds": time.time() - t0,
+          "world": list(WORLD_22), "backend": "gloo",
+          "layers": n_layers, "ranks": srv})
+
     # 6. training, one rank, in a child process (it frees the card when it
-    # ends); the kernels were built above, so the child only loads them
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    # ends); the kernels were built above, so the child only loads them;
+    # after the run, the fused cross entropy on its state
     t0 = time.time()
     child = mp.get_context("spawn").Process(
         target=train_phase, args=(None, os.path.join(tmp, "rank0.json"),
-                                  TRAIN_BATCH_1))
+                                  TRAIN_BATCH_1), kwargs={"fused_xent": True})
     child.start()
     child.join()
     if child.exitcode != 0:
@@ -2272,7 +2571,6 @@ def main() -> int:
                          f"{child.exitcode})")
     with open(os.path.join(tmp, "rank0.json")) as fh:
         one = json.load(fh)
-    n_layers = arch.num_layers
     zero = {k: 0 for k in ("moe_permute.permute", "moe_permute.unpermute",
                            "moe_gemm.grouped_ffn_ragged")}
     off = {k: 0 for k in OFF_PATH}
@@ -2281,15 +2579,22 @@ def main() -> int:
                     **{"moe_fused.local_moe": n_layers * TRAIN_STEPS,
                        "moe_gemm.grouped_ffn_ragged_quant": 0}),
         "train_1rank")
+    xent = one["fused_xent"]
+    want_x = {k: 0 for k in backend.LAUNCHES}
+    want_x["moe_fused.local_moe"] = n_layers
+    if not xent["rel_diff"] <= LOSS_RTOL or xent["launches"] != want_x:
+        raise SystemExit(f"train_1rank fused_xent: loss {xent['fused']} "
+                         f"against {xent['default']} (relative "
+                         f"{xent['rel_diff']}, limit {LOSS_RTOL}); launches "
+                         f"{xent['launches']}, the step needs {want_x}")
     emit({"phase": "train_1rank", "seconds": time.time() - t0,
           "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_1,
           "steps": TRAIN_STEPS, **check1, **one})
 
     # 7. training, 2x2 EP world: four ranks share the card over gloo
-    from repro_torch.launch import mesh
     t0 = time.time()
     mesh.spawn(train_rank, WORLD_22, "gloo", "cuda",
-               args=(tmp, TRAIN_BATCH_22))
+               args=(tmp, TRAIN_BATCH_22, "a2a", "", TRAIN_STEPS, 0, True))
     ranks = []
     for r in range(math.prod(WORLD_22)):
         with open(os.path.join(tmp, f"rank{r}.json")) as fh:
@@ -2412,7 +2717,6 @@ def main() -> int:
     for r in range(math.prod(WORLD_22)):
         with open(os.path.join(tmp, f"replan{r}.json")) as fh:
             rep.append(json.load(fh))
-    shutil.rmtree(tmp, ignore_errors=True)
     per_step = {k: REPLAN_LAYERS * REPLAN_STEPS for k in zero}
     want_rp = dict({k: 0 for k in backend.LAUNCHES}, **per_step)
     for r in rep:
@@ -2452,20 +2756,93 @@ def main() -> int:
           "ranks": [{k: v for k, v in r.items() if k != "log"}
                     for r in rep]})
 
-    # 13. kernels: launches summed over every main path and rank
+    # 13. training on the paper's three-level topology: eight ranks
+    t0 = time.time()
+    d222 = os.path.join(tmp, "2x2x2")
+    os.makedirs(d222)
+    sizes222 = mesh.mesh_from_topology(SPEC_222)
+    mesh.spawn(train_rank, sizes222, "gloo", "cuda",
+               args=(d222, TRAIN_BATCH_222, "a2a", "", TRAIN_STEPS,
+                     TRAIN_222_LAYERS))
+    r222 = []
+    for r in range(math.prod(sizes222)):
+        with open(os.path.join(d222, f"rank{r}.json")) as fh:
+            r222.append(json.load(fh))
+    for r in r222:
+        if len(r["caps"]) != 3 or min(r["caps"]) <= 0 or any(
+                len(fb) != 3 for fb in r["frac_by_level"]):
+            raise SystemExit(f"train_2x2x2 rank {r['rank']}: caps "
+                             f"{r['caps']}, frac_by_level "
+                             f"{r['frac_by_level']}: not three levels")
+    check_3 = check_training(
+        r222, dict({k: TRAIN_222_LAYERS * TRAIN_STEPS for k in zero}, **off,
+                   **{"moe_fused.local_moe": 0,
+                      "moe_gemm.grouped_ffn_ragged_quant": 0}),
+        "train_2x2x2")
+    emit({"phase": "train_2x2x2", "seconds": time.time() - t0,
+          "topology": SPEC_222, "world": list(sizes222), "backend": "gloo",
+          "layers": TRAIN_222_LAYERS, "depth_cut": "12 -> 6: eight ranks "
+          "at 12 layers ran the card out of memory (9.15 GB a rank)",
+          "seq_len": TRAIN_SEQ,
+          "global_batch": TRAIN_BATCH_222, "steps": TRAIN_STEPS, **check_3,
+          "ranks": r222})
+
+    # 14. data parallelism beside expert parallelism: a (3, 2) world
+    t0 = time.time()
+    ddp = os.path.join(tmp, "dp")
+    os.makedirs(ddp)
+    mesh.spawn(train_rank, WORLD_DP, "gloo", "cuda",
+               args=(ddp, TRAIN_BATCH_DP, "a2a", "", TRAIN_STEPS, DP_LAYERS,
+                     False, True))
+    rdp = []
+    for r in range(math.prod(WORLD_DP)):
+        with open(os.path.join(ddp, f"rank{r}.json")) as fh:
+            rdp.append(json.load(fh))
+    shutil.rmtree(tmp, ignore_errors=True)
+    check_dp = check_training(
+        rdp, dict({k: DP_LAYERS * TRAIN_STEPS for k in zero}, **off,
+                  **{"moe_fused.local_moe": 0,
+                     "moe_gemm.grouped_ffn_ragged_quant": 0}),
+        "train_dp")
+    for r in rdp:
+        # pod 0's rank with this rank's data coordinate holds the same shard
+        twin = rdp[r["coords"][1]]
+        if r["experts_sha256"] != twin["experts_sha256"]:
+            raise SystemExit(f"train_dp rank {r['rank']}: its expert leaves "
+                             f"differ from their replica on rank "
+                             f"{twin['rank']}")
+    if rdp[0]["experts_sha256"] == rdp[1]["experts_sha256"]:
+        raise SystemExit("train_dp: ranks 0 and 1 hold the same expert "
+                         "leaves, not two shards")
+    emit({"phase": "train_dp", "seconds": time.time() - t0,
+          "world": list(WORLD_DP), "backend": "gloo",
+          "ep_ranks": WORLD_DP[1], "dp_replicas": WORLD_DP[0],
+          "layers": DP_LAYERS, "seq_len": TRAIN_SEQ,
+          "global_batch": TRAIN_BATCH_DP, "steps": TRAIN_STEPS, **check_dp,
+          "ranks": rdp})
+
+    # 15. kernels: launches summed over every main path and rank
     def total(name):
         return sum(sum(v) if isinstance(v, list) else v
                    for v in by_path(name).values())
 
     def by_path(name):
         return {"serve": serve_launches[name],
+                "serve_2x2": [r["launches"][name] for r in srv],
                 "train_1rank": one["launches"][name],
+                "train_1rank_fused_xent": xent["launches"][name],
                 "train_2x2": [r["launches"][name] for r in ranks],
                 "train_2x2_pipelined": [r["launches"][name] for r in pipe],
                 "train_einsum_k6": ein["launches"][name],
                 "train_1rank_accum_remat": acc["launches"][name],
                 "train_resilient": resil["launches"][name],
-                "train_2x2_replan": [r["launches"][name] for r in rep]}
+                "train_2x2_replan": [r["launches"][name] for r in rep],
+                "train_2x2x2": [r["launches"][name] for r in r222],
+                "train_dp": [r["launches"][name] for r in rdp]}
+
+    def bwd_err(kernel):
+        return max(v["max_abs_err"] for k, v in bwd.items()
+                   if k == kernel or k.startswith(kernel + "_"))
 
     def pair_row(k):
         """K1's or K2's times at the staged layout (S = 4864), and every
@@ -2489,8 +2866,7 @@ def main() -> int:
          "launches": total("moe_permute.permute"),
          "launches_by_path": by_path("moe_permute.permute"),
          "max_abs_err": 0.0,
-         "backward_max_abs_err": max(bwd["K1"]["max_abs_err"],
-                                     bwd["K1_2x2"]["max_abs_err"]),
+         "backward_max_abs_err": bwd_err("K1"),
          **pair_row(k1)},
         {"name": "moe_permute.unpermute", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_permute.cu",
@@ -2499,21 +2875,26 @@ def main() -> int:
          "launches_by_path": by_path("moe_permute.unpermute"),
          "max_abs_err": max(e["max_abs_err"]
                             for e in list(k2.values()) + k2_edges),
-         "backward_max_abs_err": max(bwd["K2"]["max_abs_err"],
-                                     bwd["K2_2x2"]["max_abs_err"]),
+         "backward_max_abs_err": bwd_err("K2"),
          **pair_row(k2)},
         {"name": "moe_gemm.grouped_ffn_ragged", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_gemm.cu",
          "replaces": "src/repro/kernels/moe_gemm/kernel.py:228",
          "launches": total("moe_gemm.grouped_ffn_ragged"),
          "launches_by_path": by_path("moe_gemm.grouped_ffn_ragged"),
-         "max_abs_err": max([k3["max_abs_err"]]
+         "max_abs_err": max([k3["max_abs_err"], k3_222["max_abs_err"],
+                             k_replan["K3_max_abs_err"],
+                             k_222["K3_max_abs_err"]]
                             + [e["max_abs_err"] for e in k3e]),
          "backward_max_abs_err": bwd["K3"]["max_abs_err"],
          **{n: k3[n] for n in ("ms", "device_ms", "kernel_device_ms",
                                "call_ms", "host_us", "plain_ms", "bound_ms",
                                "bound_by", "tiles")},
-         "library_ms": None},
+         "library_ms": None,
+         "layouts": {label: {n: r[n] for n in (
+             "ms", "device_ms", "kernel_device_ms", "call_ms", "host_us",
+             "plain_ms", "bound_ms", "bound_by", "tiles", "max_abs_err")}
+             for label, r in (("2x2", k3), ("2x2x2", k3_222))}},
         {"name": "moe_gemm.grouped_ffn_ragged_quant", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_gemm.cu",
          "replaces": "src/repro/kernels/moe_gemm/kernel.py:312",

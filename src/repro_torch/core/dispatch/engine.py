@@ -15,15 +15,20 @@ Registered paths:
                    into ``num_chunks`` chunks run through the 3-stage
                    schedule (``model.build_ctx`` picks the count with
                    ``core/comm_model.py``)
-    gather         weights-stationary path of prefill and decode (one rank)
+    gather         weights-stationary path of prefill and decode: the
+                   tokens all-gathered over the EP axes, the rank's
+                   experts run on all of them (one fused local_moe call,
+                   K4, when kernels are wanted), the partial outputs
+                   summed over the EP axes
     einsum         the GShard one-hot [T, N, C] baseline, shard-local: the
                    equivalence oracle of the tests
 
 An engine runs on one EP rank with its local expert shard; ``world``
-(``launch.mesh.EPWorld``, None for the unit world) gives the rank's
-coordinates and the collectives.  Eager PyTorch issues the collectives in
-program order, so the pipelined schedule does not overlap a chunk's
-exchange with another's compute yet.
+(``launch.mesh.EPWorld``, None for the unit world) gives the collectives,
+and the rank's coordinates on the EP axes (``ep.axis_names``, a suffix of
+the world's: the axes above it are data parallelism) place it.  Eager
+PyTorch issues the collectives in program order, so the pipelined
+schedule does not overlap a chunk's exchange with another's compute yet.
 """
 
 from __future__ import annotations
@@ -154,11 +159,14 @@ def make_engine(name: str, *, cfg: MoEConfig, ep: EPSpec,
 def _world(eng: DispatchEngine, device):
     if eng.world is not None:
         return eng.world
-    from repro_torch.launch.mesh import unit_world
+    from repro_torch.launch.mesh import EPWorld
     if eng.ep.ep_world != 1:
         raise ValueError(f"an EP spec over {eng.ep.ep_world} ranks needs the "
                          f"EP world (launch.mesh.make_hierarchical_mesh)")
-    return unit_world(device)
+    # one rank, on the EP spec's own (unit) axes
+    return EPWorld(axis_names=eng.ep.axis_names,
+                   axis_sizes=eng.ep.axis_sizes,
+                   coords=(0,) * eng.ep.num_stages, device=str(device))
 
 
 # ---------------------------------------------------------------------------
@@ -208,7 +216,8 @@ def _staged_a2a(params, x, eng: DispatchEngine, num_chunks: int):
     stages = transport.plan_stages(plan, ep)
     quant = cfg.wire_codec is not None and cfg.wire_codec.quantize_compute
 
-    routed = routing.route(params, x, cfg, ep, plan, gate_cfg, world.coords)
+    routed = routing.route(params, x, cfg, ep, plan, gate_cfg,
+                           world.coords_of(ep.axis_names))
     kept_unpadded = sum(sel.valid.sum() for _, sel in routed.sels)
     num_chunks = max(1, int(num_chunks))
     topk_idx = routed.gate_out["topk_idx"]
@@ -345,7 +354,12 @@ def _a2a_pipelined_path(params, x, eng: DispatchEngine):
 
 @register("gather")
 def _gather_path(params, x, eng: DispatchEngine):
-    """Weights stationary, tokens gathered.  x: [T, d].
+    """Weights stationary, tokens gathered.  x: [T_local, d].
+
+    Every EP rank gathers the tokens of the EP world (none when
+    ``tokens_replicated``: they are on every rank already), runs its
+    ``E_l`` experts on all of them, and the partial outputs are summed
+    over the EP axes before each rank keeps its own rows.
 
     Fused branch (kernels wanted): the dense [E_l, Tg] slot space maps
     token ``t`` through expert ``e`` at slot ``e * Tg + t``; one
@@ -357,10 +371,13 @@ def _gather_path(params, x, eng: DispatchEngine):
     """
     cfg, ep, gate_cfg = eng.cfg, eng.ep, eng.gate_cfg
     E_l = max(1, -(-cfg.num_experts // ep.ep_world))
-    tr = transport.GatherTransport(ep=ep,
+    world = _world(eng, x.device)
+    tr = transport.GatherTransport(ep=ep, world=world,
                                    tokens_replicated=eng.tokens_replicated)
-    coords = (0,) * ep.num_stages
+    coords = world.coords_of(ep.axis_names)
     my_rank = 0
+    for c, s in zip(coords, ep.axis_sizes):
+        my_rank = my_rank * s + c
 
     xg = tr.gather(x)
     levels = gating.expert_levels_nd(cfg.num_experts, E_l, ep.axis_sizes,

@@ -13,8 +13,14 @@
   move the payload and its ``[*sizes, E_l]`` f32 scales through the same
   chain, decode after the final transpose; its backward moves
   full-precision cotangents (straight-through).
-* :class:`GatherTransport` — the weights-stationary decode regime, on one
-  rank only in this port (gather, reduce and slice are identities).
+* :class:`GatherTransport` — the weights-stationary decode regime: the
+  tokens are all-gathered over the EP axes (one collective, in the
+  mixed-radix EP rank order), every rank runs its
+  expert shard on all of them, the partial outputs are summed over the
+  EP axes and each rank keeps its own rows.  Gather and sum are
+  ``torch.autograd.Function``\\ s: the gather's backward sums the
+  cotangents over the axis and keeps this rank's rows, the sum's
+  backward is the same sum.
 
 Buffer layout contract with the moe_permute dispatch: the payload arrives
 (stage, destination, expert, slot)-sorted, so each stage's delivered rows
@@ -250,27 +256,68 @@ class A2ATransport:
         return counts_chain(cnt, stage, self.world.all_to_all)
 
 
+class _AllGather(torch.autograd.Function):
+    """Tiled all-gather over ``axes``; backward: the sum of the cotangents
+    over the axes, this rank's rows of it."""
+
+    @staticmethod
+    def forward(ctx, x, world, axes):
+        ctx.world, ctx.axes, ctx.rows = world, axes, x.shape[0]
+        return world.all_gather(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = ctx.world.all_reduce_sum(g.contiguous(), ctx.axes)
+        i = 0
+        for c, a in zip(ctx.world.coords_of(ctx.axes), ctx.axes):
+            i = i * ctx.world.shape[a] + c
+        return g[i * ctx.rows:(i + 1) * ctx.rows], None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum over ``axes``; its own transpose."""
+
+    @staticmethod
+    def forward(ctx, y, world, axes):
+        ctx.world, ctx.axes = world, axes
+        return world.all_reduce_sum(y, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.world.all_reduce_sum(g.contiguous(), ctx.axes), None, None
+
+
 @dataclasses.dataclass(frozen=True)
 class GatherTransport:
-    """Weights-stationary transport: gather tokens, sum partial outputs."""
+    """Weights-stationary transport: gather tokens, sum partial outputs.
+    ``world`` is the ``launch.mesh.EPWorld`` of this rank (None: one
+    rank, where gather, sum and slice are identities)."""
 
     ep: EPSpec
-    tokens_replicated: bool = False
+    world: object = None
+    tokens_replicated: bool = False   # tokens already on every EP rank
 
-    def __post_init__(self):
-        if self.ep.ep_world != 1:
-            raise NotImplementedError(
-                f"the gather path over {self.ep.ep_world} ranks is not "
-                f"ported yet (it runs on one rank)")
+    def _spans_ranks(self) -> bool:
+        return self.world is not None and self.ep.ep_world > 1
 
     def gather(self, x):
-        """[T_local, d] -> [T_global, d]: the identity on one rank."""
-        return x
+        """[T_local, d] -> [T_global, d] on every EP rank, in one
+        all-gather over the EP axes: the global order is outermost-major
+        EP rank order, as the reference's innermost-first gathers give."""
+        if self.tokens_replicated or not self._spans_ranks():
+            return x
+        return _AllGather.apply(x, self.world, tuple(self.ep.axis_names))
 
     def reduce(self, y):
-        """Sum of the ranks' partial expert outputs: the identity."""
-        return y
+        """Sum of the EP ranks' partial expert outputs (one all-reduce
+        over the EP axes)."""
+        if not self._spans_ranks():
+            return y
+        return _AllReduce.apply(y, self.world, tuple(self.ep.axis_names))
 
     def slice_local(self, y, my_rank: int, T: int):
-        """[T_global, d] -> this rank's [T_local, d] slice."""
-        return y
+        """[T_global, d] -> this rank's [T_local, d] rows (all of them when
+        the tokens were replicated)."""
+        if self.tokens_replicated or not self._spans_ranks():
+            return y
+        return y[my_rank * T:(my_rank + 1) * T]

@@ -3,10 +3,13 @@
 of ``torch.distributed`` processes, one EP rank each.
 
 Rank ``r`` has coordinates in row-major order over the outermost-first
-axes (``capacity.default_axis_names``: ``("pod", "data")`` for two axes),
-which is the device order of the reference's ``make_mesh((2, 2), ("pod",
-"data"))``: rank ``r`` holds the batch rows that ``P(("pod", "data"))``
-gives that device and the experts ``r * E_l : (r + 1) * E_l``.
+axes (``capacity.default_axis_names``: ``("pod", "data")`` for two axes,
+``("pod", "node", "data")`` for three), which is the device order of the
+reference's ``make_mesh((2, 2), ("pod", "data"))``: rank ``r`` holds the
+batch rows that ``P(("pod", "data"))`` gives that device.  The experts
+span a suffix of the axes (``models.model.make_ep_spec``); a rank holds
+the expert shard of its coordinates on those axes, and the axes above
+them are pure data parallelism.
 
 The caller names the collective backend: ``"gloo"`` for ranks on the CPU
 or sharing one card, ``"nccl"`` for one card a rank.  Nothing switches
@@ -26,13 +29,16 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.capacity import default_axis_names
+from repro_torch.core.topology import axis_sizes_from_spec
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class EPWorld:
     """This rank's view of the EP world: the axes (outermost first), their
-    sizes, this rank's coordinates, and one process group per axis of
-    size > 1 (the ranks that differ from this one only on that axis).
+    sizes, this rank's coordinates, and its process groups: one per axis
+    of size > 1 (keyed by the axis name: the ranks that differ from this
+    one only on that axis) and one per set of two or more such axes short
+    of the whole world (keyed by the tuple of names, outermost first).
     ``backend`` is None for the unit world, which needs no process
     group."""
 
@@ -57,6 +63,27 @@ class EPWorld:
     @property
     def shape(self) -> dict:
         return dict(zip(self.axis_names, self.axis_sizes))
+
+    def coords_of(self, axes) -> tuple:
+        """This rank's coordinates on ``axes`` (names, outermost first)."""
+        at = dict(zip(self.axis_names, self.coords))
+        return tuple(at[a] for a in axes)
+
+    def _live(self, axes) -> tuple:
+        """The axes of ``axes`` (None: all) with more than one rank, in
+        the world's order."""
+        names = self.axis_names if axes is None else tuple(axes)
+        return tuple(a for a in self.axis_names
+                     if a in names and self.shape[a] > 1)
+
+    def _group(self, live: tuple):
+        """The process group over the axes ``live`` (``_live``'s result):
+        None (the default group) when they are every axis of size > 1.
+        A group's members, in group rank order, run in mixed-radix order
+        over ``live`` (``make_hierarchical_mesh`` lists them so)."""
+        if live == self._live(None):
+            return None
+        return self.groups[live[0] if len(live) == 1 else live]
 
     def _staged(self, t: torch.Tensor) -> bool:
         return self.backend == "gloo" and t.device.type != "cpu"
@@ -92,13 +119,40 @@ class EPWorld:
             out = out.to(x.device)
         return out.view(x.dtype).movedim(0, dim)
 
-    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum of ``t`` over every rank of the world (a new tensor)."""
-        if self.size == 1:
+    def all_gather(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """JAX's tiled ``all_gather(axis=0, tiled=True)`` over ``axes`` (a
+        name or a tuple of names) in one collective: the members' ``x``
+        concatenated on dim 0 in their mixed-radix order over ``axes``,
+        outermost first, which is the order of gathering the innermost
+        axis first."""
+        live = self._live((axes,) if isinstance(axes, str) else axes)
+        if not live:
+            return x
+        n = math.prod(self.shape[a] for a in live)
+        src = x.detach().contiguous()
+        if src.dtype.is_floating_point and src.dtype.itemsize == 1:
+            src = src.view(torch.uint8)      # gloo has no float8 types
+        staged = self._staged(src)
+        if staged:
+            src = self._to_host(src)
+        parts = [torch.empty(src.shape, dtype=src.dtype, pin_memory=staged)
+                 for _ in range(n)]
+        dist.all_gather(parts, src, group=self._group(live))
+        out = torch.cat(parts, dim=0)
+        if staged:
+            out = out.to(x.device)
+        return out.view(x.dtype)
+
+    def all_reduce_sum(self, t: torch.Tensor, axes=None) -> torch.Tensor:
+        """Sum of ``t`` over the ranks that differ from this one only on
+        ``axes`` (names; None: every rank of the world).  A new tensor,
+        except where ``axes`` spans one rank, which returns ``t``."""
+        live = self._live(axes)
+        if not live:
             return t
         buf = (self._to_host(t.detach()) if self._staged(t)
                else t.detach().clone())
-        dist.all_reduce(buf)
+        dist.all_reduce(buf, group=self._group(live))
         return buf.to(t.device)
 
     def mean(self, metrics: dict) -> dict:
@@ -113,6 +167,14 @@ class EPWorld:
         return out
 
 
+def gather_rows(world, t: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``t`` concatenated on dim 0 in world rank order (one
+    all-gather over every axis); ``t`` itself without a world."""
+    if world is None:
+        return t
+    return world.all_gather(t, world.axis_names)
+
+
 def unit_world(device="cuda") -> EPWorld:
     """One rank, one ``data`` axis of size 1: no collective is ever run."""
     return EPWorld(axis_names=("data",), axis_sizes=(1,), coords=(0,),
@@ -123,8 +185,9 @@ def make_hierarchical_mesh(axis_sizes, *, backend: str,
                            device="cuda") -> EPWorld:
     """The EP world over the default process group, which the caller has
     initialized (``dist.init_process_group``) with ``prod(axis_sizes)``
-    ranks.  Every rank builds every per-axis group, in the same order, as
-    ``dist.new_group`` requires."""
+    ranks.  Every rank builds every group (each axis, then each set of two
+    or more axes short of the world, smaller sets first), in the same
+    order, as ``dist.new_group`` requires."""
     sizes = tuple(int(s) for s in axis_sizes)
     names = default_axis_names(len(sizes))
     if not dist.is_initialized():
@@ -140,20 +203,35 @@ def make_hierarchical_mesh(axis_sizes, *, backend: str,
         r //= s
     coords = tuple(reversed(coords))
     groups = {}
-    for i, name in enumerate(names):
-        if sizes[i] == 1:
-            continue
-        others = [range(s) for j, s in enumerate(sizes) if j != i]
-        for rest in itertools.product(*others):
-            members = []
-            for c in range(sizes[i]):
-                full = list(rest[:i]) + [c] + list(rest[i:])
-                members.append(_rank_of(full, sizes))
-            group = dist.new_group(ranks=members)
-            if rank in members:
-                groups[name] = group
+    live = [i for i, s in enumerate(sizes) if s > 1]
+    for k in range(1, max(2, len(live))):
+        for span in itertools.combinations(live, k):
+            key = names[span[0]] if k == 1 else tuple(names[i] for i in span)
+            fixed = [i for i in range(len(sizes)) if i not in span]
+            for rest in itertools.product(*(range(sizes[i]) for i in fixed)):
+                members = []
+                for inner in itertools.product(*(range(sizes[i])
+                                                 for i in span)):
+                    full = [0] * len(sizes)
+                    for i, c in zip(fixed, rest):
+                        full[i] = c
+                    for i, c in zip(span, inner):
+                        full[i] = c
+                    members.append(_rank_of(full, sizes))
+                group = dist.new_group(ranks=members)
+                if rank in members:
+                    groups[key] = group
     return EPWorld(axis_names=names, axis_sizes=sizes, coords=coords,
                    backend=backend, device=str(device), groups=groups)
+
+
+def mesh_from_topology(spec) -> tuple:
+    """The world's axis sizes (outermost first) for a paper-notation
+    nested topology spec (Fig. 2), the counterpart of the reference's
+    ``mesh_from_topology``: ``[[2, 2], [2, 2]]`` -> ``(2, 2, 2)``, axes
+    ``("pod", "node", "data")``; asymmetric specs are merged first (paper
+    §4.2).  ``spawn`` and ``make_hierarchical_mesh`` take the sizes."""
+    return axis_sizes_from_spec(spec)
 
 
 def _rank_of(coords, sizes) -> int:

@@ -1,23 +1,88 @@
-"""Serving launcher: batched prefill + decode on one device (the
-counterpart of ``repro/launch/serve.py``, same flags plus ``--device``).
+"""Serving launcher: batched prefill + decode (the counterpart of
+``repro/launch/serve.py``, same flags plus ``--device``).
+
+One rank on the card:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt3_medium_moe \
         --batch 8 --prompt-len 64 --steps 32 --cache-len 128 --streams 8
 
-``--devices`` and ``--mesh-shape`` accept only one device (``1`` and
-``1,1``) in this slice.
+An expert-parallel world of four ranks over gloo (sharing the card, or
+on the CPU with ``--device cpu``), the batch sharded over the ranks and
+every MoE layer through the gather path:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt3_medium_moe \
+        --reduced --device cpu --devices 4 --mesh-shape 4,1 --streams 4
+
+``--mesh-shape`` is the reference's ``data,model``; the model axis must
+be 1 (the port has no tensor parallelism).  The world has ``data`` ranks,
+and ``--devices`` (0: ``data``) must name that many.
 """
 
 import argparse
 import sys
 
 
+def _run(world, args):
+    """Serve on this rank (``world`` None: one rank); rank 0 prints."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving import engine
+    from repro_torch.serving.scheduler import Request
+
+    arch = get_config(args.arch)
+    if args.reduced:
+        arch = arch.reduced()
+    device = args.device if world is None else world.device
+    ctx = model_lib.build_ctx(arch, world, seq_len=args.cache_len,
+                              global_batch=args.batch, aux_mode="none",
+                              device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = model_lib.init_params(ctx, gen)
+    report = world is None or world.rank == 0
+    if args.streams:
+        rng = np.random.default_rng(1)
+        reqs = [Request(uid=i,
+                        tokens=rng.integers(0, arch.vocab_size,
+                                            size=args.prompt_len).tolist(),
+                        max_new_tokens=args.steps,
+                        temperature=args.temperature)
+                for i in range(args.streams)]
+        cfg = engine.ServeConfig(num_slots=args.batch,
+                                 cache_len=args.cache_len,
+                                 prefill_pack=min(args.batch, 4),
+                                 prompt_buckets=(args.prompt_len,))
+        rep = engine.ServingEngine(params, ctx, cfg).run(reqs)
+        if report:
+            print(f"served {len(rep.streams)} streams at "
+                  f"{rep.tokens_per_sec:.2f} tok/s aggregate "
+                  f"({rep.decode_steps} decode steps, "
+                  f"{rep.prefill_calls} prefill packs)", flush=True)
+        return
+    rng = np.random.default_rng(1)
+    prompts = torch.as_tensor(
+        rng.integers(0, arch.vocab_size, size=(args.batch, args.prompt_len)),
+        dtype=torch.int32, device=device)
+    res = engine.generate(params, ctx, prompts, steps=args.steps,
+                          cache_len=args.cache_len,
+                          temperature=args.temperature)
+    if report:
+        print(f"generated {tuple(res.tokens.shape)} tokens at "
+              f"{res.steps_per_sec:.2f} decode steps/s")
+        print("sample:", res.tokens[0][:16].tolist(), flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--devices", type=int, default=0)
-    ap.add_argument("--mesh-shape", default="1,1")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="ranks of the world (one process each, joined "
+                         "over gloo); 0: the data axis of --mesh-shape")
+    ap.add_argument("--mesh-shape", default="1,1",
+                    help="data,model; model must be 1")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--steps", type=int, default=16)
@@ -33,54 +98,20 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dims = tuple(int(x) for x in args.mesh_shape.split(","))
-    if args.devices not in (0, 1) or any(d != 1 for d in dims):
-        ap.error("this port runs on one device: --devices 1 and "
-                 "--mesh-shape 1,1 only")
-
-    import numpy as np
-    import torch
-
-    from repro_torch.configs.base import get_config
-    from repro_torch.models import model as model_lib
-    from repro_torch.serving import engine
-    from repro_torch.serving.scheduler import Request
-
-    arch = get_config(args.arch)
-    if args.reduced:
-        arch = arch.reduced()
-    ctx = model_lib.build_ctx(arch, None, seq_len=args.cache_len,
-                              global_batch=args.batch, aux_mode="none",
-                              device=args.device)
-    gen = torch.Generator(device=args.device).manual_seed(0)
-    params = model_lib.init_params(ctx, gen)
-    if args.streams:
-        rng = np.random.default_rng(1)
-        reqs = [Request(uid=i,
-                        tokens=rng.integers(0, arch.vocab_size,
-                                            size=args.prompt_len).tolist(),
-                        max_new_tokens=args.steps,
-                        temperature=args.temperature)
-                for i in range(args.streams)]
-        cfg = engine.ServeConfig(num_slots=args.batch,
-                                 cache_len=args.cache_len,
-                                 prefill_pack=min(args.batch, 4),
-                                 prompt_buckets=(args.prompt_len,))
-        report = engine.ServingEngine(params, ctx, cfg).run(reqs)
-        print(f"served {len(report.streams)} streams at "
-              f"{report.tokens_per_sec:.2f} tok/s aggregate "
-              f"({report.decode_steps} decode steps, "
-              f"{report.prefill_calls} prefill packs)")
+    if len(dims) != 2:
+        ap.error(f"--mesh-shape {args.mesh_shape}: two axes, data,model")
+    data, model = dims
+    if model != 1:
+        ap.error(f"--mesh-shape {args.mesh_shape}: model axis {model}; the "
+                 f"port has no tensor parallelism, the model axis must be 1")
+    if args.devices not in (0, data):
+        ap.error(f"--mesh-shape {args.mesh_shape} has {data} ranks, "
+                 f"--devices gives {args.devices}")
+    if data == 1:
+        _run(None, args)
         return 0
-    rng = np.random.default_rng(1)
-    prompts = torch.as_tensor(
-        rng.integers(0, arch.vocab_size, size=(args.batch, args.prompt_len)),
-        dtype=torch.int32, device=args.device)
-    res = engine.generate(params, ctx, prompts, steps=args.steps,
-                          cache_len=args.cache_len,
-                          temperature=args.temperature)
-    print(f"generated {tuple(res.tokens.shape)} tokens at "
-          f"{res.steps_per_sec:.2f} decode steps/s")
-    print("sample:", res.tokens[0][:16].tolist())
+    from repro_torch.launch import mesh
+    mesh.spawn(_run, (data,), "gloo", args.device, args=(args,))
     return 0
 
 

@@ -95,9 +95,9 @@ def main(argv=None):
         ap.error("--production / --multi-pod name the reference's TPU "
                  "meshes; this port runs an EP world given by --devices "
                  "and --mesh-shape or --topology")
+    from repro_torch.launch import mesh
     if args.topology:
-        from repro_torch.core.topology import axis_sizes_from_spec
-        sizes = axis_sizes_from_spec(ast.literal_eval(args.topology))
+        sizes = mesh.mesh_from_topology(ast.literal_eval(args.topology))
     else:
         dims = tuple(int(x) for x in args.mesh_shape.split(","))
         if len(dims) not in (2, 3, 4) or dims[-1] != 1:
@@ -112,7 +112,6 @@ def main(argv=None):
     if n == 1:
         _run(None, args, sizes)
         return 0
-    from repro_torch.launch import mesh
     mesh.spawn(_run, sizes, "gloo", args.device, args=(args, sizes))
     return 0
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.launch.mesh import gather_rows
 from repro_torch.models import layers
 from repro_torch.models.transformer import (ModelCtx, SubLayer, _moe_block,
                                             layer_list)
@@ -51,15 +52,34 @@ def _slot_rows(slots, num_rows: int, device):
 
 def cache_insert_slots(dst, src, slots):
     """Write ``src`` (leading batch P) into ``dst`` (leading batch N) at
-    ``slots`` [P], in place; slot ids >= N are dropped."""
+    ``slots`` [P], in place; slot ids >= N are dropped.  A source shorter
+    than ``dst`` on the position axis fills the first positions of each
+    slot and zeroes the rest."""
     n = dst[0]["mixer"]["pos"].shape[0]
     dev = dst[0]["mixer"]["pos"].device
     rows, keep = _slot_rows(slots, n, dev)
     for d_layer, s_layer in zip(dst, src):
         for name, leaf in d_layer["mixer"].items():
-            leaf[rows] = s_layer["mixer"][name].index_select(0, keep).to(
-                leaf.dtype)
+            val = s_layer["mixer"][name].index_select(0, keep).to(leaf.dtype)
+            if val.dim() > 1 and val.shape[1] < leaf.shape[1]:
+                leaf[rows] = 0
+                leaf[rows, :val.shape[1]] = val
+            else:
+                leaf[rows] = val
     return dst
+
+
+def gather_cache_rows(world, cache, length: int):
+    """A pack cache's rows from every rank of ``world`` (world rank
+    order), its positions ``[0, length)`` only: the source for
+    :func:`cache_insert_slots` on each rank.  ``cache`` itself without a
+    world of more than one rank."""
+    if world is None or world.size == 1:
+        return cache
+    return [{"mixer": {name: gather_rows(world, leaf if leaf.dim() == 1
+                                         else leaf[:, :length])
+                       for name, leaf in layer["mixer"].items()}}
+            for layer in cache]
 
 
 def cache_evict_slots(cache, slots):

@@ -54,7 +54,7 @@ class ModelCtx:
     # tensors, plain versions on the CPU); True/False force it
     use_pallas: bool | None = None
     wire_codec: object = None
-    fused_xent: bool = False          # vocab-sharded xent: not ported yet
+    fused_xent: bool = False          # loss through _fused_xent
     device: str = "cuda"
 
     @property
@@ -265,17 +265,36 @@ def forward(params, batch, ctx: ModelCtx):
     return layers.unembed_apply(params["embed"], x), aux
 
 
+def _fused_xent(params, x, labels):
+    """Per-token NLL [B, S] from logits in the model dtype (``x @
+    table.T``, one bf16 GEMM where the default path casts both operands
+    to float32): the max (no gradient), the log-sum-exp and the label's
+    logit by an ``arange == label`` mask, as the reference's vocab-sharded
+    ``_fused_xent`` computes them (plain PyTorch: the reference's is no
+    Pallas kernel)."""
+    table = params["embed"]["table"]                         # [V, d]
+    logits = x @ table.T.to(x.dtype)                          # [B, S, V]
+    lf = logits.to(torch.float32)
+    m = lf.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
+    onehot = (torch.arange(lf.shape[-1], device=lf.device)
+              == labels.long()[..., None])
+    label_logit = torch.sum(torch.where(onehot, lf, 0.0), dim=-1)
+    return lse - label_logit
+
+
 def loss_fn(params, batch, ctx: ModelCtx, aux_weight: float = 1.0):
     """Masked mean next-token NLL over this rank's batch + ``aux_weight``
-    times the aux loss.  Returns ``(total, metrics)``."""
-    if ctx.fused_xent:
-        raise NotImplementedError("fused_xent (the vocab-sharded cross "
-                                  "entropy) is not ported yet")
+    times the aux loss (the NLL through :func:`_fused_xent` when
+    ``ctx.fused_xent``).  Returns ``(total, metrics)``."""
     labels = batch["labels"]
     x, aux, frac, drop = forward_features(params, batch, ctx)
-    logits = layers.unembed_apply(params["embed"], x)
-    logp = F.log_softmax(logits.to(torch.float32), dim=-1)
-    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    if ctx.fused_xent:
+        nll = _fused_xent(params, x, labels)
+    else:
+        logits = layers.unembed_apply(params["embed"], x)
+        logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+        nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,

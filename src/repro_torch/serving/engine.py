@@ -14,6 +14,16 @@ PyTorch runs eagerly, so there is no jit counterpart.  Sampling is
 greedy (``argmax``) at temperature 0 and categorical otherwise, drawn
 from a ``torch.Generator`` seeded per run (other numbers than the
 reference's PRNG key gives).
+
+On an EP world (``ctx.mesh`` of ``n`` ranks) the batch is sharded over
+the world, as the reference's ``x_spec`` shards it over the hierarchy
+axes: each rank holds ``num_slots / n`` decode slots (rank ``r`` the
+slots ``r * num_slots / n`` on) and prefills ``prefill_pack / n`` rows of
+each pack; its MoE layers reach the other ranks' experts through the
+gather path.  The last-position logits are all-gathered over the world
+and every rank samples the whole batch with the same generator, so
+every rank's scheduler takes the same decisions.  A prefilled pack's
+cache rows are all-gathered too, and each rank keeps those of its slots.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import gather_rows
 from repro_torch.models import decode as decode_lib
 from repro_torch.models import transformer
 from repro_torch.serving import batching
@@ -119,29 +130,46 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _batch_shard(ctx: transformer.ModelCtx, **counts) -> tuple:
+    """``(rank, ranks)`` of the world the batch is sharded over (``(0,
+    1)`` without one); ValueError naming each count in ``counts`` that
+    does not divide over the ranks."""
+    world = ctx.mesh
+    if world is None or world.size == 1:
+        return 0, 1
+    for name, n in counts.items():
+        if n % world.size:
+            raise ValueError(f"{name} {n} does not divide over the world's "
+                             f"{world.size} ranks")
+    return world.rank, world.size
+
+
 def generate(params, ctx: transformer.ModelCtx, prompt_tokens, *,
              steps: int, cache_len: int, temperature: float = 0.0,
              seed: int = 0, lens=None) -> GenerationResult:
     """Greedy/temperature generation: one fused prefill, then ``steps - 1``
-    decode steps; ``steps_per_sec`` counts generated tokens only."""
+    decode steps; ``steps_per_sec`` counts generated tokens only.  On a
+    world every rank passes the whole batch, computes its rows and
+    returns the whole batch's tokens."""
     B, S = prompt_tokens.shape
     dev = prompt_tokens.device
+    rank, n = _batch_shard(ctx, batch=B)
+    rows = slice(rank * B // n, (rank + 1) * B // n)
     prefill_fn = make_prefill(ctx, with_cache=True, cache_len=cache_len)
     step_fn = make_decode_step(ctx)
     temps = torch.full((B,), temperature, dtype=torch.float32, device=dev)
-    batch = {"tokens": prompt_tokens,
-             "lens": (torch.as_tensor(lens, device=dev).to(torch.int32)
-                      if lens is not None
-                      else torch.full((B,), S, dtype=torch.int32,
-                                      device=dev))}
+    lens = (torch.as_tensor(lens, device=dev).to(torch.int32)
+            if lens is not None
+            else torch.full((B,), S, dtype=torch.int32, device=dev))
+    batch = {"tokens": prompt_tokens[rows], "lens": lens[rows]}
     gen = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.time()
     logits, cache = prefill_fn(params, batch)
-    tok = sample(logits, temps, gen)[:, None]
+    tok = sample(gather_rows(ctx.mesh, logits), temps, gen)[:, None]
     out = [tok]
     for _ in range(steps - 1):
-        logits, cache = step_fn(params, cache, tok)
-        tok = sample(logits[:, 0], temps, gen)[:, None]
+        logits, cache = step_fn(params, cache, tok[rows])
+        tok = sample(gather_rows(ctx.mesh, logits[:, 0]), temps, gen)[:, None]
         out.append(tok)
     tokens = torch.cat(out, dim=1)
     _sync(dev)
@@ -192,7 +220,8 @@ class ServingEngine:
     """Slot-based continuous batching over the MoE decode path.  Per loop
     iteration: (1) admit pending requests into free slots and prefill them
     as one pack, (2) advance every slot one decode step, (3) complete
-    streams that hit their budget, freeing their slots."""
+    streams that hit their budget, freeing their slots.  On a world,
+    ``num_slots`` and ``prefill_pack`` must divide over its ranks."""
 
     def __init__(self, params, ctx: transformer.ModelCtx, cfg: ServeConfig):
         self.params = params
@@ -200,6 +229,12 @@ class ServingEngine:
         self.cfg = cfg
         if max(cfg.prompt_buckets) > cfg.cache_len:
             raise ValueError("prompt bucket exceeds cache_len")
+        rank, n = _batch_shard(ctx, num_slots=cfg.num_slots,
+                               prefill_pack=cfg.prefill_pack)
+        self._slots = cfg.num_slots // n          # this rank's slots
+        self._first_slot = rank * self._slots
+        self._pack_rows = slice(rank * cfg.prefill_pack // n,
+                                (rank + 1) * cfg.prefill_pack // n)
         self.device = torch.device(self.ctx.device)
         self._prefill = make_prefill(self.ctx, with_cache=True,
                                      cache_len=cfg.cache_len)
@@ -223,26 +258,50 @@ class ServingEngine:
                                          cfg.prefill_pack,
                                          cfg.prompt_buckets,
                                          device=self.device)
-        logits, pack_cache = self._prefill(self.params,
-                                           {"tokens": tokens, "lens": lens})
+        rows = self._pack_rows
+        logits, pack_cache = self._prefill(
+            self.params, {"tokens": tokens[rows], "lens": lens[rows]})
+        logits = gather_rows(self.ctx.mesh, logits)
+        pack_cache = decode_lib.gather_cache_rows(self.ctx.mesh, pack_cache,
+                                                  tokens.shape[1])
+        # this rank's slot ids; the other ranks' slots and the padded pack
+        # rows (slot id num_slots) map past the local cache and are dropped,
+        # as the reference's out-of-bounds scatter drops them
         slots = np.full((cfg.prefill_pack,), cfg.num_slots, np.int64)
         slots[:len(admits)] = [s for s, _ in admits]
-        kv.insert(pack_cache, slots)
+        local = slots - self._first_slot
+        local[(local < 0) | (local >= self._slots)] = self._slots
+        kv.insert(pack_cache, local)
         pack_temps = np.zeros((cfg.prefill_pack,), np.float32)
         for i, (s, req) in enumerate(admits):
             temps[s] = req.temperature
             pack_temps[i] = req.temperature
         first = sample(logits, torch.as_tensor(pack_temps,
                                                device=self.device), gen)
-        # padded pack rows (slot id num_slots) are dropped, as the
-        # reference's out-of-bounds scatter drops them
-        n = len(admits)
-        cur[torch.as_tensor(slots[:n], device=self.device), 0] = first[:n]
+        mine = np.nonzero(local < self._slots)[0]
+        if len(mine):
+            cur[torch.as_tensor(local[mine], device=self.device), 0] = \
+                first[torch.as_tensor(mine, device=self.device)]
         first_host = first.cpu().numpy()
         for i, (s, _) in enumerate(admits):
             if sched.on_token(s, int(first_host[i])):
                 sched.complete(s, now=time.time())
         return 1
+
+    def _expired(self, sched, now: float) -> list:
+        """The scheduler's overdue slots; on a world, a slot is overdue
+        where any rank's clock finds it so (one all-reduce, only while a
+        stream has a deadline), so every rank evicts the same streams."""
+        overdue = sched.expired(now)
+        world = self.ctx.mesh
+        if world is None or world.size == 1 or not any(
+                sched.stream(s).request.deadline_s is not None
+                for s in sched.active_slots()):
+            return overdue
+        mask = torch.zeros((self.cfg.num_slots,), dtype=torch.float32)
+        mask[overdue] = 1.0
+        mask = world.all_reduce_sum(mask.to(self.device))
+        return [int(s) for s in torch.nonzero(mask > 0).flatten().tolist()]
 
     @torch.no_grad()
     def run(self, requests, *, seed: int = 0) -> ServingReport:
@@ -251,8 +310,8 @@ class ServingEngine:
         sched = Scheduler(cfg.num_slots)
         for req in requests:
             sched.submit(req)
-        kv = batching.SlotKVCache(self.ctx, cfg.num_slots, cfg.cache_len)
-        cur = torch.zeros((cfg.num_slots, 1), dtype=torch.int32,
+        kv = batching.SlotKVCache(self.ctx, self._slots, cfg.cache_len)
+        cur = torch.zeros((self._slots, 1), dtype=torch.int32,
                           device=self.device)
         temps = np.zeros((cfg.num_slots,), np.float32)
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -262,19 +321,20 @@ class ServingEngine:
             prefill_calls += self._admit(sched, kv, cur, temps, gen,
                                          now=time.time())
             now = time.time()
-            overdue = sched.expired(now)
+            overdue = self._expired(sched, now)
             if overdue:
-                kv.evict(overdue)
+                kv.evict([s - self._first_slot for s in overdue
+                          if 0 <= s - self._first_slot < self._slots])
                 for slot in overdue:
                     sched.evict(slot, now=now)
                 evictions += len(overdue)
             if not sched.num_active:
                 continue        # everything admitted finished at 1 token
             logits, kv.cache = self._decode(self.params, kv.cache, cur)
-            nxt = sample(logits[:, 0], torch.as_tensor(temps,
-                                                       device=self.device),
-                         gen)
-            cur = nxt[:, None].contiguous()
+            nxt = sample(gather_rows(self.ctx.mesh, logits[:, 0]),
+                         torch.as_tensor(temps, device=self.device), gen)
+            cur = nxt[self._first_slot:self._first_slot + self._slots,
+                      None].contiguous()
             decode_steps += 1
             nxt_host = nxt.cpu().numpy()
             for slot in sched.active_slots():

@@ -6,11 +6,15 @@ checkpoints, rollback and the degraded-link replan (the counterpart of
 On an EP world of ``n`` ranks every rank runs the model on its batch shard
 with its expert shard and backpropagates its local loss divided by ``n``;
 the all-to-all backwards carry each token's gradient back to the rank it
-came from, so every expert shard's gradient is complete on its own rank.
-Replicated parameters' gradients are summed over the ranks (one
-all-reduce).  The clip norm counts every replicated parameter once and
-every expert shard once, which is the reference's ``global_norm`` over
-the global tree.  Logged metrics are world means.
+came from, so every expert shard's gradient holds its EP group's tokens.
+The experts span a suffix of the world's axes (``model.make_ep_spec``);
+the axes above it are data parallelism, whose replicas hold the same
+shard.  Replicated parameters' gradients are summed over the world, the
+expert shards' over the data-parallel axes (one all-reduce each).  The
+clip norm counts every replicated parameter once and every expert shard
+once (summed over the EP axes, not over the replicas), which is the
+reference's ``global_norm`` over the global tree.  Logged metrics are
+world means.
 
 ``RunConfig.microbatch`` ``m < global_batch`` accumulates float32
 gradients over ``global_batch / m`` microbatches and divides by their
@@ -60,7 +64,8 @@ def expert_mask(params, ctx: transformer.ModelCtx) -> list:
 def sync_grads(params, ctx: transformer.ModelCtx, grads: list | None = None
                ) -> tuple:
     """This rank's gradient tree after the world sum of the replicated
-    leaves, and the global gradient norm.  ``grads`` (``tree_leaves``
+    leaves and the data-parallel sum of the expert leaves, and the global
+    gradient norm.  ``grads`` (``tree_leaves``
     order) defaults to the parameters' ``.grad``.  On one rank: the
     gradients and their norm."""
     world = ctx.mesh
@@ -72,20 +77,28 @@ def sync_grads(params, ctx: transformer.ModelCtx, grads: list | None = None
     if world is None or world.size == 1:
         return _unflatten(params, grads), adamw.global_norm(grads)
     expert = expert_mask(params, ctx)
-    rep = [i for i, e in enumerate(expert) if not e]
-    flat = world.all_reduce_sum(
-        torch.cat([grads[i].to(torch.float32).reshape(-1) for i in rep]))
-    off = 0
-    for i in rep:
-        n = grads[i].numel()
-        grads[i] = flat[off:off + n].reshape(grads[i].shape).to(
-            grads[i].dtype)
-        off += n
+    ep_axes = ctx.ep.axis_names if ctx.ep is not None else ()
+    dp_axes = tuple(a for a in world.axis_names
+                    if a not in ep_axes and world.shape[a] > 1)
+    for axes, want in ((None, False), (dp_axes, True)):
+        idx = [i for i, e in enumerate(expert) if e == want]
+        if not idx or axes == ():
+            continue
+        flat = world.all_reduce_sum(
+            torch.cat([grads[i].to(torch.float32).reshape(-1) for i in idx]),
+            axes)
+        off = 0
+        for i in idx:
+            n = grads[i].numel()
+            grads[i] = flat[off:off + n].reshape(grads[i].shape).to(
+                grads[i].dtype)
+            off += n
     sq = [torch.sum(torch.square(g.to(torch.float32))) for g in grads]
-    sq_rep = sum(s for s, e in zip(sq, expert) if not e)
-    sq_exp = world.all_reduce_sum(
-        sum(s for s, e in zip(sq, expert) if e).reshape(1))[0]
-    return _unflatten(params, grads), torch.sqrt(sq_rep + sq_exp)
+    norm_sq = sum(s for s, e in zip(sq, expert) if not e)
+    if any(expert):
+        norm_sq = norm_sq + world.all_reduce_sum(
+            sum(s for s, e in zip(sq, expert) if e).reshape(1), ep_axes)[0]
+    return _unflatten(params, grads), torch.sqrt(norm_sq)
 
 
 def _unflatten(like, leaves: list):
@@ -322,10 +335,6 @@ def train(arch: ArchConfig, run: RunConfig, mesh=None, *, steps: int,
                               dispatch_override=run.dispatch_override,
                               use_pallas=run.use_pallas,
                               wire_codec=run.wire_codec, device=device)
-    if mesh is not None and ctx.ep.ep_world != mesh.size:
-        raise NotImplementedError(
-            f"experts span {ctx.ep.ep_world} of {mesh.size} ranks: data "
-            f"parallelism over the other axes is not ported yet")
     res = run.resilience
     guarded = res is not None
     policy = chaos = None

@@ -181,25 +181,75 @@ def test_a2a_engine_matches_reference_and_oracle(mesh11, weights, aux_mode,
 
 
 def test_unported_paths_and_options_raise():
-    """What is still unported raises, and so does a microbatch that does
-    not divide the batch."""
-    from repro_torch.launch.mesh import EPWorld
+    """A microbatch that does not divide the batch raises.  (The fused
+    cross entropy and data parallelism, once refused here, are ported:
+    ``test_fused_xent_*`` below and ``test_torch_three_level.py`` hold
+    them against the reference.)"""
     ctx = model.build_ctx(get_config(ARCH_ID).reduced(), seq_len=SEQ,
                           global_batch=BATCH, device="cpu")
-    with pytest.raises(NotImplementedError, match="fused_xent"):
-        batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
-                 "labels": torch.zeros((1, 4), dtype=torch.int32)}
-        transformer.loss_fn(None, batch,
-                            dataclasses.replace(ctx, fused_xent=True))
-    # 4 experts over a (2, 4) world: experts span the data axis only, and
-    # data parallelism over the pod axis is not ported
-    world = EPWorld(axis_names=("pod", "data"), axis_sizes=(2, 4),
-                    coords=(0, 0), device="cpu")
-    with pytest.raises(NotImplementedError, match="data parallelism"):
-        trainer.train(ctx.arch, RunConfig(seq_len=SEQ, global_batch=8),
-                      world, steps=1, verbose=False)
     with pytest.raises(ValueError, match="multiple of microbatch"):
         trainer.make_train_step(ctx, RunConfig(global_batch=4, microbatch=3))
+
+
+def _xent_batch():
+    rng = np.random.default_rng(11)
+    toks = rng.integers(0, get_config(ARCH_ID).reduced().vocab_size,
+                        size=(BATCH, SEQ)).astype(np.int32)
+    return {"tokens": toks, "labels": np.roll(toks, -1, 1)}
+
+
+def _port_loss_and_grads(params, ctx, batch):
+    leaves = adamw.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+        p.grad = None
+    total, _ = transformer.loss_fn(params, {k: t(v) for k, v in
+                                            batch.items()}, ctx)
+    total.backward()
+    grads = [p.grad.detach().clone() for p in leaves]
+    for p in leaves:
+        p.grad = None
+        p.requires_grad_(False)
+    return total.detach(), grads
+
+
+def test_fused_xent_matches_reference(mesh11, weights):
+    """``ctx.fused_xent``: the loss and every parameter's gradient against
+    the reference's ``fused_xent=True`` on the same weights and batch
+    (rtol = atol = 1e-4)."""
+    jparams, params = weights
+    jctx, ctx = build_ctxs(mesh11, aux_mode="ta")
+    jctx = dataclasses.replace(jctx, fused_xent=True)
+    ctx = dataclasses.replace(ctx, fused_xent=True)
+    batch = _xent_batch()
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    with mesh11, sharding.axis_rules(jmodel.default_rules(mesh11)):
+        jloss, jgrads = jax.jit(jax.value_and_grad(
+            lambda p: jtransformer.loss_fn(p, jbatch, jctx)[0]))(jparams)
+    loss, grads = _port_loss_and_grads(params, ctx, batch)
+    close(loss, np.asarray(jloss))
+    want = adamw.tree_leaves(params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jgrads), ctx, "cpu"))
+    assert len(want) == len(grads)
+    for a, b in zip(grads, want):
+        close(a, b)
+
+
+def test_fused_xent_matches_default_loss(weights):
+    """The fused cross entropy against the port's default loss on the same
+    weights and batch, at ``tests/test_perf_flags.py``'s tolerances: the
+    loss to rel 1e-6, the gradients to atol 5e-6, rtol 1e-4."""
+    _, params = weights
+    ctx = model.build_ctx(get_config(ARCH_ID).reduced(), seq_len=SEQ,
+                          global_batch=BATCH, aux_mode="ta", device="cpu")
+    batch = _xent_batch()
+    l0, g0 = _port_loss_and_grads(params, ctx, batch)
+    l1, g1 = _port_loss_and_grads(
+        params, dataclasses.replace(ctx, fused_xent=True), batch)
+    assert float(l1) == pytest.approx(float(l0), rel=1e-6)
+    for a, b in zip(g1, g0):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=5e-6,
+                                   rtol=1e-4)
 
 
 # ---------------------------------------------------------------------------
