@@ -155,12 +155,35 @@ Phases, each printing JSON lines:
    steps: K1-K3 every layer and step, K4 none, the first step's loss
    within LOSS_RTOL of the plain path's, and every rank's expert leaves
    bit-equal (sha256) to their replicas' on the other pods;
-17. kernels — one ``{"kernels": [...]}`` line for K1-K8, launches
+17. DeepSeek-V2-Lite (arXiv:2405.04434) at full width on one rank,
+   after every gpt3_medium_moe tensor of this process is freed: d 2048,
+   MLA (rank 512, qk 128 + 64, v 128), 64 routed experts top-6 of f 1408
+   beside 2 shared, swiglu, rmsnorm, a dense first layer, vocab 102400,
+   27 layers, bf16 weights from seed 0.  ``checks_dsv2_lite``: K4 at the
+   serve's decode and prefill gather layouts (its compaction bit-equal),
+   K1 (bit-equal), K2 and K3 at the 2x2 plan's rank-0 layout and K7 at
+   chunk 0 of the pipelined int8 plan, all on layer 1's weights (the
+   first MoE layer), swiglu, against their plain versions with times
+   and bounds.  ``serve_dsv2_lite``: the kernel path's logits against
+   the bf16 plain path's (limit from a float32 plain run that casts one
+   layer at a time), then the serve phase's 8 requests: K4 exactly once
+   a MoE layer (26) of every prefill pack and decode step, K5 and every
+   other kernel never (MLA attends in plain PyTorch); tokens/s, peak
+   memory, a profiled prefill pack and decode step.
+   ``e2e_dsv2_lite_d4``: the float32 three-way verdict on the first 4
+   layers (a whole float32 copy of 27 does not fit beside the bf16
+   weights).  ``train_dsv2_lite_d4``: in a child process, 3 steps of
+   ``trainer.train`` at depth 4, seq 512, batch 4, ``aux_mode="ta"``: K4
+   9 launches, the first step's loss within LOSS_RTOL of the plain
+   path's, step walls and peak memory;
+18. kernels — one ``{"kernels": [...]}`` line for K1-K8, launches
    summed over the main paths (serve, every rank of serve_2x2,
    train_1rank and its fused cross entropy step, every rank of
    train_2x2 and train_2x2_pipelined, train_einsum_k6,
    train_1rank_accum_remat, train_resilient, every rank of
-   train_2x2_replan, train_2x2x2 and train_dp).  K8 lies on no
+   train_2x2_replan, train_2x2x2 and train_dp, serve_dsv2_lite,
+   train_dsv2_lite_d4), with DeepSeek-V2-Lite's readings beside
+   each of K1-K4 and K7.  K8 lies on no
    path (no model calls it, as in the reference): its row gives the
    launches of its checks as ``check_launches``.
 
@@ -305,6 +328,15 @@ E2E_PROMPT, E2E_STEPS, E2E_ROWS = 32, 4, 4
 # times as far from it as the plain bf16 path (both differ from float32 by
 # bf16 rounding, which random-weight layers amplify), or E2E_FLOOR
 E2E_RATIO, E2E_FLOOR = 1.5, 1e-2
+# DeepSeek-V2-Lite (arXiv:2405.04434) at full width: d 2048, 16 MLA heads
+# (rank 512, qk 128 + 64, v 128), 64 routed experts top-6 of f 1408 beside
+# 2 shared, a dense first layer of f 10944, vocab 102400, 27 layers (15.5 B
+# bf16 parameters, 31 GB from seed 0); the checks take layer 1's weights,
+# its first MoE layer.  e2e_dsv2_lite_d4 and train_dsv2_lite_d4 cut the
+# depth to 4 (the dense layer and 3 MoE layers): at 27 a float32 copy
+# beside the bf16 weights (93 GB), or AdamW's float32 moments (124 GB), do
+# not fit the card
+DSV2_ID, DSV2_MOE_LAYER, DSV2_CUT_LAYERS = "deepseek_v2_lite_16b", 1, 4
 # kernels no earlier phase may launch: K6 runs only on the einsum phase, K8
 # on no path
 OFF_PATH = ("moe_gemm.grouped_ffn", "decode_attn.decode_attention")
@@ -374,17 +406,18 @@ def bound_ms(nbytes: float, flops: float, int8_ops: float = 0.0):
 
 
 def gather_k4_case(torch, params, ctx, Tg: int, gen, swiglu=False,
-                   rank: int = 0, ep_world: int = 1):
+                   rank: int = 0, ep_world: int = 1, layer: int = 0):
     """K4's inputs at the gather path's slot layout for Tg tokens of layer
-    0: one segment per expert, every row of a picked expert's segment
-    valid.  With ``ep_world`` > 1 the layout is EP rank ``rank``'s on a
-    world of that many: its ``E / ep_world`` experts over the ``Tg``
-    tokens gathered from every rank, gated over all ``E``.  With
-    ``swiglu`` (not gpt3_medium_moe's activation) a random gate
-    projection is added, to hold the kernel's swiglu branch too."""
+    ``layer``: one segment per expert, every row of a picked expert's
+    segment valid.  With ``ep_world`` > 1 the layout is EP rank ``rank``'s
+    on a world of that many: its ``E / ep_world`` experts over the ``Tg``
+    tokens gathered from every rank, gated over all ``E``.  A swiglu
+    model's layer brings its own gate projection; with ``swiglu`` on a
+    gelu model (gpt3_medium_moe) a random one is added, to hold the
+    kernel's swiglu branch too."""
     from repro_torch.core import gating
     from repro_torch.core.dispatch import routing, transport
-    p = params["layers"][0]["ffn"]
+    p = params["layers"][layer]["ffn"]
     d, E = ctx.arch.d_model, ctx.arch.moe.num_experts
     E_l = E // ep_world
     mine = slice(rank * E_l, (rank + 1) * E_l)
@@ -393,7 +426,9 @@ def gather_k4_case(torch, params, ctx, Tg: int, gen, swiglu=False,
     tok, w, valid = routing.gather_slots(gate_out, rank, E_l)
     w_in, w_out = p["w_in"][mine].contiguous(), p["w_out"][mine].contiguous()
     w_gate, act = None, "gelu"
-    if swiglu:
+    if "w_gate" in p:
+        w_gate, act = p["w_gate"][mine].contiguous(), "swiglu"
+    elif swiglu:
         w_gate = (torch.randn(w_in.shape, generator=gen, device="cuda")
                   * d ** -0.5).to(torch.bfloat16)
         act = "swiglu"
@@ -401,12 +436,37 @@ def gather_k4_case(torch, params, ctx, Tg: int, gen, swiglu=False,
             valid, w_in, w_gate, w_out), act
 
 
-def train1_k4_case(torch, params, arch, gen):
+def moe_rows(torch, params, ctx, tokens, layer: int):
+    """The [B * S, d] rows that layer ``layer``'s MoE block receives on
+    ``tokens`` [B, S]: the embedding, the sublayers before it, then its
+    own mixer and ``norm2``, as ``transformer.forward_features`` runs
+    them."""
+    import dataclasses
+    from repro_torch.models import layers, transformer
+    subs = transformer.layer_list(ctx.arch)
+    x = layers.embed_apply(params["embed"], tokens)
+    zero = torch.zeros((), device=x.device)
+    frac = torch.zeros((ctx.frac_levels,), device=x.device)
+    for i in range(layer):
+        x = transformer._apply_sublayer(params["layers"][i], x, subs[i], ctx,
+                                        zero, frac, zero, layer_idx=i)[0]
+    p = params["layers"][layer]
+    x = transformer._apply_sublayer(p, x, dataclasses.replace(
+        subs[layer], ffn=None), ctx, zero, frac, zero)[0]
+    return layers.norm_apply(p["norm2"], x, ctx.arch.norm).reshape(
+        -1, x.shape[-1])
+
+
+def train1_k4_case(torch, params, arch, gen, layer: int = 0, x=None):
     """K4's inputs at the one-rank training layout: a real ``route`` +
-    ``build_indices`` of TRAIN_SEQ * TRAIN_BATCH_1 = 2048 random tokens
-    through layer 0's gate on the one-rank plan (caps (128,)), laid out by
-    the engine's ``local_layout``: 64 segments of 128 slots, partly filled,
-    with sentinel slots past each expert's realized rows."""
+    ``build_indices`` of TRAIN_SEQ * TRAIN_BATCH_1 = 2048 tokens through
+    layer ``layer``'s gate on the one-rank plan (gpt3_medium_moe: caps
+    (128,)), laid out by the engine's ``local_layout``: one segment an
+    expert as wide as the capacity, partly filled, with sentinel slots
+    past each expert's realized rows and the picks past the capacity
+    dropped.  The rows are random unless ``x`` (``moe_rows`` of a training
+    batch) is given.  A swiglu layer (DeepSeek's) brings its own gate
+    projection."""
     from repro_torch.core.dispatch import engine as engine_lib
     from repro_torch.core.dispatch import routing, transport
     from repro_torch.launch.mesh import unit_world
@@ -416,9 +476,10 @@ def train1_k4_case(torch, params, arch, gen):
                               global_batch=TRAIN_BATCH_1, aux_mode="ta",
                               dispatch="a2a", device="cuda")
     T = TRAIN_SEQ * TRAIN_BATCH_1
-    p = params["layers"][0]["ffn"]
-    x = torch.randn((T, arch.d_model), generator=gen,
-                    device="cuda").to(torch.bfloat16)
+    p = params["layers"][layer]["ffn"]
+    if x is None:
+        x = torch.randn((T, arch.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
     routed = routing.route(p, x, ctx.moe_cfg, ctx.ep, ctx.plan, ctx.gate_cfg,
                            world.coords)
     stages = transport.plan_stages(ctx.plan, ctx.ep)
@@ -429,8 +490,10 @@ def train1_k4_case(torch, params, arch, gen):
                          f"of {len(stages)} stages are not local on one rank")
     li, offs, exps = engine_lib.local_layout(
         local, routed.gate_out["topk_idx"], T, p["w_in"].shape[0])
+    w_gate = p.get("w_gate")
     return (x, li.slot_to_token, li.slot_w, offs, exps, li.rows_per_expert,
-            p["w_in"], None, p["w_out"]), "gelu"
+            p["w_in"], w_gate, p["w_out"]), ("gelu" if w_gate is None
+                                             else "swiglu")
 
 
 def check_k4(torch, args, act: str, label: str, timed=True):
@@ -438,9 +501,11 @@ def check_k4(torch, args, act: str, label: str, timed=True):
     ``local_moe``'s order).  ``computed_rows`` is the rows the kernel's FFN
     launches compute (the compacted counts' sum), beside
     ``weighted_rows`` (the rows with a nonzero combine weight) and
-    ``dense_rows`` (every row below the counts).  When timed (gelu), with
-    ``chip_ab.fused_readings`` (device, call and host times under grad,
-    the bound) and kernel (events) and plain times."""
+    ``dense_rows`` (every row below the counts).  When timed, with kernel
+    (events) and plain times, and for gelu ``chip_ab.fused_readings``
+    (device, call and host times under grad, the bound), for swiglu (a
+    DeepSeek layer) ``ffn_readings`` as serving calls it; the bound is
+    ``k4_work``'s either way."""
     import chip_ab
     from repro_torch.kernels.moe_fused import ops as fused_ops
     from repro_torch.kernels.moe_fused.ref import local_moe_ref
@@ -463,7 +528,7 @@ def check_k4(torch, args, act: str, label: str, timed=True):
                          f"(max abs err {err})")
     computed = int(fused_ops.compact_slots(tok, w, offs, valid,
                                            Tg)[1].sum())
-    _, _, rows = chip_ab.fused_bound(torch, args, bound_ms)
+    nbytes, flops, rows = k4_work(args)
     out = {"layout": label, "Tg": Tg, "activation": act,
            "slots": tok.numel(), "segments": len(exps),
            "computed_rows": computed, **rows, "max_abs_err": err,
@@ -471,14 +536,55 @@ def check_k4(torch, args, act: str, label: str, timed=True):
     if not timed:
         return out
     iters = 50 if Tg <= 64 else 10
-    out.update(chip_ab.fused_readings(
-        torch, fused_ops, {"label": label, "args": args},
-        chip_ab.kernel_names(REPO, "moe_fused"), time_ms, bound_ms, K4_ATOL,
-        K4_RTOL))
+    if act == "gelu":
+        out.update(chip_ab.fused_readings(
+            torch, fused_ops, {"label": label, "args": args},
+            chip_ab.kernel_names(REPO, "moe_fused"), time_ms, bound_ms,
+            K4_ATOL, K4_RTOL))
+    else:
+        out.update(ffn_readings(torch, kernel, "moe_fused", nbytes, flops,
+                                iters))
     out.update(ms=time_ms(torch, kernel, iters),
                plain_ms=time_ms(torch, plain, max(3, iters // 5)),
                library_ms=None)
     return out
+
+
+def k4_work(args):
+    """K4's ``(bytes, operations, rows)`` on one layout (``args`` in
+    ``local_moe``'s order): the tokens, the slot maps and counts, the
+    [T, d] f32 output and the weights of the experts that hold valid rows
+    (two matrices, three with a gate projection), and the operations of
+    the rows with a nonzero combine weight (the work the output needs);
+    ``rows`` counts those, the rows below the counts (what a dense tiling
+    computes) and the active experts.  For gelu the bound equals
+    ``chip_ab.fused_bound``'s."""
+    x, tok, w, offs, exps, valid, w_in, w_gate, _ = args
+    T, d = x.shape
+    f = w_in.shape[2]
+    mats = 2 if w_gate is None else 3
+    weighted = int((w != 0).sum())
+    active = len({e for e, v in zip(exps, valid.tolist()) if v > 0})
+    nbytes = (T * d * 2 + tok.numel() * 4 + w.numel() * 4 + len(exps) * 4
+              + active * mats * d * f * 2 + T * d * 4)
+    return nbytes, 2.0 * weighted * mats * d * f, {
+        "weighted_rows": weighted, "dense_rows": int(valid.sum()),
+        "active_experts": active}
+
+
+def ffn_readings(torch, kernel, source: str, nbytes: float, flops: float,
+                 iters: int, int8_ops: float = 0.0) -> dict:
+    """``device_ms`` of one call of ``kernel`` (``chip_ab.device_ms``),
+    ``kernel_device_ms`` of its hand-written launches in
+    ``csrc/<source>.cu`` alone, and the bound of ``nbytes`` and
+    ``flops`` (``int8_ops``)."""
+    import chip_ab
+    dev, by_key = chip_ab.device_ms(torch, kernel, iters)
+    b_ms, b_by = bound_ms(nbytes, flops, int8_ops)
+    return {"device_ms": dev,
+            "kernel_device_ms": chip_ab.ours_ms(
+                by_key, chip_ab.kernel_names(REPO, source)),
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def k4_edge_case(torch, params, ctx, gen, swiglu=False):
@@ -579,7 +685,7 @@ def check_k5(torch, shape, gen, causal=True, window=0, timed=True,
 
 
 def staged_case(torch, params, arch, gen, slowdowns=None, sizes=WORLD_22,
-                global_batch=TRAIN_BATCH_22):
+                global_batch=TRAIN_BATCH_22, layer: int = 0):
     """Rank (0, 0)'s view of the 2x2 training phase's plan: a real
     ``route`` + ``build_indices`` of 1024 random tokens through layer 0's
     gate, the 2x2 EP spec and its Eq. (7) plan (caps (120, 16)).  The
@@ -590,7 +696,10 @@ def staged_case(torch, params, arch, gen, slowdowns=None, sizes=WORLD_22,
     train_2x2_replan phase's layout after its replan (caps (128, 0): the
     empty second stage is dropped).  ``sizes`` and ``global_batch`` name
     another world's: (2, 2, 2) and 8 give rank (0, 0, 0)'s view of
-    train_2x2x2 (512 tokens, three stages, 8 experts a rank)."""
+    train_2x2x2 (512 tokens, three stages, 8 experts a rank).  ``layer``
+    names another layer's gate and weights (a DeepSeek model's first MoE
+    layer is 1); ``w_gate`` is the rank's gate projection, None for a gelu
+    model."""
     from repro_torch.core.capacity import default_axis_names
     from repro_torch.core.dispatch import routing, transport
     from repro_torch.kernels.moe_permute.ref import permute_ref
@@ -609,7 +718,7 @@ def staged_case(torch, params, arch, gen, slowdowns=None, sizes=WORLD_22,
             ctx, slowdowns)
     T = TRAIN_SEQ * global_batch // world.size
     d = arch.d_model
-    p = params["layers"][0]["ffn"]
+    p = params["layers"][layer]["ffn"]
     x = torch.randn((T, d), generator=gen, device="cuda").to(torch.bfloat16)
     routed = routing.route(p, x, ctx.moe_cfg, ctx.ep, ctx.plan, ctx.gate_cfg,
                            world.coords)
@@ -638,6 +747,8 @@ def staged_case(torch, params, arch, gen, slowdowns=None, sizes=WORLD_22,
             "rows_valid": torch.cat(cnts, dim=1).reshape(-1).contiguous(),
             "segs": segs, "exps": exps,
             "w_in": p["w_in"][:E_l].contiguous(),
+            "w_gate": (p["w_gate"][:E_l].contiguous() if "w_gate" in p
+                       else None),
             "w_out": p["w_out"][:E_l].contiguous()}
 
 
@@ -780,34 +891,59 @@ def unpermute_edges(torch, gen):
 
 
 def check_k3(torch, case):
-    """K3 ragged grouped FFN on the 2x2 phase's receive layout: 16
-    experts, 96 segments of width 120 or 16, tanh-gelu; read by
+    """K3 ragged grouped FFN on a staged receive layout (the 2x2 phase's:
+    16 experts, 96 segments of width 120 or 16, tanh-gelu), with the
+    activation the case's layer has: swiglu where it carries a gate
+    projection (a DeepSeek layer).  Gelu is read by
     ``chip_ab.ragged_readings`` (device, call and host times under grad,
-    ``kernel_device_ms`` its launch pair alone, the bound)."""
+    ``kernel_device_ms`` its launch pair alone, the bound); swiglu is held
+    here, rows past each segment's count exact zeros, and read by
+    ``ffn_readings`` (the bound with the gate's weights and products)."""
     import chip_ab
     from repro_torch.kernels.moe_fused.ops import plan_expert_tiles
     from repro_torch.kernels.moe_gemm import ops as g_ops
     from repro_torch.kernels.moe_gemm.ref import grouped_ffn_ragged_ref
     xin, valid = case["xin"], case["rows_valid"]
     segs, exps = case["segs"], case["exps"]
-    w_in, w_out = case["w_in"], case["w_out"]
+    w_in, w_gate, w_out = case["w_in"], case["w_gate"], case["w_out"]
+    act = "gelu" if w_gate is None else "swiglu"
 
     def kernel():
-        return g_ops.grouped_ffn_ragged(xin, segs, exps, valid, w_in, None,
-                                        w_out, activation="gelu",
+        return g_ops.grouped_ffn_ragged(xin, segs, exps, valid, w_in, w_gate,
+                                        w_out, activation=act,
                                         use_pallas=True)
 
     def plain():
-        return grouped_ffn_ragged_ref(xin, segs, exps, valid, w_in, None,
-                                      w_out, activation="gelu")
+        return grouped_ffn_ragged_ref(xin, segs, exps, valid, w_in, w_gate,
+                                      w_out, activation=act)
 
-    r = chip_ab.ragged_readings(torch, g_ops, case,
-                                chip_ab.kernel_names(REPO, "moe_gemm"),
-                                time_ms, bound_ms, K3_ATOL, K3_RTOL)
-    widths = {b - a for a, b in zip(segs[:-1], segs[1:])}
     active = len({e for e, v in zip(exps, valid.tolist()) if v > 0})
+    if w_gate is None:
+        r = chip_ab.ragged_readings(torch, g_ops, case,
+                                    chip_ab.kernel_names(REPO, "moe_gemm"),
+                                    time_ms, bound_ms, K3_ATOL, K3_RTOL)
+    else:
+        R, d = xin.shape
+        f = w_in.shape[2]
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        ok, err = close(torch, got, want, K3_ATOL, K3_RTOL)
+        zeros_exact = bool((got[dead_rows(torch, segs, valid, R)]
+                            == 0).all())
+        if not ok or not zeros_exact:
+            raise SystemExit(f"K3 {act} at R={R}: kernel disagrees with "
+                             f"plain (max abs err {err}, rows past nvalid "
+                             f"zero: {zeros_exact})")
+        nvalid = int(valid.sum())
+        r = {"R": R, "valid_rows": nvalid, "max_abs_err": err,
+             **ffn_readings(torch, kernel, "moe_gemm",
+                            nvalid * d * 2 + active * 3 * d * f * 2
+                            + R * d * 2 + valid.numel() * 4,
+                            2.0 * nvalid * 3 * d * f, 20)}
+    widths = {b - a for a, b in zip(segs[:-1], segs[1:])}
     return {**r, "segments": len(exps), "experts": w_in.shape[0],
-            "segment_widths": sorted(widths), "active_experts": active,
+            "activation": act, "segment_widths": sorted(widths),
+            "active_experts": active,
             "tiles": len(plan_expert_tiles(tuple(segs), tuple(exps))),
             "atol": K3_ATOL, "rtol": K3_RTOL,
             "ms": time_ms(torch, kernel, 20),
@@ -904,7 +1040,8 @@ def layout_checks(torch, case, gen):
             "K2_rtol": K2_RTOL, "K3_atol": K3_ATOL, "K3_rtol": K3_RTOL}
 
 
-def pipelined_case(torch, params, arch, gen):
+def pipelined_case(torch, params, arch, gen, layer: int = 0,
+                   chunks=PIPELINED_CHUNKS):
     """Rank (0, 0)'s view of chunk 0 of the train_2x2_pipelined phase: a
     real ``route`` + ``build_indices`` of 1024 random tokens through layer
     0's gate on the 2x2 EP spec and the int8 wire's chunk-aligned plan
@@ -912,7 +1049,9 @@ def pipelined_case(torch, params, arch, gen):
     the payload int8-encoded and decoded and the valid-row counts moved
     through the transport's chains, as the engine does.  An identity
     exchange stands in for the all-to-alls: the rank's send buffer is the
-    receive buffer of the int8 ragged grouped FFN (K7)."""
+    receive buffer of the int8 ragged grouped FFN (K7).  ``layer`` as
+    ``staged_case``'s; ``chunks`` None takes the overlap model's count
+    whatever it is."""
     import types
     from repro_torch.core.dispatch import routing, transport
     from repro_torch.kernels.moe_permute.ref import permute_ref
@@ -925,12 +1064,11 @@ def pipelined_case(torch, params, arch, gen):
                               dispatch="a2a_pipelined", wire_codec="int8",
                               device="cuda")
     k = ctx.a2a_num_chunks
-    if k != PIPELINED_CHUNKS:
-        raise SystemExit(f"pipelined plan: {k} chunks, expected "
-                         f"{PIPELINED_CHUNKS}")
+    if chunks is not None and k != chunks:
+        raise SystemExit(f"pipelined plan: {k} chunks, expected {chunks}")
     T = TRAIN_SEQ * TRAIN_BATCH_22 // world.size
     d = arch.d_model
-    p = params["layers"][0]["ffn"]
+    p = params["layers"][layer]["ffn"]
     x = torch.randn((T, d), generator=gen, device="cuda").to(torch.bfloat16)
     routed = routing.route(p, x, ctx.moe_cfg, ctx.ep, ctx.plan, ctx.gate_cfg,
                            world.coords)
@@ -963,6 +1101,8 @@ def pipelined_case(torch, params, arch, gen):
             "rows_valid": torch.cat(cnts, dim=1).reshape(-1).contiguous(),
             "segs": segs, "exps": exps,
             "w_in": p["w_in"][:E_l].contiguous(),
+            "w_gate": (p["w_gate"][:E_l].contiguous() if "w_gate" in p
+                       else None),
             "w_out": p["w_out"][:E_l].contiguous()}
 
 
@@ -981,8 +1121,10 @@ def check_k7(torch, case):
     segments (so the same per-segment and per-expert scales): called as
     the dispatch engine calls it, with the weights quantized once
     (``quantize_expert_weights``), and with them quantized in the call;
-    rows past each segment's count must be exact zeros.  With kernel
-    (events and ``device_ms``; ``kernel_device_ms`` the launch pair
+    rows past each segment's count must be exact zeros.  The activation
+    is the case's layer's: swiglu where it carries a gate projection (a
+    DeepSeek layer), whose weights are quantized beside ``w_in``.  With
+    kernel (events and ``device_ms``; ``kernel_device_ms`` the launch pair
     alone), plain and bound times, and the times of the quantizations:
     ``quantize_ms`` (x, each call) and ``weights_quantize_ms`` (the
     weights, once a layer forward)."""
@@ -993,18 +1135,19 @@ def check_k7(torch, case):
                                                   quantize_segments)
     xin, valid = case["xin"], case["rows_valid"]
     segs, exps = case["segs"], case["exps"]
-    w_in, w_out = case["w_in"], case["w_out"]
-    qw = g_ops.quantize_expert_weights(w_in)
+    w_in, w_gate, w_out = case["w_in"], case["w_gate"], case["w_out"]
+    act = "gelu" if w_gate is None else "swiglu"
+    qw = g_ops.quantize_expert_weights(w_in, w_gate)
 
     def kernel(qweights=qw):
         return g_ops.grouped_ffn_ragged_quant(xin, segs, exps, valid, w_in,
-                                              None, w_out, activation="gelu",
+                                              w_gate, w_out, activation=act,
                                               use_pallas=True,
                                               qweights=qweights)
 
     def plain():
         return grouped_ffn_ragged_quant_ref(xin, segs, exps, valid, w_in,
-                                            None, w_out, activation="gelu")
+                                            w_gate, w_out, activation=act)
 
     R, d = xin.shape
     f = w_in.shape[2]
@@ -1025,18 +1168,20 @@ def check_k7(torch, case):
     per_expert = torch.zeros(w_in.shape[0], device="cuda").index_add_(
         0, torch.as_tensor(exps, device="cuda"), valid.float())
     active = int((per_expert > 0).sum())
-    # int8 valid rows, the int8 w_in and bf16 w_out of the experts used, the
-    # bf16 [R, d] output; 2df int8 and 2fd bf16 operations a valid row
-    nbytes = nvalid * d + active * (d * f + f * d * 2) + R * d * 2
+    # int8 valid rows, the int8 up-projections (w_in, and w_gate for
+    # swiglu) and bf16 w_out of the experts used, the bf16 [R, d] output;
+    # 2df int8 operations a valid row for each up-projection and 2fd bf16
+    ups = 1 if w_gate is None else 2
+    nbytes = nvalid * d + active * (ups * d * f + f * d * 2) + R * d * 2
     b_ms, b_by = bound_ms(nbytes, 2.0 * nvalid * f * d,
-                          int8_ops=2.0 * nvalid * d * f)
+                          int8_ops=2.0 * nvalid * ups * d * f)
     widths = {offs1 - offs0 for offs0, offs1 in zip(segs[:-1], segs[1:])}
     call_dev, by_key = chip_ab.device_ms(torch, kernel, 20)
     return {"R": R, "segments": len(exps), "experts": w_in.shape[0],
             "caps": list(case["caps"]), "chunks": case.get("chunks", 1),
             "chunk_caps": case.get("chunk_caps"),
             "segment_widths": sorted(widths), "valid_rows": nvalid,
-            "active_experts": active,
+            "active_experts": active, "activation": act,
             "tiles": len(plan_expert_tiles(tuple(segs), tuple(exps))),
             "max_abs_err": max(errs), "atol": K7_ATOL, "rtol": K7_RTOL,
             "ms": time_ms(torch, kernel, 20), "device_ms": call_dev,
@@ -1045,9 +1190,11 @@ def check_k7(torch, case):
             "quantize_ms": time_ms(
                 torch, lambda: quantize_segments(xin, segs), 20),
             "weights_quantize_ms": time_ms(
-                torch, lambda: g_ops.quantize_expert_weights(w_in), 20),
+                torch, lambda: g_ops.quantize_expert_weights(w_in, w_gate),
+                20),
             "weights_quantize_device_ms": dev_ms(
-                torch, lambda: g_ops.quantize_expert_weights(w_in), 20),
+                torch, lambda: g_ops.quantize_expert_weights(w_in, w_gate),
+                20),
             "plain_ms": time_ms(torch, plain, 5), "library_ms": None,
             "bound_ms": b_ms, "bound_by": b_by}
 
@@ -1406,8 +1553,9 @@ def train_phase(world, out_path: str, global_batch: int,
                 use_moe_kernel: bool = False, microbatch: int = 0,
                 remat: bool = False, layers: int = 0,
                 spare_row: bool = False, fused_xent: bool = False,
-                hash_experts: bool = False) -> None:
-    """Full-width gpt3_medium_moe on this rank (``world`` None: one rank),
+                hash_experts: bool = False, arch_id: str = ARCH_ID) -> None:
+    """Full-width ``arch_id`` (gpt3_medium_moe, or DeepSeek-V2-Lite for
+    train_dsv2_lite_d4) on this rank (``world`` None: one rank),
     AdamW, ``steps`` steps, the given dispatch path, wire codec and
     auxiliary loss (the pipelined path's chunk count from the overlap
     model); writes this rank's report to ``out_path``.  The run goes
@@ -1444,7 +1592,7 @@ def train_phase(world, out_path: str, global_batch: int,
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    arch = get_config(ARCH_ID)
+    arch = get_config(arch_id)
     if layers:
         import dataclasses
         arch = dataclasses.replace(arch, num_layers=layers)
@@ -2141,17 +2289,41 @@ def e2e_verdict(torch, got, f32, bf16, label: str) -> dict:
             "argmax_agreement_kernel_vs_f32": agree}
 
 
-def plain_runs(torch, params, ctx, prompt, kernel=True) -> dict:
+class CastLayers(list):
+    """A model's layers, each cast to ``dtype`` when the forward reads it
+    (``params["layers"][i]``): a float32 run of a model whose float32
+    copy would not fit the card beside its bf16 weights holds one layer's
+    at a time."""
+
+    def __init__(self, layers, dtype):
+        super().__init__(layers)
+        self.dtype = dtype
+
+    def __getitem__(self, i):
+        return _cast_params(list.__getitem__(self, i), self.dtype)
+
+
+def plain_runs(torch, params, ctx, prompt, kernel=True,
+               f32_by_layer=False) -> dict:
     """``e2e_logits`` on one rank through the kernel path (with
     ``kernel``), the bf16 plain path and a float32 plain run of the same
-    weights."""
+    weights (with ``f32_by_layer``, each layer cast as it is read:
+    ``CastLayers``)."""
     import dataclasses
     plain_ctx = dataclasses.replace(ctx, use_pallas=False, use_flash=False)
     f32_ctx = dataclasses.replace(
         plain_ctx, arch=dataclasses.replace(ctx.arch, dtype="float32"))
+
+    def f32_params():
+        if not f32_by_layer:
+            return _cast_params(params, torch.float32)
+        out = {k: _cast_params(v, torch.float32)
+               for k, v in params.items() if k != "layers"}
+        out["layers"] = CastLayers(params["layers"], torch.float32)
+        return out
+
     runs = (("plain_bf16", plain_ctx, lambda: params),
-            ("plain_f32", f32_ctx,
-             lambda: _cast_params(params, torch.float32)))
+            ("plain_f32", f32_ctx, f32_params))
     if kernel:
         runs = (("kernel", ctx, lambda: params),) + runs
     return {name: e2e_logits(torch, make(), c, prompt)
@@ -2225,6 +2397,157 @@ def profile_steps(torch, params, ctx, world=None):
     return out
 
 
+def checks_dsv2_lite(torch, params, ctx, gen) -> dict:
+    """K4, K1, K2, K3 and K7 at DeepSeek-V2-Lite's full width (swiglu, d
+    2048, f 1408, top-6 of 64) on layer DSV2_MOE_LAYER's weights, each
+    against its plain version: K4 at the serve's decode (8 slots) and
+    prefill (4 x 128) gather layouts and at train_dsv2_lite_d4's one-rank
+    layout (its first batch's 2048 tokens through the embedding and layer
+    0, routed on the a2a plan: capacity segments with sentinel slots and
+    dropped picks), with its compaction bit-equal at each; K1
+    (bit-equal), K2 (six picks a token) and K3 at ``staged_case``'s 2x2
+    rank-0 layout; K7 at ``pipelined_case``'s chunk 0 (the overlap model's
+    chunk count at these widths)."""
+    arch = ctx.arch
+    layer = DSV2_MOE_LAYER
+    k4, compaction = {}, []
+    for label, Tg in (("decode", NUM_SLOTS), ("prefill", PACK * BUCKET)):
+        args, act = gather_k4_case(torch, params, ctx, Tg, gen, layer=layer)
+        if act != "swiglu":
+            raise SystemExit(f"dsv2_lite {label}: activation {act}")
+        k4[label] = check_k4(torch, args, act, f"dsv2_lite_{label}")
+        compaction.append(check_compaction(torch, args,
+                                           f"dsv2_lite_{label}"))
+        del args
+    case = staged_case(torch, params, arch, gen, layer=layer)
+    di = case["di"]
+    k1 = check_k1(torch, case["x"], di.slot_to_token)
+    k2 = check_k2(torch, torch.randn(
+        (di.num_slots, arch.d_model), generator=gen,
+        device="cuda").to(torch.bfloat16), di)
+    k3 = check_k3(torch, case)
+    layout = {"caps": list(case["caps"]), "S": di.num_slots,
+              "T": case["x"].shape[0], "picks": di.inv_idx.shape[1]}
+    del case
+    pcase = pipelined_case(torch, params, arch, gen, layer=layer,
+                           chunks=None)
+    k7 = check_k7(torch, pcase)
+    del pcase
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    tokens = SyntheticLM(DataConfig(
+        vocab_size=arch.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH_1, seed=0)).batch(0)["tokens"].cuda()
+    args, act = train1_k4_case(torch, params, arch, gen, layer=layer,
+                               x=moe_rows(torch, params, ctx, tokens, layer))
+    k4["train_1rank"] = check_k4(torch, args, act, "dsv2_lite_train_1rank")
+    compaction.append(check_compaction(torch, args,
+                                       "dsv2_lite_train_1rank"))
+    T = args[0].shape[0]
+    layout_1rank = {"T": T, "slots": args[1].numel(),
+                    "segments": len(args[4]),
+                    "sentinel_slots": int((args[1] >= T).sum()),
+                    "valid_rows": int(args[5].sum()),
+                    "dropped_picks": T * arch.moe.top_k
+                    - int(args[5].sum())}
+    del args
+    return {"K4": k4, "K4_compaction": compaction, "K1": k1, "K2": k2,
+            "K3": k3, "K7": k7, "layout_2x2": layout,
+            "layout_train_1rank": layout_1rank}
+
+
+def serve_dsv2_lite(torch, np, params, ctx) -> dict:
+    """Full-depth DeepSeek-V2-Lite on one rank through
+    ``ServingEngine.run``: first the kernel path's logits (a 32-token
+    prompt, prefill + 4 decode steps) against the bf16 plain path's, with
+    the limit of ``e2e_verdict`` from a float32 plain run that casts one
+    layer at a time (``CastLayers``); then a warm-up request and the serve
+    phase's 8 requests, the counters set to 0 just before and read just
+    after: K4 exactly once a MoE layer (26) of every prefill pack and
+    decode step, every other kernel (K5 too: MLA attends in plain
+    PyTorch) never; peak memory; a profiled prefill pack and decode
+    step."""
+    from repro_torch.kernels import backend
+    from repro_torch.serving import engine
+    arch = ctx.arch
+    prompt = torch.as_tensor(np.random.default_rng(7).integers(
+        0, arch.vocab_size, size=(1, E2E_PROMPT)), dtype=torch.int32,
+        device="cuda")
+    with torch.no_grad():
+        logits = plain_runs(torch, params, ctx, prompt, f32_by_layer=True)
+    e2e = e2e_verdict(torch, logits["kernel"], logits["plain_f32"],
+                      logits["plain_bf16"], "serve_dsv2_lite end to end")
+    e2e["rel_err_kernel_vs_plain_bf16"] = float(
+        torch.linalg.vector_norm(logits["kernel"] - logits["plain_bf16"])
+        / torch.linalg.vector_norm(logits["plain_bf16"]))
+    del logits
+    eng = engine.ServingEngine(params, ctx, engine.ServeConfig(
+        num_slots=NUM_SLOTS, cache_len=CACHE_LEN, prefill_pack=PACK,
+        prompt_buckets=(BUCKET,)))
+    rng = np.random.default_rng(0)
+    eng.run(serve_requests(rng, arch.vocab_size, 1))          # warm-up
+    reqs = serve_requests(rng, arch.vocab_size, NUM_REQUESTS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    backend.reset_launches()
+    report = eng.run(reqs)
+    launches = dict(backend.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for st in report.streams:
+        if st.evicted or len(st.generated) != st.request.max_new_tokens or \
+                not all(0 <= t < arch.vocab_size for t in st.generated):
+            raise SystemExit(f"serve_dsv2_lite request {st.request.uid}: "
+                             f"{len(st.generated)} of "
+                             f"{st.request.max_new_tokens} tokens, or a "
+                             f"token outside the vocabulary")
+    if len(report.streams) != NUM_REQUESTS:
+        raise SystemExit(f"serve_dsv2_lite: {len(report.streams)} of "
+                         f"{NUM_REQUESTS} streams finished")
+    n_moe = arch.num_layers - arch.moe.first_dense
+    want = {k: 0 for k in backend.LAUNCHES}
+    want["moe_fused.local_moe"] = n_moe * (report.prefill_calls
+                                           + report.decode_steps)
+    if launches != want:
+        raise SystemExit(f"serve_dsv2_lite: launches {launches}, the path "
+                         f"needs {want}")
+    with torch.no_grad():
+        prof = profile_steps(torch, params, ctx)
+    return {"layers": arch.num_layers, "moe_layers": n_moe,
+            "end_to_end": e2e, "requests": len(report.streams),
+            "new_tokens": report.total_new_tokens,
+            "prompt_tokens": sum(len(r.tokens) for r in reqs),
+            "decode_steps": report.decode_steps,
+            "prefill_packs": report.prefill_calls,
+            "wall_s": report.wall_time,
+            "tokens_per_s": report.tokens_per_sec, "launches": launches,
+            "max_memory_allocated_gb": peak, "profile": prof}
+
+
+def e2e_dsv2_lite_d4(torch, np, params, ctx) -> dict:
+    """The float32 three-way verdict (``e2e_verdict``: the kernel path,
+    the bf16 plain path and a float32 plain run of a whole float32 copy)
+    on DeepSeek-V2-Lite cut to DSV2_CUT_LAYERS layers at full width: the
+    first layers of the serve phase's weights, the same prompt."""
+    import dataclasses
+    from repro_torch.models import model as model_lib
+    arch = dataclasses.replace(ctx.arch, num_layers=DSV2_CUT_LAYERS)
+    ctx4 = model_lib.build_ctx(arch, device="cuda", use_flash=True,
+                               aux_mode="none", seq_len=CACHE_LEN,
+                               global_batch=NUM_SLOTS)
+    params4 = dict(params, layers=params["layers"][:DSV2_CUT_LAYERS])
+    prompt = torch.as_tensor(np.random.default_rng(7).integers(
+        0, arch.vocab_size, size=(1, E2E_PROMPT)), dtype=torch.int32,
+        device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        logits = plain_runs(torch, params4, ctx4, prompt)
+    out = e2e_verdict(torch, logits["kernel"], logits["plain_f32"],
+                      logits["plain_bf16"], "e2e_dsv2_lite_d4")
+    return {"layers": DSV2_CUT_LAYERS, **out,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+            / 1e9}
+
+
 def serve_rank(world, out_dir: str) -> None:
     """One rank of serve_2x2: full-width gpt3_medium_moe from seed 0 (this
     rank's 16 experts a layer), ``ServeConfig`` as the serve phase's, the
@@ -2287,6 +2610,76 @@ def serve_rank(world, out_dir: str) -> None:
            "profile": prof}
     with open(os.path.join(out_dir, f"serve{world.rank}.json"), "w") as fh:
         json.dump(out, fh)
+
+
+def deepseek_phases(torch, np) -> tuple:
+    """The DeepSeek-V2-Lite phases (DSV2_ID, one rank): its full-width
+    weights from seed 0, ``checks_dsv2_lite``, ``serve_dsv2_lite`` and
+    ``e2e_dsv2_lite_d4`` in this process; the weights freed, then
+    ``train_dsv2_lite_d4`` in a child process.  Emits each phase's line
+    and returns ``(checks, serve, train report)``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import backend
+    from repro_torch.models import model as model_lib
+    t0 = time.time()
+    arch_ds = get_config(DSV2_ID)
+    ctx_ds = model_lib.build_ctx(arch_ds, device="cuda", use_flash=True,
+                                 aux_mode="none", seq_len=CACHE_LEN,
+                                 global_batch=NUM_SLOTS)
+    params_ds = model_lib.init_params(
+        ctx_ds, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    emit({"phase": "init_dsv2_lite", "arch": arch_ds.name,
+          "source": arch_ds.source, "layers": arch_ds.num_layers,
+          "params": model_lib.count_params(params_ds),
+          "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9,
+          "seconds": time.time() - t0})
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    with torch.no_grad():
+        ck_ds = checks_dsv2_lite(torch, params_ds, ctx_ds, gen)
+    emit({"phase": "checks_dsv2_lite", "seconds": time.time() - t0,
+          "max_memory_allocated_gb":
+              torch.cuda.max_memory_allocated() / 1e9, **ck_ds})
+    t0 = time.time()
+    srv_ds = serve_dsv2_lite(torch, np, params_ds, ctx_ds)
+    emit({"phase": "serve_dsv2_lite", "seconds": time.time() - t0,
+          **srv_ds})
+    t0 = time.time()
+    e2e_ds = e2e_dsv2_lite_d4(torch, np, params_ds, ctx_ds)
+    emit({"phase": "e2e_dsv2_lite_d4", "seconds": time.time() - t0,
+          **e2e_ds})
+    del params_ds
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one rank, depth cut to DSV2_CUT_LAYERS, in a child process
+    t0 = time.time()
+    tmp_ds = tempfile.mkdtemp(prefix="chip_smoke_dsv2_")
+    child = mp.get_context("spawn").Process(
+        target=train_phase, args=(None, os.path.join(tmp_ds, "train.json"),
+                                  TRAIN_BATCH_1),
+        kwargs={"layers": DSV2_CUT_LAYERS, "arch_id": DSV2_ID})
+    child.start()
+    child.join()
+    if child.exitcode != 0:
+        raise SystemExit(f"train_dsv2_lite_d4: the child process failed "
+                         f"(exit {child.exitcode})")
+    with open(os.path.join(tmp_ds, "train.json")) as fh:
+        tds = json.load(fh)
+    shutil.rmtree(tmp_ds, ignore_errors=True)
+    n_moe_ds = DSV2_CUT_LAYERS - arch_ds.moe.first_dense
+    check_ds = check_training(
+        [tds], {k: (n_moe_ds * TRAIN_STEPS if k == "moe_fused.local_moe"
+                    else 0) for k in backend.LAUNCHES},
+        "train_dsv2_lite_d4")
+    emit({"phase": "train_dsv2_lite_d4", "seconds": time.time() - t0,
+          "arch": arch_ds.name, "depth_cut": f"{arch_ds.num_layers} -> "
+          f"{DSV2_CUT_LAYERS}: AdamW's float32 moments of 15.5 B "
+          f"parameters alone are 124 GB", "aux_mode": "ta",
+          "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_1,
+          "steps": TRAIN_STEPS, **check_ds, **tds})
+    return ck_ds, srv_ds, tds
 
 
 def main() -> int:
@@ -2821,7 +3214,12 @@ def main() -> int:
           "global_batch": TRAIN_BATCH_DP, "steps": TRAIN_STEPS, **check_dp,
           "ranks": rdp})
 
-    # 15. kernels: launches summed over every main path and rank
+    # 15. DeepSeek-V2-Lite at full width (MLA, top-6 of 64 experts,
+    # swiglu) on one rank; every gpt3_medium_moe tensor of this process was
+    # freed before serve_2x2
+    ck_ds, srv_ds, tds = deepseek_phases(torch, np)
+
+    # 16. kernels: launches summed over every main path and rank
     def total(name):
         return sum(sum(v) if isinstance(v, list) else v
                    for v in by_path(name).values())
@@ -2838,7 +3236,16 @@ def main() -> int:
                 "train_resilient": resil["launches"][name],
                 "train_2x2_replan": [r["launches"][name] for r in rep],
                 "train_2x2x2": [r["launches"][name] for r in r222],
-                "train_dp": [r["launches"][name] for r in rdp]}
+                "train_dp": [r["launches"][name] for r in rdp],
+                "serve_dsv2_lite": srv_ds["launches"][name],
+                "train_dsv2_lite_d4": tds["launches"][name]}
+
+    def dsv2_row(r, extra=()):
+        """One DeepSeek-V2-Lite reading of checks_dsv2_lite."""
+        return {n: r[n] for n in ("ms", "device_ms", "kernel_device_ms",
+                                  "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "max_abs_err") + extra
+                if n in r}
 
     def bwd_err(kernel):
         return max(v["max_abs_err"] for k, v in bwd.items()
@@ -2867,16 +3274,19 @@ def main() -> int:
          "launches_by_path": by_path("moe_permute.permute"),
          "max_abs_err": 0.0,
          "backward_max_abs_err": bwd_err("K1"),
-         **pair_row(k1)},
+         **pair_row(k1),
+         "dsv2_lite_2x2": dsv2_row(ck_ds["K1"], ("call_ms", "host_us"))},
         {"name": "moe_permute.unpermute", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_permute.cu",
          "replaces": "src/repro/kernels/moe_permute/kernel.py:88",
          "launches": total("moe_permute.unpermute"),
          "launches_by_path": by_path("moe_permute.unpermute"),
          "max_abs_err": max(e["max_abs_err"]
-                            for e in list(k2.values()) + k2_edges),
+                            for e in list(k2.values()) + k2_edges
+                            + [ck_ds["K2"]]),
          "backward_max_abs_err": bwd_err("K2"),
-         **pair_row(k2)},
+         **pair_row(k2),
+         "dsv2_lite_2x2": dsv2_row(ck_ds["K2"], ("call_ms", "host_us"))},
         {"name": "moe_gemm.grouped_ffn_ragged", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_gemm.cu",
          "replaces": "src/repro/kernels/moe_gemm/kernel.py:228",
@@ -2884,7 +3294,8 @@ def main() -> int:
          "launches_by_path": by_path("moe_gemm.grouped_ffn_ragged"),
          "max_abs_err": max([k3["max_abs_err"], k3_222["max_abs_err"],
                              k_replan["K3_max_abs_err"],
-                             k_222["K3_max_abs_err"]]
+                             k_222["K3_max_abs_err"],
+                             ck_ds["K3"]["max_abs_err"]]
                             + [e["max_abs_err"] for e in k3e]),
          "backward_max_abs_err": bwd["K3"]["max_abs_err"],
          **{n: k3[n] for n in ("ms", "device_ms", "kernel_device_ms",
@@ -2894,13 +3305,15 @@ def main() -> int:
          "layouts": {label: {n: r[n] for n in (
              "ms", "device_ms", "kernel_device_ms", "call_ms", "host_us",
              "plain_ms", "bound_ms", "bound_by", "tiles", "max_abs_err")}
-             for label, r in (("2x2", k3), ("2x2x2", k3_222))}},
+             for label, r in (("2x2", k3), ("2x2x2", k3_222))},
+         "dsv2_lite_2x2": dsv2_row(ck_ds["K3"], ("tiles", "valid_rows"))},
         {"name": "moe_gemm.grouped_ffn_ragged_quant", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_gemm.cu",
          "replaces": "src/repro/kernels/moe_gemm/kernel.py:312",
          "launches": total("moe_gemm.grouped_ffn_ragged_quant"),
          "launches_by_path": by_path("moe_gemm.grouped_ffn_ragged_quant"),
-         "max_abs_err": max(k7["max_abs_err"], k7_full["max_abs_err"]),
+         "max_abs_err": max(k7["max_abs_err"], k7_full["max_abs_err"],
+                            ck_ds["K7"]["max_abs_err"]),
          "backward_max_abs_err": bwd["K7"]["max_abs_err"],
          "ms": k7["ms"], "device_ms": k7["device_ms"],
          "kernel_device_ms": k7["kernel_device_ms"],
@@ -2910,14 +3323,17 @@ def main() -> int:
          "plain_ms": k7["plain_ms"],
          "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
          "library_ms": None,
-         "layouts": {"S=608": k7, "S=4864": k7_full}},
+         "layouts": {"S=608": k7, "S=4864": k7_full},
+         "dsv2_lite_chunk0": dsv2_row(ck_ds["K7"], ("chunks", "R",
+                                                    "valid_rows"))},
         {"name": "moe_fused.local_moe", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_fused.cu",
          "replaces": "src/repro/kernels/moe_fused/kernel.py:123",
          "launches": total("moe_fused.local_moe"),
          "launches_by_path": by_path("moe_fused.local_moe"),
          "max_abs_err": max(e["max_abs_err"]
-                            for e in list(k4.values()) + k4_edges),
+                            for e in list(k4.values()) + k4_edges
+                            + list(ck_ds["K4"].values())),
          "backward_max_abs_err": bwd["K4"]["max_abs_err"],
          **{n: kp[n] for n in ("ms", "device_ms", "kernel_device_ms",
                                "call_ms", "host_us", "plain_ms", "bound_ms",
@@ -2928,7 +3344,11 @@ def main() -> int:
              "ms", "device_ms", "kernel_device_ms", "call_ms", "host_us",
              "plain_ms", "bound_ms", "bound_by", "computed_rows",
              "weighted_rows", "dense_rows", "max_abs_err")}
-             for label, r in k4.items()}},
+             for label, r in k4.items()},
+         "dsv2_lite_layouts": {
+             label: dsv2_row(r, ("computed_rows", "weighted_rows",
+                                 "dense_rows"))
+             for label, r in ck_ds["K4"].items()}},
         {"name": "flash_attn.flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attn.cu",
          "replaces": "src/repro/kernels/flash_attn/kernel.py:65",

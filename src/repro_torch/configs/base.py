@@ -3,8 +3,8 @@ counterpart of ``repro/configs/base.py``; only the configs this port
 serves are registered).
 
 ``ArchConfig.reduced()`` yields the CPU smoke-test variant (<=2 layers,
-d_model<=256, <=4 experts) of the same family.  ``dtype`` stays a string;
-``torch_dtype`` maps it onto a ``torch.dtype``.
+d_model<=256, <=4 experts, the MLA ranks cut) of the same family.
+``dtype`` stays a string; ``torch_dtype`` maps it onto a ``torch.dtype``.
 """
 
 from __future__ import annotations
@@ -39,6 +39,15 @@ class MoEArch:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAArch:
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_dim: int = 128
+    q_lora_rank: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str                   # dense | moe | hybrid | ssm | vlm | audio
@@ -55,6 +64,7 @@ class ArchConfig:
     sliding_window: int = 0       # 0 = full attention
     qkv_bias: bool = False
     moe: MoEArch | None = None
+    mla: MLAArch | None = None
     dtype: str = "bfloat16"
     source: str = ""              # citation
 
@@ -85,6 +95,11 @@ class ArchConfig:
                 d_ff_expert=min(moe.d_ff_expert, 128),
                 num_shared_experts=min(moe.num_shared_experts, 1),
                 first_dense=min(moe.first_dense, 1))
+        mla = self.mla
+        if mla:
+            mla = dataclasses.replace(mla, kv_lora_rank=64, qk_nope_dim=32,
+                                      qk_rope_dim=16, v_dim=32,
+                                      q_lora_rank=0)
         return dataclasses.replace(
             self, name=self.name + "-smoke", num_layers=layers, d_model=d,
             num_heads=heads, num_kv_heads=kv, head_dim=0,
@@ -92,7 +107,7 @@ class ArchConfig:
             vocab_size=min(self.vocab_size, 512),
             sliding_window=(min(self.sliding_window, 64)
                             if self.sliding_window else 0),
-            moe=moe, dtype="float32")
+            moe=moe, mla=mla, dtype="float32")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,7 +136,7 @@ class RunConfig:
     topology: tuple = ()
 
 
-ARCH_IDS = ("gpt3_medium_moe",)
+ARCH_IDS = ("deepseek_v2_lite_16b", "deepseek_v2_236b", "gpt3_medium_moe")
 
 
 def normalize_arch_id(name: str) -> str:

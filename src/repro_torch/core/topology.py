@@ -2,7 +2,8 @@
 counterpart of ``repro/core/topology.py``, numpy only).
 
 * tree topologies written as nested lists (paper Fig. 2), e.g. ``[[2, 2],
-  [2]]``;
+  [2]]``, and ring topologies (Fig. 2(b)), for planning only: no world
+  is built on a ring;
 * the alpha-beta communication model and Eq. (5) level smoothing;
 * the closed-form near-optimal dispatch of Eq. (7) and its per-level
   capacity ratios;
@@ -112,6 +113,46 @@ class TreeTopology:
         return len(set(counts)) == 1
 
 
+@dataclasses.dataclass(frozen=True)
+class RingTopology:
+    """Ring topology (paper Fig. 2(b)): P devices, level(i, j) = hop count.
+
+    "The ring topology also shows a hierarchical characteristic and the
+    solution for ring topology has the same pattern as symmetric trees"
+    (§4.2): every device sees the same per-hop group sizes, so Eq. (7)
+    applies unchanged with per-hop beta values (traffic between
+    non-adjacent devices hops through intermediates; the per-hop beta
+    encodes the slowest link on the path).
+    """
+
+    num_devices_: int
+
+    @property
+    def num_devices(self) -> int:
+        return self.num_devices_
+
+    @property
+    def num_levels(self) -> int:
+        return self.num_devices_ // 2 + 1
+
+    def level(self, i: int, j: int) -> int:
+        d = abs(i - j)
+        return min(d, self.num_devices_ - d)
+
+    def level_matrix(self) -> np.ndarray:
+        P = self.num_devices_
+        i = np.arange(P)
+        d = np.abs(i[:, None] - i[None, :])
+        return np.minimum(d, P - d)
+
+    def level_sizes(self, i: int = 0) -> np.ndarray:
+        lm = self.level_matrix()[i]
+        return np.bincount(lm, minlength=self.num_levels)
+
+    def is_symmetric(self) -> bool:
+        return True
+
+
 def symmetrize(topo: TreeTopology) -> TreeTopology:
     """Merge an asymmetric tree into the closest symmetric structure.
 
@@ -154,7 +195,7 @@ def symmetrize(topo: TreeTopology) -> TreeTopology:
 
 @dataclasses.dataclass(frozen=True)
 class CommModel:
-    """alpha-beta cost model over a TreeTopology.
+    """alpha-beta cost model over a TreeTopology or a RingTopology.
 
     ``alpha[l]`` (seconds) and ``beta[l]`` (seconds/byte) are per-level
     constants — either supplied directly (hardware datasheet) or produced by

@@ -23,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
+import os
 import socket
 
 import torch
@@ -254,6 +255,11 @@ def _rank_main(rank, fn, axis_sizes, backend, device, port, args):
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is not None:
         torch.cuda.set_device(dev)
+    if dev.type == "cpu":
+        # the ranks share the host's cores: each with a thread a core
+        # would oversubscribe them world_size times over
+        torch.set_num_threads(max(1, len(os.sched_getaffinity(0))
+                                  // world_size))
     dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
                             world_size=world_size, rank=rank)
     try:

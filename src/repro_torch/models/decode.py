@@ -1,12 +1,13 @@
 """Decode-time forward: fused prefill and one-token decode steps against
-per-layer KV caches (the counterpart of ``repro/models/decode.py`` for
-the attention mixer).
+per-layer caches (the counterpart of ``repro/models/decode.py`` for the
+attention and MLA mixers).
 
-The cache is a list with one ``{"mixer": {"k", "v", "pos"}}`` dict per
-layer (the reference stacks the repeated group on a leading axis); the
-batch is axis 0 of every leaf.  Decode steps and the slot operations
-update the cache tensors in place and return the same cache.  Other mixer
-families (mla, mamba, xlstm, cross-attention) are not ported yet.
+The cache is a list with one ``{"mixer": {...}}`` dict per layer (the
+reference stacks the repeated group on a leading axis): ``{"k", "v",
+"pos"}`` for attention, the compressed ``{"c_kv", "k_rope", "pos"}`` for
+MLA; the batch is axis 0 of every leaf.  Decode steps and the slot
+operations update the cache tensors in place and return the same cache.
+Other mixer families (mamba, xlstm, cross-attention) are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,14 +16,9 @@ import torch
 
 from repro_torch.launch.mesh import gather_rows
 from repro_torch.models import layers
-from repro_torch.models.transformer import (ModelCtx, SubLayer, _moe_block,
-                                            layer_list)
-
-
-def _check_mixer(sub: SubLayer) -> None:
-    if sub.mixer != "attn" or sub.cross:
-        raise NotImplementedError(f"decode for mixer {sub.mixer!r} "
-                                  f"(cross={sub.cross}) is not ported yet")
+from repro_torch.models import mla as mla_lib
+from repro_torch.models.transformer import (ModelCtx, SubLayer, _check_mixer,
+                                            _moe_block, layer_list)
 
 
 def init_cache(ctx: ModelCtx, batch: int, max_len: int, device=None):
@@ -30,8 +26,11 @@ def init_cache(ctx: ModelCtx, batch: int, max_len: int, device=None):
     cache = []
     for sub in layer_list(ctx.arch):
         _check_mixer(sub)
-        cache.append({"mixer": layers.init_kv_cache(batch, max_len,
-                                                     ctx.attn_cfg, device)})
+        if sub.mixer == "mla":
+            c = mla_lib.init_mla_cache(batch, max_len, ctx.mla_cfg, device)
+        else:
+            c = layers.init_kv_cache(batch, max_len, ctx.attn_cfg, device)
+        cache.append({"mixer": c})
     return cache
 
 
@@ -97,8 +96,12 @@ def _decode_sublayer(p, c, x, sub: SubLayer, ctx: ModelCtx, layer_idx=None):
     _check_mixer(sub)
     a = ctx.arch
     h = layers.norm_apply(p["norm1"], x, a.norm)
-    mix, c["mixer"] = layers.attn_decode(p["mixer"], h, c["mixer"],
-                                         ctx.attn_cfg)
+    if sub.mixer == "mla":
+        mix, c["mixer"] = mla_lib.mla_decode(p["mixer"], h, c["mixer"],
+                                             ctx.mla_cfg)
+    else:
+        mix, c["mixer"] = layers.attn_decode(p["mixer"], h, c["mixer"],
+                                             ctx.attn_cfg)
     x = x + mix
     if sub.ffn == "mlp":
         h = layers.norm_apply(p["norm2"], x, a.norm)
@@ -129,17 +132,22 @@ def decode_step(params, cache, tokens, ctx: ModelCtx):
 
 def _prefill_sublayer(p, c, x, sub: SubLayer, ctx: ModelCtx, lens,
                       layer_idx=None):
-    """Full-sequence sublayer forward that also writes K/V for positions
-    [0, S) with ``pos`` set to each request's true prompt length."""
+    """Full-sequence sublayer forward that also writes the decode cache
+    for positions [0, S) (K/V, or MLA's compressed entries) with ``pos``
+    set to each request's true prompt length."""
     _check_mixer(sub)
     a = ctx.arch
     S = x.shape[1]
     h = layers.norm_apply(p["norm1"], x, a.norm)
-    mix, (k, v) = layers.attn_apply(p["mixer"], h, ctx.attn_cfg)
-    kv = c["mixer"]
-    kv["k"][:, :S] = k.to(kv["k"].dtype)
-    kv["v"][:, :S] = v.to(kv["v"].dtype)
-    kv["pos"] = lens.clone()
+    if sub.mixer == "mla":
+        mix, entry = mla_lib.mla_apply(p["mixer"], h, ctx.mla_cfg)
+    else:
+        mix, (k, v) = layers.attn_apply(p["mixer"], h, ctx.attn_cfg)
+        entry = {"k": k, "v": v}
+    cached = c["mixer"]
+    for name, val in entry.items():
+        cached[name][:, :S] = val.to(cached[name].dtype)
+    cached["pos"] = lens.clone()
     x = x + mix
     if sub.ffn == "mlp":
         h = layers.norm_apply(p["norm2"], x, a.norm)

@@ -105,6 +105,7 @@ class AttnConfig:
     qkv_bias: bool = False
     dtype: torch.dtype = torch.bfloat16
     use_flash_kernel: bool = False
+    use_blockwise: bool = False      # online softmax over key blocks
 
 
 def init_attn(cfg: AttnConfig, generator, device="cuda"):
@@ -154,6 +155,45 @@ def _sdpa(q, k, v, *, causal, sliding_window, q_positions, k_positions):
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def _blockwise_sdpa(q, k, v, *, causal, sliding_window, block_k: int = 1024):
+    """Online-softmax attention over key blocks of ``block_k`` rows: the
+    [Sq, Sk] score matrix is never held whole, only [Sq, block_k] of it
+    (the reference's ``_blockwise_sdpa``, a loop where it scans).  q: [B,
+    Sq, H, hd]; k: [B, Sk, K, hd]; v: [B, Sk, K, hdv], where hdv may differ
+    from hd (MLA).  Positions are ``arange`` on both sides."""
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    hdv = v.shape[-1]
+    G = H // K
+    bk = min(block_k, Sk)
+    dev = q.device
+    qf = (q.to(torch.float32) / np.sqrt(hd)).reshape(B, Sq, K, G, hd)
+    qpos = torch.arange(Sq, device=dev)
+    o = torch.zeros((B, K, G, Sq, hdv), dtype=torch.float32, device=dev)
+    m = torch.full((B, K, G, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, K, G, Sq), dtype=torch.float32, device=dev)
+    for j0 in range(0, Sk, bk):
+        kj = k[:, j0:j0 + bk].to(torch.float32)
+        vj = v[:, j0:j0 + bk].to(torch.float32)
+        s = torch.einsum("bqkgh,bskh->bkgqs", qf, kj)
+        kpos = torch.arange(j0, j0 + kj.shape[1], device=dev)
+        mask = torch.ones((Sq, kj.shape[1]), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= qpos[:, None] >= kpos[None, :]
+        if sliding_window:
+            mask &= (qpos[:, None] - kpos[None, :]) < sliding_window
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1)
+        o = o * alpha[..., None] + torch.einsum("bkgqs,bskh->bkgqh", p, vj)
+        m = m_new
+    l = torch.where(l == 0.0, 1.0, l)
+    o = (o / l[..., None]).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hdv)
+    return o.to(q.dtype)
+
+
 def attn_apply(params, x, cfg: AttnConfig, positions=None):
     """Full-sequence (prefill) attention.  x: [B, S, d] -> (out, (k, v))."""
     B, S, _ = x.shape
@@ -166,6 +206,9 @@ def attn_apply(params, x, cfg: AttnConfig, positions=None):
         from repro_torch.kernels.flash_attn import ops as fa_ops
         out = fa_ops.flash_attention(q, k, v, causal=cfg.causal,
                                      sliding_window=cfg.sliding_window)
+    elif cfg.use_blockwise:
+        out = _blockwise_sdpa(q, k, v, causal=cfg.causal,
+                              sliding_window=cfg.sliding_window)
     else:
         out = _sdpa(q, k, v, causal=cfg.causal,
                     sliding_window=cfg.sliding_window,

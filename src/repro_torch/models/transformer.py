@@ -25,11 +25,12 @@ from repro_torch.core import gating
 from repro_torch.core.dispatch import base as moe_base
 from repro_torch.core.dispatch import engine as dispatch_lib
 from repro_torch.models import layers
+from repro_torch.models import mla as mla_lib
 
 
 @dataclasses.dataclass(frozen=True)
 class SubLayer:
-    mixer: str                    # attn (mla | mamba | mlstm | slstm: later)
+    mixer: str                    # attn | mla (mamba | mlstm | slstm: later)
     ffn: str | None               # mlp | moe | None
     cross: bool = False
     causal: bool = True
@@ -55,6 +56,8 @@ class ModelCtx:
     use_pallas: bool | None = None
     wire_codec: object = None
     fused_xent: bool = False          # loss through _fused_xent
+    use_blockwise: bool = False       # attention by online softmax over
+                                      # key blocks (layers._blockwise_sdpa)
     device: str = "cuda"
 
     @property
@@ -75,7 +78,21 @@ class ModelCtx:
             num_kv_heads=a.num_kv_heads, head_dim=a.head_dim_,
             rope_theta=a.rope_theta, sliding_window=a.sliding_window,
             qkv_bias=a.qkv_bias, dtype=a.torch_dtype,
-            use_flash_kernel=self.use_flash)
+            use_flash_kernel=self.use_flash,
+            use_blockwise=self.use_blockwise)
+
+    @property
+    def mla_cfg(self) -> mla_lib.MLAConfig:
+        """MLA's config; it takes no ``use_flash``: MLA attends through
+        plain PyTorch (or blockwise), as the reference's does."""
+        a = self.arch
+        m = a.mla
+        return mla_lib.MLAConfig(
+            d_model=a.d_model, num_heads=a.num_heads,
+            kv_lora_rank=m.kv_lora_rank, qk_nope_dim=m.qk_nope_dim,
+            qk_rope_dim=m.qk_rope_dim, v_dim=m.v_dim,
+            q_lora_rank=m.q_lora_rank, rope_theta=a.rope_theta,
+            dtype=a.torch_dtype, use_blockwise=self.use_blockwise)
 
     @property
     def moe_cfg(self) -> moe_base.MoEConfig:
@@ -113,7 +130,7 @@ def layer_plan(arch: ArchConfig):
     ``first_dense``: ``moe_period`` is not read."""
     if arch.family in ("ssm", "hybrid") or arch.family == "audio":
         raise NotImplementedError(f"{arch.family} models are not ported yet")
-    mixer = "attn"
+    mixer = "mla" if arch.mla else "attn"
     if arch.is_moe:
         prefix = [SubLayer(mixer, "mlp")] * arch.moe.first_dense
         return prefix, [SubLayer(mixer, "moe")], \
@@ -127,12 +144,20 @@ def layer_list(arch: ArchConfig) -> list:
     return list(prefix) + list(group) * n_groups
 
 
+def _check_mixer(sub: SubLayer) -> None:
+    if sub.mixer not in ("attn", "mla") or sub.cross:
+        raise NotImplementedError(f"mixer {sub.mixer!r} (cross={sub.cross}) "
+                                  f"is not ported yet")
+
+
 def _init_sublayer(sub: SubLayer, ctx: ModelCtx, generator, device):
     a = ctx.arch
-    if sub.mixer != "attn" or sub.cross:
-        raise NotImplementedError(f"mixer {sub.mixer!r} is not ported yet")
-    p = {"norm1": layers.init_norm(a.norm, a.d_model, device),
-         "mixer": layers.init_attn(ctx.attn_cfg, generator, device)}
+    _check_mixer(sub)
+    p = {"norm1": layers.init_norm(a.norm, a.d_model, device)}
+    if sub.mixer == "mla":
+        p["mixer"] = mla_lib.init_mla(ctx.mla_cfg, generator, device)
+    else:
+        p["mixer"] = layers.init_attn(ctx.attn_cfg, generator, device)
     if sub.ffn == "mlp":
         p["norm2"] = layers.init_norm(a.norm, a.d_model, device)
         p["ffn"] = layers.init_mlp(a.d_model, a.d_ff, a.activation,
@@ -198,14 +223,16 @@ def _apply_sublayer(p, x, sub: SubLayer, ctx: ModelCtx, aux, frac, drop,
     """Returns (x, aux, frac, drop): the residual stream and the
     accumulated aux loss, per-level dispatch fractions and dropped share
     (``frac`` / ``drop`` pass through unchanged for non-MoE sublayers)."""
-    if sub.mixer != "attn" or sub.cross:
-        raise NotImplementedError(f"mixer {sub.mixer!r} is not ported yet")
+    _check_mixer(sub)
     a = ctx.arch
-    cfg = ctx.attn_cfg
-    if not sub.causal:
-        cfg = dataclasses.replace(cfg, causal=False)
     h = layers.norm_apply(p["norm1"], x, a.norm)
-    mix, _ = layers.attn_apply(p["mixer"], h, cfg)
+    if sub.mixer == "mla":
+        mix, _ = mla_lib.mla_apply(p["mixer"], h, ctx.mla_cfg)
+    else:
+        cfg = ctx.attn_cfg
+        if not sub.causal:
+            cfg = dataclasses.replace(cfg, causal=False)
+        mix, _ = layers.attn_apply(p["mixer"], h, cfg)
     x = x + mix
     if sub.ffn == "mlp":
         h = layers.norm_apply(p["norm2"], x, a.norm)

@@ -12,8 +12,10 @@ One JAX subprocess on 4 forced host devices computes the reference:
   mesh that ``repro.launch.serve --devices 4 --mesh-shape 4,1`` builds,
   greedy.
 
-Then 4 CPU processes of the port, joined over gloo (one 2x2 world,
-``launch.mesh.spawn``), run the same from the same weights: each rank
+Beside it, as soon as it has written the weights, batch and prompts
+(``torch_world_reference``), 4 CPU processes of the port, joined over
+gloo (one 2x2 world, ``launch.mesh.spawn``), run the same from the same
+weights: each rank
 gathers the world's tokens, runs its one expert on them and the partial
 outputs are summed over the EP axes; the kernels wanted (the fused
 ``local_moe`` branch, its plain version on the CPU) and not.  The port's
@@ -28,16 +30,12 @@ greedy tokens exact.
 import dataclasses
 import os
 import pickle
-import subprocess
-import sys
-import textwrap
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-REPO = os.path.dirname(os.path.abspath(os.path.dirname(__file__)))
 ARCH_ID = "gpt3_medium_moe"
 SEQ, BATCH = 8, 8
 SIZES = (2, 2)
@@ -72,6 +70,21 @@ tree = jax.tree_util.tree_map(np.asarray, params)
 rng = np.random.default_rng(5)
 x = rng.standard_normal(({BATCH}, {SEQ}, arch.d_model)).astype(np.float32)
 r = rng.standard_normal(x.shape).astype(np.float32)
+smesh = make_mesh((4, 1), ("data", "model"))
+sctx = model.build_ctx(arch, smesh, seq_len={SERVE["cache_len"]},
+                       global_batch={SERVE["num_slots"]}, aux_mode="none")
+srules = model.default_rules(smesh)
+rng = np.random.default_rng(9)
+prompts = [rng.integers(0, arch.vocab_size, size=n).tolist()
+           for n in {PROMPT_LENS}]
+gen_prompts = rng.integers(0, arch.vocab_size,
+                           size=({GEN_BATCH}, {GEN_PROMPT})).astype(np.int32)
+with smesh, sharding.axis_rules(srules):
+    sparams = model.init_params(jax.random.PRNGKey(0), sctx, rules=srules)
+inputs = {{"params": tree, "x": x, "r": r,
+          "serve_params": jax.tree_util.tree_map(np.asarray, sparams),
+          "prompts": prompts, "gen_prompts": gen_prompts}}
+dump_inputs(inputs)
 p1 = jax.tree_util.tree_map(lambda a: a[1], params["groups"])["sub0"]["ffn"]
 gather = {{}}
 for replicated in (False, True):
@@ -89,17 +102,7 @@ for replicated in (False, True):
         "metrics": {{k: np.asarray(v) for k, v in m.items()}},
         "grads": jax.tree_util.tree_map(np.asarray, g)}}
 
-smesh = make_mesh((4, 1), ("data", "model"))
-sctx = model.build_ctx(arch, smesh, seq_len={SERVE["cache_len"]},
-                       global_batch={SERVE["num_slots"]}, aux_mode="none")
-srules = model.default_rules(smesh)
-rng = np.random.default_rng(9)
-prompts = [rng.integers(0, arch.vocab_size, size=n).tolist()
-           for n in {PROMPT_LENS}]
-gen_prompts = rng.integers(0, arch.vocab_size,
-                           size=({GEN_BATCH}, {GEN_PROMPT})).astype(np.int32)
 with smesh, sharding.axis_rules(srules):
-    sparams = model.init_params(jax.random.PRNGKey(0), sctx, rules=srules)
     reqs = [Request(uid=i, tokens=p, max_new_tokens=m)
             for i, (p, m) in enumerate(zip(prompts, {BUDGETS}))]
     rep = engine.ServingEngine(sparams, sctx,
@@ -107,9 +110,7 @@ with smesh, sharding.axis_rules(srules):
     res = engine.generate(sparams, sctx, jnp.asarray(gen_prompts),
                           steps={GEN_STEPS}, cache_len={GEN_CACHE})
 with open(sys.argv[1], "wb") as f:
-    pickle.dump({{"params": tree, "x": x, "r": r, "gather": gather,
-                 "serve_params": jax.tree_util.tree_map(np.asarray, sparams),
-                 "prompts": prompts, "gen_prompts": gen_prompts,
+    pickle.dump({{**inputs, "gather": gather,
                  "served": {{i: rep.tokens_for(i)
                             for i in range(len(prompts))}},
                  "generated": np.asarray(res.tokens)}}, f)
@@ -196,21 +197,16 @@ def _rank_main(world, ref_path, out_dir):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """(reference results, [rank 0..3 results]) — one JAX subprocess, then
-    one 4-process gloo world of the port."""
+    """(reference results, [rank 0..3 results]) — one JAX subprocess and,
+    beside it once it has made the weights, batch and prompts, one
+    4-process gloo world of the port."""
     from repro_torch.launch import mesh
+    from torch_world_reference import run_beside_world
     tmp = tmp_path_factory.mktemp("gather_world")
-    ref_path = str(tmp / "reference.pkl")
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    env["PYTHONPATH"] = os.path.join(REPO, "src")
-    r = subprocess.run([sys.executable, "-c", textwrap.dedent(REFERENCE),
-                        ref_path], capture_output=True, text=True,
-                       timeout=600, env=env)
-    assert r.returncode == 0, f"stderr:\n{r.stderr[-4000:]}"
-    mesh.spawn(_rank_main, SIZES, "gloo", "cpu", args=(ref_path, str(tmp)))
-    with open(ref_path, "rb") as f:
-        ref = pickle.load(f)
+    ref = run_beside_world(
+        REFERENCE, 4, tmp,
+        lambda inputs: mesh.spawn(_rank_main, SIZES, "gloo", "cpu",
+                                  args=(inputs, str(tmp))))
     ranks = []
     for i in range(4):
         with open(tmp / f"rank{i}.pkl", "rb") as f:

@@ -85,6 +85,12 @@ def pair(mesh11, weights):
     return jctx, weights[0], ctx, weights[1]
 
 
+CONFIG_FIELDS = ("name", "family", "num_layers", "d_model", "num_heads",
+                 "num_kv_heads", "d_ff", "vocab_size", "head_dim", "norm",
+                 "activation", "rope_theta", "sliding_window", "qkv_bias",
+                 "dtype", "source")
+
+
 def test_configs_match_reference():
     jarch, arch = jax_get_config(ARCH_ID), get_config(ARCH_ID)
     for f in ("num_layers", "d_model", "num_heads", "num_kv_heads",
@@ -96,6 +102,21 @@ def test_configs_match_reference():
         (jr.num_layers, jr.d_model, jr.moe.num_experts, jr.dtype)
     # layer_plan ignores moe_period in both packages: every layer is MoE
     assert [s.ffn for s in transformer.layer_list(arch)] == ["moe"] * 12
+    # the DeepSeek-V2 configs field for field, reduced() too, and their
+    # layer plans: the dense first layer, then MLA + MoE layers
+    for aid in ("deepseek_v2_lite_16b", "deepseek_v2_236b"):
+        for a, ja in ((get_config(aid), jax_get_config(aid)),
+                      (get_config(aid).reduced(),
+                       jax_get_config(aid).reduced())):
+            for f in CONFIG_FIELDS:
+                assert getattr(a, f) == getattr(ja, f), (a.name, f)
+            assert dataclasses.asdict(a.moe) == dataclasses.asdict(ja.moe)
+            assert dataclasses.asdict(a.mla) == dataclasses.asdict(ja.mla)
+            prefix, group, n = jtransformer.layer_plan(ja)
+            assert [(s.mixer, s.ffn) for s in transformer.layer_list(a)] \
+                == [(s.mixer, s.ffn) for s in list(prefix) + list(group) * n]
+            assert transformer.layer_list(a)[-1] == transformer.SubLayer(
+                "mla", "moe")
     # every path of the reference registry is ported; others are refused
     assert dispatch_lib.available() == jdispatch_lib.available()
     ctx = model.build_ctx(r, device="cpu")

@@ -5,8 +5,10 @@ One JAX subprocess on 4 forced host devices (mesh ``(2, 2, 1)`` over
 computes the reference: the ``a2a`` engine through ``_moe_block`` on
 layer 1 of ``gpt3_medium_moe.reduced()`` (float32) with the gradients of
 ``sum(y * r) + aux_loss``, and 2 trainer steps with ``aux_mode="ta"``.
-Then 4 CPU processes of the port, joined by ``torch.distributed`` over
-gloo (``launch.mesh.spawn``), run the same from the same weights, each on
+Beside it, as soon as it has written the weights and batch
+(``torch_world_reference``), 4 CPU processes of the port, joined by
+``torch.distributed`` over gloo (``launch.mesh.spawn``), run the same
+from the same weights, each on
 its batch shard with its expert shard; the EP plan has two remote stages,
 so permute -> all-to-all chain -> ragged grouped FFN -> reverse chain ->
 unpermute carries every token, kernels wanted (their plain versions on
@@ -19,16 +21,12 @@ lr 3e-4, see ``test_torch_training.py``).
 
 import os
 import pickle
-import subprocess
-import sys
-import textwrap
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH_ID = "gpt3_medium_moe"
 SEQ, BATCH, STEPS = 32, 8, 2
 SIZES = (2, 2)
@@ -69,6 +67,7 @@ tree = jax.tree_util.tree_map(np.asarray, params)
 rng = np.random.default_rng(5)
 x = rng.standard_normal(({BATCH}, {SEQ}, arch.d_model)).astype(np.float32)
 r = rng.standard_normal(x.shape).astype(np.float32)
+dump_inputs({{"params": tree, "x": x, "r": r}})
 p1 = jax.tree_util.tree_map(lambda a: a[1], params["groups"])["sub0"]["ffn"]
 
 def loss(p, xx):
@@ -208,22 +207,16 @@ def _leaves(tree):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """(reference results, [rank 0..3 results]) — one JAX subprocess, then
-    one 4-process gloo world of the port."""
+    """(reference results, [rank 0..3 results]) — one JAX subprocess and,
+    beside it once it has made the weights and batch, one 4-process gloo
+    world of the port."""
     from repro_torch.launch import mesh
+    from torch_world_reference import run_beside_world
     tmp = tmp_path_factory.mktemp("world22")
-    ref_path = str(tmp / "reference.pkl")
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    env["PYTHONPATH"] = os.path.join(REPO, "src")
-    r = subprocess.run([sys.executable, "-c", textwrap.dedent(REFERENCE)
-                        .replace("{REPLAN_RUN}", REPLAN_RUN), ref_path],
-                       capture_output=True, text=True,
-                       timeout=600, env=env)
-    assert r.returncode == 0, f"stderr:\n{r.stderr[-4000:]}"
-    mesh.spawn(_rank_main, SIZES, "gloo", "cpu", args=(ref_path, str(tmp)))
-    with open(ref_path, "rb") as f:
-        ref = pickle.load(f)
+    ref = run_beside_world(
+        REFERENCE.replace("{REPLAN_RUN}", REPLAN_RUN), 4, tmp,
+        lambda inputs: mesh.spawn(_rank_main, SIZES, "gloo", "cpu",
+                                  args=(inputs, str(tmp))))
     ranks = []
     for i in range(4):
         with open(tmp / f"rank{i}.pkl", "rb") as f:

@@ -301,7 +301,8 @@ def test_pipelined_engine_matches_reference(mesh11, unit_case, num_chunks,
 
 # ---------------------------------------------------------------------------
 # a 2x2 (pod x data) EP world: one JAX subprocess on 4 forced host devices
-# against 4 gloo processes of the port (as test_torch_multirank.py)
+# against 4 gloo processes of the port, started beside it once it has
+# written the weights and batch (as test_torch_multirank.py)
 # ---------------------------------------------------------------------------
 
 SEQ, BATCH, CHUNKS = 32, 8, 2
@@ -335,6 +336,7 @@ r = rng.standard_normal(x.shape).astype(np.float32)
 p1 = jax.tree_util.tree_map(lambda a: a[1], params["groups"])["sub0"]["ffn"]
 out = {{"params": jax.tree_util.tree_map(np.asarray, params),
         "caps": ctx0.plan.caps, "x": x, "r": r}}
+dump_inputs(out)
 for codec in {SCALED!r}:
     for use_pallas in (None, True):
         ctx = model.build_ctx(arch, mesh, wire_codec=codec,
@@ -432,26 +434,16 @@ def _rank_main(world, ref_path, out_dir):
 
 @pytest.fixture(scope="module")
 def world_runs(tmp_path_factory):
-    """(reference results, [rank 0..3 results])."""
-    import os
+    """(reference results, [rank 0..3 results]): the world starts beside
+    the reference once it has written the weights and batch."""
     import pickle
-    import subprocess
-    import sys
-    import textwrap
     from repro_torch.launch import mesh
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    from torch_world_reference import run_beside_world
     tmp = tmp_path_factory.mktemp("pipelined22")
-    ref_path = str(tmp / "reference.pkl")
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    env["PYTHONPATH"] = os.path.join(repo, "src")
-    r = subprocess.run([sys.executable, "-c", textwrap.dedent(REFERENCE),
-                        ref_path], capture_output=True, text=True,
-                       timeout=600, env=env)
-    assert r.returncode == 0, f"stderr:\n{r.stderr[-4000:]}"
-    mesh.spawn(_rank_main, SIZES, "gloo", "cpu", args=(ref_path, str(tmp)))
-    with open(ref_path, "rb") as f:
-        ref = pickle.load(f)
+    ref = run_beside_world(
+        REFERENCE, 4, tmp,
+        lambda inputs: mesh.spawn(_rank_main, SIZES, "gloo", "cpu",
+                                  args=(inputs, str(tmp))))
     ranks = []
     for i in range(4):
         with open(tmp / f"rank{i}.pkl", "rb") as f:

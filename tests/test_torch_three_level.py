@@ -22,8 +22,10 @@ it) computes the reference:
   is kept then rests on a rounding of the attention weights (one ulp),
   which the two packages take differently.
 
-Then 8 CPU processes of the port, joined over gloo (one world,
-``launch.mesh.spawn``), run the same from the same weights, with the
+Beside it, as soon as it has written the weights and batch
+(``torch_world_reference``), 8 CPU processes of the port, joined over
+gloo (one world, ``launch.mesh.spawn``), run the same from the same
+weights, with the
 kernels wanted (their plain versions on the CPU) and not.  Every stage of
 the three-level plan has more than one destination, so permute -> chain
 -> grouped FFN -> reverse chain -> unpermute carries every token; the
@@ -37,16 +39,12 @@ expert leaves of the two pod replicas bit-equal.
 
 import os
 import pickle
-import subprocess
-import sys
-import textwrap
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH_ID = "gpt3_medium_moe"
 SPEC = [[2, 2], [2, 2]]
 SIZES = (2, 2, 2)
@@ -93,9 +91,13 @@ def ctx_for(a, dispatch="a2a", chunks=0):
 
 
 ctx = ctx_for(arch8)
+dctx = ctx_for(arch4)
 with mesh, sharding.axis_rules(rules):
     params = model.init_params(jax.random.PRNGKey(0), ctx, rules=rules)
+    dparams = model.init_params(jax.random.PRNGKey(0), dctx, rules=rules)
 out["params"] = jax.tree_util.tree_map(np.asarray, params)
+out["dp_params"] = jax.tree_util.tree_map(np.asarray, dparams)
+dump_inputs({{k: out[k] for k in ("params", "dp_params", "x", "r")}})
 p1 = jax.tree_util.tree_map(lambda a: a[1], params["groups"])["sub0"]["ffn"]
 for name, k in {ENGINES}:
     c = ctx_for(arch8, name, k)
@@ -124,10 +126,6 @@ out["pipelined_history"] = trainer.train(
                      a2a_num_chunks={TRAIN_CHUNKS}, **base), mesh,
     steps={STEPS}, log_every=1, verbose=False).metrics_history
 
-dctx = ctx_for(arch4)
-with mesh, sharding.axis_rules(rules):
-    dparams = model.init_params(jax.random.PRNGKey(0), dctx, rules=rules)
-out["dp_params"] = jax.tree_util.tree_map(np.asarray, dparams)
 p1 = jax.tree_util.tree_map(lambda a: a[1], dparams["groups"])["sub0"]["ffn"]
 
 
@@ -262,22 +260,17 @@ def _rank_main(world, ref_path, out_dir):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """(reference results, [rank 0..7 results]) — one JAX subprocess on 8
-    forced host devices, then one 8-process gloo world of the port."""
+    forced host devices and, beside it once it has made both models'
+    weights and the batch, one 8-process gloo world of the port."""
     from repro_torch.launch import mesh
+    from torch_world_reference import run_beside_world
     tmp = tmp_path_factory.mktemp("world222")
-    ref_path = str(tmp / "reference.pkl")
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-    env["PYTHONPATH"] = os.path.join(REPO, "src")
-    r = subprocess.run([sys.executable, "-c", textwrap.dedent(REFERENCE),
-                        ref_path], capture_output=True, text=True,
-                       timeout=600, env=env)
-    assert r.returncode == 0, f"stderr:\n{r.stderr[-4000:]}"
     sizes = mesh.mesh_from_topology(SPEC)
     assert sizes == SIZES
-    mesh.spawn(_rank_main, sizes, "gloo", "cpu", args=(ref_path, str(tmp)))
-    with open(ref_path, "rb") as f:
-        ref = pickle.load(f)
+    ref = run_beside_world(
+        REFERENCE, 8, tmp,
+        lambda inputs: mesh.spawn(_rank_main, sizes, "gloo", "cpu",
+                                  args=(inputs, str(tmp))))
     ranks = []
     for i in range(8):
         with open(tmp / f"rank{i}.pkl", "rb") as f:

@@ -257,14 +257,24 @@ def test_fused_xent_matches_default_loss(weights):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("use_pallas", [None, True])
-def test_trainer_matches_reference(mesh11, use_pallas):
-    steps = 3
-    run_kw = dict(seq_len=SEQ, global_batch=BATCH, warmup_steps=1,
-                  aux_mode="ta", dispatch="a2a", seed=0)
-    jarch = jax_get_config(ARCH_ID).reduced()
-    want = jtrainer.train(jarch, JRunConfig(**run_kw), mesh11, steps=steps,
+TRAIN_RUN = dict(seq_len=SEQ, global_batch=BATCH, warmup_steps=1,
+                 aux_mode="ta", dispatch="a2a", seed=0)
+
+
+@pytest.fixture(scope="module")
+def reference_train(mesh11):
+    """The reference's 3 trainer steps under TRAIN_RUN, run once for both
+    cases below (their ``use_pallas`` is the port's)."""
+    return jtrainer.train(jax_get_config(ARCH_ID).reduced(),
+                          JRunConfig(**TRAIN_RUN), mesh11, steps=3,
                           log_every=1, verbose=False)
+
+
+@pytest.mark.parametrize("use_pallas", [None, True])
+def test_trainer_matches_reference(mesh11, reference_train, use_pallas):
+    steps = 3
+    run_kw = TRAIN_RUN
+    want = reference_train
     jctx, ctx = build_ctxs(mesh11, aux_mode="ta")
     params = params_from_numpy(
         jax.tree_util.tree_map(np.asarray, ref_params(mesh11, jctx)), ctx,
