@@ -176,14 +176,35 @@ Phases, each printing JSON lines:
    ``trainer.train`` at depth 4, seq 512, batch 4, ``aux_mode="ta"``: K4
    9 launches, the first step's loss within LOSS_RTOL of the plain
    path's, step walls and peak memory;
-18. kernels — one ``{"kernels": [...]}`` line for K1-K8, launches
+18. Jamba-v0.1 (arXiv:2403.19887) at full width on one rank, after
+   DeepSeek-V2-Lite's weights are freed: d 4096, Mamba (d_inner 8192,
+   d_state 16, dt_rank 256) in 7 of each 8 layers and GQA attention (32
+   heads, 8 KV, head dim 128) in the fifth, 16 experts top-2 of f 14336
+   (swiglu) in every second layer and a dense FFN of f 14336 in the
+   others, vocab 65536, depth cut 32 -> 16 (two whole groups; 25.8 B bf16
+   parameters from seed 0; the 32 layers, 103 GB, do not fit the card).
+   ``init_jamba_d16``; ``checks_jamba`` (``checks_wide`` on layer 1: K4
+   at the decode (8 slots) and prefill-scan step (4 rows) gather layouts
+   and the one-rank forward layout (seq 512 x batch 2, 160 slots an
+   expert), K1-K3 at the 2x2 plan's rank 0 (4 experts a rank), K7 at
+   pipelined chunk 0); ``serve_jamba_d16``: the kernel path's and the
+   bf16 plain path's logits, then the serve mix prefilled by scanning
+   decode steps as the reference prefills recurrent models: K4 exactly 8
+   x (scan steps + decode steps), K5 and every other kernel never;
+   ``e2e_jamba_d16``: the float32 verdict on those logits, the float32
+   run casting one layer at a time; ``loss_jamba_d16``: one forward and
+   loss through ``loss_fn`` on the one-rank ``a2a`` path (seq 512, batch
+   2, no backward), K4 once a MoE layer, within LOSS_RTOL of the plain
+   path's;
+19. kernels — one ``{"kernels": [...]}`` line for K1-K8, launches
    summed over the main paths (serve, every rank of serve_2x2,
    train_1rank and its fused cross entropy step, every rank of
    train_2x2 and train_2x2_pipelined, train_einsum_k6,
    train_1rank_accum_remat, train_resilient, every rank of
    train_2x2_replan, train_2x2x2 and train_dp, serve_dsv2_lite,
-   train_dsv2_lite_d4), with DeepSeek-V2-Lite's readings beside
-   each of K1-K4 and K7.  K8 lies on no
+   train_dsv2_lite_d4, serve_jamba_d16, loss_jamba_d16), with
+   DeepSeek-V2-Lite's and Jamba's readings beside each of K1-K4 and K7.
+   K8 lies on no
    path (no model calls it, as in the reference): its row gives the
    launches of its checks as ``check_launches``.
 
@@ -337,6 +358,17 @@ E2E_RATIO, E2E_FLOOR = 1.5, 1e-2
 # beside the bf16 weights (93 GB), or AdamW's float32 moments (124 GB), do
 # not fit the card
 DSV2_ID, DSV2_MOE_LAYER, DSV2_CUT_LAYERS = "deepseek_v2_lite_16b", 1, 4
+# Jamba-v0.1 (arXiv:2403.19887) at full width: d 4096, 32 heads (8 KV) of
+# 128, Mamba (d_inner 8192, d_state 16, dt_rank 256) in 7 layers of each
+# group of 8 and attention in the fifth, 16 experts top-2 of f 14336
+# (swiglu) in every second layer and a dense FFN of f 14336 in the others,
+# vocab 65536.  Depth cut 32 -> 16 (two whole groups, attention at 4 and
+# 12; 25.8 B parameters): the 32 layers are 51.3 B parameters, 103 GB in
+# bf16, more than the card holds.  The checks take layer 1's weights (the
+# first MoE layer); loss_jamba_d16 runs one forward at seq 512, batch 2
+# (1024 tokens, 160 slots an expert at capacity 1.25)
+JAMBA_ID, JAMBA_LAYERS, JAMBA_MOE_LAYER = "jamba_v0_1_52b", 16, 1
+JAMBA_LOSS_BATCH = 2
 # kernels no earlier phase may launch: K6 runs only on the einsum phase, K8
 # on no path
 OFF_PATH = ("moe_gemm.grouped_ffn", "decode_attn.decode_attention")
@@ -457,11 +489,13 @@ def moe_rows(torch, params, ctx, tokens, layer: int):
         -1, x.shape[-1])
 
 
-def train1_k4_case(torch, params, arch, gen, layer: int = 0, x=None):
+def train1_k4_case(torch, params, arch, gen, layer: int = 0, x=None,
+                   global_batch: int = TRAIN_BATCH_1):
     """K4's inputs at the one-rank training layout: a real ``route`` +
-    ``build_indices`` of TRAIN_SEQ * TRAIN_BATCH_1 = 2048 tokens through
-    layer ``layer``'s gate on the one-rank plan (gpt3_medium_moe: caps
-    (128,)), laid out by the engine's ``local_layout``: one segment an
+    ``build_indices`` of TRAIN_SEQ * ``global_batch`` (default
+    TRAIN_BATCH_1: 2048) tokens through layer ``layer``'s gate on the
+    one-rank plan (gpt3_medium_moe: caps (128,)), laid out by the
+    engine's ``local_layout``: one segment an
     expert as wide as the capacity, partly filled, with sentinel slots
     past each expert's realized rows and the picks past the capacity
     dropped.  The rows are random unless ``x`` (``moe_rows`` of a training
@@ -473,9 +507,9 @@ def train1_k4_case(torch, params, arch, gen, layer: int = 0, x=None):
     from repro_torch.models import model as model_lib
     world = unit_world("cuda")
     ctx = model_lib.build_ctx(arch, None, seq_len=TRAIN_SEQ,
-                              global_batch=TRAIN_BATCH_1, aux_mode="ta",
+                              global_batch=global_batch, aux_mode="ta",
                               dispatch="a2a", device="cuda")
-    T = TRAIN_SEQ * TRAIN_BATCH_1
+    T = TRAIN_SEQ * global_batch
     p = params["layers"][layer]["ffn"]
     if x is None:
         x = torch.randn((T, arch.d_model), generator=gen,
@@ -2303,12 +2337,12 @@ class CastLayers(list):
         return _cast_params(list.__getitem__(self, i), self.dtype)
 
 
-def plain_runs(torch, params, ctx, prompt, kernel=True,
+def plain_runs(torch, params, ctx, prompt, kernel=True, bf16=True, f32=True,
                f32_by_layer=False) -> dict:
     """``e2e_logits`` on one rank through the kernel path (with
-    ``kernel``), the bf16 plain path and a float32 plain run of the same
-    weights (with ``f32_by_layer``, each layer cast as it is read:
-    ``CastLayers``)."""
+    ``kernel``), the bf16 plain path (with ``bf16``) and a float32 plain
+    run of the same weights (with ``f32``; with ``f32_by_layer``, each
+    layer cast as it is read: ``CastLayers``)."""
     import dataclasses
     plain_ctx = dataclasses.replace(ctx, use_pallas=False, use_flash=False)
     f32_ctx = dataclasses.replace(
@@ -2322,12 +2356,11 @@ def plain_runs(torch, params, ctx, prompt, kernel=True,
         out["layers"] = CastLayers(params["layers"], torch.float32)
         return out
 
-    runs = (("plain_bf16", plain_ctx, lambda: params),
-            ("plain_f32", f32_ctx, f32_params))
-    if kernel:
-        runs = (("kernel", ctx, lambda: params),) + runs
+    runs = (("kernel", kernel, ctx, lambda: params),
+            ("plain_bf16", bf16, plain_ctx, lambda: params),
+            ("plain_f32", f32, f32_ctx, f32_params))
     return {name: e2e_logits(torch, make(), c, prompt)
-            for name, c, make in runs}
+            for name, wanted, c, make in runs if wanted}
 
 
 def end_to_end_check(torch, np, params, ctx):
@@ -2344,12 +2377,16 @@ def end_to_end_check(torch, np, params, ctx):
                        logits["plain_bf16"], "end to end")
 
 
-def profile_steps(torch, params, ctx, world=None):
+def profile_steps(torch, params, ctx, world=None, scan=False):
     """Step times (host clock around synchronized runs) and a
     torch.profiler breakdown of one prefill pack and one decode step at
     the serve phase's shapes: device busy share and the top kernels by
     device time.  On a world each rank runs its rows of the pack and its
-    slots, in step with the others."""
+    slots, in step with the others.  A step runs 3 times warm, 10 times
+    timed, once profiled.  With ``scan`` (a model that prefills by
+    scanning BUCKET decode steps a pack) the pack runs once warm and once
+    timed, and its profile records the card's activity alone: the host's
+    operator events of BUCKET steps (some 10^5) are slow to sum."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import decode
     from repro_torch.serving import engine
@@ -2362,23 +2399,26 @@ def profile_steps(torch, params, ctx, world=None):
     step = engine.make_decode_step(ctx)
     cache = decode.init_cache(ctx, NUM_SLOTS // n, CACHE_LEN)
     for layer in cache:
-        layer["mixer"]["pos"].fill_(BUCKET)
+        if "pos" in layer["mixer"]:
+            layer["mixer"]["pos"].fill_(BUCKET)
     cur = tokens[:, :1].repeat(NUM_SLOTS // PACK, 1)
+    both = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     out = {}
-    for name, fn in (("prefill_pack", lambda: prefill(params,
-                                                      {"tokens": tokens})),
-                     ("decode_step", lambda: step(params, cache, cur))):
-        for _ in range(3):
+    for name, fn, (warm, iters), activities in (
+            ("prefill_pack", lambda: prefill(params, {"tokens": tokens}),
+             (1, 1) if scan else (3, 10),
+             [ProfilerActivity.CUDA] if scan else both),
+            ("decode_step", lambda: step(params, cache, cur), (3, 10),
+             both)):
+        for _ in range(warm):
             fn()
         torch.cuda.synchronize()
-        iters = 10
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -2397,27 +2437,27 @@ def profile_steps(torch, params, ctx, world=None):
     return out
 
 
-def checks_dsv2_lite(torch, params, ctx, gen) -> dict:
-    """K4, K1, K2, K3 and K7 at DeepSeek-V2-Lite's full width (swiglu, d
-    2048, f 1408, top-6 of 64) on layer DSV2_MOE_LAYER's weights, each
-    against its plain version: K4 at the serve's decode (8 slots) and
-    prefill (4 x 128) gather layouts and at train_dsv2_lite_d4's one-rank
-    layout (its first batch's 2048 tokens through the embedding and layer
-    0, routed on the a2a plan: capacity segments with sentinel slots and
-    dropped picks), with its compaction bit-equal at each; K1
-    (bit-equal), K2 (six picks a token) and K3 at ``staged_case``'s 2x2
-    rank-0 layout; K7 at ``pipelined_case``'s chunk 0 (the overlap model's
-    chunk count at these widths)."""
+def checks_wide(torch, params, ctx, gen, layer: int, name: str,
+                gather_layouts: dict, one_rank: tuple) -> dict:
+    """K4, K1, K2, K3 and K7 at a swiglu model's full width on layer
+    ``layer``'s weights (its first MoE layer), each against its plain
+    version: K4 at the serve's gather layouts (``gather_layouts``: label
+    -> tokens a call) and at a one-rank layout (``one_rank``: label and
+    global batch at seq TRAIN_SEQ; its first training batch's tokens
+    through the embedding and the layers before, routed on the a2a plan:
+    capacity segments with sentinel slots and dropped picks), with its
+    compaction bit-equal at each; K1 (bit-equal), K2 (top-k picks a
+    token) and K3 at ``staged_case``'s 2x2 rank-0 layout; K7 at
+    ``pipelined_case``'s chunk 0 (the overlap model's chunk count at these
+    widths).  ``name`` prefixes the checks' labels."""
     arch = ctx.arch
-    layer = DSV2_MOE_LAYER
     k4, compaction = {}, []
-    for label, Tg in (("decode", NUM_SLOTS), ("prefill", PACK * BUCKET)):
+    for label, Tg in gather_layouts.items():
         args, act = gather_k4_case(torch, params, ctx, Tg, gen, layer=layer)
         if act != "swiglu":
-            raise SystemExit(f"dsv2_lite {label}: activation {act}")
-        k4[label] = check_k4(torch, args, act, f"dsv2_lite_{label}")
-        compaction.append(check_compaction(torch, args,
-                                           f"dsv2_lite_{label}"))
+            raise SystemExit(f"{name} {label}: activation {act}")
+        k4[label] = check_k4(torch, args, act, f"{name}_{label}")
+        compaction.append(check_compaction(torch, args, f"{name}_{label}"))
         del args
     case = staged_case(torch, params, arch, gen, layer=layer)
     di = case["di"]
@@ -2427,21 +2467,23 @@ def checks_dsv2_lite(torch, params, ctx, gen) -> dict:
         device="cuda").to(torch.bfloat16), di)
     k3 = check_k3(torch, case)
     layout = {"caps": list(case["caps"]), "S": di.num_slots,
-              "T": case["x"].shape[0], "picks": di.inv_idx.shape[1]}
+              "T": case["x"].shape[0], "picks": di.inv_idx.shape[1],
+              "experts_per_rank": case["w_in"].shape[0]}
     del case
     pcase = pipelined_case(torch, params, arch, gen, layer=layer,
                            chunks=None)
     k7 = check_k7(torch, pcase)
     del pcase
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    label, batch = one_rank
     tokens = SyntheticLM(DataConfig(
-        vocab_size=arch.vocab_size, seq_len=TRAIN_SEQ,
-        global_batch=TRAIN_BATCH_1, seed=0)).batch(0)["tokens"].cuda()
+        vocab_size=arch.vocab_size, seq_len=TRAIN_SEQ, global_batch=batch,
+        seed=0)).batch(0)["tokens"].cuda()
     args, act = train1_k4_case(torch, params, arch, gen, layer=layer,
-                               x=moe_rows(torch, params, ctx, tokens, layer))
-    k4["train_1rank"] = check_k4(torch, args, act, "dsv2_lite_train_1rank")
-    compaction.append(check_compaction(torch, args,
-                                       "dsv2_lite_train_1rank"))
+                               x=moe_rows(torch, params, ctx, tokens, layer),
+                               global_batch=batch)
+    k4[label] = check_k4(torch, args, act, f"{name}_{label}")
+    compaction.append(check_compaction(torch, args, f"{name}_{label}"))
     T = args[0].shape[0]
     layout_1rank = {"T": T, "slots": args[1].numel(),
                     "segments": len(args[4]),
@@ -2452,34 +2494,31 @@ def checks_dsv2_lite(torch, params, ctx, gen) -> dict:
     del args
     return {"K4": k4, "K4_compaction": compaction, "K1": k1, "K2": k2,
             "K3": k3, "K7": k7, "layout_2x2": layout,
-            "layout_train_1rank": layout_1rank}
+            f"layout_{label}": layout_1rank}
 
 
-def serve_dsv2_lite(torch, np, params, ctx) -> dict:
-    """Full-depth DeepSeek-V2-Lite on one rank through
-    ``ServingEngine.run``: first the kernel path's logits (a 32-token
-    prompt, prefill + 4 decode steps) against the bf16 plain path's, with
-    the limit of ``e2e_verdict`` from a float32 plain run that casts one
-    layer at a time (``CastLayers``); then a warm-up request and the serve
-    phase's 8 requests, the counters set to 0 just before and read just
-    after: K4 exactly once a MoE layer (26) of every prefill pack and
-    decode step, every other kernel (K5 too: MLA attends in plain
-    PyTorch) never; peak memory; a profiled prefill pack and decode
-    step."""
+def checks_dsv2_lite(torch, params, ctx, gen) -> dict:
+    """``checks_wide`` at DeepSeek-V2-Lite's full width (swiglu, d 2048, f
+    1408, top-6 of 64) on layer DSV2_MOE_LAYER: K4 at the serve's decode
+    (8 slots) and prefill (4 x 128) gather layouts and at
+    train_dsv2_lite_d4's one-rank layout (batch 4)."""
+    return checks_wide(torch, params, ctx, gen, DSV2_MOE_LAYER, "dsv2_lite",
+                       {"decode": NUM_SLOTS, "prefill": PACK * BUCKET},
+                       ("train_1rank", TRAIN_BATCH_1))
+
+
+def serve_mix(torch, np, params, ctx, label: str, want_k4,
+              scan=False) -> dict:
+    """The serve phase's request mix on one rank through
+    ``ServingEngine.run``: a warm-up request, then the 8 requests with the
+    counters set to 0 just before and read just after.  Every stream must
+    get its whole budget inside the vocabulary; K4 must launch exactly
+    ``want_k4(report)`` times and every other kernel (K5 too) never.
+    Returns tokens/s, peak memory and a profiled prefill pack and decode
+    step (``profile_steps``; ``scan`` for a scan prefill)."""
     from repro_torch.kernels import backend
     from repro_torch.serving import engine
     arch = ctx.arch
-    prompt = torch.as_tensor(np.random.default_rng(7).integers(
-        0, arch.vocab_size, size=(1, E2E_PROMPT)), dtype=torch.int32,
-        device="cuda")
-    with torch.no_grad():
-        logits = plain_runs(torch, params, ctx, prompt, f32_by_layer=True)
-    e2e = e2e_verdict(torch, logits["kernel"], logits["plain_f32"],
-                      logits["plain_bf16"], "serve_dsv2_lite end to end")
-    e2e["rel_err_kernel_vs_plain_bf16"] = float(
-        torch.linalg.vector_norm(logits["kernel"] - logits["plain_bf16"])
-        / torch.linalg.vector_norm(logits["plain_bf16"]))
-    del logits
     eng = engine.ServingEngine(params, ctx, engine.ServeConfig(
         num_slots=NUM_SLOTS, cache_len=CACHE_LEN, prefill_pack=PACK,
         prompt_buckets=(BUCKET,)))
@@ -2495,24 +2534,21 @@ def serve_dsv2_lite(torch, np, params, ctx) -> dict:
     for st in report.streams:
         if st.evicted or len(st.generated) != st.request.max_new_tokens or \
                 not all(0 <= t < arch.vocab_size for t in st.generated):
-            raise SystemExit(f"serve_dsv2_lite request {st.request.uid}: "
+            raise SystemExit(f"{label} request {st.request.uid}: "
                              f"{len(st.generated)} of "
                              f"{st.request.max_new_tokens} tokens, or a "
                              f"token outside the vocabulary")
     if len(report.streams) != NUM_REQUESTS:
-        raise SystemExit(f"serve_dsv2_lite: {len(report.streams)} of "
+        raise SystemExit(f"{label}: {len(report.streams)} of "
                          f"{NUM_REQUESTS} streams finished")
-    n_moe = arch.num_layers - arch.moe.first_dense
     want = {k: 0 for k in backend.LAUNCHES}
-    want["moe_fused.local_moe"] = n_moe * (report.prefill_calls
-                                           + report.decode_steps)
+    want["moe_fused.local_moe"] = want_k4(report)
     if launches != want:
-        raise SystemExit(f"serve_dsv2_lite: launches {launches}, the path "
-                         f"needs {want}")
+        raise SystemExit(f"{label}: launches {launches}, the path needs "
+                         f"{want}")
     with torch.no_grad():
-        prof = profile_steps(torch, params, ctx)
-    return {"layers": arch.num_layers, "moe_layers": n_moe,
-            "end_to_end": e2e, "requests": len(report.streams),
+        prof = profile_steps(torch, params, ctx, scan=scan)
+    return {"requests": len(report.streams),
             "new_tokens": report.total_new_tokens,
             "prompt_tokens": sum(len(r.tokens) for r in reqs),
             "decode_steps": report.decode_steps,
@@ -2520,6 +2556,43 @@ def serve_dsv2_lite(torch, np, params, ctx) -> dict:
             "wall_s": report.wall_time,
             "tokens_per_s": report.tokens_per_sec, "launches": launches,
             "max_memory_allocated_gb": peak, "profile": prof}
+
+
+def e2e_prompt(torch, np, vocab: int):
+    """The end-to-end checks' 32-token prompt (seed 7), [1, 32] on the
+    card."""
+    return torch.as_tensor(np.random.default_rng(7).integers(
+        0, vocab, size=(1, E2E_PROMPT)), dtype=torch.int32, device="cuda")
+
+
+def rel_err(torch, a, b) -> float:
+    """Relative Frobenius distance of ``a`` from ``b``."""
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def serve_dsv2_lite(torch, np, params, ctx) -> dict:
+    """Full-depth DeepSeek-V2-Lite on one rank: first the kernel path's
+    logits (a 32-token prompt, prefill + 4 decode steps) against the bf16
+    plain path's, with the limit of ``e2e_verdict`` from a float32 plain
+    run that casts one layer at a time (``CastLayers``); then
+    ``serve_mix``: K4 exactly once a MoE layer (26) of every prefill pack
+    and decode step, every other kernel (K5 too: MLA attends in plain
+    PyTorch) never."""
+    arch = ctx.arch
+    prompt = e2e_prompt(torch, np, arch.vocab_size)
+    with torch.no_grad():
+        logits = plain_runs(torch, params, ctx, prompt, f32_by_layer=True)
+    e2e = e2e_verdict(torch, logits["kernel"], logits["plain_f32"],
+                      logits["plain_bf16"], "serve_dsv2_lite end to end")
+    e2e["rel_err_kernel_vs_plain_bf16"] = rel_err(
+        torch, logits["kernel"], logits["plain_bf16"])
+    del logits
+    n_moe = arch.num_layers - arch.moe.first_dense
+    out = serve_mix(torch, np, params, ctx, "serve_dsv2_lite",
+                    lambda r: n_moe * (r.prefill_calls + r.decode_steps))
+    return {"layers": arch.num_layers, "moe_layers": n_moe,
+            "end_to_end": e2e, **out}
 
 
 def e2e_dsv2_lite_d4(torch, np, params, ctx) -> dict:
@@ -2534,9 +2607,7 @@ def e2e_dsv2_lite_d4(torch, np, params, ctx) -> dict:
                                aux_mode="none", seq_len=CACHE_LEN,
                                global_batch=NUM_SLOTS)
     params4 = dict(params, layers=params["layers"][:DSV2_CUT_LAYERS])
-    prompt = torch.as_tensor(np.random.default_rng(7).integers(
-        0, arch.vocab_size, size=(1, E2E_PROMPT)), dtype=torch.int32,
-        device="cuda")
+    prompt = e2e_prompt(torch, np, arch.vocab_size)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
@@ -2680,6 +2751,148 @@ def deepseek_phases(torch, np) -> tuple:
           "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_1,
           "steps": TRAIN_STEPS, **check_ds, **tds})
     return ck_ds, srv_ds, tds
+
+
+def loss_jamba_d16(torch, params, arch) -> dict:
+    """One forward and loss through ``loss_fn`` on the one-rank ``a2a``
+    path (``aux_mode="ta"``, seq TRAIN_SEQ, batch JAMBA_LOSS_BATCH; no
+    backward: AdamW's float32 moments alone would not fit), through the
+    kernels and through the plain path (``use_pallas=False``) on the same
+    weights and batch.  The counters are set to 0 just before each run
+    and read just after: the kernel path must launch K4 once a MoE layer
+    and nothing else, the plain path nothing; the losses must be finite
+    and within LOSS_RTOL.  This holds ``mamba_apply``'s parallel scan at
+    full width on the card."""
+    import dataclasses
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import backend
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import transformer
+    ctx = model_lib.build_ctx(arch, seq_len=TRAIN_SEQ,
+                              global_batch=JAMBA_LOSS_BATCH, aux_mode="ta",
+                              dispatch="a2a", device="cuda")
+    batch = {k: v.cuda() for k, v in SyntheticLM(DataConfig(
+        vocab_size=arch.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=JAMBA_LOSS_BATCH, seed=0)).batch(0).items()}
+    n_moe = sum(s.ffn == "moe" for s in transformer.layer_list(arch))
+    runs = {}
+    for name, c in (("kernel", ctx),
+                    ("plain", dataclasses.replace(ctx, use_pallas=False))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        backend.reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            loss, metrics = transformer.loss_fn(params, batch, c)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[name] = {"loss": float(loss), "wall_s": wall,
+                      "launches": dict(backend.LAUNCHES),
+                      "max_memory_allocated_gb":
+                          torch.cuda.max_memory_allocated() / 1e9,
+                      **{k: torch.as_tensor(v).tolist()
+                         for k, v in metrics.items() if k != "loss"}}
+    want = {k: 0 for k in backend.LAUNCHES}
+    if runs["plain"]["launches"] != want:
+        raise SystemExit(f"loss_jamba_d16: the plain path launched "
+                         f"{runs['plain']['launches']}")
+    want["moe_fused.local_moe"] = n_moe
+    if runs["kernel"]["launches"] != want:
+        raise SystemExit(f"loss_jamba_d16: launches "
+                         f"{runs['kernel']['launches']}, the path needs "
+                         f"{want}")
+    got, ref = runs["kernel"]["loss"], runs["plain"]["loss"]
+    rel = abs(got - ref) / abs(ref)
+    if not (math.isfinite(got) and rel <= LOSS_RTOL):
+        raise SystemExit(f"loss_jamba_d16: kernel path loss {got}, plain "
+                         f"path {ref} (relative {rel}, limit {LOSS_RTOL})")
+    return {"seq_len": TRAIN_SEQ, "global_batch": JAMBA_LOSS_BATCH,
+            "aux_mode": "ta", "dispatch": "a2a", "caps": list(ctx.plan.caps),
+            "loss_rel_diff": rel, "loss_rtol": LOSS_RTOL,
+            "launches": runs["kernel"]["launches"], **runs}
+
+
+def jamba_phases(torch, np) -> tuple:
+    """The Jamba phases (JAMBA_ID at depth JAMBA_LAYERS, one rank), after
+    every other model's weights are freed: the full-width weights from
+    seed 0 (init_jamba_d16); ``checks_wide`` on layer JAMBA_MOE_LAYER at
+    the decode (8 slots) and prefill-scan step (4 rows) gather layouts
+    and the one-rank forward layout (checks_jamba); the kernel path's and
+    the bf16 plain path's logits on the end-to-end prompt, then
+    ``serve_mix``, prefilled by scan: K4 once a MoE layer of every scan
+    step (BUCKET a pack) and decode step, K5 never (serve_jamba_d16); the
+    float32 verdict on those logits, the float32 run one cast layer at a
+    time (e2e_jamba_d16: a whole float32 copy is 103 GB); and
+    ``loss_jamba_d16``.  Emits each phase's line and returns ``(checks,
+    serve, loss)``."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import transformer
+    t0 = time.time()
+    full = get_config(JAMBA_ID)
+    arch = dataclasses.replace(full, num_layers=JAMBA_LAYERS)
+    ctx = model_lib.build_ctx(arch, device="cuda", use_flash=True,
+                              aux_mode="none", seq_len=CACHE_LEN,
+                              global_batch=NUM_SLOTS)
+    params = model_lib.init_params(
+        ctx, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    subs = transformer.layer_list(arch)
+    n_moe = sum(s.ffn == "moe" for s in subs)
+    emit({"phase": "init_jamba_d16", "arch": arch.name,
+          "source": arch.source, "layers": arch.num_layers,
+          "depth_cut": f"{full.num_layers} -> {JAMBA_LAYERS}: the whole "
+          f"model is 51.3 B parameters, 103 GB in bf16",
+          "attention_layers": [i for i, s in enumerate(subs)
+                               if s.mixer == "attn"],
+          "moe_layers": n_moe, "params": model_lib.count_params(params),
+          "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9,
+          "seconds": time.time() - t0})
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    with torch.no_grad():
+        ck = checks_wide(torch, params, ctx, gen, JAMBA_MOE_LAYER, "jamba",
+                         {"decode": NUM_SLOTS, "prefill_scan": PACK},
+                         ("forward_1rank", JAMBA_LOSS_BATCH))
+    emit({"phase": "checks_jamba", "seconds": time.time() - t0,
+          "max_memory_allocated_gb":
+              torch.cuda.max_memory_allocated() / 1e9, **ck})
+    t0 = time.time()
+    prompt = e2e_prompt(torch, np, arch.vocab_size)
+    with torch.no_grad():
+        logits = plain_runs(torch, params, ctx, prompt, f32=False)
+    srv = serve_mix(torch, np, params, ctx, "serve_jamba_d16",
+                    lambda r: n_moe * (r.prefill_calls * BUCKET
+                                       + r.decode_steps), scan=True)
+    emit({"phase": "serve_jamba_d16", "seconds": time.time() - t0,
+          "layers": arch.num_layers, "moe_layers": n_moe,
+          "scan_steps_per_pack": BUCKET,
+          "rel_err_kernel_vs_plain_bf16": rel_err(
+              torch, logits["kernel"], logits["plain_bf16"]),
+          "argmax_agreement_kernel_vs_plain_bf16": float(
+              (logits["kernel"].argmax(-1)
+               == logits["plain_bf16"].argmax(-1)).float().mean()), **srv})
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        f32 = plain_runs(torch, params, ctx, prompt, kernel=False,
+                         bf16=False, f32_by_layer=True)["plain_f32"]
+    e2e = e2e_verdict(torch, logits["kernel"], f32, logits["plain_bf16"],
+                      "e2e_jamba_d16")
+    emit({"phase": "e2e_jamba_d16", "seconds": time.time() - t0,
+          "layers": arch.num_layers, **e2e,
+          "max_memory_allocated_gb":
+              torch.cuda.max_memory_allocated() / 1e9})
+    del logits, f32
+    t0 = time.time()
+    loss = loss_jamba_d16(torch, params, arch)
+    emit({"phase": "loss_jamba_d16", "seconds": time.time() - t0, **loss})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ck, srv, loss
 
 
 def main() -> int:
@@ -3219,7 +3432,12 @@ def main() -> int:
     # freed before serve_2x2
     ck_ds, srv_ds, tds = deepseek_phases(torch, np)
 
-    # 16. kernels: launches summed over every main path and rank
+    # 16. Jamba-v0.1 at full width and depth 16 (Mamba, attention, top-2
+    # of 16 experts of f 14336) on one rank, after DeepSeek's weights are
+    # freed: 31 GB of them and 51.6 GB of Jamba's do not fit together
+    ck_jb, srv_jb, loss_jb = jamba_phases(torch, np)
+
+    # 17. kernels: launches summed over every main path and rank
     def total(name):
         return sum(sum(v) if isinstance(v, list) else v
                    for v in by_path(name).values())
@@ -3238,10 +3456,13 @@ def main() -> int:
                 "train_2x2x2": [r["launches"][name] for r in r222],
                 "train_dp": [r["launches"][name] for r in rdp],
                 "serve_dsv2_lite": srv_ds["launches"][name],
-                "train_dsv2_lite_d4": tds["launches"][name]}
+                "train_dsv2_lite_d4": tds["launches"][name],
+                "serve_jamba_d16": srv_jb["launches"][name],
+                "loss_jamba_d16": loss_jb["launches"][name]}
 
     def dsv2_row(r, extra=()):
-        """One DeepSeek-V2-Lite reading of checks_dsv2_lite."""
+        """One reading of ``checks_wide`` (DeepSeek-V2-Lite's or
+        Jamba's)."""
         return {n: r[n] for n in ("ms", "device_ms", "kernel_device_ms",
                                   "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "max_abs_err") + extra
@@ -3275,7 +3496,8 @@ def main() -> int:
          "max_abs_err": 0.0,
          "backward_max_abs_err": bwd_err("K1"),
          **pair_row(k1),
-         "dsv2_lite_2x2": dsv2_row(ck_ds["K1"], ("call_ms", "host_us"))},
+         "dsv2_lite_2x2": dsv2_row(ck_ds["K1"], ("call_ms", "host_us")),
+         "jamba_2x2": dsv2_row(ck_jb["K1"], ("call_ms", "host_us"))},
         {"name": "moe_permute.unpermute", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_permute.cu",
          "replaces": "src/repro/kernels/moe_permute/kernel.py:88",
@@ -3283,10 +3505,11 @@ def main() -> int:
          "launches_by_path": by_path("moe_permute.unpermute"),
          "max_abs_err": max(e["max_abs_err"]
                             for e in list(k2.values()) + k2_edges
-                            + [ck_ds["K2"]]),
+                            + [ck_ds["K2"], ck_jb["K2"]]),
          "backward_max_abs_err": bwd_err("K2"),
          **pair_row(k2),
-         "dsv2_lite_2x2": dsv2_row(ck_ds["K2"], ("call_ms", "host_us"))},
+         "dsv2_lite_2x2": dsv2_row(ck_ds["K2"], ("call_ms", "host_us")),
+         "jamba_2x2": dsv2_row(ck_jb["K2"], ("call_ms", "host_us"))},
         {"name": "moe_gemm.grouped_ffn_ragged", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_gemm.cu",
          "replaces": "src/repro/kernels/moe_gemm/kernel.py:228",
@@ -3295,7 +3518,8 @@ def main() -> int:
          "max_abs_err": max([k3["max_abs_err"], k3_222["max_abs_err"],
                              k_replan["K3_max_abs_err"],
                              k_222["K3_max_abs_err"],
-                             ck_ds["K3"]["max_abs_err"]]
+                             ck_ds["K3"]["max_abs_err"],
+                             ck_jb["K3"]["max_abs_err"]]
                             + [e["max_abs_err"] for e in k3e]),
          "backward_max_abs_err": bwd["K3"]["max_abs_err"],
          **{n: k3[n] for n in ("ms", "device_ms", "kernel_device_ms",
@@ -3306,14 +3530,16 @@ def main() -> int:
              "ms", "device_ms", "kernel_device_ms", "call_ms", "host_us",
              "plain_ms", "bound_ms", "bound_by", "tiles", "max_abs_err")}
              for label, r in (("2x2", k3), ("2x2x2", k3_222))},
-         "dsv2_lite_2x2": dsv2_row(ck_ds["K3"], ("tiles", "valid_rows"))},
+         "dsv2_lite_2x2": dsv2_row(ck_ds["K3"], ("tiles", "valid_rows")),
+         "jamba_2x2": dsv2_row(ck_jb["K3"], ("tiles", "valid_rows"))},
         {"name": "moe_gemm.grouped_ffn_ragged_quant", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_gemm.cu",
          "replaces": "src/repro/kernels/moe_gemm/kernel.py:312",
          "launches": total("moe_gemm.grouped_ffn_ragged_quant"),
          "launches_by_path": by_path("moe_gemm.grouped_ffn_ragged_quant"),
          "max_abs_err": max(k7["max_abs_err"], k7_full["max_abs_err"],
-                            ck_ds["K7"]["max_abs_err"]),
+                            ck_ds["K7"]["max_abs_err"],
+                            ck_jb["K7"]["max_abs_err"]),
          "backward_max_abs_err": bwd["K7"]["max_abs_err"],
          "ms": k7["ms"], "device_ms": k7["device_ms"],
          "kernel_device_ms": k7["kernel_device_ms"],
@@ -3325,7 +3551,9 @@ def main() -> int:
          "library_ms": None,
          "layouts": {"S=608": k7, "S=4864": k7_full},
          "dsv2_lite_chunk0": dsv2_row(ck_ds["K7"], ("chunks", "R",
-                                                    "valid_rows"))},
+                                                    "valid_rows")),
+         "jamba_chunk0": dsv2_row(ck_jb["K7"], ("chunks", "R",
+                                                "valid_rows"))},
         {"name": "moe_fused.local_moe", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_fused.cu",
          "replaces": "src/repro/kernels/moe_fused/kernel.py:123",
@@ -3333,7 +3561,8 @@ def main() -> int:
          "launches_by_path": by_path("moe_fused.local_moe"),
          "max_abs_err": max(e["max_abs_err"]
                             for e in list(k4.values()) + k4_edges
-                            + list(ck_ds["K4"].values())),
+                            + list(ck_ds["K4"].values())
+                            + list(ck_jb["K4"].values())),
          "backward_max_abs_err": bwd["K4"]["max_abs_err"],
          **{n: kp[n] for n in ("ms", "device_ms", "kernel_device_ms",
                                "call_ms", "host_us", "plain_ms", "bound_ms",
@@ -3348,7 +3577,11 @@ def main() -> int:
          "dsv2_lite_layouts": {
              label: dsv2_row(r, ("computed_rows", "weighted_rows",
                                  "dense_rows"))
-             for label, r in ck_ds["K4"].items()}},
+             for label, r in ck_ds["K4"].items()},
+         "jamba_layouts": {
+             label: dsv2_row(r, ("computed_rows", "weighted_rows",
+                                 "dense_rows", "active_experts"))
+             for label, r in ck_jb["K4"].items()}},
         {"name": "flash_attn.flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attn.cu",
          "replaces": "src/repro/kernels/flash_attn/kernel.py:65",

@@ -3,7 +3,8 @@ counterpart of ``repro/configs/base.py``; only the configs this port
 serves are registered).
 
 ``ArchConfig.reduced()`` yields the CPU smoke-test variant (<=2 layers,
-d_model<=256, <=4 experts, the MLA ranks cut) of the same family.
+or one whole mixer group of a hybrid; d_model<=256, <=4 experts, the MLA
+ranks cut) of the same family.
 ``dtype`` stays a string; ``torch_dtype`` maps it onto a ``torch.dtype``.
 """
 
@@ -65,6 +66,11 @@ class ArchConfig:
     qkv_bias: bool = False
     moe: MoEArch | None = None
     mla: MLAArch | None = None
+    # hybrid (jamba): attention mixer at layer i when i % attn_every ==
+    # attn_offset, else the SSM mixer.  attn_every=1 -> pure attention.
+    attn_every: int = 1
+    attn_offset: int = 0
+    ssm_kind: str = ""            # "mamba" (xlstm: not ported yet)
     dtype: str = "bfloat16"
     source: str = ""              # citation
 
@@ -86,7 +92,9 @@ class ArchConfig:
         d = min(self.d_model, 256)
         heads = min(self.num_heads, 4)
         kv = min(self.num_kv_heads, heads)
-        layers = min(self.num_layers, 2)
+        layers = min(self.num_layers, max(2, self.attn_every))
+        if self.family == "hybrid":       # keep one full mixer group
+            layers = self.attn_every
         moe = self.moe
         if moe:
             moe = dataclasses.replace(
@@ -136,7 +144,8 @@ class RunConfig:
     topology: tuple = ()
 
 
-ARCH_IDS = ("deepseek_v2_lite_16b", "deepseek_v2_236b", "gpt3_medium_moe")
+ARCH_IDS = ("deepseek_v2_lite_16b", "deepseek_v2_236b", "gpt3_medium_moe",
+            "jamba_v0_1_52b")
 
 
 def normalize_arch_id(name: str) -> str:

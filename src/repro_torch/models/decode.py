@@ -1,13 +1,17 @@
 """Decode-time forward: fused prefill and one-token decode steps against
 per-layer caches (the counterpart of ``repro/models/decode.py`` for the
-attention and MLA mixers).
+attention, MLA and Mamba mixers).
 
 The cache is a list with one ``{"mixer": {...}}`` dict per layer (the
 reference stacks the repeated group on a leading axis): ``{"k", "v",
 "pos"}`` for attention, the compressed ``{"c_kv", "k_rope", "pos"}`` for
-MLA; the batch is axis 0 of every leaf.  Decode steps and the slot
-operations update the cache tensors in place and return the same cache.
-Other mixer families (mamba, xlstm, cross-attention) are not ported yet.
+MLA, the recurrent ``{"h", "conv"}`` state for Mamba; the batch is axis 0
+of every leaf, and axis 1 is the position axis of the leaves of a layer
+with ``pos``.  Decode steps and the slot operations update the cache
+tensors in place and return the same cache, except that a Mamba step
+puts a fresh state into its layer's dict.  A model with a Mamba layer
+prefills by scanning decode steps over the prompt, as the reference
+does.  xLSTM and cross-attention are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import torch
 
 from repro_torch.launch.mesh import gather_rows
 from repro_torch.models import layers
+from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import mla as mla_lib
 from repro_torch.models.transformer import (ModelCtx, SubLayer, _check_mixer,
                                             _moe_block, layer_list)
@@ -28,6 +33,8 @@ def init_cache(ctx: ModelCtx, batch: int, max_len: int, device=None):
         _check_mixer(sub)
         if sub.mixer == "mla":
             c = mla_lib.init_mla_cache(batch, max_len, ctx.mla_cfg, device)
+        elif sub.mixer == "mamba":
+            c = mamba_lib.init_mamba_state(batch, ctx.mamba_cfg, device)
         else:
             c = layers.init_kv_cache(batch, max_len, ctx.attn_cfg, device)
         cache.append({"mixer": c})
@@ -49,18 +56,30 @@ def _slot_rows(slots, num_rows: int, device):
     return ids[keep].to(device), keep.nonzero().flatten().to(device)
 
 
+def _batch_leaf(cache):
+    """Any leaf of ``cache``: every leaf has the batch on axis 0."""
+    return next(iter(cache[0]["mixer"].values()))
+
+
+def _positional(c) -> bool:
+    """Whether the leaves of a layer's cache ``c`` (of more than one
+    dimension) have a position axis (axis 1): those of attention and MLA,
+    which carry ``pos``; a recurrent state has none."""
+    return "pos" in c
+
+
 def cache_insert_slots(dst, src, slots):
     """Write ``src`` (leading batch P) into ``dst`` (leading batch N) at
     ``slots`` [P], in place; slot ids >= N are dropped.  A source shorter
     than ``dst`` on the position axis fills the first positions of each
     slot and zeroes the rest."""
-    n = dst[0]["mixer"]["pos"].shape[0]
-    dev = dst[0]["mixer"]["pos"].device
-    rows, keep = _slot_rows(slots, n, dev)
+    leaf0 = _batch_leaf(dst)
+    rows, keep = _slot_rows(slots, leaf0.shape[0], leaf0.device)
     for d_layer, s_layer in zip(dst, src):
+        positional = _positional(d_layer["mixer"])
         for name, leaf in d_layer["mixer"].items():
             val = s_layer["mixer"][name].index_select(0, keep).to(leaf.dtype)
-            if val.dim() > 1 and val.shape[1] < leaf.shape[1]:
+            if positional and val.dim() > 1 and val.shape[1] < leaf.shape[1]:
                 leaf[rows] = 0
                 leaf[rows, :val.shape[1]] = val
             else:
@@ -75,8 +94,12 @@ def gather_cache_rows(world, cache, length: int):
     world of more than one rank."""
     if world is None or world.size == 1:
         return cache
-    return [{"mixer": {name: gather_rows(world, leaf if leaf.dim() == 1
-                                         else leaf[:, :length])
+    def cut(c, leaf):
+        if _positional(c) and leaf.dim() > 1:
+            return leaf[:, :length]
+        return leaf
+
+    return [{"mixer": {name: gather_rows(world, cut(layer["mixer"], leaf))
                        for name, leaf in layer["mixer"].items()}}
             for layer in cache]
 
@@ -84,8 +107,8 @@ def gather_cache_rows(world, cache, length: int):
 def cache_evict_slots(cache, slots):
     """Zero every cache leaf at ``slots`` in place (pos included, so the
     slot reads as empty)."""
-    n = cache[0]["mixer"]["pos"].shape[0]
-    rows, _ = _slot_rows(slots, n, cache[0]["mixer"]["pos"].device)
+    leaf0 = _batch_leaf(cache)
+    rows, _ = _slot_rows(slots, leaf0.shape[0], leaf0.device)
     for layer in cache:
         for leaf in layer["mixer"].values():
             leaf[rows] = 0
@@ -99,6 +122,9 @@ def _decode_sublayer(p, c, x, sub: SubLayer, ctx: ModelCtx, layer_idx=None):
     if sub.mixer == "mla":
         mix, c["mixer"] = mla_lib.mla_decode(p["mixer"], h, c["mixer"],
                                              ctx.mla_cfg)
+    elif sub.mixer == "mamba":
+        mix, c["mixer"] = mamba_lib.mamba_decode(p["mixer"], h, c["mixer"],
+                                                 ctx.mamba_cfg)
     else:
         mix, c["mixer"] = layers.attn_decode(p["mixer"], h, c["mixer"],
                                              ctx.attn_cfg)
@@ -162,13 +188,54 @@ def _prefill_sublayer(p, c, x, sub: SubLayer, ctx: ModelCtx, lens,
     return x, c
 
 
+def _needs_scan_prefill(arch) -> bool:
+    """Recurrent mixers (Mamba) carry per-step state the full-sequence
+    apply does not expose, so such models prefill by scanning
+    :func:`decode_step` over the prompt, as the reference does."""
+    return any(sub.mixer not in ("attn", "mla") for sub in layer_list(arch))
+
+
+def _freeze_rows(cache, before, active):
+    """Undo one decode step for the requests whose ``active`` [B] is
+    False (their prompts ended): the counterpart of the reference's
+    ``_select_batch``.  ``before`` holds each layer's mixer dict as it
+    was before the step; the step replaced ``pos`` and every Mamba state
+    with fresh tensors, so the old ones are intact there.  The K/V row a
+    frozen request's step wrote in place at its ``pos`` stays: no query
+    attends it before the request's next decode step overwrites it."""
+    for layer, old in zip(cache, before):
+        c = layer["mixer"]
+        for name in (("pos",) if _positional(c) else tuple(c)):
+            keep = active.view((-1,) + (1,) * (c[name].dim() - 1))
+            c[name] = torch.where(keep, c[name], old[name])
+
+
+def _prefill_by_scan(params, tokens, cache, ctx: ModelCtx, lens):
+    """Prefill of recurrent models: one :func:`decode_step` a prompt
+    position.  A request's cache freezes once ``t >= lens[b]`` (right
+    padding cannot move its state), and its logits at ``t == lens - 1``
+    are kept."""
+    B, S = tokens.shape
+    last = torch.zeros((B, ctx.arch.vocab_size), dtype=torch.float32,
+                       device=tokens.device)
+    for t in range(S):
+        before = [dict(layer["mixer"]) for layer in cache]
+        logits, cache = decode_step(params, cache, tokens[:, t:t + 1], ctx)
+        _freeze_rows(cache, before, t < lens)
+        last = torch.where((lens - 1 == t)[:, None], logits[:, 0], last)
+    return last, cache
+
+
 def prefill(params, batch, ctx: ModelCtx, *, cache_len: int, lens=None):
     """Fused prefill over right-padded prompts.
 
     batch: {"tokens": [B, S]}; ``lens`` [B] gives each request's true
     prompt length (default S).  Returns ``(last_logits [B, V], cache)`` —
     the float32 logits at position ``lens - 1`` and a fresh cache of
-    length ``cache_len`` with ``pos == lens``.
+    length ``cache_len`` with ``pos == lens``.  Attention and MLA models
+    run the full-sequence forward and write their caches directly; a
+    model with a Mamba layer scans :func:`decode_step` over the prompt
+    (``_needs_scan_prefill``).
     """
     a = ctx.arch
     if "frontend" in batch:
@@ -182,6 +249,8 @@ def prefill(params, batch, ctx: ModelCtx, *, cache_len: int, lens=None):
         lens = torch.full((B,), S, dtype=torch.int32, device=dev)
     lens = torch.as_tensor(lens, device=dev).to(torch.int32)
     cache = init_cache(ctx, B, cache_len, device=dev)
+    if _needs_scan_prefill(a):
+        return _prefill_by_scan(params, tokens, cache, ctx, lens)
 
     x = layers.embed_apply(params["embed"], tokens)
     for i, sub in enumerate(layer_list(a)):

@@ -1,7 +1,7 @@
-"""Decoder assembly for the attention + MoE family (the counterpart of
-``repro/models/transformer.py``: ``SubLayer``, ``ModelCtx``,
-``layer_plan``, ``init_model``, ``_moe_block``, ``forward_features``,
-``forward`` and ``loss_fn``).
+"""Decoder assembly for the attention, MLA and Mamba-hybrid families with
+MoE (the counterpart of ``repro/models/transformer.py``: ``SubLayer``,
+``ModelCtx``, ``layer_plan``, ``init_model``, ``_moe_block``,
+``forward_features``, ``forward`` and ``loss_fn``).
 
 The reference stacks the repeated layer group and runs it with
 ``lax.scan``; here parameters are a Python list of per-layer dicts
@@ -25,12 +25,13 @@ from repro_torch.core import gating
 from repro_torch.core.dispatch import base as moe_base
 from repro_torch.core.dispatch import engine as dispatch_lib
 from repro_torch.models import layers
+from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import mla as mla_lib
 
 
 @dataclasses.dataclass(frozen=True)
 class SubLayer:
-    mixer: str                    # attn | mla (mamba | mlstm | slstm: later)
+    mixer: str                    # attn | mla | mamba (mlstm | slstm: later)
     ffn: str | None               # mlp | moe | None
     cross: bool = False
     causal: bool = True
@@ -58,6 +59,7 @@ class ModelCtx:
     fused_xent: bool = False          # loss through _fused_xent
     use_blockwise: bool = False       # attention by online softmax over
                                       # key blocks (layers._blockwise_sdpa)
+    mamba_scan_chunk: int = 0         # chunked selective scan
     device: str = "cuda"
 
     @property
@@ -95,6 +97,12 @@ class ModelCtx:
             dtype=a.torch_dtype, use_blockwise=self.use_blockwise)
 
     @property
+    def mamba_cfg(self) -> mamba_lib.MambaConfig:
+        return mamba_lib.MambaConfig(d_model=self.arch.d_model,
+                                     dtype=self.arch.torch_dtype,
+                                     scan_chunk=self.mamba_scan_chunk)
+
+    @property
     def moe_cfg(self) -> moe_base.MoEConfig:
         a = self.arch
         return moe_base.MoEConfig(
@@ -126,9 +134,21 @@ class ModelCtx:
 def layer_plan(arch: ArchConfig):
     """Returns (prefix: [SubLayer], group: [SubLayer], n_groups).
 
-    As in the reference, an MoE arch puts an MoE FFN in every layer after
-    ``first_dense``: ``moe_period`` is not read."""
-    if arch.family in ("ssm", "hybrid") or arch.family == "audio":
+    A hybrid (Jamba) repeats a group of ``attn_every`` layers: attention
+    at ``attn_offset``, Mamba elsewhere, an MoE FFN where ``j %
+    moe_period == moe_period - 1`` and a dense one at the others.  As in
+    the reference, any other MoE arch puts an MoE FFN in every layer after
+    ``first_dense``: there ``moe_period`` is not read."""
+    if arch.family == "hybrid":
+        g = arch.attn_every
+        group = []
+        for j in range(g):
+            mixer = "attn" if j == arch.attn_offset else "mamba"
+            ffn = "moe" if (arch.moe and j % arch.moe.moe_period
+                            == arch.moe.moe_period - 1) else "mlp"
+            group.append(SubLayer(mixer, ffn))
+        return [], group, arch.num_layers // g
+    if arch.family in ("ssm", "audio"):
         raise NotImplementedError(f"{arch.family} models are not ported yet")
     mixer = "mla" if arch.mla else "attn"
     if arch.is_moe:
@@ -145,7 +165,7 @@ def layer_list(arch: ArchConfig) -> list:
 
 
 def _check_mixer(sub: SubLayer) -> None:
-    if sub.mixer not in ("attn", "mla") or sub.cross:
+    if sub.mixer not in ("attn", "mla", "mamba") or sub.cross:
         raise NotImplementedError(f"mixer {sub.mixer!r} (cross={sub.cross}) "
                                   f"is not ported yet")
 
@@ -156,6 +176,8 @@ def _init_sublayer(sub: SubLayer, ctx: ModelCtx, generator, device):
     p = {"norm1": layers.init_norm(a.norm, a.d_model, device)}
     if sub.mixer == "mla":
         p["mixer"] = mla_lib.init_mla(ctx.mla_cfg, generator, device)
+    elif sub.mixer == "mamba":
+        p["mixer"] = mamba_lib.init_mamba(ctx.mamba_cfg, generator, device)
     else:
         p["mixer"] = layers.init_attn(ctx.attn_cfg, generator, device)
     if sub.ffn == "mlp":
@@ -228,6 +250,8 @@ def _apply_sublayer(p, x, sub: SubLayer, ctx: ModelCtx, aux, frac, drop,
     h = layers.norm_apply(p["norm1"], x, a.norm)
     if sub.mixer == "mla":
         mix, _ = mla_lib.mla_apply(p["mixer"], h, ctx.mla_cfg)
+    elif sub.mixer == "mamba":
+        mix = mamba_lib.mamba_apply(p["mixer"], h, ctx.mamba_cfg)
     else:
         cfg = ctx.attn_cfg
         if not sub.causal:

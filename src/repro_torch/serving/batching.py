@@ -62,5 +62,9 @@ class SlotKVCache:
         decode_lib.cache_evict_slots(self.cache, slot_ids)
 
     def positions(self) -> np.ndarray:
-        """Per-slot cache positions [num_slots] (0 = empty/evicted)."""
-        return self.cache[0]["mixer"]["pos"].cpu().numpy()
+        """Per-slot cache positions [num_slots] (0 = empty/evicted); reads
+        the first attention/MLA layer's ``pos`` leaf."""
+        for layer in self.cache:
+            if "pos" in layer["mixer"]:
+                return layer["mixer"]["pos"].cpu().numpy()
+        raise ValueError("cache has no pos leaf (recurrent-only family)")
