@@ -196,15 +196,35 @@ Phases, each printing JSON lines:
    loss through ``loss_fn`` on the one-rank ``a2a`` path (seq 512, batch
    2, no backward), K4 once a MoE layer, within LOSS_RTOL of the plain
    path's;
-19. kernels — one ``{"kernels": [...]}`` line for K1-K8, launches
+19. the dense decoders (OLMo-1B arXiv:2402.00838, Granite-3.0-2B
+   hf:ibm-granite/granite-3.0-2b-base, InternLM2-1.8B arXiv:2403.17297,
+   Minitron-4B arXiv:2407.14679) at full width and full depth on one
+   rank, after Jamba's weights are freed, bf16 weights from seed 0.
+   ``checks_dense``: K5 at each one's serving prefill shape ([4, 128, H,
+   hd] with its KV heads: 16/16/128, 32/8/64, 16/8/128, 24/8/128) and
+   at [4, 512, 16, 128] with 8 KV heads beside SDPA, windowed and
+   non-causal at hd 128; K8 at hd 128 on the decode_32k cache (B = 32,
+   L = 32768, 8 KV heads, G = 2, random lengths with one 0: exact zeros
+   there) beside SDPA, and windowed.  ``serve_<config>`` for each:
+   ``serve_mix`` with ``use_flash=True``, K5 exactly once an attention
+   layer of every prefill pack and every other kernel never; tokens/s,
+   a profiled prefill pack and decode step, peak memory;
+   ``e2e_<config>``: the float32 verdict against a whole float32 copy.
+   ``train_internlm2``: in a child process, 3 steps at seq 512, batch 4,
+   ``aux_mode="none"`` on the plain ``_sdpa`` path (K5 has no backward),
+   every kernel at 0; step walls, peak memory, a profiled step; then
+   one step with ``microbatch=2`` against the full-batch step from the
+   same state, losses within LOSS_RTOL;
+20. kernels — one ``{"kernels": [...]}`` line for K1-K8, launches
    summed over the main paths (serve, every rank of serve_2x2,
    train_1rank and its fused cross entropy step, every rank of
    train_2x2 and train_2x2_pipelined, train_einsum_k6,
    train_1rank_accum_remat, train_resilient, every rank of
    train_2x2_replan, train_2x2x2 and train_dp, serve_dsv2_lite,
-   train_dsv2_lite_d4, serve_jamba_d16, loss_jamba_d16), with
-   DeepSeek-V2-Lite's and Jamba's readings beside each of K1-K4 and K7.
-   K8 lies on no
+   train_dsv2_lite_d4, serve_jamba_d16, loss_jamba_d16, the four dense
+   ``serve_<config>`` and train_internlm2), with DeepSeek-V2-Lite's and
+   Jamba's readings beside each of K1-K4 and K7 and the hd-128 readings
+   beside K5's and K8's.  K8 lies on no
    path (no model calls it, as in the reference): its row gives the
    launches of its checks as ``check_launches``.
 
@@ -369,6 +389,20 @@ DSV2_ID, DSV2_MOE_LAYER, DSV2_CUT_LAYERS = "deepseek_v2_lite_16b", 1, 4
 # (1024 tokens, 160 slots an expert at capacity 1.25)
 JAMBA_ID, JAMBA_LAYERS, JAMBA_MOE_LAYER = "jamba_v0_1_52b", 16, 1
 JAMBA_LOSS_BATCH = 2
+# the dense decoders at full width and full depth, one rank each, after
+# Jamba's weights are freed (bf16 parameters from seed 0: OLMo-1B 1.18 B,
+# Granite-3.0-2B 2.53 B, InternLM2-1.8B 1.70 B, Minitron-4B 4.31 B; a
+# whole float32 copy of the largest, 17.2 GB, fits beside its bf16
+# weights, so no depth is cut).  K5's checks at each one's serving
+# prefill shape [PACK, BUCKET, H, hd] with its KV heads, at the training
+# length [PACK, TRAIN_SEQ, 16, 128] with 8 KV heads, and windowed; K8 at
+# head dim 128 on the decode_32k cache (DECODE_B x DECODE_L, 8 KV heads
+# of 128, G = 2) and windowed.  train_internlm2: TRAIN_STEPS steps at
+# TRAIN_SEQ x TRAIN_BATCH_1 on the plain _sdpa path (K5 has no backward),
+# then one step with microbatch DENSE_MICRO against the full-batch step
+# from the same state
+DENSE_IDS = ("olmo_1b", "granite_3_2b", "internlm2_1_8b", "minitron_4b")
+DENSE_TRAIN_ID, DENSE_MICRO = "internlm2_1_8b", 2
 # kernels no earlier phase may launch: K6 runs only on the einsum phase, K8
 # on no path
 OFF_PATH = ("moe_gemm.grouped_ffn", "decode_attn.decode_attention")
@@ -701,12 +735,15 @@ def check_k5(torch, shape, gen, causal=True, window=0, timed=True,
     if not timed:
         return out
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    Kv = kv_shape[2]
 
     def library():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=Kv != H)
 
     pairs = S * (S + 1) // 2 if causal else S * S
-    nbytes = 4 * B * S * H * hd * 2
+    # q and o [B, S, H, hd], k and v [B, S, Kv, hd], bf16, once each
+    nbytes = 2 * B * S * (H + Kv) * hd * 2
     flops = 2 * 2 * B * H * hd * pairs
     b_ms, b_by = bound_ms(nbytes, flops)
     out.update(ms=time_ms(torch, kernel, 100),
@@ -1351,8 +1388,9 @@ def check_k6_edges(torch, x, w_in, w_out, gen):
 
 
 def check_k8(torch, gen, B: int, L: int, H: int, K: int, lengths=None,
-             window: int = 0, timed=False):
+             window: int = 0, timed=False, hd: int = 64):
     """K8 (``decode_attention``) against its plain version on a bf16 cache
+    of head dim ``hd``
     with NaN in every k/v row past its request's length, compared on the
     requests with a valid row; the requests with none must come out as
     exact zeros.  ``lengths`` None draws them in [1, L] with one at L and
@@ -1362,7 +1400,6 @@ def check_k8(torch, gen, B: int, L: int, H: int, K: int, lengths=None,
     from repro_torch.kernels.decode_attn import ops as d_ops
     from repro_torch.kernels.decode_attn.ref import decode_attention_ref
     F = torch.nn.functional
-    hd = d_ops.HEAD_DIM
     if lengths is None:
         lengths = torch.randint(1, L + 1, (B,), generator=gen, device="cuda")
         lengths[0], lengths[1] = L, 1
@@ -1397,7 +1434,7 @@ def check_k8(torch, gen, B: int, L: int, H: int, K: int, lengths=None,
     if window:
         valid &= pos[None, :] >= lens[:, None].long() - window
     rows = int(valid.sum())
-    out = {"B": B, "L": L, "H": H, "K": K, "window": window,
+    out = {"B": B, "L": L, "H": H, "K": K, "hd": hd, "window": window,
            "zero_length_requests": int((~live).sum()), "valid_rows": rows,
            "max_abs_err": err, "atol_needed": need, "atol": K8_ATOL,
            "rtol": K8_RTOL}
@@ -1407,8 +1444,9 @@ def check_k8(torch, gen, B: int, L: int, H: int, K: int, lengths=None,
         mask = valid[:, None, None, :]
 
         def library():
-            return F.scaled_dot_product_attention(q[:, :, None], kc, vc,
-                                                  attn_mask=mask)[:, :, 0]
+            return F.scaled_dot_product_attention(
+                q[:, :, None], kc, vc, attn_mask=mask,
+                enable_gqa=K != H)[:, :, 0]
 
         lib_ok, lib_err = close(torch, library()[live], want[live],
                                 K8_LIB_ATOL, K8_LIB_RTOL)
@@ -2508,12 +2546,13 @@ def checks_dsv2_lite(torch, params, ctx, gen) -> dict:
 
 
 def serve_mix(torch, np, params, ctx, label: str, want_k4,
-              scan=False) -> dict:
+              scan=False, want_k5=lambda report: 0) -> dict:
     """The serve phase's request mix on one rank through
     ``ServingEngine.run``: a warm-up request, then the 8 requests with the
     counters set to 0 just before and read just after.  Every stream must
     get its whole budget inside the vocabulary; K4 must launch exactly
-    ``want_k4(report)`` times and every other kernel (K5 too) never.
+    ``want_k4(report)`` times, K5 ``want_k5(report)`` times (by default
+    never) and every other kernel never.
     Returns tokens/s, peak memory and a profiled prefill pack and decode
     step (``profile_steps``; ``scan`` for a scan prefill)."""
     from repro_torch.kernels import backend
@@ -2543,6 +2582,7 @@ def serve_mix(torch, np, params, ctx, label: str, want_k4,
                          f"{NUM_REQUESTS} streams finished")
     want = {k: 0 for k in backend.LAUNCHES}
     want["moe_fused.local_moe"] = want_k4(report)
+    want["flash_attn.flash_attention"] = want_k5(report)
     if launches != want:
         raise SystemExit(f"{label}: launches {launches}, the path needs "
                          f"{want}")
@@ -2895,6 +2935,221 @@ def jamba_phases(torch, np) -> tuple:
     return ck, srv, loss
 
 
+def checks_dense(torch, gen) -> dict:
+    """K5 and K8 at head dim 128 (and K5 at granite_3_2b's 64 with 8 KV
+    heads) against their plain versions: K5 at each dense config's
+    serving prefill shape and at the training length, timed beside SDPA,
+    and windowed; K8 on the decode_32k cache with 8 KV heads of 128 and
+    random lengths including 0 (exact zeros there), timed, and
+    windowed."""
+    from repro_torch.configs.base import get_config
+    k5 = {}
+    for aid in DENSE_IDS:
+        a = get_config(aid)
+        k5[aid] = check_k5(torch, (PACK, BUCKET, a.num_heads, a.head_dim_),
+                           gen, kv_heads=a.num_kv_heads)
+    k5_512 = check_k5(torch, (PACK, TRAIN_SEQ, 16, 128), gen, kv_heads=8)
+    k5_edges = [check_k5(torch, (PACK, TRAIN_SEQ, 16, 128), gen, window=128,
+                         kv_heads=8, timed=False),
+                check_k5(torch, (2, 200, 24, 128), gen, window=70,
+                         kv_heads=8, timed=False),
+                check_k5(torch, (1, 77, 16, 128), gen, causal=False,
+                         timed=False)]
+    lengths = torch.randint(0, DECODE_L + 1, (DECODE_B,), generator=gen,
+                            device="cuda")
+    lengths[0], lengths[1], lengths[2] = DECODE_L, 1, 0
+    k8 = check_k8(torch, gen, DECODE_B, DECODE_L, 16, 8, lengths=lengths,
+                  timed=True, hd=128)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k8_edges = [check_k8(torch, gen, 4, 8192, 16, 8, window=4096, hd=128),
+                check_k8(torch, gen, 4, 1000, 24, 8, lengths=[0, 1, 537,
+                                                              1000], hd=128)]
+    if not k8["zero_length_requests"]:
+        raise SystemExit("checks_dense: K8's main check drew no length-0 "
+                         "request")
+    return {"K5": k5, "K5_S512": k5_512, "K5_edges": k5_edges, "K8": k8,
+            "K8_edges": k8_edges}
+
+
+def serve_dense(torch, np, aid: str) -> dict:
+    """One dense config at full width and full depth on one rank, its
+    bf16 weights from seed 0: ``serve_mix`` with ``use_flash=True`` (K5
+    exactly once an attention layer of every prefill pack, every other
+    kernel never; tokens/s, peak memory, a profiled prefill pack and
+    decode step), then the float32 verdict (``e2e_verdict``) of the
+    kernel path against a whole float32 copy's plain run, the bf16 plain
+    path beside it.  Emits ``serve_<aid>`` and ``e2e_<aid>`` and returns
+    the serve line."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as model_lib
+    t0 = time.time()
+    arch = get_config(aid)
+    ctx = model_lib.build_ctx(arch, device="cuda", use_flash=True,
+                              aux_mode="none", seq_len=CACHE_LEN,
+                              global_batch=NUM_SLOTS)
+    params = model_lib.init_params(
+        ctx, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init = {"params": model_lib.count_params(params),
+            "init_seconds": time.time() - t0}
+    srv = serve_mix(torch, np, params, ctx, f"serve_{aid}", lambda r: 0,
+                    want_k5=lambda r: arch.num_layers * r.prefill_calls)
+    emit({"phase": f"serve_{aid}", "seconds": time.time() - t0,
+          "arch": arch.name, "source": arch.source,
+          "layers": arch.num_layers, "d_model": arch.d_model,
+          "heads": arch.num_heads, "kv_heads": arch.num_kv_heads,
+          "head_dim": arch.head_dim_, "vocab": arch.vocab_size,
+          "norm": arch.norm, **init, **srv})
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        logits = plain_runs(torch, params, ctx,
+                            e2e_prompt(torch, np, arch.vocab_size))
+    e2e = e2e_verdict(torch, logits["kernel"], logits["plain_f32"],
+                      logits["plain_bf16"], f"e2e_{aid}")
+    emit({"phase": f"e2e_{aid}", "seconds": time.time() - t0,
+          "layers": arch.num_layers, **e2e,
+          "rel_err_kernel_vs_plain_bf16": rel_err(
+              torch, logits["kernel"], logits["plain_bf16"]),
+          "max_memory_allocated_gb":
+              torch.cuda.max_memory_allocated() / 1e9})
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return srv
+
+
+def train_dense_phase(out_path: str) -> None:
+    """train_internlm2, in a child process: full-width, full-depth
+    DENSE_TRAIN_ID on one rank through ``trainer.train`` (AdamW,
+    ``aux_mode="none"``, seq TRAIN_SEQ, batch TRAIN_BATCH_1, TRAIN_STEPS
+    steps) on the plain ``_sdpa`` path, the launch counters set to 0 just
+    before and read just after (every kernel must stay at 0); one more
+    step under torch.profiler; then, from the state that leaves, one step
+    on a copy with the full batch and one with ``microbatch=DENSE_MICRO``
+    (float32 accumulation) on the same batch: their losses, which must
+    agree within LOSS_RTOL.  Writes the report to ``out_path``."""
+    import torch
+    from repro_torch.configs.base import RunConfig, get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch
+    from repro_torch.kernels import backend
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adamw
+    from repro_torch.training import trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    arch = get_config(DENSE_TRAIN_ID)
+    kw = dict(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH_1, warmup_steps=1,
+              aux_mode="none", seed=0)
+    run = RunConfig(**kw)
+    ctx = model_lib.build_ctx(arch, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH_1, aux_mode="none",
+                              device="cuda")
+    params = model_lib.init_params(
+        ctx, torch.Generator(device="cuda").manual_seed(0))
+    data = SyntheticLM(DataConfig(vocab_size=arch.vocab_size,
+                                  seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH_1, seed=0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    backend.reset_launches()
+    res = trainer.train(arch, run, None, steps=TRAIN_STEPS, log_every=1,
+                        verbose=True, params=params, device="cuda")
+    launches = dict(backend.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    batch = shard_batch(data.batch(TRAIN_STEPS), None, "cuda")
+    profiled = profile_train_step(torch, trainer.make_train_step(ctx, run),
+                                  res.params, res.opt_state, batch)
+    # one step each way from the same state, on the next batch
+    batch = shard_batch(data.batch(TRAIN_STEPS + 1), None, "cuda")
+    def one_step(mb, params, opt_state):
+        step = trainer.make_train_step(ctx, RunConfig(**kw, microbatch=mb))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, _, m = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        return ({"loss": float(m["loss"]), "microbatch": mb,
+                 "step_wall_s": time.perf_counter() - t0,
+                 "max_memory_allocated_gb":
+                     torch.cuda.max_memory_allocated() / 1e9},
+                adamw.tree_leaves(params)[0].detach().float())
+
+    p_copy = _clone_tree(res.params)
+    for p in adamw.tree_leaves(p_copy):
+        p.requires_grad_(True)
+    o_copy = {k: (v if k == "step" else _clone_tree(v))
+              for k, v in res.opt_state.items()}
+    accum, leaf = {}, {}
+    accum["full"], leaf["full"] = one_step(0, p_copy, o_copy)
+    del p_copy, o_copy
+    accum["microbatch"], leaf["microbatch"] = one_step(
+        DENSE_MICRO, res.params, res.opt_state)
+    diff = float((leaf["full"] - leaf["microbatch"]).abs().max())
+    got, ref = accum["microbatch"]["loss"], accum["full"]["loss"]
+    report = {"arch": arch.name, "layers": arch.num_layers,
+              "params": model_lib.count_params(res.params),
+              "losses": res.losses,
+              "grad_norm": [h["grad_norm"] for h in res.metrics_history],
+              "step_wall_s": res.step_seconds, "launches": launches,
+              "max_memory_allocated_gb": peak_gb, "profiled_step": profiled,
+              "accumulation": dict(
+                  accum, loss_rel_diff=abs(got - ref) / abs(ref),
+                  loss_rtol=LOSS_RTOL,
+                  first_leaf_max_abs_diff_after_step=diff)}
+    with open(out_path, "w") as fh:
+        json.dump(report, fh)
+
+
+def dense_phases(torch, np) -> tuple:
+    """The dense decoders (DENSE_IDS), after every other model's weights
+    are freed: ``checks_dense``; ``serve_dense`` for each config in turn
+    (its weights freed before the next); train_internlm2 in a child
+    process.  Emits each phase's line and returns ``(checks, {config:
+    serve line}, train report)``."""
+    from repro_torch.kernels import backend
+    t0 = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    with torch.no_grad():
+        ck = checks_dense(torch, gen)
+    emit({"phase": "checks_dense", "seconds": time.time() - t0, **ck})
+    gc.collect()
+    torch.cuda.empty_cache()
+    srv = {aid: serve_dense(torch, np, aid) for aid in DENSE_IDS}
+    t0 = time.time()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dense_")
+    path = os.path.join(tmp, "train.json")
+    child = mp.get_context("spawn").Process(target=train_dense_phase,
+                                            args=(path,))
+    child.start()
+    child.join()
+    if child.exitcode != 0:
+        raise SystemExit(f"train_internlm2: the child process failed (exit "
+                         f"{child.exitcode})")
+    with open(path) as fh:
+        tr = json.load(fh)
+    shutil.rmtree(tmp, ignore_errors=True)
+    if tr["launches"] != {k: 0 for k in backend.LAUNCHES}:
+        raise SystemExit(f"train_internlm2: launches {tr['launches']}, the "
+                         f"plain training path needs none")
+    if len(tr["losses"]) != TRAIN_STEPS or not all(
+            math.isfinite(v) for v in tr["losses"]):
+        raise SystemExit(f"train_internlm2: losses {tr['losses']}")
+    acc = tr["accumulation"]
+    if not acc["loss_rel_diff"] <= LOSS_RTOL:
+        raise SystemExit(f"train_internlm2: the accumulated step's loss "
+                         f"{acc['microbatch']['loss']} against the full "
+                         f"batch's {acc['full']['loss']}: relative "
+                         f"{acc['loss_rel_diff']} > {LOSS_RTOL}")
+    emit({"phase": "train_internlm2", "seconds": time.time() - t0,
+          "aux_mode": "none", "attention": "plain _sdpa (K5 has no "
+          "backward)", "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_1,
+          "steps": TRAIN_STEPS, **tr})
+    return ck, srv, tr
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2926,7 +3181,8 @@ def main() -> int:
     t0 = time.time()
     libs = backend.build_all()
     ptxas = {n: [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln
+                 or "Compiling entry" in ln]
              for n, log in backend.BUILD_LOGS.items()}
     emit({"phase": "build", "seconds": time.time() - t0,
           "libs": {n: os.path.relpath(str(p), REPO) for n, p in libs.items()},
@@ -3437,7 +3693,11 @@ def main() -> int:
     # freed: 31 GB of them and 51.6 GB of Jamba's do not fit together
     ck_jb, srv_jb, loss_jb = jamba_phases(torch, np)
 
-    # 17. kernels: launches summed over every main path and rank
+    # 17. the dense decoders at full width and depth on one rank, after
+    # Jamba's weights are freed; K5 at head dim 128 on three of them
+    ck_dn, srv_dn, tr_dn = dense_phases(torch, np)
+
+    # 18. kernels: launches summed over every main path and rank
     def total(name):
         return sum(sum(v) if isinstance(v, list) else v
                    for v in by_path(name).values())
@@ -3458,7 +3718,10 @@ def main() -> int:
                 "serve_dsv2_lite": srv_ds["launches"][name],
                 "train_dsv2_lite_d4": tds["launches"][name],
                 "serve_jamba_d16": srv_jb["launches"][name],
-                "loss_jamba_d16": loss_jb["launches"][name]}
+                "loss_jamba_d16": loss_jb["launches"][name],
+                **{f"serve_{aid}": r["launches"][name]
+                   for aid, r in srv_dn.items()},
+                "train_internlm2": tr_dn["launches"][name]}
 
     def dsv2_row(r, extra=()):
         """One reading of ``checks_wide`` (DeepSeek-V2-Lite's or
@@ -3587,14 +3850,21 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attn/kernel.py:65",
          "launches": total("flash_attn.flash_attention"),
          "launches_by_path": by_path("flash_attn.flash_attention"),
-         "max_abs_err": max([k5["max_abs_err"], k5_512["max_abs_err"]]
-                            + [e["max_abs_err"] for e in edges]),
+         "max_abs_err": max([k5["max_abs_err"], k5_512["max_abs_err"],
+                             ck_dn["K5_S512"]["max_abs_err"]]
+                            + [e["max_abs_err"] for e in edges
+                               + ck_dn["K5_edges"]
+                               + list(ck_dn["K5"].values())]),
          "ms": k5["ms"], "device_ms": k5["device_ms"],
          "plain_ms": k5["plain_ms"],
          "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
          "library_ms": k5["library_ms"],
          "library_device_ms": k5["library_device_ms"],
-         "shapes": {"4x128x16x64": k5, "4x512x16x64": k5_512}},
+         "shapes": {"4x128x16x64": k5, "4x512x16x64": k5_512,
+                    **{f"{aid}_4x128x{r['shape'][2]}x{r['shape'][3]}"
+                       f"_kv{r['kv_heads']}": r
+                       for aid, r in ck_dn["K5"].items()},
+                    "4x512x16x128_kv8": ck_dn["K5_S512"]}},
         {"name": "moe_gemm.grouped_ffn", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_gemm.cu",
          "replaces": "src/repro/kernels/moe_gemm/kernel.py:185",
@@ -3613,13 +3883,19 @@ def main() -> int:
          "path": "none: no model calls it, as in the reference",
          "launches": total("decode_attn.decode_attention"),
          "launches_by_path": by_path("decode_attn.decode_attention"),
-         "check_launches": sum(e["launches"] for e in [k8] + k8_edges),
-         "max_abs_err": max(e["max_abs_err"] for e in [k8] + k8_edges),
+         "check_launches": sum(e["launches"] for e in [k8] + k8_edges
+                               + [ck_dn["K8"]] + ck_dn["K8_edges"]),
+         "max_abs_err": max(e["max_abs_err"] for e in [k8] + k8_edges
+                            + [ck_dn["K8"]] + ck_dn["K8_edges"]),
          "ms": k8["ms"], "device_ms": k8["device_ms"],
          "plain_ms": k8["plain_ms"],
          "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"],
          "library_ms": k8["library_ms"],
-         "library_device_ms": k8["library_device_ms"]},
+         "library_device_ms": k8["library_device_ms"],
+         "hd128": {n: ck_dn["K8"][n] for n in (
+             "B", "L", "H", "K", "hd", "zero_length_requests", "valid_rows",
+             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms", "library_device_ms")}},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

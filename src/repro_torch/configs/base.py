@@ -64,6 +64,9 @@ class ArchConfig:
     rope_theta: float = 1e4
     sliding_window: int = 0       # 0 = full attention
     qkv_bias: bool = False
+    # the unembedding is always params["embed"] transposed, in both
+    # packages: the field is the published config's, and changes nothing
+    tie_embeddings: bool = False
     moe: MoEArch | None = None
     mla: MLAArch | None = None
     # hybrid (jamba): attention mixer at layer i when i % attn_every ==
@@ -145,7 +148,8 @@ class RunConfig:
 
 
 ARCH_IDS = ("deepseek_v2_lite_16b", "deepseek_v2_236b", "gpt3_medium_moe",
-            "jamba_v0_1_52b")
+            "granite_3_2b", "internlm2_1_8b", "jamba_v0_1_52b", "minitron_4b",
+            "olmo_1b")
 
 
 def normalize_arch_id(name: str) -> str:

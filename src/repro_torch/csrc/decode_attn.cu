@@ -9,9 +9,9 @@
 // with the cache axis sequential, so the running max m, normaliser l and
 // output of each request stay resident in its output blocks).
 //
-// What it computes: q [B, H, 64], k/v [B, L, K, 64] in bfloat16, lengths
-// [B] int32 ->
-//   o[b, h] = softmax_j(q_h . k_j / sqrt(64)) @ v_j over the KV head
+// What it computes: q [B, H, hd], k/v [B, L, K, hd] in bfloat16 with hd 64
+// or 128, lengths [B] int32 ->
+//   o[b, h] = softmax_j(q_h . k_j / sqrt(hd)) @ v_j over the KV head
 //   h // (H / K) and the rows j in [lengths[b] - window, lengths[b]) (from
 //   0 when window is 0), clipped to [0, L);
 // float32 inside, output in bfloat16.  Rows outside that range are never
@@ -25,27 +25,36 @@
 // Design: the TPU's sequential cache axis cannot carry state across blocks
 // here, so the cache is split and combined (flash-decoding):
 //   1. split launch: a block per (L split of 512 rows, KV head, request)
-//      streams the valid rows of its split through shared memory, 64 rows
+//      streams the valid rows of its split through shared memory, TL rows
 //      at a time (16-byte loads, converted to f32), and for the G = H / K
 //      query heads of its KV head keeps the online-softmax state (m, l and
-//      the unnormalised 64-wide output) in registers, one warp per head
-//      (four heads a warp at most); it writes the f32 partial (o, m, l).
-//      A split with no valid row returns at once and writes nothing.
-//   2. combine launch: a block per (request, query head) rescales the
+//      the unnormalised hd-wide output, hd / 32 values a lane) in
+//      registers, one warp per head (four heads a warp at most); it writes
+//      the f32 partial (o, m, l).  A split with no valid row returns at
+//      once and writes nothing.
+//   2. combine launch: a block per (request, query head), a thread per
+//      output dimension (hd threads), rescales the
 //      partials of the splits that hold valid rows by exp(m_s - max m),
 //      sums them, divides by the summed l and writes bfloat16.
+// Both launches are templates on the head dim; the entry dispatches on hd
+// and refuses any but 64 and 128.  The f32 tiles in shared memory (Q of 16
+// heads, K with a pad column, V and the scores) are 40.3 KiB at hd 64 with
+// TL = 64 rows; at hd 128 the same TL would need 76.3 KiB, over the 48 KiB
+// a block gets without opting in, and would leave two blocks an SM.  So hd
+// 128 stages TL = 32 rows (42.1 KiB, static; five blocks an SM as at hd
+// 64), one score a lane in the softmax update instead of two.
 // The split count is ceil(L / 512): fixed 512-row splits keep every
 // block's work alike whatever a request's length (short requests simply
 // have fewer live splits), and at the decode_32k shape (B = 32, L = 32768,
 // K = 16) they give 32768 blocks, 64 per (request, KV head), enough to
-// keep all 132 SMs streaming.
+// keep all 132 SMs streaming (16384 with 8 KV heads of 128).
 //
-// What bounds it on this card: bytes.  Each valid row's k and v (2 x 128
-// bytes a KV head) is read once; the products are 2 x 64 f32 FMAs a row
+// What bounds it on this card: bytes.  Each valid row's k and v (2 x 2hd
+// bytes a KV head) is read once; the products are 2 x hd f32 FMAs a row
 // and query head, far below the card's rate.  At B = 32, L = 32768, mean
-// length about 16k, that is about 2.1 GB, 0.64 ms at 3.35 TB/s.  This first
-// version does not pipeline its loads (a block waits for each 64-row tile
-// before computing on it) and leaves three of four warps idle in the
+// length about 16k, that is about 2.1 GB, 0.64 ms at 3.35 TB/s, with 16
+// KV heads of 64 or 8 of 128 alike.  This first version does not pipeline
+// its loads (a block waits for each TL-row tile before computing on it) and leaves three of four warps idle in the
 // softmax update when G = 1; cp.async or TMA double buffering is later
 // work.
 
@@ -58,9 +67,7 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int HD = 64;             // head dim (gpt3_medium_moe's)
 constexpr int SPLIT_ROWS = 512;    // cache rows of one split block
-constexpr int TL = 64;             // rows staged in shared memory at a time
 constexpr int NWARPS = 4;
 constexpr int THREADS = NWARPS * 32;
 constexpr int MAX_G = 16;          // query heads a KV head may serve
@@ -85,6 +92,9 @@ __device__ __forceinline__ void valid_range(int len, int window, int L,
   *lo = window > 0 ? max(len - window, 0) : 0;
 }
 
+// HD: head dim; TL: rows staged in shared memory at a time (a multiple of
+// 32 dividing SPLIT_ROWS)
+template <int HD, int TL>
 __global__ void __launch_bounds__(THREADS)
 decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v,
@@ -99,6 +109,8 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int r_end = min(hi, (s + 1) * SPLIT_ROWS);
   if (r_begin >= r_end) return;              // the combine skips it too
   const int G = H / K;
+  constexpr int RPL = TL / 32;               // scores a lane updates
+  constexpr int DPL = HD / 32;               // output dims a lane keeps
 
   __shared__ float Qs[MAX_G][HD];            // pre-scaled queries
   __shared__ float Ks[TL][HD + 1];           // +1: lanes on 32 banks
@@ -111,12 +123,13 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     Qs[g][j] = __bfloat162float(q[((size_t)b * H + kh * G + g) * HD + j]) *
                scale;
   }
-  float m[HPW], l[HPW], o0[HPW], o1[HPW];
+  float m[HPW], l[HPW], o[HPW][DPL];
 #pragma unroll
   for (int i = 0; i < HPW; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.0f;
-    o0[i] = o1[i] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) o[i][e] = 0.0f;
   }
   const size_t row_stride = (size_t)K * HD;
   const bf16* kb = k + ((size_t)b * L * K + kh) * HD;
@@ -155,25 +168,35 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 0; i < HPW; ++i) {
       const int g = warp + NWARPS * i;
       if (g < G) {
-        float s0 = Ps[g][lane], s1 = Ps[g][lane + 32];
-        float m_new = fmaxf(m[i], warp_max(fmaxf(s0, s1)));
-        float p0 = lane < nrows ? expf(s0 - m_new) : 0.0f;
-        float p1 = lane + 32 < nrows ? expf(s1 - m_new) : 0.0f;
+        float sv[RPL], mx = NEG_INF, psum = 0.0f;
+#pragma unroll
+        for (int e = 0; e < RPL; ++e) {
+          sv[e] = Ps[g][lane + 32 * e];
+          mx = fmaxf(mx, sv[e]);
+        }
+        float m_new = fmaxf(m[i], warp_max(mx));
+#pragma unroll
+        for (int e = 0; e < RPL; ++e) {
+          sv[e] = lane + 32 * e < nrows ? expf(sv[e] - m_new) : 0.0f;
+          psum += sv[e];
+        }
         float alpha = expf(m[i] - m_new);
-        l[i] = l[i] * alpha + warp_sum(p0 + p1);
+        l[i] = l[i] * alpha + warp_sum(psum);
         m[i] = m_new;
         __syncwarp();
-        Ps[g][lane] = p0;
-        Ps[g][lane + 32] = p1;
+#pragma unroll
+        for (int e = 0; e < RPL; ++e) Ps[g][lane + 32 * e] = sv[e];
         __syncwarp();
-        float a0 = o0[i] * alpha, a1 = o1[i] * alpha;
+        float a[DPL];
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) a[e] = o[i][e] * alpha;
         for (int r = 0; r < nrows; ++r) {
           float p = Ps[g][r];
-          a0 += p * Vs[r][lane];
-          a1 += p * Vs[r][lane + 32];
+#pragma unroll
+          for (int e = 0; e < DPL; ++e) a[e] += p * Vs[r][lane + 32 * e];
         }
-        o0[i] = a0;
-        o1[i] = a1;
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) o[i][e] = a[e];
       }
     }
   }
@@ -183,8 +206,8 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int g = warp + NWARPS * i;
     if (g < G) {
       size_t p = ((size_t)b * H + kh * G + g) * n_split + s;
-      o_part[p * HD + lane] = o0[i];
-      o_part[p * HD + lane + 32] = o1[i];
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) o_part[p * HD + lane + 32 * e] = o[i][e];
       if (lane == 0) {
         ml_part[p * 2] = m[i];
         ml_part[p * 2 + 1] = l[i];
@@ -194,6 +217,7 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // one block per (request, query head), one thread per output dimension
+template <int HD>
 __global__ void __launch_bounds__(HD)
 decode_combine_kernel(const float* __restrict__ o_part,
                       const float* __restrict__ ml_part,
@@ -218,6 +242,24 @@ decode_combine_kernel(const float* __restrict__ o_part,
   out[(size_t)bh * HD + j] = __float2bfloat16(acc / lsum);
 }
 
+template <int HD, int TL>
+int launch(const void* q, const void* k, const void* v, const int* len,
+           void* o_part, void* ml_part, void* out, int B, int L, int H,
+           int K, int window, int n_split, cudaStream_t s) {
+  dim3 grid(n_split, K, B);
+  decode_split_kernel<HD, TL><<<grid, THREADS, 0, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), len, static_cast<float*>(o_part),
+      static_cast<float*>(ml_part), L, H, K, window, n_split,
+      1.0f / sqrtf((float)HD));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  decode_combine_kernel<HD><<<B * H, HD, 0, s>>>(
+      static_cast<const float*>(o_part), static_cast<const float*>(ml_part),
+      len, static_cast<bf16*>(out), L, H, window, n_split);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -227,30 +269,23 @@ int decode_attn_split_rows() { return SPLIT_ROWS; }
 // All pointers are device pointers on the current device.  q [B, H, hd],
 // k/v [B, L, K, hd] bf16, contiguous; lengths [B] int32; o_part [B, H,
 // n_split, hd] and ml_part [B, H, n_split, 2] f32 scratch (no zeroing
-// needed); out [B, H, hd] bf16.  hd must be 64, H a multiple of K with at
-// most 16 query heads a KV head, n_split * 512 >= L.
+// needed); out [B, H, hd] bf16.  hd must be 64 or 128, H a multiple of K
+// with at most 16 query heads a KV head, n_split * 512 >= L.
 int decode_attention_fwd(const void* q, const void* k, const void* v,
                          const void* lengths, void* o_part, void* ml_part,
                          void* out, int B, int L, int H, int K, int hd,
                          int window, int n_split, void* stream) {
-  if (hd != HD || K <= 0 || H % K || H / K > MAX_G || window < 0 ||
-      n_split < 1 || (long long)n_split * SPLIT_ROWS < L)
+  if ((hd != 64 && hd != 128) || K <= 0 || H % K || H / K > MAX_G ||
+      window < 0 || n_split < 1 || (long long)n_split * SPLIT_ROWS < L)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
-  dim3 grid(n_split, K, B);
-  decode_split_kernel<<<grid, THREADS, 0, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), len, static_cast<float*>(o_part),
-      static_cast<float*>(ml_part), L, H, K, window, n_split,
-      1.0f / sqrtf((float)HD));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  decode_combine_kernel<<<B * H, HD, 0, s>>>(
-      static_cast<const float*>(o_part), static_cast<const float*>(ml_part),
-      len, static_cast<bf16*>(out), L, H, window, n_split);
-  return (int)cudaGetLastError();
+  if (hd == 64)
+    return launch<64, 64>(q, k, v, len, o_part, ml_part, out, B, L, H, K,
+                          window, n_split, s);
+  return launch<128, 32>(q, k, v, len, o_part, ml_part, out, B, L, H, K,
+                         window, n_split, s);
 }
 
 }  // extern "C"

@@ -7,16 +7,18 @@
 // (the Pallas TPU kernel, grid (B, H, Sq/bq, Sk/bk) with the k axis
 // sequential so m, l and the output stay resident in VMEM).
 //
-// What it computes: q [B, Sq, H, 64], k/v [B, Sk, K, 64] in bfloat16 ->
+// What it computes: q [B, Sq, H, hd], k/v [B, Sk, K, hd] in bfloat16 ->
 //   o[b, i, h] = softmax_j(mask(q_i . k_j / sqrt(hd))) @ v_j  over the kv head
 //   h // (H / K), with the mask causal (i >= j), windowed (i - j < window)
 //   and ragged (j < Sk); positions of q and k both start at 0.  Scores,
 //   softmax and the output sum in float32; the probabilities are rounded
 //   to bfloat16 for the tensor cores' P.V product; output in bfloat16.
-//   Only bf16 with hd = 64 (gpt3_medium_moe's serving path) is built:
-//   other variants come with a configuration that needs them and a card
-//   check that holds them.  NaN scores (garbage K rows) are scrubbed to the
-//   mask value; fully-masked rows give 0.
+//   bf16 only, with hd 64 (gpt3_medium_moe, granite_3_2b) or 128 (olmo_1b,
+//   internlm2_1_8b, minitron_4b): the kernel is a template on HD and the
+//   entry dispatches on hd, refusing any other; other variants come with a
+//   configuration that needs them and a card check that holds them.  NaN
+//   scores (garbage K rows) are scrubbed to the mask value; fully-masked
+//   rows give 0.
 //
 // Design (a FlashAttention-2 forward on mma.sync): one block of four warps
 // per (q tile of 64 rows, head, batch); each warp owns 16 query rows.  The
@@ -26,12 +28,16 @@
 // each warp.
 //   * Q is loaded once and kept in registers as bf16 A-fragments of
 //     mma.m16n8k16 (ldmatrix from shared memory) for the whole loop.
-//   * K and V tiles (64 x 64 bf16, 8 KB each) arrive through a two-stage
-//     cp.async ring (16 bytes a thread and copy): tile t + 1 loads while
-//     tile t computes.  Rows are 128 bytes, stored with their eight 16-byte
-//     chunks XOR-swizzled by the row (chunk c of row r at c ^ (r & 7)), so
-//     every ldmatrix phase hits eight distinct bank groups.  Keys past Sk
-//     are zero-filled by the copy and never read from memory.
+//   * K and V tiles (64 x HD bf16, 8 KB each at HD 64, 16 KB at 128) arrive
+//     through a two-stage cp.async ring (16 bytes a thread and copy): tile
+//     t + 1 loads while tile t computes.  Rows are HD * 2 bytes, stored
+//     with their HD / 8 16-byte chunks XOR-swizzled by the row (chunk c of
+//     row r at c ^ (r & 7); at HD 128 the XOR leaves bit 3 of c, so a chunk
+//     stays in its row's half).  Every ldmatrix phase reads one logical
+//     chunk of eight consecutive rows, which the swizzle puts in eight
+//     distinct bank groups, at either width; so does the 4-byte staging of
+//     the output.  Keys past Sk are zero-filled by the copy and never read
+//     from memory.
 //   * S = Q.K^T and O += P.V run on the bf16 tensor cores with f32
 //     accumulators (ldmatrix for K, ldmatrix.trans for V).  The online
 //     softmax (running max m and sum l of each row, in the log2 domain)
@@ -41,14 +47,24 @@
 //     never through shared memory.
 //   * The output is normalised in registers, staged through the warp's own
 //     rows of the Q tile in shared memory and stored in 16-byte pieces.
-// Shared memory is 40 KB, static: no opt-in attribute is needed.
+// Shared memory (Q, two K and two V stages): 40 KB at HD 64, 80 KB at
+// HD 128, over the 48 KB a block gets without asking.  It is dynamic, and
+// the entry opts the HD 128 instantiation in
+// (cudaFuncAttributeMaxDynamicSharedMemorySize) once per device: two blocks
+// fit an SM's 227 KB.  Cutting the key tile to 32 rows would have fit in
+// 48 KB exactly, but halves the work between the barriers of the ring.
+// Registers at HD 128: the output accumulator o_acc[16][4] and the Q
+// fragments qf[8][4] are 64 + 32 a thread beside the scores' 32; the
+// ptxas lines of the build (chip_smoke.py's build phase) give the count
+// and the spills of each instantiation under __launch_bounds__(128).
 //
 // What bounds it on this card: at the serve prefill shape [4, 128, 16, 64]
 // the bound is q, k, v and o once (2 MB, 0.00125 ms), and a single wave of
 // 128 blocks, each one or two key tiles deep, is bound by latency (the
 // copy of its first tile, the dependent MMA and shuffle chain) and the
 // launch; at [4, 512, 16, 64] 512 blocks of up to 8 tiles overlap copies
-// with the products.
+// with the products.  At HD 128 ([4, 128, 16, 128]: 8.4 MB, 0.0025 ms) the
+// same holds, with twice the bytes and products a tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,12 +79,11 @@ constexpr int BQ = 64;             // query rows per block
 constexpr int BKV = 64;            // keys per tile
 constexpr int NWARPS = BQ / 16;    // 16 query rows per warp
 constexpr int THREADS = NWARPS * 32;
-constexpr int HD = 64;             // head dim (gpt3_medium_moe's)
-constexpr int CHUNKS = HD / 8;     // 16-byte chunks per row
 constexpr float NEG_INF = -1e30f;  // the reference's mask value
 constexpr float LOG2E = 1.4426950408889634f;
 
-// element offset of 16-byte chunk c of row r in a swizzled [rows][64] tile
+// element offset of 16-byte chunk c of row r in a swizzled [rows][HD] tile
+template <int HD>
 __device__ __forceinline__ int swz(int r, int c) {
   return r * HD + ((c ^ (r & 7)) << 3);
 }
@@ -125,26 +140,37 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// rows [0, nvalid) of a [64, 64] tile whose row 0 is at g (row stride ld
+// rows [0, nvalid) of a [64, HD] tile whose row 0 is at g (row stride ld
 // elements) into the swizzled tile s; rows past nvalid are zero-filled
+template <int HD>
 __device__ __forceinline__ void load_tile(bf16* s, const bf16* g, size_t ld,
                                           int nvalid, int tid) {
+  constexpr int CHUNKS = HD / 8;
   for (int i = tid; i < 64 * CHUNKS; i += THREADS) {
     const int r = i / CHUNKS, c = i % CHUNKS;
     const bool ok = r < nvalid;
-    cp_async16(smem_u32(s + swz(r, c)), g + (size_t)(ok ? r : 0) * ld + c * 8,
-               ok ? 16 : 0);
+    cp_async16(smem_u32(s + swz<HD>(r, c)),
+               g + (size_t)(ok ? r : 0) * ld + c * 8, ok ? 16 : 0);
   }
 }
 
+// dynamic shared memory of one block: Q, then two K stages, two V stages
+template <int HD>
+constexpr int smem_bytes() {
+  return (BQ + 4 * BKV) * HD * (int)sizeof(bf16);
+}
+
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o, int Sq,
                   int Sk, int H, int K, float scale_log2, int causal,
                   int window) {
-  __shared__ __align__(128) bf16 Qs[BQ * HD];
-  __shared__ __align__(128) bf16 Ks[2][BKV * HD];
-  __shared__ __align__(128) bf16 Vs[2][BKV * HD];
+  constexpr int CHUNKS = HD / 8;   // 16-byte chunks per row
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* const Ks = Qs + BQ * HD;             // stage st at st * BKV * HD
+  bf16* const Vs = Ks + 2 * BKV * HD;
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -165,12 +191,12 @@ flash_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int t_begin = k_begin / BKV;
   const int t_end = (k_end + BKV - 1) / BKV;
 
-  load_tile(Qs, qg, q_ld, Sq - q0, tid);
+  load_tile<HD>(Qs, qg, q_ld, Sq - q0, tid);
   cp_async_commit();
   if (t_begin < t_end) {
     const size_t off = (size_t)t_begin * BKV * kv_ld;
-    load_tile(Ks[0], kg + off, kv_ld, Sk - t_begin * BKV, tid);
-    load_tile(Vs[0], vg + off, kv_ld, Sk - t_begin * BKV, tid);
+    load_tile<HD>(Ks, kg + off, kv_ld, Sk - t_begin * BKV, tid);
+    load_tile<HD>(Vs, vg + off, kv_ld, Sk - t_begin * BKV, tid);
   }
   cp_async_commit();
   cp_async_wait<1>();                       // Q has landed
@@ -180,8 +206,8 @@ flash_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   uint32_t qf[HD / 16][4];
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk)
-    ldsm_x4(qf[kk], smem_u32(Qs + swz(warp * 16 + (lane & 15),
-                                      kk * 2 + (lane >> 4))));
+    ldsm_x4(qf[kk], smem_u32(Qs + swz<HD>(warp * 16 + (lane & 15),
+                                          kk * 2 + (lane >> 4))));
 
   const int r_lo = q0 + warp * 16 + lane / 4;   // rows of c0,c1 (+8: c2,c3)
   const int w_first = q0 + warp * 16, w_last = w_first + 15;
@@ -196,8 +222,9 @@ flash_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int st = it & 1;
     if (t + 1 < t_end) {                    // next tile into the other stage
       const size_t off = (size_t)(t + 1) * BKV * kv_ld;
-      load_tile(Ks[st ^ 1], kg + off, kv_ld, Sk - (t + 1) * BKV, tid);
-      load_tile(Vs[st ^ 1], vg + off, kv_ld, Sk - (t + 1) * BKV, tid);
+      const int nvalid = Sk - (t + 1) * BKV;
+      load_tile<HD>(Ks + (st ^ 1) * BKV * HD, kg + off, kv_ld, nvalid, tid);
+      load_tile<HD>(Vs + (st ^ 1) * BKV * HD, vg + off, kv_ld, nvalid, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();                     // tile t has landed
@@ -208,8 +235,8 @@ flash_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bool skip = !warp_live || (causal && w_last < kbase) ||
                       (window && kbase + BKV - 1 <= w_first - window);
     if (!skip) {
-      const bf16* Kt = Ks[st];
-      const bf16* Vt = Vs[st];
+      const bf16* Kt = Ks + st * BKV * HD;
+      const bf16* Vt = Vs + st * BKV * HD;
       float s[BKV / 8][4];
 #pragma unroll
       for (int n = 0; n < BKV / 8; ++n)
@@ -219,9 +246,9 @@ flash_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int n2 = 0; n2 < BKV / 16; ++n2) {
           uint32_t bf[4];
-          ldsm_x4(bf, smem_u32(Kt + swz(n2 * 16 + (lane & 7) +
-                                            ((lane >> 4) << 3),
-                                        kk * 2 + ((lane >> 3) & 1))));
+          ldsm_x4(bf, smem_u32(Kt + swz<HD>(n2 * 16 + (lane & 7) +
+                                                ((lane >> 4) << 3),
+                                            kk * 2 + ((lane >> 3) & 1))));
           mma_bf16(s[2 * n2], qf[kk], bf[0], bf[1]);
           mma_bf16(s[2 * n2 + 1], qf[kk], bf[2], bf[3]);
         }
@@ -263,6 +290,10 @@ flash_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             s[n][2 * hr + e] = p;
             sum += p;
           }
+        }
+        // the output's HD / 8 column tiles (not the scores' BKV / 8)
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
           o_acc[n][2 * hr] *= alpha;
           o_acc[n][2 * hr + 1] *= alpha;
         }
@@ -280,9 +311,9 @@ flash_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int n2 = 0; n2 < HD / 16; ++n2) {
           uint32_t bf[4];
-          ldsm_x4_trans(bf, smem_u32(Vt + swz(kk * 16 + (lane & 7) +
-                                                  (((lane >> 3) & 1) << 3),
-                                              n2 * 2 + (lane >> 4))));
+          ldsm_x4_trans(bf, smem_u32(Vt + swz<HD>(kk * 16 + (lane & 7) +
+                                                      (((lane >> 3) & 1) << 3),
+                                                  n2 * 2 + (lane >> 4))));
           mma_bf16(o_acc[2 * n2], a, bf[0], bf[1]);
           mma_bf16(o_acc[2 * n2 + 1], a, bf[2], bf[3]);
         }
@@ -306,7 +337,7 @@ flash_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int r = warp * 16 + lane / 4 + hr * 8;
-      *reinterpret_cast<uint32_t*>(Qs + swz(r, n) + 2 * (lane % 4)) =
+      *reinterpret_cast<uint32_t*>(Qs + swz<HD>(r, n) + 2 * (lane % 4)) =
           pack_bf16(o_acc[n][2 * hr] * inv[hr],
                     o_acc[n][2 * hr + 1] * inv[hr]);
     }
@@ -317,8 +348,38 @@ flash_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (qi < Sq)
       *reinterpret_cast<uint4*>(o + ((size_t)b * Sq + qi) * q_ld +
                                 (size_t)h * HD + c * 8) =
-          *reinterpret_cast<const uint4*>(Qs + swz(r, c));
+          *reinterpret_cast<const uint4*>(Qs + swz<HD>(r, c));
   }
+}
+
+// one launch of the HD instantiation; a block's shared memory over the
+// 48 KB default is opted into once per device
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Sq, int Sk, int H, int K, int causal, int window,
+           void* stream) {
+  constexpr int SMEM = smem_bytes<HD>();
+  if (SMEM > 48 * 1024) {
+    static bool opted[64] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+    if (!opted[dev]) {
+      err = cudaFuncSetAttribute(flash_attn_kernel<HD>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 SMEM);
+      if (err != cudaSuccess) return (int)err;
+      opted[dev] = true;
+    }
+  }
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  flash_attn_kernel<HD><<<grid, THREADS, SMEM,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, H, K,
+      LOG2E / sqrtf((float)HD), causal, window);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -326,19 +387,18 @@ flash_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 extern "C" {
 
 // q [B, Sq, H, hd], k/v [B, Sk, K, hd], o [B, Sq, H, hd]; contiguous,
-// 16-byte aligned bfloat16 device tensors with hd = 64 (the only variant
-// built until a configuration needs another); H a multiple of K.
+// 16-byte aligned bfloat16 device tensors with hd 64 or 128 (the variants
+// built); H a multiple of K.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int B, int Sq, int Sk, int H, int K, int hd,
                         int causal, int window, void* stream) {
-  if (hd != HD || K <= 0 || H % K || B <= 0 || Sq <= 0 || Sk <= 0)
+  if (K <= 0 || H % K || B <= 0 || Sq <= 0 || Sk <= 0)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attn_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, H, K,
-      LOG2E / sqrtf((float)HD), causal, window);
-  return (int)cudaGetLastError();
+  if (hd == 64) return launch<64>(q, k, v, o, B, Sq, Sk, H, K, causal,
+                                  window, stream);
+  if (hd == 128) return launch<128>(q, k, v, o, B, Sq, Sk, H, K, causal,
+                                    window, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -19,8 +19,9 @@ from repro_torch.kernels import backend
 from repro_torch.kernels.decode_attn.ref import decode_attention_ref
 
 KERNEL = "decode_attn.decode_attention"
-#: the only variant the kernel builds: gpt3_medium_moe's heads, in bf16
-HEAD_DIM, DTYPE = 64, torch.bfloat16
+#: the variants the kernel builds (csrc/decode_attn.cu instantiates one per
+#: head dim), in bf16
+HEAD_DIMS, DTYPE = (64, 128), torch.bfloat16
 #: query heads one KV head may serve (H // K)
 MAX_GROUP = 16
 _V, _I = ctypes.c_void_p, ctypes.c_int
@@ -52,9 +53,9 @@ def _decode_cuda(q, k, v, lengths, sliding_window: int):
     if K == 0 or H % K or H // K > MAX_GROUP:
         raise ValueError(f"{KERNEL}: {H} query heads over {K} kv heads "
                          f"(at most {MAX_GROUP} a kv head)")
-    if hd != HEAD_DIM:
+    if hd not in HEAD_DIMS:
         raise ValueError(f"{KERNEL}: head_dim {hd}; the kernel is built "
-                         f"for {HEAD_DIM} only")
+                         f"for head dims {HEAD_DIMS} only")
     if (q.dtype, k.dtype, v.dtype) != (DTYPE,) * 3:
         raise TypeError(f"{KERNEL}: q/k/v must be {DTYPE}, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
@@ -89,8 +90,8 @@ def _decode_cuda(q, k, v, lengths, sliding_window: int):
 
 def decode_attention(q, k, v, lengths, *, sliding_window: int = 0):
     """q: [B, H, hd]; k/v: [B, L, K, hd]; lengths: [B] valid entries ->
-    [B, H, hd] in q's dtype.  The CUDA kernel takes bfloat16 with hd = 64
-    and int32 lengths, raises on anything else, and returns zeros for a
+    [B, H, hd] in q's dtype.  The CUDA kernel takes bfloat16 with hd 64 or
+    128 and int32 lengths, raises on anything else, and returns zeros for a
     request with no valid row; the plain version (CPU tensors) takes any."""
     if not backend.kernels_active(None, q.device):
         return decode_attention_ref(q, k, v, lengths,

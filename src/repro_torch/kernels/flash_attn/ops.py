@@ -18,8 +18,10 @@ from repro_torch.kernels import backend
 from repro_torch.kernels.flash_attn.ref import flash_attention_ref
 
 KERNEL = "flash_attn.flash_attention"
-#: the only variant the kernel builds: gpt3_medium_moe's serving path
-HEAD_DIM, DTYPE = 64, torch.bfloat16
+#: the variants the kernel builds (csrc/flash_attn.cu instantiates one per
+#: head dim): 64 for gpt3_medium_moe and granite_3_2b, 128 for olmo_1b,
+#: internlm2_1_8b and minitron_4b; bf16 only
+HEAD_DIMS, DTYPE = (64, 128), torch.bfloat16
 _V, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -40,9 +42,9 @@ def _flash_cuda(q, k, v, causal: bool, sliding_window: int):
                          f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
     if K == 0 or H % K:
         raise ValueError(f"{KERNEL}: {H} query heads over {K} kv heads")
-    if hd != HEAD_DIM:
+    if hd not in HEAD_DIMS:
         raise ValueError(f"{KERNEL}: head_dim {hd}; the kernel is built "
-                         f"for {HEAD_DIM} only")
+                         f"for head dims {HEAD_DIMS} only")
     if (q.dtype, k.dtype, v.dtype) != (DTYPE,) * 3:
         raise TypeError(f"{KERNEL}: q/k/v must be {DTYPE}, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
@@ -68,8 +70,8 @@ def _flash_cuda(q, k, v, causal: bool, sliding_window: int):
 def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
                     use_pallas=None):
     """q: [B, Sq, H, hd]; k/v: [B, Sk, K, hd] -> [B, Sq, H, hd] in q's
-    dtype.  The CUDA kernel takes bfloat16 with hd = 64 and raises on
-    anything else; the plain version (CPU tensors) takes any."""
+    dtype.  The CUDA kernel takes bfloat16 with hd 64 or 128 and raises
+    on anything else; the plain version (CPU tensors) takes any."""
     if not backend.kernels_active(use_pallas, q.device):
         return flash_attention_ref(q, k, v, causal=causal,
                                    sliding_window=sliding_window)

@@ -139,8 +139,8 @@ def test_rank_path():
 
 def test_checkpoint_resume(tmp_path):
     """The port's mirror of ``test_system.py::test_checkpoint_resume``
-    (which trains ``olmo_1b``; the port has ``gpt3_medium_moe``): the final
-    save restores bit for bit."""
+    (which trains ``olmo_1b``; this one trains ``gpt3_medium_moe``): the
+    final save restores bit for bit."""
     arch = get_config(ARCH_ID).reduced()
     run = RunConfig(seq_len=16, global_batch=2, total_steps=10,
                     warmup_steps=1, aux_mode="none")

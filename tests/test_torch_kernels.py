@@ -16,6 +16,8 @@ JAX package's kernels and references.
 - K5 ``flash_attn.flash_attention`` against ``flash_attention_pallas(...,
   interpret=True)`` and ``layers._sdpa``: causal, windowed, GQA, and an Sq
   that is not a multiple of the block.
+- The argument checks of K5's and K8's CUDA entries: head dims 64 and 128
+  reach the launch (a stub here), any other is refused by name.
 
 The CUDA kernels themselves run only on the card (``chip_smoke.py``).
 Inputs are made by numpy from a seed; tolerance rtol = atol = 1e-4 in
@@ -41,6 +43,7 @@ from repro.models import layers as jlayers
 from repro_torch.core import capacity, gating
 from repro_torch.core.dispatch import base, engine, routing, transport
 from repro_torch.kernels import backend
+from repro_torch.kernels.decode_attn import ops as dec_ops
 from repro_torch.kernels.flash_attn import ops as fa_ops
 from repro_torch.kernels.moe_fused import ops as fused_ops
 from repro_torch.kernels.moe_fused import ref as fused_ref
@@ -202,6 +205,58 @@ def test_cpu_tensors_take_the_plain_versions():
     fa_ops.flash_attention(q, q, q, use_pallas=True)
     assert out.shape == (4, 64) and out.dtype == torch.float32
     assert all(n == 0 for n in backend.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("hd", [64, 128, 96, 256])
+def test_attention_entries_take_head_dims_64_and_128_only(monkeypatch, hd):
+    """K5's and K8's CUDA entries (``_flash_cuda``, ``_decode_cuda``) with
+    the built library stubbed: bf16 q/k/v of head dim 64 or 128 reach the
+    launch with that ``hd`` and any other dtype is refused; any other head
+    dim raises, naming the head dims built, before any launch (nothing
+    here reaches nvcc)."""
+    calls = []
+
+    def stub(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(fa_ops, "_entry", lambda: stub)
+    monkeypatch.setattr(dec_ops, "_entry", lambda: (stub, 512))
+    monkeypatch.setattr(backend, "stream_ptr", lambda device: 0)
+    for name in (fa_ops.KERNEL, dec_ops.KERNEL):
+        monkeypatch.setitem(backend.LAUNCHES, name, 0)
+    bf = torch.bfloat16
+    q = torch.zeros((1, 8, 4, hd), dtype=bf)
+    kv = torch.zeros((1, 8, 2, hd), dtype=bf)
+    qd = torch.zeros((2, 4, hd), dtype=bf)
+    kvd = torch.zeros((2, 16, 2, hd), dtype=bf)
+    lens = torch.tensor([3, 16], dtype=torch.int32)
+    with torch.no_grad():
+        if hd in (64, 128):
+            assert fa_ops._flash_cuda(q, kv, kv, True, 0).shape == q.shape
+            assert dec_ops._decode_cuda(qd, kvd, kvd, lens, 0).shape == \
+                qd.shape
+            # hd is the tenth argument of flash_attention_fwd and the
+            # twelfth of decode_attention_fwd
+            assert [c[9] for c in calls[:1]] + [c[11] for c in calls[1:]] \
+                == [hd, hd]
+            assert backend.LAUNCHES[fa_ops.KERNEL] == 1
+            assert backend.LAUNCHES[dec_ops.KERNEL] == 1
+            with pytest.raises(TypeError, match="bfloat16"):
+                fa_ops._flash_cuda(q.float(), kv.float(), kv.float(), True,
+                                   0)
+            with pytest.raises(TypeError, match="bfloat16"):
+                dec_ops._decode_cuda(qd.float(), kvd.float(), kvd.float(),
+                                     lens, 0)
+            assert len(calls) == 2
+        else:
+            with pytest.raises(ValueError, match=rf"head_dim {hd}.*"
+                               r"head dims \(64, 128\)"):
+                fa_ops._flash_cuda(q, kv, kv, True, 0)
+            with pytest.raises(ValueError, match=rf"head_dim {hd}.*"
+                               r"head dims \(64, 128\)"):
+                dec_ops._decode_cuda(qd, kvd, kvd, lens, 0)
+            assert calls == []
 
 
 @settings(max_examples=40, deadline=None)
