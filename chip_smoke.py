@@ -215,16 +215,36 @@ Phases, each printing JSON lines:
    every kernel at 0; step walls, peak memory, a profiled step; then
    one step with ``microbatch=2`` against the full-batch step from the
    same state, losses within LOSS_RTOL;
-20. kernels — one ``{"kernels": [...]}`` line for K1-K8, launches
+20. the last three families at full width and full depth on one rank,
+   after the dense decoders' weights are freed, bf16 weights from seed 0:
+   xLSTM-350M (arXiv:2405.04517; 24 blocks, 7 mLSTM then one sLSTM in
+   each group of 8, d 1024, vocab 50304), Whisper-tiny (arXiv:2212.04356;
+   4 encoder and 4 decoder layers, d 384, 6 heads of 64, 1500 frames a
+   request from ``models/whisper.make_frames``) and InternVL2-26B
+   (arXiv:2404.16821; 48 layers, d 6144, 48 over 8 KV heads of 128, f
+   16384, 19.3 B parameters; 256 patches of width 1024 a request from
+   ``models/vlm.make_patches``, prompts of 256 + 32-128 tokens in a
+   bucket of VLM_BUCKET).  ``checks_families``: K5 at Whisper's encoder
+   shape [4, 1500, 6, 64] non-causal (ragged last blocks) and at
+   InternVL2's prefill pack [4, VLM_BUCKET, 48, 128] over 8 KV heads
+   (GQA 6:1), beside SDPA.  ``serve_<config>`` for each: ``serve_mix``
+   with ``use_flash=True`` and per-request frontends; K5 exactly once an
+   encoder layer (Whisper) or a layer (InternVL2) of every prefill pack,
+   xLSTM no kernel at all, every other kernel never; xLSTM and Whisper
+   prefill by scanning decode steps.  ``e2e_<config>``: the float32
+   verdict (xLSTM's kernel path is its plain path; InternVL2's float32
+   run casts one layer at a time);
+21. kernels — one ``{"kernels": [...]}`` line for K1-K8, launches
    summed over the main paths (serve, every rank of serve_2x2,
    train_1rank and its fused cross entropy step, every rank of
    train_2x2 and train_2x2_pipelined, train_einsum_k6,
    train_1rank_accum_remat, train_resilient, every rank of
    train_2x2_replan, train_2x2x2 and train_dp, serve_dsv2_lite,
    train_dsv2_lite_d4, serve_jamba_d16, loss_jamba_d16, the four dense
-   ``serve_<config>`` and train_internlm2), with DeepSeek-V2-Lite's and
-   Jamba's readings beside each of K1-K4 and K7 and the hd-128 readings
-   beside K5's and K8's.  K8 lies on no
+   ``serve_<config>``, train_internlm2 and the three families'
+   ``serve_<config>``), with DeepSeek-V2-Lite's and Jamba's readings
+   beside each of K1-K4 and K7, the hd-128 readings beside K5's and K8's
+   and the families' shapes beside K5's.  K8 lies on no
    path (no model calls it, as in the reference): its row gives the
    launches of its checks as ``check_launches``.
 
@@ -403,6 +423,21 @@ JAMBA_LOSS_BATCH = 2
 # from the same state
 DENSE_IDS = ("olmo_1b", "granite_3_2b", "internlm2_1_8b", "minitron_4b")
 DENSE_TRAIN_ID, DENSE_MICRO = "internlm2_1_8b", 2
+# the last three families at full width and full depth, one rank each,
+# after the dense decoders' weights are freed, bf16 weights from seed 0:
+# xLSTM-350M (24 blocks, d 1024; no attention, no experts: no hand-written
+# kernel on its path), Whisper-tiny (4 encoder + 4 decoder layers, d 384, 6
+# heads of 64; each request carries 1500 frames: K5 non-causal in the
+# encoder, once an encoder layer of every prefill pack; the decoder
+# prefills by scan) and InternVL2-26B (48 layers, d 6144, 48 over 8 KV
+# heads of 128, 19.3 B parameters, 38.7 GB; each request carries 256
+# patches of width 1024, so its prompts are 256 + 32-128 tokens in a
+# bucket of VLM_BUCKET: K5 once a layer of every prefill pack).  The
+# float32 verdicts: xLSTM's and Whisper's on a whole float32 copy,
+# InternVL2's cast one layer at a time (a whole copy is 77 GB)
+XLSTM_ID, WHISPER_ID, VLM_ID = "xlstm_350m", "whisper_tiny", "internvl2_26b"
+FAMILY_IDS = (XLSTM_ID, WHISPER_ID, VLM_ID)
+VLM_BUCKET, VLM_CACHE_LEN = 384, 512
 # kernels no earlier phase may launch: K6 runs only on the einsum phase, K8
 # on no path
 OFF_PATH = ("moe_gemm.grouped_ffn", "decode_attn.decode_attention")
@@ -2320,19 +2355,25 @@ def _cast_params(params, dtype):
     return params.to(dtype) if params.is_floating_point() else params
 
 
-def e2e_logits(torch, params, ctx, prompt, world=None):
-    """Prefill of ``prompt`` [B, S] then E2E_STEPS decode steps, each fed
-    the prompt's last token: float32 logits [E2E_STEPS + 1, B, V].  On a
-    world every rank passes the whole batch, runs its rows, and gets the
-    whole batch's logits (gathered)."""
+def e2e_logits(torch, params, ctx, prompt, world=None, frontend=None):
+    """Prefill of ``prompt`` [B, S] (with ``frontend`` [B, F, width], a
+    model's frame or patch embeddings) then E2E_STEPS decode steps, each
+    fed the prompt's last token: float32 logits [E2E_STEPS + 1, B, V].
+    On a world every rank passes the whole batch, runs its rows, and gets
+    the whole batch's logits (gathered)."""
     from repro_torch.launch.mesh import gather_rows
     from repro_torch.serving import engine
     rank, n = (0, 1) if world is None else (world.rank, world.size)
-    B = prompt.shape[0]
-    mine = prompt[rank * B // n:(rank + 1) * B // n]
-    prefill = engine.make_prefill(ctx, with_cache=True, cache_len=64)
+    B, S = prompt.shape
+    rows = slice(rank * B // n, (rank + 1) * B // n)
+    mine = prompt[rows]
+    prefill = engine.make_prefill(ctx, with_cache=True,
+                                  cache_len=max(64, S + E2E_STEPS))
     step = engine.make_decode_step(ctx)
-    lg, cache = prefill(params, {"tokens": mine})
+    batch = {"tokens": mine}
+    if frontend is not None:
+        batch["frontend"] = frontend[rows]
+    lg, cache = prefill(params, batch)
     traj = [gather_rows(world, lg)]
     tok = mine[:, -1:]
     for _ in range(E2E_STEPS):
@@ -2376,11 +2417,12 @@ class CastLayers(list):
 
 
 def plain_runs(torch, params, ctx, prompt, kernel=True, bf16=True, f32=True,
-               f32_by_layer=False) -> dict:
+               f32_by_layer=False, frontend=None) -> dict:
     """``e2e_logits`` on one rank through the kernel path (with
     ``kernel``), the bf16 plain path (with ``bf16``) and a float32 plain
     run of the same weights (with ``f32``; with ``f32_by_layer``, each
-    layer cast as it is read: ``CastLayers``)."""
+    layer cast as it is read: ``CastLayers``), with ``frontend`` where
+    the model takes one."""
     import dataclasses
     plain_ctx = dataclasses.replace(ctx, use_pallas=False, use_flash=False)
     f32_ctx = dataclasses.replace(
@@ -2397,7 +2439,7 @@ def plain_runs(torch, params, ctx, prompt, kernel=True, bf16=True, f32=True,
     runs = (("kernel", kernel, ctx, lambda: params),
             ("plain_bf16", bf16, plain_ctx, lambda: params),
             ("plain_f32", f32, f32_ctx, f32_params))
-    return {name: e2e_logits(torch, make(), c, prompt)
+    return {name: e2e_logits(torch, make(), c, prompt, frontend=frontend)
             for name, wanted, c, make in runs if wanted}
 
 
@@ -2415,35 +2457,42 @@ def end_to_end_check(torch, np, params, ctx):
                        logits["plain_bf16"], "end to end")
 
 
-def profile_steps(torch, params, ctx, world=None, scan=False):
+def profile_steps(torch, params, ctx, world=None, scan=False,
+                  bucket=BUCKET, cache_len=CACHE_LEN, frontend=None):
     """Step times (host clock around synchronized runs) and a
     torch.profiler breakdown of one prefill pack and one decode step at
-    the serve phase's shapes: device busy share and the top kernels by
-    device time.  On a world each rank runs its rows of the pack and its
-    slots, in step with the others.  A step runs 3 times warm, 10 times
-    timed, once profiled.  With ``scan`` (a model that prefills by
-    scanning BUCKET decode steps a pack) the pack runs once warm and once
-    timed, and its profile records the card's activity alone: the host's
-    operator events of BUCKET steps (some 10^5) are slow to sum."""
+    the serve phase's shapes (``bucket``, ``cache_len``; the pack with
+    ``frontend`` [PACK, F, width] where the model takes one): device busy
+    share and the top kernels by device time.  On a world each rank runs
+    its rows of the pack and its slots, in step with the others.  A step
+    runs 3 times warm, 10 times timed, once profiled.  With ``scan`` (a
+    model that prefills by scanning ``bucket`` decode steps a pack) the
+    pack runs once warm and once timed, and its profile records the
+    card's activity alone: the host's operator events of ``bucket`` steps
+    (some 10^5) are slow to sum."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import decode
     from repro_torch.serving import engine
     rank, n = (0, 1) if world is None else (world.rank, world.size)
     gen = torch.Generator(device="cuda").manual_seed(5)
-    tokens = torch.randint(0, ctx.arch.vocab_size, (PACK, BUCKET),
+    tokens = torch.randint(0, ctx.arch.vocab_size, (PACK, bucket),
                            generator=gen, device="cuda", dtype=torch.int32)
-    tokens = tokens[rank * PACK // n:(rank + 1) * PACK // n]
-    prefill = engine.make_prefill(ctx, with_cache=True, cache_len=CACHE_LEN)
+    rows = slice(rank * PACK // n, (rank + 1) * PACK // n)
+    pack = {"tokens": tokens[rows]}
+    if frontend is not None:
+        pack["frontend"] = frontend[rows]
+    tokens = tokens[rows]
+    prefill = engine.make_prefill(ctx, with_cache=True, cache_len=cache_len)
     step = engine.make_decode_step(ctx)
-    cache = decode.init_cache(ctx, NUM_SLOTS // n, CACHE_LEN)
+    cache = decode.init_cache(ctx, NUM_SLOTS // n, cache_len)
     for layer in cache:
         if "pos" in layer["mixer"]:
-            layer["mixer"]["pos"].fill_(BUCKET)
+            layer["mixer"]["pos"].fill_(bucket)
     cur = tokens[:, :1].repeat(NUM_SLOTS // PACK, 1)
     both = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     out = {}
     for name, fn, (warm, iters), activities in (
-            ("prefill_pack", lambda: prefill(params, {"tokens": tokens}),
+            ("prefill_pack", lambda: prefill(params, pack),
              (1, 1) if scan else (3, 10),
              [ProfilerActivity.CUDA] if scan else both),
             ("decode_step", lambda: step(params, cache, cur), (3, 10),
@@ -2546,24 +2595,28 @@ def checks_dsv2_lite(torch, params, ctx, gen) -> dict:
 
 
 def serve_mix(torch, np, params, ctx, label: str, want_k4,
-              scan=False, want_k5=lambda report: 0) -> dict:
-    """The serve phase's request mix on one rank through
-    ``ServingEngine.run``: a warm-up request, then the 8 requests with the
-    counters set to 0 just before and read just after.  Every stream must
-    get its whole budget inside the vocabulary; K4 must launch exactly
-    ``want_k4(report)`` times, K5 ``want_k5(report)`` times (by default
-    never) and every other kernel never.
+              scan=False, want_k5=lambda report: 0,
+              make_requests=serve_requests, bucket=BUCKET,
+              cache_len=CACHE_LEN, profile_frontend=None) -> dict:
+    """The serve phase's request mix (``make_requests(rng, vocab, n)``,
+    prompts padded to ``bucket`` in a cache of ``cache_len``) on one rank
+    through ``ServingEngine.run``: a warm-up request, then the 8 requests
+    with the counters set to 0 just before and read just after.  Every
+    stream must get its whole budget inside the vocabulary; K4 must launch
+    exactly ``want_k4(report)`` times, K5 ``want_k5(report)`` times (by
+    default never) and every other kernel never.
     Returns tokens/s, peak memory and a profiled prefill pack and decode
-    step (``profile_steps``; ``scan`` for a scan prefill)."""
+    step (``profile_steps``; ``scan`` for a scan prefill; the pack with
+    ``profile_frontend``)."""
     from repro_torch.kernels import backend
     from repro_torch.serving import engine
     arch = ctx.arch
     eng = engine.ServingEngine(params, ctx, engine.ServeConfig(
-        num_slots=NUM_SLOTS, cache_len=CACHE_LEN, prefill_pack=PACK,
-        prompt_buckets=(BUCKET,)))
+        num_slots=NUM_SLOTS, cache_len=cache_len, prefill_pack=PACK,
+        prompt_buckets=(bucket,)))
     rng = np.random.default_rng(0)
-    eng.run(serve_requests(rng, arch.vocab_size, 1))          # warm-up
-    reqs = serve_requests(rng, arch.vocab_size, NUM_REQUESTS)
+    eng.run(make_requests(rng, arch.vocab_size, 1))           # warm-up
+    reqs = make_requests(rng, arch.vocab_size, NUM_REQUESTS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     backend.reset_launches()
@@ -2587,7 +2640,8 @@ def serve_mix(torch, np, params, ctx, label: str, want_k4,
         raise SystemExit(f"{label}: launches {launches}, the path needs "
                          f"{want}")
     with torch.no_grad():
-        prof = profile_steps(torch, params, ctx, scan=scan)
+        prof = profile_steps(torch, params, ctx, scan=scan, bucket=bucket,
+                             cache_len=cache_len, frontend=profile_frontend)
     return {"requests": len(report.streams),
             "new_tokens": report.total_new_tokens,
             "prompt_tokens": sum(len(r.tokens) for r in reqs),
@@ -3150,6 +3204,146 @@ def dense_phases(torch, np) -> tuple:
     return ck, srv, tr
 
 
+def frontend_of(np, arch, rng, n: int):
+    """``n`` requests' frontend arrays [n, F, width] (float32 on the CPU)
+    from the model's stub, or None for a model without a frontend."""
+    if arch.frontend == "audio":
+        from repro_torch.models import whisper
+        return whisper.make_frames(rng, n, arch)
+    if arch.frontend == "vision":
+        from repro_torch.models import vlm
+        return vlm.make_patches(rng, n, arch)
+    return None
+
+
+def family_requests(np, arch):
+    """The serve mix's request maker for ``arch``: ``serve_requests``, each
+    request with its own frontend array; a vision model's prompts lead
+    with ``frontend_len`` tokens the patches take the place of."""
+    def make(rng, vocab: int, n: int):
+        reqs = serve_requests(rng, vocab, n)
+        fr = frontend_of(np, arch, rng, n)
+        for i, r in enumerate(reqs):
+            if arch.frontend == "vision":
+                lead = rng.integers(0, vocab, size=arch.frontend_len)
+                r.tokens = lead.tolist() + r.tokens
+            if fr is not None:
+                r.frontend = fr[i]
+        return reqs
+    return make
+
+
+def checks_families(torch, gen) -> dict:
+    """K5 against its plain version at the two shapes the new families
+    give it, timed beside SDPA (``enable_gqa`` for the GQA shape):
+    Whisper's encoder [PACK, 1500, 6, 64], non-causal (1500 rows: the last
+    query and key blocks are ragged), and InternVL2's prefill pack [PACK,
+    VLM_BUCKET, 48, 128] over 8 KV heads (GQA 6:1), causal."""
+    from repro_torch.configs.base import get_config
+    w, v = get_config(WHISPER_ID), get_config(VLM_ID)
+    return {
+        "K5_whisper_encoder": check_k5(
+            torch, (PACK, w.frontend_len, w.num_heads, w.head_dim_), gen,
+            causal=False),
+        "K5_internvl2_prefill": check_k5(
+            torch, (PACK, VLM_BUCKET, v.num_heads, v.head_dim_), gen,
+            kv_heads=v.num_kv_heads)}
+
+
+def serve_family(torch, np, aid: str) -> dict:
+    """One of FAMILY_IDS at full width and full depth on one rank, its
+    bf16 weights from seed 0: the kernel path's and the bf16 plain path's
+    logits on the end-to-end prompt (with its frontend), then
+    ``serve_mix`` with ``use_flash=True`` and per-request frontends (K5
+    exactly once an encoder layer (Whisper) or a layer (InternVL2) of
+    every prefill pack, every other kernel never; xLSTM none), then the
+    float32 verdict (``e2e_verdict``).  Emits ``serve_<aid>`` and
+    ``e2e_<aid>`` and returns the serve line."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as model_lib
+    t0 = time.time()
+    arch = get_config(aid)
+    ctx = model_lib.build_ctx(arch, device="cuda", use_flash=True,
+                              aux_mode="none", seq_len=CACHE_LEN,
+                              global_batch=NUM_SLOTS)
+    params = model_lib.init_params(
+        ctx, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init = {"params": model_lib.count_params(params),
+            "init_seconds": time.time() - t0}
+    vision = arch.frontend == "vision"
+    bucket, cache_len = ((VLM_BUCKET, VLM_CACHE_LEN) if vision
+                         else (BUCKET, CACHE_LEN))
+    rng = np.random.default_rng(7)
+    prompt = torch.as_tensor(rng.integers(
+        0, arch.vocab_size, size=(1, E2E_PROMPT + arch.frontend_len
+                                  * vision)), dtype=torch.int32,
+        device="cuda")
+    e2e_fr = frontend_of(np, arch, rng, 1)
+    e2e_fr = None if e2e_fr is None else e2e_fr.to("cuda")
+    prof_fr = frontend_of(np, arch, rng, PACK)
+    prof_fr = None if prof_fr is None else prof_fr.to("cuda")
+    scan = arch.family != "vlm"
+    with torch.no_grad():
+        logits = plain_runs(torch, params, ctx, prompt, f32=False,
+                            kernel=arch.family != "ssm", frontend=e2e_fr)
+    if "kernel" not in logits:          # no hand-written kernel on the path
+        logits["kernel"] = logits["plain_bf16"]
+    per_pack = {"audio": arch.enc_layers, "vlm": arch.num_layers}.get(
+        arch.family, 0)
+    srv = serve_mix(torch, np, params, ctx, f"serve_{aid}", lambda r: 0,
+                    scan=scan, want_k5=lambda r: per_pack * r.prefill_calls,
+                    make_requests=family_requests(np, arch), bucket=bucket,
+                    cache_len=cache_len, profile_frontend=prof_fr)
+    emit({"phase": f"serve_{aid}", "seconds": time.time() - t0,
+          "arch": arch.name, "source": arch.source, "family": arch.family,
+          "layers": arch.num_layers, "enc_layers": arch.enc_layers,
+          "d_model": arch.d_model, "heads": arch.num_heads,
+          "kv_heads": arch.num_kv_heads, "head_dim": arch.head_dim_,
+          "vocab": arch.vocab_size, "frontend": arch.frontend,
+          "frontend_len": arch.frontend_len, "bucket": bucket,
+          "cache_len": cache_len, "scan_prefill": scan,
+          "k5_launches_per_pack": per_pack, **init, **srv})
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        f32 = plain_runs(torch, params, ctx, prompt, kernel=False,
+                         bf16=False, f32_by_layer=vision,
+                         frontend=e2e_fr)["plain_f32"]
+    e2e = e2e_verdict(torch, logits["kernel"], f32, logits["plain_bf16"],
+                      f"e2e_{aid}")
+    emit({"phase": f"e2e_{aid}", "seconds": time.time() - t0,
+          "layers": arch.num_layers, "prompt_tokens": prompt.shape[1],
+          "kernel_path": ("the plain path: no hand-written kernel on it"
+                          if arch.family == "ssm" else
+                          "K5 (use_flash=True)"),
+          "float32_run": ("cast one layer at a time" if vision
+                          else "a whole float32 copy"), **e2e,
+          "rel_err_kernel_vs_plain_bf16": rel_err(
+              torch, logits["kernel"], logits["plain_bf16"]),
+          "max_memory_allocated_gb":
+              torch.cuda.max_memory_allocated() / 1e9})
+    del params, logits, f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return srv
+
+
+def family_phases(torch, np) -> tuple:
+    """The last three families (FAMILY_IDS), after every other model's
+    weights are freed: ``checks_families``; ``serve_family`` for each in
+    turn (its weights freed before the next).  Emits each phase's line
+    and returns ``(checks, {config: serve line})``."""
+    t0 = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    with torch.no_grad():
+        ck = checks_families(torch, gen)
+    emit({"phase": "checks_families", "seconds": time.time() - t0, **ck})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ck, {aid: serve_family(torch, np, aid) for aid in FAMILY_IDS}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3697,7 +3891,12 @@ def main() -> int:
     # Jamba's weights are freed; K5 at head dim 128 on three of them
     ck_dn, srv_dn, tr_dn = dense_phases(torch, np)
 
-    # 18. kernels: launches summed over every main path and rank
+    # 18. xLSTM, Whisper and InternVL2 at full width and depth on one
+    # rank, after the dense decoders' weights are freed; K5 non-causal in
+    # Whisper's encoder and at GQA 6:1 in InternVL2's prefill
+    ck_fm, srv_fm = family_phases(torch, np)
+
+    # 19. kernels: launches summed over every main path and rank
     def total(name):
         return sum(sum(v) if isinstance(v, list) else v
                    for v in by_path(name).values())
@@ -3721,7 +3920,9 @@ def main() -> int:
                 "loss_jamba_d16": loss_jb["launches"][name],
                 **{f"serve_{aid}": r["launches"][name]
                    for aid, r in srv_dn.items()},
-                "train_internlm2": tr_dn["launches"][name]}
+                "train_internlm2": tr_dn["launches"][name],
+                **{f"serve_{aid}": r["launches"][name]
+                   for aid, r in srv_fm.items()}}
 
     def dsv2_row(r, extra=()):
         """One reading of ``checks_wide`` (DeepSeek-V2-Lite's or
@@ -3854,7 +4055,8 @@ def main() -> int:
                              ck_dn["K5_S512"]["max_abs_err"]]
                             + [e["max_abs_err"] for e in edges
                                + ck_dn["K5_edges"]
-                               + list(ck_dn["K5"].values())]),
+                               + list(ck_dn["K5"].values())
+                               + list(ck_fm.values())]),
          "ms": k5["ms"], "device_ms": k5["device_ms"],
          "plain_ms": k5["plain_ms"],
          "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
@@ -3864,7 +4066,11 @@ def main() -> int:
                     **{f"{aid}_4x128x{r['shape'][2]}x{r['shape'][3]}"
                        f"_kv{r['kv_heads']}": r
                        for aid, r in ck_dn["K5"].items()},
-                    "4x512x16x128_kv8": ck_dn["K5_S512"]}},
+                    "4x512x16x128_kv8": ck_dn["K5_S512"],
+                    "whisper_encoder_4x1500x6x64_noncausal":
+                        ck_fm["K5_whisper_encoder"],
+                    f"internvl2_prefill_4x{VLM_BUCKET}x48x128_kv8":
+                        ck_fm["K5_internvl2_prefill"]}},
         {"name": "moe_gemm.grouped_ffn", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_gemm.cu",
          "replaces": "src/repro/kernels/moe_gemm/kernel.py:185",

@@ -1,10 +1,10 @@
 """Architecture configuration dataclasses and the arch registry (the
-counterpart of ``repro/configs/base.py``; only the configs this port
-serves are registered).
+counterpart of ``repro/configs/base.py``: the same eleven configs).
 
 ``ArchConfig.reduced()`` yields the CPU smoke-test variant (<=2 layers,
-or one whole mixer group of a hybrid; d_model<=256, <=4 experts, the MLA
-ranks cut) of the same family.
+or one whole mixer group of a hybrid or of xLSTM; d_model<=256, <=4
+experts, the MLA ranks cut, <=2 encoder layers, <=16 frontend positions)
+of the same family.
 ``dtype`` stays a string; ``torch_dtype`` maps it onto a ``torch.dtype``.
 """
 
@@ -73,7 +73,13 @@ class ArchConfig:
     # attn_offset, else the SSM mixer.  attn_every=1 -> pure attention.
     attn_every: int = 1
     attn_offset: int = 0
-    ssm_kind: str = ""            # "mamba" (xlstm: not ported yet)
+    ssm_kind: str = ""            # "mamba" | "xlstm"
+    slstm_every: int = 0          # xlstm: one sLSTM block per this many
+    # encoder-decoder (whisper)
+    enc_layers: int = 0
+    # modality frontend stub: embeddings of shape [B, frontend_len, width]
+    frontend: str | None = None   # "audio" | "vision"
+    frontend_len: int = 0
     dtype: str = "bfloat16"
     source: str = ""              # citation
 
@@ -89,6 +95,15 @@ class ArchConfig:
     def is_moe(self) -> bool:
         return self.moe is not None
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for the reference's long_500k shape: recurrent and MLA
+        models, dense and vision models through a sliding-window variant;
+        not the encoder-decoder, whose contexts are bounded."""
+        if self.family in ("ssm", "hybrid") or self.mla is not None:
+            return True
+        return self.family != "audio"
+
     def reduced(self) -> ArchConfig:
         """Smoke-test variant: same family/structure, tiny dims (the same
         cuts as the reference's ``ArchConfig.reduced``)."""
@@ -98,6 +113,8 @@ class ArchConfig:
         layers = min(self.num_layers, max(2, self.attn_every))
         if self.family == "hybrid":       # keep one full mixer group
             layers = self.attn_every
+        if self.ssm_kind == "xlstm" and self.slstm_every:
+            layers = min(self.num_layers, self.slstm_every)
         moe = self.moe
         if moe:
             moe = dataclasses.replace(
@@ -118,14 +135,16 @@ class ArchConfig:
             vocab_size=min(self.vocab_size, 512),
             sliding_window=(min(self.sliding_window, 64)
                             if self.sliding_window else 0),
+            enc_layers=min(self.enc_layers, 2),
+            frontend_len=(min(self.frontend_len, 16)
+                          if self.frontend_len else 0),
             moe=moe, mla=mla, dtype="float32")
 
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
     """Training-run hyperparameters (the reference's ``RunConfig``, same
-    fields and defaults; the trainer raises for the options whose code is
-    not ported yet)."""
+    fields and defaults)."""
     seq_len: int = 4096
     global_batch: int = 256
     learning_rate: float = 3e-4
@@ -146,10 +165,21 @@ class RunConfig:
     resilience: object | None = None
     topology: tuple = ()
 
+    def mesh_axis_sizes(self) -> tuple:
+        """Outermost-first hierarchy sizes of ``topology`` (empty tuple
+        when no spec was given)."""
+        if not self.topology:
+            return ()
+        from repro_torch.core.topology import axis_sizes_from_spec
+        return axis_sizes_from_spec(self.topology)
 
-ARCH_IDS = ("deepseek_v2_lite_16b", "deepseek_v2_236b", "gpt3_medium_moe",
-            "granite_3_2b", "internlm2_1_8b", "jamba_v0_1_52b", "minitron_4b",
-            "olmo_1b")
+
+ARCH_IDS = (
+    "jamba_v0_1_52b", "internlm2_1_8b", "internvl2_26b", "olmo_1b",
+    "whisper_tiny", "deepseek_v2_lite_16b", "xlstm_350m",
+    "deepseek_v2_236b", "granite_3_2b", "minitron_4b",
+    "gpt3_medium_moe",            # the paper's own model
+)
 
 
 def normalize_arch_id(name: str) -> str:
@@ -159,6 +189,9 @@ def normalize_arch_id(name: str) -> str:
 def get_config(arch_id: str) -> ArchConfig:
     name = normalize_arch_id(arch_id)
     if name not in ARCH_IDS:
-        raise ValueError(f"arch {arch_id!r} is not ported yet; ported: "
-                         f"{ARCH_IDS}")
+        raise ValueError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{name}").CONFIG
+
+
+def all_configs() -> dict:
+    return {a: get_config(a) for a in ARCH_IDS}

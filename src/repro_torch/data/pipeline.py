@@ -3,8 +3,11 @@
 
 The stream is the reference's, drawn with the same numpy generators, so
 its batches are bit-equal to the reference's; they are handed over as
-torch tensors on the CPU.  No external dataset (the machines are
-offline).
+torch tensors on the CPU.  A model with a frontend gets its stub
+embeddings too (``"frontend"``: audio frames or vision patches, drawn
+after the tokens from the step's generator), and a vision model's
+``loss_mask`` is 0 over the patch positions.  No external dataset (the
+machines are offline).
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from repro_torch.models import vlm, whisper
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,9 +35,8 @@ class SyntheticLM:
     Markov motifs, so the LM loss has learnable structure."""
 
     def __init__(self, cfg: DataConfig, arch=None):
-        if arch is not None and getattr(arch, "frontend", ""):
-            raise NotImplementedError("modality frontends are not ported yet")
         self.cfg = cfg
+        self.arch = arch
         rng = np.random.default_rng(cfg.seed)
         v = cfg.vocab_size
         # motif table: each token deterministically suggests a follower
@@ -53,9 +57,16 @@ class SyntheticLM:
         for t in range(1, S + 1):
             toks[:, t] = np.where(follow[:, t - 1],
                                   self._next[toks[:, t - 1]], base[:, t])
-        return {"tokens": torch.from_numpy(toks[:, :-1].astype(np.int32)),
-                "labels": torch.from_numpy(toks[:, 1:].astype(np.int32)),
-                "loss_mask": torch.ones((B, S), dtype=torch.float32)}
+        out = {"tokens": torch.from_numpy(toks[:, :-1].astype(np.int32)),
+               "labels": torch.from_numpy(toks[:, 1:].astype(np.int32)),
+               "loss_mask": torch.ones((B, S), dtype=torch.float32)}
+        if self.arch is not None and self.arch.frontend:
+            if self.arch.frontend == "vision":
+                out["frontend"] = vlm.make_patches(rng, B, self.arch)
+                out["loss_mask"][:, :self.arch.frontend_len] = 0.0
+            else:
+                out["frontend"] = whisper.make_frames(rng, B, self.arch)
+        return out
 
     def __iter__(self):
         step = 0

@@ -33,22 +33,26 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _unstack(groups, n_groups: int, group_len: int, device) -> list:
+    """A stacked ``{"sub{j}": ...}`` group tree -> one dict per layer."""
+    return [_map(groups[f"sub{j}"],
+                 lambda a, g=g: _tensor(np.asarray(a)[g], device))
+            for g in range(n_groups) for j in range(group_len)]
+
+
 def params_from_numpy(tree, ctx: transformer.ModelCtx, device=None):
-    """``{"embed", "final_norm", "prefix{i}", "groups"}`` numpy tree ->
-    ``{"embed", "final_norm", "layers": [...]}`` tensors on ``device``
-    (default ``ctx.device``)."""
+    """``{"embed", "final_norm", "prefix{i}", "groups"}`` numpy tree (and a
+    vision model's ``"proj"``, an encoder-decoder's ``"enc_groups"`` and
+    ``"enc_norm"``) -> ``{"embed", "final_norm", "layers": [...]}``
+    tensors on ``device`` (default ``ctx.device``), with ``"proj"``,
+    ``"enc_layers": [...]`` and ``"enc_norm"`` where the tree has them."""
     device = device or ctx.device
     prefix, group, n_groups = transformer.layer_plan(ctx.arch)
-    out = {"embed": _map(tree["embed"], lambda a: _tensor(a, device)),
-           "final_norm": _map(tree["final_norm"],
-                              lambda a: _tensor(a, device))}
+    out = {name: _map(tree[name], lambda a: _tensor(a, device))
+           for name in ("embed", "final_norm")}
     per_layer = [_map(tree[f"prefix{i}"], lambda a: _tensor(a, device))
                  for i in range(len(prefix))]
-    for g in range(n_groups):
-        for j in range(len(group)):
-            per_layer.append(_map(tree["groups"][f"sub{j}"],
-                                  lambda a, g=g: _tensor(np.asarray(a)[g],
-                                                         device)))
+    per_layer += _unstack(tree["groups"], n_groups, len(group), device)
     if ctx.arch.is_moe:
         lo, hi = ctx.expert_range
         for layer, sub in zip(per_layer, transformer.layer_list(ctx.arch)):
@@ -57,6 +61,14 @@ def params_from_numpy(tree, ctx: transformer.ModelCtx, device=None):
                     if name in layer["ffn"]:
                         layer["ffn"][name] = layer["ffn"][name][lo:hi].clone()
     out["layers"] = per_layer
+    # the rest in init_model's order, so leaf lists line up
+    if "proj" in tree:
+        out["proj"] = _map(tree["proj"], lambda a: _tensor(a, device))
+    if "enc_groups" in tree:
+        enc, n_enc = transformer.encoder_plan(ctx.arch)
+        out["enc_layers"] = _unstack(tree["enc_groups"], n_enc, len(enc),
+                                     device)
+        out["enc_norm"] = _map(tree["enc_norm"], lambda a: _tensor(a, device))
     return out
 
 

@@ -1,17 +1,20 @@
 """Decode-time forward: fused prefill and one-token decode steps against
-per-layer caches (the counterpart of ``repro/models/decode.py`` for the
-attention, MLA and Mamba mixers).
+per-layer caches (the counterpart of ``repro/models/decode.py``).
 
-The cache is a list with one ``{"mixer": {...}}`` dict per layer (the
-reference stacks the repeated group on a leading axis): ``{"k", "v",
-"pos"}`` for attention, the compressed ``{"c_kv", "k_rope", "pos"}`` for
-MLA, the recurrent ``{"h", "conv"}`` state for Mamba; the batch is axis 0
-of every leaf, and axis 1 is the position axis of the leaves of a layer
-with ``pos``.  Decode steps and the slot operations update the cache
-tensors in place and return the same cache, except that a Mamba step
-puts a fresh state into its layer's dict.  A model with a Mamba layer
-prefills by scanning decode steps over the prompt, as the reference
-does.  xLSTM and cross-attention are not ported yet.
+The cache is a list with one dict per layer (the reference stacks the
+repeated group on a leading axis), whose ``"mixer"`` part is ``{"k",
+"v", "pos"}`` for attention, the compressed ``{"c_kv", "k_rope", "pos"}``
+for MLA, the recurrent ``{"h", "conv"}`` state for Mamba, ``{"C", "n",
+"m"}`` for mLSTM and ``{"c", "n", "h", "m"}`` for sLSTM; a Whisper
+decoder layer adds a ``"cross"`` part ``{"k", "v"}``, the encoder's K/V
+of ``frontend_len`` rows, written at prefill and read by every step.
+The batch is axis 0 of every leaf; axis 1 is the position axis of the
+leaves of a part with ``pos``, and only of those (the cross part has
+none).  Decode steps and the slot operations update the cache tensors in
+place and return the same cache, except that a recurrent step (Mamba,
+mLSTM, sLSTM) puts a fresh state into its layer's dict.  A model with a
+recurrent or cross-attention layer prefills by scanning decode steps over
+the prompt, as the reference does.
 """
 
 from __future__ import annotations
@@ -22,22 +25,50 @@ from repro_torch.launch.mesh import gather_rows
 from repro_torch.models import layers
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import mla as mla_lib
-from repro_torch.models.transformer import (ModelCtx, SubLayer, _check_mixer,
-                                            _moe_block, layer_list)
+from repro_torch.models import xlstm as xlstm_lib
+from repro_torch.models.transformer import (ModelCtx, SubLayer, _moe_block,
+                                            _run_encoder, layer_list,
+                                            splice_patches)
 
 
 def init_cache(ctx: ModelCtx, batch: int, max_len: int, device=None):
     device = device or ctx.device
     cache = []
     for sub in layer_list(ctx.arch):
-        _check_mixer(sub)
         if sub.mixer == "mla":
             c = mla_lib.init_mla_cache(batch, max_len, ctx.mla_cfg, device)
         elif sub.mixer == "mamba":
             c = mamba_lib.init_mamba_state(batch, ctx.mamba_cfg, device)
+        elif sub.mixer == "mlstm":
+            c = xlstm_lib.init_mlstm_state(batch, ctx.xlstm_cfg, device)
+        elif sub.mixer == "slstm":
+            c = xlstm_lib.init_slstm_state(batch, ctx.xlstm_cfg, device)
         else:
             c = layers.init_kv_cache(batch, max_len, ctx.attn_cfg, device)
-        cache.append({"mixer": c})
+        layer = {"mixer": c}
+        if sub.cross:
+            # the encoder's K/V, written at prefill; zeros here
+            a = ctx.attn_cfg
+            shape = (batch, ctx.arch.frontend_len or 1, a.num_kv_heads,
+                     a.head_dim)
+            layer["cross"] = {
+                name: torch.zeros(shape, dtype=a.dtype, device=device)
+                for name in ("k", "v")}
+        cache.append(layer)
+    return cache
+
+
+def fill_cross_cache(params, cache, enc_out, ctx: ModelCtx):
+    """The encoder output [B, F, d] projected into every cross-attention
+    layer's K/V (new tensors in the cache's dicts); returns the cache."""
+    a = ctx.attn_cfg
+    B, Fn, _ = enc_out.shape
+    for p, layer, sub in zip(params["layers"], cache, layer_list(ctx.arch)):
+        if sub.cross:
+            layer["cross"] = {
+                name: (enc_out @ p["cross"][w]).reshape(
+                    B, Fn, a.num_kv_heads, a.head_dim).to(a.dtype)
+                for name, w in (("k", "wk"), ("v", "wv"))}
     return cache
 
 
@@ -62,9 +93,10 @@ def _batch_leaf(cache):
 
 
 def _positional(c) -> bool:
-    """Whether the leaves of a layer's cache ``c`` (of more than one
-    dimension) have a position axis (axis 1): those of attention and MLA,
-    which carry ``pos``; a recurrent state has none."""
+    """Whether the leaves of a part ``c`` of a layer's cache (of more than
+    one dimension) have a position axis (axis 1): those of attention and
+    MLA, which carry ``pos``; a recurrent state and the cross K/V have
+    none."""
     return "pos" in c
 
 
@@ -76,14 +108,16 @@ def cache_insert_slots(dst, src, slots):
     leaf0 = _batch_leaf(dst)
     rows, keep = _slot_rows(slots, leaf0.shape[0], leaf0.device)
     for d_layer, s_layer in zip(dst, src):
-        positional = _positional(d_layer["mixer"])
-        for name, leaf in d_layer["mixer"].items():
-            val = s_layer["mixer"][name].index_select(0, keep).to(leaf.dtype)
-            if positional and val.dim() > 1 and val.shape[1] < leaf.shape[1]:
-                leaf[rows] = 0
-                leaf[rows, :val.shape[1]] = val
-            else:
-                leaf[rows] = val
+        for part, c in d_layer.items():
+            positional = _positional(c)
+            for name, leaf in c.items():
+                val = s_layer[part][name].index_select(0, keep).to(leaf.dtype)
+                if positional and val.dim() > 1 and \
+                        val.shape[1] < leaf.shape[1]:
+                    leaf[rows] = 0
+                    leaf[rows, :val.shape[1]] = val
+                else:
+                    leaf[rows] = val
     return dst
 
 
@@ -99,8 +133,9 @@ def gather_cache_rows(world, cache, length: int):
             return leaf[:, :length]
         return leaf
 
-    return [{"mixer": {name: gather_rows(world, cut(layer["mixer"], leaf))
-                       for name, leaf in layer["mixer"].items()}}
+    return [{part: {name: gather_rows(world, cut(c, leaf))
+                    for name, leaf in c.items()}
+             for part, c in layer.items()}
             for layer in cache]
 
 
@@ -110,13 +145,13 @@ def cache_evict_slots(cache, slots):
     leaf0 = _batch_leaf(cache)
     rows, _ = _slot_rows(slots, leaf0.shape[0], leaf0.device)
     for layer in cache:
-        for leaf in layer["mixer"].values():
-            leaf[rows] = 0
+        for c in layer.values():
+            for leaf in c.values():
+                leaf[rows] = 0
     return cache
 
 
 def _decode_sublayer(p, c, x, sub: SubLayer, ctx: ModelCtx, layer_idx=None):
-    _check_mixer(sub)
     a = ctx.arch
     h = layers.norm_apply(p["norm1"], x, a.norm)
     if sub.mixer == "mla":
@@ -125,10 +160,28 @@ def _decode_sublayer(p, c, x, sub: SubLayer, ctx: ModelCtx, layer_idx=None):
     elif sub.mixer == "mamba":
         mix, c["mixer"] = mamba_lib.mamba_decode(p["mixer"], h, c["mixer"],
                                                  ctx.mamba_cfg)
+    elif sub.mixer == "mlstm":
+        mix, c["mixer"] = xlstm_lib.mlstm_decode(p["mixer"], h, c["mixer"],
+                                                 ctx.xlstm_cfg)
+    elif sub.mixer == "slstm":
+        mix, c["mixer"] = xlstm_lib.slstm_decode(p["mixer"], h, c["mixer"],
+                                                 ctx.xlstm_cfg)
     else:
         mix, c["mixer"] = layers.attn_decode(p["mixer"], h, c["mixer"],
                                              ctx.attn_cfg)
     x = x + mix
+    if sub.cross:
+        h = layers.norm_apply(p["norm_cross"], x, a.norm)
+        cfg = ctx.attn_cfg
+        B = x.shape[0]
+        q = (h @ p["cross"]["wq"]).reshape(B, 1, cfg.num_heads, cfg.head_dim)
+        k, v = c["cross"]["k"], c["cross"]["v"]
+        out = layers._sdpa(q, k, v, causal=False, sliding_window=0,
+                           q_positions=torch.zeros((1,), dtype=torch.int64,
+                                                   device=x.device),
+                           k_positions=torch.arange(k.shape[1],
+                                                    device=x.device))
+        x = x + out.reshape(B, 1, -1) @ p["cross"]["wo"]
     if sub.ffn == "mlp":
         h = layers.norm_apply(p["norm2"], x, a.norm)
         x = x + layers.mlp_apply(p["ffn"], h, a.activation)
@@ -161,7 +214,6 @@ def _prefill_sublayer(p, c, x, sub: SubLayer, ctx: ModelCtx, lens,
     """Full-sequence sublayer forward that also writes the decode cache
     for positions [0, S) (K/V, or MLA's compressed entries) with ``pos``
     set to each request's true prompt length."""
-    _check_mixer(sub)
     a = ctx.arch
     S = x.shape[1]
     h = layers.norm_apply(p["norm1"], x, a.norm)
@@ -189,18 +241,20 @@ def _prefill_sublayer(p, c, x, sub: SubLayer, ctx: ModelCtx, lens,
 
 
 def _needs_scan_prefill(arch) -> bool:
-    """Recurrent mixers (Mamba) carry per-step state the full-sequence
-    apply does not expose, so such models prefill by scanning
-    :func:`decode_step` over the prompt, as the reference does."""
-    return any(sub.mixer not in ("attn", "mla") for sub in layer_list(arch))
+    """Recurrent mixers (Mamba, xLSTM) and cross-attention decoders carry
+    per-step state the full-sequence applies do not expose, so such models
+    prefill by scanning :func:`decode_step` over the prompt, as the
+    reference does."""
+    return any(sub.mixer not in ("attn", "mla") or sub.cross
+               for sub in layer_list(arch))
 
 
 def _freeze_rows(cache, before, active):
     """Undo one decode step for the requests whose ``active`` [B] is
     False (their prompts ended): the counterpart of the reference's
     ``_select_batch``.  ``before`` holds each layer's mixer dict as it
-    was before the step; the step replaced ``pos`` and every Mamba state
-    with fresh tensors, so the old ones are intact there.  The K/V row a
+    was before the step; the step replaced ``pos`` and every recurrent
+    state (Mamba, mLSTM, sLSTM) with fresh tensors, so the old ones are intact there.  The K/V row a
     frozen request's step wrote in place at its ``pos`` stays: no query
     attends it before the request's next decode step overwrites it."""
     for layer, old in zip(cache, before):
@@ -229,17 +283,17 @@ def _prefill_by_scan(params, tokens, cache, ctx: ModelCtx, lens):
 def prefill(params, batch, ctx: ModelCtx, *, cache_len: int, lens=None):
     """Fused prefill over right-padded prompts.
 
-    batch: {"tokens": [B, S]}; ``lens`` [B] gives each request's true
-    prompt length (default S).  Returns ``(last_logits [B, V], cache)`` —
-    the float32 logits at position ``lens - 1`` and a fresh cache of
-    length ``cache_len`` with ``pos == lens``.  Attention and MLA models
-    run the full-sequence forward and write their caches directly; a
-    model with a Mamba layer scans :func:`decode_step` over the prompt
-    (``_needs_scan_prefill``).
+    batch: {"tokens": [B, S], optional "frontend"}; ``lens`` [B] gives each
+    request's true prompt length (default S).  Returns ``(last_logits [B,
+    V], cache)`` — the float32 logits at position ``lens - 1`` and a fresh
+    cache of length ``cache_len`` with ``pos == lens``.  Attention and MLA
+    models run the full-sequence forward and write their caches directly,
+    a vision model's patches in place of its first ``frontend_len``
+    positions; a model with a recurrent or cross-attention layer scans
+    :func:`decode_step` over the prompt (``_needs_scan_prefill``), an
+    audio model's encoder having filled the cross K/V first.
     """
     a = ctx.arch
-    if "frontend" in batch:
-        raise NotImplementedError("modality frontends are not ported yet")
     tokens = batch["tokens"]
     B, S = tokens.shape
     if S > cache_len:
@@ -249,10 +303,16 @@ def prefill(params, batch, ctx: ModelCtx, *, cache_len: int, lens=None):
         lens = torch.full((B,), S, dtype=torch.int32, device=dev)
     lens = torch.as_tensor(lens, device=dev).to(torch.int32)
     cache = init_cache(ctx, B, cache_len, device=dev)
+    if a.family == "audio" and "frontend" in batch:
+        enc_out = _run_encoder(params, batch["frontend"].to(a.torch_dtype),
+                               ctx)
+        cache = fill_cross_cache(params, cache, enc_out, ctx)
     if _needs_scan_prefill(a):
         return _prefill_by_scan(params, tokens, cache, ctx, lens)
 
     x = layers.embed_apply(params["embed"], tokens)
+    if a.family == "vlm" and "frontend" in batch:
+        x = splice_patches(params, x, batch["frontend"])
     for i, sub in enumerate(layer_list(a)):
         x, cache[i] = _prefill_sublayer(params["layers"][i], cache[i], x, sub,
                                         ctx, lens, layer_idx=i)

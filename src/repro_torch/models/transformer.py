@@ -1,7 +1,12 @@
-"""Decoder assembly for the attention, MLA and Mamba-hybrid families with
-MoE (the counterpart of ``repro/models/transformer.py``: ``SubLayer``,
-``ModelCtx``, ``layer_plan``, ``init_model``, ``_moe_block``,
-``forward_features``, ``forward`` and ``loss_fn``).
+"""Decoder and encoder-decoder assembly over every mixer family (the
+counterpart of ``repro/models/transformer.py``: ``SubLayer``,
+``ModelCtx``, ``layer_plan``, ``encoder_plan``, ``init_model``,
+``_moe_block``, ``_cross_attn``, ``_run_encoder``, ``forward_features``,
+``forward`` and ``loss_fn``).
+
+    mixer: attn (GQA, optional sliding window; causal or not) | mla |
+           mamba | mlstm | slstm; plus cross-attention (Whisper's decoder)
+    ffn  : mlp | moe | None
 
 The reference stacks the repeated layer group and runs it with
 ``lax.scan``; here parameters are a Python list of per-layer dicts
@@ -16,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -27,13 +33,14 @@ from repro_torch.core.dispatch import engine as dispatch_lib
 from repro_torch.models import layers
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import mla as mla_lib
-
+from repro_torch.models import vlm
+from repro_torch.models import xlstm as xlstm_lib
 
 @dataclasses.dataclass(frozen=True)
 class SubLayer:
-    mixer: str                    # attn | mla | mamba (mlstm | slstm: later)
+    mixer: str                    # attn | mla | mamba | mlstm | slstm
     ffn: str | None               # mlp | moe | None
-    cross: bool = False
+    cross: bool = False           # add cross-attention (whisper decoder)
     causal: bool = True
 
 
@@ -60,6 +67,7 @@ class ModelCtx:
     use_blockwise: bool = False       # attention by online softmax over
                                       # key blocks (layers._blockwise_sdpa)
     mamba_scan_chunk: int = 0         # chunked selective scan
+    xlstm_chunk: int = 0              # chunkwise mLSTM
     device: str = "cuda"
 
     @property
@@ -103,6 +111,14 @@ class ModelCtx:
                                      scan_chunk=self.mamba_scan_chunk)
 
     @property
+    def xlstm_cfg(self) -> xlstm_lib.XLSTMConfig:
+        a = self.arch
+        return xlstm_lib.XLSTMConfig(d_model=a.d_model, num_heads=a.num_heads,
+                                     slstm_every=a.slstm_every or 8,
+                                     dtype=a.torch_dtype,
+                                     chunk_size=self.xlstm_chunk)
+
+    @property
     def moe_cfg(self) -> moe_base.MoEConfig:
         a = self.arch
         return moe_base.MoEConfig(
@@ -134,11 +150,18 @@ class ModelCtx:
 def layer_plan(arch: ArchConfig):
     """Returns (prefix: [SubLayer], group: [SubLayer], n_groups).
 
-    A hybrid (Jamba) repeats a group of ``attn_every`` layers: attention
-    at ``attn_offset``, Mamba elsewhere, an MoE FFN where ``j %
+    xLSTM repeats a group of ``slstm_every`` blocks, mLSTM then one sLSTM
+    last, none with an FFN.  A hybrid (Jamba) repeats a group of
+    ``attn_every`` layers: attention at ``attn_offset``, Mamba elsewhere, an MoE FFN where ``j %
     moe_period == moe_period - 1`` and a dense one at the others.  As in
     the reference, any other MoE arch puts an MoE FFN in every layer after
-    ``first_dense``: there ``moe_period`` is not read."""
+    ``first_dense``: there ``moe_period`` is not read.  Whisper's decoder
+    layers add cross-attention."""
+    if arch.family == "ssm" and arch.ssm_kind == "xlstm":
+        g = arch.slstm_every or 8
+        group = [SubLayer("slstm" if j == g - 1 else "mlstm", None)
+                 for j in range(g)]
+        return [], group, arch.num_layers // g
     if arch.family == "hybrid":
         g = arch.attn_every
         group = []
@@ -148,14 +171,20 @@ def layer_plan(arch: ArchConfig):
                             == arch.moe.moe_period - 1) else "mlp"
             group.append(SubLayer(mixer, ffn))
         return [], group, arch.num_layers // g
-    if arch.family in ("ssm", "audio"):
-        raise NotImplementedError(f"{arch.family} models are not ported yet")
     mixer = "mla" if arch.mla else "attn"
     if arch.is_moe:
         prefix = [SubLayer(mixer, "mlp")] * arch.moe.first_dense
         return prefix, [SubLayer(mixer, "moe")], \
             arch.num_layers - arch.moe.first_dense
-    return [], [SubLayer(mixer, "mlp")], arch.num_layers
+    # dense / vlm / audio decoder
+    return [], [SubLayer(mixer, "mlp", cross=arch.family == "audio")], \
+        arch.num_layers
+
+
+def encoder_plan(arch: ArchConfig):
+    """Whisper's encoder: ``(group, n_layers)``, one non-causal attention
+    layer with a dense FFN, repeated ``enc_layers`` times."""
+    return [SubLayer("attn", "mlp", causal=False)], arch.enc_layers
 
 
 def layer_list(arch: ArchConfig) -> list:
@@ -164,22 +193,22 @@ def layer_list(arch: ArchConfig) -> list:
     return list(prefix) + list(group) * n_groups
 
 
-def _check_mixer(sub: SubLayer) -> None:
-    if sub.mixer not in ("attn", "mla", "mamba") or sub.cross:
-        raise NotImplementedError(f"mixer {sub.mixer!r} (cross={sub.cross}) "
-                                  f"is not ported yet")
-
-
 def _init_sublayer(sub: SubLayer, ctx: ModelCtx, generator, device):
     a = ctx.arch
-    _check_mixer(sub)
     p = {"norm1": layers.init_norm(a.norm, a.d_model, device)}
     if sub.mixer == "mla":
         p["mixer"] = mla_lib.init_mla(ctx.mla_cfg, generator, device)
     elif sub.mixer == "mamba":
         p["mixer"] = mamba_lib.init_mamba(ctx.mamba_cfg, generator, device)
+    elif sub.mixer == "mlstm":
+        p["mixer"] = xlstm_lib.init_mlstm(ctx.xlstm_cfg, generator, device)
+    elif sub.mixer == "slstm":
+        p["mixer"] = xlstm_lib.init_slstm(ctx.xlstm_cfg, generator, device)
     else:
         p["mixer"] = layers.init_attn(ctx.attn_cfg, generator, device)
+    if sub.cross:
+        p["norm_cross"] = layers.init_norm(a.norm, a.d_model, device)
+        p["cross"] = layers.init_attn(ctx.attn_cfg, generator, device)
     if sub.ffn == "mlp":
         p["norm2"] = layers.init_norm(a.norm, a.d_model, device)
         p["ffn"] = layers.init_mlp(a.d_model, a.d_ff, a.activation,
@@ -196,7 +225,10 @@ def _init_sublayer(sub: SubLayer, ctx: ModelCtx, generator, device):
 
 
 def init_model(ctx: ModelCtx, generator, device=None):
-    """Fresh parameters: ``{"embed", "final_norm", "layers": [...]}``."""
+    """Fresh parameters: ``{"embed", "final_norm", "layers": [...]}``, and
+    a vision model's 2-layer projector ``"proj"`` (ViT width 1024 ->
+    d_model), an encoder-decoder's ``"enc_layers": [...]`` and
+    ``"enc_norm"``."""
     device = device or ctx.device
     a = ctx.arch
     params = {"embed": layers.init_embed(a.vocab_size, a.d_model,
@@ -204,6 +236,18 @@ def init_model(ctx: ModelCtx, generator, device=None):
               "final_norm": layers.init_norm(a.norm, a.d_model, device)}
     params["layers"] = [_init_sublayer(sub, ctx, generator, device)
                         for sub in layer_list(a)]
+    if a.frontend == "vision":
+        w = vlm.VIT_WIDTH
+        params["proj"] = {
+            "w1": layers._normal((w, a.d_model), 1 / np.sqrt(w), generator,
+                                 device).to(a.torch_dtype),
+            "w2": layers._normal((a.d_model, a.d_model), 1 / np.sqrt(
+                a.d_model), generator, device).to(a.torch_dtype)}
+    if a.enc_layers:
+        (esub,), n_enc = encoder_plan(a)
+        params["enc_layers"] = [_init_sublayer(esub, ctx, generator, device)
+                                for _ in range(n_enc)]
+        params["enc_norm"] = layers.init_norm(a.norm, a.d_model, device)
     return params
 
 
@@ -241,23 +285,30 @@ def _world_mean(metrics, world):
 
 
 def _apply_sublayer(p, x, sub: SubLayer, ctx: ModelCtx, aux, frac, drop,
-                    layer_idx=None):
+                    layer_idx=None, enc_out=None):
     """Returns (x, aux, frac, drop): the residual stream and the
     accumulated aux loss, per-level dispatch fractions and dropped share
-    (``frac`` / ``drop`` pass through unchanged for non-MoE sublayers)."""
-    _check_mixer(sub)
+    (``frac`` / ``drop`` pass through unchanged for non-MoE sublayers).
+    A cross-attention sublayer attends ``enc_out`` when given."""
     a = ctx.arch
     h = layers.norm_apply(p["norm1"], x, a.norm)
     if sub.mixer == "mla":
         mix, _ = mla_lib.mla_apply(p["mixer"], h, ctx.mla_cfg)
     elif sub.mixer == "mamba":
         mix = mamba_lib.mamba_apply(p["mixer"], h, ctx.mamba_cfg)
+    elif sub.mixer == "mlstm":
+        mix = xlstm_lib.mlstm_apply(p["mixer"], h, ctx.xlstm_cfg)
+    elif sub.mixer == "slstm":
+        mix, _ = xlstm_lib.slstm_apply(p["mixer"], h, ctx.xlstm_cfg)
     else:
         cfg = ctx.attn_cfg
         if not sub.causal:
             cfg = dataclasses.replace(cfg, causal=False)
         mix, _ = layers.attn_apply(p["mixer"], h, cfg)
     x = x + mix
+    if sub.cross and enc_out is not None:
+        h = layers.norm_apply(p["norm_cross"], x, a.norm)
+        x = x + _cross_attn(p["cross"], h, enc_out, ctx)
     if sub.ffn == "mlp":
         h = layers.norm_apply(p["norm2"], x, a.norm)
         x = x + layers.mlp_apply(p["ffn"], h, a.activation)
@@ -272,6 +323,65 @@ def _apply_sublayer(p, x, sub: SubLayer, ctx: ModelCtx, aux, frac, drop,
     return x, aux, frac, drop
 
 
+def _cross_attn(p, x, enc_out, ctx: ModelCtx):
+    """Full cross-attention of the decoder stream ``x`` [B, S, d] over the
+    encoder output [B, F, d] (Whisper's decoder): no RoPE, no mask,
+    through the plain ``_sdpa`` as in the reference."""
+    cfg = ctx.attn_cfg
+    B, S, _ = x.shape
+    Fn = enc_out.shape[1]
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (enc_out @ p["wk"]).reshape(B, Fn, K, hd)
+    v = (enc_out @ p["wv"]).reshape(B, Fn, K, hd)
+    dev = x.device
+    out = layers._sdpa(q, k, v, causal=False, sliding_window=0,
+                       q_positions=torch.arange(S, device=dev),
+                       k_positions=torch.arange(Fn, device=dev))
+    return out.reshape(B, S, -1) @ p["wo"]
+
+
+def _run_encoder(params, frames, ctx: ModelCtx):
+    """Whisper's encoder over frame embeddings [B, F, d] (model dtype):
+    ``enc_layers`` non-causal attention layers (K5 under ``use_flash``),
+    then ``enc_norm``."""
+    (esub,), _ = encoder_plan(ctx.arch)
+    x = frames
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p in params["enc_layers"]:
+        x, _, _, _ = _apply_sublayer(p, x, esub, ctx, zero, zero, zero)
+    return layers.norm_apply(params["enc_norm"], x, ctx.arch.norm)
+
+
+def splice_patches(params, x, patches):
+    """A vision model's input: the projected patches [B, n, 1024] (through
+    ``params["proj"]``: gelu between its two layers) in place of the
+    first n token embeddings of ``x`` [B, S, d]."""
+    n = patches.shape[1]
+    if x.shape[1] < n:
+        raise ValueError(f"{x.shape[1]} positions cannot hold the "
+                         f"{n} patch embeddings of the frontend")
+    proj = params["proj"]
+    emb = F.gelu(patches.to(x.dtype) @ proj["w1"],
+                 approximate="tanh") @ proj["w2"]
+    return torch.cat([emb, x[:, n:]], dim=1)
+
+
+def frontend_inputs(params, batch, x, ctx: ModelCtx):
+    """``(x, enc_out)``: the token embeddings ``x`` with a vision model's
+    patches spliced in, and an audio model's encoder output (None for
+    other families).  The audio family needs ``batch["frontend"]``."""
+    a = ctx.arch
+    if a.family == "audio":
+        if "frontend" not in batch:
+            raise ValueError("an audio model's forward needs "
+                             "batch['frontend'] (frame embeddings)")
+        return x, _run_encoder(params, batch["frontend"].to(x.dtype), ctx)
+    if a.family == "vlm" and "frontend" in batch:
+        return splice_patches(params, x, batch["frontend"]), None
+    return x, None
+
+
 def forward_features(params, batch, ctx: ModelCtx):
     """Full-sequence forward up to the final norm.  Returns ``(x, aux,
     frac_by_level, dropped)``: features, the mean aux loss per group
@@ -284,10 +394,9 @@ def forward_features(params, batch, ctx: ModelCtx):
     kernels and collectives included.  Every rank recomputes in the same
     order, so the all-to-all chains still pair up."""
     a = ctx.arch
-    if "frontend" in batch:
-        raise NotImplementedError("modality frontends are not ported yet")
     prefix, group, n_groups = layer_plan(a)
     x = layers.embed_apply(params["embed"], batch["tokens"])
+    x, enc_out = frontend_inputs(params, batch, x, ctx)
     dev = x.device
     n_moe = n_groups * sum(1 for s in group if s.ffn == "moe")
     aux = torch.zeros((), dtype=torch.float32, device=dev)
@@ -298,11 +407,12 @@ def forward_features(params, batch, ctx: ModelCtx):
         if remat:
             x, aux, frac, drop = checkpoint(
                 _apply_sublayer, params["layers"][i], x, sub, ctx, aux,
-                frac, drop, layer_idx=i, use_reentrant=False)
+                frac, drop, layer_idx=i, enc_out=enc_out,
+                use_reentrant=False)
         else:
             x, aux, frac, drop = _apply_sublayer(params["layers"][i], x,
                                                  sub, ctx, aux, frac, drop,
-                                                 layer_idx=i)
+                                                 layer_idx=i, enc_out=enc_out)
     x = layers.norm_apply(params["final_norm"], x, a.norm)
     aux = aux / max(1, n_groups * len(group))
     if not n_moe:

@@ -2,7 +2,8 @@
 counterpart of ``repro/serving/batching.py``).
 
 ``pad_pack`` right-pads a pack of prompts to a fixed (pack, bucket)
-shape; ``SlotKVCache`` wraps ``decode.init_cache`` with slot-indexed
+shape, ``pad_frontend_pack`` stacks the pack's frontend arrays;
+``SlotKVCache`` wraps ``decode.init_cache`` with slot-indexed
 insert/evict, both in place.  Padded pack rows carry slot id
 ``num_slots``, which the insert drops.
 """
@@ -40,6 +41,23 @@ def pad_pack(prompts, pack: int, buckets, device="cuda"):
         lens[i] = len(p)
     return (torch.as_tensor(tokens, device=device),
             torch.as_tensor(lens, device=device))
+
+
+def pad_frontend_pack(frontends, pack: int, device="cuda"):
+    """Stack per-request frontend arrays (audio frames, vision patches;
+    None for a request without one) into a float32 ``[pack, F, d]`` block
+    on ``device``, zeros for padded and missing rows.  All present arrays
+    must share one shape (the arch's ``frontend_len`` by its width)."""
+    shapes = {tuple(np.shape(f)) for f in frontends if f is not None}
+    if len(shapes) != 1:
+        raise ValueError(f"frontend arrays disagree on shape: {shapes}")
+    Fn, d = shapes.pop()
+    out = torch.zeros((pack, Fn, d), dtype=torch.float32, device=device)
+    for i, f in enumerate(frontends):
+        if f is not None:
+            out[i] = torch.as_tensor(f).to(device=device,
+                                           dtype=torch.float32)
+    return out
 
 
 class SlotKVCache:

@@ -85,7 +85,7 @@ def make_prefill(ctx: transformer.ModelCtx, dispatch_override=None, *,
     dispatch path of each layer).  ``with_cache=True`` (requires
     ``cache_len``): ``prefill(params, batch) -> (last_logits [B, V],
     cache)`` where ``batch`` is ``{"tokens": [B, S], optional "lens":
-    [B]}``.  ``dispatch_override`` (``((layer, path), ...)``) merges into
+    [B], optional "frontend": [B, F, width]}``.  ``dispatch_override`` (``((layer, path), ...)``) merges into
     the ctx's per-layer overrides."""
     ctx = _with_overrides(ctx, dispatch_override)
     if with_cache:
@@ -146,11 +146,12 @@ def _batch_shard(ctx: transformer.ModelCtx, **counts) -> tuple:
 
 def generate(params, ctx: transformer.ModelCtx, prompt_tokens, *,
              steps: int, cache_len: int, temperature: float = 0.0,
-             seed: int = 0, lens=None) -> GenerationResult:
+             seed: int = 0, frontend=None, lens=None) -> GenerationResult:
     """Greedy/temperature generation: one fused prefill, then ``steps - 1``
-    decode steps; ``steps_per_sec`` counts generated tokens only.  On a
-    world every rank passes the whole batch, computes its rows and
-    returns the whole batch's tokens."""
+    decode steps; ``steps_per_sec`` counts generated tokens only.
+    ``frontend`` [B, F, width] is the batch's frontend embeddings (audio
+    frames, vision patches).  On a world every rank passes the whole
+    batch, computes its rows and returns the whole batch's tokens."""
     B, S = prompt_tokens.shape
     dev = prompt_tokens.device
     rank, n = _batch_shard(ctx, batch=B)
@@ -162,6 +163,8 @@ def generate(params, ctx: transformer.ModelCtx, prompt_tokens, *,
             if lens is not None
             else torch.full((B,), S, dtype=torch.int32, device=dev))
     batch = {"tokens": prompt_tokens[rows], "lens": lens[rows]}
+    if frontend is not None:
+        batch["frontend"] = torch.as_tensor(frontend, device=dev)[rows]
     gen = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.time()
     logits, cache = prefill_fn(params, batch)
@@ -246,9 +249,6 @@ class ServingEngine:
         if not admits:
             return 0
         for _, req in admits:
-            if req.frontend is not None:
-                raise NotImplementedError(f"request {req.uid}: modality "
-                                          f"frontends are not ported yet")
             need = req.prompt_len + req.max_new_tokens
             if need > cfg.cache_len:
                 raise ValueError(
@@ -259,8 +259,12 @@ class ServingEngine:
                                          cfg.prompt_buckets,
                                          device=self.device)
         rows = self._pack_rows
-        logits, pack_cache = self._prefill(
-            self.params, {"tokens": tokens[rows], "lens": lens[rows]})
+        batch = {"tokens": tokens[rows], "lens": lens[rows]}
+        if any(req.frontend is not None for _, req in admits):
+            batch["frontend"] = batching.pad_frontend_pack(
+                [req.frontend for _, req in admits], cfg.prefill_pack,
+                self.device)[rows]
+        logits, pack_cache = self._prefill(self.params, batch)
         logits = gather_rows(self.ctx.mesh, logits)
         pack_cache = decode_lib.gather_cache_rows(self.ctx.mesh, pack_cache,
                                                   tokens.shape[1])

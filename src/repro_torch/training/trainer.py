@@ -321,8 +321,7 @@ def train(arch: ArchConfig, run: RunConfig, mesh=None, *, steps: int,
     aux_mode = aux_mode or run.aux_mode
     device = mesh.device if mesh is not None else device
     if mesh is not None and run.topology:
-        from repro_torch.core.topology import axis_sizes_from_spec
-        want = axis_sizes_from_spec(run.topology)
+        want = run.mesh_axis_sizes()
         if tuple(mesh.axis_sizes) != want:
             raise ValueError(f"RunConfig.topology {run.topology!r} implies "
                              f"hierarchy sizes {want} but the world has "
@@ -363,7 +362,7 @@ def train(arch: ArchConfig, run: RunConfig, mesh=None, *, steps: int,
                                   seq_len=run.seq_len,
                                   global_batch=run.global_batch,
                                   seed=data_seed if data_seed is not None
-                                  else run.seed))
+                                  else run.seed), arch)
     rank, size = (0, 1) if mesh is None else (mesh.rank, mesh.size)
     micro = run.microbatch if num_microbatches(run) > 1 else 0
     cuda = torch.device(device).type == "cuda"

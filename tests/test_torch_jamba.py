@@ -133,9 +133,10 @@ def test_config_reduced_and_layer_plan_match_reference():
             ("attn" if j == 4 else "mamba", "moe" if j % 2 else "mlp")
             for j in range(8)]
     assert arch.reduced().num_layers == 8
+    # the ssm family with xlstm takes the xLSTM plan, not the hybrid's
     xl = dataclasses.replace(arch, family="ssm", ssm_kind="xlstm")
-    with pytest.raises(NotImplementedError, match="ssm"):
-        transformer.layer_plan(xl)
+    assert [(s.mixer, s.ffn) for s in transformer.layer_plan(xl)[1]] == [
+        ("mlstm", None)] * 7 + [("slstm", None)]
 
 
 def test_converted_params_match_the_ports_own_init(mesh11, built):
