@@ -5,7 +5,8 @@ Run from the repository root on one NVIDIA GPU:
 
     python3 chip_k7_guard.py
 
-The phase's setting: full-width gpt3_medium_moe, a 2x2 (pod x data) EP
+The phase's setting: full-width gpt3_medium_moe at the phase's depth
+(``chip_smoke.CUT_LAYERS`` of its 12 layers), a 2x2 (pod x data) EP
 world of four gloo ranks sharing the card, ``dispatch="a2a_pipelined"``,
 ``wire_codec="int8"``, the overlap model's chunk count (8), seq 512,
 batch 8, weights and batch from seed 0.  Every rank computes the
@@ -69,7 +70,9 @@ def guard_rank(world, out_path: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    arch = get_config(chip_smoke.ARCH_ID)
+    import dataclasses
+    arch = dataclasses.replace(get_config(chip_smoke.ARCH_ID),
+                               num_layers=chip_smoke.CUT_LAYERS)
     batch_size = chip_smoke.TRAIN_BATCH_22
     run = RunConfig(seq_len=chip_smoke.TRAIN_SEQ, global_batch=batch_size,
                     warmup_steps=1, aux_mode="ta", dispatch="a2a_pipelined",

@@ -12,6 +12,23 @@ Phases, each printing JSON lines:
    --format=csv,noheader`` gives them;
 2. build   — compiles every CUDA source under ``src/repro_torch/csrc``
    with nvcc for sm_90a (one nvcc per source, all started together);
+   analysis — (after the serve model's init) the static contract
+   checkers on the card: every registered launch layout of K1-K8
+   (``analysis/launch_check.py``) held against its source's C geometry
+   entry (grid, threads, dynamic and static shared memory), each
+   kernel's registers, blocks an SM and spills, the sm_90 constants
+   against the device's limits; the collective inventory of one MoE
+   forward at the full-width train_2x2 plan (a2a, a2a_pipelined over the
+   int8 wire, gather) recorded on a real 2x2 gloo world with the kernels
+   on (K1, K2, K3, K7, K4 launched) and in one process, both equal to
+   ``expected_inventory``, and the one-rank fused path's (none);
+   ``python -m repro_torch.analysis`` on the tree (exit 0); the meta
+   dry-run of gpt3_medium_moe x train_4k x pod1 and at train_1rank's
+   shapes (its parameter, gradient and AdamW bytes held against the
+   train_1rank phase's state after its run); ``generate`` with and
+   without ``fns=make_generate_fns(...)`` on the serve context with the
+   MoE kernels off (K4's atomics make two runs' near-tied greedy picks
+   differ), the same greedy tokens;
 3. checks  — holds each kernel against its plain PyTorch version on the
    card in bf16 at the full-width shapes its main path gives it: the
    fused local-MoE kernel (K4) at the decode layout (8 slots x 64
@@ -78,7 +95,8 @@ Phases, each printing JSON lines:
 6. profile — host-clock step times and a torch.profiler breakdown
    (device busy share, top kernels) of one prefill pack and one decode
    step;
-7. serve_2x2 — the same model and request mix on a (pod x data) = (2, 2)
+7. serve_2x2 — the same model (depth cut to CUT_LAYERS, 6, for the time
+   limit: see the constant) and request mix on a (pod x data) = (2, 2)
    EP world of four spawned ranks sharing the card over gloo, each with
    its 16 experts a layer, 2 of the 8 slots and one row of each pack of
    4; every MoE layer through the gather path.  Every rank must launch
@@ -98,8 +116,9 @@ Phases, each printing JSON lines:
    LOSS_RTOL and each one's peak device memory; then one training step
    with it (K4 12 launches, counted as ``train_1rank_fused_xent``);
 9. train_2x2 — the same on a 2x2 (pod x data) EP world of four spawned
-   ranks that share the card over gloo, batch 8 (1024 tokens a rank):
-   every rank must launch K1, K2 and K3 36 times each and K4 never, the
+   ranks that share the card over gloo, batch 8 (1024 tokens a rank),
+   depth cut to CUT_LAYERS (6; the time limit, below):
+   every rank must launch K1, K2 and K3 18 times each and K4 never, the
    ranks must agree on the world-mean losses, and the first step's loss
    must agree with the plain path's.  Each rank profiles one more step
    twice: as shipped, and with the earlier spare-row backwards of K1 and
@@ -108,21 +127,24 @@ Phases, each printing JSON lines:
    phase K7's forward and its weight quantization too);
 10. train_2x2_pipelined — the same world through ``dispatch=
    "a2a_pipelined"`` with the int8 wire codec and the overlap model's
-   chunk count (8), 2 steps: every rank must launch K1, K2 and K7 192
-   times each (12 layers x 8 chunks x 2 steps) and K3 and K4 never, and
+   chunk count (8), 2 steps, depth CUT_LAYERS: every rank must launch K1,
+   K2 and K7 96 times each (6 layers x 8 chunks x 2 steps) and K3 and K4
+   never, and
    the first step's loss must agree with the plain path's within
    LOSS_RTOL_INT8;
 11. train_einsum_k6 — in a child process, full-width gpt3_medium_moe on
    one rank through the paper's einsum baseline (``dispatch="einsum"``,
    ``aux_mode="lb"``, ``build_ctx(use_moe_kernel=True)``, capacity 128)
-   with ``trainer.make_train_step``: seq 512, batch 4, AdamW, 3 steps.  K6
-   must launch once per layer and forward (36 times), and the first
+   with ``trainer.make_train_step``: seq 512, batch 4, AdamW, 3 steps,
+   depth CUT_LAYERS.  K6 must launch once per layer and forward (18
+   times), and the first
    step's loss must agree with the plain path's (``REPRO_TORCH_KERNELS=0``:
    ``grouped_ffn_ref``) on the same weights and batch;
 12. train_1rank_accum_remat — in a child process, ``trainer.train`` of
    full-width gpt3_medium_moe on one rank with batch 8 accumulated over 2
    microbatches of 4 and ``remat=True`` (every layer recomputed in the
-   backward), 3 steps: K4 must launch 12 x 2 x 2 x 3 = 144 times, the
+   backward), 3 steps, depth CUT_LAYERS: K4 must launch 6 x 2 x 2 x 3 =
+   72 times, the
    first step's loss (the mean of the microbatches') must agree with the
    plain path's; with remat and without, one microbatch's forward reads
    the device memory it holds for the backward and one more step reads
@@ -131,9 +153,9 @@ Phases, each printing JSON lines:
    1-layer full-width model under chaos with rolling checkpoints (a
    skipped NaN step, a spike rolled back past a corrupted checkpoint to
    the one before, the restored tensors bit-equal to it; save, verify
-   and the rollback's restore timed), then full depth guarded against
-   unguarded on the same weights (losses within LOSS_RTOL, steady step
-   walls);
+   and the rollback's restore timed), then depth CUT_LAYERS guarded
+   against unguarded on the same weights (losses within LOSS_RTOL, steady
+   step walls);
 14. train_2x2_replan — the 2x2 world at full width and depth 2 with the
    pod axis degraded 64x: every rank must replan once, at step 2, to the
    port planner's caps with the pod level's beta at inf (last cap 0), K1,
@@ -344,13 +366,21 @@ LOSS_RTOL = 1e-3
 # the int8 wire's phase: the kernel path quantizes each (expert, stage,
 # source) segment with its own scale, the plain path each expert's chunk
 # span with one, so the two first-step losses differ by more than bf16
-# rounding: 3.0e-4 relative in sound runs on an H100.  Faults planted in
-# K7's per-segment scales (chip_k7_guard.py) moved it by 8.1e-3 (stage-1
-# segments x1.25), 1.1e-2 (stage-1 zeroed, or every segment x1.1) and
-# 3.5e-2 (stage-1 x2); the limit sits 5x above the sound gap and 5x below
-# the smallest of those.
+# rounding: at the phase's depth (CUT_LAYERS, 6) 2.2e-4 relative in a
+# sound run on an H100.  Faults planted in K7's per-segment scales
+# (chip_k7_guard.py) moved it by 7.0e-3 (stage-1 segments x1.25), 1.0e-2
+# (stage-1 zeroed), 1.3e-2 (every segment x1.1) and 2.9e-2 (stage-1 x2);
+# the limit sits 7x above the sound gap and 4.7x below the smallest of
+# those (at 12 layers: 3.0e-4 sound, faults from 8.1e-3).
 LOSS_RTOL_INT8 = 1.5e-3
 PIPELINED_CHUNKS = 8      # the overlap model's pick for the 2x2 plan
+# the command time varies about a fifth with the host a run lands on (1064
+# and 1257 s for one tree on two H100 machines at 700 W) against a limit
+# of 1200 s: serve_2x2, train_2x2, train_2x2_pipelined, train_einsum_k6,
+# train_1rank_accum_remat and the resilient phase's guard runs take
+# CUT_LAYERS of gpt3_medium_moe's 12 layers (every layer is alike, so each
+# path, kernel and check runs as at 12, half as often)
+CUT_LAYERS = 6
 # train_1rank_accum_remat: one rank, full depth, batch 8 as 2 microbatches
 # of 4, each layer recomputed in the backward
 ACCUM_BATCH, ACCUM_MICRO = 8, 4
@@ -1756,6 +1786,8 @@ def train_phase(world, out_path: str, global_batch: int,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     experts_sha256 = (expert_digest(torch, res.params, kernel_ctx)
                       if hash_experts else None)
+    from repro_torch.launch.analysis import state_bytes
+    held = state_bytes(res.params, res.opt_state)
 
     step = trainer.make_train_step(kernel_ctx, run)
     batch = shard_batch(data.batch(steps), world, "cuda", microbatch=micro)
@@ -1794,7 +1826,7 @@ def train_phase(world, out_path: str, global_batch: int,
         "profiled_step_spare_row_backwards": spare_profiled,
         "microbatch": microbatch, "remat": remat, "step_memory": memory,
         "layers": arch.num_layers, "fused_xent": xent,
-        "experts_sha256": experts_sha256}
+        "experts_sha256": experts_sha256, "state_bytes": held}
     with open(out_path, "w") as fh:
         json.dump(report, fh)
 
@@ -2036,7 +2068,8 @@ def resilient_phase(out_path: str) -> None:
        bit.  Then ``ckpt.save``, ``verify`` and ``restore_into``
        (``check_hashes=False``, as the rollback calls it after ``verify``)
        are timed once each on the final state (bytes and seconds).
-    2. Full depth: the unguarded and the guarded loop (no chaos) on the
+    2. Depth CUT_LAYERS: the unguarded and the guarded loop (no chaos) on
+       the
        same initial weights, in turns (unguarded, guarded, guarded,
        unguarded), ``GUARD_STEPS`` steps each: their losses must agree
        within LOSS_RTOL, and the steady step walls give the guard's
@@ -2134,12 +2167,13 @@ def resilient_phase(out_path: str) -> None:
     torch.cuda.empty_cache()
 
     runs, guard_launches = [], {}
+    guard_arch = dataclasses.replace(full, num_layers=CUT_LAYERS)
     for label in ("unguarded", "guarded", "guarded", "unguarded"):
         run = RunConfig(resilience=ResilienceConfig() if label == "guarded"
                         else None, **base)
         backend.reset_launches()
-        r = trainer.train(full, run, None, steps=GUARD_STEPS, log_every=1,
-                          verbose=False, device="cuda")
+        r = trainer.train(guard_arch, run, None, steps=GUARD_STEPS,
+                          log_every=1, verbose=False, device="cuda")
         for k, v in backend.LAUNCHES.items():
             guard_launches[k] = guard_launches.get(k, 0) + v
         runs.append({"label": label, "losses": r.losses,
@@ -2161,7 +2195,7 @@ def resilient_phase(out_path: str) -> None:
         return sum(walls) / len(walls)
 
     report["guard"] = {
-        "layers": full.num_layers, "steps": GUARD_STEPS, "runs": runs,
+        "layers": guard_arch.num_layers, "steps": GUARD_STEPS, "runs": runs,
         "max_rel_loss_diff": worst, "rtol": LOSS_RTOL,
         "steady_step_s_unguarded": steady("unguarded"),
         "steady_step_s_guarded": steady("guarded"),
@@ -2713,8 +2747,203 @@ def e2e_dsv2_lite_d4(torch, np, params, ctx) -> dict:
             / 1e9}
 
 
+def analysis_scenarios():
+    """The analysis phase's collective scenarios: one MoE layer's forward
+    at gpt3_medium_moe's widths (d 1024, 64 experts top-2 of f 2048,
+    gelu, capacity factor 2, bf16) and the train_2x2 plan (1024 tokens a
+    rank of the 2x2 world: a2a, a2a_pipelined in PIPELINED_CHUNKS chunks
+    over the int8 wire, gather), and the one-rank fused path at
+    train_1rank's 2048 tokens.  Returns ``(world scenarios, unit)``."""
+    from repro_torch.analysis.collective_check import Scenario
+    from repro_torch.configs.base import get_config
+    arch = get_config(ARCH_ID)
+    m = arch.moe
+
+    def sc(name, sizes, path, tokens, **kw):
+        return Scenario(name, sizes, path, None, tokens=tokens,
+                        num_experts=m.num_experts, d_model=arch.d_model,
+                        d_ff=m.d_ff_expert, top_k=m.top_k,
+                        capacity_factor=m.capacity_factor, dtype=arch.dtype,
+                        activation=arch.activation, **kw)
+
+    t22 = TRAIN_BATCH_22 * TRAIN_SEQ // math.prod(WORLD_22)
+    return ((sc("a2a-2x2", WORLD_22, "a2a", t22),
+             sc("a2a_pipelined-2x2-int8", WORLD_22, "a2a_pipelined", t22,
+                num_chunks=PIPELINED_CHUNKS, wire_codec="int8"),
+             sc("gather-2x2", WORLD_22, "gather", t22)),
+            sc("a2a-unit-mesh-fused", (1,), "a2a",
+               TRAIN_BATCH_1 * TRAIN_SEQ))
+
+
+#: the kernels each analysis scenario's forward must launch
+ANALYSIS_KERNELS = {
+    "a2a-2x2": ("moe_permute.permute", "moe_permute.unpermute",
+                "moe_gemm.grouped_ffn_ragged"),
+    "a2a_pipelined-2x2-int8": ("moe_permute.permute",
+                               "moe_permute.unpermute",
+                               "moe_gemm.grouped_ffn_ragged_quant"),
+    "gather-2x2": ("moe_fused.local_moe",),
+    "a2a-unit-mesh-fused": ("moe_fused.local_moe",)}
+
+
+def inventory_rows(inventory) -> list:
+    """A collective inventory as JSON rows [kind, dtype, elements,
+    groups]."""
+    return [[c.kind, c.dtype, c.elements, [list(g) for g in c.groups]]
+            for c in inventory]
+
+
+def analysis_rank(world, out_dir: str) -> None:
+    """One rank of the analysis phase's 2x2 world: each scenario's
+    forward through ``record_scenario`` on this rank's real world (the
+    recorder passes every call through), kernels on; writes the
+    inventories and launch counts to ``analysis<rank>.json``."""
+    import torch
+    from repro_torch.analysis import collective_check
+    from repro_torch.kernels import backend
+    out = {}
+    for sc in analysis_scenarios()[0]:
+        backend.reset_launches()
+        inv = collective_check.record_scenario(sc, world, device="cuda")
+        torch.cuda.synchronize()
+        out[sc.name] = {"inventory": inventory_rows(inv),
+                        "launches": dict(backend.LAUNCHES)}
+    with open(os.path.join(out_dir, f"analysis{world.rank}.json"), "w") as fh:
+        json.dump(out, fh)
+
+
+def analysis_phase(torch, params, ctx, out_dir: str) -> dict:
+    """The ``analysis`` phase (see the module docstring); raises on any
+    violation.  The 2x2 world runs in its own processes while this one
+    checks the rest."""
+    import threading
+
+    from repro_torch.analysis import __main__ as analysis_cli
+    from repro_torch.analysis import collective_check, launch_check
+    from repro_torch.kernels import backend
+    from repro_torch.launch import dryrun, mesh
+    from repro_torch.serving import engine
+
+    t0 = time.time()
+    world_err = []
+
+    def run_world():
+        try:
+            mesh.spawn(analysis_rank, WORLD_22, "gloo", "cuda",
+                       args=(out_dir,))
+        except Exception as e:           # raised after the join
+            world_err.append(e)
+
+    world_thread = threading.Thread(target=run_world)
+    world_thread.start()
+    problems = []
+
+    # the launch declarations against the compiled kernels and the card
+    geo, geometry = launch_check.check_on_device()
+    limits = launch_check.device_limits()
+    problems += [f"{v.rule} {v.where}: {v.message}" for v in geo]
+
+    # the checkers on the tree, as `python -m repro_torch.analysis` runs
+    report_path = os.path.join(out_dir, "analysis_report.json")
+    cli_rc = analysis_cli.main(["--json", report_path])
+    with open(report_path) as fh:
+        report = json.load(fh)
+    if cli_rc != 0:
+        problems.append(f"python -m repro_torch.analysis exited {cli_rc}: "
+                        f"{report['violations'][:5]}")
+
+    # one-process recordings on the card, kernels on
+    scenarios, unit = analysis_scenarios()
+    local = {}
+    for sc in scenarios + (unit,):
+        backend.reset_launches()
+        inv = collective_check.record_scenario(sc, None, device="cuda")
+        torch.cuda.synchronize()
+        local[sc.name] = {"inventory": inv,
+                          "launches": dict(backend.LAUNCHES)}
+
+    # the meta dry-runs
+    rec_4k, _ = dryrun.lower_one(ARCH_ID, "train_4k", "pod1")
+    rec_1rank, _ = dryrun.lower_one(
+        ARCH_ID, "train_1rank", (1,),
+        shape={"seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_1,
+               "kind": "train"})
+
+    # generate with and without the prebuilt triple, on the serve context
+    # with the MoE kernels off: K4's atomics sum in a run-dependent order,
+    # which can flip a near-tied greedy pick of random weights between two
+    # runs of one path (seen on an H100); the plain gather branch (and K5)
+    # sum in a fixed order
+    import dataclasses
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    prompt = torch.randint(0, ctx.arch.vocab_size, (PACK, 32),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    fixed = dataclasses.replace(ctx, use_pallas=False)
+    plain = engine.generate(params, fixed, prompt, steps=8,
+                            cache_len=CACHE_LEN)
+    fns = engine.make_generate_fns(fixed, CACHE_LEN)
+    with_fns = engine.generate(params, fixed, prompt, steps=8,
+                               cache_len=CACHE_LEN, fns=fns)
+    if not torch.equal(plain.tokens, with_fns.tokens):
+        problems.append("generate(fns=make_generate_fns(...)) gave other "
+                        "greedy tokens than generate")
+
+    world_thread.join()
+    if world_err:
+        raise SystemExit(f"analysis: the 2x2 world failed: {world_err[0]!r}")
+    ranks = []
+    for r in range(math.prod(WORLD_22)):
+        with open(os.path.join(out_dir, f"analysis{r}.json")) as fh:
+            ranks.append(json.load(fh))
+
+    inventories = {}
+    for sc in scenarios + (unit,):
+        exp = collective_check.expected_inventory(sc, device="cuda")
+        mine = local[sc.name]
+        problems += [f"{v.where} (one process): {v.message}"
+                     for v in collective_check.match_inventory(
+                         sc.name, exp, mine["inventory"])]
+        runs = [mine["launches"]]
+        for r, rk in enumerate(ranks if sc is not unit else ()):
+            got = [collective_check.Collective(
+                k, dt, n, tuple(tuple(g) for g in gs))
+                for k, dt, n, gs in rk[sc.name]["inventory"]]
+            problems += [f"{v.where} (rank {r}): {v.message}"
+                         for v in collective_check.match_inventory(
+                             sc.name, exp, got)]
+            if r == 0 and rk[sc.name]["inventory"] != inventory_rows(
+                    mine["inventory"]):
+                problems.append(f"{sc.name}: rank 0's inventory on the "
+                                f"world differs from the one-process "
+                                f"recording")
+            runs.append(rk[sc.name]["launches"])
+        for name in ANALYSIS_KERNELS[sc.name]:
+            if min(run[name] for run in runs) < 1:
+                problems.append(f"{sc.name}: {name} launched "
+                                f"{[run[name] for run in runs]} times")
+        inventories[sc.name] = {
+            "collectives": len(exp),
+            "by_kind_dtype": sorted({(c.kind, c.dtype) for c in exp}),
+            "launches_one_process": mine["launches"],
+            "launches_world_rank0": (ranks[0][sc.name]["launches"]
+                                     if sc is not unit else None)}
+    if problems:
+        raise SystemExit("analysis: " + "; ".join(problems[:20]))
+    return {"seconds": time.time() - t0, "device_limits": limits,
+            "geometry": geometry, "layouts_checked": sum(
+                1 for _ in launch_check.registered()),
+            "cli_rc": cli_rc, "cli_checked": {k: len(v) for k, v in
+                                              report["checked"].items()},
+            "inventories": inventories,
+            "dryrun_train_4k_pod1": rec_4k,
+            "dryrun_train_1rank": rec_1rank,
+            "generate_fns_equal": True,
+            "generate_tokens": plain.tokens.shape[1]}
+
+
 def serve_rank(world, out_dir: str) -> None:
-    """One rank of serve_2x2: full-width gpt3_medium_moe from seed 0 (this
+    """One rank of serve_2x2: full-width gpt3_medium_moe from seed 0 at
+    depth CUT_LAYERS (the first layers of the 12-layer model's draw; this
     rank's 16 experts a layer), ``ServeConfig`` as the serve phase's, the
     batch sharded over the world and every MoE layer through the gather
     path.  First the end-to-end check: the kernel path's logits for
@@ -2731,9 +2960,10 @@ def serve_rank(world, out_dir: str) -> None:
     from repro_torch.models import model as model_lib
     from repro_torch.serving import engine
 
+    import dataclasses
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    arch = get_config(ARCH_ID)
+    arch = dataclasses.replace(get_config(ARCH_ID), num_layers=CUT_LAYERS)
     ctx = model_lib.build_ctx(arch, world, device="cuda", use_flash=True,
                               aux_mode="none", seq_len=CACHE_LEN,
                               global_batch=NUM_SLOTS)
@@ -3394,6 +3624,15 @@ def main() -> int:
     emit({"phase": "init", "arch": arch.name, "layers": arch.num_layers,
           "params": model_lib.count_params(params),
           "seconds": time.time() - t0})
+    # 2a. the static checkers on the card
+    ana_dir = tempfile.mkdtemp(prefix="chip_smoke_analysis_")
+    try:
+        ana = analysis_phase(torch, params, ctx, ana_dir)
+    finally:
+        shutil.rmtree(ana_dir, ignore_errors=True)
+    emit({"phase": "analysis", **ana})
+    dry_1rank = ana["dryrun_train_1rank"]["arg_bytes_by_part"]
+
     gen = torch.Generator(device="cuda").manual_seed(1)
     with torch.no_grad():
         k4_cases = {
@@ -3575,8 +3814,13 @@ def main() -> int:
     prompt = torch.as_tensor(np.random.default_rng(8).integers(
         0, arch.vocab_size, size=(E2E_ROWS, E2E_PROMPT)), dtype=torch.int32,
         device="cuda")
+    import dataclasses
+    cut_ctx = dataclasses.replace(ctx, arch=dataclasses.replace(
+        arch, num_layers=CUT_LAYERS))
     with torch.no_grad():
-        ref = plain_runs(torch, params, ctx, prompt, kernel=False)
+        ref = plain_runs(torch, dict(params,
+                                     layers=params["layers"][:CUT_LAYERS]),
+                         cut_ctx, prompt, kernel=False)
     torch.save({"prompt": prompt.cpu(),
                 **{k: v.cpu() for k, v in ref.items()}},
                os.path.join(tmp, "e2e_reference.pt"))
@@ -3603,15 +3847,16 @@ def main() -> int:
             raise SystemExit(f"serve_2x2 rank {r['rank']}: its streams "
                              f"differ from rank 0's")
         want_s = {k: 0 for k in backend.LAUNCHES}
-        want_s["moe_fused.local_moe"] = n_layers * (r["prefill_packs"]
-                                                    + r["decode_steps"])
-        want_s["flash_attn.flash_attention"] = n_layers * r["prefill_packs"]
+        want_s["moe_fused.local_moe"] = CUT_LAYERS * (r["prefill_packs"]
+                                                      + r["decode_steps"])
+        want_s["flash_attn.flash_attention"] = (CUT_LAYERS
+                                                * r["prefill_packs"])
         if r["launches"] != want_s:
             raise SystemExit(f"serve_2x2 rank {r['rank']}: launches "
                              f"{r['launches']}, the path needs {want_s}")
     emit({"phase": "serve_2x2", "seconds": time.time() - t0,
           "world": list(WORLD_22), "backend": "gloo",
-          "layers": n_layers, "ranks": srv})
+          "layers": CUT_LAYERS, "ranks": srv})
 
     # 6. training, one rank, in a child process (it frees the card when it
     # ends); the kernels were built above, so the child only loads them;
@@ -3646,23 +3891,31 @@ def main() -> int:
     emit({"phase": "train_1rank", "seconds": time.time() - t0,
           "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_1,
           "steps": TRAIN_STEPS, **check1, **one})
+    # the meta dry-run's training state at train_1rank's shapes against
+    # the state the run holds (parameters, gradients, AdamW's moments)
+    if one["state_bytes"] != dry_1rank:
+        raise SystemExit(f"dry-run at train_1rank's shapes: {dry_1rank} "
+                         f"bytes, the run holds {one['state_bytes']}")
+    emit({"phase": "dryrun_vs_train_1rank", "dryrun": dry_1rank,
+          "train_1rank": one["state_bytes"], "equal": True})
 
     # 7. training, 2x2 EP world: four ranks share the card over gloo
     t0 = time.time()
     mesh.spawn(train_rank, WORLD_22, "gloo", "cuda",
-               args=(tmp, TRAIN_BATCH_22, "a2a", "", TRAIN_STEPS, 0, True))
+               args=(tmp, TRAIN_BATCH_22, "a2a", "", TRAIN_STEPS, CUT_LAYERS,
+                     True))
     ranks = []
     for r in range(math.prod(WORLD_22)):
         with open(os.path.join(tmp, f"rank{r}.json")) as fh:
             ranks.append(json.load(fh))
-    per_layer = {k: n_layers * TRAIN_STEPS for k in zero}
+    per_layer = {k: CUT_LAYERS * TRAIN_STEPS for k in zero}
     check22 = check_training(
         ranks, dict(per_layer, **off,
                     **{"moe_fused.local_moe": 0,
                        "moe_gemm.grouped_ffn_ragged_quant": 0}),
         "train_2x2")
     emit({"phase": "train_2x2", "seconds": time.time() - t0,
-          "world": list(WORLD_22), "backend": "gloo",
+          "world": list(WORLD_22), "backend": "gloo", "layers": CUT_LAYERS,
           "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_22,
           "steps": TRAIN_STEPS, **check22, "ranks": ranks})
 
@@ -3672,7 +3925,7 @@ def main() -> int:
     os.makedirs(pipe_dir)
     mesh.spawn(train_rank, WORLD_22, "gloo", "cuda",
                args=(pipe_dir, TRAIN_BATCH_22, "a2a_pipelined", "int8",
-                     PIPELINED_STEPS))
+                     PIPELINED_STEPS, CUT_LAYERS))
     pipe = []
     for r in range(math.prod(WORLD_22)):
         with open(os.path.join(pipe_dir, f"rank{r}.json")) as fh:
@@ -3682,7 +3935,7 @@ def main() -> int:
             raise SystemExit(f"train_2x2_pipelined rank {r['rank']}: "
                              f"{r['a2a_num_chunks']} chunks, the overlap "
                              f"model gives {PIPELINED_CHUNKS}")
-    per_chunk = {k: n_layers * PIPELINED_CHUNKS * PIPELINED_STEPS
+    per_chunk = {k: CUT_LAYERS * PIPELINED_CHUNKS * PIPELINED_STEPS
                  for k in ("moe_permute.permute", "moe_permute.unpermute",
                            "moe_gemm.grouped_ffn_ragged_quant")}
     check_p = check_training(
@@ -3692,6 +3945,7 @@ def main() -> int:
         "train_2x2_pipelined", LOSS_RTOL_INT8, PIPELINED_STEPS)
     emit({"phase": "train_2x2_pipelined", "seconds": time.time() - t0,
           "world": list(WORLD_22), "backend": "gloo", "wire_codec": "int8",
+          "layers": CUT_LAYERS,
           "overlap_terms": overlap_terms(arch), "seq_len": TRAIN_SEQ,
           "global_batch": TRAIN_BATCH_22, "steps": PIPELINED_STEPS,
           **check_p,
@@ -3702,7 +3956,7 @@ def main() -> int:
     child = mp.get_context("spawn").Process(
         target=train_phase, args=(None, os.path.join(tmp, "einsum.json"),
                                   TRAIN_BATCH_1, "einsum", "", TRAIN_STEPS,
-                                  "lb", True))
+                                  "lb", True), kwargs={"layers": CUT_LAYERS})
     child.start()
     child.join()
     if child.exitcode != 0:
@@ -3711,7 +3965,7 @@ def main() -> int:
     with open(os.path.join(tmp, "einsum.json")) as fh:
         ein = json.load(fh)
     check_e = check_training(
-        [ein], {k: (n_layers * TRAIN_STEPS if k == "moe_gemm.grouped_ffn"
+        [ein], {k: (CUT_LAYERS * TRAIN_STEPS if k == "moe_gemm.grouped_ffn"
                     else 0) for k in backend.LAUNCHES},
         "train_einsum_k6")
     emit({"phase": "train_einsum_k6", "seconds": time.time() - t0,
@@ -3726,7 +3980,8 @@ def main() -> int:
     child = mp.get_context("spawn").Process(
         target=train_phase, args=(None, os.path.join(tmp, "accum.json"),
                                   ACCUM_BATCH),
-        kwargs={"microbatch": ACCUM_MICRO, "remat": True})
+        kwargs={"microbatch": ACCUM_MICRO, "remat": True,
+                "layers": CUT_LAYERS})
     child.start()
     child.join()
     if child.exitcode != 0:
@@ -3737,7 +3992,7 @@ def main() -> int:
     n_micro = ACCUM_BATCH // ACCUM_MICRO
     check_a = check_training(
         [acc], dict(zero, **off,
-                    **{"moe_fused.local_moe": n_layers * n_micro * 2
+                    **{"moe_fused.local_moe": CUT_LAYERS * n_micro * 2
                        * TRAIN_STEPS,
                        "moe_gemm.grouped_ffn_ragged_quant": 0}),
         "train_1rank_accum_remat")
@@ -3759,7 +4014,7 @@ def main() -> int:
         resil = json.load(fh)
     want_r = {k: 0 for k in backend.LAUNCHES}
     want_r["moe_fused.local_moe"] = (RESILIENT_STEPS
-                                     + n_layers * GUARD_STEPS * 4)
+                                     + CUT_LAYERS * GUARD_STEPS * 4)
     if resil["launches"] != want_r:
         raise SystemExit(f"train_resilient: launches {resil['launches']}, "
                          f"the path needs {want_r}")

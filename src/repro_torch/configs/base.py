@@ -195,3 +195,13 @@ def get_config(arch_id: str) -> ArchConfig:
 
 def all_configs() -> dict:
     return {a: get_config(a) for a in ARCH_IDS}
+
+
+# The four input shapes of the dry-run (a copy of the reference's
+# ``INPUT_SHAPES``): global batch and sequence length of each kind.
+INPUT_SHAPES = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}

@@ -156,6 +156,14 @@ def make_engine(name: str, *, cfg: MoEConfig, ep: EPSpec,
                           use_pallas=use_pallas, world=world)
 
 
+def dispatch_moe(name: str, params, x, *, cfg: MoEConfig, ep: EPSpec,
+                 gate_cfg: gating.GateConfig, **kwargs):
+    """One-shot convenience: resolve + apply in a single call
+    (``make_engine``'s keywords, ``world=`` among them)."""
+    return make_engine(name, cfg=cfg, ep=ep, gate_cfg=gate_cfg, **kwargs)(
+        params, x)
+
+
 def _world(eng: DispatchEngine, device):
     if eng.world is not None:
         return eng.world

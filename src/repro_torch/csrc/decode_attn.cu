@@ -63,6 +63,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "launch_geom.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -242,19 +244,29 @@ decode_combine_kernel(const float* __restrict__ o_part,
   out[(size_t)bh * HD + j] = __float2bfloat16(acc / lsum);
 }
 
+// the split launch over (split, KV head, request) and the combine over
+// (request, query head)
+template <int HD, int TL>
+void decode_geom(int B, int H, int K, int n_split, launch_geom::Launch* g) {
+  g[0] = {dim3(n_split, K, B), THREADS, 0,
+          (const void*)decode_split_kernel<HD, TL>};
+  g[1] = {dim3(B * H), HD, 0, (const void*)decode_combine_kernel<HD>};
+}
+
 template <int HD, int TL>
 int launch(const void* q, const void* k, const void* v, const int* len,
            void* o_part, void* ml_part, void* out, int B, int L, int H,
            int K, int window, int n_split, cudaStream_t s) {
-  dim3 grid(n_split, K, B);
-  decode_split_kernel<HD, TL><<<grid, THREADS, 0, s>>>(
+  launch_geom::Launch g[2];
+  decode_geom<HD, TL>(B, H, K, n_split, g);
+  decode_split_kernel<HD, TL><<<g[0].grid, g[0].threads, g[0].smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), len, static_cast<float*>(o_part),
       static_cast<float*>(ml_part), L, H, K, window, n_split,
       1.0f / sqrtf((float)HD));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  decode_combine_kernel<HD><<<B * H, HD, 0, s>>>(
+  decode_combine_kernel<HD><<<g[1].grid, g[1].threads, g[1].smem, s>>>(
       static_cast<const float*>(o_part), static_cast<const float*>(ml_part),
       len, static_cast<bf16*>(out), L, H, window, n_split);
   return (int)cudaGetLastError();
@@ -286,6 +298,21 @@ int decode_attention_fwd(const void* q, const void* k, const void* v,
                           window, n_split, s);
   return launch<128, 32>(q, k, v, len, o_part, ml_part, out, B, L, H, K,
                          window, n_split, s);
+}
+
+// K8's launch geometry (launch_geom.cuh): the two launches
+// decode_attention_fwd makes for B requests, H query heads over K KV heads
+// of hd, and n_split splits.
+int decode_attention_geometry(int B, int H, int K, int hd, int n_split,
+                              int* out) {
+  launch_geom::Launch g[2];
+  if (hd == 64)
+    decode_geom<64, 64>(B, H, K, n_split, g);
+  else if (hd == 128)
+    decode_geom<128, 32>(B, H, K, n_split, g);
+  else
+    return (int)cudaErrorInvalidValue;
+  return launch_geom::report_all(g, 2, out);
 }
 
 }  // extern "C"

@@ -71,6 +71,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "launch_geom.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -352,12 +354,11 @@ flash_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// one launch of the HD instantiation; a block's shared memory over the
-// 48 KB default is opted into once per device
+// the launch of the HD instantiation over (query block, head, request); a
+// block's shared memory over the 48 KB default is opted into once per
+// device
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Sk, int H, int K, int causal, int window,
-           void* stream) {
+int flash_geom(int B, int Sq, int H, launch_geom::Launch* g) {
   constexpr int SMEM = smem_bytes<HD>();
   if (SMEM > 48 * 1024) {
     static bool opted[64] = {};
@@ -373,8 +374,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       opted[dev] = true;
     }
   }
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attn_kernel<HD><<<grid, THREADS, SMEM,
+  *g = {dim3((Sq + BQ - 1) / BQ, H, B), THREADS, SMEM,
+        (const void*)flash_attn_kernel<HD>};
+  return 0;
+}
+
+// one launch of the HD instantiation
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Sq, int Sk, int H, int K, int causal, int window,
+           void* stream) {
+  launch_geom::Launch g;
+  const int err = flash_geom<HD>(B, Sq, H, &g);
+  if (err != 0) return err;
+  flash_attn_kernel<HD><<<g.grid, g.threads, g.smem,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, H, K,
@@ -399,6 +412,17 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   if (hd == 128) return launch<128>(q, k, v, o, B, Sq, Sk, H, K, causal,
                                     window, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// K5's launch geometry (launch_geom.cuh): the launch flash_attention_fwd
+// makes for B requests of Sq queries over H heads of hd.
+int flash_attention_geometry(int B, int Sq, int H, int hd, int* out) {
+  launch_geom::Launch g;
+  const int err = hd == 64    ? flash_geom<64>(B, Sq, H, &g)
+                  : hd == 128 ? flash_geom<128>(B, Sq, H, &g)
+                              : (int)cudaErrorInvalidValue;
+  if (err != 0) return err;
+  return launch_geom::report_all(&g, 1, out);
 }
 
 }  // extern "C"

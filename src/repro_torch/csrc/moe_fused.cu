@@ -57,6 +57,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_geom.cuh"
 #include "moe_mma.cuh"
 
 namespace {
@@ -202,6 +203,31 @@ fused_down_kernel(int d, int f, const int* __restrict__ slot_to_token,
 
 unsigned long long up_opt_in[2], down_opt_in;   // per-device bit masks
 
+// The compaction's launch over n_seg segments.
+launch_geom::Launch compact_geom(int n_seg) {
+  return {dim3(n_seg), COMPACT_THREADS, 0, (const void*)compact_kernel};
+}
+
+// K4's three launches for one call (the compaction, up over (tile, f /
+// 64), down over (tile, d / 64, splits)), after opting the up and down
+// kernels in to their dynamic shared memory.
+cudaError_t fused_geom(int n_seg, int n_tiles, int d, int f, int swiglu,
+                       int splits, launch_geom::Launch* g) {
+  cudaError_t err =
+      swiglu ? smem_opt_in(fused_up_kernel<true>, UP_SMEM_SWIGLU, up_opt_in[1])
+             : smem_opt_in(fused_up_kernel<false>, UP_SMEM, up_opt_in[0]);
+  if (err != cudaSuccess) return err;
+  err = smem_opt_in(fused_down_kernel, DOWN_SMEM, down_opt_in);
+  if (err != cudaSuccess) return err;
+  g[0] = compact_geom(n_seg);
+  g[1] = {dim3(n_tiles, f / BN), THREADS, swiglu ? UP_SMEM_SWIGLU : UP_SMEM,
+          swiglu ? (const void*)fused_up_kernel<true>
+                 : (const void*)fused_up_kernel<false>};
+  g[2] = {dim3(n_tiles, d / BN, splits), THREADS, DOWN_SMEM,
+          (const void*)fused_down_kernel};
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -215,7 +241,8 @@ int compact_slots(const void* slot_to_token, const void* slot_w,
                   const void* rows_valid, const void* seg_offsets, int n_seg,
                   int T, void* live, void* count, void* stream) {
   if (n_seg == 0) return (int)cudaGetLastError();
-  compact_kernel<<<n_seg, COMPACT_THREADS, 0,
+  const launch_geom::Launch g = compact_geom(n_seg);
+  compact_kernel<<<g.grid, g.threads, g.smem,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(slot_to_token),
       static_cast<const float*>(slot_w), static_cast<const int*>(rows_valid),
@@ -243,41 +270,47 @@ int local_moe_fused(const void* x, int T, int d, int f,
   if (d % BK || f % BN || splits < 1 || f % (BK * splits))
     return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return (int)cudaGetLastError();
+  launch_geom::Launch g[3];
+  cudaError_t err = fused_geom(n_seg, n_tiles, d, f, swiglu, splits, g);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* tok = static_cast<const int*>(slot_to_token);
   const float* sw = static_cast<const float*>(slot_w);
   const int* ti = static_cast<const int*>(tiles);
   int* lv = static_cast<int*>(live);
   int* nv = static_cast<int*>(tile_nv);
-  compact_kernel<<<n_seg, COMPACT_THREADS, 0, s>>>(
+  compact_kernel<<<g[0].grid, g[0].threads, g[0].smem, s>>>(
       tok, sw, static_cast<const int*>(rows_valid),
       static_cast<const int*>(seg_offsets), static_cast<const int*>(tile0),
       T, lv, static_cast<int*>(count), nv);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dim3 grid_up(n_tiles, f / BN), grid_down(n_tiles, d / BN, splits);
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* wi = static_cast<const bf16*>(w_in);
   bf16* hb = static_cast<bf16*>(h);
-  if (swiglu) {
-    err = smem_opt_in(fused_up_kernel<true>, UP_SMEM_SWIGLU, up_opt_in[1]);
-    if (err != cudaSuccess) return (int)err;
-    fused_up_kernel<true><<<grid_up, THREADS, UP_SMEM_SWIGLU, s>>>(
+  if (swiglu)
+    fused_up_kernel<true><<<g[1].grid, g[1].threads, g[1].smem, s>>>(
         xb, d, f, tok, lv, nv, ti, wi, static_cast<const bf16*>(w_gate), hb);
-  } else {
-    err = smem_opt_in(fused_up_kernel<false>, UP_SMEM, up_opt_in[0]);
-    if (err != cudaSuccess) return (int)err;
-    fused_up_kernel<false><<<grid_up, THREADS, UP_SMEM, s>>>(
+  else
+    fused_up_kernel<false><<<g[1].grid, g[1].threads, g[1].smem, s>>>(
         xb, d, f, tok, lv, nv, ti, wi, nullptr, hb);
-  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = smem_opt_in(fused_down_kernel, DOWN_SMEM, down_opt_in);
-  if (err != cudaSuccess) return (int)err;
-  fused_down_kernel<<<grid_down, THREADS, DOWN_SMEM, s>>>(
+  fused_down_kernel<<<g[2].grid, g[2].threads, g[2].smem, s>>>(
       d, f, tok, sw, lv, nv, ti, hb, static_cast<const bf16*>(w_out),
       static_cast<float*>(out));
   return (int)cudaGetLastError();
+}
+
+// K4's launch geometry (launch_geom.cuh): the three launches
+// local_moe_fused makes for n_seg segments and n_tiles tiles.
+int local_moe_fused_geometry(int n_seg, int n_tiles, int d, int f,
+                             int swiglu, int splits, int* out) {
+  launch_geom::Launch g[3];
+  const cudaError_t err = fused_geom(n_seg, n_tiles, d, f, swiglu, splits,
+                                     g);
+  if (err != cudaSuccess) return (int)err;
+  return launch_geom::report_all(g, 3, out);
 }
 
 }  // extern "C"

@@ -103,6 +103,7 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "launch_geom.cuh"
 #include "moe_mma.cuh"
 
 using namespace nvcuda;
@@ -586,14 +587,65 @@ span_down_kernel(int d, int f, const int* __restrict__ row_seg,
 
 unsigned long long down_opt_in, up_opt_in[2];   // per-device bit masks
 
+// The span down launch (K3 and K7) over n_tiles span tiles, opted in to
+// its dynamic shared memory.
+cudaError_t span_down_geom(int n_tiles, int d, launch_geom::Launch* g) {
+  const cudaError_t err = smem_opt_in(span_down_kernel, DOWN_SMEM,
+                                      down_opt_in);
+  *g = {dim3(n_tiles, d / BN), THREADS, DOWN_SMEM,
+        (const void*)span_down_kernel};
+  return err;
+}
+
+// K3's span up launch over (tile, f / 64), opted in.
+cudaError_t span_up_geom(int n_tiles, int f, int swiglu,
+                         launch_geom::Launch* g) {
+  const cudaError_t err =
+      swiglu ? smem_opt_in(span_up_kernel<true>, UP_SMEM_SWIGLU, up_opt_in[1])
+             : smem_opt_in(span_up_kernel<false>, UP_SMEM, up_opt_in[0]);
+  *g = {dim3(n_tiles, f / BN), THREADS, swiglu ? UP_SMEM_SWIGLU : UP_SMEM,
+        swiglu ? (const void*)span_up_kernel<true>
+               : (const void*)span_up_kernel<false>};
+  return err;
+}
+
+// K7's int8 up launch over (tile, f / 64): its ring is static.
+launch_geom::Launch quant_up_geom(int n_tiles, int f, int swiglu) {
+  return {dim3(n_tiles, f / BN), THREADS, 0,
+          swiglu ? (const void*)quant_span_up_kernel<true>
+                 : (const void*)quant_span_up_kernel<false>};
+}
+
+// K6's two 1-D launches over E * ceil(C / 128) tiles x 64-column blocks,
+// opted in.
+cudaError_t dense_geom(int E, int C, int d, int f, int swiglu,
+                       launch_geom::Launch* g) {
+  cudaError_t err =
+      swiglu ? smem_opt_in(dense_up_kernel<true>, K6_UP_SMEM_SWIGLU,
+                           dense_up_opt_in[1])
+             : smem_opt_in(dense_up_kernel<false>, K6_UP_SMEM,
+                           dense_up_opt_in[0]);
+  if (err == cudaSuccess)
+    err = smem_opt_in(dense_down_kernel, K6_DOWN_SMEM, dense_down_opt_in);
+  const long long tiles = (long long)E * ((C + K6_ROWS - 1) / K6_ROWS);
+  g[0] = {dim3((unsigned)(tiles * (f / BN))), THREADS,
+          swiglu ? K6_UP_SMEM_SWIGLU : K6_UP_SMEM,
+          swiglu ? (const void*)dense_up_kernel<true>
+                 : (const void*)dense_up_kernel<false>};
+  g[1] = {dim3((unsigned)(tiles * (d / BN))), THREADS, K6_DOWN_SMEM,
+          (const void*)dense_down_kernel};
+  return err;
+}
+
 // The span down launch (K3 and K7) over n_tiles span tiles.
 cudaError_t span_down(int n_tiles, int d, int f, const int* row_seg,
                       const int* seg_start, const int* rows_valid,
                       const int* tiles, const void* h, const void* w_out,
                       void* y, cudaStream_t s) {
-  cudaError_t err = smem_opt_in(span_down_kernel, DOWN_SMEM, down_opt_in);
+  launch_geom::Launch g;
+  const cudaError_t err = span_down_geom(n_tiles, d, &g);
   if (err != cudaSuccess) return err;
-  span_down_kernel<<<dim3(n_tiles, d / BN), THREADS, DOWN_SMEM, s>>>(
+  span_down_kernel<<<g.grid, g.threads, g.smem, s>>>(
       d, f, row_seg, seg_start, rows_valid, tiles,
       static_cast<const bf16*>(h), static_cast<const bf16*>(w_out),
       static_cast<bf16*>(y));
@@ -621,7 +673,9 @@ int grouped_ffn_ragged(const void* x, int d, int f, const void* row_seg,
   if (d % moe_mma::BK || f % BN || f % DBK) return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid_up(n_tiles, f / BN);
+  launch_geom::Launch g;
+  cudaError_t err = span_up_geom(n_tiles, f, swiglu, &g);
+  if (err != cudaSuccess) return (int)err;
   const bf16* xb = static_cast<const bf16*>(x);
   const int* rs = static_cast<const int*>(row_seg);
   const int* ss = static_cast<const int*>(seg_start);
@@ -629,18 +683,12 @@ int grouped_ffn_ragged(const void* x, int d, int f, const void* row_seg,
   const int* ti = static_cast<const int*>(tiles);
   const bf16* wi = static_cast<const bf16*>(w_in);
   bf16* hb = static_cast<bf16*>(h);
-  cudaError_t err;
-  if (swiglu) {
-    err = smem_opt_in(span_up_kernel<true>, UP_SMEM_SWIGLU, up_opt_in[1]);
-    if (err != cudaSuccess) return (int)err;
-    span_up_kernel<true><<<grid_up, THREADS, UP_SMEM_SWIGLU, s>>>(
+  if (swiglu)
+    span_up_kernel<true><<<g.grid, g.threads, g.smem, s>>>(
         xb, d, f, rs, ss, rv, ti, wi, static_cast<const bf16*>(w_gate), hb);
-  } else {
-    err = smem_opt_in(span_up_kernel<false>, UP_SMEM, up_opt_in[0]);
-    if (err != cudaSuccess) return (int)err;
-    span_up_kernel<false><<<grid_up, THREADS, UP_SMEM, s>>>(
+  else
+    span_up_kernel<false><<<g.grid, g.threads, g.smem, s>>>(
         xb, d, f, rs, ss, rv, ti, wi, nullptr, hb);
-  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)span_down(n_tiles, d, f, rs, ss, rv, ti, h, w_out, y, s);
@@ -658,29 +706,21 @@ int grouped_ffn_dense(const void* x, int E, int C, int d, int f,
   if (tiles * ((d > f ? d : f) / BN) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;                 // one 1-D grid each
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid_up = (int)(tiles * (f / BN));
-  const int grid_down = (int)(tiles * (d / BN));
+  launch_geom::Launch g[2];
+  cudaError_t err = dense_geom(E, C, d, f, swiglu, g);
+  if (err != cudaSuccess) return (int)err;
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* wi = static_cast<const bf16*>(w_in);
   bf16* hb = static_cast<bf16*>(h);
-  cudaError_t err;
-  if (swiglu) {
-    err = smem_opt_in(dense_up_kernel<true>, K6_UP_SMEM_SWIGLU,
-                      dense_up_opt_in[1]);
-    if (err != cudaSuccess) return (int)err;
-    dense_up_kernel<true><<<grid_up, THREADS, K6_UP_SMEM_SWIGLU, s>>>(
+  if (swiglu)
+    dense_up_kernel<true><<<g[0].grid, g[0].threads, g[0].smem, s>>>(
         xb, C, d, f, wi, static_cast<const bf16*>(w_gate), hb);
-  } else {
-    err = smem_opt_in(dense_up_kernel<false>, K6_UP_SMEM, dense_up_opt_in[0]);
-    if (err != cudaSuccess) return (int)err;
-    dense_up_kernel<false><<<grid_up, THREADS, K6_UP_SMEM, s>>>(
+  else
+    dense_up_kernel<false><<<g[0].grid, g[0].threads, g[0].smem, s>>>(
         xb, C, d, f, wi, nullptr, hb);
-  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = smem_opt_in(dense_down_kernel, K6_DOWN_SMEM, dense_down_opt_in);
-  if (err != cudaSuccess) return (int)err;
-  dense_down_kernel<<<grid_down, THREADS, K6_DOWN_SMEM, s>>>(
+  dense_down_kernel<<<g[1].grid, g[1].threads, g[1].smem, s>>>(
       C, d, f, hb, static_cast<const bf16*>(w_out), static_cast<bf16*>(y));
   return (int)cudaGetLastError();
 }
@@ -704,7 +744,7 @@ int grouped_ffn_ragged_quant(const void* xq, int d, int f,
     return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid_up(n_tiles, f / BN);
+  const launch_geom::Launch g = quant_up_geom(n_tiles, f, swiglu);
   const signed char* xb = static_cast<const signed char*>(xq);
   const int* rs = static_cast<const int*>(row_seg);
   const int* ss = static_cast<const int*>(seg_start);
@@ -713,18 +753,47 @@ int grouped_ffn_ragged_quant(const void* xq, int d, int f,
   const float* fx = static_cast<const float*>(sx);
   const float* fi = static_cast<const float*>(s_in);
   if (swiglu)
-    quant_span_up_kernel<true><<<grid_up, THREADS, 0, s>>>(
+    quant_span_up_kernel<true><<<g.grid, g.threads, g.smem, s>>>(
         xb, d, f, rs, ss, rv, ti, fx, fi, static_cast<const float*>(s_g),
         static_cast<const signed char*>(q_in),
         static_cast<const signed char*>(q_gate), static_cast<bf16*>(h));
   else
-    quant_span_up_kernel<false><<<grid_up, THREADS, 0, s>>>(
+    quant_span_up_kernel<false><<<g.grid, g.threads, g.smem, s>>>(
         xb, d, f, rs, ss, rv, ti, fx, fi, nullptr,
         static_cast<const signed char*>(q_in), nullptr,
         static_cast<bf16*>(h));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)span_down(n_tiles, d, f, rs, ss, rv, ti, h, w_out, y, s);
+}
+
+// K3's, K7's and K6's launch geometry (launch_geom.cuh): the launches
+// grouped_ffn_ragged and grouped_ffn_ragged_quant make over n_tiles span
+// tiles, and those grouped_ffn_dense makes for an [E, C, d] buffer.
+int grouped_ffn_ragged_geometry(int d, int f, int n_tiles, int swiglu,
+                                int* out) {
+  launch_geom::Launch g[2];
+  cudaError_t err = span_up_geom(n_tiles, f, swiglu, &g[0]);
+  if (err == cudaSuccess) err = span_down_geom(n_tiles, d, &g[1]);
+  if (err != cudaSuccess) return (int)err;
+  return launch_geom::report_all(g, 2, out);
+}
+
+int grouped_ffn_ragged_quant_geometry(int d, int f, int n_tiles, int swiglu,
+                                      int* out) {
+  launch_geom::Launch g[2];
+  g[0] = quant_up_geom(n_tiles, f, swiglu);
+  const cudaError_t err = span_down_geom(n_tiles, d, &g[1]);
+  if (err != cudaSuccess) return (int)err;
+  return launch_geom::report_all(g, 2, out);
+}
+
+int grouped_ffn_dense_geometry(int E, int C, int d, int f, int swiglu,
+                               int* out) {
+  launch_geom::Launch g[2];
+  const cudaError_t err = dense_geom(E, C, d, f, swiglu, g);
+  if (err != cudaSuccess) return (int)err;
+  return launch_geom::report_all(g, 2, out);
 }
 
 }  // extern "C"

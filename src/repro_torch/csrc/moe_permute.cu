@@ -42,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_geom.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -220,17 +222,31 @@ unpermute_kernel(const T* __restrict__ y, int S, int d,
   }
 }
 
+// K1's launch over S slot rows
+launch_geom::Launch permute_geom(int S) {
+  return {dim3((S + PERMUTE_WARPS - 1) / PERMUTE_WARPS), PERMUTE_WARPS * 32,
+          0, (const void*)permute_kernel};
+}
+
+// K2's launch over n_tok tokens of K picks
+template <typename T>
+launch_geom::Launch unpermute_geom(int n_tok, int K) {
+  const int warps = UNPERMUTE_THREADS / 32;
+  return {dim3((n_tok + warps - 1) / warps), UNPERMUTE_THREADS, 0,
+          K == 2 ? (const void*)unpermute_kernel<T, 2>
+                 : (const void*)unpermute_kernel<T, 0>};
+}
+
 template <typename T>
 void launch_unpermute(const T* y, int S, int d, const int* idx,
                       const float* w, int n_tok, int K, float* o,
                       cudaStream_t s) {
-  const int warps = UNPERMUTE_THREADS / 32;
-  const int blocks = (n_tok + warps - 1) / warps;
+  const launch_geom::Launch g = unpermute_geom<T>(n_tok, K);
   if (K == 2)
-    unpermute_kernel<T, 2><<<blocks, UNPERMUTE_THREADS, 0, s>>>(
+    unpermute_kernel<T, 2><<<g.grid, g.threads, g.smem, s>>>(
         y, S, d, idx, w, n_tok, K, o);
   else
-    unpermute_kernel<T, 0><<<blocks, UNPERMUTE_THREADS, 0, s>>>(
+    unpermute_kernel<T, 0><<<g.grid, g.threads, g.smem, s>>>(
         y, S, d, idx, w, n_tok, K, o);
 }
 
@@ -247,8 +263,9 @@ int moe_permute(const void* x, int T, int row_bytes, const void* slot_to_token,
       reinterpret_cast<uintptr_t>(out) % 16)
     return (int)cudaErrorInvalidValue;
   if (S == 0) return (int)cudaGetLastError();
-  permute_kernel<<<(S + PERMUTE_WARPS - 1) / PERMUTE_WARPS,
-                   PERMUTE_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  const launch_geom::Launch g = permute_geom(S);
+  permute_kernel<<<g.grid, g.threads, g.smem,
+                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(x), T, row_bytes / 16,
       static_cast<const int*>(slot_to_token), S, static_cast<uint4*>(out));
   return (int)cudaGetLastError();
@@ -273,6 +290,25 @@ int moe_unpermute(const void* y, int S, int d, int y_bf16, const void* inv_idx,
     launch_unpermute(static_cast<const float*>(y), S, d, idx, w, n_tok, K, o,
                      s);
   return (int)cudaGetLastError();
+}
+
+// K1's and K2's launch geometry (launch_geom.cuh): the launch moe_permute
+// makes at S slots, and the one moe_unpermute makes for n_tok tokens of K
+// picks of a bf16 (y_bf16 = 1) or f32 y.
+int moe_permute_geometry(int S, int* out) {
+  const launch_geom::Launch g = permute_geom(S);
+  return launch_geom::report_all(&g, 1, out);
+}
+
+int moe_unpermute_geometry(int n_tok, int K, int y_bf16, int* out) {
+  const launch_geom::Launch g = y_bf16 ? unpermute_geom<bf16>(n_tok, K)
+                                       : unpermute_geom<float>(n_tok, K);
+  return launch_geom::report_all(&g, 1, out);
+}
+
+// The current device's limits (launch_geom::device_limits).
+int launch_geom_device_limits(int* out) {
+  return launch_geom::device_limits(out);
 }
 
 }  // extern "C"

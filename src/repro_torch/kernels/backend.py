@@ -26,11 +26,20 @@ when that is not 0.
 
 Launch counters: :data:`LAUNCHES` holds one plain integer per kernel;
 a wrapper adds one where it launches its kernel and nowhere else.
+
+Kernel registry (read by ``repro_torch.analysis.launch_check``, the
+counterpart of the reference's ``KERNEL_REGISTRY``): each
+``kernels/<name>/ops.py`` registers a builder that states its CUDA
+launches at the shapes its paths run as :class:`KernelLayout`\\ s, built
+by the same Python functions its wrapper calls (the tile and segment
+tables) and the same grid arithmetic as the host entry in ``csrc/``,
+whose geometry entry the card's check compares with it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import pathlib
@@ -39,6 +48,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from collections.abc import Callable, Sequence
 
 import torch
 
@@ -254,3 +264,103 @@ def stream_ptr(device: torch.device) -> int:
     """The current CUDA stream of ``device`` (a CUDA tensor's device, so
     its index is set) as a plain int."""
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+# ---------------------------------------------------------------------------
+# kernel registry (read by repro_torch.analysis.launch_check)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Span:
+    """Rows of one array that the blocks of a launch address: block ``i``
+    (in the order of the grid dimension the span follows) reads or
+    writes rows ``first[i] : first[i] + rows[i]`` of an array of
+    ``extent`` rows, the rows its guards let through."""
+
+    array: str
+    extent: int
+    first: tuple
+    rows: tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class Write:
+    """An output of a launch: ``region(x, y, z)`` names the part of
+    ``array`` that block (x, y, z) writes; blocks that name the same part
+    write the same elements."""
+
+    array: str
+    region: Callable
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchDecl:
+    """One CUDA launch as the host entry makes it: the ``__global__``
+    function (its instantiation, as the geometry entry of its source
+    names it), the grid (x, y, z), the threads a block, the dynamic and
+    static shared memory of a block in bytes, the kernel's
+    ``__launch_bounds__``, the rows its blocks address and what they
+    write."""
+
+    kernel: str
+    grid: tuple
+    threads: int
+    dyn_smem: int
+    static_smem: int
+    launch_bounds: int
+    spans: tuple = ()
+    writes: tuple = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelLayout:
+    """The launches of one call of a kernel's entry at one shape.
+
+    ``meta``: ``seg_offsets`` / ``seg_experts`` (the segment table of a
+    ragged layout), ``tiles`` and ``tile_kind`` (``"segment"``: K4's
+    :func:`moe_fused.ops.plan_tiles` rows; ``"expert_span"``: K3's and
+    K7's :func:`moe_fused.ops.plan_expert_tiles` rows), ``acc_guarded``
+    (the ``(launch, array)`` pairs a launch accumulates into with
+    atomics) and ``geometry`` (the arguments of the source's geometry
+    entry that give these launches)."""
+
+    kernel: str
+    launches: tuple
+    meta: dict = dataclasses.field(default_factory=dict)
+
+
+KERNEL_REGISTRY: dict[str, Callable[[], Sequence[KernelLayout]]] = {}
+
+
+def register_kernel(name: str):
+    """Register a layout builder under ``name`` (a :data:`LAUNCHES` key).
+    Builders take no arguments and return the kernel's layouts at the
+    shapes its paths run."""
+
+    def deco(fn):
+        KERNEL_REGISTRY[name] = fn
+        return fn
+
+    return deco
+
+
+def registered_layouts() -> dict[str, Sequence[KernelLayout]]:
+    """Every registered builder's layouts, by kernel name; importing the
+    kernel packages (which registers them) is the caller's job."""
+    return {name: tuple(build()) for name, build in
+            sorted(KERNEL_REGISTRY.items())}
+
+
+def static_smem(nbytes: int) -> int:
+    """A block's static shared memory as ptxas lays it out: the kernel's
+    ``__shared__`` arrays (those it reads) in 128-byte units, as ``-Xptxas
+    -v`` and ``cudaFuncGetAttributes`` report it on an H100."""
+    return -(-nbytes // 128) * 128
+
+
+def blocks(n: int, rows: int, extent: int) -> tuple:
+    """``(first, rows)`` of ``n`` blocks of ``rows`` rows over an array of
+    ``extent`` rows, the last one cut by the kernel's row guard."""
+    first = tuple(i * rows for i in range(n))
+    return first, tuple(max(0, min(rows, extent - f)) for f in first)

@@ -97,3 +97,58 @@ def decode_attention(q, k, v, lengths, *, sliding_window: int = 0):
         return decode_attention_ref(q, k, v, lengths,
                                     sliding_window=sliding_window)
     return _decode_cuda(q, k, v, lengths, int(sliding_window))
+
+
+# ---------------------------------------------------------------------------
+# launch layouts (backend.register_kernel; csrc/decode_attn.cu's geometry)
+# ---------------------------------------------------------------------------
+
+#: csrc/decode_attn.cu: SPLIT_ROWS cache rows a split block of 4 warps (its
+#: launch bound), staged TL rows at a time (64 at hd 64, 32 at hd 128) in
+#: static f32 arrays Qs[16][hd], Ks[TL][hd + 1], Vs[TL][hd], Ps[16][TL];
+#: the combine runs one thread an output dimension
+SPLIT_ROWS, THREADS = 512, 128
+STAGE_ROWS = {64: 64, 128: 32}
+
+
+def split_static(hd: int) -> int:
+    tl = STAGE_ROWS[hd]
+    return backend.static_smem(
+        4 * (MAX_GROUP * hd + tl * (hd + 1) + tl * hd + MAX_GROUP * tl))
+
+
+def decode_launches(B: int, L: int, H: int, K: int, hd: int) -> tuple:
+    """K8's two launches: the splits over (split, KV head, request), then
+    the combine over (request, query head)."""
+    n_split = max(1, -(-L // SPLIT_ROWS))
+    G = H // K
+    split = backend.LaunchDecl(
+        f"decode_split_kernel<{hd},{STAGE_ROWS[hd]}>", (n_split, K, B),
+        THREADS, 0, split_static(hd), THREADS,
+        spans=(backend.Span("cache rows", L,
+                            *backend.blocks(n_split, SPLIT_ROWS, L)),
+               backend.Span("query heads a kv head", MAX_GROUP, (0,), (G,))),
+        writes=(backend.Write("o_part", lambda x, y, z: (x, x + 1, (y, z))),))
+    combine = backend.LaunchDecl(
+        f"decode_combine_kernel<{hd}>", (B * H, 1, 1), hd, 0, 0, hd,
+        spans=(backend.Span("out rows", B * H, tuple(range(B * H)),
+                            (1,) * (B * H)),),
+        writes=(backend.Write("out", lambda x, y, z: (x, x + 1, 0)),))
+    return split, combine
+
+
+#: (label, B, L, H, K, hd): the decode_32k cache of gpt3_medium_moe's
+#: heads and of the dense decoders' (8 KV heads of 128), and a short one
+SHAPES = (("decode_32k", 32, 32768, 16, 16, 64),
+          ("decode_32k_hd128_kv8", 32, 32768, 16, 8, 128),
+          ("L1000", 4, 1000, 16, 16, 64))
+
+
+@backend.register_kernel(KERNEL)
+def _decode_layouts():
+    return [backend.KernelLayout(
+        f"{KERNEL}[{label} B={B} L={L} H={H} kv {K} hd {hd}]",
+        decode_launches(B, L, H, K, hd),
+        meta={"geometry": ("decode_attn", "decode_attention_geometry",
+                           (B, H, K, hd, max(1, -(-L // SPLIT_ROWS))))})
+        for label, B, L, H, K, hd in SHAPES]

@@ -76,3 +76,49 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
         return flash_attention_ref(q, k, v, causal=causal,
                                    sliding_window=sliding_window)
     return _flash_cuda(q, k, v, causal, sliding_window)
+
+
+# ---------------------------------------------------------------------------
+# launch layouts (backend.register_kernel; csrc/flash_attn.cu's geometry)
+# ---------------------------------------------------------------------------
+
+#: csrc/flash_attn.cu: 64 query rows a block in 4 warps (its launch bound);
+#: dynamic shared memory Q, then two K and two V stages of 64 rows of bf16
+BQ, BKV, THREADS = 64, 64, 128
+
+
+def flash_launch(B: int, Sq: int, H: int, K: int,
+                 hd: int) -> backend.LaunchDecl:
+    """K5's launch: (query block, head, request); head ``h`` reads KV
+    head ``h // (H / K)``."""
+    gx = -(-Sq // BQ)
+    return backend.LaunchDecl(
+        f"flash_attn_kernel<{hd}>", (gx, H, B), THREADS,
+        (BQ + 4 * BKV) * hd * 2, 0, THREADS,
+        spans=(backend.Span("q rows", Sq, *backend.blocks(gx, BQ, Sq)),
+               backend.Span("kv heads", K, tuple(h // (H // K)
+                                                 for h in range(H)),
+                            (1,) * H)),
+        writes=(backend.Write("o", lambda x, y, z: (
+            x * BQ, min(Sq, (x + 1) * BQ), (y, z))),))
+
+
+#: (label, B, Sq, H, K, hd): the serve prefill packs of gpt3_medium_moe
+#: (4 x 128, 16 heads of 64) and of the dense decoders at hd 128, the
+#: training length, Whisper's encoder, InternVL2's GQA 6:1 prefill
+SHAPES = (("serve_prefill", 4, 128, 16, 16, 64),
+          ("S512", 4, 512, 16, 16, 64),
+          ("dense_prefill_hd128", 4, 128, 16, 16, 128),
+          ("S512_hd128_kv8", 4, 512, 16, 8, 128),
+          ("whisper_encoder", 4, 1500, 6, 6, 64),
+          ("internvl2_prefill", 4, 384, 48, 8, 128))
+
+
+@backend.register_kernel(KERNEL)
+def _flash_layouts():
+    return [backend.KernelLayout(
+        f"{KERNEL}[{label} [{B}, {Sq}, {H}, {hd}] kv {K}]",
+        (flash_launch(B, Sq, H, K, hd),),
+        meta={"geometry": ("flash_attn", "flash_attention_geometry",
+                           (B, Sq, H, hd))})
+        for label, B, Sq, H, K, hd in SHAPES]

@@ -1,0 +1,108 @@
+"""The shapes at which the kernel packages register their launch layouts
+(``backend.register_kernel``): the layouts the port's main paths give
+each kernel at ``gpt3_medium_moe``'s full width (d 1024, 64 experts top-2
+of f 2048, gelu), computed by the functions the paths call:
+``models.model.make_plan``, ``transport.plan_stages`` and the engine's
+capacity clamp and chunk alignment.
+
+* ``staged(sizes, global_batch, num_chunks)``: one rank's slot and
+  segment tables of the staged ``a2a`` paths (sequence 512), e.g. the
+  2x2 training plan (caps (120, 16): 4864 slots) and chunk 0 of its
+  8-chunk pipelined plan (608 slots);
+* ``local(global_batch)``: the one-rank fused layout (one segment an
+  expert, as wide as the capacity);
+* ``gathered(tokens, ep_world)``: the gather path's dense [E_l, Tg] slot
+  layout.
+
+Imports of the model stack happen inside the functions, so importing a
+kernel package stays light.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+ARCH_ID = "gpt3_medium_moe"
+TRAIN_SEQ = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class Staged:
+    """One rank's view of a staged plan: its tokens, top-k, widths and
+    the segment table of one chunk's delivered buffer (``slots``
+    rows)."""
+
+    tokens: int
+    top_k: int
+    d: int
+    f: int
+    seg_offsets: tuple
+    seg_experts: tuple
+
+    @property
+    def slots(self) -> int:
+        return self.seg_offsets[-1]
+
+
+def arch():
+    from repro_torch.configs.base import get_config
+    return get_config(ARCH_ID)
+
+
+@functools.lru_cache(maxsize=None)
+def staged(sizes=(2, 2), global_batch: int = 8,
+           num_chunks: int = 1) -> Staged:
+    """Rank 0's layout of the staged plan over the EP world ``sizes``
+    at sequence 512 and ``global_batch`` (chunk 0 of ``num_chunks``)."""
+    import math
+
+    from repro_torch.core import capacity
+    from repro_torch.core.dispatch import transport
+    from repro_torch.launch import mesh
+    from repro_torch.models import model
+
+    a = arch()
+    world = mesh.recording_world(sizes)
+    plan = model.make_plan(a, world, TRAIN_SEQ, global_batch, "ta")
+    if num_chunks > 1:
+        plan = capacity.align_to_chunks(plan, num_chunks)
+    ep = model.make_ep_spec(a, world)
+    T = global_batch * TRAIN_SEQ // math.prod(sizes)
+    E_l = a.moe.num_experts // ep.ep_world
+    widths = []
+    for stage in transport.plan_stages(plan, ep):
+        cap = min(int(stage.cap), T)                   # routing.select
+        cap = -(-cap // num_chunks) * num_chunks       # pad_selection
+        widths.append((stage.num_dests, cap // num_chunks))
+    offs, exps = transport.stage_segments(E_l, tuple(widths))
+    return Staged(tokens=T, top_k=a.moe.top_k, d=a.d_model,
+                  f=a.moe.d_ff_expert, seg_offsets=offs, seg_experts=exps)
+
+
+@functools.lru_cache(maxsize=None)
+def local(global_batch: int = 4) -> tuple:
+    """``(tokens, seg_offsets, seg_experts)`` of the one-rank fused
+    layout (``engine.local_layout``): one segment an expert, as wide as
+    the clamped capacity."""
+    from repro_torch.core.dispatch import transport
+    from repro_torch.launch import mesh
+    from repro_torch.models import model
+
+    a = arch()
+    world = mesh.recording_world((1,))
+    plan = model.make_plan(a, world, TRAIN_SEQ, global_batch, "ta")
+    T = global_batch * TRAIN_SEQ
+    (stage,) = transport.plan_stages(plan, model.make_ep_spec(a, world))
+    width = min(int(stage.cap), T)
+    E = a.moe.num_experts
+    return T, transport.expert_segments(E, width), tuple(range(E))
+
+
+def gathered(tokens: int, ep_world: int = 1) -> tuple:
+    """``(seg_offsets, seg_experts)`` of the gather path's slot layout:
+    ``E / ep_world`` local experts over ``tokens`` gathered tokens."""
+    from repro_torch.core.dispatch import transport
+
+    E_l = arch().moe.num_experts // ep_world
+    return transport.expert_segments(E_l, tokens), tuple(range(E_l))

@@ -302,3 +302,93 @@ def local_moe(x, slot_to_token, slot_w, seg_offsets, seg_experts, rows_valid,
     return LocalMoE.apply(x, slot_to_token, slot_w, rows_valid, w_in,
                           w_gate if swiglu else None, w_out, static,
                           _local_moe_cuda)
+
+
+# ---------------------------------------------------------------------------
+# launch layouts (backend.register_kernel; csrc/moe_fused.cu's geometry)
+# ---------------------------------------------------------------------------
+
+#: csrc/moe_fused.cu and moe_mma.cuh: block sizes (each the kernel's launch
+#: bound), 8 KB stage tiles in rings of 3, and each launch's static
+#: __shared__ arrays (compaction: warp_n[8]; up: a_row[64]; down: a_row,
+#: tok_s[64] and w_s[64])
+THREADS, COMPACT_THREADS, STAGE_TILE = 128, 256, 64 * 64 * 2
+UP_SMEM, UP_SMEM_SWIGLU, DOWN_SMEM = (3 * 2 * STAGE_TILE, 3 * 3 * STAGE_TILE,
+                                      3 * 2 * STAGE_TILE)
+COMPACT_STATIC, UP_STATIC, DOWN_STATIC = (
+    backend.static_smem(n) for n in (4 * 8, 4 * 64, 3 * 4 * 64))
+
+
+def local_moe_launches(seg_offsets: tuple, seg_experts: tuple, T: int,
+                       d: int, f: int, swiglu: bool = False) -> tuple:
+    """K4's three launches for one call: the compaction over segments,
+    the up launch over (tile, f / 64) and the down launch over (tile,
+    d / 64, splits), from the wrapper's own :func:`plan_tiles` and
+    :func:`down_splits`."""
+    tiles = plan_tiles(seg_offsets, seg_experts)
+    splits = down_splits(seg_offsets, f)
+    n_seg, n_tiles = len(seg_experts), tiles.shape[0]
+    S, E = seg_offsets[-1], max(seg_experts) + 1
+    first, rows = tuple(int(r) for r in tiles[:, 0]), \
+        tuple(int(r) for r in tiles[:, 4])
+    tile_spans = (backend.Span("slots", S, first, rows),
+                  backend.Span("experts", E,
+                               tuple(int(e) for e in tiles[:, 1]),
+                               (1,) * n_tiles),
+                  backend.Span("h", n_tiles * TILE_ROWS,
+                               *backend.blocks(n_tiles, TILE_ROWS,
+                                               n_tiles * TILE_ROWS)))
+    compact = backend.LaunchDecl(
+        "compact_kernel", (n_seg, 1, 1), COMPACT_THREADS, 0, COMPACT_STATIC,
+        COMPACT_THREADS,
+        spans=(backend.Span("segments", n_seg, tuple(range(n_seg)),
+                            (1,) * n_seg),),
+        writes=(backend.Write("live", lambda x, y, z: (
+            seg_offsets[x], seg_offsets[x + 1], 0)),))
+    up = backend.LaunchDecl(
+        f"fused_up_kernel<{str(swiglu).lower()}>", (n_tiles, f // 64, 1),
+        THREADS, UP_SMEM_SWIGLU if swiglu else UP_SMEM, UP_STATIC, THREADS,
+        spans=tile_spans,
+        writes=(backend.Write("h", lambda x, y, z: (
+            x * TILE_ROWS, (x + 1) * TILE_ROWS, y)),))
+    down = backend.LaunchDecl(
+        "fused_down_kernel", (n_tiles, d // 64, splits), THREADS, DOWN_SMEM,
+        DOWN_STATIC, THREADS, spans=tile_spans,
+        # the combine scatters each live row into its token's output row
+        writes=(backend.Write("out", lambda x, y, z: (0, T, y)),))
+    return compact, up, down
+
+
+def local_moe_layout(label: str, seg_offsets: tuple, seg_experts: tuple,
+                     T: int, d: int, f: int,
+                     swiglu: bool = False) -> backend.KernelLayout:
+    tiles = plan_tiles(seg_offsets, seg_experts)
+    return backend.KernelLayout(
+        f"{KERNEL}[{label}]",
+        local_moe_launches(seg_offsets, seg_experts, T, d, f, swiglu),
+        meta={"seg_offsets": seg_offsets, "seg_experts": seg_experts,
+              "tiles": tiles, "tile_kind": "segment",
+              "acc_guarded": (("fused_down_kernel", "out"),),
+              "geometry": ("moe_fused", "local_moe_fused_geometry",
+                           (len(seg_experts), tiles.shape[0], d, f,
+                            int(swiglu), down_splits(seg_offsets, f)))})
+
+
+@backend.register_kernel(KERNEL)
+def _local_moe_layouts():
+    from repro_torch.kernels import layouts
+    a = layouts.arch()
+    d, f = a.d_model, a.moe.d_ff_expert
+    out = []
+    T, offs, exps = layouts.local()
+    out.append(local_moe_layout(f"train_1rank S={offs[-1]}", offs, exps, T,
+                                d, f))
+    for ep_world in (1, 4):
+        for Tg in (8, 512):
+            offs, exps = layouts.gathered(Tg, ep_world)
+            out.append(local_moe_layout(
+                f"gather Tg={Tg} E_l={len(exps)}", offs, exps, Tg, d, f))
+    offs, exps = layouts.gathered(8)
+    out.append(local_moe_layout("gather Tg=8 swiglu", offs, exps, 8, d, f,
+                                swiglu=True))
+    return out

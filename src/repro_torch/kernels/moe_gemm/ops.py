@@ -47,6 +47,7 @@ of ``repro/kernels/moe_gemm/ops.py``).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -503,3 +504,146 @@ def grouped_ffn_segments(x, seg_offsets, w_in, w_gate, w_out, *,
     return grouped_ffn_ragged(x, offs, seg_experts, rows_valid, w_in, w_gate,
                               w_out, activation=activation,
                               use_pallas=use_pallas)
+
+
+# ---------------------------------------------------------------------------
+# launch layouts (backend.register_kernel; csrc/moe_gemm.cu's geometry)
+# ---------------------------------------------------------------------------
+
+#: csrc/moe_gemm.cu and moe_mma.cuh: 128 threads a block (every launch's
+#: bound), 8 KB bf16 stage tiles; the span up launch in a ring of 2, the
+#: span down launch in 4 stages of [64, 72] + [64, 72] bf16; K6 two tiles a
+#: stage (128 rows a block) in a ring of 2; K7's up launch holds its int8
+#: ring of 4 (gelu) or 3 (swiglu) stages of [64, 64] tiles statically.
+#: Static arrays: span up a_row[64] + masks[2]; span down valid[64]; K6
+#: a_row[128]; K7 up ring + valid[64] + f1[64] (+ fg[64] with swiglu;
+#: gelu's fg[1] is never read and takes no space)
+THREADS, STAGE_TILE, K6_ROWS = 128, 64 * 64 * 2, 128
+SPAN_UP_SMEM = {False: 2 * 2 * STAGE_TILE, True: 2 * 3 * STAGE_TILE}
+SPAN_DOWN_SMEM = 4 * (64 * 72 * 2 + 64 * 72 * 2)
+SPAN_UP_STATIC = backend.static_smem(4 * 64 + 4 * 2)
+SPAN_DOWN_STATIC = backend.static_smem(4 * 64)
+QUANT_UP_STATIC = {False: backend.static_smem(4 * 2 * 64 * 64 + 4 * 64 * 2),
+                   True: backend.static_smem(3 * 3 * 64 * 64 + 4 * 64 * 3)}
+K6_UP_SMEM = {False: 2 * 3 * STAGE_TILE, True: 2 * 4 * STAGE_TILE}
+K6_DOWN_SMEM, K6_STATIC = 2 * 3 * STAGE_TILE, backend.static_smem(4 * K6_ROWS)
+
+
+def span_launches(seg_offsets: tuple, seg_experts: tuple, d: int, f: int,
+                  swiglu: bool = False, quant: bool = False) -> tuple:
+    """K3's (or with ``quant`` K7's) two launches over the wrapper's own
+    expert-span tiles (``moe_fused.ops.plan_expert_tiles``): up over
+    (tile, f / 64), down over (tile, d / 64)."""
+    from repro_torch.kernels.moe_fused.ops import plan_expert_tiles
+    tiles = plan_expert_tiles(seg_offsets, seg_experts)
+    n_tiles, R = tiles.shape[0], seg_offsets[-1]
+    spans = (backend.Span("x", R, tuple(int(r) for r in tiles[:, 0]),
+                          tuple(int(r) for r in tiles[:, 2])),
+             backend.Span("experts", max(seg_experts) + 1,
+                          tuple(int(e) for e in tiles[:, 1]),
+                          (1,) * n_tiles),
+             backend.Span("h", n_tiles * TILE_ROWS,
+                          *backend.blocks(n_tiles, TILE_ROWS,
+                                          n_tiles * TILE_ROWS)))
+    sw = str(swiglu).lower()
+    if quant:
+        up = backend.LaunchDecl(
+            f"quant_span_up_kernel<{sw}>", (n_tiles, f // 64, 1), THREADS,
+            0, QUANT_UP_STATIC[swiglu], THREADS, spans=spans)
+    else:
+        up = backend.LaunchDecl(
+            f"span_up_kernel<{sw}>", (n_tiles, f // 64, 1), THREADS,
+            SPAN_UP_SMEM[swiglu], SPAN_UP_STATIC, THREADS, spans=spans)
+    up = dataclasses.replace(up, writes=(backend.Write(
+        "h", lambda x, y, z: (x * TILE_ROWS, (x + 1) * TILE_ROWS, y)),))
+    down = backend.LaunchDecl(
+        "span_down_kernel", (n_tiles, d // 64, 1), THREADS, SPAN_DOWN_SMEM,
+        SPAN_DOWN_STATIC, THREADS, spans=spans,
+        writes=(backend.Write("y", lambda x, y, z: (
+            int(tiles[x, 0]), int(tiles[x, 0] + tiles[x, 2]), y)),))
+    return up, down
+
+
+def span_layout(name: str, label: str, seg_offsets: tuple,
+                seg_experts: tuple, d: int, f: int, swiglu: bool = False,
+                quant: bool = False) -> backend.KernelLayout:
+    from repro_torch.kernels.moe_fused.ops import plan_expert_tiles
+    tiles = plan_expert_tiles(seg_offsets, seg_experts)
+    entry = ("grouped_ffn_ragged_quant_geometry" if quant
+             else "grouped_ffn_ragged_geometry")
+    return backend.KernelLayout(
+        f"{name}[{label}]",
+        span_launches(seg_offsets, seg_experts, d, f, swiglu, quant),
+        meta={"seg_offsets": seg_offsets, "seg_experts": seg_experts,
+              "tiles": tiles, "tile_kind": "expert_span",
+              "geometry": ("moe_gemm", entry,
+                           (d, f, tiles.shape[0], int(swiglu)))})
+
+
+def dense_launches(E: int, C: int, d: int, f: int,
+                   swiglu: bool = False) -> tuple:
+    """K6's two 1-D launches over (expert, 128-row tile, 64 columns),
+    columns innermost (``dense_block``)."""
+    tpe = -(-C // K6_ROWS)
+
+    def launch(name, ncols, smem):
+        n = E * tpe * ncols
+        first = tuple((b // ncols // tpe) * C + (b // ncols % tpe) * K6_ROWS
+                      for b in range(n))
+        rows = tuple(min(K6_ROWS, C - (b // ncols % tpe) * K6_ROWS)
+                     for b in range(n))
+        return backend.LaunchDecl(
+            name, (n, 1, 1), THREADS, smem, K6_STATIC, THREADS,
+            spans=(backend.Span("rows", E * C, first, rows),),
+            writes=(backend.Write("out", lambda x, y, z: (
+                first[x], first[x] + rows[x], x % ncols)),))
+
+    return (launch(f"dense_up_kernel<{str(swiglu).lower()}>", f // 64,
+                   K6_UP_SMEM[swiglu]),
+            launch("dense_down_kernel", d // 64, K6_DOWN_SMEM))
+
+
+@backend.register_kernel(KERNEL)
+def _ragged_layouts():
+    from repro_torch.kernels import layouts
+    out = []
+    for label, lay in (("2x2", layouts.staged()),
+                       ("2x2x2", layouts.staged((2, 2, 2)))):
+        out.append(span_layout(KERNEL, f"{label} R={lay.slots}",
+                               lay.seg_offsets, lay.seg_experts, lay.d,
+                               lay.f))
+    lay = layouts.staged()
+    out.append(span_layout(KERNEL, "2x2 swiglu", lay.seg_offsets,
+                           lay.seg_experts, lay.d, lay.f, swiglu=True))
+    return out
+
+
+@backend.register_kernel(KERNEL_QUANT)
+def _quant_layouts():
+    from repro_torch.kernels import layouts
+    chunk0, whole = layouts.staged(num_chunks=8), layouts.staged()
+    return [span_layout(KERNEL_QUANT, f"2x2_pipelined_chunk0 R={chunk0.slots}",
+                        chunk0.seg_offsets, chunk0.seg_experts, chunk0.d,
+                        chunk0.f, quant=True),
+            span_layout(KERNEL_QUANT, f"2x2 R={whole.slots}",
+                        whole.seg_offsets, whole.seg_experts, whole.d,
+                        whole.f, quant=True),
+            span_layout(KERNEL_QUANT, "2x2 swiglu", whole.seg_offsets,
+                        whole.seg_experts, whole.d, whole.f, swiglu=True,
+                        quant=True)]
+
+
+@backend.register_kernel(KERNEL_DENSE)
+def _dense_layouts():
+    from repro_torch.kernels import layouts
+    a = layouts.arch()
+    E, d, f = a.moe.num_experts, a.d_model, a.moe.d_ff_expert
+    out = []
+    for C, swiglu in ((128, False), (200, False), (128, True)):
+        out.append(backend.KernelLayout(
+            f"{KERNEL_DENSE}[einsum [{E}, {C}, {d}]"
+            f"{' swiglu' if swiglu else ''}]",
+            dense_launches(E, C, d, f, swiglu),
+            meta={"geometry": ("moe_gemm", "grouped_ffn_dense_geometry",
+                               (E, C, d, f, int(swiglu)))}))
+    return out

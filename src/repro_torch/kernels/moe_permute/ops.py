@@ -205,3 +205,66 @@ def unpermute(y, inv_idx, inv_w, *, use_pallas=None):
             return Unpermute.apply(y, inv_idx, inv_w, _unpermute_cuda)
         return _unpermute_cuda(y, inv_idx, inv_w)
     return unpermute_ref(y, inv_idx, inv_w)
+
+
+# ---------------------------------------------------------------------------
+# launch layouts (backend.register_kernel; csrc/moe_permute.cu's geometry)
+# ---------------------------------------------------------------------------
+
+#: csrc/moe_permute.cu: K1 runs PERMUTE_WARPS slot rows a block of one warp
+#: each, K2 UNPERMUTE_THREADS / 32 tokens a block; both launch bounds are
+#: their block sizes
+PERMUTE_ROWS, PERMUTE_THREADS = 2, 64
+UNPERMUTE_TOKENS, UNPERMUTE_THREADS = 4, 128
+
+
+def permute_launch(S: int) -> backend.LaunchDecl:
+    """K1's launch over ``S`` slots (the entry makes none at S = 0)."""
+    gx = -(-S // PERMUTE_ROWS)
+    return backend.LaunchDecl(
+        "permute_kernel", (gx, 1, 1), PERMUTE_THREADS, 0, 0, PERMUTE_THREADS,
+        spans=(backend.Span("out", S,
+                            *backend.blocks(gx, PERMUTE_ROWS, S)),),
+        writes=(backend.Write("out", lambda x, y, z: (
+            x * PERMUTE_ROWS, (x + 1) * PERMUTE_ROWS, 0)),))
+
+
+def unpermute_launch(T: int, K: int, bf16: bool = True) -> backend.LaunchDecl:
+    """K2's launch over ``T`` tokens of ``K`` picks."""
+    gx = -(-T // UNPERMUTE_TOKENS)
+    kt = 2 if K == 2 else 0
+    return backend.LaunchDecl(
+        f"unpermute_kernel<{'bf16' if bf16 else 'float'},{kt}>", (gx, 1, 1),
+        UNPERMUTE_THREADS, 0, 0, UNPERMUTE_THREADS,
+        spans=(backend.Span("out", T,
+                            *backend.blocks(gx, UNPERMUTE_TOKENS, T)),),
+        writes=(backend.Write("out", lambda x, y, z: (
+            x * UNPERMUTE_TOKENS, (x + 1) * UNPERMUTE_TOKENS, 0)),))
+
+
+def _staged_layouts():
+    from repro_torch.kernels import layouts
+    for label, lay in (("2x2", layouts.staged()),
+                       ("2x2_pipelined_chunk0",
+                        layouts.staged(num_chunks=8)),
+                       ("2x2x2", layouts.staged((2, 2, 2)))):
+        yield label, lay
+
+
+@backend.register_kernel(PERMUTE)
+def _permute_layouts():
+    return [backend.KernelLayout(
+        f"{PERMUTE}[{label} S={lay.slots}]", (permute_launch(lay.slots),),
+        meta={"geometry": ("moe_permute", "moe_permute_geometry",
+                           (lay.slots,))})
+        for label, lay in _staged_layouts()]
+
+
+@backend.register_kernel(UNPERMUTE)
+def _unpermute_layouts():
+    return [backend.KernelLayout(
+        f"{UNPERMUTE}[{label} T={lay.tokens}]",
+        (unpermute_launch(lay.tokens, lay.top_k),),
+        meta={"geometry": ("moe_permute", "moe_unpermute_geometry",
+                           (lay.tokens, lay.top_k, 1))})
+        for label, lay in _staged_layouts()]

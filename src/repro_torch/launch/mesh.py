@@ -16,6 +16,15 @@ or sharing one card, ``"nccl"`` for one card a rank.  Nothing switches
 backends on its own.  Under gloo every collective stages CUDA tensors
 through pinned host buffers, so ranks may hold CUDA tensors.  One-byte
 float payloads (the fp8 wire) travel as their ``uint8`` bytes.
+
+:class:`RecordingWorld` wraps ``EPWorld``'s three collectives and logs
+each call (the static analysis's collective inventory and the dry-run's
+traffic): alone it emulates one rank of a world in one process (its
+collectives return tensors of the right shape without communicating),
+around a real world it passes every call through.  The production
+hierarchies (``make_production_mesh``, ``make_production_mesh_3tier``)
+are the reference's meshes without their tensor-parallel ``model`` axis,
+as recording worlds at the coordinates of rank 0.
 """
 
 from __future__ import annotations
@@ -166,6 +175,93 @@ class EPWorld:
             out[k] = vec[off:off + p.numel()].reshape(v.shape)
             off += p.numel()
         return out
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RecordingWorld(EPWorld):
+    """An :class:`EPWorld` that appends each collective it is asked for to
+    ``log`` as ``(kind, dtype, elements, axes)``: ``"all_to_all"``,
+    ``"all_gather"`` or ``"all_reduce"``, the dtype and element count of
+    the tensor handed in, and the axes of size > 1 it spans (a collective
+    over one rank is none, as in ``EPWorld``).  With ``inner`` (the
+    rank's real world, whose fields it shares) the call then runs there;
+    without, the world is emulated in one process: ``all_to_all`` returns
+    its input (a rank's own counts are valid counts, so control flow that
+    reads them runs as on a real rank), ``all_gather`` the input tiled,
+    ``all_reduce_sum`` a copy.  Meta tensors pass through both."""
+
+    inner: EPWorld | None = None
+    log: list = dataclasses.field(default_factory=list)
+
+    def _record(self, kind: str, t: torch.Tensor, live: tuple) -> None:
+        self.log.append((kind, t.dtype, t.numel(), live))
+
+    def all_to_all(self, x: torch.Tensor, axis: str, dim: int):
+        n = self.shape[axis]
+        if n == 1:
+            return x
+        if x.shape[dim] != n:
+            raise ValueError(f"all_to_all over {axis!r} ({n} ranks) needs "
+                             f"dim {dim} of size {n}, got {tuple(x.shape)}")
+        self._record("all_to_all", x, (axis,))
+        if self.inner is not None:
+            return self.inner.all_to_all(x, axis, dim)
+        return x
+
+    def all_gather(self, x: torch.Tensor, axes) -> torch.Tensor:
+        live = self._live((axes,) if isinstance(axes, str) else axes)
+        if not live:
+            return x
+        self._record("all_gather", x, live)
+        if self.inner is not None:
+            return self.inner.all_gather(x, axes)
+        n = math.prod(self.shape[a] for a in live)
+        return x.detach().repeat((n,) + (1,) * (x.dim() - 1))
+
+    def all_reduce_sum(self, t: torch.Tensor, axes=None) -> torch.Tensor:
+        live = self._live(axes)
+        if not live:
+            return t
+        self._record("all_reduce", t, live)
+        if self.inner is not None:
+            return self.inner.all_reduce_sum(t, axes)
+        return t.detach().clone()
+
+
+def recording_world(axis_sizes=None, *, inner: EPWorld | None = None,
+                    device="cpu") -> RecordingWorld:
+    """A :class:`RecordingWorld`: around ``inner`` (its axes, coordinates,
+    backend and groups), or alone over ``axis_sizes`` (outermost first,
+    ``capacity.default_axis_names``) at the coordinates of rank 0."""
+    if inner is not None:
+        return RecordingWorld(
+            axis_names=inner.axis_names, axis_sizes=inner.axis_sizes,
+            coords=inner.coords, backend=inner.backend, device=inner.device,
+            groups=inner.groups, inner=inner)
+    sizes = tuple(int(s) for s in axis_sizes)
+    return RecordingWorld(axis_names=default_axis_names(len(sizes)),
+                          axis_sizes=sizes, coords=(0,) * len(sizes),
+                          device=str(device))
+
+
+#: the reference's production meshes (``repro/launch/mesh.py``) without
+#: their 16-wide tensor-parallel ``model`` axis, which the port lacks:
+#: each rank holds every dense weight
+PRODUCTION_HIERARCHIES = {"pod1": (16,), "pod2": (2, 16), "pod3": (2, 2, 8)}
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="cpu") -> RecordingWorld:
+    """pod1 (``data`` 16) or pod2 (``pod`` 2 x ``data`` 16), emulated at
+    rank 0 by a :class:`RecordingWorld`."""
+    return recording_world(
+        PRODUCTION_HIERARCHIES["pod2" if multi_pod else "pod1"],
+        device=device)
+
+
+def make_production_mesh_3tier(device="cpu") -> RecordingWorld:
+    """pod3: ``pod`` 2 x ``node`` 2 x ``data`` 8, emulated at rank 0."""
+    return recording_world(PRODUCTION_HIERARCHIES["pod3"], device=device)
 
 
 def gather_rows(world, t: torch.Tensor) -> torch.Tensor:

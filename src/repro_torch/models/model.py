@@ -7,7 +7,9 @@ for one rank: its axes play the part of the reference's mesh hierarchy
 axes (there is no tensor-parallel ``model`` axis in the port yet).
 Parameters are this rank's: replicated tensors whole, expert tensors the
 rank's shard of the expert axis.  ``build_ctx`` takes the reference's
-keywords.
+keywords.  ``abstract_params`` and ``input_specs`` give the dry-run
+(``launch/dryrun.py``) this rank's parameters and inputs as tensors on
+the ``meta`` device: shapes and dtypes, no storage.
 """
 
 from __future__ import annotations
@@ -15,8 +17,9 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.overrides import TorchFunctionMode
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import INPUT_SHAPES, ArchConfig
 from repro_torch.core import capacity, comm_model, gating, topology
 from repro_torch.core.dispatch import base as moe_base
 from repro_torch.core.dispatch import engine as dispatch_lib
@@ -172,3 +175,76 @@ def count_params(params) -> int:
         else:
             n += node.numel()
     return n
+
+
+class _NoDraw(TorchFunctionMode):
+    """Random draws become empty meta tensors of their shape and dtype:
+    the initializers' shapes without a draw (a generator cannot draw into
+    meta tensors)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if func is torch.randn:
+            kwargs.pop("generator", None)
+            kwargs["device"] = "meta"
+            return torch.empty(*args, **kwargs)
+        return func(*args, **kwargs)
+
+
+def abstract_params(ctx: transformer.ModelCtx):
+    """This rank's parameter tree on the ``meta`` device: the shapes and
+    dtypes :func:`init_params` gives, its expert shard included, with no
+    allocation and no draw (the dry-run's parameters)."""
+    with _NoDraw():
+        return transformer.init_model(ctx, None, "meta")
+
+
+def batch_rows(B: int, world) -> tuple:
+    """``(rows a rank, replicated)``: the global batch sharded over the
+    world's ranks, or whole on every rank when it has fewer rows than
+    ranks (the reference's context-parallel case, where the port keeps
+    the whole batch and cache on every rank)."""
+    n = 1 if world is None else world.size
+    if B < n:
+        return B, True
+    if B % n:
+        raise ValueError(f"global batch {B} does not divide over {n} ranks")
+    return B // n, False
+
+
+def input_specs(arch: ArchConfig, shape_name, world=None,
+                ctx: transformer.ModelCtx | None = None) -> dict:
+    """Meta tensors of every model input of one of ``INPUT_SHAPES`` (or
+    a dict of its form) at this rank's shapes: ``tokens``/``labels``
+    (int32) and ``loss_mask`` for ``train``, ``tokens`` for ``prefill``,
+    one token a row and the cache (:func:`decode.init_cache` at the
+    shape's length, which needs ``ctx``) for ``decode``; the frontend
+    embeddings of an audio or vision model."""
+    from repro_torch.models import decode as decode_lib
+    sh = (INPUT_SHAPES[shape_name] if isinstance(shape_name, str)
+          else shape_name)
+    B, S, kind = sh["global_batch"], sh["seq_len"], sh["kind"]
+    rows, _ = batch_rows(B, world)
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    specs = {}
+    if kind == "decode":
+        if ctx is None:
+            raise ValueError("decode specs need the model ctx (the cache)")
+        specs["tokens"] = meta((rows, 1), torch.int32)
+        specs["cache"] = decode_lib.init_cache(ctx, rows, S, device="meta")
+        return specs
+    specs["tokens"] = meta((rows, S), torch.int32)
+    if kind == "train":
+        specs["labels"] = meta((rows, S), torch.int32)
+        specs["loss_mask"] = meta((rows, S), torch.float32)
+    if arch.frontend == "vision":
+        from repro_torch.models import vlm
+        specs["frontend"] = meta(vlm.patch_shape(rows, arch), torch.float32)
+    elif arch.frontend:
+        from repro_torch.models import whisper
+        specs["frontend"] = meta(whisper.frame_shape(rows, arch),
+                                 torch.float32)
+    return specs

@@ -4,7 +4,9 @@
 - ``make_prefill`` / ``make_decode_step`` — single-call entries over
   ``models/decode.py``.
 - ``generate`` — single-batch generation: one fused prefill, then one
-  decode step per generated token.
+  decode step per generated token; ``make_generate_fns`` builds the
+  (prefill, decode step, sampler) triple it runs, to pass as ``fns=``
+  across many calls.
 - ``ServingEngine`` — slot-based continuous batching: a ``Scheduler``
   admits requests into a fixed pool of decode slots, admission packs are
   prefilled together and inserted into a ``SlotKVCache``, and every
@@ -144,20 +146,32 @@ def _batch_shard(ctx: transformer.ModelCtx, **counts) -> tuple:
     return world.rank, world.size
 
 
+def make_generate_fns(ctx: transformer.ModelCtx, cache_len: int):
+    """The ``(prefill, decode_step, sample)`` triple :func:`generate`
+    runs: the cached prefill at ``cache_len``, the decode step and
+    :func:`sample`.  Build it once and pass it as ``generate(...,
+    fns=...)`` across many calls (the reference's builds its jitted
+    closures once so; here it saves rebuilding the closures)."""
+    return (make_prefill(ctx, with_cache=True, cache_len=cache_len),
+            make_decode_step(ctx), sample)
+
+
 def generate(params, ctx: transformer.ModelCtx, prompt_tokens, *,
              steps: int, cache_len: int, temperature: float = 0.0,
-             seed: int = 0, frontend=None, lens=None) -> GenerationResult:
+             seed: int = 0, frontend=None, lens=None,
+             fns=None) -> GenerationResult:
     """Greedy/temperature generation: one fused prefill, then ``steps - 1``
     decode steps; ``steps_per_sec`` counts generated tokens only.
     ``frontend`` [B, F, width] is the batch's frontend embeddings (audio
-    frames, vision patches).  On a world every rank passes the whole
+    frames, vision patches).  ``fns``: a :func:`make_generate_fns` triple
+    (built here when None).  On a world every rank passes the whole
     batch, computes its rows and returns the whole batch's tokens."""
     B, S = prompt_tokens.shape
     dev = prompt_tokens.device
     rank, n = _batch_shard(ctx, batch=B)
     rows = slice(rank * B // n, (rank + 1) * B // n)
-    prefill_fn = make_prefill(ctx, with_cache=True, cache_len=cache_len)
-    step_fn = make_decode_step(ctx)
+    prefill_fn, step_fn, sample_fn = (
+        fns if fns is not None else make_generate_fns(ctx, cache_len))
     temps = torch.full((B,), temperature, dtype=torch.float32, device=dev)
     lens = (torch.as_tensor(lens, device=dev).to(torch.int32)
             if lens is not None
@@ -168,11 +182,12 @@ def generate(params, ctx: transformer.ModelCtx, prompt_tokens, *,
     gen = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.time()
     logits, cache = prefill_fn(params, batch)
-    tok = sample(gather_rows(ctx.mesh, logits), temps, gen)[:, None]
+    tok = sample_fn(gather_rows(ctx.mesh, logits), temps, gen)[:, None]
     out = [tok]
     for _ in range(steps - 1):
         logits, cache = step_fn(params, cache, tok[rows])
-        tok = sample(gather_rows(ctx.mesh, logits[:, 0]), temps, gen)[:, None]
+        tok = sample_fn(gather_rows(ctx.mesh, logits[:, 0]), temps,
+                        gen)[:, None]
         out.append(tok)
     tokens = torch.cat(out, dim=1)
     _sync(dev)
@@ -355,5 +370,5 @@ class ServingEngine:
 
 
 __all__ = ["GenerationResult", "Request", "ServeConfig", "ServingEngine",
-           "ServingReport", "generate", "make_decode_step", "make_prefill",
-           "sample"]
+           "ServingReport", "generate", "make_decode_step",
+           "make_generate_fns", "make_prefill", "sample"]
