@@ -36,11 +36,17 @@ with ROOT's package, whose kernels it builds from ROOT's own sources:
   tokens), prefill (a 4 x 128 pack) and the one-rank training layout
   (2048 tokens), each held against ``local_moe_ref`` and read as training
   calls it (x, ``slot_w`` and the weights requiring grad), with
-  ``kernel_device_ms`` its own launches and, where the checkout has
+  ``kernel_device_ms`` its own launches, whether 5 calls on the layout
+  give equal bits (``bit_equal_5_calls``) and, where the checkout has
   ``compact_slots``, the rows its FFN launches compute.
 * K5 (``flash_attention``, causal) at the serve prefill shape [4, 128, 16,
   64] and at [4, 512, 16, 64], with its yardstick
   ``scaled_dot_product_attention`` read alike.
+* K8 (``decode_attention``) at the decode_32k shapes (``K8_SHAPES``: 32
+  requests of lengths drawn from a seed in [1, 32768], NaN past each, 16
+  KV heads of 64 and 8 of 128), held against its plain version, with its
+  yardstick ``scaled_dot_product_attention`` (a boolean length mask, on a
+  copy of the cache with the NaN rows zeroed) read alike.
 * K6 (``grouped_ffn``, gelu) on the einsum phase's [64, 128, 1024]
   capacity buffer (``chip_smoke.einsum_k6_case``, saved with the K4
   layouts' layer-0 weights), held against its plain version and read as
@@ -51,7 +57,8 @@ with ROOT's package, whose kernels it builds from ROOT's own sources:
 Each run prints one JSON line with the root, the card (``nvidia-smi``'s
 name and power limit) and each reading, with its error against the plain
 version.  A last line (``interleaved``) takes ``host_us`` and ``call_ms``
-of K1, K2, K5 (at [4, 128, 16, 64]) and K4 (at the decode layout) again
+of K1, K2, K5 (at [4, 128, 16, 64]), K4 (at the decode layout) and K8
+(at the first of ``K8_SHAPES``) again
 with every root's package loaded in one process and the roots read in
 turns: the host is shared and drifts between processes by more than the
 launch paths differ.  Exits non-zero if there is no card or any check
@@ -127,7 +134,7 @@ import chip_smoke as cs
 spec = importlib.util.spec_from_file_location("chip_ab_readings", sys.argv[1])
 ab = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(ab)
-ops, flash, fused = {}, {}, {}
+ops, flash, fused, decode = {}, {}, {}, {}
 for root in sys.argv[3:]:
     # each checkout's package in turn; a module keeps its own globals once
     # it is loaded, so the earlier roots' entries go on working
@@ -137,6 +144,8 @@ for root in sys.argv[3:]:
     ops[root] = importlib.import_module("repro_torch.kernels.moe_permute.ops")
     flash[root] = importlib.import_module("repro_torch.kernels.flash_attn.ops")
     fused[root] = importlib.import_module("repro_torch.kernels.moe_fused.ops")
+    decode[root] = importlib.import_module(
+        "repro_torch.kernels.decode_attn.ops")
     sys.path.pop(0)
 saved = torch.load(sys.argv[2])
 out = {label: ab.interleaved_readings(
@@ -145,6 +154,7 @@ out = {label: ab.interleaved_readings(
 out["K5"] = ab.interleaved_flash(torch, flash, ab.K5_SHAPES[0], cs.time_ms)
 out["K4_decode"] = ab.interleaved_fused(
     torch, fused, ab.fused_case(torch, saved, "decode"), cs.time_ms)
+out["K8"] = ab.interleaved_decode(torch, decode, ab.K8_SHAPES[0], cs.time_ms)
 print(json.dumps({"interleaved": out, "nvidia_smi": cs.nvidia_smi_line()}),
       flush=True)
 """
@@ -155,6 +165,7 @@ root = os.getcwd()
 sys.path.insert(0, root)
 import torch
 import chip_smoke as cs
+from repro_torch.kernels.decode_attn import ops as d_ops
 from repro_torch.kernels.flash_attn import ops as fa_ops
 from repro_torch.kernels.moe_fused import ops as f_ops
 from repro_torch.kernels.moe_gemm import ops as g_ops
@@ -196,9 +207,14 @@ k5 = {"x".join(map(str, shape)): ab.flash_readings(
           torch, fa_ops, shape, ab.kernel_names(root, "flash_attn"),
           cs.time_ms, cs.bound_ms, cs.K5_ATOL, cs.K5_RTOL)
       for shape in ab.K5_SHAPES}
+k8 = {"x".join(map(str, shape)): ab.decode_readings(
+          torch, d_ops, shape, ab.kernel_names(root, "decode_attn"),
+          cs.time_ms, cs.bound_ms, (cs.K8_ATOL, cs.K8_RTOL),
+          (cs.K8_LIB_ATOL, cs.K8_LIB_RTOL))
+      for shape in ab.K8_SHAPES}
 out = {"root": root, "nvidia_smi": cs.nvidia_smi_line(),
        "seconds": time.time() - t0, "permute_pair": perm,
-       "K4": k4, "K3": k3, "K7": k7, "K5": k5, "K6": k6}
+       "K4": k4, "K3": k3, "K7": k7, "K5": k5, "K6": k6, "K8": k8}
 print(json.dumps(out), flush=True)
 """
 
@@ -206,6 +222,9 @@ print(json.dumps(out), flush=True)
 #: training sequence length (for information: training attends through the
 #: plain ``_sdpa``)
 K5_SHAPES = ((4, 128, 16, 64), (4, 512, 16, 64))
+#: K8's shapes (B, L, H, K, hd): the decode_32k cache of gpt3_medium_moe's
+#: heads and of the dense decoders' 8 KV heads of 128
+K8_SHAPES = ((32, 32768, 16, 16, 64), (32, 32768, 16, 8, 128))
 
 
 # ---------------------------------------------------------------------------
@@ -644,15 +663,17 @@ def fused_readings(torch, f_ops, case, ours, time_ms, bound_ms, atol,
                                activation="gelu", use_pallas=True)
 
     with torch.no_grad():
-        err = _held(torch, f"K4 {case['label']}", call(),
+        got = call()
+        err = _held(torch, f"K4 {case['label']}", got,
                     local_moe_ref(*args, activation="gelu"), atol, rtol)
+        same = all(torch.equal(got, call()) for _ in range(4))
         computed = (int(f_ops.compact_slots(tok, w, offs, valid,
                                             x.shape[0])[1].sum())
                     if hasattr(f_ops, "compact_slots") else None)
     b_ms, b_by, rows = fused_bound(torch, args, bound_ms)
     return {"T": x.shape[0], "slots": tok.numel(), "segments": len(exps),
             "computed_rows": computed, **rows, "max_abs_err": err,
-            "bound_ms": b_ms, "bound_by": b_by,
+            "bit_equal_5_calls": same, "bound_ms": b_ms, "bound_by": b_by,
             **readings(torch, call, time_ms, ours)}
 
 
@@ -733,6 +754,82 @@ def interleaved_flash(torch, ops, shape, time_ms) -> dict:
                                  host_us(torch, fn))
                 call[root] = min(call.get(root, math.inf),
                                  time_ms(torch, fn, ITERS))
+    return {root: {"host_us": host[root], "call_ms": call[root]}
+            for root in ops}
+
+
+def decode_inputs(torch, shape):
+    """K8's inputs at ``shape`` (B, L, H, K, hd), from seed 3: bf16 q and
+    a k/v cache with NaN in every row past its request's length, lengths
+    in [1, L] with one at L and one at 1; and the [B, L] valid rows."""
+    B, L, H, K, hd = shape
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    lens = torch.randint(1, L + 1, (B,), generator=gen, device="cuda")
+    lens[0], lens[1] = L, 1
+    lens = lens.to(torch.int32)
+    q = torch.randn((B, H, hd), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((B, L, K, hd), generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    valid = torch.arange(L, device="cuda")[None, :] < lens[:, None].long()
+    k[~valid], v[~valid] = float("nan"), float("nan")
+    return q, k, v, lens, valid
+
+
+def decode_readings(torch, d_ops, shape, ours, time_ms, bound_ms, tol,
+                    lib_tol) -> dict:
+    """K8 (``d_ops.decode_attention``) at ``shape`` (B, L, H, K, hd) on
+    :func:`decode_inputs`, held against its plain version (within
+    ``tol`` = (atol, rtol)), and its yardstick
+    ``scaled_dot_product_attention`` (a boolean length mask, on a copy of
+    the cache with the NaN rows zeroed; within ``lib_tol``), each read
+    with :func:`readings`.  ``bound_ms`` counts the valid rows' k and v,
+    q, the lengths and the output once, and two products of hd a valid
+    row and query head."""
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    F = torch.nn.functional
+    B, L, H, K, hd = shape
+    q, k, v, lens, valid = decode_inputs(torch, shape)
+    kc, vc = (torch.where(valid[:, :, None, None], t, 0).transpose(1, 2)
+              for t in (k, v))
+    mask = valid[:, None, None, :]
+
+    def kernel():
+        return d_ops.decode_attention(q, k, v, lens)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q[:, :, None], kc, vc, attn_mask=mask,
+            enable_gqa=K != H)[:, :, 0]
+
+    with torch.no_grad():
+        want = decode_attention_ref(q, k, v, lens)
+        err = _held(torch, f"K8 {shape}", kernel(), want, *tol)
+        lib_err = _held(torch, f"SDPA {shape}", library(), want, *lib_tol)
+    rows = int(valid.sum())
+    b_ms, b_by = bound_ms(rows * K * hd * 2 * 2 + 2 * B * H * hd * 2 + B * 4,
+                          4.0 * rows * H * hd)
+    return {"shape": list(shape), "valid_rows": rows, "max_abs_err": err,
+            "bound_ms": b_ms, "bound_by": b_by,
+            **readings(torch, kernel, time_ms, ours),
+            "library": {"call": "scaled_dot_product_attention",
+                        "max_abs_err": lib_err,
+                        **readings(torch, library, time_ms)}}
+
+
+def interleaved_decode(torch, ops, shape, time_ms) -> dict:
+    """``host_us`` and ``call_ms`` of K8 of every checkout in ``ops``
+    (root -> its ``decode_attn.ops``) at ``shape`` on
+    :func:`decode_inputs`, read in turns as :func:`interleaved_readings`
+    reads K1 and K2."""
+    q, k, v, lens, _ = decode_inputs(torch, shape)
+    host, call = {}, {}
+    for _ in range(REPEATS):
+        for root, m in ops.items():
+            fn = functools.partial(m.decode_attention, q, k, v, lens)
+            host[root] = min(host.get(root, math.inf), host_us(torch, fn))
+            call[root] = min(call.get(root, math.inf),
+                             time_ms(torch, fn, ITERS))
     return {root: {"host_us": host[root], "call_ms": call[root]}
             for root in ops}
 

@@ -12,7 +12,8 @@ wrong.
   recording against an expectation with the f32 scale sideband dropped;
 * ``smem_over_budget`` — K5's launch at head dim 128 with a dynamic
   shared memory past the sm_90 opt-in limit (``smem-budget``);
-* ``unguarded_scatter`` — K4's decode layout without its down launch's
+* ``unguarded_scatter`` — K4's decode layout with its down launch adding
+  its rows into ``out`` by token, as an atomic combine would, and no
   atomic accumulation declared (``scatter-race``);
 * ``straddling_tile`` — K4's train_1rank tile table with a tile shifted
   across a segment boundary (``plan-tiles``);
@@ -80,10 +81,16 @@ def _k4_layout(label):
 
 def unguarded_scatter():
     from repro_torch.analysis import launch_check
+    from repro_torch.kernels import backend
 
     layout = _k4_layout("decode")
+    adding = backend.Write("out", lambda x, y, z: (0, 8, y))
+    launches = tuple(
+        dataclasses.replace(ln, writes=(adding,))
+        if ln.kernel == "fused_down_kernel" else ln
+        for ln in layout.launches)
     layout = dataclasses.replace(layout, kernel="fixture.unguarded_scatter",
-                                 meta={**layout.meta, "acc_guarded": ()})
+                                 launches=launches)
     violations, _ = launch_check.run(layouts=[layout])
     return violations
 
@@ -122,7 +129,8 @@ def split_past_cache():
     from repro_torch.kernels.decode_attn import ops
 
     split, combine = ops.decode_launches(4, 1000, 16, 16, 64)
-    bad = dataclasses.replace(split, grid=(3,) + split.grid[1:], spans=(
+    x, _, z = split.grid
+    bad = dataclasses.replace(split, grid=(x, 3, z), spans=(
         backend.Span("cache rows", 1000,
                      *backend.blocks(3, ops.SPLIT_ROWS, 1000)),
         backend.Span("query heads a kv head", ops.MAX_GROUP, (0,), (32,))))

@@ -22,41 +22,52 @@
 // arithmetic there and returns the mean of the request's v rows, so the
 // two are compared only on requests with lengths >= 1.
 //
+// What bounds it on this card: bytes.  Each valid row's k and v (2 x 2 hd
+// bytes a KV head) is read once; the products are 2 x hd f32 FMAs a row
+// and query head, at most 16 query heads a KV head, so at most 16 FMAs a
+// byte: far below what the SMs' f32 units do while the memory streams.
+// So the design spends nothing on tensor cores (an m16n8k16 product would
+// waste 15 of its 16 query rows at G = H / K = 1).  At B = 32, L = 32768
+// and a mean length of about 16k that is about 2.1 GB, some 0.6 ms at 3.35
+// TB/s, with 16 KV heads of 64 or 8 of 128.  Little's law at that rate
+// asks for some 20-30 KB in flight an SM all the time.
+//
 // Design: the TPU's sequential cache axis cannot carry state across blocks
 // here, so the cache is split and combined (flash-decoding):
-//   1. split launch: a block per (L split of 512 rows, KV head, request)
-//      streams the valid rows of its split through shared memory, TL rows
-//      at a time (16-byte loads, converted to f32), and for the G = H / K
-//      query heads of its KV head keeps the online-softmax state (m, l and
-//      the unnormalised hd-wide output, hd / 32 values a lane) in
-//      registers, one warp per head (four heads a warp at most); it writes
-//      the f32 partial (o, m, l).  A split with no valid row returns at
-//      once and writes nothing.
+//   1. split launch: a block per (KV head, split of 512 rows, request),
+//      four warps.  Each warp owns every fourth step of 32 / (hd / 32)
+//      rows of the split and streams them through its own ring of three
+//      4 KB stages in shared memory: k and v in bfloat16 as stored, filled
+//      by 16-byte cp.async copies (zero-filled and never read past the
+//      split's valid rows), two steps in flight while one is computed.  A
+//      warp waits only on its own copies (cp.async.wait_group, then
+//      __syncwarp), never on the block.  In a step hd / 32 lanes score a
+//      row, 32 dims each, against the G query heads (queries pre-scaled by
+//      log2 e / sqrt(hd) in shared memory; k converted to f32 in
+//      registers), the warp updates each head's running max (warp-
+//      uniform) and its lanes' share of the normaliser, and every lane adds
+//      p_j v_j for its hd / 32 output dims over the step's rows (p_j
+//      broadcast by a shuffle).  So every warp works at any G, G = 1
+//      included.  Chunks are swizzled (16-byte chunk c of row r at
+//      c ^ (r & 7)), so the scores' reads of 8 rows at one chunk and p v's
+//      reads of one row both hit 8 bank groups.  At the end of the split
+//      the warps write (m, l, o) into their own rings and the block merges
+//      them in warp order into the f32 partial (o, m, l).  A split with no
+//      valid row returns at once and writes nothing.  Templated on hd and
+//      on the query heads a warp keeps state for (4, or 16 when G > 4).
 //   2. combine launch: a block per (request, query head), a thread per
-//      output dimension (hd threads), rescales the
-//      partials of the splits that hold valid rows by exp(m_s - max m),
-//      sums them, divides by the summed l and writes bfloat16.
-// Both launches are templates on the head dim; the entry dispatches on hd
-// and refuses any but 64 and 128.  The f32 tiles in shared memory (Q of 16
-// heads, K with a pad column, V and the scores) are 40.3 KiB at hd 64 with
-// TL = 64 rows; at hd 128 the same TL would need 76.3 KiB, over the 48 KiB
-// a block gets without opting in, and would leave two blocks an SM.  So hd
-// 128 stages TL = 32 rows (42.1 KiB, static; five blocks an SM as at hd
-// 64), one score a lane in the softmax update instead of two.
-// The split count is ceil(L / 512): fixed 512-row splits keep every
-// block's work alike whatever a request's length (short requests simply
-// have fewer live splits), and at the decode_32k shape (B = 32, L = 32768,
-// K = 16) they give 32768 blocks, 64 per (request, KV head), enough to
-// keep all 132 SMs streaming (16384 with 8 KV heads of 128).
-//
-// What bounds it on this card: bytes.  Each valid row's k and v (2 x 2hd
-// bytes a KV head) is read once; the products are 2 x hd f32 FMAs a row
-// and query head, far below the card's rate.  At B = 32, L = 32768, mean
-// length about 16k, that is about 2.1 GB, 0.64 ms at 3.35 TB/s, with 16
-// KV heads of 64 or 8 of 128 alike.  This first version does not pipeline
-// its loads (a block waits for each TL-row tile before computing on it) and leaves three of four warps idle in the
-// softmax update when G = 1; cp.async or TMA double buffering is later
-// work.
+//      output dimension (hd threads), rescales the partials of the splits
+//      that hold valid rows by 2^(m_s - max m), sums them in split order,
+//      divides by the summed l and writes bfloat16.
+// Every sum runs in a fixed order, so repeated calls give equal bits.
+// The warps are latency-bound on their arithmetic, not on their copies:
+// the same launch with the arithmetic taken out is within 1-2% of it (87-
+// 91% of the bytes' bound on two H100s), so what sets the rate is the
+// warps an SM holds.  48 KB of dynamic shared memory a block (opted into
+// once a device) leaves four blocks, 16 warps, an SM; 64 KB (three
+// blocks) ran 3-11% slower at hd 64, 96 KB (two) 38-52% slower
+// (chip_k8_tune.py).  The split count is ceil(L / 512): at decode_32k
+// (B = 32, L = 32768) 32768 split blocks with 16 KV heads, 16384 with 8.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,9 +83,37 @@ namespace {
 constexpr int SPLIT_ROWS = 512;    // cache rows of one split block
 constexpr int NWARPS = 4;
 constexpr int THREADS = NWARPS * 32;
+constexpr int STAGES = 3;          // a warp's ring depth
 constexpr int MAX_G = 16;          // query heads a KV head may serve
-constexpr int HPW = MAX_G / NWARPS;  // heads whose state a warp keeps
 constexpr float NEG_INF = -1e30f;  // the reference's mask value
+constexpr float LOG2E = 1.4426950408889634f;
+
+// dims of a cache row one lane scores (HD / SCORE_DIMS lanes a row), and
+// the bytes of a ring stage: a step's 32 / (HD / SCORE_DIMS) rows of k
+// and v in bf16
+constexpr int SCORE_DIMS = 32;
+constexpr int STAGE_BYTES = 32 * SCORE_DIMS * 2 * 2;
+constexpr int SPLIT_SMEM = NWARPS * STAGES * STAGE_BYTES;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes 0 fills zeros and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
@@ -87,6 +126,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
 // the valid rows [lo, hi) of a request of length len
 __device__ __forceinline__ void valid_range(int len, int window, int L,
                                             int* lo, int* hi) {
@@ -94,127 +137,209 @@ __device__ __forceinline__ void valid_range(int len, int window, int L,
   *lo = window > 0 ? max(len - window, 0) : 0;
 }
 
-// HD: head dim; TL: rows staged in shared memory at a time (a multiple of
-// 32 dividing SPLIT_ROWS)
-template <int HD, int TL>
+// element offset of 16-byte chunk c of row r in a swizzled [rows][HD]
+// tile: the 8 lanes of a 16-byte shared memory phase read 8 rows at one
+// chunk (the scores) or 8 chunks of one row (p v), 8 bank groups either way
+template <int HD>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * HD + ((c ^ (r & 7)) << 3);
+}
+
+// HD: head dim; GW: query heads a warp keeps state for (G <= GW)
+template <int HD, int GW>
 __global__ void __launch_bounds__(THREADS)
 decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v,
                     const int* __restrict__ lengths,
                     float* __restrict__ o_part, float* __restrict__ ml_part,
                     int L, int H, int K, int window, int n_split,
-                    float scale) {
-  const int s = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+                    float scale_log2) {
+  constexpr int LPR = HD / SCORE_DIMS;   // lanes a row
+  constexpr int RS = 32 / LPR;           // rows a step
+  constexpr int CPL = SCORE_DIMS / 8;    // 16-byte chunks a lane scores
+  constexpr int CPR = HD / 8;            // 16-byte chunks a row
+  constexpr int DPL = HD / 32;           // output dims a lane
+  constexpr int TILE = RS * HD;          // bf16 of k (or v) a stage
+  static_assert(2 * TILE * 2 == STAGE_BYTES, "a stage is k and v of a step");
+  static_assert((2 * GW + GW * HD) * 4 <= STAGES * STAGE_BYTES,
+                "a warp's (m, l, o) fits its ring");
+  extern __shared__ __align__(128) unsigned char dsmem[];
+  __shared__ __align__(16) float Qs[GW][HD];  // queries, pre-scaled
+
+  const int kh = blockIdx.x, s = blockIdx.y, b = blockIdx.z;
   int lo, hi;
   valid_range(lengths[b], window, L, &lo, &hi);
-  const int r_begin = max(lo, s * SPLIT_ROWS);
-  const int r_end = min(hi, (s + 1) * SPLIT_ROWS);
-  if (r_begin >= r_end) return;              // the combine skips it too
+  const int r0 = max(lo, s * SPLIT_ROWS);
+  const int r1 = min(hi, (s + 1) * SPLIT_ROWS);
+  if (r0 >= r1) return;                      // the combine skips it too
   const int G = H / K;
-  constexpr int RPL = TL / 32;               // scores a lane updates
-  constexpr int DPL = HD / 32;               // output dims a lane keeps
-
-  __shared__ float Qs[MAX_G][HD];            // pre-scaled queries
-  __shared__ float Ks[TL][HD + 1];           // +1: lanes on 32 banks
-  __shared__ float Vs[TL][HD];
-  __shared__ float Ps[MAX_G][TL];            // scores, then weights
-
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  for (int idx = tid; idx < G * HD; idx += THREADS) {
-    int g = idx / HD, j = idx % HD;
-    Qs[g][j] = __bfloat162float(q[((size_t)b * H + kh * G + g) * HD + j]) *
-               scale;
-  }
-  float m[HPW], l[HPW], o[HPW][DPL];
-#pragma unroll
-  for (int i = 0; i < HPW; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) o[i][e] = 0.0f;
-  }
+  for (int i = tid; i < G * HD; i += THREADS)
+    Qs[i / HD][i % HD] =
+        __bfloat162float(q[((size_t)b * H + kh * G) * HD + i]) * scale_log2;
+  __syncthreads();
+
+  bf16* ring = reinterpret_cast<bf16*>(dsmem) + warp * STAGES * 2 * TILE;
   const size_t row_stride = (size_t)K * HD;
-  const bf16* kb = k + ((size_t)b * L * K + kh) * HD;
-  const bf16* vb = v + ((size_t)b * L * K + kh) * HD;
+  const size_t head0 = ((size_t)b * L * K + kh) * HD;
+  const int steps = (r1 - r0 + RS - 1) / RS;
+  const int mine = steps > warp ? (steps - warp + NWARPS - 1) / NWARPS : 0;
+  auto load = [&](int slot, int i) {         // the warp's step i into slot
+    const int row0 = r0 + (warp + i * NWARPS) * RS;
+    bf16* ks = ring + slot * 2 * TILE;
+    bf16* vs = ks + TILE;
+#pragma unroll
+    for (int c = lane; c < RS * CPR; c += 32) {
+      const int r = c / CPR, x = c % CPR;
+      const bool ok = row0 + r < r1;
+      const size_t off = head0 + (ok ? row0 + r : r0) * row_stride + x * 8;
+      cp_async16(smem_u32(ks + swz<HD>(r, x)), k + off, ok ? 16 : 0);
+      cp_async16(smem_u32(vs + swz<HD>(r, x)), v + off, ok ? 16 : 0);
+    }
+  };
 
-  for (int t0 = r_begin; t0 < r_end; t0 += TL) {
-    const int nrows = min(TL, r_end - t0);
-    __syncthreads();                         // Qs ready / last tile read
-    for (int c = tid; c < nrows * (HD / 8); c += THREADS) {
-      int r = c / (HD / 8), j = (c % (HD / 8)) * 8;
-      size_t off = (size_t)(t0 + r) * row_stride + j;
-      uint4 k4 = *reinterpret_cast<const uint4*>(kb + off);
-      uint4 v4 = *reinterpret_cast<const uint4*>(vb + off);
-      const bf16* kk = reinterpret_cast<const bf16*>(&k4);
-      const bf16* vv = reinterpret_cast<const bf16*>(&v4);
+  float m[GW], l[GW], o[GW][DPL];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        Ks[r][j + e] = __bfloat162float(kk[e]);
-        Vs[r][j + e] = __bfloat162float(vv[e]);
+  for (int g = 0; g < GW; ++g) {
+    m[g] = NEG_INF;
+    l[g] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) o[g][e] = 0.0f;
+  }
+  // this lane's row of a step, and which SCORE_DIMS of it
+  const int my_row = lane % RS, part = lane / RS;
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < mine) load(i, i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < mine; ++i) {
+    cp_async_wait<STAGES - 2>();             // step i has landed
+    __syncwarp();                            // and step i - 1's slot is free
+    if (i + STAGES - 1 < mine)
+      load((i + STAGES - 1) % STAGES, i + STAGES - 1);
+    cp_async_commit();
+    const bf16* ks = ring + (i % STAGES) * 2 * TILE;
+    const bf16* vs = ks + TILE;
+    const int nrows = min(RS, r1 - (r0 + (warp + i * NWARPS) * RS));
+    const bool valid = my_row < nrows;
+
+    // scores: this lane's part of its row against each query head
+    float sc[GW];
+#pragma unroll
+    for (int g = 0; g < GW; ++g) sc[g] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const int x = part * CPL + c;
+      const uint4 raw =
+          *reinterpret_cast<const uint4*>(ks + swz<HD>(my_row, x));
+      const float2 k01 = bf16x2_to_float2(raw.x);
+      const float2 k23 = bf16x2_to_float2(raw.y);
+      const float2 k45 = bf16x2_to_float2(raw.z);
+      const float2 k67 = bf16x2_to_float2(raw.w);
+#pragma unroll
+      for (int g = 0; g < GW; ++g) {
+        if (g < G) {
+          const float4 qa = *reinterpret_cast<const float4*>(&Qs[g][x * 8]);
+          const float4 qb =
+              *reinterpret_cast<const float4*>(&Qs[g][x * 8 + 4]);
+          sc[g] += qa.x * k01.x + qa.y * k01.y + qa.z * k23.x + qa.w * k23.y +
+                   qb.x * k45.x + qb.y * k45.y + qb.z * k67.x + qb.w * k67.y;
+        }
       }
     }
-    __syncthreads();
-    for (int idx = tid; idx < G * TL; idx += THREADS) {
-      int g = idx / TL, r = idx % TL;
-      float sc = NEG_INF;
-      if (r < nrows) {
-        float acc = 0.0f;
-#pragma unroll 16
-        for (int j = 0; j < HD; ++j) acc += Qs[g][j] * Ks[r][j];
-        sc = acc;
-      }
-      Ps[g][r] = sc;
-    }
-    __syncthreads();
+    // online softmax (base 2): the max warp-uniform, l a lane's share
+    float p[GW];
 #pragma unroll
-    for (int i = 0; i < HPW; ++i) {
-      const int g = warp + NWARPS * i;
+    for (int g = 0; g < GW; ++g) {
       if (g < G) {
-        float sv[RPL], mx = NEG_INF, psum = 0.0f;
 #pragma unroll
-        for (int e = 0; e < RPL; ++e) {
-          sv[e] = Ps[g][lane + 32 * e];
-          mx = fmaxf(mx, sv[e]);
+        for (int off = RS; off < 32; off <<= 1)
+          sc[g] += __shfl_xor_sync(0xffffffffu, sc[g], off);
+        const float sg = valid ? sc[g] : NEG_INF;
+        const float m_new = fmaxf(m[g], warp_max(sg));
+        const float alpha = exp2f(m[g] - m_new);
+        p[g] = valid ? exp2f(sg - m_new) : 0.0f;
+        l[g] = l[g] * alpha + (part == 0 ? p[g] : 0.0f);
+        m[g] = m_new;
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) o[g][e] *= alpha;
+      }
+    }
+    // o += p_j v_j over the step's rows, hd / 32 dims a lane
+    const int x0 = lane * DPL / 8, sub = lane * DPL % 8;
+#pragma unroll
+    for (int j = 0; j < RS; ++j) {
+      if (j >= nrows) break;
+      const bf16* vr = vs + swz<HD>(j, x0) + sub;
+      float vf[DPL];
+      if constexpr (DPL == 2) {
+        const float2 t =
+            bf16x2_to_float2(*reinterpret_cast<const uint32_t*>(vr));
+        vf[0] = t.x;
+        vf[1] = t.y;
+      } else {
+        const uint2 u = *reinterpret_cast<const uint2*>(vr);
+        const float2 t0 = bf16x2_to_float2(u.x);
+        const float2 t1 = bf16x2_to_float2(u.y);
+        vf[0] = t0.x;
+        vf[1] = t0.y;
+        vf[2] = t1.x;
+        vf[3] = t1.y;
+      }
+#pragma unroll
+      for (int g = 0; g < GW; ++g) {
+        if (g < G) {
+          const float pj = __shfl_sync(0xffffffffu, p[g], j);
+#pragma unroll
+          for (int e = 0; e < DPL; ++e) o[g][e] += pj * vf[e];
         }
-        float m_new = fmaxf(m[i], warp_max(mx));
-#pragma unroll
-        for (int e = 0; e < RPL; ++e) {
-          sv[e] = lane + 32 * e < nrows ? expf(sv[e] - m_new) : 0.0f;
-          psum += sv[e];
-        }
-        float alpha = expf(m[i] - m_new);
-        l[i] = l[i] * alpha + warp_sum(psum);
-        m[i] = m_new;
-        __syncwarp();
-#pragma unroll
-        for (int e = 0; e < RPL; ++e) Ps[g][lane + 32 * e] = sv[e];
-        __syncwarp();
-        float a[DPL];
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) a[e] = o[i][e] * alpha;
-        for (int r = 0; r < nrows; ++r) {
-          float p = Ps[g][r];
-#pragma unroll
-          for (int e = 0; e < DPL; ++e) a[e] += p * Vs[r][lane + 32 * e];
-        }
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) o[i][e] = a[e];
       }
     }
   }
+  cp_async_wait<0>();
+  __syncwarp();
 
+  // each warp's (m, l, o) into its own ring, then merged in warp order
+  float* st = reinterpret_cast<float*>(ring);
 #pragma unroll
-  for (int i = 0; i < HPW; ++i) {
-    const int g = warp + NWARPS * i;
+  for (int g = 0; g < GW; ++g) {
     if (g < G) {
-      size_t p = ((size_t)b * H + kh * G + g) * n_split + s;
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) o_part[p * HD + lane + 32 * e] = o[i][e];
+      const float lt = warp_sum(l[g]);
       if (lane == 0) {
-        ml_part[p * 2] = m[i];
-        ml_part[p * 2 + 1] = l[i];
+        st[g] = m[g];
+        st[GW + g] = lt;
       }
+#pragma unroll
+      for (int e = 0; e < DPL; ++e)
+        st[2 * GW + g * HD + lane * DPL + e] = o[g][e];
     }
+  }
+  __syncthreads();
+  auto state = [&](int w) {
+    return reinterpret_cast<const float*>(dsmem + w * STAGES * STAGE_BYTES);
+  };
+  const size_t p0 = ((size_t)b * H + kh * G) * n_split + s;
+  for (int i = tid; i < G * HD; i += THREADS) {
+    const int g = i / HD, d = i % HD;
+    float mx = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) mx = fmaxf(mx, state(w)[g]);
+    float acc = 0.0f;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w)
+      acc += exp2f(state(w)[g] - mx) * state(w)[2 * GW + g * HD + d];
+    o_part[(p0 + (size_t)g * n_split) * HD + d] = acc;
+  }
+  if (tid < G) {
+    float mx = NEG_INF, lsum = 0.0f;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) mx = fmaxf(mx, state(w)[tid]);
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w)
+      lsum += exp2f(state(w)[tid] - mx) * state(w)[GW + tid];
+    ml_part[(p0 + (size_t)tid * n_split) * 2] = mx;
+    ml_part[(p0 + (size_t)tid * n_split) * 2 + 1] = lsum;
   }
 }
 
@@ -236,7 +361,7 @@ decode_combine_kernel(const float* __restrict__ o_part,
   for (int s = s0; s < s1; ++s) mx = fmaxf(mx, ml_part[(base + s) * 2]);
   float lsum = 0.0f, acc = 0.0f;
   for (int s = s0; s < s1; ++s) {
-    float w = expf(ml_part[(base + s) * 2] - mx);
+    float w = exp2f(ml_part[(base + s) * 2] - mx);
     lsum += ml_part[(base + s) * 2 + 1] * w;
     acc += o_part[(base + s) * HD + j] * w;
   }
@@ -244,28 +369,44 @@ decode_combine_kernel(const float* __restrict__ o_part,
   out[(size_t)bh * HD + j] = __float2bfloat16(acc / lsum);
 }
 
-// the split launch over (split, KV head, request) and the combine over
-// (request, query head)
-template <int HD, int TL>
-void decode_geom(int B, int H, int K, int n_split, launch_geom::Launch* g) {
-  g[0] = {dim3(n_split, K, B), THREADS, 0,
-          (const void*)decode_split_kernel<HD, TL>};
+// the split launch over (KV head, split, request) and the combine over
+// (request, query head), for the HD / GW instantiation; the split kernel's
+// ring is opted into once a device
+template <int HD, int GW>
+int decode_geom(int B, int H, int K, int n_split, launch_geom::Launch* g) {
+  static bool opted[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!opted[dev]) {
+    err = cudaFuncSetAttribute(decode_split_kernel<HD, GW>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SPLIT_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    opted[dev] = true;
+  }
+  g[0] = {dim3(K, n_split, B), THREADS, SPLIT_SMEM,
+          (const void*)decode_split_kernel<HD, GW>};
   g[1] = {dim3(B * H), HD, 0, (const void*)decode_combine_kernel<HD>};
+  return 0;
 }
 
-template <int HD, int TL>
+// the launches of the HD / GW instantiation
+template <int HD, int GW>
 int launch(const void* q, const void* k, const void* v, const int* len,
            void* o_part, void* ml_part, void* out, int B, int L, int H,
            int K, int window, int n_split, cudaStream_t s) {
   launch_geom::Launch g[2];
-  decode_geom<HD, TL>(B, H, K, n_split, g);
-  decode_split_kernel<HD, TL><<<g[0].grid, g[0].threads, g[0].smem, s>>>(
+  int err = decode_geom<HD, GW>(B, H, K, n_split, g);
+  if (err != 0) return err;
+  decode_split_kernel<HD, GW><<<g[0].grid, g[0].threads, g[0].smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), len, static_cast<float*>(o_part),
       static_cast<float*>(ml_part), L, H, K, window, n_split,
-      1.0f / sqrtf((float)HD));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+      LOG2E / sqrtf((float)HD));
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
   decode_combine_kernel<HD><<<g[1].grid, g[1].threads, g[1].smem, s>>>(
       static_cast<const float*>(o_part), static_cast<const float*>(ml_part),
       len, static_cast<bf16*>(out), L, H, window, n_split);
@@ -279,10 +420,11 @@ extern "C" {
 int decode_attn_split_rows() { return SPLIT_ROWS; }
 
 // All pointers are device pointers on the current device.  q [B, H, hd],
-// k/v [B, L, K, hd] bf16, contiguous; lengths [B] int32; o_part [B, H,
-// n_split, hd] and ml_part [B, H, n_split, 2] f32 scratch (no zeroing
-// needed); out [B, H, hd] bf16.  hd must be 64 or 128, H a multiple of K
-// with at most 16 query heads a KV head, n_split * 512 >= L.
+// k/v [B, L, K, hd] bf16, contiguous and 16-byte aligned; lengths [B]
+// int32; o_part [B, H, n_split, hd] and ml_part [B, H, n_split, 2] f32
+// scratch (no zeroing needed); out [B, H, hd] bf16.  hd must be 64 or 128,
+// H a multiple of K with at most 16 query heads a KV head, n_split *
+// decode_attn_split_rows() >= L.
 int decode_attention_fwd(const void* q, const void* k, const void* v,
                          const void* lengths, void* o_part, void* ml_part,
                          void* out, int B, int L, int H, int K, int hd,
@@ -293,11 +435,17 @@ int decode_attention_fwd(const void* q, const void* k, const void* v,
   if (B == 0 || H == 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
+  // state for 4 query heads a warp, or for 16
+  const bool narrow = H / K <= 4;
   if (hd == 64)
-    return launch<64, 64>(q, k, v, len, o_part, ml_part, out, B, L, H, K,
-                          window, n_split, s);
-  return launch<128, 32>(q, k, v, len, o_part, ml_part, out, B, L, H, K,
-                         window, n_split, s);
+    return narrow ? launch<64, 4>(q, k, v, len, o_part, ml_part, out, B, L,
+                                  H, K, window, n_split, s)
+                  : launch<64, MAX_G>(q, k, v, len, o_part, ml_part, out, B,
+                                      L, H, K, window, n_split, s);
+  return narrow ? launch<128, 4>(q, k, v, len, o_part, ml_part, out, B, L, H,
+                                 K, window, n_split, s)
+                : launch<128, MAX_G>(q, k, v, len, o_part, ml_part, out, B,
+                                     L, H, K, window, n_split, s);
 }
 
 // K8's launch geometry (launch_geom.cuh): the two launches
@@ -305,13 +453,16 @@ int decode_attention_fwd(const void* q, const void* k, const void* v,
 // of hd, and n_split splits.
 int decode_attention_geometry(int B, int H, int K, int hd, int n_split,
                               int* out) {
-  launch_geom::Launch g[2];
-  if (hd == 64)
-    decode_geom<64, 64>(B, H, K, n_split, g);
-  else if (hd == 128)
-    decode_geom<128, 32>(B, H, K, n_split, g);
-  else
+  if ((hd != 64 && hd != 128) || K <= 0 || H % K || H / K > MAX_G)
     return (int)cudaErrorInvalidValue;
+  launch_geom::Launch g[2];
+  const bool narrow = H / K <= 4;
+  const int err =
+      hd == 64 ? (narrow ? decode_geom<64, 4>(B, H, K, n_split, g)
+                         : decode_geom<64, MAX_G>(B, H, K, n_split, g))
+               : (narrow ? decode_geom<128, 4>(B, H, K, n_split, g)
+                         : decode_geom<128, MAX_G>(B, H, K, n_split, g));
+  if (err != 0) return err;
   return launch_geom::report_all(g, 2, out);
 }
 

@@ -70,6 +70,8 @@ def _decode_cuda(q, k, v, lengths, sliding_window: int):
                              f"{q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{KERNEL}: {name} must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{KERNEL}: q, k and v must be 16-byte aligned")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -104,31 +106,37 @@ def decode_attention(q, k, v, lengths, *, sliding_window: int = 0):
 # ---------------------------------------------------------------------------
 
 #: csrc/decode_attn.cu: SPLIT_ROWS cache rows a split block of 4 warps (its
-#: launch bound), staged TL rows at a time (64 at hd 64, 32 at hd 128) in
-#: static f32 arrays Qs[16][hd], Ks[TL][hd + 1], Vs[TL][hd], Ps[16][TL];
-#: the combine runs one thread an output dimension
+#: launch bound), each warp streaming steps of 32 / (hd / 32) rows through
+#: its own ring of 3 stages of 4 KB (dynamic shared memory, opted into),
+#: with the pre-scaled queries of the heads a warp keeps state for in a
+#: static f32 Qs[heads][hd]; the combine runs one thread an output
+#: dimension
 SPLIT_ROWS, THREADS = 512, 128
-STAGE_ROWS = {64: 64, 128: 32}
+SPLIT_SMEM = 4 * 3 * 4096
 
 
-def split_static(hd: int) -> int:
-    tl = STAGE_ROWS[hd]
-    return backend.static_smem(
-        4 * (MAX_GROUP * hd + tl * (hd + 1) + tl * hd + MAX_GROUP * tl))
+def state_heads(G: int) -> int:
+    """The query heads a warp of the split launch keeps state for (its
+    instantiation) at G query heads a KV head."""
+    return 4 if G <= 4 else MAX_GROUP
+
+
+def split_static(hd: int, G: int) -> int:
+    return backend.static_smem(4 * state_heads(G) * hd)
 
 
 def decode_launches(B: int, L: int, H: int, K: int, hd: int) -> tuple:
-    """K8's two launches: the splits over (split, KV head, request), then
+    """K8's two launches: the splits over (KV head, split, request), then
     the combine over (request, query head)."""
     n_split = max(1, -(-L // SPLIT_ROWS))
     G = H // K
     split = backend.LaunchDecl(
-        f"decode_split_kernel<{hd},{STAGE_ROWS[hd]}>", (n_split, K, B),
-        THREADS, 0, split_static(hd), THREADS,
+        f"decode_split_kernel<{hd},{state_heads(G)}>", (K, n_split, B),
+        THREADS, SPLIT_SMEM, split_static(hd, G), THREADS,
         spans=(backend.Span("cache rows", L,
                             *backend.blocks(n_split, SPLIT_ROWS, L)),
                backend.Span("query heads a kv head", MAX_GROUP, (0,), (G,))),
-        writes=(backend.Write("o_part", lambda x, y, z: (x, x + 1, (y, z))),))
+        writes=(backend.Write("o_part", lambda x, y, z: (y, y + 1, (x, z))),))
     combine = backend.LaunchDecl(
         f"decode_combine_kernel<{hd}>", (B * H, 1, 1), hd, 0, 0, hd,
         spans=(backend.Span("out rows", B * H, tuple(range(B * H)),
@@ -138,10 +146,12 @@ def decode_launches(B: int, L: int, H: int, K: int, hd: int) -> tuple:
 
 
 #: (label, B, L, H, K, hd): the decode_32k cache of gpt3_medium_moe's
-#: heads and of the dense decoders' (8 KV heads of 128), and a short one
+#: heads and of the dense decoders' (8 KV heads of 128), a short one, and
+#: one with 16 query heads a KV head (the wide instantiation)
 SHAPES = (("decode_32k", 32, 32768, 16, 16, 64),
           ("decode_32k_hd128_kv8", 32, 32768, 16, 8, 128),
-          ("L1000", 4, 1000, 16, 16, 64))
+          ("L1000", 4, 1000, 16, 16, 64),
+          ("L1000_G16", 4, 1000, 16, 1, 128))
 
 
 @backend.register_kernel(KERNEL)

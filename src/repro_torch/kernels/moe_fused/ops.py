@@ -6,12 +6,16 @@
 runtime ``rows_valid`` occupancy, and returns the [T, d] float32 combined
 output.  For CUDA tensors (with kernels wanted) it launches the
 hand-written kernel of ``csrc/moe_fused.cu`` (a compaction of the slots
-that carry a combine weight, then the up and down launches over them)
-inside a ``torch.autograd.Function`` whose backward is autograd through
+that carry a combine weight and the token index over them, the up and
+down launches over those slots, and a combine that sums each token's
+rows in slot order, so repeated calls give equal bits) inside a
+``torch.autograd.Function`` whose backward is autograd through
 :func:`ref.local_moe_ref` with the cotangent in float32, as the
 reference's ``_fused_bwd`` is ``jax.vjp`` of it; for CPU tensors it runs
-the plain version.  :func:`compact_slots` is the compaction launch on its
-own, for holding it against :func:`ref.compact_slots` on the card.
+the plain version.  :func:`compact_slots` and :func:`token_rows` are the
+compaction launch and the token index's launches on their own, for
+holding them against :func:`ref.compact_slots` and :func:`ref.token_rows`
+on the card.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from repro_torch.kernels import backend
 from repro_torch.kernels.moe_fused import ref
 
 KERNEL = "moe_fused.local_moe"
-TILE_ROWS = 64            # BM of csrc/moe_fused.cu (checked at bind time)
+TILE_ROWS = ref.TILE_ROWS   # BM of csrc/moe_fused.cu (checked at bind time)
 _V, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -123,13 +127,31 @@ def _entry():
                            f"plans {TILE_ROWS}")
     return backend.bind("moe_fused", "local_moe_fused",
                         [_V, _I, _I, _I, _V, _V, _V, _V, _I, _V, _V, _I, _V,
-                         _V, _V, _V, _V, _V, _V, _V, _I, _I, _V])
+                         _V, _V, _V, _V, _V, _V, _V, _V, _V, _I, _I, _V])
 
 
 @functools.lru_cache(maxsize=1)
 def _compact_entry():
     return backend.bind("moe_fused", "compact_slots",
                         [_V, _V, _V, _V, _I, _I, _V, _V, _V])
+
+
+@functools.lru_cache(maxsize=1)
+def _token_rows_entry():
+    return backend.bind("moe_fused", "token_rows",
+                        [_V, _V, _V, _V, _I, _V, _V, _I, _I, _V, _V, _V, _V,
+                         _V])
+
+
+def _index_scratch(S: int, n_seg: int, n_tiles: int, T: int, dev,
+                   lead: int = 0):
+    """One uint8 scratch of ``lead`` bytes, then the int32 live [S], count
+    [n_seg], tile_nv [n_tiles] and the token index [2 T + 1 + 2 R], R =
+    n_tiles * 64 (counts, row_ptr, the lists' rows and weights); returns
+    it and the address of live."""
+    ints = S + n_seg + n_tiles + 2 * T + 1 + 2 * n_tiles * TILE_ROWS
+    scratch = torch.empty(lead + 4 * ints, dtype=torch.uint8, device=dev)
+    return scratch, scratch.data_ptr() + lead
 
 
 def _check(name, t, dtype, device, ndim):
@@ -178,13 +200,15 @@ def _local_moe_cuda(static, x, slot_to_token, slot_w, rows_valid, w_in,
                          f"{E} experts")
     offs_dev, tiles, tile0, splits = layout_on(offs, exps, f, str(dev))
     n_seg, n_tiles, S = len(exps), tiles.shape[0], slot_to_token.shape[0]
-    # one scratch allocation: h [n_tiles * 64, f] bf16, then the int32
-    # live [S], count [n_seg] and tile_nv [n_tiles] of the compaction
+    # one scratch allocation: h [n_tiles * 64, f] bf16, y [splits, n_tiles
+    # * 64, d] f32 (only the live rows of either are written), then the
+    # int32 live, count, tile_nv and token index
     h_bytes = n_tiles * TILE_ROWS * f * 2
-    scratch = torch.empty(h_bytes + 4 * (S + n_seg + n_tiles),
-                          dtype=torch.uint8, device=dev)
-    live = scratch.data_ptr() + h_bytes
-    out = torch.zeros((T, d), dtype=torch.float32, device=dev)
+    y_bytes = splits * n_tiles * TILE_ROWS * d * 4
+    scratch, live = _index_scratch(S, n_seg, n_tiles, T, dev,
+                                   h_bytes + y_bytes)
+    index = live + 4 * (S + n_seg + n_tiles)
+    out = torch.empty((T, d), dtype=torch.float32, device=dev)
     fn = _entry()
     err = fn(backend.ptr(x), T, d, f, backend.ptr(slot_to_token),
              backend.ptr(slot_w), backend.ptr(rows_valid),
@@ -192,7 +216,8 @@ def _local_moe_cuda(static, x, slot_to_token, slot_w, rows_valid, w_in,
              backend.ptr(tile0), n_tiles, backend.ptr(w_in),
              backend.ptr(w_gate if swiglu else None), backend.ptr(w_out),
              live, live + 4 * S, live + 4 * (S + n_seg), scratch.data_ptr(),
-             backend.ptr(out), int(swiglu), splits, backend.stream_ptr(dev))
+             scratch.data_ptr() + h_bytes, index, backend.ptr(out),
+             int(swiglu), splits, backend.stream_ptr(dev))
     backend.check(KERNEL, err)
     backend.record_launch(KERNEL)
     return out
@@ -228,6 +253,50 @@ def compact_slots(slot_to_token, slot_w, seg_offsets, rows_valid,
                            backend.ptr(count), backend.stream_ptr(dev))
     backend.check(KERNEL, err)
     return live, count
+
+
+def token_rows(slot_to_token, slot_w, seg_offsets, seg_experts, rows_valid,
+               num_tokens: int, *, use_pallas=None):
+    """The token index of the combine (:func:`ref.token_rows`):
+    ``(row_ptr [T + 1] int32, rows [n] int32)``, each token's live tile
+    rows ascending.  For CUDA tensors (with kernels wanted) the launches of
+    ``csrc/moe_fused.cu`` that :func:`local_moe` runs to build it (the
+    compaction, the scan, the fill and the combine's sort) alone, on the
+    tiles of :func:`plan_tiles`; not counted (they are part of K4's, and
+    this entry lies on no path); it reads ``n`` back to the host.  CPU
+    tensors take the plain version."""
+    offs = tuple(int(o) for o in seg_offsets)
+    exps = tuple(int(e) for e in seg_experts)
+    dev = slot_to_token.device
+    if not backend.kernels_active(use_pallas, dev):
+        return ref.token_rows(slot_to_token, slot_w, offs, rows_valid,
+                              num_tokens)
+    S, n_seg, T = slot_to_token.shape[0], len(exps), int(num_tokens)
+    _check("slot_to_token", slot_to_token, torch.int32, dev, 1)
+    _check("slot_w", slot_w, torch.float32, dev, 1)
+    _check("rows_valid", rows_valid, torch.int32, dev, 1)
+    if not (len(offs) == n_seg + 1 and offs[0] == 0 and offs[-1] == S > 0
+            and slot_w.shape[0] == S and rows_valid.shape[0] == n_seg
+            and T > 0):
+        raise ValueError(f"{KERNEL}: bad segment layout {offs} for {S} "
+                         f"slots, {rows_valid.shape[0]} counts and {T} "
+                         f"tokens")
+    # the tables do not depend on f (64 only picks the cache entry)
+    offs_dev, tiles, tile0, _ = layout_on(offs, exps, 64, str(dev))
+    n_tiles = tiles.shape[0]
+    scratch, live = _index_scratch(S, n_seg, n_tiles, T, dev)
+    index = live + 4 * (S + n_seg + n_tiles)
+    err = _token_rows_entry()(
+        backend.ptr(slot_to_token), backend.ptr(slot_w),
+        backend.ptr(rows_valid), backend.ptr(offs_dev), n_seg,
+        backend.ptr(tiles), backend.ptr(tile0), n_tiles, T, live,
+        live + 4 * S, live + 4 * (S + n_seg), index,
+        backend.stream_ptr(dev))
+    backend.check(KERNEL, err)
+    ix = scratch[index - scratch.data_ptr():].view(torch.int32)
+    row_ptr = ix[T:2 * T + 1].clone()
+    n = int(row_ptr[-1])
+    return row_ptr, ix[2 * T + 1:2 * T + 1 + n].clone()
 
 
 class LocalMoE(torch.autograd.Function):
@@ -310,34 +379,37 @@ def local_moe(x, slot_to_token, slot_w, seg_offsets, seg_experts, rows_valid,
 
 #: csrc/moe_fused.cu and moe_mma.cuh: block sizes (each the kernel's launch
 #: bound), 8 KB stage tiles in rings of 3, and each launch's static
-#: __shared__ arrays (compaction: warp_n[8]; up: a_row[64]; down: a_row,
-#: tok_s[64] and w_s[64])
-THREADS, COMPACT_THREADS, STAGE_TILE = 128, 256, 64 * 64 * 2
+#: __shared__ arrays (compaction: warp_n[8]; scan: warp_sum[32]; up and
+#: down: a_row[64]; the fill and the combine none)
+THREADS, COMPACT_THREADS, SCAN_THREADS, COMBINE_THREADS = 128, 256, 1024, 256
+STAGE_TILE = 64 * 64 * 2
 UP_SMEM, UP_SMEM_SWIGLU, DOWN_SMEM = (3 * 2 * STAGE_TILE, 3 * 3 * STAGE_TILE,
                                       3 * 2 * STAGE_TILE)
-COMPACT_STATIC, UP_STATIC, DOWN_STATIC = (
-    backend.static_smem(n) for n in (4 * 8, 4 * 64, 3 * 4 * 64))
+COMPACT_STATIC, SCAN_STATIC, UP_STATIC, DOWN_STATIC = (
+    backend.static_smem(n) for n in (4 * 8, 4 * 32, 4 * 64, 4 * 64))
 
 
 def local_moe_launches(seg_offsets: tuple, seg_experts: tuple, T: int,
                        d: int, f: int, swiglu: bool = False) -> tuple:
-    """K4's three launches for one call: the compaction over segments,
-    the up launch over (tile, f / 64) and the down launch over (tile,
-    d / 64, splits), from the wrapper's own :func:`plan_tiles` and
-    :func:`down_splits`."""
+    """K4's six launches for one call, in their order: the compaction over
+    segments, the scan (one block), the fill over tiles, the up launch
+    over (tile, f / 64), the down launch over (tile, d / 64, splits) and
+    the combine over tokens, from the wrapper's own :func:`plan_tiles` and
+    :func:`down_splits`.  No two blocks of a launch write one element:
+    the down launch stores each split of a tile's rows in its own place,
+    the combine a row of ``out`` a block.  The fill's writes, at places
+    in each token's list claimed by integer atomics, are distinct by
+    construction and not declared."""
     tiles = plan_tiles(seg_offsets, seg_experts)
     splits = down_splits(seg_offsets, f)
     n_seg, n_tiles = len(seg_experts), tiles.shape[0]
-    S, E = seg_offsets[-1], max(seg_experts) + 1
-    first, rows = tuple(int(r) for r in tiles[:, 0]), \
-        tuple(int(r) for r in tiles[:, 4])
-    tile_spans = (backend.Span("slots", S, first, rows),
-                  backend.Span("experts", E,
-                               tuple(int(e) for e in tiles[:, 1]),
-                               (1,) * n_tiles),
-                  backend.Span("h", n_tiles * TILE_ROWS,
-                               *backend.blocks(n_tiles, TILE_ROWS,
-                                               n_tiles * TILE_ROWS)))
+    S, E, R = seg_offsets[-1], max(seg_experts) + 1, n_tiles * TILE_ROWS
+    slots = backend.Span("slots", S, tuple(int(r) for r in tiles[:, 0]),
+                         tuple(int(r) for r in tiles[:, 4]))
+    experts = backend.Span("experts", E, tuple(int(e) for e in tiles[:, 1]),
+                           (1,) * n_tiles)
+    h_rows = backend.Span("h", R, *backend.blocks(n_tiles, TILE_ROWS, R))
+    tokens = backend.Span("tokens", T, tuple(range(T)), (1,) * T)
     compact = backend.LaunchDecl(
         "compact_kernel", (n_seg, 1, 1), COMPACT_THREADS, 0, COMPACT_STATIC,
         COMPACT_THREADS,
@@ -345,18 +417,29 @@ def local_moe_launches(seg_offsets: tuple, seg_experts: tuple, T: int,
                             (1,) * n_seg),),
         writes=(backend.Write("live", lambda x, y, z: (
             seg_offsets[x], seg_offsets[x + 1], 0)),))
+    scan = backend.LaunchDecl(
+        "scan_kernel", (1, 1, 1), SCAN_THREADS, 0, SCAN_STATIC, SCAN_THREADS,
+        spans=(backend.Span("row_ptr", T + 1, (0,), (T + 1,)),),
+        writes=(backend.Write("row_ptr", lambda x, y, z: (0, T + 1, 0)),))
+    fill = backend.LaunchDecl(
+        "fill_kernel", (n_tiles, 1, 1), TILE_ROWS, 0, 0, TILE_ROWS,
+        spans=(slots,))
     up = backend.LaunchDecl(
         f"fused_up_kernel<{str(swiglu).lower()}>", (n_tiles, f // 64, 1),
         THREADS, UP_SMEM_SWIGLU if swiglu else UP_SMEM, UP_STATIC, THREADS,
-        spans=tile_spans,
+        spans=(slots, experts, h_rows),
         writes=(backend.Write("h", lambda x, y, z: (
             x * TILE_ROWS, (x + 1) * TILE_ROWS, y)),))
     down = backend.LaunchDecl(
         "fused_down_kernel", (n_tiles, d // 64, splits), THREADS, DOWN_SMEM,
-        DOWN_STATIC, THREADS, spans=tile_spans,
-        # the combine scatters each live row into its token's output row
-        writes=(backend.Write("out", lambda x, y, z: (0, T, y)),))
-    return compact, up, down
+        DOWN_STATIC, THREADS, spans=(experts, h_rows),
+        writes=(backend.Write("y", lambda x, y, z: (
+            x * TILE_ROWS, (x + 1) * TILE_ROWS, (y, z))),))
+    combine = backend.LaunchDecl(
+        "combine_kernel", (T, 1, 1), COMBINE_THREADS, 0, 0, COMBINE_THREADS,
+        spans=(tokens,),
+        writes=(backend.Write("out", lambda x, y, z: (x, x + 1, 0)),))
+    return compact, scan, fill, up, down, combine
 
 
 def local_moe_layout(label: str, seg_offsets: tuple, seg_experts: tuple,
@@ -368,9 +451,8 @@ def local_moe_layout(label: str, seg_offsets: tuple, seg_experts: tuple,
         local_moe_launches(seg_offsets, seg_experts, T, d, f, swiglu),
         meta={"seg_offsets": seg_offsets, "seg_experts": seg_experts,
               "tiles": tiles, "tile_kind": "segment",
-              "acc_guarded": (("fused_down_kernel", "out"),),
               "geometry": ("moe_fused", "local_moe_fused_geometry",
-                           (len(seg_experts), tiles.shape[0], d, f,
+                           (len(seg_experts), tiles.shape[0], T, d, f,
                             int(swiglu), down_splits(seg_offsets, f)))})
 
 

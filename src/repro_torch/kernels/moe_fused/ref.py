@@ -8,7 +8,9 @@ raises on an out-of-range index, so the combine scatters into one spare
 row and slices it off.
 
 :func:`compact_slots` is the plain mirror of the CUDA kernel's first
-launch: the slots that carry a combine weight, segment by segment.
+launch: the slots that carry a combine weight, segment by segment;
+:func:`token_rows` of its token index: each token's live tile rows,
+ascending, the order in which its combine sums them.
 """
 
 from __future__ import annotations
@@ -17,6 +19,9 @@ import torch
 
 from repro_torch.kernels.moe_gemm.ref import grouped_ffn_ragged_ref
 from repro_torch.kernels.moe_permute.ref import permute_ref
+
+#: rows of one tile of the CUDA kernel's FFN launches (its BM)
+TILE_ROWS = 64
 
 
 def local_moe_ref(x, slot_to_token, slot_w, seg_offsets, seg_experts,
@@ -64,3 +69,34 @@ def compact_slots(slot_to_token, slot_w, seg_offsets, rows_valid,
     count = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
         0, seg, keep.to(torch.int64))
     return live, count.to(torch.int32)
+
+
+def tile_starts(seg_offsets, tile_rows: int = TILE_ROWS):
+    """Each segment's first tile row (int64 [n]): segments are cut into
+    ``ceil(width / tile_rows)`` tiles each, in order (``ops.plan_tiles``),
+    so segment ``s``'s live slot ``j`` (its ``j``-th in
+    :func:`compact_slots`) lies at tile row ``tile_starts[s] + j``."""
+    widths = torch.as_tensor(seg_offsets, dtype=torch.int64).diff()
+    tiles = (widths + tile_rows - 1) // tile_rows
+    return tile_rows * (torch.cumsum(tiles, 0) - tiles)
+
+
+def token_rows(slot_to_token, slot_w, seg_offsets, rows_valid,
+               num_tokens: int):
+    """The token index of the CUDA kernel's combine, a CSR by token:
+    ``(row_ptr [T + 1] int32, rows [n] int32)``, token ``t``'s live slots'
+    tile rows (:func:`tile_starts`) ascending at ``rows[row_ptr[t] :
+    row_ptr[t + 1]]``; ``n`` is the live slots' number.  Tile rows ascend
+    with slots, so each list is in slot order."""
+    dev = slot_to_token.device
+    live, count = compact_slots(slot_to_token, slot_w, seg_offsets,
+                                rows_valid, num_tokens)
+    offs = torch.as_tensor(seg_offsets, dtype=torch.int64, device=dev)
+    pos = torch.nonzero(live >= 0).flatten()
+    seg = torch.searchsorted(offs[1:], pos, right=True)
+    rows = tile_starts(seg_offsets).to(dev)[seg] + pos - offs[seg]
+    tok = slot_to_token.to(torch.int64)[live[pos].long()]
+    tok, order = torch.sort(tok, stable=True)
+    n = torch.bincount(tok, minlength=num_tokens)
+    row_ptr = torch.cat([n.new_zeros(1), torch.cumsum(n, 0)])
+    return row_ptr.to(torch.int32), rows[order].to(torch.int32)

@@ -11,8 +11,11 @@ JAX package's kernels and references.
   (a hypothesis property), and ``local_moe_ref`` over the compacted
   layout equal to both JAX versions over the dense one, on the gather
   layouts, a sentinel prefill layout and a one-rank ``local_layout`` of a
-  real route.  K4's and K3's tile tables, and the build's hash of the
-  headers a source includes.
+  real route.  K4's token index (``ref.token_rows``, what its scan, fill
+  and the combine's sort build): each live slot once under its token in
+  ascending tile rows (a hypothesis property), and the combine's sum in
+  that order equal to ``local_moe_ref`` on those layouts.  K4's and K3's
+  tile tables, and the build's hash of the headers a source includes.
 - K5 ``flash_attn.flash_attention`` against ``flash_attention_pallas(...,
   interpret=True)`` and ``layers._sdpa``: causal, windowed, GQA, and an Sq
   that is not a multiple of the block.
@@ -48,6 +51,7 @@ from repro_torch.kernels.flash_attn import ops as fa_ops
 from repro_torch.kernels.moe_fused import ops as fused_ops
 from repro_torch.kernels.moe_fused import ref as fused_ref
 from repro_torch.kernels.moe_gemm import ops as gemm_ops
+from repro_torch.kernels.moe_gemm import ref as gemm_ref
 from repro_torch.kernels.moe_permute import ref as permute_ref
 
 torch.set_num_threads(2)
@@ -390,6 +394,143 @@ def test_compact_slots_entry_on_the_cpu_is_the_plain_version():
     assert torch.equal(live, want_live) and torch.equal(count, want_count)
     assert int(count.sum()) == int((torch.from_numpy(w) != 0).sum())
     assert all(n == 0 for n in backend.LAUNCHES.values())
+
+
+@settings(max_examples=40, deadline=None)
+@given(seed=st.integers(0, 10_000), n_seg=st.integers(1, 6),
+       T=st.integers(1, 12))
+def test_token_rows_lists_each_live_slot_once_ascending(seed, n_seg, T):
+    """Each token's list holds the tile rows of its live slots (counted,
+    weighted, token in [0, T)) once each, ascending: segment ``s``'s
+    ``j``-th live slot at row 64 x (its first tile) + j of the tile table;
+    the counts are the live slots' bincount; sentinel, negative and
+    past-``rows_valid`` slots are absent."""
+    rng = np.random.default_rng(seed)
+    widths = rng.integers(0, 150, n_seg)
+    offs = (0,) + tuple(int(o) for o in np.cumsum(widths))
+    S = offs[-1]
+    tok = rng.integers(-1, T + 2, S).astype(np.int32)   # T: the sentinel
+    w = rng.uniform(0.1, 1.0, S).astype(np.float32)
+    w[rng.random(S) < 0.3] = 0.0
+    valid = rng.integers(-2, widths + 3).astype(np.int32)
+    row_ptr, rows = fused_ref.token_rows(
+        torch.from_numpy(tok), torch.from_numpy(w), offs,
+        torch.from_numpy(valid), T)
+    assert row_ptr.dtype == torch.int32 and rows.dtype == torch.int32
+    tiles = fused_ops.plan_tiles(offs, tuple(range(n_seg)))
+    want = {t: [] for t in range(T)}
+    for s in range(n_seg):
+        first_tile = int(np.searchsorted(tiles[:, 2], s))
+        n = min(max(int(valid[s]), 0), int(widths[s]))
+        live = [i for i in range(offs[s], offs[s] + n)
+                if w[i] != 0 and 0 <= tok[i] < T]
+        for j, i in enumerate(live):
+            want[int(tok[i])].append(fused_ops.TILE_ROWS * first_tile + j)
+    counts = [len(want[t]) for t in range(T)]
+    assert np.diff(row_ptr.numpy()).tolist() == counts
+    assert row_ptr[0] == 0 and int(row_ptr[-1]) == rows.numel()
+    for t in range(T):
+        mine = rows[row_ptr[t]:row_ptr[t + 1]].tolist()
+        assert mine == want[t] == sorted(set(mine))
+
+
+def ordered_combine(x, tok, w, offs, exps, valid, wi, wg, wo, activation):
+    """What K4's combine computes, written with the plain token index:
+    each slot's f32 row of the FFN over the compacted layout, then for each
+    token, from 0, += slot_w * row over its list in ascending order."""
+    T = x.shape[0]
+    live, count = fused_ref.compact_slots(tok, w, offs, valid, T)
+    keep = live >= 0
+    slots = live[keep].long()
+    starts = fused_ref.tile_starts(offs)
+    offs_t = torch.as_tensor(offs)
+    pos = torch.nonzero(keep).flatten()
+    seg = torch.searchsorted(offs_t[1:], pos, right=True)
+    slot_of = dict(zip((starts[seg] + pos - offs_t[seg]).tolist(),
+                       slots.tolist()))
+    ctok = torch.full_like(tok, T)
+    ctok[keep] = tok[slots]
+    ys = gemm_ref.grouped_ffn_ragged_ref(
+        permute_ref.permute_ref(x, ctok), offs, exps, count, wi, wg, wo,
+        activation=activation)
+    where = torch.full((tok.shape[0],), -1, dtype=torch.int64)
+    where[slots] = pos
+    row_ptr, rows = fused_ref.token_rows(tok, w, offs, valid, T)
+    out = torch.zeros((T, x.shape[1]), dtype=torch.float32)
+    for t in range(T):
+        for r in rows[row_ptr[t]:row_ptr[t + 1]].tolist():
+            s = slot_of[r]
+            out[t] += w[s] * ys[where[s]].to(torch.float32)
+    return out
+
+
+@pytest.mark.parametrize("layout", ["gather_0.0", "gather_0.5",
+                                    "gather_1.0", "prefill_sentinels",
+                                    "one_rank"])
+def test_ordered_combine_over_token_rows_matches_local_moe_ref(layout):
+    """The combine's order (each token's rows ascending, each row's weighted
+    f32 output added from 0) gives ``ref.local_moe_ref``'s output at 1e-6
+    on the compacted layouts."""
+    rng = np.random.default_rng(7)
+    x, tok, w, offs, exps, valid = k4_layout(layout, rng)
+    E = max(exps) + 1
+    wi, _, wo = (torch.from_numpy(a) for a in weights(rng, E, x.shape[1],
+                                                      128))
+    args = (torch.from_numpy(x), torch.from_numpy(tok), torch.from_numpy(w),
+            offs, exps, torch.from_numpy(valid))
+    got = ordered_combine(*args, wi, None, wo, "gelu")
+    want = fused_ref.local_moe_ref(*args, wi, None, wo, activation="gelu")
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_token_rows_entry_on_the_cpu_is_the_plain_version():
+    rng = np.random.default_rng(8)
+    x, tok, w, offs, exps, valid = k4_layout("one_rank", rng)
+    args = (torch.from_numpy(tok), torch.from_numpy(w), offs)
+    backend.reset_launches()
+    row_ptr, rows = fused_ops.token_rows(*args, exps,
+                                         torch.from_numpy(valid),
+                                         x.shape[0], use_pallas=True)
+    want_ptr, want_rows = fused_ref.token_rows(*args,
+                                               torch.from_numpy(valid),
+                                               x.shape[0])
+    assert torch.equal(row_ptr, want_ptr) and torch.equal(rows, want_rows)
+    assert int(row_ptr[-1]) == int((torch.from_numpy(w) != 0).sum())
+    assert all(n == 0 for n in backend.LAUNCHES.values())
+
+
+def test_k4_layouts_write_disjoint_without_atomics():
+    """K4's registered layouts: the source's six launches in order, no
+    declared atomic accumulation, and no two blocks of a launch writing
+    one element (the scatter-race rule)."""
+    from repro_torch.analysis import launch_check
+    lays = backend.registered_layouts()[fused_ops.KERNEL]
+    assert len(lays) == 6
+    for lay in lays:
+        assert [ln.kernel.split("<")[0] for ln in lay.launches] == [
+            "compact_kernel", "scan_kernel", "fill_kernel", "fused_up_kernel",
+            "fused_down_kernel", "combine_kernel"]
+        assert "acc_guarded" not in lay.meta
+        assert launch_check.check_scatter_race(lay) == []
+        T = lay.meta["geometry"][2][2]
+        assert lay.launches[-1].grid == (T, 1, 1)
+
+
+@pytest.mark.parametrize("H,K,hd,heads", [
+    (16, 16, 64, 4),           # gpt3_medium_moe's heads
+    (16, 8, 128, 4),           # the dense decoders' 8 KV heads of 128
+    (24, 8, 128, 4),           # G = 3
+    (16, 1, 128, 16),          # G = 16: state for 16 heads a warp
+    (32, 2, 64, 16),
+])
+def test_k8_split_launch_picks_its_instantiation(H, K, hd, heads):
+    assert dec_ops.state_heads(H // K) == heads
+    split, combine = dec_ops.decode_launches(32, 32768, H, K, hd)
+    assert split.kernel == f"decode_split_kernel<{hd},{heads}>"
+    assert split.grid == (K, 32768 // dec_ops.SPLIT_ROWS, 32)
+    assert split.static_smem == 4 * heads * hd
+    assert combine.grid == (32 * H, 1, 1) and combine.threads == hd
 
 
 @pytest.mark.parametrize("E,width,f,splits", [
