@@ -259,17 +259,44 @@ Phases, each printing JSON lines:
    prefill by scanning decode steps.  ``e2e_<config>``: the float32
    verdict (xLSTM's kernel path is its plain path; InternVL2's float32
    run casts one layer at a time);
-21. kernels — one ``{"kernels": [...]}`` line for K1-K8, launches
+21. tensor parallelism — a (data 1, model 2) world of two gloo ranks
+   sharing the card (``tp_phases``), after every other model's weights
+   are freed.  ``checks_tp2``: K4 at a model rank's layouts (layer 0's
+   experts cut to f / 2 = 1024: the gather path's decode and prefill
+   layouts over all 64 experts and train_1rank's layout) and K5 at
+   gpt3's prefill pack with 8 of 16 heads and Minitron-4B's with 12 of
+   24 heads over 4 of 8 KV heads of 128, against their plain versions,
+   timed, with bounds.  ``serve_tp2``: gpt3_medium_moe at depth
+   CUT_LAYERS, each rank holding half of every attention's heads, of
+   every expert's width and of the vocabulary: the end-to-end verdict of
+   the E2E rows against one-rank float32 and bf16 plain runs (greedy
+   tokens printed beside the one-rank kernel run's), then the serve
+   phase's requests: K4 exactly once a layer of every prefill pack and
+   decode step, K5 once a layer of every pack, every other kernel never,
+   both ranks' streams and top-k picks (sha256 of every gate's picks)
+   equal; tokens/s and parameter bytes a rank; then Minitron-4B at
+   depth TP_DENSE_LAYERS (vocabulary 256000 split in two): one prefill
+   of the E2E rows and TP_DENSE_STEPS decode steps through K5 (4
+   launches) against its own one-rank float32 run.  ``train_tp2``:
+   gpt3_medium_moe at depth TP_TRAIN_LAYERS, ``aux_mode="ta"``,
+   train_1rank's batch, TP_TRAIN_STEPS steps: K4 once a layer a step,
+   the first-step loss within LOSS_RTOL of the one-rank plain path's,
+   a sliced and two replicated leaves' gradients (gathered) within the
+   bf16 backward tolerances of the one-rank plain path's, the ranks'
+   losses and picks equal; step walls, busy share, peak memory;
+22. kernels — one ``{"kernels": [...]}`` line for K1-K8, launches
    summed over the main paths (serve, every rank of serve_2x2,
    train_1rank and its fused cross entropy step, every rank of
    train_2x2 and train_2x2_pipelined, train_einsum_k6,
    train_1rank_accum_remat, train_resilient, every rank of
    train_2x2_replan, train_2x2x2 and train_dp, serve_dsv2_lite,
    train_dsv2_lite_d4, serve_jamba_d16, loss_jamba_d16, the four dense
-   ``serve_<config>``, train_internlm2 and the three families'
-   ``serve_<config>``), with DeepSeek-V2-Lite's and Jamba's readings
-   beside each of K1-K4 and K7, the hd-128 readings beside K5's and K8's
-   and the families' shapes beside K5's.  K8 lies on no
+   ``serve_<config>``, train_internlm2, the three families'
+   ``serve_<config>``, and every rank of serve_tp2 (gpt3 and Minitron)
+   and train_tp2), with DeepSeek-V2-Lite's and Jamba's readings beside
+   each of K1-K4 and K7, the hd-128 readings beside K5's and K8's, the
+   families' shapes beside K5's, and the tensor-parallel layouts beside
+   K4's and K5's.  K8 lies on no
    path (no model calls it, as in the reference): its row gives the
    launches of its checks as ``check_launches``.
 
@@ -475,6 +502,23 @@ DENSE_TRAIN_ID, DENSE_MICRO = "internlm2_1_8b", 2
 XLSTM_ID, WHISPER_ID, VLM_ID = "xlstm_350m", "whisper_tiny", "internvl2_26b"
 FAMILY_IDS = (XLSTM_ID, WHISPER_ID, VLM_ID)
 VLM_BUCKET, VLM_CACHE_LEN = 384, 512
+# tensor parallelism: a (data 1, model 2) world of two gloo ranks sharing
+# the card, each with half of every attention's heads, of every FFN's and
+# expert's width and of the vocabulary.  serve_tp2: gpt3_medium_moe at
+# depth CUT_LAYERS with the serve phase's request mix, then Minitron-4B at
+# depth TP_DENSE_LAYERS (one prefill of the E2E rows, TP_DENSE_STEPS
+# decode steps); train_tp2: gpt3_medium_moe at depth TP_TRAIN_LAYERS,
+# TP_TRAIN_STEPS steps at train_1rank's shapes.  Depths cut for the time
+# limit: the new phases are budgeted at 120 s together
+TP_WORLD, TP_MODEL = (1,), 2
+TP_DENSE_ID, TP_DENSE_LAYERS, TP_DENSE_STEPS = "minitron_4b", 4, 8
+TP_TRAIN_LAYERS, TP_TRAIN_STEPS = 2, 2
+# train_tp2's gradients against the one-rank plain path's: a sliced leaf
+# (layer 0's wq columns) and two replicated ones (layer 0's norm scale and
+# layer 1's gate), gathered over the model axis
+TP_GRAD_LEAVES = (("layers", "0", "mixer", "wq"),
+                  ("layers", "0", "norm1", "scale"),
+                  ("layers", "1", "ffn", "gate", "w"))
 # kernels no earlier phase may launch: K6 runs only on the einsum phase, K8
 # on no path
 OFF_PATH = ("moe_gemm.grouped_ffn", "decode_attn.decode_attention")
@@ -2413,10 +2457,11 @@ def _cast_params(params, dtype):
     return params.to(dtype) if params.is_floating_point() else params
 
 
-def e2e_logits(torch, params, ctx, prompt, world=None, frontend=None):
+def e2e_logits(torch, params, ctx, prompt, world=None, frontend=None,
+               steps: int = E2E_STEPS):
     """Prefill of ``prompt`` [B, S] (with ``frontend`` [B, F, width], a
-    model's frame or patch embeddings) then E2E_STEPS decode steps, each
-    fed the prompt's last token: float32 logits [E2E_STEPS + 1, B, V].
+    model's frame or patch embeddings) then ``steps`` decode steps, each
+    fed the prompt's last token: float32 logits [steps + 1, B, V].
     On a world every rank passes the whole batch, runs its rows, and gets
     the whole batch's logits (gathered)."""
     from repro_torch.launch.mesh import gather_rows
@@ -2426,7 +2471,7 @@ def e2e_logits(torch, params, ctx, prompt, world=None, frontend=None):
     rows = slice(rank * B // n, (rank + 1) * B // n)
     mine = prompt[rows]
     prefill = engine.make_prefill(ctx, with_cache=True,
-                                  cache_len=max(64, S + E2E_STEPS))
+                                  cache_len=max(64, S + steps))
     step = engine.make_decode_step(ctx)
     batch = {"tokens": mine}
     if frontend is not None:
@@ -2434,7 +2479,7 @@ def e2e_logits(torch, params, ctx, prompt, world=None, frontend=None):
     lg, cache = prefill(params, batch)
     traj = [gather_rows(world, lg)]
     tok = mine[:, -1:]
-    for _ in range(E2E_STEPS):
+    for _ in range(steps):
         out, cache = step(params, cache, tok)
         traj.append(gather_rows(world, out[:, 0]))
     return torch.stack(traj)
@@ -2475,7 +2520,8 @@ class CastLayers(list):
 
 
 def plain_runs(torch, params, ctx, prompt, kernel=True, bf16=True, f32=True,
-               f32_by_layer=False, frontend=None) -> dict:
+               f32_by_layer=False, frontend=None,
+               steps: int = E2E_STEPS) -> dict:
     """``e2e_logits`` on one rank through the kernel path (with
     ``kernel``), the bf16 plain path (with ``bf16``) and a float32 plain
     run of the same weights (with ``f32``; with ``f32_by_layer``, each
@@ -2497,7 +2543,8 @@ def plain_runs(torch, params, ctx, prompt, kernel=True, bf16=True, f32=True,
     runs = (("kernel", kernel, ctx, lambda: params),
             ("plain_bf16", bf16, plain_ctx, lambda: params),
             ("plain_f32", f32, f32_ctx, f32_params))
-    return {name: e2e_logits(torch, make(), c, prompt, frontend=frontend)
+    return {name: e2e_logits(torch, make(), c, prompt, frontend=frontend,
+                             steps=steps)
             for name, wanted, c, make in runs if wanted}
 
 
@@ -3595,6 +3642,476 @@ def family_phases(torch, np) -> tuple:
     return ck, {aid: serve_family(torch, np, aid) for aid in FAMILY_IDS}
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism (serve_tp2, train_tp2)
+# ---------------------------------------------------------------------------
+
+
+class PickLog:
+    """Records every gate's top-k picks while active (``gating.
+    gate_forward`` wrapped) and digests them: two model ranks of one data
+    rank must route alike, bit for bit."""
+
+    def __init__(self):
+        import hashlib
+        self.hash, self.calls = hashlib.sha256(), 0
+
+    def __enter__(self):
+        from repro_torch.core import gating
+        self._orig = orig = gating.gate_forward
+
+        def rec(*a, **kw):
+            out = orig(*a, **kw)
+            self.hash.update(out["topk_idx"].to("cpu").numpy().tobytes())
+            self.calls += 1
+            return out
+        gating.gate_forward = rec
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import gating
+        gating.gate_forward = self._orig
+
+    def result(self) -> dict:
+        return {"sha256": self.hash.hexdigest(), "gate_calls": self.calls}
+
+
+def serve_tp_rank(world, out_dir: str) -> None:
+    """One rank of serve_tp2 (a data 1 x model 2 world).  gpt3_medium_moe
+    at depth CUT_LAYERS from seed 0 (the rank's heads, expert columns and
+    vocabulary rows of the one-rank model's draw) with ``use_flash``:
+    the end-to-end logits of the E2E rows against the one-rank float32
+    and bf16 plain runs the main process saved (``tp_reference.pt``),
+    the top-k picks' digest of that run, a warm-up request, then the
+    serve phase's requests with the launch counters set to 0 just before
+    and read just after.  Then Minitron-4B at depth TP_DENSE_LAYERS: its
+    end-to-end logits (prefill and TP_DENSE_STEPS decode steps) against
+    its own one-rank runs, the counters around them.  Writes
+    ``tp<process rank>.json``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import backend
+    from repro_torch.launch import analysis
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving import engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref = torch.load(os.path.join(out_dir, "tp_reference.pt"))
+    arch = dataclasses.replace(get_config(ARCH_ID), num_layers=CUT_LAYERS)
+    ctx = model_lib.build_ctx(arch, world, device="cuda", use_flash=True,
+                              aux_mode="none", seq_len=CACHE_LEN,
+                              global_batch=NUM_SLOTS)
+    params = model_lib.init_params(
+        ctx, torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad(), PickLog() as picks:
+        got = e2e_logits(torch, params, ctx, ref["gpt3"]["prompt"].cuda(),
+                         world)
+    e2e = e2e_verdict(torch, got, ref["gpt3"]["plain_f32"].cuda(),
+                      ref["gpt3"]["plain_bf16"].cuda(),
+                      "serve_tp2 end to end")
+    greedy = got.argmax(-1).t().tolist()
+    del got
+    eng = engine.ServingEngine(params, ctx, engine.ServeConfig(
+        num_slots=NUM_SLOTS, cache_len=CACHE_LEN, prefill_pack=PACK,
+        prompt_buckets=(BUCKET,)))
+    rng = np.random.default_rng(0)
+    eng.run(serve_requests(rng, arch.vocab_size, 1))          # warm-up
+    reqs = serve_requests(rng, arch.vocab_size, NUM_REQUESTS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with PickLog() as serve_picks:
+        backend.reset_launches()
+        report = eng.run(reqs)
+        launches = dict(backend.LAUNCHES)
+    gpt3 = {"end_to_end": e2e, "greedy": greedy, "picks": picks.result(),
+            "serve_picks": serve_picks.result(),
+            "streams": {s.request.uid: s.generated for s in report.streams},
+            "budgets": {s.request.uid: s.request.max_new_tokens
+                        for s in report.streams},
+            "evicted": sum(s.evicted for s in report.streams),
+            "new_tokens": report.total_new_tokens,
+            "decode_steps": report.decode_steps,
+            "prefill_packs": report.prefill_calls,
+            "wall_s": report.wall_time,
+            "tokens_per_s": report.tokens_per_sec, "launches": launches,
+            "param_bytes": analysis.tree_bytes(params),
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9}
+    del params, eng, report
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    darch = dataclasses.replace(get_config(TP_DENSE_ID),
+                                num_layers=TP_DENSE_LAYERS)
+    dctx = model_lib.build_ctx(darch, world, device="cuda", use_flash=True,
+                               aux_mode="none", seq_len=CACHE_LEN,
+                               global_batch=E2E_ROWS)
+    dparams = model_lib.init_params(
+        dctx, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    backend.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        got = e2e_logits(torch, dparams, dctx,
+                         ref["dense"]["prompt"].cuda(), world,
+                         steps=TP_DENSE_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dlaunches = dict(backend.LAUNCHES)
+    dense = {"end_to_end": e2e_verdict(
+                 torch, got, ref["dense"]["plain_f32"].cuda(),
+                 ref["dense"]["plain_bf16"].cuda(), "serve_tp2 minitron"),
+             "greedy": got.argmax(-1).t().tolist(), "launches": dlaunches,
+             "wall_s": wall,
+             "tokens_per_s": E2E_ROWS * (TP_DENSE_STEPS + 1) / wall,
+             "param_bytes": analysis.tree_bytes(dparams),
+             "heads": dctx.attn_cfg.num_heads,
+             "kv_heads": dctx.attn_cfg.num_kv_heads,
+             "vocab_rows": dparams["embed"]["table"].shape[0]}
+    out = {"process_rank": world.process_rank,
+           "model_coord": world.model_coord, "gpt3": gpt3, "dense": dense}
+    with open(os.path.join(out_dir, f"tp{world.process_rank}.json"),
+              "w") as fh:
+        json.dump(out, fh)
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[int(k)] if isinstance(tree, list) else tree[k]
+    return tree
+
+
+def train_tp_rank(world, out_dir: str) -> None:
+    """One rank of train_tp2: gpt3_medium_moe at depth TP_TRAIN_LAYERS
+    from seed 0 (its slices of the one-rank draw), train_1rank's batch
+    and run config.  First one forward and backward of the first batch
+    through the kernel path: the synced gradients of TP_GRAD_LEAVES,
+    gathered over the model axis, and the top-k picks' digest.  Then
+    ``trainer.train`` for TP_TRAIN_STEPS steps with the launch counters
+    set to 0 just before and read just after, and one more step under
+    torch.profiler (busy share).  Writes ``train_tp<process rank>.pt``
+    (the gradients) and ``.json``."""
+    import dataclasses
+
+    import torch
+    from repro_torch import sharding
+    from repro_torch.configs.base import RunConfig, get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch
+    from repro_torch.kernels import backend
+    from repro_torch.launch import analysis
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.training import trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    arch = dataclasses.replace(get_config(ARCH_ID),
+                               num_layers=TP_TRAIN_LAYERS)
+    run = RunConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH_1,
+                    warmup_steps=1, aux_mode="ta", seed=0)
+    ctx = model_lib.build_ctx(arch, world, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH_1, aux_mode="ta",
+                              device="cuda")
+    params = model_lib.init_params(
+        ctx, torch.Generator(device="cuda").manual_seed(run.seed))
+    data = SyntheticLM(DataConfig(vocab_size=arch.vocab_size,
+                                  seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH_1, seed=run.seed))
+    b0 = shard_batch(data.batch(0), world, "cuda")
+    for p in adamw.tree_leaves(params):
+        p.requires_grad_(True)
+    with PickLog() as picks:
+        loss, _ = transformer.loss_fn(params, b0, ctx,
+                                      aux_weight=run.aux_weight)
+    (loss / world.size).backward()
+    grads, _ = trainer.sync_grads(params, ctx)
+    specs = dict(sharding._leaves_with_paths(model_lib.param_specs(
+        model_lib.full_abstract_params(ctx), ctx)))
+    got = {}
+    for path in TP_GRAD_LEAVES:
+        g = _leaf(grads, path)
+        dim = sharding.model_dim(specs[path])
+        got["/".join(path)] = (g if dim is None else
+                               sharding.gather_from_model(g, world, dim)
+                               ).float().cpu()
+    first = {"loss": float(loss.detach()), "picks": picks.result(),
+             "sliced": {"/".join(p): sharding.model_dim(specs[p]) is not None
+                        for p in TP_GRAD_LEAVES}}
+    for p in adamw.tree_leaves(params):
+        p.grad = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    backend.reset_launches()
+    res = trainer.train(arch, run, world, steps=TP_TRAIN_STEPS, log_every=1,
+                        verbose=False, params=params, device="cuda")
+    launches = dict(backend.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step = trainer.make_train_step(ctx, run)
+    profiled = profile_train_step(
+        torch, step, res.params, res.opt_state,
+        shard_batch(data.batch(TP_TRAIN_STEPS), world, "cuda"))
+    rank = world.process_rank
+    torch.save(got, os.path.join(out_dir, f"train_tp{rank}.pt"))
+    with open(os.path.join(out_dir, f"train_tp{rank}.json"), "w") as fh:
+        json.dump({"process_rank": rank, "model_coord": world.model_coord,
+                   "first": first, "losses": res.losses,
+                   "grad_norm": [h["grad_norm"]
+                                 for h in res.metrics_history],
+                   "step_wall_s": res.step_seconds, "launches": launches,
+                   "max_memory_allocated_gb": peak_gb,
+                   "param_bytes": analysis.tree_bytes(res.params),
+                   "profiled_step": {k: profiled[k] for k in (
+                       "wall_ms", "device_ms", "device_busy_share",
+                       "kernel_launches", "top", "port_kernels")}}, fh)
+
+
+def tp_kernel_checks(torch, params, ctx, gen) -> dict:
+    """K4 and K5 at the layouts a model rank of the model-2 world gives
+    them, against their plain versions, timed: K4 with layer 0's experts
+    cut to their first f / TP_MODEL columns (w_in) and rows (w_out), at
+    the gather path's decode (8 tokens) and prefill (one pack, 512)
+    layouts over all 64 experts and at train_1rank's layout; K5 at gpt3's
+    prefill pack with 8 of its 16 heads and at Minitron-4B's with 12 of
+    24 heads over 4 of 8 KV heads of 128."""
+    from repro_torch.configs.base import get_config
+
+    def cut(args):
+        x, tok, w, offs, exps, valid, w_in, w_gate, w_out = args
+        f = w_in.shape[2] // TP_MODEL
+        return (x, tok, w, offs, exps, valid, w_in[..., :f].contiguous(),
+                None if w_gate is None else w_gate[..., :f].contiguous(),
+                w_out[:, :f].contiguous())
+
+    k4 = {}
+    for label, Tg in (("decode", NUM_SLOTS), ("prefill", PACK * BUCKET)):
+        args, act = gather_k4_case(torch, params, ctx, Tg, gen)
+        k4[label] = check_k4(torch, cut(args), act, f"tp2_{label}")
+    args, act = train1_k4_case(torch, params, ctx.arch, gen)
+    k4["train_1rank"] = check_k4(torch, cut(args), act, "tp2_train_1rank")
+    d = get_config(TP_DENSE_ID)
+    k5 = {"gpt3_prefill": check_k5(
+              torch, (PACK, BUCKET, 16 // TP_MODEL, 64), gen),
+          "minitron_prefill": check_k5(
+              torch, (PACK, BUCKET, d.num_heads // TP_MODEL, d.head_dim_),
+              gen, kv_heads=d.num_kv_heads // TP_MODEL)}
+    return {"K4": k4, "K5": k5}
+
+
+def tp_phases(torch, np) -> tuple:
+    """serve_tp2 and train_tp2 (TP_WORLD x TP_MODEL), after every other
+    model's weights are freed.  The main process first builds the
+    one-rank references: gpt3 at depth CUT_LAYERS (the TP layouts of K4
+    and K5 checked on its weights; its kernel, bf16 plain and float32
+    plain logits on the E2E rows), Minitron-4B at depth TP_DENSE_LAYERS
+    (bf16 and float32 plain logits), and gpt3 at depth TP_TRAIN_LAYERS
+    (the plain path's first-step loss and gradients).  Returns
+    ``(kernel checks, serve ranks, train ranks)``."""
+    import dataclasses
+
+    from repro_torch.configs.base import RunConfig, get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch
+    from repro_torch.kernels import backend
+    from repro_torch.launch import analysis, mesh
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+
+    t0 = time.time()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        arch = dataclasses.replace(get_config(ARCH_ID), num_layers=CUT_LAYERS)
+        ctx = model_lib.build_ctx(arch, device="cuda", use_flash=True,
+                                  aux_mode="none", seq_len=CACHE_LEN,
+                                  global_batch=NUM_SLOTS)
+        params = model_lib.init_params(
+            ctx, torch.Generator(device="cuda").manual_seed(0))
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        with torch.no_grad():
+            checks = tp_kernel_checks(torch, params, ctx, gen)
+        prompt = torch.as_tensor(np.random.default_rng(8).integers(
+            0, arch.vocab_size, size=(E2E_ROWS, E2E_PROMPT)),
+            dtype=torch.int32, device="cuda")
+        with torch.no_grad():
+            ref = {"gpt3": plain_runs(torch, params, ctx, prompt)}
+        ref["gpt3"]["prompt"] = prompt
+        one_rank_bytes = analysis.tree_bytes(params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        darch = dataclasses.replace(get_config(TP_DENSE_ID),
+                                    num_layers=TP_DENSE_LAYERS)
+        dctx = model_lib.build_ctx(darch, device="cuda", use_flash=True,
+                                   aux_mode="none", seq_len=CACHE_LEN,
+                                   global_batch=E2E_ROWS)
+        dparams = model_lib.init_params(
+            dctx, torch.Generator(device="cuda").manual_seed(0))
+        dprompt = torch.as_tensor(np.random.default_rng(8).integers(
+            0, darch.vocab_size, size=(E2E_ROWS, E2E_PROMPT)),
+            dtype=torch.int32, device="cuda")
+        with torch.no_grad():
+            ref["dense"] = plain_runs(torch, dparams, dctx, dprompt,
+                                      steps=TP_DENSE_STEPS)
+        ref["dense"]["prompt"] = dprompt
+        dense_one_rank_bytes = analysis.tree_bytes(dparams)
+        del dparams
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.save({m: {k: v.cpu() for k, v in r.items()}
+                    for m, r in ref.items()},
+                   os.path.join(tmp, "tp_reference.pt"))
+        ref_greedy = {m: r["kernel" if "kernel" in r else "plain_bf16"]
+                      .argmax(-1).t().tolist() for m, r in ref.items()}
+        del ref
+        emit({"phase": "checks_tp2", "seconds": time.time() - t0, **checks})
+
+        t0 = time.time()
+        mesh.spawn(serve_tp_rank, TP_WORLD, "gloo", "cuda", args=(tmp,),
+                   model=TP_MODEL)
+        srv = []
+        for r in range(math.prod(TP_WORLD) * TP_MODEL):
+            with open(os.path.join(tmp, f"tp{r}.json")) as fh:
+                srv.append(json.load(fh))
+        for r in srv:
+            g, dn = r["gpt3"], r["dense"]
+            if g["evicted"] or len(g["streams"]) != NUM_REQUESTS or any(
+                    len(toks) != g["budgets"][uid]
+                    or not all(0 <= t < arch.vocab_size for t in toks)
+                    for uid, toks in g["streams"].items()):
+                raise SystemExit(f"serve_tp2 rank {r['process_rank']}: "
+                                 f"streams incomplete or outside the "
+                                 f"vocabulary")
+            for key in ("streams", "greedy", "picks", "serve_picks"):
+                if g[key] != srv[0]["gpt3"][key]:
+                    raise SystemExit(f"serve_tp2 rank {r['process_rank']}: "
+                                     f"its {key} differ from rank 0's")
+            if g["picks"]["gate_calls"] != CUT_LAYERS * (E2E_STEPS + 1):
+                raise SystemExit(f"serve_tp2: {g['picks']['gate_calls']} "
+                                 f"gate calls recorded")
+            want = {k: 0 for k in backend.LAUNCHES}
+            want["moe_fused.local_moe"] = CUT_LAYERS * (g["prefill_packs"]
+                                                        + g["decode_steps"])
+            want["flash_attn.flash_attention"] = (CUT_LAYERS
+                                                  * g["prefill_packs"])
+            if g["launches"] != want:
+                raise SystemExit(f"serve_tp2 rank {r['process_rank']}: "
+                                 f"launches {g['launches']}, the path "
+                                 f"needs {want}")
+            want = {k: 0 for k in backend.LAUNCHES}
+            want["flash_attn.flash_attention"] = TP_DENSE_LAYERS
+            if dn["launches"] != want:
+                raise SystemExit(f"serve_tp2 minitron rank "
+                                 f"{r['process_rank']}: launches "
+                                 f"{dn['launches']}, the path needs {want}")
+            if dn["greedy"] != srv[0]["dense"]["greedy"]:
+                raise SystemExit("serve_tp2 minitron: the ranks' greedy "
+                                 "tokens differ")
+        emit({"phase": "serve_tp2", "seconds": time.time() - t0,
+              "world": list(TP_WORLD), "model": TP_MODEL,
+              "backend": "gloo", "layers": CUT_LAYERS,
+              "one_rank_param_bytes": one_rank_bytes,
+              "greedy_model1_kernel": ref_greedy["gpt3"],
+              "dense": {"arch": TP_DENSE_ID, "layers": TP_DENSE_LAYERS,
+                        "decode_steps": TP_DENSE_STEPS,
+                        "one_rank_param_bytes": dense_one_rank_bytes,
+                        "greedy_model1_plain_bf16": ref_greedy["dense"]},
+              "ranks": srv})
+
+        # train_tp2: the one-rank plain path's first step, then the world
+        t0 = time.time()
+        tarch = dataclasses.replace(get_config(ARCH_ID),
+                                    num_layers=TP_TRAIN_LAYERS)
+        run = RunConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH_1,
+                        warmup_steps=1, aux_mode="ta", seed=0)
+        pctx = model_lib.build_ctx(tarch, seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH_1,
+                                   aux_mode="ta", use_pallas=False,
+                                   device="cuda")
+        tparams = model_lib.init_params(
+            pctx, torch.Generator(device="cuda").manual_seed(run.seed))
+        for p in adamw.tree_leaves(tparams):
+            p.requires_grad_(True)
+        data = SyntheticLM(DataConfig(vocab_size=tarch.vocab_size,
+                                      seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH_1,
+                                      seed=run.seed))
+        backend.reset_launches()
+        os.environ[backend.ENV_VAR] = "0"
+        try:
+            loss, _ = transformer.loss_fn(
+                tparams, shard_batch(data.batch(0), None, "cuda"), pctx,
+                aux_weight=run.aux_weight)
+            loss.backward()
+        finally:
+            del os.environ[backend.ENV_VAR]
+        if any(backend.LAUNCHES.values()):
+            raise SystemExit(f"train_tp2's plain path launched "
+                             f"{dict(backend.LAUNCHES)}")
+        plain_loss = float(loss.detach())
+        plain_grads = {"/".join(p): _leaf(tparams, p).grad.float()
+                       for p in TP_GRAD_LEAVES}
+        del tparams, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh.spawn(train_tp_rank, TP_WORLD, "gloo", "cuda", args=(tmp,),
+                   model=TP_MODEL)
+        trn = []
+        for r in range(math.prod(TP_WORLD) * TP_MODEL):
+            with open(os.path.join(tmp, f"train_tp{r}.json")) as fh:
+                rep = json.load(fh)
+            got = torch.load(os.path.join(tmp, f"train_tp{r}.pt"))
+            rep["grads"] = {}
+            for name, want in plain_grads.items():
+                g = got[name].cuda()
+                if g.shape != want.shape:
+                    raise SystemExit(f"train_tp2: {name} gathered to "
+                                     f"{tuple(g.shape)}, the model has "
+                                     f"{tuple(want.shape)}")
+                err = float((g - want).abs().max())
+                lim = BWD_BF16_ATOL + BWD_BF16_RTOL * float(want.abs().max())
+                if not err <= lim:
+                    raise SystemExit(f"train_tp2 rank {r}: {name}'s "
+                                     f"gradient is {err} from the one-rank "
+                                     f"plain path's, limit {lim}")
+                rep["grads"][name] = {"max_abs_err": err, "limit": lim,
+                                      "max_abs": float(want.abs().max())}
+            want = {k: 0 for k in backend.LAUNCHES}
+            want["moe_fused.local_moe"] = TP_TRAIN_LAYERS * TP_TRAIN_STEPS
+            if rep["launches"] != want:
+                raise SystemExit(f"train_tp2 rank {r}: launches "
+                                 f"{rep['launches']}, the path needs {want}")
+            if len(rep["losses"]) != TP_TRAIN_STEPS or not all(
+                    math.isfinite(v) for v in rep["losses"]):
+                raise SystemExit(f"train_tp2 rank {r}: losses "
+                                 f"{rep['losses']}")
+            if (rep["losses"] != trn[0]["losses"] if trn else False) or (
+                    trn and rep["first"]["picks"] != trn[0]["first"]["picks"]):
+                raise SystemExit("train_tp2: the model ranks' losses or "
+                                 "picks differ")
+            trn.append(rep)
+        first = trn[0]["losses"][0]
+        rel = abs(first - plain_loss) / abs(plain_loss)
+        if not rel <= LOSS_RTOL:
+            raise SystemExit(f"train_tp2: first-step loss {first} (model 2, "
+                             f"kernels) vs {plain_loss} (one rank, plain): "
+                             f"relative {rel} > {LOSS_RTOL}")
+        emit({"phase": "train_tp2", "seconds": time.time() - t0,
+              "world": list(TP_WORLD), "model": TP_MODEL, "backend": "gloo",
+              "layers": TP_TRAIN_LAYERS, "seq_len": TRAIN_SEQ,
+              "global_batch": TRAIN_BATCH_1, "steps": TP_TRAIN_STEPS,
+              "first_loss_kernel": first, "first_loss_plain_model1":
+              plain_loss, "rel_diff": rel, "rtol": LOSS_RTOL,
+              "grad_atol": BWD_BF16_ATOL, "grad_rtol": BWD_BF16_RTOL,
+              "ranks": trn})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return checks, srv, trn
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4172,7 +4689,12 @@ def main() -> int:
     # Whisper's encoder and at GQA 6:1 in InternVL2's prefill
     ck_fm, srv_fm = family_phases(torch, np)
 
-    # 19. kernels: launches summed over every main path and rank
+    # 19. tensor parallelism: a (data 1, model 2) world of two ranks
+    # sharing the card serves gpt3_medium_moe and Minitron-4B and trains
+    # gpt3_medium_moe, through K4 and K5 at a model rank's layouts
+    ck_tp, srv_tp, trn_tp = tp_phases(torch, np)
+
+    # 20. kernels: launches summed over every main path and rank
     def total(name):
         return sum(sum(v) if isinstance(v, list) else v
                    for v in by_path(name).values())
@@ -4198,7 +4720,11 @@ def main() -> int:
                    for aid, r in srv_dn.items()},
                 "train_internlm2": tr_dn["launches"][name],
                 **{f"serve_{aid}": r["launches"][name]
-                   for aid, r in srv_fm.items()}}
+                   for aid, r in srv_fm.items()},
+                "serve_tp2": [r["gpt3"]["launches"][name] for r in srv_tp],
+                "serve_tp2_minitron": [r["dense"]["launches"][name]
+                                       for r in srv_tp],
+                "train_tp2": [r["launches"][name] for r in trn_tp]}
 
     def dsv2_row(r, extra=()):
         """One reading of ``checks_wide`` (DeepSeek-V2-Lite's or
@@ -4302,7 +4828,8 @@ def main() -> int:
          "max_abs_err": max(e["max_abs_err"]
                             for e in list(k4.values()) + k4_edges
                             + list(ck_ds["K4"].values())
-                            + list(ck_jb["K4"].values())),
+                            + list(ck_jb["K4"].values())
+                            + list(ck_tp["K4"].values())),
          "backward_max_abs_err": bwd["K4"]["max_abs_err"],
          **{n: kp[n] for n in ("ms", "device_ms", "kernel_device_ms",
                                "call_ms", "host_us", "plain_ms", "bound_ms",
@@ -4321,7 +4848,11 @@ def main() -> int:
          "jamba_layouts": {
              label: dsv2_row(r, ("computed_rows", "weighted_rows",
                                  "dense_rows", "active_experts"))
-             for label, r in ck_jb["K4"].items()}},
+             for label, r in ck_jb["K4"].items()},
+         "tp2_layouts": {
+             label: dsv2_row(r, ("call_ms", "host_us", "computed_rows",
+                                 "weighted_rows", "dense_rows"))
+             for label, r in ck_tp["K4"].items()}},
         {"name": "flash_attn.flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attn.cu",
          "replaces": "src/repro/kernels/flash_attn/kernel.py:65",
@@ -4332,7 +4863,8 @@ def main() -> int:
                             + [e["max_abs_err"] for e in edges
                                + ck_dn["K5_edges"]
                                + list(ck_dn["K5"].values())
-                               + list(ck_fm.values())]),
+                               + list(ck_fm.values())
+                               + list(ck_tp["K5"].values())]),
          "ms": k5["ms"], "device_ms": k5["device_ms"],
          "plain_ms": k5["plain_ms"],
          "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
@@ -4346,7 +4878,10 @@ def main() -> int:
                     "whisper_encoder_4x1500x6x64_noncausal":
                         ck_fm["K5_whisper_encoder"],
                     f"internvl2_prefill_4x{VLM_BUCKET}x48x128_kv8":
-                        ck_fm["K5_internvl2_prefill"]}},
+                        ck_fm["K5_internvl2_prefill"],
+                    "tp2_gpt3_prefill_4x128x8x64": ck_tp["K5"]["gpt3_prefill"],
+                    "tp2_minitron_prefill_4x128x12x128_kv4":
+                        ck_tp["K5"]["minitron_prefill"]}},
         {"name": "moe_gemm.grouped_ffn", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_gemm.cu",
          "replaces": "src/repro/kernels/moe_gemm/kernel.py:185",

@@ -238,8 +238,12 @@ def expected_inventory(sc: Scenario, device="cpu") -> list:
 
 
 def inventory(world) -> list:
-    """A recording world's log as :class:`Collective` entries."""
+    """A recording world's log as :class:`Collective` entries (ranks
+    numbered with the ``model`` axis innermost where the world has
+    one)."""
     names, sizes = world.axis_names, world.axis_sizes
+    if getattr(world, "model", 1) > 1:
+        names, sizes = names + ("model",), sizes + (world.model,)
     return [Collective(kind, hlo_dtype(dtype), int(n),
                        axis_groups(names, sizes, axes))
             for kind, dtype, n, axes in world.log]

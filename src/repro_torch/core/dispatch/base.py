@@ -2,10 +2,15 @@
 ``repro/core/dispatch/base.py``): the expert-parallel spec, the MoE layer
 config, parameter init and the expert FFNs.
 
-Everything here runs on one EP rank with its local expert shard.  There
-is no tensor-parallel ``model`` axis in the port yet, so the reference's
-model-axis reductions are identities.  ``MoEConfig.wire_codec`` resolves
-through ``core.dispatch.wire``.
+Everything here runs on one EP rank with its local expert shard.  With
+a tensor-parallel ``model`` axis (``EPSpec.model_axis``, and the
+``world`` the engine hands in), each expert and shared FFN holds ``1 /
+model`` of its width (``w_in``/``w_gate`` columns, ``w_out`` rows) and
+ends in ``sharding.reduce_from_model`` exactly where the reference
+psums over the model axis; its differentiable inputs pass
+``sharding.copy_to_model`` first, so the gradients reaching the
+dispatch and the gate are whole on every model rank.
+``MoEConfig.wire_codec`` resolves through ``core.dispatch.wire``.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.core import gating
 from repro_torch.core.dispatch import wire
 
@@ -121,24 +127,51 @@ def _act(cfg: MoEConfig, xin, params):
                   approximate="tanh")
 
 
-def expert_ffn(params, xin, cfg: MoEConfig, ep: EPSpec):
+def _tp(ep: EPSpec, world):
+    """The world of the model-axis reduction (None: no model axis)."""
+    return world if ep.model_axis is not None else None
+
+
+def expert_ffn(params, xin, cfg: MoEConfig, ep: EPSpec, world=None):
     """Grouped expert FFN on [E_local, C, d] -> [E_local, C, d] in the
     model dtype: ``moe_gemm.ops.grouped_ffn`` (K6 on the card) when
-    ``cfg.use_kernel`` is set, else plain tensor products."""
+    ``cfg.use_kernel`` is set, else plain tensor products; summed over
+    the model axis."""
+    tp = _tp(ep, world)
+    xin = sharding.copy_to_model(xin, tp)
     if cfg.use_kernel:
         from repro_torch.kernels.moe_gemm import ops as moe_gemm_ops
-        return moe_gemm_ops.grouped_ffn(xin, params["w_in"],
-                                        params.get("w_gate"),
-                                        params["w_out"],
-                                        activation=cfg.activation)
-    h = _act(cfg, xin, params)
-    return torch.einsum("ecf,efd->ecd", h, params["w_out"])
+        y = moe_gemm_ops.grouped_ffn(xin, params["w_in"],
+                                     params.get("w_gate"), params["w_out"],
+                                     activation=cfg.activation)
+    else:
+        h = _act(cfg, xin, params)
+        y = torch.einsum("ecf,efd->ecd", h, params["w_out"])
+    return sharding.reduce_from_model(y, tp)
 
 
 def expert_ffn_flat(params, x_flat, seg_offsets, cfg: MoEConfig, ep: EPSpec,
                     *, seg_experts=None, rows_valid=None, use_pallas=None,
                     slot_to_token=None, slot_w=None, quantized: bool = False,
-                    qweights=None):
+                    qweights=None, world=None):
+    """Segment-offset grouped expert FFN (:func:`_expert_ffn_flat`),
+    summed over the model axis of ``world`` where ``ep`` has one, as the
+    reference psums after its every branch."""
+    tp = _tp(ep, world)
+    x_flat = sharding.copy_to_model(x_flat, tp)
+    if slot_w is not None:
+        slot_w = sharding.copy_to_model(slot_w, tp)
+    y = _expert_ffn_flat(params, x_flat, seg_offsets, cfg,
+                         seg_experts=seg_experts, rows_valid=rows_valid,
+                         use_pallas=use_pallas, slot_to_token=slot_to_token,
+                         slot_w=slot_w, quantized=quantized,
+                         qweights=qweights)
+    return sharding.reduce_from_model(y, tp)
+
+
+def _expert_ffn_flat(params, x_flat, seg_offsets, cfg: MoEConfig, *,
+                     seg_experts, rows_valid, use_pallas, slot_to_token,
+                     slot_w, quantized, qweights):
     """Segment-offset grouped expert FFN on a flat [R, d] row buffer.
 
     ``seg_offsets`` is the static offset vector of the contiguous sorted
@@ -210,9 +243,11 @@ def expert_ffn_flat(params, x_flat, seg_offsets, cfg: MoEConfig, ep: EPSpec,
         use_pallas=False)
 
 
-def shared_ffn(params, x, cfg: MoEConfig, ep: EPSpec):
+def shared_ffn(params, x, cfg: MoEConfig, ep: EPSpec, world=None):
+    tp = _tp(ep, world)
+    x = sharding.copy_to_model(x, tp)
     if cfg.activation == "swiglu":
         h = F.silu(x @ params["shared_gate"]) * (x @ params["shared_in"])
     else:
         h = F.gelu(x @ params["shared_in"], approximate="tanh")
-    return h @ params["shared_out"]
+    return sharding.reduce_from_model(h @ params["shared_out"], tp)

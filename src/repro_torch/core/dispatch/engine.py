@@ -251,7 +251,8 @@ def _staged_a2a(params, x, eng: DispatchEngine, num_chunks: int):
         out_local = expert_ffn_flat(
             params, x, offs, cfg, ep, seg_experts=exps,
             rows_valid=li.rows_per_expert, slot_to_token=li.slot_to_token,
-            slot_w=li.slot_w, use_pallas=eng.use_pallas)        # [T, d] f32
+            slot_w=li.slot_w, use_pallas=eng.use_pallas,
+            world=world)                                        # [T, d] f32
 
     # chunk j's capacity slice of every remote stage, flattened into one
     # sort-order index set (sync == chunk 0)
@@ -305,7 +306,7 @@ def _staged_a2a(params, x, eng: DispatchEngine, num_chunks: int):
         y = expert_ffn_flat(params, xin.reshape(E_l * R, d), segs, cfg, ep,
                             seg_experts=exps, rows_valid=valid,
                             use_pallas=eng.use_pallas, quantized=quant,
-                            qweights=qweights)
+                            qweights=qweights, world=world)
         return y.reshape(E_l, R, d)
 
     def combine(out, j, y_exp):
@@ -330,7 +331,7 @@ def _staged_a2a(params, x, eng: DispatchEngine, num_chunks: int):
     if out_local is not None:
         out = out + out_local.to(out.dtype)
     if cfg.num_shared_experts:
-        out = out + shared_ffn(params, x, cfg, ep).to(out.dtype)
+        out = out + shared_ffn(params, x, cfg, ep, world).to(out.dtype)
 
     frac = gating.dispatch_fractions(topk_idx, cfg.num_experts)
     metrics = {
@@ -400,10 +401,11 @@ def _gather_path(params, x, eng: DispatchEngine):
         y = expert_ffn_flat(params, xg, transport.expert_segments(E_l, Tg),
                             cfg, ep, seg_experts=tuple(range(E_l)),
                             rows_valid=valid, slot_to_token=slot_tok,
-                            slot_w=slot_w, use_pallas=eng.use_pallas)
+                            slot_w=slot_w, use_pallas=eng.use_pallas,
+                            world=world)
     else:
         xin = xg.expand(E_l, Tg, d)                              # [E_l, Tg, d]
-        y = expert_ffn(params, xin, cfg, ep)
+        y = expert_ffn(params, xin, cfg, ep, world)
         inv_idx, inv_w = routing.gather_inverse(gate_out, my_rank, E_l, Tg)
         y = permute_ops.unpermute(y.reshape(E_l * Tg, -1), inv_idx, inv_w,
                                   use_pallas=eng.use_pallas)
@@ -413,7 +415,7 @@ def _gather_path(params, x, eng: DispatchEngine):
     y = tr.slice_local(y, my_rank, x.shape[0])
 
     if cfg.num_shared_experts:
-        y = y + shared_ffn(params, x, cfg, ep).to(y.dtype)
+        y = y + shared_ffn(params, x, cfg, ep, world).to(y.dtype)
 
     frac = gating.dispatch_fractions(gate_out["topk_idx"], cfg.num_experts)
     metrics = {"aux_loss": aux,
@@ -465,10 +467,11 @@ def _einsum_path(params, x, eng: DispatchEngine):
         counts = counts + torch.sum(onehot * keep[:, None], dim=0)
 
     xin = torch.einsum("tnc,td->ncd", dispatch, x.to(torch.float32))
-    y_exp = expert_ffn(params, xin.to(x.dtype), cfg, ep)       # [N, C, d]
+    world = eng.world
+    y_exp = expert_ffn(params, xin.to(x.dtype), cfg, ep, world)  # [N, C, d]
     y = torch.einsum("tnc,ncd->td", combine, y_exp.to(torch.float32))
     if cfg.num_shared_experts:
-        y = y + shared_ffn(params, x, cfg, ep).to(y.dtype)
+        y = y + shared_ffn(params, x, cfg, ep, world).to(y.dtype)
     metrics = {"aux_loss": aux,
                "dropped": 1.0 - dispatch.sum() / (T * K)}
     return y.to(x.dtype), metrics

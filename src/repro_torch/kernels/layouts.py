@@ -14,6 +14,12 @@ capacity clamp and chunk alignment.
 * ``gathered(tokens, ep_world)``: the gather path's dense [E_l, Tg] slot
   layout.
 
+On a tensor-parallel world (``TP_MODEL`` model ranks) the expert FFN's
+width is ``f / TP_MODEL`` a rank and attention holds ``1 / TP_MODEL`` of
+the heads: K4 and K5 register those layouts beside the others
+(gpt3_medium_moe's f 1024 and 8 of its 16 heads; Minitron-4B's 12 of 24
+heads over 4 of 8 KV heads at 128).
+
 Imports of the model stack happen inside the functions, so importing a
 kernel package stays light.
 """
@@ -25,6 +31,8 @@ import functools
 
 ARCH_ID = "gpt3_medium_moe"
 TRAIN_SEQ = 512
+#: the model axis of the tensor-parallel layouts
+TP_MODEL = 2
 
 
 @dataclasses.dataclass(frozen=True)

@@ -473,4 +473,14 @@ def _local_moe_layouts():
     offs, exps = layouts.gathered(8)
     out.append(local_moe_layout("gather Tg=8 swiglu", offs, exps, 8, d, f,
                                 swiglu=True))
+    # a model rank's f / TP_MODEL columns on a tensor-parallel world
+    f_tp = f // layouts.TP_MODEL
+    T, offs, exps = layouts.local()
+    out.append(local_moe_layout(f"train_1rank S={offs[-1]} f={f_tp}", offs,
+                                exps, T, d, f_tp))
+    for Tg in (8, 512):
+        offs, exps = layouts.gathered(Tg)
+        out.append(local_moe_layout(
+            f"gather Tg={Tg} E_l={len(exps)} f={f_tp}", offs, exps, Tg, d,
+            f_tp))
     return out

@@ -8,11 +8,16 @@ The reference lowers and compiles against a fake 256- or 512-chip mesh.
 Here rank 0 of the hierarchy is emulated by a recording EP world
 (``launch.mesh.RecordingWorld``): the engine's collectives return tensors
 of the right shape and are logged, so their wire bytes are counted. The
-production hierarchies are the reference's meshes without the 16-wide
-``model`` axis (pod1: ``data`` 16; pod2: ``pod`` 2 x ``data`` 16; pod3:
-``pod`` 2 x ``node`` 2 x ``data`` 8): the port has no tensor
-parallelism, so each rank holds every dense weight, and a batch smaller
-than the world (``long_500k``) is whole on every rank with its cache.
+production hierarchies are the reference's meshes (pod1: ``data`` 16;
+pod2: ``pod`` 2 x ``data`` 16; pod3: ``pod`` 2 x ``node`` 2 x ``data``
+8), each with its 16-wide ``model`` axis: a rank holds its slices of the
+weights (``model.shard_params``) and the step's model-axis collectives
+are logged too.  A family whose layers have no tensor-parallel form in
+the port yet (MLA, Mamba, xLSTM, Whisper, InternVL2:
+``model.tp_refusal``) runs on the hierarchy alone, every dense weight on
+every rank; its record says so (``tensor_parallel`` 1 and the note).  A
+batch smaller than the hierarchy (``long_500k``) is whole on every rank
+with its cache.
 
 The step is the one a user runs: ``trainer.make_train_step`` (forward,
 backward, the gradient sync and AdamW) for ``train``,
@@ -69,15 +74,20 @@ def skip_reason(arch, shape_name: str):
     return None
 
 
-def resolve_mesh(mesh) -> tuple:
+def resolve_mesh(mesh, model: int | None = None) -> tuple:
     """``(recording world, name)`` of a hierarchy: ``"pod1"`` / ``"pod2"``
-    / ``"pod3"`` or a tuple of axis sizes (outermost first)."""
+    / ``"pod3"`` (with the production ``model`` axis unless ``model``
+    says otherwise) or a tuple of axis sizes (outermost first; ``model``
+    default 1)."""
     if isinstance(mesh, str):
+        m = mesh_lib.PRODUCTION_MODEL if model is None else int(model)
         return (mesh_lib.recording_world(
-            mesh_lib.PRODUCTION_HIERARCHIES[mesh], device="meta"), mesh)
+            mesh_lib.PRODUCTION_HIERARCHIES[mesh], model=m, device="meta"),
+            mesh)
     sizes = tuple(int(s) for s in mesh)
-    return (mesh_lib.recording_world(sizes, device="meta"),
-            "x".join(map(str, sizes)))
+    m = 1 if model is None else int(model)
+    name = "x".join(map(str, sizes)) + (f"xmodel{m}" if m > 1 else "")
+    return (mesh_lib.recording_world(sizes, model=m, device="meta"), name)
 
 
 def _active_params(arch, n_params: int) -> float:
@@ -107,10 +117,12 @@ class DryRun:
 
 def lower_one(arch_id: str, shape_name: str, mesh="pod1",
               aux_mode: str = "ta", optimized: bool = False, arch=None,
-              shape: dict | None = None):
+              shape: dict | None = None, model: int | None = None):
     """Returns ``(record, DryRun)``; the record holds every number.
 
-    ``mesh``: a hierarchy for :func:`resolve_mesh`.  ``arch``: an
+    ``mesh``, ``model``: a hierarchy and model axis for
+    :func:`resolve_mesh` (a family without a tensor-parallel form runs
+    at model 1).  ``arch``: an
     ``ArchConfig`` to run instead of ``get_config(arch_id)`` (e.g. a
     ``reduced()`` one).  ``shape``: a dict of ``INPUT_SHAPES``' form to
     run instead of ``INPUT_SHAPES[shape_name]`` (``shape_name`` then
@@ -122,9 +134,14 @@ def lower_one(arch_id: str, shape_name: str, mesh="pod1",
     from repro_torch.serving import engine
     from repro_torch.training import trainer
 
-    world, mesh_name = resolve_mesh(mesh)
     arch0 = arch if arch is not None else get_config(arch_id)
+    world, mesh_name = resolve_mesh(mesh, model)
+    why = model_lib.tp_refusal(arch0, world.model)
+    if why:
+        world, mesh_name = resolve_mesh(mesh, 1)
     arch, note = arch_variant(arch0, shape_name)
+    if why:
+        note = "; ".join(filter(None, (note, f"model axis dropped: {why}")))
     if arch is None or skip_reason(arch0, shape_name):
         return {"arch": arch_id, "shape": shape_name, "mesh": mesh_name,
                 "status": "skipped",
@@ -207,7 +224,7 @@ def lower_one(arch_id: str, shape_name: str, mesh="pod1",
     t_run = time.time() - t0
 
     inventory = collective_check.inventory(world)
-    n_dev = world.size
+    n_dev = world.size * world.model
     sizes = dict(zip(world.axis_names, world.axis_sizes))
     dpp = n_dev // sizes.get("pod", 1) // sizes.get("node", 1)
     stats = analysis.collective_stats(inventory, num_devices=n_dev,
@@ -224,7 +241,7 @@ def lower_one(arch_id: str, shape_name: str, mesh="pod1",
         "axis_sizes": list(world.axis_sizes),
         "status": "ok", "note": note, "kind": kind,
         "aux_mode": aux_mode, "optimized": optimized,
-        "tensor_parallel": 1, "batch_rows_per_rank": rows,
+        "tensor_parallel": world.model, "batch_rows_per_rank": rows,
         "batch_replicated": replicated,
         "dispatch": ctx.dispatch, "a2a_num_chunks": ctx.a2a_num_chunks,
         "dispatch_levels": plan.num_stages if plan is not None else 0,

@@ -11,6 +11,15 @@ span a suffix of the axes (``models.model.make_ep_spec``); a rank holds
 the expert shard of its coordinates on those axes, and the axes above
 them are pure data parallelism.
 
+A world may add a tensor-parallel ``model`` axis (``EPWorld.model``
+ranks, the reference's innermost mesh axis): it stays out of
+``axis_names`` / ``axis_sizes``, which keep naming the hierarchy, so
+``rank``, ``size`` and every EP and data-parallel collective are those
+of the hierarchy with this rank's model coordinate fixed.  Process ``p``
+of the world is hierarchy rank ``p // model`` at model coordinate ``p %
+model``, and the ``"model"`` axis (``all_reduce_sum(t, ("model",))``,
+``all_gather(t, "model")``) joins the ranks that differ only there.
+
 The caller names the collective backend: ``"gloo"`` for ranks on the CPU
 or sharing one card, ``"nccl"`` for one card a rank.  Nothing switches
 backends on its own.  Under gloo every collective stages CUDA tensors
@@ -23,8 +32,8 @@ traffic): alone it emulates one rank of a world in one process (its
 collectives return tensors of the right shape without communicating),
 around a real world it passes every call through.  The production
 hierarchies (``make_production_mesh``, ``make_production_mesh_3tier``)
-are the reference's meshes without their tensor-parallel ``model`` axis,
-as recording worlds at the coordinates of rank 0.
+are the reference's meshes, their 16-wide ``model`` axis included, as
+recording worlds at the coordinates of rank 0.
 """
 
 from __future__ import annotations
@@ -49,6 +58,10 @@ class EPWorld:
     of size > 1 (keyed by the axis name: the ranks that differ from this
     one only on that axis) and one per set of two or more such axes short
     of the whole world (keyed by the tuple of names, outermost first).
+    ``model`` is the size of the tensor-parallel axis and ``model_coord``
+    this rank's place on it; with ``model`` > 1 the groups of the
+    hierarchy axes hold this model coordinate's ranks, the whole
+    hierarchy has one too, and ``"model"`` keys the model axis's group.
     ``backend`` is None for the unit world, which needs no process
     group."""
 
@@ -58,6 +71,13 @@ class EPWorld:
     backend: str | None = None
     device: str = "cuda"
     groups: dict = dataclasses.field(default_factory=dict)
+    model: int = 1
+    model_coord: int = 0
+
+    @property
+    def process_rank(self) -> int:
+        """This process's rank in the default group (model innermost)."""
+        return self.rank * self.model + self.model_coord
 
     @property
     def rank(self) -> int:
@@ -79,19 +99,23 @@ class EPWorld:
         at = dict(zip(self.axis_names, self.coords))
         return tuple(at[a] for a in axes)
 
+    def _size(self, axis: str) -> int:
+        return self.model if axis == "model" else self.shape[axis]
+
     def _live(self, axes) -> tuple:
-        """The axes of ``axes`` (None: all) with more than one rank, in
-        the world's order."""
+        """The axes of ``axes`` (None: every hierarchy axis) with more
+        than one rank, in the world's order, ``model`` last."""
         names = self.axis_names if axes is None else tuple(axes)
-        return tuple(a for a in self.axis_names
-                     if a in names and self.shape[a] > 1)
+        return tuple(a for a in self.axis_names + ("model",)
+                     if a in names and self._size(a) > 1)
 
     def _group(self, live: tuple):
         """The process group over the axes ``live`` (``_live``'s result):
-        None (the default group) when they are every axis of size > 1.
-        A group's members, in group rank order, run in mixed-radix order
-        over ``live`` (``make_hierarchical_mesh`` lists them so)."""
-        if live == self._live(None):
+        None (the default group) when they are every axis of size > 1 of
+        a world without a model axis.  A group's members, in group rank
+        order, run in mixed-radix order over ``live``
+        (``make_hierarchical_mesh`` lists them so)."""
+        if live == self._live(None) and self.model == 1:
             return None
         return self.groups[live[0] if len(live) == 1 else live]
 
@@ -138,7 +162,7 @@ class EPWorld:
         live = self._live((axes,) if isinstance(axes, str) else axes)
         if not live:
             return x
-        n = math.prod(self.shape[a] for a in live)
+        n = math.prod(self._size(a) for a in live)
         src = x.detach().contiguous()
         if src.dtype.is_floating_point and src.dtype.itemsize == 1:
             src = src.view(torch.uint8)      # gloo has no float8 types
@@ -215,7 +239,7 @@ class RecordingWorld(EPWorld):
         self._record("all_gather", x, live)
         if self.inner is not None:
             return self.inner.all_gather(x, axes)
-        n = math.prod(self.shape[a] for a in live)
+        n = math.prod(self._size(a) for a in live)
         return x.detach().repeat((n,) + (1,) * (x.dim() - 1))
 
     def all_reduce_sum(self, t: torch.Tensor, axes=None) -> torch.Tensor:
@@ -229,39 +253,44 @@ class RecordingWorld(EPWorld):
 
 
 def recording_world(axis_sizes=None, *, inner: EPWorld | None = None,
-                    device="cpu") -> RecordingWorld:
+                    model: int = 1, device="cpu") -> RecordingWorld:
     """A :class:`RecordingWorld`: around ``inner`` (its axes, coordinates,
     backend and groups), or alone over ``axis_sizes`` (outermost first,
-    ``capacity.default_axis_names``) at the coordinates of rank 0."""
+    ``capacity.default_axis_names``) and a ``model`` axis, at the
+    coordinates of rank 0."""
     if inner is not None:
         return RecordingWorld(
             axis_names=inner.axis_names, axis_sizes=inner.axis_sizes,
             coords=inner.coords, backend=inner.backend, device=inner.device,
-            groups=inner.groups, inner=inner)
+            groups=inner.groups, model=inner.model,
+            model_coord=inner.model_coord, inner=inner)
     sizes = tuple(int(s) for s in axis_sizes)
     return RecordingWorld(axis_names=default_axis_names(len(sizes)),
                           axis_sizes=sizes, coords=(0,) * len(sizes),
-                          device=str(device))
+                          device=str(device), model=int(model))
 
 
-#: the reference's production meshes (``repro/launch/mesh.py``) without
-#: their 16-wide tensor-parallel ``model`` axis, which the port lacks:
-#: each rank holds every dense weight
+#: the reference's production meshes (``repro/launch/mesh.py:20-31``):
+#: the hierarchy axes, outermost first, and the 16-wide ``model`` axis
 PRODUCTION_HIERARCHIES = {"pod1": (16,), "pod2": (2, 16), "pod3": (2, 2, 8)}
+PRODUCTION_MODEL = 16
 
 
 def make_production_mesh(*, multi_pod: bool = False,
                          device="cpu") -> RecordingWorld:
-    """pod1 (``data`` 16) or pod2 (``pod`` 2 x ``data`` 16), emulated at
-    rank 0 by a :class:`RecordingWorld`."""
+    """pod1 (``data`` 16) or pod2 (``pod`` 2 x ``data`` 16), each with a
+    ``model`` axis (16), emulated at rank 0 by a
+    :class:`RecordingWorld`."""
     return recording_world(
         PRODUCTION_HIERARCHIES["pod2" if multi_pod else "pod1"],
-        device=device)
+        model=PRODUCTION_MODEL, device=device)
 
 
 def make_production_mesh_3tier(device="cpu") -> RecordingWorld:
-    """pod3: ``pod`` 2 x ``node`` 2 x ``data`` 8, emulated at rank 0."""
-    return recording_world(PRODUCTION_HIERARCHIES["pod3"], device=device)
+    """pod3: ``pod`` 2 x ``node`` 2 x ``data`` 8 with a ``model`` axis,
+    emulated at rank 0."""
+    return recording_world(PRODUCTION_HIERARCHIES["pod3"],
+                           model=PRODUCTION_MODEL, device=device)
 
 
 def gather_rows(world, t: torch.Tensor) -> torch.Tensor:
@@ -278,48 +307,61 @@ def unit_world(device="cuda") -> EPWorld:
                    device=str(device))
 
 
-def make_hierarchical_mesh(axis_sizes, *, backend: str,
-                           device="cuda") -> EPWorld:
+def make_hierarchical_mesh(axis_sizes, *, backend: str, device="cuda",
+                           model: int = 1) -> EPWorld:
     """The EP world over the default process group, which the caller has
-    initialized (``dist.init_process_group``) with ``prod(axis_sizes)``
-    ranks.  Every rank builds every group (each axis, then each set of two
-    or more axes short of the world, smaller sets first), in the same
-    order, as ``dist.new_group`` requires."""
+    initialized (``dist.init_process_group``) with ``prod(axis_sizes) *
+    model`` ranks, the ``model`` axis innermost.  Every rank builds every
+    group (each hierarchy axis, then each set of two or more of them
+    short of the whole hierarchy, smaller sets first; with a model axis
+    the whole hierarchy too, then the model axis), in the same order, as
+    ``dist.new_group`` requires."""
     sizes = tuple(int(s) for s in axis_sizes)
+    model = int(model)
     names = default_axis_names(len(sizes))
     if not dist.is_initialized():
         raise RuntimeError("make_hierarchical_mesh needs an initialized "
                            "torch.distributed process group")
-    if dist.get_world_size() != math.prod(sizes):
-        raise ValueError(f"axis sizes {sizes} need {math.prod(sizes)} ranks, "
-                         f"the process group has {dist.get_world_size()}")
+    if dist.get_world_size() != math.prod(sizes) * model:
+        raise ValueError(f"axis sizes {sizes} and a model axis of {model} "
+                         f"need {math.prod(sizes) * model} ranks, the "
+                         f"process group has {dist.get_world_size()}")
+    full_sizes = sizes + (model,)
     rank = dist.get_rank()
     coords, r = [], rank
-    for s in reversed(sizes):
+    for s in reversed(full_sizes):
         coords.append(r % s)
         r //= s
     coords = tuple(reversed(coords))
-    groups = {}
     live = [i for i, s in enumerate(sizes) if s > 1]
-    for k in range(1, max(2, len(live))):
-        for span in itertools.combinations(live, k):
-            key = names[span[0]] if k == 1 else tuple(names[i] for i in span)
-            fixed = [i for i in range(len(sizes)) if i not in span]
-            for rest in itertools.product(*(range(sizes[i]) for i in fixed)):
-                members = []
-                for inner in itertools.product(*(range(sizes[i])
-                                                 for i in span)):
-                    full = [0] * len(sizes)
-                    for i, c in zip(fixed, rest):
-                        full[i] = c
-                    for i, c in zip(span, inner):
-                        full[i] = c
-                    members.append(_rank_of(full, sizes))
-                group = dist.new_group(ranks=members)
-                if rank in members:
-                    groups[key] = group
-    return EPWorld(axis_names=names, axis_sizes=sizes, coords=coords,
-                   backend=backend, device=str(device), groups=groups)
+    spans = [span for k in range(1, (len(live) + 1 if model > 1
+                                     else max(2, len(live))))
+             for span in itertools.combinations(live, k)]
+    if model > 1:
+        spans.append((len(sizes),))
+    groups = {}
+    for span in spans:
+        key = ("model" if span == (len(sizes),) else
+               names[span[0]] if len(span) == 1 else
+               tuple(names[i] for i in span))
+        fixed = [i for i in range(len(full_sizes)) if i not in span]
+        for rest in itertools.product(*(range(full_sizes[i])
+                                        for i in fixed)):
+            members = []
+            for inner in itertools.product(*(range(full_sizes[i])
+                                             for i in span)):
+                full = [0] * len(full_sizes)
+                for i, c in zip(fixed, rest):
+                    full[i] = c
+                for i, c in zip(span, inner):
+                    full[i] = c
+                members.append(_rank_of(full, full_sizes))
+            group = dist.new_group(ranks=members)
+            if rank in members:
+                groups[key] = group
+    return EPWorld(axis_names=names, axis_sizes=sizes, coords=coords[:-1],
+                   backend=backend, device=str(device), groups=groups,
+                   model=model, model_coord=coords[-1])
 
 
 def mesh_from_topology(spec) -> tuple:
@@ -344,8 +386,9 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank, fn, axis_sizes, backend, device, port, args):
-    world_size = math.prod(axis_sizes)
+def _rank_main(rank, fn, axis_sizes, backend, device, port, args,
+               model=1):
+    world_size = math.prod(axis_sizes) * model
     if backend == "nccl":                    # one card a rank
         device = f"cuda:{rank}"
     dev = torch.device(device)
@@ -360,19 +403,21 @@ def _rank_main(rank, fn, axis_sizes, backend, device, port, args):
                             world_size=world_size, rank=rank)
     try:
         world = make_hierarchical_mesh(axis_sizes, backend=backend,
-                                       device=device)
+                                       device=device, model=model)
         fn(world, *args)
     finally:
         dist.destroy_process_group()
 
 
-def spawn(fn, axis_sizes, backend: str, device="cuda", args=()) -> None:
-    """Run ``fn(world, *args)`` on ``prod(axis_sizes)`` new processes, one
-    EP rank each, over ``tcp://localhost`` on a free port.  ``fn`` must be
+def spawn(fn, axis_sizes, backend: str, device="cuda", args=(),
+          model: int = 1) -> None:
+    """Run ``fn(world, *args)`` on ``prod(axis_sizes) * model`` new
+    processes, one rank each (``model`` > 1 adds the tensor-parallel
+    axis, innermost), over ``tcp://localhost`` on a free port.  ``fn`` must be
     importable by name (a module-level function).  Raises if any rank
     fails; the other ranks are then terminated."""
     import torch.multiprocessing as mp
     sizes = tuple(int(s) for s in axis_sizes)
     mp.spawn(_rank_main, args=(fn, sizes, backend, str(device), free_port(),
-                               tuple(args)),
-             nprocs=math.prod(sizes), join=True)
+                               tuple(args), int(model)),
+             nprocs=math.prod(sizes) * int(model), join=True)

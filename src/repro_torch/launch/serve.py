@@ -13,9 +13,18 @@ every MoE layer through the gather path:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt3_medium_moe \
         --reduced --device cpu --devices 4 --mesh-shape 4,1 --streams 4
 
-``--mesh-shape`` is the reference's ``data,model``; the model axis must
-be 1 (the port has no tensor parallelism).  The world has ``data`` ranks,
-and ``--devices`` (0: ``data``) must name that many.
+``--mesh-shape`` is the reference's ``data,model``: ``data`` EP ranks,
+each the ``model`` ranks of a tensor-parallel axis (attention by heads,
+the FFNs by width, the embedding by vocabulary), ``data * model``
+processes in all, and ``--devices`` (0: that product) must name that
+many.  A tensor-parallel world on the CPU:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt3_medium_moe \
+        --reduced --device cpu --mesh-shape 2,2 --streams 4
+
+A model axis above 1 is refused for a family whose layers have no
+tensor-parallel form in the port yet (MLA, Mamba, xLSTM, Whisper,
+InternVL2), by the layer's name.
 """
 
 import argparse
@@ -41,7 +50,7 @@ def _run(world, args):
                               device=device)
     gen = torch.Generator(device=device).manual_seed(0)
     params = model_lib.init_params(ctx, gen)
-    report = world is None or world.rank == 0
+    report = world is None or world.process_rank == 0
     if args.streams:
         rng = np.random.default_rng(1)
         reqs = [Request(uid=i,
@@ -82,7 +91,8 @@ def main(argv=None):
                     help="ranks of the world (one process each, joined "
                          "over gloo); 0: the data axis of --mesh-shape")
     ap.add_argument("--mesh-shape", default="1,1",
-                    help="data,model; model must be 1")
+                    help="data,model (the model axis: tensor "
+                         "parallelism)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--steps", type=int, default=16)
@@ -101,17 +111,22 @@ def main(argv=None):
     if len(dims) != 2:
         ap.error(f"--mesh-shape {args.mesh_shape}: two axes, data,model")
     data, model = dims
-    if model != 1:
-        ap.error(f"--mesh-shape {args.mesh_shape}: model axis {model}; the "
-                 f"port has no tensor parallelism, the model axis must be 1")
-    if args.devices not in (0, data):
-        ap.error(f"--mesh-shape {args.mesh_shape} has {data} ranks, "
-                 f"--devices gives {args.devices}")
-    if data == 1:
+    if model > 1:
+        from repro_torch.configs.base import get_config
+        from repro_torch.models.model import tp_refusal
+        arch = get_config(args.arch)
+        why = tp_refusal(arch.reduced() if args.reduced else arch, model)
+        if why:
+            ap.error(f"--mesh-shape {args.mesh_shape}: model axis {model}; "
+                     f"{why}")
+    if args.devices not in (0, data * model):
+        ap.error(f"--mesh-shape {args.mesh_shape} has {data * model} "
+                 f"ranks, --devices gives {args.devices}")
+    if data * model == 1:
         _run(None, args)
         return 0
     from repro_torch.launch import mesh
-    mesh.spawn(_run, (data,), "gloo", args.device, args=(args,))
+    mesh.spawn(_run, (data,), "gloo", args.device, args=(args,), model=model)
     return 0
 
 

@@ -13,8 +13,16 @@ the CPU:
         --reduced --device cpu --devices 4 --mesh-shape 2,2,1 --steps 10
 
 ``--mesh-shape`` lists the hierarchy axes outermost first with the
-reference's trailing ``model`` axis, which must be 1 (the port has no
-tensor parallelism); ``--topology`` takes a nested spec instead.
+reference's trailing ``model`` axis (tensor parallelism:
+``prod(hierarchy) * model`` processes); ``--topology`` takes a nested
+spec of the hierarchy instead (model 1).  A data x model world on the
+CPU:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gpt3_medium_moe \
+        --reduced --device cpu --mesh-shape 2,2 --steps 4 --seq-len 32
+
+A model axis above 1 is refused for a family whose layers have no
+tensor-parallel form in the port yet, and with ``--ckpt``.
 ``--production`` and ``--multi-pod`` name the reference's TPU meshes and
 are refused.
 """
@@ -31,7 +39,7 @@ def _deep_tuple(spec):
     return tuple(_deep_tuple(s) for s in spec)
 
 
-def _run(world, args, sizes):
+def _run(world, args, sizes, model=1):
     """Train on this rank (``world`` None: one rank) and print the summary
     on rank 0."""
     from repro_torch.configs.base import RunConfig, get_config
@@ -48,13 +56,14 @@ def _run(world, args, sizes):
                     aux_mode=args.aux_mode, aux_weight=args.aux_weight,
                     microbatch=args.microbatch, remat=args.remat,
                     seed=args.seed, topology=topo)
-    rank = 0 if world is None else world.rank
+    rank = 0 if world is None else world.process_rank
     res = trainer.train(arch, run, world, steps=args.steps,
                         aux_mode=args.aux_mode, log_every=args.log_every,
                         ckpt_path=args.ckpt, verbose=rank == 0,
                         device=args.device)
     if rank == 0:
-        print(f"done: {args.steps} steps on {math.prod(sizes)} rank(s), "
+        print(f"done: {args.steps} steps on {math.prod(sizes) * model} "
+              f"rank(s), "
               f"{res.steps_per_sec:.3f} steps/s, final loss "
               f"{res.losses[-1]:.4f}", flush=True)
 
@@ -68,7 +77,7 @@ def main(argv=None):
                          "over gloo); 0 or 1: one rank")
     ap.add_argument("--mesh-shape", default="1,1",
                     help="data,model (or pod,data,model / "
-                         "pod,node,data,model); model must be 1")
+                         "pod,node,data,model); model: tensor parallelism")
     ap.add_argument("--topology", default="",
                     help="nested topology spec (paper Fig. 2 notation), "
                          "e.g. '[[2,2],[2,2]]'; overrides --mesh-shape")
@@ -96,23 +105,35 @@ def main(argv=None):
                  "meshes; this port runs an EP world given by --devices "
                  "and --mesh-shape or --topology")
     from repro_torch.launch import mesh
+    model = 1
     if args.topology:
         sizes = mesh.mesh_from_topology(ast.literal_eval(args.topology))
     else:
         dims = tuple(int(x) for x in args.mesh_shape.split(","))
-        if len(dims) not in (2, 3, 4) or dims[-1] != 1:
-            ap.error(f"--mesh-shape {args.mesh_shape}: 2 to 4 axes whose "
-                     f"last (model) is 1; the port has no tensor "
-                     f"parallelism")
-        sizes = dims[:-1]
-    n = math.prod(sizes)
+        if len(dims) not in (2, 3, 4) or dims[-1] < 1:
+            ap.error(f"--mesh-shape {args.mesh_shape}: 2 to 4 axes, the "
+                     f"last the model axis")
+        sizes, model = dims[:-1], dims[-1]
+    if model > 1:
+        from repro_torch.configs.base import get_config
+        from repro_torch.models.model import tp_refusal
+        arch = get_config(args.arch)
+        why = tp_refusal(arch.reduced() if args.reduced else arch, model)
+        if args.ckpt:
+            why = why or ("checkpoints under a model axis above 1 are not "
+                          "ported yet")
+        if why:
+            ap.error(f"--mesh-shape {args.mesh_shape}: model axis {model}; "
+                     f"{why}")
+    n = math.prod(sizes) * model
     if args.devices not in (0, n):
-        ap.error(f"the hierarchy {sizes} has {n} ranks, --devices gives "
-                 f"{args.devices}")
+        ap.error(f"the world {sizes} x model {model} has {n} ranks, "
+                 f"--devices gives {args.devices}")
     if n == 1:
         _run(None, args, sizes)
         return 0
-    mesh.spawn(_run, sizes, "gloo", args.device, args=(args, sizes))
+    mesh.spawn(_run, sizes, "gloo", args.device, args=(args, sizes, model),
+               model=model)
     return 0
 
 

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.dispatch.base import EXPERT_PARAMS
+from repro_torch.models import model as model_lib
 from repro_torch.models import transformer
 
 
@@ -69,7 +70,7 @@ def params_from_numpy(tree, ctx: transformer.ModelCtx, device=None):
         out["enc_layers"] = _unstack(tree["enc_groups"], n_enc, len(enc),
                                      device)
         out["enc_norm"] = _map(tree["enc_norm"], lambda a: _tensor(a, device))
-    return out
+    return model_lib.shard_params(out, ctx)
 
 
 def opt_state_from_numpy(tree, ctx: transformer.ModelCtx, device=None):

@@ -27,8 +27,8 @@ from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import mla as mla_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.transformer import (ModelCtx, SubLayer, _moe_block,
-                                            _run_encoder, layer_list,
-                                            splice_patches)
+                                            _run_encoder, full_logits,
+                                            layer_list, splice_patches)
 
 
 def init_cache(ctx: ModelCtx, batch: int, max_len: int, device=None):
@@ -168,7 +168,7 @@ def _decode_sublayer(p, c, x, sub: SubLayer, ctx: ModelCtx, layer_idx=None):
                                                  ctx.xlstm_cfg)
     else:
         mix, c["mixer"] = layers.attn_decode(p["mixer"], h, c["mixer"],
-                                             ctx.attn_cfg)
+                                             ctx.attn_cfg, tp=ctx.attn_tp)
     x = x + mix
     if sub.cross:
         h = layers.norm_apply(p["norm_cross"], x, a.norm)
@@ -184,7 +184,7 @@ def _decode_sublayer(p, c, x, sub: SubLayer, ctx: ModelCtx, layer_idx=None):
         x = x + out.reshape(B, 1, -1) @ p["cross"]["wo"]
     if sub.ffn == "mlp":
         h = layers.norm_apply(p["norm2"], x, a.norm)
-        x = x + layers.mlp_apply(p["ffn"], h, a.activation)
+        x = x + layers.mlp_apply(p["ffn"], h, a.activation, tp=ctx.mlp_tp)
     elif sub.ffn == "moe":
         h = layers.norm_apply(p["norm2"], x, a.norm)
         y, _ = _moe_block(p["ffn"], h, ctx, decode=True, layer_idx=layer_idx)
@@ -196,12 +196,12 @@ def decode_step(params, cache, tokens, ctx: ModelCtx):
     """tokens: [B, 1] -> (logits [B, 1, V] float32, cache updated in
     place)."""
     a = ctx.arch
-    x = layers.embed_apply(params["embed"], tokens)
+    x = layers.embed_apply(params["embed"], tokens, ctx.vocab_tp)
     for i, sub in enumerate(layer_list(a)):
         x, cache[i] = _decode_sublayer(params["layers"][i], cache[i], x, sub,
                                        ctx, layer_idx=i)
     x = layers.norm_apply(params["final_norm"], x, a.norm)
-    return layers.unembed_apply(params["embed"], x), cache
+    return full_logits(params, x, ctx), cache
 
 
 # ---------------------------------------------------------------------------
@@ -220,7 +220,8 @@ def _prefill_sublayer(p, c, x, sub: SubLayer, ctx: ModelCtx, lens,
     if sub.mixer == "mla":
         mix, entry = mla_lib.mla_apply(p["mixer"], h, ctx.mla_cfg)
     else:
-        mix, (k, v) = layers.attn_apply(p["mixer"], h, ctx.attn_cfg)
+        mix, (k, v) = layers.attn_apply(p["mixer"], h, ctx.attn_cfg,
+                                        tp=ctx.attn_tp)
         entry = {"k": k, "v": v}
     cached = c["mixer"]
     for name, val in entry.items():
@@ -229,7 +230,7 @@ def _prefill_sublayer(p, c, x, sub: SubLayer, ctx: ModelCtx, lens,
     x = x + mix
     if sub.ffn == "mlp":
         h = layers.norm_apply(p["norm2"], x, a.norm)
-        x = x + layers.mlp_apply(p["ffn"], h, a.activation)
+        x = x + layers.mlp_apply(p["ffn"], h, a.activation, tp=ctx.mlp_tp)
     elif sub.ffn == "moe":
         # decode=True: the gather path computes every token independently
         # (no capacity drops), so a packed prefill equals prefilling each
@@ -310,7 +311,7 @@ def prefill(params, batch, ctx: ModelCtx, *, cache_len: int, lens=None):
     if _needs_scan_prefill(a):
         return _prefill_by_scan(params, tokens, cache, ctx, lens)
 
-    x = layers.embed_apply(params["embed"], tokens)
+    x = layers.embed_apply(params["embed"], tokens, ctx.vocab_tp)
     if a.family == "vlm" and "frontend" in batch:
         x = splice_patches(params, x, batch["frontend"])
     for i, sub in enumerate(layer_list(a)):
@@ -321,4 +322,4 @@ def prefill(params, batch, ctx: ModelCtx, *, cache_len: int, lens=None):
     last = torch.clamp(lens.long() - 1, min=0)
     x = x[torch.arange(B, device=dev), last][:, None]             # [B, 1, d]
     x = layers.norm_apply(params["final_norm"], x, a.norm)
-    return layers.unembed_apply(params["embed"], x)[:, 0], cache
+    return full_logits(params, x, ctx)[:, 0], cache

@@ -11,6 +11,15 @@ runs in float32.
 ``attn_decode`` writes the new K/V row into the cache tensors in place
 (the reference returns fresh arrays); the returned cache holds the same
 tensors with ``pos`` advanced.
+
+Tensor parallelism: an apply given ``tp`` (a world with a ``model``
+axis, ``sharding.tp_world``) holds the rank's slice of its weights.
+Attention's ``wq``/``wk``/``wv`` are split by columns, that is by heads
+(``cfg`` then names the rank's head counts), and ``wo`` by rows; the
+MLP's ``w_in``/``w_gate`` by columns and ``w_out`` by rows; the embedding
+table by vocabulary rows.  Each column-parallel product's input passes
+``sharding.copy_to_model`` and each row-parallel product's output
+``sharding.reduce_from_model``.
 """
 
 from __future__ import annotations
@@ -21,6 +30,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding import copy_to_model, reduce_from_model
 
 NEG_INF = -1e30
 
@@ -194,9 +205,11 @@ def _blockwise_sdpa(q, k, v, *, causal, sliding_window, block_k: int = 1024):
     return o.to(q.dtype)
 
 
-def attn_apply(params, x, cfg: AttnConfig, positions=None):
-    """Full-sequence (prefill) attention.  x: [B, S, d] -> (out, (k, v))."""
+def attn_apply(params, x, cfg: AttnConfig, positions=None, tp=None):
+    """Full-sequence (prefill) attention.  x: [B, S, d] -> (out, (k, v));
+    under ``tp`` k and v hold the rank's KV heads."""
     B, S, _ = x.shape
+    x = copy_to_model(x, tp)
     q, k, v = _qkv(params, x, cfg)
     if positions is None:
         positions = torch.arange(S, device=x.device)
@@ -213,17 +226,19 @@ def attn_apply(params, x, cfg: AttnConfig, positions=None):
         out = _sdpa(q, k, v, causal=cfg.causal,
                     sliding_window=cfg.sliding_window,
                     q_positions=positions, k_positions=positions)
-    return out.reshape(B, S, -1) @ params["wo"], (k, v)
+    out = out.reshape(B, S, -1) @ params["wo"]
+    return reduce_from_model(out, tp), (k, v)
 
 
-def attn_decode(params, x, cache, cfg: AttnConfig):
+def attn_decode(params, x, cache, cfg: AttnConfig, tp=None):
     """Single-token decode vs a KV cache, updated in place.
 
-    x: [B, 1, d]; cache: {"k": [B, L, K, hd], "v": ..., "pos": [B]}.
-    Returns ``(out [B, 1, d], cache)`` with row ``pos`` of k/v written and
-    ``pos`` advanced by one.
+    x: [B, 1, d]; cache: {"k": [B, L, K, hd], "v": ..., "pos": [B]} (the
+    rank's K heads under ``tp``).  Returns ``(out [B, 1, d], cache)`` with
+    row ``pos`` of k/v written and ``pos`` advanced by one.
     """
     B = x.shape[0]
+    x = copy_to_model(x, tp)
     q, k_new, v_new = _qkv(params, x, cfg)
     pos = cache["pos"]
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
@@ -245,7 +260,8 @@ def attn_decode(params, x, cache, cfg: AttnConfig):
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgl,blkh->bkgh", w, v.to(torch.float32))
     out = out.reshape(B, 1, H * hd).to(x.dtype)
-    return out @ params["wo"], {"k": k, "v": v, "pos": pos + 1}
+    return (reduce_from_model(out @ params["wo"], tp),
+            {"k": k, "v": v, "pos": pos + 1})
 
 
 def init_kv_cache(batch: int, max_len: int, cfg: AttnConfig, device="cuda"):
@@ -272,12 +288,13 @@ def init_mlp(d: int, f: int, activation: str, dtype, generator,
     return p
 
 
-def mlp_apply(params, x, activation: str):
+def mlp_apply(params, x, activation: str, tp=None):
+    x = copy_to_model(x, tp)
     if activation == "swiglu":
         h = F.silu(x @ params["w_gate"]) * (x @ params["w_in"])
     else:
         h = F.gelu(x @ params["w_in"], approximate="tanh")
-    return h @ params["w_out"]
+    return reduce_from_model(h @ params["w_out"], tp)
 
 
 # ---------------------------------------------------------------------------
@@ -290,10 +307,28 @@ def init_embed(vocab: int, d: int, dtype, generator, device="cuda"):
                       .to(dtype) * 0.02)}
 
 
-def embed_apply(params, tokens):
-    return params["table"][tokens.long()]
+def vocab_start(params, tp) -> int:
+    """The first vocabulary id of the rank's table rows (0 without
+    ``tp``)."""
+    return 0 if tp is None else tp.model_coord * params["table"].shape[0]
 
 
-def unembed_apply(params, x):
-    """Logits in float32."""
+def embed_apply(params, tokens, tp=None):
+    """Token embeddings; under ``tp`` a vocab-parallel lookup: ids outside
+    the rank's rows give zeros, then the sum over the model axis."""
+    if tp is None:
+        return params["table"][tokens.long()]
+    table = params["table"]
+    local = tokens.long() - vocab_start(params, tp)
+    inside = (local >= 0) & (local < table.shape[0])
+    x = table[torch.where(inside, local, 0)]
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+    return reduce_from_model(x, tp)
+
+
+def unembed_apply(params, x, tp=None):
+    """Logits in float32; under ``tp`` the rank's vocabulary shard of
+    them (``vocab_start`` onwards)."""
+    x = copy_to_model(x, tp)
     return x.to(torch.float32) @ params["table"].to(torch.float32).T

@@ -1,13 +1,16 @@
 """Top-level model API: context building and parameter init (the
-counterpart of ``repro/models/model.py``: ``make_ep_spec``, ``make_plan``,
-``make_gate_cfg``, ``build_ctx``, ``init_params``).
+counterpart of ``repro/models/model.py``: ``default_rules``,
+``make_ep_spec``, ``make_plan``, ``make_gate_cfg``, ``build_ctx``,
+``param_spec_rules``, ``init_params``).
 
-``mesh`` is the EP world of this rank (``launch.mesh.EPWorld``) or None
-for one rank: its axes play the part of the reference's mesh hierarchy
-axes (there is no tensor-parallel ``model`` axis in the port yet).
-Parameters are this rank's: replicated tensors whole, expert tensors the
-rank's shard of the expert axis.  ``build_ctx`` takes the reference's
-keywords.  ``abstract_params`` and ``input_specs`` give the dry-run
+``mesh`` is the world of this rank (``launch.mesh.EPWorld``) or None for
+one rank: its axes play the part of the reference's mesh hierarchy axes,
+and its ``model`` axis (``EPWorld.model``) the reference's tensor-parallel
+axis.  Parameters are this rank's: replicated tensors whole, expert
+tensors the rank's shard of the expert axis, and under a model axis each
+tensor that :func:`param_specs` shards over it the rank's slice
+(:func:`shard_params`; :func:`gather_params` undoes it).  ``build_ctx``
+takes the reference's keywords.  ``abstract_params`` and ``input_specs`` give the dry-run
 (``launch/dryrun.py``) this rank's parameters and inputs as tensors on
 the ``meta`` device: shapes and dtypes, no storage.
 """
@@ -15,10 +18,12 @@ the ``meta`` device: shapes and dtypes, no storage.
 from __future__ import annotations
 
 import math
+import re
 
 import torch
 from torch.overrides import TorchFunctionMode
 
+from repro_torch import sharding
 from repro_torch.configs.base import INPUT_SHAPES, ArchConfig
 from repro_torch.core import capacity, comm_model, gating, topology
 from repro_torch.core.dispatch import base as moe_base
@@ -30,26 +35,51 @@ from repro_torch.models import transformer
 def _hierarchy(mesh) -> tuple:
     """(axis names, axis sizes) of the EP world's hierarchy, outermost
     first; one ``data`` axis of size 1 without a world."""
+    axes = sharding.hierarchy_axes(mesh)
     if mesh is None:
-        return ("data",), (1,)
-    return tuple(mesh.axis_names), tuple(mesh.axis_sizes)
+        return axes, (1,)
+    return axes, tuple(mesh.shape[a] for a in axes)
+
+
+def model_size(mesh) -> int:
+    """The size of the world's tensor-parallel ``model`` axis (1 without
+    one)."""
+    return 1 if mesh is None else getattr(mesh, "model", 1)
+
+
+def default_rules(mesh) -> sharding.AxisRules:
+    """The logical-axis rules of a world (the reference's
+    ``default_rules``): batch and experts over the hierarchy, ``model``
+    over the model axis, ``kv_len`` over ``data``."""
+    batch = sharding.hierarchy_axes(mesh)
+    names = batch + (("model",) if model_size(mesh) > 1 else ())
+    return sharding.AxisRules({
+        "batch": batch if len(batch) > 1 else (batch[0] if batch else None),
+        "model": "model" if "model" in names else None,
+        "kv_len": "data" if "data" in names else None,
+        "expert": batch if len(batch) > 1 else (batch[0] if batch else None),
+    }, mesh=mesh)
 
 
 def make_ep_spec(arch: ArchConfig, mesh=None) -> moe_base.EPSpec | None:
     """EP hierarchy for one world: experts span the longest *suffix* of
     the axes (innermost outward) whose extent divides the expert count —
-    the whole hierarchy when possible, fewer tiers otherwise."""
+    the whole hierarchy when possible, fewer tiers otherwise.  A world
+    with a model axis above 1 names it as the spec's ``model_axis``."""
     if not arch.is_moe:
         return None
     axes, sizes = _hierarchy(mesh)
     while len(sizes) > 1 and sizes[0] == 1:   # degenerate outer tiers
         axes, sizes = axes[1:], sizes[1:]
+    model = "model" if model_size(mesh) > 1 else None
     n = arch.moe.num_experts
     for k in range(len(axes)):                # longest suffix first
         world = math.prod(sizes[k:])
         if k == len(axes) - 1 or (n % world == 0 and n >= world):
-            return moe_base.EPSpec.from_axes(axes[k:], sizes[k:])
-    return moe_base.EPSpec.from_axes(axes[-1:], sizes[-1:])
+            return moe_base.EPSpec.from_axes(axes[k:], sizes[k:],
+                                             model_axis=model)
+    return moe_base.EPSpec.from_axes(axes[-1:], sizes[-1:],
+                                     model_axis=model)
 
 
 def make_plan(arch: ArchConfig, mesh, seq_len: int, global_batch: int,
@@ -122,6 +152,10 @@ def build_ctx(arch: ArchConfig, mesh=None, *, seq_len: int = 0,
     live."""
     if aux_mode not in ("lb", "ta", "hir", "none"):
         raise ValueError(f"unknown aux_mode {aux_mode!r}")
+    why = tp_refusal(arch, model_size(mesh))
+    if why:
+        raise ValueError(f"{arch.name} on a model axis of "
+                         f"{model_size(mesh)}: {why}")
     codec = wire.get_codec(wire_codec)
     if arch.is_moe and arch.moe.dispatch_override:
         merged = dict(arch.moe.dispatch_override)
@@ -154,13 +188,167 @@ def build_ctx(arch: ArchConfig, mesh=None, *, seq_len: int = 0,
         use_pallas=use_pallas, wire_codec=codec, device=str(device))
 
 
+def tp_refusal(arch: ArchConfig, model: int) -> str:
+    """Why ``arch`` cannot run on a model axis of ``model`` ("" when it
+    can, and always at 1): a layer with no tensor-parallel form in the
+    port yet (attention, the dense and expert FFNs and the embedding have
+    one), or an expert width the axis does not divide."""
+    if model <= 1:
+        return ""
+    subs = transformer.layer_list(arch)
+    missing = ""
+    if any(s.mixer == "mla" for s in subs):
+        missing = "MLA (mixer/w_u[kvq], mixer/w_q)"
+    elif any(s.mixer == "mamba" for s in subs):
+        missing = "Mamba's inner dim (mixer/w_in, mixer/w_out)"
+    elif any(s.mixer in ("mlstm", "slstm") for s in subs):
+        missing = "the xLSTM mixers' inner dims (mixer/w_up, mixer/w_down)"
+    elif any(s.cross for s in subs) or arch.enc_layers:
+        missing = "Whisper's encoder and cross-attention (cross/w*)"
+    elif arch.frontend == "vision":
+        missing = "InternVL2's projector (proj/w1, proj/w2)"
+    if missing:
+        return f"{missing} has no tensor-parallel form in the port yet"
+    if arch.is_moe and arch.moe.d_ff_expert % model:
+        return (f"the expert width {arch.moe.d_ff_expert} does not divide "
+                f"over it")
+    return ""
+
+
+# ---------------------------------------------------------------------------
+# parameter sharding rules (path regex -> spec)
+# ---------------------------------------------------------------------------
+
+
+def param_spec_rules(arch: ArchConfig, ep) -> list:
+    """Ordered ``(regex, spec)`` rules for ``sharding.build_param_specs``:
+    the reference's list (``repro/models/model.py:176-198``).  They are
+    written for the stacked layout, a leading layer axis;
+    ``build_param_specs`` fits them to the port's per-layer leaves."""
+    exp = None
+    if ep is not None:
+        exp = ep.axis_names if len(ep.axis_names) > 1 else ep.axis_names[0]
+    return [
+        # embeddings: vocab over model axis
+        (r"embed/table", ("model", None)),
+        # MoE experts
+        (r"ffn/w_in$", (None, exp, None, "model")),
+        (r"ffn/w_gate$", (None, exp, None, "model")),
+        (r"ffn/w_out$", (None, exp, "model", None)),
+        (r"ffn/shared_(in|gate)", (None, None, "model")),
+        (r"ffn/shared_out", (None, "model", None)),
+        # attention projections (stacked: leading group axis)
+        (r"mixer/w[qkv]$", (None, None, "model")),
+        (r"(mixer|cross)/wo$", (None, "model", None)),
+        (r"cross/w[qkv]$", (None, None, "model")),
+        # MLA
+        (r"mixer/w_u[kvq]$", (None, None, "model", None)),
+        (r"mixer/w_q$", (None, None, "model", None)),
+        # mamba / xlstm / mlp: shard the wide inner dim
+        (r"mixer/w_in$", (None, None, "model")),
+        (r"mixer/w_up$", (None, None, "model")),
+        (r"mixer/(w_out|w_down)$", (None, "model", None)),
+        (r"ffn/w_(in|gate)$", (None, None, "model")),
+        (r"ffn/w_out$", (None, "model", None)),
+        (r"proj/w1$", (None, "model")),
+        (r"proj/w2$", ("model", None)),
+    ]
+
+
+#: attention leaves the port shards by heads only (see param_specs)
+_ATTN_LEAF = re.compile(r"(^|/)(mixer|cross)/(w[qkvo]|b[qkv])$")
+#: a dense FFN's leaves (2-D: an expert leaf has the expert axis first)
+_MLP_LEAF = re.compile(r"(^|/)ffn/(w_in|w_gate|w_out)$")
+
+
+def param_specs(params, ctx: transformer.ModelCtx):
+    """The spec of every leaf of ``params`` (the full tree on the model
+    dims, any expert shard) on ``ctx``'s world: the reference's rules
+    through ``sharding.build_param_specs``, with two layouts of the
+    port's own.  Attention by heads: its ``wq``/``wk``/``wv`` (and
+    biases) by columns and ``wo`` by rows when the model axis divides the
+    query and the KV heads (``ModelCtx.attn_sharded``), all four
+    replicated otherwise (the reference splits columns whenever they
+    divide, mid-head too).  A dense FFN's ``w_in``/``w_gate`` by columns
+    and ``w_out`` by rows when the axis divides its width (the
+    reference's expert rules match its leaves first, which leaves
+    ``w_in`` whole and splits ``w_out``'s columns)."""
+    shape = sharding.mesh_shape(ctx.mesh) if ctx.mesh is not None else {}
+    specs = sharding.build_param_specs(
+        params, param_spec_rules(ctx.arch, ctx.ep), shape)
+    flat = dict(sharding._leaves_with_paths(specs))
+    attn, mlp = ctx.attn_sharded, ctx.mlp_tp is not None
+
+    def fix(path, leaf):
+        ps = "/".join(path)
+        spec = flat[path]
+        m = _ATTN_LEAF.search(ps)
+        if m is not None:
+            if not attn:
+                return ()
+            name = m.group(3)
+            return ("model",) if name == "wo" or name.startswith("b") \
+                else (None, "model")
+        m = _MLP_LEAF.search(ps)
+        if m is not None and leaf.dim() == 2:
+            if not mlp:
+                return ()
+            return ("model",) if m.group(2) == "w_out" else (None, "model")
+        return spec
+
+    return sharding._map_paths(params, fix)
+
+
+def _slice(t: torch.Tensor, spec: tuple, m: int, coord: int):
+    dim = sharding.model_dim(spec)
+    if dim is None:
+        return t
+    n = t.shape[dim] // m
+    return t.narrow(dim, coord * n, n).clone()
+
+
+def shard_params(params, ctx: transformer.ModelCtx):
+    """This rank's slice of a parameter tree that is full on the model
+    dims (``init_model``'s, or the reference's unstacked by
+    ``convert.params_from_numpy``): every leaf :func:`param_specs`
+    shards over ``model`` cut to its ``1 / model`` at this rank's model
+    coordinate; the tree itself without a model axis."""
+    m = model_size(ctx.mesh)
+    if m == 1:
+        return params
+    flat = dict(sharding._leaves_with_paths(param_specs(params, ctx)))
+    coord = ctx.mesh.model_coord
+    return sharding._map_paths(
+        params, lambda path, t: _slice(t, flat[path], m, coord))
+
+
+def gather_params(params, ctx: transformer.ModelCtx):
+    """The inverse of :func:`shard_params` (a collective over the model
+    axis, called by every rank): each model-sharded leaf's slices
+    concatenated in model coordinate order; detached."""
+    m = model_size(ctx.mesh)
+    if m == 1:
+        return params
+    flat = dict(sharding._leaves_with_paths(
+        param_specs(full_abstract_params(ctx), ctx)))
+
+    def gather(path, t):
+        dim = sharding.model_dim(flat[path])
+        if dim is None:
+            return t.detach()
+        return sharding.gather_from_model(t, ctx.mesh, dim)
+
+    return sharding._map_paths(params, gather)
+
+
 def init_params(ctx: transformer.ModelCtx, generator, device=None):
     """Fresh parameters from an explicit ``torch.Generator`` (which must
     live on ``device``, default ``ctx.device``).  Every rank draws the
-    whole model from the same generator state and keeps its expert shard,
-    so replicated tensors agree across ranks and the global model does not
-    depend on the world size."""
-    return transformer.init_model(ctx, generator, device or ctx.device)
+    whole model from the same generator state and keeps its expert shard
+    and its model slices, so replicated tensors agree across ranks and
+    the global model does not depend on the world's shape."""
+    return shard_params(
+        transformer.init_model(ctx, generator, device or ctx.device), ctx)
 
 
 def count_params(params) -> int:
@@ -191,12 +379,20 @@ class _NoDraw(TorchFunctionMode):
         return func(*args, **kwargs)
 
 
-def abstract_params(ctx: transformer.ModelCtx):
-    """This rank's parameter tree on the ``meta`` device: the shapes and
-    dtypes :func:`init_params` gives, its expert shard included, with no
-    allocation and no draw (the dry-run's parameters)."""
+def full_abstract_params(ctx: transformer.ModelCtx):
+    """The rank's tree on the ``meta`` device before its model slicing
+    (full on the model dims, the rank's expert shard): what
+    :func:`param_specs` reads."""
     with _NoDraw():
         return transformer.init_model(ctx, None, "meta")
+
+
+def abstract_params(ctx: transformer.ModelCtx):
+    """This rank's parameter tree on the ``meta`` device: the shapes and
+    dtypes :func:`init_params` gives, its expert shard and model slices
+    included, with no allocation and no draw (the dry-run's
+    parameters)."""
+    return shard_params(full_abstract_params(ctx), ctx)
 
 
 def batch_rows(B: int, world) -> tuple:

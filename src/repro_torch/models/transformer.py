@@ -15,6 +15,15 @@ MoE block under ``shard_map`` over the global batch; here every rank of
 the EP world (``ctx.mesh``) runs the model on its own batch shard with
 its own expert shard, and the block's metrics are averaged over the ranks
 as the reference's ``pmean`` does.
+
+A world with a ``model`` axis (tensor parallelism, the reference's
+``model`` mesh axis under GSPMD) runs every layer on the same tokens on
+each of its model ranks, each with its slice of the weights
+(``models.model.shard_params``): attention by heads when the axis divides
+the query and the KV heads (``ModelCtx.attn_sharded``; replicated
+otherwise), the dense FFN by its width, the experts and shared experts by
+theirs (``core.dispatch.base``), the embedding table by vocabulary rows,
+whose logits and loss are then vocab-parallel.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import gating
 from repro_torch.core.dispatch import base as moe_base
@@ -81,7 +91,47 @@ class ModelCtx:
         return r * per, (r + 1) * per
 
     @property
+    def tp(self):
+        """The world when it has a model axis above 1, else None."""
+        return sharding.tp_world(self.mesh)
+
+    def _tp_if(self, width: int):
+        tp = self.tp
+        return tp if tp is not None and width % tp.model == 0 else None
+
+    @property
+    def attn_sharded(self) -> bool:
+        """Whether attention is split by heads over the model axis: it
+        divides the query and the KV heads."""
+        tp = self.tp
+        return (tp is not None and self.arch.num_heads % tp.model == 0
+                and self.arch.num_kv_heads % tp.model == 0)
+
+    @property
+    def attn_tp(self):
+        return self.tp if self.attn_sharded else None
+
+    @property
+    def mlp_tp(self):
+        return self._tp_if(self.arch.d_ff)
+
+    @property
+    def vocab_tp(self):
+        return self._tp_if(self.arch.vocab_size)
+
+    @property
     def attn_cfg(self) -> layers.AttnConfig:
+        """The rank's attention config: its heads under a sharded
+        attention, every head otherwise."""
+        cfg = self.full_attn_cfg
+        if self.attn_sharded:
+            m = self.tp.model
+            cfg = dataclasses.replace(cfg, num_heads=cfg.num_heads // m,
+                                      num_kv_heads=cfg.num_kv_heads // m)
+        return cfg
+
+    @property
+    def full_attn_cfg(self) -> layers.AttnConfig:
         a = self.arch
         return layers.AttnConfig(
             d_model=a.d_model, num_heads=a.num_heads,
@@ -205,10 +255,10 @@ def _init_sublayer(sub: SubLayer, ctx: ModelCtx, generator, device):
     elif sub.mixer == "slstm":
         p["mixer"] = xlstm_lib.init_slstm(ctx.xlstm_cfg, generator, device)
     else:
-        p["mixer"] = layers.init_attn(ctx.attn_cfg, generator, device)
+        p["mixer"] = layers.init_attn(ctx.full_attn_cfg, generator, device)
     if sub.cross:
         p["norm_cross"] = layers.init_norm(a.norm, a.d_model, device)
-        p["cross"] = layers.init_attn(ctx.attn_cfg, generator, device)
+        p["cross"] = layers.init_attn(ctx.full_attn_cfg, generator, device)
     if sub.ffn == "mlp":
         p["norm2"] = layers.init_norm(a.norm, a.d_model, device)
         p["ffn"] = layers.init_mlp(a.d_model, a.d_ff, a.activation,
@@ -304,14 +354,14 @@ def _apply_sublayer(p, x, sub: SubLayer, ctx: ModelCtx, aux, frac, drop,
         cfg = ctx.attn_cfg
         if not sub.causal:
             cfg = dataclasses.replace(cfg, causal=False)
-        mix, _ = layers.attn_apply(p["mixer"], h, cfg)
+        mix, _ = layers.attn_apply(p["mixer"], h, cfg, tp=ctx.attn_tp)
     x = x + mix
     if sub.cross and enc_out is not None:
         h = layers.norm_apply(p["norm_cross"], x, a.norm)
         x = x + _cross_attn(p["cross"], h, enc_out, ctx)
     if sub.ffn == "mlp":
         h = layers.norm_apply(p["norm2"], x, a.norm)
-        x = x + layers.mlp_apply(p["ffn"], h, a.activation)
+        x = x + layers.mlp_apply(p["ffn"], h, a.activation, tp=ctx.mlp_tp)
     elif sub.ffn == "moe":
         h = layers.norm_apply(p["norm2"], x, a.norm)
         y, metrics = _moe_block(p["ffn"], h, ctx, decode=False,
@@ -395,7 +445,7 @@ def forward_features(params, batch, ctx: ModelCtx):
     order, so the all-to-all chains still pair up."""
     a = ctx.arch
     prefix, group, n_groups = layer_plan(a)
-    x = layers.embed_apply(params["embed"], batch["tokens"])
+    x = layers.embed_apply(params["embed"], batch["tokens"], ctx.vocab_tp)
     x, enc_out = frontend_inputs(params, batch, x, ctx)
     dev = x.device
     n_moe = n_groups * sum(1 for s in group if s.ffn == "moe")
@@ -420,38 +470,69 @@ def forward_features(params, batch, ctx: ModelCtx):
     return x, aux, frac / n_moe, drop / n_moe
 
 
+def full_logits(params, x, ctx: ModelCtx):
+    """Float32 logits over the whole vocabulary; under a vocab-sharded
+    model axis the ranks' shards all-gathered in vocabulary order (no
+    gradient: what serving samples, where an argmax picks the lowest id
+    of a tie as over one row)."""
+    tp = ctx.vocab_tp
+    return sharding.gather_from_model(
+        layers.unembed_apply(params["embed"], x, tp), tp)
+
+
 def forward(params, batch, ctx: ModelCtx):
     """Full-sequence forward.  Returns (float32 logits, aux)."""
     x, aux, _, _ = forward_features(params, batch, ctx)
-    return layers.unembed_apply(params["embed"], x), aux
+    return full_logits(params, x, ctx), aux
 
 
-def _fused_xent(params, x, labels):
-    """Per-token NLL [B, S] from logits in the model dtype (``x @
-    table.T``, one bf16 GEMM where the default path casts both operands
-    to float32): the max (no gradient), the log-sum-exp and the label's
-    logit by an ``arange == label`` mask, as the reference's vocab-sharded
-    ``_fused_xent`` computes them (plain PyTorch: the reference's is no
-    Pallas kernel)."""
-    table = params["embed"]["table"]                         # [V, d]
-    logits = x @ table.T.to(x.dtype)                          # [B, S, V]
-    lf = logits.to(torch.float32)
+def _xent(lf, labels, start: int, tp):
+    """Per-token NLL from float32 logits ``lf`` [B, S, V_rank] whose ids
+    begin at ``start``: the max (no gradient), the log-sum-exp and the
+    label's logit by an ``arange == label`` mask.  Under ``tp`` the max
+    is the largest of the ranks' (gathered), and the sum of exponentials
+    and the label's logit are summed over the model axis."""
     m = lf.amax(dim=-1, keepdim=True).detach()
-    lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
-    onehot = (torch.arange(lf.shape[-1], device=lf.device)
+    if tp is not None:
+        m = tp.all_gather(m.reshape(1, -1), "model").amax(0).reshape(
+            m.shape)
+    sumexp = sharding.reduce_from_model(
+        torch.sum(torch.exp(lf - m), dim=-1), tp)
+    lse = torch.log(sumexp) + m[..., 0]
+    onehot = (torch.arange(start, start + lf.shape[-1], device=lf.device)
               == labels.long()[..., None])
-    label_logit = torch.sum(torch.where(onehot, lf, 0.0), dim=-1)
+    label_logit = sharding.reduce_from_model(
+        torch.sum(torch.where(onehot, lf, 0.0), dim=-1), tp)
     return lse - label_logit
 
 
+def _fused_xent(params, x, labels, tp=None):
+    """Per-token NLL [B, S] from logits in the model dtype (``x @
+    table.T``, one bf16 GEMM where the default path casts both operands
+    to float32) through :func:`_xent`, as the reference's vocab-sharded
+    ``_fused_xent`` computes it (plain PyTorch: the reference's is no
+    Pallas kernel).  ``tp``: the table holds the rank's vocabulary
+    rows."""
+    table = params["embed"]["table"]                         # [V, d]
+    x = sharding.copy_to_model(x, tp)
+    logits = x @ table.T.to(x.dtype)                          # [B, S, V]
+    return _xent(logits.to(torch.float32), labels,
+                 layers.vocab_start(params["embed"], tp), tp)
+
+
 def loss_fn(params, batch, ctx: ModelCtx, aux_weight: float = 1.0):
-    """Masked mean next-token NLL over this rank's batch + ``aux_weight``
+    """Masked mean next-token NLL over this rank's batch (on a world, its
+    masked sum over the world's mean mask count) + ``aux_weight``
     times the aux loss (the NLL through :func:`_fused_xent` when
     ``ctx.fused_xent``).  Returns ``(total, metrics)``."""
     labels = batch["labels"]
     x, aux, frac, drop = forward_features(params, batch, ctx)
+    tp = ctx.vocab_tp
     if ctx.fused_xent:
-        nll = _fused_xent(params, x, labels)
+        nll = _fused_xent(params, x, labels, tp)
+    elif tp is not None:
+        nll = _xent(layers.unembed_apply(params["embed"], x, tp), labels,
+                    layers.vocab_start(params["embed"], tp), tp)
     else:
         logits = layers.unembed_apply(params["embed"], x)
         logp = F.log_softmax(logits.to(torch.float32), dim=-1)
@@ -460,7 +541,16 @@ def loss_fn(params, batch, ctx: ModelCtx, aux_weight: float = 1.0):
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=labels.device)
-    nll = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    count = torch.clamp(mask.sum(), min=1.0)
+    world = ctx.mesh
+    if world is not None and world.size > 1 and "loss_mask" in batch:
+        # the reference's masked mean runs over the global batch: each rank
+        # divides its sum by the world's mean count, so the world mean of
+        # the ranks' losses is it (the same count on every rank gives the
+        # rank's own mean, bit for bit)
+        count = torch.clamp(world.all_reduce_sum(
+            mask.sum().detach().reshape(1))[0], min=1.0) / world.size
+    nll = (nll * mask).sum() / count
     total = nll + aux_weight * aux
     metrics = {"nll": nll, "aux": aux, "loss": total}
     if frac is not None:

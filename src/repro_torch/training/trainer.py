@@ -16,6 +16,14 @@ once (summed over the EP axes, not over the replicas), which is the
 reference's ``global_norm`` over the global tree.  Logged metrics are
 world means.
 
+A world with a ``model`` axis (tensor parallelism) runs the same batch
+shard on each of its model ranks, each with its slice of the weights;
+every collective above spans the hierarchy with the model coordinate
+fixed, so the ranks that hold the same slice sum their gradients.  The
+clip norm adds the squares of each model-sharded leaf over the model
+axis and counts every replicated leaf once.  Checkpoints, the guarded
+step and the replan are refused under a model axis above 1.
+
 ``RunConfig.microbatch`` ``m < global_batch`` accumulates float32
 gradients over ``global_batch / m`` microbatches and divides by their
 count, and averages every metric the same way (the reference's
@@ -61,6 +69,26 @@ def expert_mask(params, ctx: transformer.ModelCtx) -> list:
     return adamw.tree_leaves(mask)
 
 
+_MODEL_SPECS: dict = {}
+
+
+def model_mask(params, ctx: transformer.ModelCtx) -> list:
+    """One bool per leaf of ``params`` (``adamw.tree_leaves`` order): True
+    for the leaves sliced over the model axis (``model.param_specs``, by
+    path, kept a context); all False without one."""
+    from repro_torch import sharding
+    if ctx.tp is None:
+        return [False] * len(adamw.tree_leaves(params))
+    hit = _MODEL_SPECS.get(id(ctx))
+    if hit is None or hit[0] is not ctx:
+        specs = model_lib.param_specs(model_lib.full_abstract_params(ctx),
+                                      ctx)
+        hit = _MODEL_SPECS[id(ctx)] = (ctx, {
+            path: sharding.model_dim(s) is not None
+            for path, s in sharding._leaves_with_paths(specs)})
+    return [hit[1][path] for path, _ in sharding._leaves_with_paths(params)]
+
+
 def sync_grads(params, ctx: transformer.ModelCtx, grads: list | None = None
                ) -> tuple:
     """This rank's gradient tree after the world sum of the replicated
@@ -74,7 +102,8 @@ def sync_grads(params, ctx: transformer.ModelCtx, grads: list | None = None
                  for p in adamw.tree_leaves(params)]
     else:
         grads = list(grads)
-    if world is None or world.size == 1:
+    tp = ctx.tp
+    if (world is None or world.size == 1) and tp is None:
         return _unflatten(params, grads), adamw.global_norm(grads)
     expert = expert_mask(params, ctx)
     ep_axes = ctx.ep.axis_names if ctx.ep is not None else ()
@@ -82,7 +111,7 @@ def sync_grads(params, ctx: transformer.ModelCtx, grads: list | None = None
                     if a not in ep_axes and world.shape[a] > 1)
     for axes, want in ((None, False), (dp_axes, True)):
         idx = [i for i, e in enumerate(expert) if e == want]
-        if not idx or axes == ():
+        if not idx or axes == () or world.size == 1:
             continue
         flat = world.all_reduce_sum(
             torch.cat([grads[i].to(torch.float32).reshape(-1) for i in idx]),
@@ -94,10 +123,18 @@ def sync_grads(params, ctx: transformer.ModelCtx, grads: list | None = None
                 grads[i].dtype)
             off += n
     sq = [torch.sum(torch.square(g.to(torch.float32))) for g in grads]
-    norm_sq = sum(s for s, e in zip(sq, expert) if not e)
-    if any(expert):
+    sliced = model_mask(params, ctx)
+    norm_sq = sum(s for s, e, m in zip(sq, expert, sliced)
+                  if not e and not m)
+    if any(m and not e for e, m in zip(expert, sliced)):
         norm_sq = norm_sq + world.all_reduce_sum(
-            sum(s for s, e in zip(sq, expert) if e).reshape(1), ep_axes)[0]
+            sum(s for s, e, m in zip(sq, expert, sliced)
+                if m and not e).reshape(1), ("model",))[0]
+    if any(expert):
+        # over the EP axes, then the model axis (every expert is sliced)
+        e_sq = world.all_reduce_sum(
+            sum(s for s, e in zip(sq, expert) if e).reshape(1), ep_axes)
+        norm_sq = norm_sq + world.all_reduce_sum(e_sq, ("model",))[0]
     return _unflatten(params, grads), torch.sqrt(norm_sq)
 
 
@@ -335,6 +372,10 @@ def train(arch: ArchConfig, run: RunConfig, mesh=None, *, steps: int,
                               use_pallas=run.use_pallas,
                               wire_codec=run.wire_codec, device=device)
     res = run.resilience
+    if ctx.tp is not None and (res is not None or ckpt_path):
+        raise NotImplementedError(
+            "checkpoints, the guarded step and the replan under a model "
+            "axis above 1 are not ported yet (tensor parallelism part 2)")
     guarded = res is not None
     policy = chaos = None
     if guarded:

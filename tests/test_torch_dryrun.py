@@ -145,13 +145,18 @@ def test_dryrun_each_kind_on_meta_records_the_planned_collectives():
                 expected = collective_check.expected_inventory(sc) * n_moe
                 assert expected
             # beside the MoE chains only the metrics' world means: one f32
-            # all-reduce over every rank a MoE layer
+            # all-reduce over every rank a MoE layer, and in training the
+            # loss mask's world count (one f32 element)
             rest = collective_check.match_inventory(kind, expected, fwd)
-            assert len(rest) == n_moe, [v.message for v in rest]
+            counted = kind == "train"
+            assert len(rest) == n_moe + counted, [v.message for v in rest]
             for v in rest:
                 assert v.message.startswith("unexpected collective in the "
                                             "recording: all_reduce dtype=f32")
                 assert v.message.endswith("groups=[[0, 1, 2, 3]]")
+            if counted:
+                assert rest[-1].message.endswith(
+                    "all_reduce dtype=f32 elements=1 groups=[[0, 1, 2, 3]]")
             if kind == "train":
                 parts = rec["arg_bytes_by_part"]
                 numel = rec["params_per_rank"]
@@ -315,3 +320,35 @@ def test_abstract_params_and_input_specs_on_meta():
                                      "kind": "train"}, world)
     assert train["tokens"].shape == (2, 32)      # fewer rows than ranks:
     assert set(train) == {"tokens", "labels", "loss_mask"}   # whole batch
+
+
+def test_production_record_on_the_model_axis():
+    """pod1 with its 16-wide ``model`` axis: OLMo-1B's train_4k rank holds
+    a sixteenth of its attention, FFN and table (plus its norms whole),
+    logs its model-axis all-reduces, and takes far less memory than on
+    the hierarchy alone; Granite's 8 KV heads and odd vocabulary leave
+    attention and the table whole; DeepSeek-V2-Lite (MLA) runs on the
+    hierarchy alone and says why."""
+    rec, run = dryrun.lower_one("olmo_1b", "train_4k", "pod1")
+    assert rec["tensor_parallel"] == 16 and rec["axis_sizes"] == [16]
+    flat, _ = dryrun.lower_one("olmo_1b", "train_4k", "pod1", model=1)
+    assert flat["tensor_parallel"] == 1
+    assert rec["params_per_rank"] * 12 < flat["params_per_rank"]
+    assert rec["bytes_per_device"] < flat["bytes_per_device"] / 3
+    assert any(c.kind == "all_reduce" and len(c.groups[0]) == 16
+               and c.groups[0] == tuple(range(16))
+               for c in run.inventory)
+    p = model.abstract_params(run.ctx)
+    arch = get_config("olmo_1b")
+    assert p["embed"]["table"].shape[0] == arch.vocab_size // 16
+    assert p["layers"][0]["mixer"]["wq"].shape[1] == arch.d_model // 16
+    assert p["layers"][0]["ffn"]["w_out"].shape[0] == arch.d_ff // 16
+    _, grun = dryrun.lower_one("granite_3_2b", "decode_32k", "pod1")
+    gp = model.abstract_params(grun.ctx)
+    garch = get_config("granite_3_2b")
+    assert gp["embed"]["table"].shape[0] == garch.vocab_size
+    assert gp["layers"][0]["mixer"]["wk"].shape[1] == \
+        garch.num_kv_heads * garch.head_dim_
+    assert gp["layers"][0]["ffn"]["w_in"].shape[1] == garch.d_ff // 16
+    ds, _ = dryrun.lower_one("deepseek_v2_lite_16b", "decode_32k", "pod1")
+    assert ds["tensor_parallel"] == 1 and "MLA" in ds["note"]

@@ -341,13 +341,17 @@ def test_serve_launcher_spawns_a_world(capfd):
 
 
 def test_serve_launcher_refuses_a_model_axis(capsys):
-    """``--mesh-shape 2,2`` names a model axis of 2: refused by name (the
-    port has no tensor parallelism)."""
+    """``--mesh-shape 2,2`` names a model axis of 2: refused, by the
+    layer's name, for a family whose layers have no tensor-parallel form
+    in the port yet (DeepSeek-V2's MLA); ``tests/
+    test_torch_tensor_parallel.py`` serves gpt3 on that world."""
     from repro_torch.launch import serve
     with pytest.raises(SystemExit):
-        serve.main(["--arch", ARCH_ID, "--reduced", "--device", "cpu",
-                    "--devices", "4", "--mesh-shape", "2,2"])
-    assert "model axis 2" in capsys.readouterr().err
+        serve.main(["--arch", "deepseek_v2_lite_16b", "--reduced",
+                    "--device", "cpu", "--devices", "4", "--mesh-shape",
+                    "2,2"])
+    err = capsys.readouterr().err
+    assert "model axis 2" in err and "MLA" in err
 
 
 def test_serving_refuses_slots_that_do_not_divide():
