@@ -232,6 +232,10 @@ K8_SHAPES = ((32, 32768, 16, 16, 64), (32, 32768, 16, 8, 128))
 # ---------------------------------------------------------------------------
 
 
+#: profiler windows ``device_ms`` takes at most before it gives up
+WINDOWS = 10
+
+
 def device_ms(torch, fn, iters: int = ITERS):
     """The card's time of one call of ``fn``: the durations of every CUDA
     kernel, copy and memset that ``iters`` calls launch, summed by
@@ -240,12 +244,13 @@ def device_ms(torch, fn, iters: int = ITERS):
     The window follows a warm-up window of as many calls, since the tracer
     starts late.  A window in which an activity's count is not a whole
     number a call (the profiler drops a few events now and then on an
-    H100, and once in three windows running at K4's decode reading) is
-    taken again, up to five times in all."""
+    H100, and once in three windows running at K4's decode reading; a
+    whole smoke run once met five such windows in a row at one reading)
+    is taken again, up to WINDOWS times in all."""
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    for _ in range(5):
+    for _ in range(WINDOWS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
@@ -268,8 +273,8 @@ def device_ms(torch, fn, iters: int = ITERS):
                     {e.key: (e.count // iters,
                              e.self_device_time_total / 1e3 / iters)
                      for e in events})
-    raise SystemExit("chip_ab: the profiler dropped device activity in "
-                     "five windows")
+    raise SystemExit(f"chip_ab: the profiler dropped device activity in "
+                     f"{WINDOWS} windows")
 
 
 def kernel_names(root: str, source: str) -> tuple:
@@ -343,13 +348,15 @@ def readings(torch, fn, time_ms, ours=()) -> dict:
     return out
 
 
-def permute_readings(torch, p_ops, x, tok, time_ms, bound_ms) -> dict:
+def permute_readings(torch, p_ops, x, tok, time_ms, bound_ms,
+                     full: bool = True) -> dict:
     """K1 (``p_ops.permute``) on ``x`` [T, d] and ``slot_to_token`` ``tok``
     [S]: held bit for bit against its plain version, then read with
     :func:`readings` as ``engine.py`` calls it (``x`` requiring grad), and
     its yardstick ``index_select`` over ``x`` with the sentinel's zero row
-    (requiring grad) alike.  ``bound_ms`` counts the distinct tokens read,
-    the indices and the rows written."""
+    (requiring grad) alike; without ``full``, the kernel's ``device_ms``
+    alone.  ``bound_ms`` counts the distinct tokens read, the indices and
+    the rows written."""
     from repro_torch.kernels.moe_permute.ref import permute_ref
     T, d = x.shape
     S = tok.numel()
@@ -371,22 +378,26 @@ def permute_readings(torch, p_ops, x, tok, time_ms, bound_ms) -> dict:
     used = int(torch.unique(tok[tok < T]).numel())
     esize = x.element_size()
     b_ms, b_by = bound_ms(used * d * esize + S * 4 + S * d * esize, 0.0)
-    return {"T": T, "S": S, "d": d, "tokens_read": used,
-            "sentinel_slots": S - int((tok < T).sum()),
-            "bound_ms": b_ms, "bound_by": b_by,
-            **readings(torch, kernel, time_ms),
+    out = {"T": T, "S": S, "d": d, "tokens_read": used,
+           "sentinel_slots": S - int((tok < T).sum()),
+           "bound_ms": b_ms, "bound_by": b_by}
+    if not full:
+        with torch.enable_grad():
+            return {**out, "device_ms": device_ms(torch, kernel)[0]}
+    return {**out, **readings(torch, kernel, time_ms),
             "library": {"call": "index_select",
                         **readings(torch, library, time_ms)}}
 
 
 def unpermute_readings(torch, p_ops, y, inv_idx, inv_w, time_ms, bound_ms,
-                       atol, rtol) -> dict:
+                       atol, rtol, full: bool = True) -> dict:
     """K2 (``p_ops.unpermute``) on ``y`` [S, d] and ``inv_idx`` /
     ``inv_w`` [T, K]: held against its plain version (within ``atol`` +
     ``rtol``·|plain|), then read with :func:`readings` as ``engine.py``
     calls it (``y`` and ``inv_w`` requiring grad), and its yardstick
     ``embedding_bag`` (a weighted sum over an f32 table with the
-    sentinel's zero row, built outside the readings) alike.  ``bound_ms``
+    sentinel's zero row, built outside the readings) alike; without
+    ``full``, the kernel's ``device_ms`` alone.  ``bound_ms``
     counts the weighted picks' rows, the index and weight pairs, the f32
     output and two operations a picked element."""
     from repro_torch.kernels.moe_permute.ref import unpermute_ref
@@ -406,10 +417,12 @@ def unpermute_readings(torch, p_ops, y, inv_idx, inv_w, time_ms, bound_ms,
                                mode="sum")
 
     with torch.no_grad():
-        got, want, lib = kernel(), unpermute_ref(y, inv_idx, inv_w), \
-            library()
+        want = unpermute_ref(y, inv_idx, inv_w)
+        tried = {"kernel": kernel()}
+        if full:
+            tried["embedding_bag"] = library()
     errs = {}
-    for name, t in (("kernel", got), ("embedding_bag", lib)):
+    for name, t in tried.items():
         err = (t - want).abs()
         if not bool((err <= atol + rtol * want.abs()).all()):
             raise SystemExit(f"K2 at S={S}: {name} disagrees with plain "
@@ -418,10 +431,13 @@ def unpermute_readings(torch, p_ops, y, inv_idx, inv_w, time_ms, bound_ms,
     picks = int(((inv_idx < S) & (inv_w != 0)).sum())
     b_ms, b_by = bound_ms(picks * d * y.element_size() + T * K * 8
                           + T * d * 4, 2.0 * picks * d)
-    return {"T": T, "K": K, "S": S, "picks": picks,
-            "max_abs_err": errs["kernel"], "atol": atol, "rtol": rtol,
-            "bound_ms": b_ms, "bound_by": b_by,
-            **readings(torch, kernel, time_ms),
+    out = {"T": T, "K": K, "S": S, "picks": picks,
+           "max_abs_err": errs["kernel"], "atol": atol, "rtol": rtol,
+           "bound_ms": b_ms, "bound_by": b_by}
+    if not full:
+        with torch.enable_grad():
+            return {**out, "device_ms": device_ms(torch, kernel)[0]}
+    return {**out, **readings(torch, kernel, time_ms),
             "library": {"call": "embedding_bag, f32 table",
                         "max_abs_err": errs["embedding_bag"],
                         **readings(torch, library, time_ms)}}

@@ -98,8 +98,8 @@ Phases, each printing JSON lines:
 6. profile — host-clock step times and a torch.profiler breakdown
    (device busy share, top kernels) of one prefill pack and one decode
    step;
-7. serve_2x2 — the same model (depth cut to CUT_LAYERS, 6, for the time
-   limit: see the constant) and request mix on a (pod x data) = (2, 2)
+7. serve_2x2 — the same model (depth cut to WORLD_LAYERS, 2, for the
+   time limit: see the constant) and request mix on a (pod x data) = (2, 2)
    EP world of four spawned ranks sharing the card over gloo, each with
    its 16 experts a layer, 2 of the 8 slots and one row of each pack of
    4; every MoE layer through the gather path.  Every rank must launch
@@ -120,8 +120,8 @@ Phases, each printing JSON lines:
    with it (K4 12 launches, counted as ``train_1rank_fused_xent``);
 9. train_2x2 — the same on a 2x2 (pod x data) EP world of four spawned
    ranks that share the card over gloo, batch 8 (1024 tokens a rank),
-   depth cut to CUT_LAYERS (6; the time limit, below):
-   every rank must launch K1, K2 and K3 18 times each and K4 never, the
+   depth cut to WORLD_LAYERS (2; the time limit, below):
+   every rank must launch K1, K2 and K3 6 times each and K4 never, the
    ranks must agree on the world-mean losses, and the first step's loss
    must agree with the plain path's.  Each rank profiles one more step
    twice: as shipped, and with the earlier spare-row backwards of K1 and
@@ -130,9 +130,9 @@ Phases, each printing JSON lines:
    phase K7's forward and its weight quantization too);
 10. train_2x2_pipelined — the same world through ``dispatch=
    "a2a_pipelined"`` with the int8 wire codec and the overlap model's
-   chunk count (8), 2 steps, depth CUT_LAYERS: every rank must launch K1,
-   K2 and K7 96 times each (6 layers x 8 chunks x 2 steps) and K3 and K4
-   never, and
+   chunk count (8), 2 steps, depth WORLD_LAYERS (2): every rank must
+   launch K1, K2 and K7 32 times each (2 layers x 8 chunks x 2 steps) and
+   K3 and K4 never, and
    the first step's loss must agree with the plain path's within
    LOSS_RTOL_INT8;
 11. train_einsum_k6 — in a child process, full-width gpt3_medium_moe on
@@ -169,10 +169,11 @@ Phases, each printing JSON lines:
    each axis's measured alpha and beta (gloo all-to-alls) are reported;
 15. train_2x2x2 — the paper's nested [[2, 2], [2, 2]] topology: eight
    ranks over (pod, node, data) sharing the card over gloo, full width,
-   depth cut to 6 (TRAIN_222_LAYERS: at 12 the eight ranks run the card
-   out of memory), ``a2a``, ``aux_mode="ta"``, seq 512, batch 8 (512
-   tokens a rank), 3 steps: the plan's three caps > 0 and a length-3
-   frac_by_level, K1, K2 and K3 18 launches on every rank and K4 none,
+   depth cut to 2 (WORLD_LAYERS: at 12 the eight ranks run the card
+   out of memory; 6 fit, 2 for the time limit), ``a2a``,
+   ``aux_mode="ta"``, seq 512, batch 8 (512 tokens a rank), 3 steps: the
+   plan's three caps > 0 and a length-3 frac_by_level, K1, K2 and K3 6
+   launches on every rank and K4 none,
    the first step's world-mean loss within LOSS_RTOL of the plain path's;
 16. train_dp — a (pod x data) = (3, 2) world: 6 does not divide the 64
    experts, so they span data (32 a rank) and pod is pure data
@@ -206,18 +207,19 @@ Phases, each printing JSON lines:
    d_state 16, dt_rank 256) in 7 of each 8 layers and GQA attention (32
    heads, 8 KV, head dim 128) in the fifth, 16 experts top-2 of f 14336
    (swiglu) in every second layer and a dense FFN of f 14336 in the
-   others, vocab 65536, depth cut 32 -> 16 (two whole groups; 25.8 B bf16
-   parameters from seed 0; the 32 layers, 103 GB, do not fit the card).
-   ``init_jamba_d16``; ``checks_jamba`` (``checks_wide`` on layer 1: K4
+   others, vocab 65536, depth cut 32 -> 8 (one whole group; 13.0 B bf16
+   parameters from seed 0; the 32 layers, 103 GB, do not fit the card,
+   and 16 outgrew the time limit).
+   ``init_jamba_d8``; ``checks_jamba`` (``checks_wide`` on layer 1: K4
    at the decode (8 slots) and prefill-scan step (4 rows) gather layouts
    and the one-rank forward layout (seq 512 x batch 2, 160 slots an
    expert), K1-K3 at the 2x2 plan's rank 0 (4 experts a rank), K7 at
-   pipelined chunk 0); ``serve_jamba_d16``: the kernel path's and the
+   pipelined chunk 0); ``serve_jamba_d8``: the kernel path's and the
    bf16 plain path's logits, then the serve mix prefilled by scanning
-   decode steps as the reference prefills recurrent models: K4 exactly 8
+   decode steps as the reference prefills recurrent models: K4 exactly 4
    x (scan steps + decode steps), K5 and every other kernel never;
-   ``e2e_jamba_d16``: the float32 verdict on those logits, the float32
-   run casting one layer at a time; ``loss_jamba_d16``: one forward and
+   ``e2e_jamba_d8``: the float32 verdict on those logits, the float32
+   run casting one layer at a time; ``loss_jamba_d8``: one forward and
    loss through ``loss_fn`` on the one-rank ``a2a`` path (seq 512, batch
    2, no backward), K4 once a MoE layer, within LOSS_RTOL of the plain
    path's;
@@ -240,10 +242,10 @@ Phases, each printing JSON lines:
    every kernel at 0; step walls, peak memory, a profiled step; then
    one step with ``microbatch=2`` against the full-batch step from the
    same state, losses within LOSS_RTOL;
-20. the last three families at full width and full depth on one rank,
-   after the dense decoders' weights are freed, bf16 weights from seed 0:
-   xLSTM-350M (arXiv:2405.04517; 24 blocks, 7 mLSTM then one sLSTM in
-   each group of 8, d 1024, vocab 50304), Whisper-tiny (arXiv:2212.04356;
+20. the last three families at full width on one rank, after the dense
+   decoders' weights are freed, bf16 weights from seed 0: xLSTM-350M
+   (arXiv:2405.04517; 7 mLSTM then one sLSTM in each group of 8, d 1024,
+   vocab 50304; depth cut 24 -> 8, one whole group, for the time limit), Whisper-tiny (arXiv:2212.04356;
    4 encoder and 4 decoder layers, d 384, 6 heads of 64, 1500 frames a
    request from ``models/whisper.make_frames``) and InternVL2-26B
    (arXiv:2404.16821; 48 layers, d 6144, 48 over 8 KV heads of 128, f
@@ -267,7 +269,7 @@ Phases, each printing JSON lines:
    gpt3's prefill pack with 8 of 16 heads and Minitron-4B's with 12 of
    24 heads over 4 of 8 KV heads of 128, against their plain versions,
    timed, with bounds.  ``serve_tp2``: gpt3_medium_moe at depth
-   CUT_LAYERS, each rank holding half of every attention's heads, of
+   WORLD_LAYERS, each rank holding half of every attention's heads, of
    every expert's width and of the vocabulary: the end-to-end verdict of
    the E2E rows against one-rank float32 and bf16 plain runs (greedy
    tokens printed beside the one-rank kernel run's), then the serve
@@ -278,25 +280,53 @@ Phases, each printing JSON lines:
    depth TP_DENSE_LAYERS (vocabulary 256000 split in two): one prefill
    of the E2E rows and TP_DENSE_STEPS decode steps through K5 (4
    launches) against its own one-rank float32 run.  ``train_tp2``:
-   gpt3_medium_moe at depth TP_TRAIN_LAYERS, ``aux_mode="ta"``,
+   gpt3_medium_moe at depth WORLD_LAYERS, ``aux_mode="ta"``,
    train_1rank's batch, TP_TRAIN_STEPS steps: K4 once a layer a step,
    the first-step loss within LOSS_RTOL of the one-rank plain path's,
    a sliced and two replicated leaves' gradients (gathered) within the
    bf16 backward tolerances of the one-rank plain path's, the ranks'
    losses and picks equal; step walls, busy share, peak memory;
-22. kernels — one ``{"kernels": [...]}`` line for K1-K8, launches
+22. tensor parallelism on an EP x TP world and on the other families
+   (``ep_tp_family_phases``).  ``checks_ep_tp``:
+   K1, K2, K3 and K7 at rank 0's layouts of a (data 2, model 2) EP x TP
+   world (32 experts a rank, each at f 1024: the a2a plan's S = 8192
+   and the pipelined int8 plan's chunk 0, S = 1024) against their plain
+   versions, timed, with bounds (K1 and K2 without the call, host and
+   library readings of the 2x2 layouts).  ``train_ep_tp``:
+   gpt3_medium_moe at depth WORLD_LAYERS on that world of four gloo
+   ranks sharing the card, EP_TP_STEPS steps through a2a (K1, K3, K2 once a layer a step) and
+   EP_TP_PIPELINED_STEPS through a2a_pipelined over the int8 wire (K1,
+   K7, K2 once a layer a chunk a step), each run's first-step loss
+   within LOSS_RTOL (LOSS_RTOL_INT8) of the plain path's, the model
+   ranks of each data rank with bit-equal picks, step walls, busy share
+   and peak memory a rank; the a2a state through ``ckpt.save`` /
+   ``verify`` / ``restore_into`` of its parameters (one payload a
+   process), bit-equal, timed.  ``checks_tp2_families``: K4 at
+   DeepSeek-V2-Lite's f 704 and Jamba's f 7168, K5 at Whisper's encoder with 3 of 6 heads and
+   InternVL2's prefill with 24 of 48 over 4 of 8 KV heads, on each
+   family's one-rank weights, timed; each family's bf16 and float32
+   plain runs of TP_FAMILY_DRAWS draws of the E2E rows.
+   ``serve_tp2_families``: each of TP_FAMILIES on the (data 1, model 2)
+   world, for each draw one prefill and TP_FAMILY_STEPS decode steps,
+   held against the one-rank float32 runs by ``e2e_row_verdict`` at
+   E2E_RATIO times the one-rank bf16 plain runs' error, request by
+   request (the median of the draws' rows), launches exact, the ranks'
+   picks and greedy tokens equal, parameter bytes a rank;
+23. kernels — one ``{"kernels": [...]}`` line for K1-K8, launches
    summed over the main paths (serve, every rank of serve_2x2,
    train_1rank and its fused cross entropy step, every rank of
    train_2x2 and train_2x2_pipelined, train_einsum_k6,
    train_1rank_accum_remat, train_resilient, every rank of
    train_2x2_replan, train_2x2x2 and train_dp, serve_dsv2_lite,
-   train_dsv2_lite_d4, serve_jamba_d16, loss_jamba_d16, the four dense
+   train_dsv2_lite_d4, serve_jamba_d8, loss_jamba_d8, the four dense
    ``serve_<config>``, train_internlm2, the three families'
-   ``serve_<config>``, and every rank of serve_tp2 (gpt3 and Minitron)
-   and train_tp2), with DeepSeek-V2-Lite's and Jamba's readings beside
-   each of K1-K4 and K7, the hd-128 readings beside K5's and K8's, the
-   families' shapes beside K5's, and the tensor-parallel layouts beside
-   K4's and K5's.  K8 lies on no
+   ``serve_<config>``, every rank of serve_tp2 (gpt3 and Minitron),
+   train_tp2, train_ep_tp (a2a and pipelined) and each family's
+   serve_tp2_<config>), with DeepSeek-V2-Lite's and Jamba's readings
+   beside each of K1-K4 and K7, the hd-128 readings beside K5's and
+   K8's, the families' shapes beside K5's, the tensor-parallel layouts
+   beside K4's and K5's, and the EP x TP layouts beside K1, K2, K3 and
+   K7's.  K8 lies on no
    path (no model calls it, as in the reference): its row gives the
    launches of its checks as ``check_launches``.
 
@@ -400,21 +430,30 @@ LOSS_RTOL = 1e-3
 # the int8 wire's phase: the kernel path quantizes each (expert, stage,
 # source) segment with its own scale, the plain path each expert's chunk
 # span with one, so the two first-step losses differ by more than bf16
-# rounding: at the phase's depth (CUT_LAYERS, 6) 2.2e-4 relative in a
-# sound run on an H100.  Faults planted in K7's per-segment scales
-# (chip_k7_guard.py) moved it by 7.0e-3 (stage-1 segments x1.25), 1.0e-2
-# (stage-1 zeroed), 1.3e-2 (every segment x1.1) and 2.9e-2 (stage-1 x2);
-# the limit sits 7x above the sound gap and 4.7x below the smallest of
-# those (at 12 layers: 3.0e-4 sound, faults from 8.1e-3).
+# rounding.  At the phases' depth (WORLD_LAYERS, 2) on an H100
+# (chip_k7_guard.py): 3.0e-4 relative in a sound run on the 2x2 world,
+# and faults planted in K7's per-segment scales moved it by 4.4e-3
+# (stage-1 segments x1.25), 5.3e-3 (every segment x1.1), 1.2e-2 (stage-1
+# zeroed) and 1.4e-2 (stage-1 x2): the limit sits 5x above the sound gap
+# and 2.9x below the smallest fault; on train_ep_tp's world 7.9e-5 sound,
+# 6.0e-3 with every segment x1.1 (its one stage has no narrow segments).
+# At 6 layers: 2.2e-4 sound, faults from 7.0e-3; at 12: 3.0e-4, 8.1e-3.
 LOSS_RTOL_INT8 = 1.5e-3
 PIPELINED_CHUNKS = 8      # the overlap model's pick for the 2x2 plan
 # the command time varies about a fifth with the host a run lands on (1064
 # and 1257 s for one tree on two H100 machines at 700 W) against a limit
-# of 1200 s: serve_2x2, train_2x2, train_2x2_pipelined, train_einsum_k6,
-# train_1rank_accum_remat and the resilient phase's guard runs take
-# CUT_LAYERS of gpt3_medium_moe's 12 layers (every layer is alike, so each
-# path, kernel and check runs as at 12, half as often)
+# of 1200 s: train_einsum_k6, train_1rank_accum_remat, the resilient
+# phase's guard runs take CUT_LAYERS of gpt3_medium_moe's 12
+# layers (every layer is alike, so each path, kernel and check runs as at
+# 12, half as often)
 CUT_LAYERS = 6
+# every world phase of gpt3_medium_moe (serve_2x2, train_2x2,
+# train_2x2_pipelined, train_2x2x2, serve_tp2, train_tp2, train_ep_tp)
+# takes WORLD_LAYERS: with the tensor-parallel phases after them the whole
+# smoke outgrew its time limit, and these worlds' collectives and steps
+# scale with the depth (every layer is alike, so each path, kernel and
+# check runs as at 12)
+WORLD_LAYERS = 2
 # train_1rank_accum_remat: one rank, full depth, batch 8 as 2 microbatches
 # of 4, each layer recomputed in the backward
 ACCUM_BATCH, ACCUM_MICRO = 8, 4
@@ -433,13 +472,13 @@ REPLAN_RESILIENCE = {"replan_every": 2, "degrade_threshold": 4.0,
                      "collapse_slowdown": 64.0}
 REPLAN_CHAOS = {"degraded_links": ((1, "pod", 64.0),)}
 # train_2x2x2: the paper's nested [[2, 2], [2, 2]] topology, eight ranks
-# sharing the card over gloo, batch 8 (512 tokens a rank).  Depth cut to 6:
-# at 12 layers each rank peaks at 9.15 GB allocated (10.3 GB reserved:
-# AdamW's f32 moments of its 0.5 B parameters, 4 GB, and K3's plain f32
+# sharing the card over gloo, batch 8 (512 tokens a rank), at
+# WORLD_LAYERS.  At 12 layers each rank peaks at 9.15 GB allocated
+# (10.3 GB reserved: AdamW's f32 moments of its 0.5 B parameters, 4 GB, and K3's plain f32
 # backward), and eight of them ran the 79 GB card out of memory on an
 # H100; at 6 layers each peaks at 6.57 GB
 SPEC_222 = [[2, 2], [2, 2]]
-TRAIN_BATCH_222, TRAIN_222_LAYERS = 8, 6
+TRAIN_BATCH_222 = 8
 # train_dp: a (pod x data) = (3, 2) world: 6 does not divide 64 experts, so
 # the experts span data (32 a rank) and pod is pure data parallelism with
 # three replicas; batch 6 (512 tokens a rank); depth cut to 2, as
@@ -466,12 +505,12 @@ DSV2_ID, DSV2_MOE_LAYER, DSV2_CUT_LAYERS = "deepseek_v2_lite_16b", 1, 4
 # 128, Mamba (d_inner 8192, d_state 16, dt_rank 256) in 7 layers of each
 # group of 8 and attention in the fifth, 16 experts top-2 of f 14336
 # (swiglu) in every second layer and a dense FFN of f 14336 in the others,
-# vocab 65536.  Depth cut 32 -> 16 (two whole groups, attention at 4 and
-# 12; 25.8 B parameters): the 32 layers are 51.3 B parameters, 103 GB in
-# bf16, more than the card holds.  The checks take layer 1's weights (the
-# first MoE layer); loss_jamba_d16 runs one forward at seq 512, batch 2
+# vocab 65536.  Depth cut 32 -> 8 (one whole group, attention at 4; 13.0
+# B parameters): the 32 layers are 51.3 B parameters, 103 GB in bf16,
+# more than the card holds, and 16 (25.8 B) outgrew the time limit.  The checks take layer 1's weights (the
+# first MoE layer); loss_jamba_d8 runs one forward at seq 512, batch 2
 # (1024 tokens, 160 slots an expert at capacity 1.25)
-JAMBA_ID, JAMBA_LAYERS, JAMBA_MOE_LAYER = "jamba_v0_1_52b", 16, 1
+JAMBA_ID, JAMBA_LAYERS, JAMBA_MOE_LAYER = "jamba_v0_1_52b", 8, 1
 JAMBA_LOSS_BATCH = 2
 # the dense decoders at full width and full depth, one rank each, after
 # Jamba's weights are freed (bf16 parameters from seed 0: OLMo-1B 1.18 B,
@@ -487,10 +526,11 @@ JAMBA_LOSS_BATCH = 2
 # from the same state
 DENSE_IDS = ("olmo_1b", "granite_3_2b", "internlm2_1_8b", "minitron_4b")
 DENSE_TRAIN_ID, DENSE_MICRO = "internlm2_1_8b", 2
-# the last three families at full width and full depth, one rank each,
-# after the dense decoders' weights are freed, bf16 weights from seed 0:
-# xLSTM-350M (24 blocks, d 1024; no attention, no experts: no hand-written
-# kernel on its path), Whisper-tiny (4 encoder + 4 decoder layers, d 384, 6
+# the last three families at full width, one rank each, after the dense
+# decoders' weights are freed, bf16 weights from seed 0: xLSTM-350M (d
+# 1024; no attention, no experts: no hand-written kernel on its path; its
+# 24 blocks cut to FAMILY_LAYERS' 8, one whole group, for the time
+# limit), Whisper-tiny (4 encoder + 4 decoder layers, d 384, 6
 # heads of 64; each request carries 1500 frames: K5 non-causal in the
 # encoder, once an encoder layer of every prefill pack; the decoder
 # prefills by scan) and InternVL2-26B (48 layers, d 6144, 48 over 8 KV
@@ -501,24 +541,48 @@ DENSE_TRAIN_ID, DENSE_MICRO = "internlm2_1_8b", 2
 # InternVL2's cast one layer at a time (a whole copy is 77 GB)
 XLSTM_ID, WHISPER_ID, VLM_ID = "xlstm_350m", "whisper_tiny", "internvl2_26b"
 FAMILY_IDS = (XLSTM_ID, WHISPER_ID, VLM_ID)
+FAMILY_LAYERS = {XLSTM_ID: 8}
 VLM_BUCKET, VLM_CACHE_LEN = 384, 512
 # tensor parallelism: a (data 1, model 2) world of two gloo ranks sharing
 # the card, each with half of every attention's heads, of every FFN's and
 # expert's width and of the vocabulary.  serve_tp2: gpt3_medium_moe at
-# depth CUT_LAYERS with the serve phase's request mix, then Minitron-4B at
+# depth WORLD_LAYERS with the serve phase's request mix, then Minitron-4B at
 # depth TP_DENSE_LAYERS (one prefill of the E2E rows, TP_DENSE_STEPS
-# decode steps); train_tp2: gpt3_medium_moe at depth TP_TRAIN_LAYERS,
+# decode steps); train_tp2: gpt3_medium_moe at depth WORLD_LAYERS,
 # TP_TRAIN_STEPS steps at train_1rank's shapes.  Depths cut for the time
 # limit: the new phases are budgeted at 120 s together
 TP_WORLD, TP_MODEL = (1,), 2
 TP_DENSE_ID, TP_DENSE_LAYERS, TP_DENSE_STEPS = "minitron_4b", 4, 8
-TP_TRAIN_LAYERS, TP_TRAIN_STEPS = 2, 2
+TP_TRAIN_STEPS = 2
 # train_tp2's gradients against the one-rank plain path's: a sliced leaf
 # (layer 0's wq columns) and two replicated ones (layer 0's norm scale and
 # layer 1's gate), gathered over the model axis
 TP_GRAD_LEAVES = (("layers", "0", "mixer", "wq"),
                   ("layers", "0", "norm1", "scale"),
                   ("layers", "1", "ffn", "gate", "w"))
+# tensor parallelism on an EP x TP world and the other families.
+# train_ep_tp: gpt3_medium_moe at depth WORLD_LAYERS on an EP x TP world of
+# four gloo ranks (EP_TP_WORLD x TP_MODEL: 32 experts a rank over data,
+# each at f 1024 over model), TRAIN_BATCH_22 rows: EP_TP_STEPS steps
+# through a2a (K1, K3, K2), then EP_TP_PIPELINED_STEPS through
+# a2a_pipelined over the int8 wire (K1, K7, K2), and a checkpoint round
+# trip.  serve_tp2_families: on the (data 1, model 2) world, each family
+# at its depth below (``tp_family_of``), TP_FAMILY_DRAWS draws of the E2E
+# rows' prompts, each one prefill and TP_FAMILY_STEPS decode steps,
+# against the family's one-rank float32 run of the same draw:
+# DeepSeek-V2-Lite at depth 4 (MLA; K4 at f 704), Jamba at 2 (its group
+# of 8 cut to 2: a Mamba layer with a dense FFN, then attention with the
+# MoE FFN, K4 at f 7168; its scan prefill), xLSTM-350M at 2 (its group cut
+# to an mLSTM and an sLSTM block), Whisper-tiny at 2 decoder layers (its
+# 4 encoder layers: K5 at 3 of 6 heads, non-causal; cross-attention by
+# heads), InternVL2-26B at 2 (prompts of VLM_BUCKET with 256 patches: K5
+# at 24 of 48 heads over 4 of 8 KV heads).  Depths and steps cut for the
+# time limit
+EP_TP_WORLD = (2,)
+EP_TP_STEPS, EP_TP_PIPELINED_STEPS = 2, 1
+TP_FAMILY_STEPS, TP_FAMILY_DRAWS = 4, 3
+TP_FAMILIES = (("deepseek_v2_lite_16b", 4), ("jamba_v0_1_52b", 2),
+               ("xlstm_350m", 2), ("whisper_tiny", 2), ("internvl2_26b", 2))
 # kernels no earlier phase may launch: K6 runs only on the einsum phase, K8
 # on no path
 OFF_PATH = ("moe_gemm.grouped_ffn", "decode_attn.decode_attention")
@@ -956,16 +1020,19 @@ def staged_case(torch, params, arch, gen, slowdowns=None, sizes=WORLD_22,
             "w_out": p["w_out"][:E_l].contiguous()}
 
 
-def check_k1(torch, x, tok):
-    """K1 permute at one layout of the 2x2 world's rank 0 (``x`` [T, d],
+def check_k1(torch, x, tok, full: bool = True):
+    """K1 permute at one layout of a world's rank 0 (``x`` [T, d],
     ``slot_to_token`` ``tok`` [S]): a row copy, so the kernel must equal
     the plain version bit for bit.  ``ms`` times 200 calls under no_grad;
     ``chip_ab.permute_readings`` adds ``device_ms``, ``call_ms`` and
-    ``host_us`` for the kernel and ``index_select`` alike, and the bound."""
+    ``host_us`` for the kernel and ``index_select`` alike, and the bound.
+    Without ``full``, the kernel's ``device_ms`` alone beside the bound,
+    and no library reading."""
     import chip_ab
     from repro_torch.kernels.moe_permute import ops as p_ops
     from repro_torch.kernels.moe_permute.ref import permute_ref
-    out = chip_ab.permute_readings(torch, p_ops, x, tok, time_ms, bound_ms)
+    out = chip_ab.permute_readings(torch, p_ops, x, tok, time_ms, bound_ms,
+                                   full=full)
     x_pad = torch.cat([x, x.new_zeros((1, x.shape[1]))])
     idx = tok.long()
     out.update(
@@ -973,23 +1040,26 @@ def check_k1(torch, x, tok):
         ms=time_ms(torch, lambda: p_ops.permute(x, tok, use_pallas=True),
                    200),
         plain_ms=time_ms(torch, lambda: permute_ref(x, tok), 50),
-        library_ms=time_ms(torch, lambda: x_pad.index_select(0, idx), 200))
+        library_ms=time_ms(torch, lambda: x_pad.index_select(0, idx), 200)
+        if full else None)
     return out
 
 
-def check_k2(torch, y, di):
-    """K2 unpermute at one layout of the 2x2 world's rank 0, on bf16 slot
-    rows ``y`` [S, d]: within K2_ATOL + K2_RTOL·|plain| of the plain
-    version.  ``ms`` times 200 calls under no_grad; ``library_ms``
-    ``embedding_bag`` over an f32 table with the zero row the sentinel S
-    reads (f32, so it matches K2's f32 output; built outside the timed
-    region); ``chip_ab.unpermute_readings`` adds ``device_ms``,
-    ``call_ms`` and ``host_us`` for both, and the bound."""
+def check_k2(torch, y, di, full: bool = True):
+    """K2 unpermute at one layout of a world's rank 0, on bf16 slot rows
+    ``y`` [S, d]: within K2_ATOL + K2_RTOL·|plain| of the plain version.
+    ``ms`` times 200 calls under no_grad; ``library_ms`` ``embedding_bag``
+    over an f32 table with the zero row the sentinel S reads (f32, so it
+    matches K2's f32 output; built outside the timed region);
+    ``chip_ab.unpermute_readings`` adds ``device_ms``, ``call_ms`` and
+    ``host_us`` for both, and the bound.  Without ``full``, the kernel's
+    ``device_ms`` alone beside the bound, and no library reading."""
     import chip_ab
     from repro_torch.kernels.moe_permute import ops as p_ops
     from repro_torch.kernels.moe_permute.ref import unpermute_ref
     out = chip_ab.unpermute_readings(torch, p_ops, y, di.inv_idx, di.inv_w,
-                                     time_ms, bound_ms, K2_ATOL, K2_RTOL)
+                                     time_ms, bound_ms, K2_ATOL, K2_RTOL,
+                                     full=full)
     y_pad = torch.cat([y, y.new_zeros((1, y.shape[1]))]).float()
     inv_idx = di.inv_idx.long()
     out.update(
@@ -998,8 +1068,10 @@ def check_k2(torch, y, di):
         plain_ms=time_ms(torch, lambda: unpermute_ref(y, di.inv_idx,
                                                       di.inv_w), 50),
         library_ms=time_ms(torch, lambda: torch.nn.functional.embedding_bag(
-            inv_idx, y_pad, per_sample_weights=di.inv_w, mode="sum"), 200),
-        library_call="embedding_bag, f32 table")
+            inv_idx, y_pad, per_sample_weights=di.inv_w, mode="sum"), 200)
+        if full else None)
+    if full:
+        out["library_call"] = "embedding_bag, f32 table"
     return out
 
 
@@ -1245,7 +1317,8 @@ def layout_checks(torch, case, gen):
 
 
 def pipelined_case(torch, params, arch, gen, layer: int = 0,
-                   chunks=PIPELINED_CHUNKS):
+                   chunks=PIPELINED_CHUNKS, sizes=WORLD_22,
+                   global_batch=TRAIN_BATCH_22):
     """Rank (0, 0)'s view of chunk 0 of the train_2x2_pipelined phase: a
     real ``route`` + ``build_indices`` of 1024 random tokens through layer
     0's gate on the 2x2 EP spec and the int8 wire's chunk-aligned plan
@@ -1255,22 +1328,25 @@ def pipelined_case(torch, params, arch, gen, layer: int = 0,
     exchange stands in for the all-to-alls: the rank's send buffer is the
     receive buffer of the int8 ragged grouped FFN (K7).  ``layer`` as
     ``staged_case``'s; ``chunks`` None takes the overlap model's count
-    whatever it is."""
+    whatever it is; ``sizes`` and ``global_batch`` name another world's
+    plan, at its rank 0."""
     import types
+    from repro_torch.core.capacity import default_axis_names
     from repro_torch.core.dispatch import routing, transport
     from repro_torch.kernels.moe_permute.ref import permute_ref
     from repro_torch.launch.mesh import EPWorld
     from repro_torch.models import model as model_lib
-    world = EPWorld(axis_names=("pod", "data"), axis_sizes=WORLD_22,
-                    coords=(0, 0), device="cuda")
+    world = EPWorld(axis_names=default_axis_names(len(sizes)),
+                    axis_sizes=tuple(sizes), coords=(0,) * len(sizes),
+                    device="cuda")
     ctx = model_lib.build_ctx(arch, world, seq_len=TRAIN_SEQ,
-                              global_batch=TRAIN_BATCH_22, aux_mode="ta",
+                              global_batch=global_batch, aux_mode="ta",
                               dispatch="a2a_pipelined", wire_codec="int8",
                               device="cuda")
     k = ctx.a2a_num_chunks
     if chunks is not None and k != chunks:
         raise SystemExit(f"pipelined plan: {k} chunks, expected {chunks}")
-    T = TRAIN_SEQ * TRAIN_BATCH_22 // world.size
+    T = TRAIN_SEQ * global_batch // world.size
     d = arch.d_model
     p = params["layers"][layer]["ffn"]
     x = torch.randn((T, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -2505,6 +2581,52 @@ def e2e_verdict(torch, got, f32, bf16, label: str) -> dict:
             "argmax_agreement_kernel_vs_f32": agree}
 
 
+def e2e_row_verdict(torch, got, f32, bf16, label: str) -> dict:
+    """``e2e_verdict`` request by request (``row_drift``): the kernel
+    path's median request may be at most E2E_RATIO times as far from the
+    float32 run as the bf16 plain run's median request, or E2E_FLOOR;
+    raises otherwise.  Two bf16 runs whose sums round apart can pick
+    another expert for a near-tied token, or be carried apart by a
+    random-weight model's gains: that moves the requests it happens in,
+    where a fault moves every one."""
+    out = row_drift(torch, got, f32, bf16)
+    med_k = out["median_rel_err_kernel_vs_f32"]
+    med_p = out["median_rel_err_plain_bf16_vs_f32"]
+    if not (math.isfinite(med_k) and med_k <= out["limit"]):
+        raise SystemExit(f"{label}: the kernel path's median request is "
+                         f"{med_k} (relative) from the float32 reference, "
+                         f"the plain bf16 path's {med_p}; limit "
+                         f"{out['limit']}")
+    return out
+
+
+def row_drift(torch, got, f32, bf16) -> dict:
+    """``got`` (the kernel path), ``f32`` (a float32 plain run) and
+    ``bf16`` (a bf16 plain run) are logits [steps + 1, R, V] of R
+    requests: each request's relative Frobenius error from ``f32`` over
+    its steps, the medians, the limit E2E_RATIO times the bf16 run's
+    median (or E2E_FLOOR), and the whole runs' errors."""
+    def rows(a):
+        return (torch.linalg.vector_norm(a - f32, dim=(0, 2))
+                / torch.linalg.vector_norm(f32, dim=(0, 2)))
+
+    def rel(a):
+        return float(torch.linalg.vector_norm(a - f32)
+                     / torch.linalg.vector_norm(f32))
+
+    rows_k, rows_p = rows(got), rows(bf16)
+    med_k = float(torch.quantile(rows_k, 0.5))
+    med_p = float(torch.quantile(rows_p, 0.5))
+    limit = max(E2E_RATIO * med_p, E2E_FLOOR)
+    return {"median_rel_err_kernel_vs_f32": med_k,
+            "median_rel_err_plain_bf16_vs_f32": med_p, "limit": limit,
+            "rel_err_kernel_vs_f32": rel(got),
+            "rel_err_plain_bf16_vs_f32": rel(bf16),
+            "rows_kernel": rows_k.tolist(), "rows_plain_bf16": rows_p.tolist(),
+            "argmax_agreement_kernel_vs_f32": float(
+                (got.argmax(-1) == f32.argmax(-1)).float().mean())}
+
+
 class CastLayers(list):
     """A model's layers, each cast to ``dtype`` when the forward reads it
     (``params["layers"][i]``): a float32 run of a model whose float32
@@ -3011,7 +3133,7 @@ def analysis_phase(torch, params, ctx, out_dir: str) -> dict:
 
 def serve_rank(world, out_dir: str) -> None:
     """One rank of serve_2x2: full-width gpt3_medium_moe from seed 0 at
-    depth CUT_LAYERS (the first layers of the 12-layer model's draw; this
+    depth WORLD_LAYERS (the first layers of the 12-layer model's draw; this
     rank's 16 experts a layer), ``ServeConfig`` as the serve phase's, the
     batch sharded over the world and every MoE layer through the gather
     path.  First the end-to-end check: the kernel path's logits for
@@ -3031,7 +3153,7 @@ def serve_rank(world, out_dir: str) -> None:
     import dataclasses
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    arch = dataclasses.replace(get_config(ARCH_ID), num_layers=CUT_LAYERS)
+    arch = dataclasses.replace(get_config(ARCH_ID), num_layers=WORLD_LAYERS)
     ctx = model_lib.build_ctx(arch, world, device="cuda", use_flash=True,
                               aux_mode="none", seq_len=CACHE_LEN,
                               global_batch=NUM_SLOTS)
@@ -3145,7 +3267,7 @@ def deepseek_phases(torch, np) -> tuple:
     return ck_ds, srv_ds, tds
 
 
-def loss_jamba_d16(torch, params, arch) -> dict:
+def loss_jamba_d8(torch, params, arch) -> dict:
     """One forward and loss through ``loss_fn`` on the one-rank ``a2a``
     path (``aux_mode="ta"``, seq TRAIN_SEQ, batch JAMBA_LOSS_BATCH; no
     backward: AdamW's float32 moments alone would not fit), through the
@@ -3186,17 +3308,17 @@ def loss_jamba_d16(torch, params, arch) -> dict:
                          for k, v in metrics.items() if k != "loss"}}
     want = {k: 0 for k in backend.LAUNCHES}
     if runs["plain"]["launches"] != want:
-        raise SystemExit(f"loss_jamba_d16: the plain path launched "
+        raise SystemExit(f"loss_jamba_d8: the plain path launched "
                          f"{runs['plain']['launches']}")
     want["moe_fused.local_moe"] = n_moe
     if runs["kernel"]["launches"] != want:
-        raise SystemExit(f"loss_jamba_d16: launches "
+        raise SystemExit(f"loss_jamba_d8: launches "
                          f"{runs['kernel']['launches']}, the path needs "
                          f"{want}")
     got, ref = runs["kernel"]["loss"], runs["plain"]["loss"]
     rel = abs(got - ref) / abs(ref)
     if not (math.isfinite(got) and rel <= LOSS_RTOL):
-        raise SystemExit(f"loss_jamba_d16: kernel path loss {got}, plain "
+        raise SystemExit(f"loss_jamba_d8: kernel path loss {got}, plain "
                          f"path {ref} (relative {rel}, limit {LOSS_RTOL})")
     return {"seq_len": TRAIN_SEQ, "global_batch": JAMBA_LOSS_BATCH,
             "aux_mode": "ta", "dispatch": "a2a", "caps": list(ctx.plan.caps),
@@ -3207,15 +3329,16 @@ def loss_jamba_d16(torch, params, arch) -> dict:
 def jamba_phases(torch, np) -> tuple:
     """The Jamba phases (JAMBA_ID at depth JAMBA_LAYERS, one rank), after
     every other model's weights are freed: the full-width weights from
-    seed 0 (init_jamba_d16); ``checks_wide`` on layer JAMBA_MOE_LAYER at
+    seed 0 (init_jamba_d8); ``checks_wide`` on layer JAMBA_MOE_LAYER at
     the decode (8 slots) and prefill-scan step (4 rows) gather layouts
     and the one-rank forward layout (checks_jamba); the kernel path's and
     the bf16 plain path's logits on the end-to-end prompt, then
     ``serve_mix``, prefilled by scan: K4 once a MoE layer of every scan
-    step (BUCKET a pack) and decode step, K5 never (serve_jamba_d16); the
+    step (BUCKET a pack) and decode step, K5 never (serve_jamba_d8); the
     float32 verdict on those logits, the float32 run one cast layer at a
-    time (e2e_jamba_d16: a whole float32 copy is 103 GB); and
-    ``loss_jamba_d16``.  Emits each phase's line and returns ``(checks,
+    time (e2e_jamba_d8: a whole float32 copy, 52 GB, beside the bf16
+    weights would fill the card); and
+    ``loss_jamba_d8``.  Emits each phase's line and returns ``(checks,
     serve, loss)``."""
     import dataclasses
     from repro_torch.configs.base import get_config
@@ -3232,7 +3355,7 @@ def jamba_phases(torch, np) -> tuple:
     torch.cuda.synchronize()
     subs = transformer.layer_list(arch)
     n_moe = sum(s.ffn == "moe" for s in subs)
-    emit({"phase": "init_jamba_d16", "arch": arch.name,
+    emit({"phase": "init_jamba_d8", "arch": arch.name,
           "source": arch.source, "layers": arch.num_layers,
           "depth_cut": f"{full.num_layers} -> {JAMBA_LAYERS}: the whole "
           f"model is 51.3 B parameters, 103 GB in bf16",
@@ -3255,10 +3378,10 @@ def jamba_phases(torch, np) -> tuple:
     prompt = e2e_prompt(torch, np, arch.vocab_size)
     with torch.no_grad():
         logits = plain_runs(torch, params, ctx, prompt, f32=False)
-    srv = serve_mix(torch, np, params, ctx, "serve_jamba_d16",
+    srv = serve_mix(torch, np, params, ctx, "serve_jamba_d8",
                     lambda r: n_moe * (r.prefill_calls * BUCKET
                                        + r.decode_steps), scan=True)
-    emit({"phase": "serve_jamba_d16", "seconds": time.time() - t0,
+    emit({"phase": "serve_jamba_d8", "seconds": time.time() - t0,
           "layers": arch.num_layers, "moe_layers": n_moe,
           "scan_steps_per_pack": BUCKET,
           "rel_err_kernel_vs_plain_bf16": rel_err(
@@ -3272,15 +3395,15 @@ def jamba_phases(torch, np) -> tuple:
         f32 = plain_runs(torch, params, ctx, prompt, kernel=False,
                          bf16=False, f32_by_layer=True)["plain_f32"]
     e2e = e2e_verdict(torch, logits["kernel"], f32, logits["plain_bf16"],
-                      "e2e_jamba_d16")
-    emit({"phase": "e2e_jamba_d16", "seconds": time.time() - t0,
+                      "e2e_jamba_d8")
+    emit({"phase": "e2e_jamba_d8", "seconds": time.time() - t0,
           "layers": arch.num_layers, **e2e,
           "max_memory_allocated_gb":
               torch.cuda.max_memory_allocated() / 1e9})
     del logits, f32
     t0 = time.time()
-    loss = loss_jamba_d16(torch, params, arch)
-    emit({"phase": "loss_jamba_d16", "seconds": time.time() - t0, **loss})
+    loss = loss_jamba_d8(torch, params, arch)
+    emit({"phase": "loss_jamba_d8", "seconds": time.time() - t0, **loss})
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3549,18 +3672,23 @@ def checks_families(torch, gen) -> dict:
 
 
 def serve_family(torch, np, aid: str) -> dict:
-    """One of FAMILY_IDS at full width and full depth on one rank, its
-    bf16 weights from seed 0: the kernel path's and the bf16 plain path's
+    """One of FAMILY_IDS at full width on one rank (at FAMILY_LAYERS'
+    depth where it names one, else at full depth), its bf16 weights from
+    seed 0: the kernel path's and the bf16 plain path's
     logits on the end-to-end prompt (with its frontend), then
     ``serve_mix`` with ``use_flash=True`` and per-request frontends (K5
     exactly once an encoder layer (Whisper) or a layer (InternVL2) of
     every prefill pack, every other kernel never; xLSTM none), then the
     float32 verdict (``e2e_verdict``).  Emits ``serve_<aid>`` and
     ``e2e_<aid>`` and returns the serve line."""
+    import dataclasses
+
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as model_lib
     t0 = time.time()
     arch = get_config(aid)
+    arch = dataclasses.replace(
+        arch, num_layers=FAMILY_LAYERS.get(aid, arch.num_layers))
     ctx = model_lib.build_ctx(arch, device="cuda", use_flash=True,
                               aux_mode="none", seq_len=CACHE_LEN,
                               global_batch=NUM_SLOTS)
@@ -3678,7 +3806,7 @@ class PickLog:
 
 def serve_tp_rank(world, out_dir: str) -> None:
     """One rank of serve_tp2 (a data 1 x model 2 world).  gpt3_medium_moe
-    at depth CUT_LAYERS from seed 0 (the rank's heads, expert columns and
+    at depth WORLD_LAYERS from seed 0 (the rank's heads, expert columns and
     vocabulary rows of the one-rank model's draw) with ``use_flash``:
     the end-to-end logits of the E2E rows against the one-rank float32
     and bf16 plain runs the main process saved (``tp_reference.pt``),
@@ -3701,7 +3829,7 @@ def serve_tp_rank(world, out_dir: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ref = torch.load(os.path.join(out_dir, "tp_reference.pt"))
-    arch = dataclasses.replace(get_config(ARCH_ID), num_layers=CUT_LAYERS)
+    arch = dataclasses.replace(get_config(ARCH_ID), num_layers=WORLD_LAYERS)
     ctx = model_lib.build_ctx(arch, world, device="cuda", use_flash=True,
                               aux_mode="none", seq_len=CACHE_LEN,
                               global_batch=NUM_SLOTS)
@@ -3786,7 +3914,7 @@ def _leaf(tree, path):
 
 
 def train_tp_rank(world, out_dir: str) -> None:
-    """One rank of train_tp2: gpt3_medium_moe at depth TP_TRAIN_LAYERS
+    """One rank of train_tp2: gpt3_medium_moe at depth WORLD_LAYERS
     from seed 0 (its slices of the one-rank draw), train_1rank's batch
     and run config.  First one forward and backward of the first batch
     through the kernel path: the synced gradients of TP_GRAD_LEAVES,
@@ -3811,7 +3939,7 @@ def train_tp_rank(world, out_dir: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     arch = dataclasses.replace(get_config(ARCH_ID),
-                               num_layers=TP_TRAIN_LAYERS)
+                               num_layers=WORLD_LAYERS)
     run = RunConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH_1,
                     warmup_steps=1, aux_mode="ta", seed=0)
     ctx = model_lib.build_ctx(arch, world, seq_len=TRAIN_SEQ,
@@ -3905,10 +4033,10 @@ def tp_kernel_checks(torch, params, ctx, gen) -> dict:
 def tp_phases(torch, np) -> tuple:
     """serve_tp2 and train_tp2 (TP_WORLD x TP_MODEL), after every other
     model's weights are freed.  The main process first builds the
-    one-rank references: gpt3 at depth CUT_LAYERS (the TP layouts of K4
+    one-rank references: gpt3 at depth WORLD_LAYERS (the TP layouts of K4
     and K5 checked on its weights; its kernel, bf16 plain and float32
     plain logits on the E2E rows), Minitron-4B at depth TP_DENSE_LAYERS
-    (bf16 and float32 plain logits), and gpt3 at depth TP_TRAIN_LAYERS
+    (bf16 and float32 plain logits), and gpt3 at depth WORLD_LAYERS
     (the plain path's first-step loss and gradients).  Returns
     ``(kernel checks, serve ranks, train ranks)``."""
     import dataclasses
@@ -3924,7 +4052,8 @@ def tp_phases(torch, np) -> tuple:
     t0 = time.time()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
     try:
-        arch = dataclasses.replace(get_config(ARCH_ID), num_layers=CUT_LAYERS)
+        arch = dataclasses.replace(get_config(ARCH_ID),
+                                   num_layers=WORLD_LAYERS)
         ctx = model_lib.build_ctx(arch, device="cuda", use_flash=True,
                                   aux_mode="none", seq_len=CACHE_LEN,
                                   global_batch=NUM_SLOTS)
@@ -3989,13 +4118,13 @@ def tp_phases(torch, np) -> tuple:
                 if g[key] != srv[0]["gpt3"][key]:
                     raise SystemExit(f"serve_tp2 rank {r['process_rank']}: "
                                      f"its {key} differ from rank 0's")
-            if g["picks"]["gate_calls"] != CUT_LAYERS * (E2E_STEPS + 1):
+            if g["picks"]["gate_calls"] != WORLD_LAYERS * (E2E_STEPS + 1):
                 raise SystemExit(f"serve_tp2: {g['picks']['gate_calls']} "
                                  f"gate calls recorded")
             want = {k: 0 for k in backend.LAUNCHES}
-            want["moe_fused.local_moe"] = CUT_LAYERS * (g["prefill_packs"]
+            want["moe_fused.local_moe"] = WORLD_LAYERS * (g["prefill_packs"]
                                                         + g["decode_steps"])
-            want["flash_attn.flash_attention"] = (CUT_LAYERS
+            want["flash_attn.flash_attention"] = (WORLD_LAYERS
                                                   * g["prefill_packs"])
             if g["launches"] != want:
                 raise SystemExit(f"serve_tp2 rank {r['process_rank']}: "
@@ -4012,7 +4141,7 @@ def tp_phases(torch, np) -> tuple:
                                  "tokens differ")
         emit({"phase": "serve_tp2", "seconds": time.time() - t0,
               "world": list(TP_WORLD), "model": TP_MODEL,
-              "backend": "gloo", "layers": CUT_LAYERS,
+              "backend": "gloo", "layers": WORLD_LAYERS,
               "one_rank_param_bytes": one_rank_bytes,
               "greedy_model1_kernel": ref_greedy["gpt3"],
               "dense": {"arch": TP_DENSE_ID, "layers": TP_DENSE_LAYERS,
@@ -4024,7 +4153,7 @@ def tp_phases(torch, np) -> tuple:
         # train_tp2: the one-rank plain path's first step, then the world
         t0 = time.time()
         tarch = dataclasses.replace(get_config(ARCH_ID),
-                                    num_layers=TP_TRAIN_LAYERS)
+                                    num_layers=WORLD_LAYERS)
         run = RunConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH_1,
                         warmup_steps=1, aux_mode="ta", seed=0)
         pctx = model_lib.build_ctx(tarch, seq_len=TRAIN_SEQ,
@@ -4080,7 +4209,7 @@ def tp_phases(torch, np) -> tuple:
                 rep["grads"][name] = {"max_abs_err": err, "limit": lim,
                                       "max_abs": float(want.abs().max())}
             want = {k: 0 for k in backend.LAUNCHES}
-            want["moe_fused.local_moe"] = TP_TRAIN_LAYERS * TP_TRAIN_STEPS
+            want["moe_fused.local_moe"] = WORLD_LAYERS * TP_TRAIN_STEPS
             if rep["launches"] != want:
                 raise SystemExit(f"train_tp2 rank {r}: launches "
                                  f"{rep['launches']}, the path needs {want}")
@@ -4101,7 +4230,7 @@ def tp_phases(torch, np) -> tuple:
                              f"relative {rel} > {LOSS_RTOL}")
         emit({"phase": "train_tp2", "seconds": time.time() - t0,
               "world": list(TP_WORLD), "model": TP_MODEL, "backend": "gloo",
-              "layers": TP_TRAIN_LAYERS, "seq_len": TRAIN_SEQ,
+              "layers": WORLD_LAYERS, "seq_len": TRAIN_SEQ,
               "global_batch": TRAIN_BATCH_1, "steps": TP_TRAIN_STEPS,
               "first_loss_kernel": first, "first_loss_plain_model1":
               plain_loss, "rel_diff": rel, "rtol": LOSS_RTOL,
@@ -4110,6 +4239,544 @@ def tp_phases(torch, np) -> tuple:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return checks, srv, trn
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism on an EP x TP world and the other families
+# (train_ep_tp, serve_tp2_families)
+# ---------------------------------------------------------------------------
+
+
+def _cut_width(case: dict) -> dict:
+    """A ``staged_case`` / ``pipelined_case`` with its experts cut to a
+    model rank's width: the first f / TP_MODEL columns of ``w_in`` (and
+    ``w_gate``) and rows of ``w_out``, as ``model.shard_params`` gives
+    model coordinate 0."""
+    f = case["w_in"].shape[2] // TP_MODEL
+    out = dict(case)
+    out["w_in"] = case["w_in"][..., :f].contiguous()
+    out["w_out"] = case["w_out"][:, :f].contiguous()
+    if case["w_gate"] is not None:
+        out["w_gate"] = case["w_gate"][..., :f].contiguous()
+    return out
+
+
+def ep_tp_kernel_checks(torch, params, arch, gen) -> dict:
+    """K1, K2, K3 and K7 at rank 0's layouts of the EP x TP world
+    (EP_TP_WORLD x TP_MODEL: 32 experts a rank, each at f 1024), against
+    their plain versions, timed, with bounds (K1 and K2 without their
+    call, host and library readings, which the 2x2 layouts give): the a2a
+    plan's staged
+    layout (``staged_case(sizes=EP_TP_WORLD)``: one stage of 2 ranks,
+    caps (128,), S = 8192) for K1, K2 and K3, and chunk 0 of the
+    pipelined int8 plan (the overlap model's 8 chunks: S = 1024) for K7,
+    on layer 0's experts cut to a model rank's width."""
+    out, seconds = {}, {}
+    case = _cut_width(staged_case(torch, params, arch, gen,
+                                  sizes=EP_TP_WORLD,
+                                  global_batch=TRAIN_BATCH_22))
+    di = case["di"]
+    t0 = time.time()
+    out["K1"] = check_k1(torch, case["x"], di.slot_to_token, full=False)
+    out["K2"] = check_k2(torch, torch.randn(
+        (di.num_slots, case["x"].shape[1]), generator=gen,
+        device="cuda").to(torch.bfloat16), di, full=False)
+    seconds["K1_K2"], t0 = time.time() - t0, time.time()
+    out["K3"] = check_k3(torch, case)
+    seconds["K3"] = time.time() - t0
+    out["layout"] = {"caps": list(case["caps"]), "S": di.num_slots,
+                     "T": case["x"].shape[0], "f": case["w_in"].shape[2],
+                     "experts_per_rank": case["w_in"].shape[0]}
+    del case
+    pcase = _cut_width(pipelined_case(
+        torch, params, arch, gen, chunks=None, sizes=EP_TP_WORLD,
+        global_batch=TRAIN_BATCH_22))
+    pdi = pcase["di"]
+    t0 = time.time()
+    out["K7"] = check_k7(torch, pcase)
+    seconds["K7"] = time.time() - t0
+    out["check_seconds"] = seconds
+    out["layout_chunk0"] = {"chunks": pcase["chunks"], "S": pdi.num_slots,
+                            "chunk_caps": pcase["chunk_caps"],
+                            "f": pcase["w_in"].shape[2]}
+    return out
+
+
+def train_ep_tp_rank(world, out_dir: str) -> None:
+    """One rank of train_ep_tp (EP_TP_WORLD x TP_MODEL: the experts over
+    ``data``, each expert's width over ``model``).  gpt3_medium_moe at
+    depth WORLD_LAYERS from seed 0 (the rank's expert shard and model
+    slices of the one-rank draw), TRAIN_BATCH_22 rows at TRAIN_SEQ,
+    ``aux_mode="ta"``, run twice: EP_TP_STEPS steps of ``a2a`` (K1 -> the
+    all-to-all -> K3 -> the all-to-all -> K2) and EP_TP_PIPELINED_STEPS of
+    ``a2a_pipelined`` over the int8 wire (K1, K7, K2; the overlap model's
+    chunk count).  Each run: the plain path's first-step loss from the
+    same weights and batch (kernels off), then ``trainer.train`` with the
+    launch counters set to 0 just before and read just after and the
+    top-k picks digested; the a2a run then profiles one more step and
+    takes its parameters and step through ``ckpt.save`` / ``verify`` /
+    ``restore_into`` (one payload a process: its expert shard and model
+    slices; the restore without hashing again, as the trainer's rollback
+    reads) into zeroed tensors, timed.  Writes
+    ``ep_tp<process rank>.json``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs.base import RunConfig, get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch
+    from repro_torch.kernels import backend
+    from repro_torch.launch import analysis
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.training import trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    arch = dataclasses.replace(get_config(ARCH_ID), num_layers=WORLD_LAYERS)
+    rank = world.process_rank
+    out = {"process_rank": rank, "rank": world.rank,
+           "model_coord": world.model_coord}
+    for label, dispatch, codec, steps in (
+            ("a2a", "a2a", "", EP_TP_STEPS),
+            ("pipelined_int8", "a2a_pipelined", "int8",
+             EP_TP_PIPELINED_STEPS)):
+        run = RunConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH_22,
+                        warmup_steps=1, aux_mode="ta", dispatch=dispatch,
+                        a2a_num_chunks=0, wire_codec=codec, seed=0)
+
+        def ctx_for(use_pallas):
+            return model_lib.build_ctx(
+                arch, world, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH_22,
+                aux_mode="ta", dispatch=dispatch, a2a_num_chunks=0,
+                wire_codec=codec, use_pallas=use_pallas, device="cuda")
+
+        plain_ctx = ctx_for(False)
+        params = model_lib.init_params(
+            plain_ctx, torch.Generator(device="cuda").manual_seed(run.seed))
+        data = SyntheticLM(DataConfig(vocab_size=arch.vocab_size,
+                                      seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH_22,
+                                      seed=run.seed))
+        backend.reset_launches()
+        os.environ[backend.ENV_VAR] = "0"
+        try:
+            with torch.no_grad():
+                _, m = transformer.loss_fn(
+                    params, shard_batch(data.batch(0), world, "cuda"),
+                    plain_ctx, aux_weight=run.aux_weight)
+                plain_loss = float(trainer.world_mean_metrics(
+                    {"loss": m["loss"]}, world)["loss"])
+        finally:
+            del os.environ[backend.ENV_VAR]
+        plain_launches = dict(backend.LAUNCHES)
+        kctx = ctx_for(None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with PickLog() as picks:
+            backend.reset_launches()
+            res = trainer.train(arch, run, world, steps=steps, log_every=1,
+                                verbose=False, params=params, device="cuda")
+            launches = dict(backend.LAUNCHES)
+        rec = {"losses": res.losses, "plain_first_loss": plain_loss,
+               "plain_launches": plain_launches, "launches": launches,
+               "picks": picks.result(), "step_wall_s": res.step_seconds,
+               "max_memory_allocated_gb":
+                   torch.cuda.max_memory_allocated() / 1e9,
+               "a2a_num_chunks": kctx.a2a_num_chunks,
+               "caps": list(kctx.plan.caps),
+               "param_bytes": analysis.tree_bytes(res.params)}
+        if label == "a2a":
+            step = trainer.make_train_step(kctx, run)
+            prof = profile_train_step(
+                torch, step, res.params, res.opt_state,
+                shard_batch(data.batch(steps), world, "cuda"))
+            rec["profiled_step"] = {k: prof[k] for k in (
+                "wall_ms", "device_ms", "device_busy_share",
+                "kernel_launches", "top", "port_kernels")}
+            state = {"params": res.params, "step": res.opt_state["step"]}
+            path = ckpt.rank_path(os.path.join(out_dir, "ep_tp.npz"), rank,
+                                  world.size * world.model)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt.save(path, state, step=steps)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            verified = ckpt.verify(path)
+            verify_s = time.perf_counter() - t0
+            blank = {"params": adamw.tree_map(torch.zeros_like,
+                                              state["params"]), "step": 0}
+            t0 = time.perf_counter()
+            # verify just hashed every leaf: the restore reads without
+            # hashing them again, as the trainer's rollback does
+            got = ckpt.restore_into(path, blank, check_hashes=False)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            want = adamw.tree_leaves(state["params"])
+            have = adamw.tree_leaves(got["params"])
+            rec["checkpoint"] = {
+                "payload": os.path.basename(path),
+                "bytes": os.path.getsize(path), "save_s": save_s,
+                "verify_s": verify_s, "restore_s": restore_s,
+                "verified": verified,
+                "step": got["step"], "saved_step": state["step"],
+                "bit_equal": len(want) == len(have) and all(
+                    torch.equal(a.detach(), b) for a, b in zip(want, have))}
+            os.unlink(path)
+            os.unlink(path + ".meta.json")
+            del state, blank, got, want, have
+        out[label] = rec
+        del params, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"ep_tp{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+
+
+def cut_depth(arch, depth: int):
+    """``arch`` at ``depth`` layers.  A family that repeats a group longer
+    than ``depth`` has its group cut to ``depth`` with each kind of layer
+    kept (``layer_plan`` repeats whole groups): Jamba's attention moves
+    to the group's last layer, its MoE FFN stays in every second; xLSTM's
+    sLSTM block stays last."""
+    import dataclasses
+    arch = dataclasses.replace(arch, num_layers=depth)
+    if arch.family == "hybrid" and arch.attn_every > depth:
+        arch = dataclasses.replace(arch, attn_every=depth,
+                                   attn_offset=depth - 1)
+    if arch.ssm_kind == "xlstm" and arch.slstm_every > depth:
+        arch = dataclasses.replace(arch, slstm_every=depth)
+    return arch
+
+
+def tp_family_of(aid: str, depth: int):
+    from repro_torch.configs.base import get_config
+    return cut_depth(get_config(aid), depth)
+
+
+def tp_family_want(arch) -> dict:
+    """The launches one rank of serve_tp2_families makes for ``arch`` over
+    its TP_FAMILY_DRAWS draws: K4 once a MoE layer of the prefill and of
+    each decode step (a scan prefill is E2E_PROMPT decode steps), K5 once
+    an attention layer of the prefill (Whisper's encoder, InternVL2's
+    layers; MLA and Mamba take none), nothing else."""
+    from repro_torch.kernels import backend
+    from repro_torch.models import decode, transformer
+    subs = transformer.layer_list(arch)
+    moe = sum(s.ffn == "moe" for s in subs)
+    calls = (E2E_PROMPT if decode._needs_scan_prefill(arch) else 1) \
+        + TP_FAMILY_STEPS
+    k5 = (arch.enc_layers if arch.family == "audio" else
+          0 if decode._needs_scan_prefill(arch) else
+          sum(s.mixer == "attn" for s in subs))
+    want = {k: 0 for k in backend.LAUNCHES}
+    want["moe_fused.local_moe"] = moe * calls * TP_FAMILY_DRAWS
+    want["flash_attn.flash_attention"] = k5 * TP_FAMILY_DRAWS
+    return want
+
+
+def tp_family_prompt(torch, np, arch, draw: int, device="cuda",
+                     length: int = 0):
+    """Draw ``draw`` of the E2E rows' prompt [E2E_ROWS, S] (S = ``length``
+    or, by default, VLM_BUCKET for a vision model, whose first
+    frontend_len positions the patches take, else E2E_PROMPT) and
+    frontend (None without one), from its own seed, on ``device``."""
+    rng = np.random.default_rng(8 + draw)
+    S = length or (VLM_BUCKET if arch.frontend == "vision" else E2E_PROMPT)
+    prompt = torch.as_tensor(rng.integers(0, arch.vocab_size,
+                                          size=(E2E_ROWS, S)),
+                             dtype=torch.int32, device=device)
+    fe = frontend_of(np, arch, rng, E2E_ROWS)
+    return prompt, None if fe is None else fe.to(device)
+
+
+def tp_family_checks(torch, aid, params, ctx, gen) -> dict:
+    """The kernels at a model rank's layouts that ``aid`` gives them on
+    the (data 1, model 2) world, on its one-rank weights cut to coordinate
+    0's width, against their plain versions, timed: K4 at
+    DeepSeek-V2-Lite's f 704 (decode: E2E_ROWS tokens; prefill: E2E_ROWS x
+    E2E_PROMPT) and Jamba's f 7168 (E2E_ROWS tokens; its scan prefill
+    steps are the same layout) on their first MoE layer; K5 at Whisper's
+    encoder with 3 of 6 heads, non-causal, and InternVL2's prefill with
+    24 of 48 heads over 4 of 8 KV heads of 128."""
+    from repro_torch.models import transformer
+    arch = ctx.arch
+    out = {}
+    if arch.is_moe:
+        layer = [s.ffn for s in transformer.layer_list(arch)].index("moe")
+        Tgs = {"decode": E2E_ROWS}
+        if arch.mla is not None:
+            Tgs["prefill"] = E2E_ROWS * E2E_PROMPT
+        for label, Tg in Tgs.items():
+            args, act = gather_k4_case(torch, params, ctx, Tg, gen,
+                                       layer=layer)
+            x, tok, w, offs, exps, valid, w_in, w_gate, w_out = args
+            f = w_in.shape[2] // TP_MODEL
+            args = (x, tok, w, offs, exps, valid,
+                    w_in[..., :f].contiguous(),
+                    None if w_gate is None else w_gate[..., :f].contiguous(),
+                    w_out[:, :f].contiguous())
+            out[f"K4_{label}_f{f}"] = check_k4(torch, args, act,
+                                               f"tp2_{aid}_{label}")
+    elif arch.frontend == "audio":
+        out["K5_encoder"] = check_k5(
+            torch, (PACK, arch.frontend_len, arch.num_heads // TP_MODEL,
+                    arch.head_dim_), gen, causal=False)
+    elif arch.frontend == "vision":
+        out["K5_prefill"] = check_k5(
+            torch, (PACK, VLM_BUCKET, arch.num_heads // TP_MODEL,
+                    arch.head_dim_), gen,
+            kv_heads=arch.num_kv_heads // TP_MODEL)
+    return out
+
+
+def serve_tp_family_rank(world, out_dir: str) -> None:
+    """One rank of serve_tp2_families (a data 1 x model 2 world): each of
+    TP_FAMILIES at its depth from seed 0 (the rank's slices of the
+    one-rank draw: MLA and the xLSTM mixers by heads, Mamba by inner
+    channels, Whisper's encoder and cross-attention by heads, InternVL2's
+    projector by width), ``use_flash=True``: for each of the
+    TP_FAMILY_DRAWS prompt draws the main process saved
+    (``tp_family_<config>.pt``), one prefill of the E2E rows (with their
+    frames or patches) and TP_FAMILY_STEPS decode steps, the launch
+    counters set to 0 just before the first draw and read just after the
+    last, the top-k picks digested.  The logits are held against the
+    family's one-rank float32 runs by ``e2e_row_verdict``, beside the
+    one-rank bf16 plain runs.  Writes ``fam<process rank>.json``."""
+    import torch
+    from repro_torch.kernels import backend
+    from repro_torch.launch import analysis
+    from repro_torch.models import model as model_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"process_rank": world.process_rank,
+           "model_coord": world.model_coord, "families": {}}
+    for aid, depth in TP_FAMILIES:
+        arch = tp_family_of(aid, depth)
+        draws = torch.load(os.path.join(out_dir, f"tp_family_{aid}.pt"))
+        ctx = model_lib.build_ctx(arch, world, device="cuda", use_flash=True,
+                                  aux_mode="none", seq_len=CACHE_LEN,
+                                  global_batch=E2E_ROWS)
+        params = model_lib.init_params(
+            ctx, torch.Generator(device="cuda").manual_seed(0))
+        got = []
+        torch.cuda.synchronize()
+        with torch.no_grad(), PickLog() as picks:
+            backend.reset_launches()
+            t0 = time.perf_counter()
+            for d in draws:
+                fe = d["frontend"]
+                got.append(e2e_logits(
+                    torch, params, ctx, d["prompt"].cuda(), world,
+                    frontend=None if fe is None else fe.cuda(),
+                    steps=TP_FAMILY_STEPS))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(backend.LAUNCHES)
+        got = torch.cat(got, dim=1)
+        e2e = e2e_row_verdict(
+            torch, got, torch.cat([d["plain_f32"] for d in draws], 1).cuda(),
+            torch.cat([d["plain_bf16"] for d in draws], 1).cuda(),
+            f"serve_tp2_families {aid}")
+        out["families"][aid] = {
+            "end_to_end": e2e, "greedy": got.argmax(-1).t().tolist(),
+            "launches": launches, "picks": picks.result(), "wall_s": wall,
+            "tokens_per_s": (TP_FAMILY_DRAWS * E2E_ROWS
+                             * (TP_FAMILY_STEPS + 1) / wall),
+            "param_bytes": analysis.tree_bytes(params),
+            "heads": (ctx.mla_cfg.num_heads if arch.mla is not None else
+                      ctx.xlstm_cfg.local_heads if arch.ssm_kind == "xlstm"
+                      else ctx.attn_cfg.num_heads),
+            "attention_split": ctx.attn_sharded}
+        del params, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"fam{world.process_rank}.json"),
+              "w") as fh:
+        json.dump(out, fh)
+
+
+def ep_tp_family_phases(torch, np) -> tuple:
+    """train_ep_tp and serve_tp2_families, after every other model's
+    weights are freed.  ``checks_ep_tp``: K1, K2, K3 and K7 at the EP x TP
+    world's rank-0 layouts (``ep_tp_kernel_checks``).  ``train_ep_tp``:
+    the four ranks of ``train_ep_tp_rank``; launch counts exact, each
+    run's first-step loss within LOSS_RTOL (LOSS_RTOL_INT8 over the int8
+    wire) of the plain path's, the ranks' world-mean losses equal, the
+    two model ranks of each data rank with bit-equal picks (the data
+    ranks' differ), the checkpoint round trip bit-equal.  Then each of
+    TP_FAMILIES on one rank (its kernel checks at a model rank's layouts,
+    and its float32 plain run of the E2E rows), and
+    ``serve_tp2_families`` on the (data 1, model 2) world: the verdicts
+    (beside the world's plain path), launch counts, picks and greedy
+    tokens equal across the ranks.
+    Returns ``(kernel checks, train ranks, family checks, serve
+    ranks)``."""
+    from repro_torch.kernels import backend
+    from repro_torch.launch import analysis, mesh
+    from repro_torch.models import model as model_lib
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp2_")
+    try:
+        t0 = time.time()
+        arch = tp_family_of(ARCH_ID, 1)
+        ctx = model_lib.build_ctx(arch, device="cuda", aux_mode="ta",
+                                  seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH_22)
+        params = model_lib.init_params(
+            ctx, torch.Generator(device="cuda").manual_seed(0))
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        with torch.no_grad():
+            ck = ep_tp_kernel_checks(torch, params, arch, gen)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": "checks_ep_tp", "seconds": time.time() - t0,
+              "world": list(EP_TP_WORLD), "model": TP_MODEL, **ck})
+
+        t0 = time.time()
+        mesh.spawn(train_ep_tp_rank, EP_TP_WORLD, "gloo", "cuda",
+                   args=(tmp,), model=TP_MODEL)
+        trn = []
+        for r in range(math.prod(EP_TP_WORLD) * TP_MODEL):
+            with open(os.path.join(tmp, f"ep_tp{r}.json")) as fh:
+                trn.append(json.load(fh))
+        verdicts = {}
+        for label, steps, per, rtol in (
+                ("a2a", EP_TP_STEPS, {"moe_permute.permute": 1,
+                                      "moe_permute.unpermute": 1,
+                                      "moe_gemm.grouped_ffn_ragged": 1},
+                 LOSS_RTOL),
+                ("pipelined_int8", EP_TP_PIPELINED_STEPS,
+                 {"moe_permute.permute": 1, "moe_permute.unpermute": 1,
+                  "moe_gemm.grouped_ffn_ragged_quant": 1},
+                 LOSS_RTOL_INT8)):
+            chunks = trn[0][label]["a2a_num_chunks"]
+            want = {k: per.get(k, 0) * WORLD_LAYERS * steps * chunks
+                    for k in backend.LAUNCHES}
+            for r in trn:
+                rec = r[label]
+                if any(rec["plain_launches"].values()):
+                    raise SystemExit(f"train_ep_tp {label} process "
+                                     f"{r['process_rank']}: the plain path "
+                                     f"launched {rec['plain_launches']}")
+                if rec["launches"] != want:
+                    raise SystemExit(f"train_ep_tp {label} process "
+                                     f"{r['process_rank']}: launches "
+                                     f"{rec['launches']}, the path needs "
+                                     f"{want}")
+                if len(rec["losses"]) != steps or not all(
+                        math.isfinite(v) for v in rec["losses"]):
+                    raise SystemExit(f"train_ep_tp {label}: losses "
+                                     f"{rec['losses']}")
+                if (rec["losses"] != trn[0][label]["losses"]
+                        or rec["a2a_num_chunks"] != chunks):
+                    raise SystemExit(f"train_ep_tp {label}: the processes' "
+                                     f"world-mean losses or chunk counts "
+                                     f"differ")
+            picks = [r[label]["picks"] for r in trn]
+            if (picks[0] != picks[1] or picks[2] != picks[3]
+                    or picks[0] == picks[2]):
+                raise SystemExit(f"train_ep_tp {label}: the model ranks' "
+                                 f"top-k picks differ (or the data ranks' "
+                                 f"agree): {picks}")
+            first = trn[0][label]["losses"][0]
+            plain = trn[0][label]["plain_first_loss"]
+            rel = abs(first - plain) / abs(plain)
+            if not rel <= rtol:
+                raise SystemExit(f"train_ep_tp {label}: first-step loss "
+                                 f"{first} (kernels) vs {plain} (plain): "
+                                 f"relative {rel} > {rtol}")
+            verdicts[label] = {"first_loss_kernel": first,
+                               "first_loss_plain": plain, "rel_diff": rel,
+                               "rtol": rtol, "chunks": chunks,
+                               "want_launches": want}
+        for r in trn:
+            c = r["a2a"]["checkpoint"]
+            if not (c["verified"] and c["bit_equal"]
+                    and c["step"] == c["saved_step"]):
+                raise SystemExit(f"train_ep_tp process {r['process_rank']}: "
+                                 f"checkpoint round trip {c}")
+        emit({"phase": "train_ep_tp", "seconds": time.time() - t0,
+              "world": list(EP_TP_WORLD), "model": TP_MODEL,
+              "backend": "gloo", "layers": WORLD_LAYERS,
+              "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_22,
+              "steps": {"a2a": EP_TP_STEPS,
+                        "pipelined_int8": EP_TP_PIPELINED_STEPS},
+              **verdicts, "ranks": trn})
+
+        t0 = time.time()
+        fck, one_rank_bytes, ref_greedy = {}, {}, {}
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        for aid, depth in TP_FAMILIES:
+            farch = tp_family_of(aid, depth)
+            fctx = model_lib.build_ctx(farch, device="cuda", use_flash=True,
+                                       aux_mode="none", seq_len=CACHE_LEN,
+                                       global_batch=E2E_ROWS)
+            fparams = model_lib.init_params(
+                fctx, torch.Generator(device="cuda").manual_seed(0))
+            draws = []
+            with torch.no_grad():
+                fck[aid] = tp_family_checks(torch, aid, fparams, fctx, gen)
+                for draw in range(TP_FAMILY_DRAWS):
+                    prompt, fe = tp_family_prompt(torch, np, farch, draw)
+                    runs = plain_runs(torch, fparams, fctx, prompt,
+                                      kernel=False, frontend=fe,
+                                      steps=TP_FAMILY_STEPS)
+                    draws.append({"prompt": prompt.cpu(),
+                                  "frontend": None if fe is None else fe.cpu(),
+                                  **{k: v.cpu() for k, v in runs.items()}})
+            one_rank_bytes[aid] = analysis.tree_bytes(fparams)
+            ref_greedy[aid] = torch.cat([d["plain_f32"] for d in draws],
+                                        1).argmax(-1).t().tolist()
+            torch.save(draws, os.path.join(tmp, f"tp_family_{aid}.pt"))
+            del fparams, runs, draws
+            gc.collect()
+            torch.cuda.empty_cache()
+        emit({"phase": "checks_tp2_families", "seconds": time.time() - t0,
+              **fck})
+
+        t0 = time.time()
+        mesh.spawn(serve_tp_family_rank, TP_WORLD, "gloo", "cuda",
+                   args=(tmp,), model=TP_MODEL)
+        srv = []
+        for r in range(math.prod(TP_WORLD) * TP_MODEL):
+            with open(os.path.join(tmp, f"fam{r}.json")) as fh:
+                srv.append(json.load(fh))
+        families = {}
+        for aid, depth in TP_FAMILIES:
+            farch = tp_family_of(aid, depth)
+            want = tp_family_want(farch)
+            for r in srv:
+                got = r["families"][aid]
+                if got["launches"] != want:
+                    raise SystemExit(f"serve_tp2_families {aid} process "
+                                     f"{r['process_rank']}: launches "
+                                     f"{got['launches']}, the path needs "
+                                     f"{want}")
+                for key in ("greedy", "picks"):
+                    if got[key] != srv[0]["families"][aid][key]:
+                        raise SystemExit(f"serve_tp2_families {aid}: the "
+                                         f"model ranks' {key} differ")
+            g = srv[0]["families"][aid]
+            if farch.is_moe and g["picks"]["gate_calls"] == 0:
+                raise SystemExit(f"serve_tp2_families {aid}: no gate call "
+                                 f"recorded")
+            families[aid] = {
+                "layers": depth, "want_launches": want,
+                "one_rank_param_bytes": one_rank_bytes[aid],
+                "param_bytes_share": g["param_bytes"] / one_rank_bytes[aid],
+                "greedy_model1_f32": ref_greedy[aid]}
+        emit({"phase": "serve_tp2_families", "seconds": time.time() - t0,
+              "world": list(TP_WORLD), "model": TP_MODEL, "backend": "gloo",
+              "prompt_rows": E2E_ROWS, "draws": TP_FAMILY_DRAWS,
+              "decode_steps": TP_FAMILY_STEPS,
+              "families": families, "ranks": srv})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ck, trn, fck, srv
 
 
 def main() -> int:
@@ -4354,10 +5021,10 @@ def main() -> int:
         device="cuda")
     import dataclasses
     cut_ctx = dataclasses.replace(ctx, arch=dataclasses.replace(
-        arch, num_layers=CUT_LAYERS))
+        arch, num_layers=WORLD_LAYERS))
     with torch.no_grad():
         ref = plain_runs(torch, dict(params,
-                                     layers=params["layers"][:CUT_LAYERS]),
+                                     layers=params["layers"][:WORLD_LAYERS]),
                          cut_ctx, prompt, kernel=False)
     torch.save({"prompt": prompt.cpu(),
                 **{k: v.cpu() for k, v in ref.items()}},
@@ -4385,16 +5052,16 @@ def main() -> int:
             raise SystemExit(f"serve_2x2 rank {r['rank']}: its streams "
                              f"differ from rank 0's")
         want_s = {k: 0 for k in backend.LAUNCHES}
-        want_s["moe_fused.local_moe"] = CUT_LAYERS * (r["prefill_packs"]
-                                                      + r["decode_steps"])
-        want_s["flash_attn.flash_attention"] = (CUT_LAYERS
+        want_s["moe_fused.local_moe"] = WORLD_LAYERS * (r["prefill_packs"]
+                                                        + r["decode_steps"])
+        want_s["flash_attn.flash_attention"] = (WORLD_LAYERS
                                                 * r["prefill_packs"])
         if r["launches"] != want_s:
             raise SystemExit(f"serve_2x2 rank {r['rank']}: launches "
                              f"{r['launches']}, the path needs {want_s}")
     emit({"phase": "serve_2x2", "seconds": time.time() - t0,
           "world": list(WORLD_22), "backend": "gloo",
-          "layers": CUT_LAYERS, "ranks": srv})
+          "layers": WORLD_LAYERS, "ranks": srv})
 
     # 6. training, one rank, in a child process (it frees the card when it
     # ends); the kernels were built above, so the child only loads them;
@@ -4440,20 +5107,20 @@ def main() -> int:
     # 7. training, 2x2 EP world: four ranks share the card over gloo
     t0 = time.time()
     mesh.spawn(train_rank, WORLD_22, "gloo", "cuda",
-               args=(tmp, TRAIN_BATCH_22, "a2a", "", TRAIN_STEPS, CUT_LAYERS,
+               args=(tmp, TRAIN_BATCH_22, "a2a", "", TRAIN_STEPS, WORLD_LAYERS,
                      True))
     ranks = []
     for r in range(math.prod(WORLD_22)):
         with open(os.path.join(tmp, f"rank{r}.json")) as fh:
             ranks.append(json.load(fh))
-    per_layer = {k: CUT_LAYERS * TRAIN_STEPS for k in zero}
+    per_layer = {k: WORLD_LAYERS * TRAIN_STEPS for k in zero}
     check22 = check_training(
         ranks, dict(per_layer, **off,
                     **{"moe_fused.local_moe": 0,
                        "moe_gemm.grouped_ffn_ragged_quant": 0}),
         "train_2x2")
     emit({"phase": "train_2x2", "seconds": time.time() - t0,
-          "world": list(WORLD_22), "backend": "gloo", "layers": CUT_LAYERS,
+          "world": list(WORLD_22), "backend": "gloo", "layers": WORLD_LAYERS,
           "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_22,
           "steps": TRAIN_STEPS, **check22, "ranks": ranks})
 
@@ -4463,7 +5130,7 @@ def main() -> int:
     os.makedirs(pipe_dir)
     mesh.spawn(train_rank, WORLD_22, "gloo", "cuda",
                args=(pipe_dir, TRAIN_BATCH_22, "a2a_pipelined", "int8",
-                     PIPELINED_STEPS, CUT_LAYERS))
+                     PIPELINED_STEPS, WORLD_LAYERS))
     pipe = []
     for r in range(math.prod(WORLD_22)):
         with open(os.path.join(pipe_dir, f"rank{r}.json")) as fh:
@@ -4473,7 +5140,7 @@ def main() -> int:
             raise SystemExit(f"train_2x2_pipelined rank {r['rank']}: "
                              f"{r['a2a_num_chunks']} chunks, the overlap "
                              f"model gives {PIPELINED_CHUNKS}")
-    per_chunk = {k: CUT_LAYERS * PIPELINED_CHUNKS * PIPELINED_STEPS
+    per_chunk = {k: WORLD_LAYERS * PIPELINED_CHUNKS * PIPELINED_STEPS
                  for k in ("moe_permute.permute", "moe_permute.unpermute",
                            "moe_gemm.grouped_ffn_ragged_quant")}
     check_p = check_training(
@@ -4483,7 +5150,7 @@ def main() -> int:
         "train_2x2_pipelined", LOSS_RTOL_INT8, PIPELINED_STEPS)
     emit({"phase": "train_2x2_pipelined", "seconds": time.time() - t0,
           "world": list(WORLD_22), "backend": "gloo", "wire_codec": "int8",
-          "layers": CUT_LAYERS,
+          "layers": WORLD_LAYERS,
           "overlap_terms": overlap_terms(arch), "seq_len": TRAIN_SEQ,
           "global_batch": TRAIN_BATCH_22, "steps": PIPELINED_STEPS,
           **check_p,
@@ -4612,7 +5279,7 @@ def main() -> int:
     sizes222 = mesh.mesh_from_topology(SPEC_222)
     mesh.spawn(train_rank, sizes222, "gloo", "cuda",
                args=(d222, TRAIN_BATCH_222, "a2a", "", TRAIN_STEPS,
-                     TRAIN_222_LAYERS))
+                     WORLD_LAYERS))
     r222 = []
     for r in range(math.prod(sizes222)):
         with open(os.path.join(d222, f"rank{r}.json")) as fh:
@@ -4624,13 +5291,13 @@ def main() -> int:
                              f"{r['caps']}, frac_by_level "
                              f"{r['frac_by_level']}: not three levels")
     check_3 = check_training(
-        r222, dict({k: TRAIN_222_LAYERS * TRAIN_STEPS for k in zero}, **off,
+        r222, dict({k: WORLD_LAYERS * TRAIN_STEPS for k in zero}, **off,
                    **{"moe_fused.local_moe": 0,
                       "moe_gemm.grouped_ffn_ragged_quant": 0}),
         "train_2x2x2")
     emit({"phase": "train_2x2x2", "seconds": time.time() - t0,
           "topology": SPEC_222, "world": list(sizes222), "backend": "gloo",
-          "layers": TRAIN_222_LAYERS, "depth_cut": "12 -> 6: eight ranks "
+          "layers": WORLD_LAYERS, "depth_cut": "12 -> 2: eight ranks "
           "at 12 layers ran the card out of memory (9.15 GB a rank)",
           "seq_len": TRAIN_SEQ,
           "global_batch": TRAIN_BATCH_222, "steps": TRAIN_STEPS, **check_3,
@@ -4694,7 +5361,14 @@ def main() -> int:
     # gpt3_medium_moe, through K4 and K5 at a model rank's layouts
     ck_tp, srv_tp, trn_tp = tp_phases(torch, np)
 
-    # 20. kernels: launches summed over every main path and rank
+    # 20. tensor parallelism on an EP x TP world and the other families:
+    # the paper's staged paths (K1, K2, K3, K7) on a (data 2, model 2)
+    # world with a checkpoint round trip, and the other families on the
+    # (data 1, model 2) world (MLA, Mamba, the xLSTM mixers, Whisper,
+    # InternVL2; K4 and K5 at a model rank's widths)
+    ck_ep, trn_ep, ck_fam, srv_fam = ep_tp_family_phases(torch, np)
+
+    # 21. kernels: launches summed over every main path and rank
     def total(name):
         return sum(sum(v) if isinstance(v, list) else v
                    for v in by_path(name).values())
@@ -4714,8 +5388,8 @@ def main() -> int:
                 "train_dp": [r["launches"][name] for r in rdp],
                 "serve_dsv2_lite": srv_ds["launches"][name],
                 "train_dsv2_lite_d4": tds["launches"][name],
-                "serve_jamba_d16": srv_jb["launches"][name],
-                "loss_jamba_d16": loss_jb["launches"][name],
+                "serve_jamba_d8": srv_jb["launches"][name],
+                "loss_jamba_d8": loss_jb["launches"][name],
                 **{f"serve_{aid}": r["launches"][name]
                    for aid, r in srv_dn.items()},
                 "train_internlm2": tr_dn["launches"][name],
@@ -4724,7 +5398,13 @@ def main() -> int:
                 "serve_tp2": [r["gpt3"]["launches"][name] for r in srv_tp],
                 "serve_tp2_minitron": [r["dense"]["launches"][name]
                                        for r in srv_tp],
-                "train_tp2": [r["launches"][name] for r in trn_tp]}
+                "train_tp2": [r["launches"][name] for r in trn_tp],
+                "train_ep_tp": [r["a2a"]["launches"][name] for r in trn_ep],
+                "train_ep_tp_pipelined": [
+                    r["pipelined_int8"]["launches"][name] for r in trn_ep],
+                **{f"serve_tp2_{aid}": [
+                    r["families"][aid]["launches"][name] for r in srv_fam]
+                   for aid, _ in TP_FAMILIES}}
 
     def dsv2_row(r, extra=()):
         """One reading of ``checks_wide`` (DeepSeek-V2-Lite's or
@@ -4763,7 +5443,8 @@ def main() -> int:
          "backward_max_abs_err": bwd_err("K1"),
          **pair_row(k1),
          "dsv2_lite_2x2": dsv2_row(ck_ds["K1"], ("call_ms", "host_us")),
-         "jamba_2x2": dsv2_row(ck_jb["K1"], ("call_ms", "host_us"))},
+         "jamba_2x2": dsv2_row(ck_jb["K1"], ("call_ms", "host_us")),
+         "ep_tp_S=8192": dsv2_row(ck_ep["K1"], ("call_ms", "host_us"))},
         {"name": "moe_permute.unpermute", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_permute.cu",
          "replaces": "src/repro/kernels/moe_permute/kernel.py:88",
@@ -4771,11 +5452,12 @@ def main() -> int:
          "launches_by_path": by_path("moe_permute.unpermute"),
          "max_abs_err": max(e["max_abs_err"]
                             for e in list(k2.values()) + k2_edges
-                            + [ck_ds["K2"], ck_jb["K2"]]),
+                            + [ck_ds["K2"], ck_jb["K2"], ck_ep["K2"]]),
          "backward_max_abs_err": bwd_err("K2"),
          **pair_row(k2),
          "dsv2_lite_2x2": dsv2_row(ck_ds["K2"], ("call_ms", "host_us")),
-         "jamba_2x2": dsv2_row(ck_jb["K2"], ("call_ms", "host_us"))},
+         "jamba_2x2": dsv2_row(ck_jb["K2"], ("call_ms", "host_us")),
+         "ep_tp_T=2048": dsv2_row(ck_ep["K2"], ("call_ms", "host_us"))},
         {"name": "moe_gemm.grouped_ffn_ragged", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_gemm.cu",
          "replaces": "src/repro/kernels/moe_gemm/kernel.py:228",
@@ -4785,7 +5467,8 @@ def main() -> int:
                              k_replan["K3_max_abs_err"],
                              k_222["K3_max_abs_err"],
                              ck_ds["K3"]["max_abs_err"],
-                             ck_jb["K3"]["max_abs_err"]]
+                             ck_jb["K3"]["max_abs_err"],
+                             ck_ep["K3"]["max_abs_err"]]
                             + [e["max_abs_err"] for e in k3e]),
          "backward_max_abs_err": bwd["K3"]["max_abs_err"],
          **{n: k3[n] for n in ("ms", "device_ms", "kernel_device_ms",
@@ -4797,7 +5480,9 @@ def main() -> int:
              "plain_ms", "bound_ms", "bound_by", "tiles", "max_abs_err")}
              for label, r in (("2x2", k3), ("2x2x2", k3_222))},
          "dsv2_lite_2x2": dsv2_row(ck_ds["K3"], ("tiles", "valid_rows")),
-         "jamba_2x2": dsv2_row(ck_jb["K3"], ("tiles", "valid_rows"))},
+         "jamba_2x2": dsv2_row(ck_jb["K3"], ("tiles", "valid_rows")),
+         "ep_tp_R8192_f1024": dsv2_row(ck_ep["K3"], ("call_ms", "host_us",
+                                                     "tiles"))},
         {"name": "moe_gemm.grouped_ffn_ragged_quant", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_gemm.cu",
          "replaces": "src/repro/kernels/moe_gemm/kernel.py:312",
@@ -4805,7 +5490,8 @@ def main() -> int:
          "launches_by_path": by_path("moe_gemm.grouped_ffn_ragged_quant"),
          "max_abs_err": max(k7["max_abs_err"], k7_full["max_abs_err"],
                             ck_ds["K7"]["max_abs_err"],
-                            ck_jb["K7"]["max_abs_err"]),
+                            ck_jb["K7"]["max_abs_err"],
+                            ck_ep["K7"]["max_abs_err"]),
          "backward_max_abs_err": bwd["K7"]["max_abs_err"],
          "ms": k7["ms"], "device_ms": k7["device_ms"],
          "kernel_device_ms": k7["kernel_device_ms"],
@@ -4819,7 +5505,9 @@ def main() -> int:
          "dsv2_lite_chunk0": dsv2_row(ck_ds["K7"], ("chunks", "R",
                                                     "valid_rows")),
          "jamba_chunk0": dsv2_row(ck_jb["K7"], ("chunks", "R",
-                                                "valid_rows"))},
+                                                "valid_rows")),
+         "ep_tp_chunk0_f1024": dsv2_row(ck_ep["K7"], ("chunks", "R",
+                                                      "valid_rows"))},
         {"name": "moe_fused.local_moe", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_fused.cu",
          "replaces": "src/repro/kernels/moe_fused/kernel.py:123",
@@ -4829,7 +5517,10 @@ def main() -> int:
                             for e in list(k4.values()) + k4_edges
                             + list(ck_ds["K4"].values())
                             + list(ck_jb["K4"].values())
-                            + list(ck_tp["K4"].values())),
+                            + list(ck_tp["K4"].values())
+                            + [r for aid in ck_fam
+                               for k, r in ck_fam[aid].items()
+                               if k.startswith("K4")]),
          "backward_max_abs_err": bwd["K4"]["max_abs_err"],
          **{n: kp[n] for n in ("ms", "device_ms", "kernel_device_ms",
                                "call_ms", "host_us", "plain_ms", "bound_ms",
@@ -4852,7 +5543,13 @@ def main() -> int:
          "tp2_layouts": {
              label: dsv2_row(r, ("call_ms", "host_us", "computed_rows",
                                  "weighted_rows", "dense_rows"))
-             for label, r in ck_tp["K4"].items()}},
+             for label, r in ck_tp["K4"].items()},
+         "tp2_family_layouts": {
+             f"{aid} {label}": dsv2_row(r, ("call_ms", "host_us",
+                                            "computed_rows", "weighted_rows",
+                                            "dense_rows"))
+             for aid in ck_fam for label, r in ck_fam[aid].items()
+             if label.startswith("K4")}},
         {"name": "flash_attn.flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attn.cu",
          "replaces": "src/repro/kernels/flash_attn/kernel.py:65",
@@ -4864,7 +5561,10 @@ def main() -> int:
                                + ck_dn["K5_edges"]
                                + list(ck_dn["K5"].values())
                                + list(ck_fm.values())
-                               + list(ck_tp["K5"].values())]),
+                               + list(ck_tp["K5"].values())
+                               + [r for aid in ck_fam
+                                  for k, r in ck_fam[aid].items()
+                                  if k.startswith("K5")]]),
          "ms": k5["ms"], "device_ms": k5["device_ms"],
          "plain_ms": k5["plain_ms"],
          "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
@@ -4881,7 +5581,11 @@ def main() -> int:
                         ck_fm["K5_internvl2_prefill"],
                     "tp2_gpt3_prefill_4x128x8x64": ck_tp["K5"]["gpt3_prefill"],
                     "tp2_minitron_prefill_4x128x12x128_kv4":
-                        ck_tp["K5"]["minitron_prefill"]}},
+                        ck_tp["K5"]["minitron_prefill"],
+                    "tp2_whisper_encoder_4x1500x3x64_noncausal":
+                        ck_fam["whisper_tiny"]["K5_encoder"],
+                    f"tp2_internvl2_prefill_4x{VLM_BUCKET}x24x128_kv4":
+                        ck_fam["internvl2_26b"]["K5_prefill"]}},
         {"name": "moe_gemm.grouped_ffn", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_gemm.cu",
          "replaces": "src/repro/kernels/moe_gemm/kernel.py:185",

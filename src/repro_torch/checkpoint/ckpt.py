@@ -12,8 +12,9 @@ the rollback can pick the newest checkpoint that is still intact.
 numpy has no bfloat16: a bf16 leaf is stored as its ``int16`` bits and the
 torch dtype of every leaf rides in the payload itself (the ``__dtypes__``
 entry), so a bf16 leaf round-trips bit for bit and a dtype drift is still
-refused by name.  On an EP world each rank writes its own payload
-(:func:`rank_path`), its expert shard and the replicated leaves.
+refused by name.  On an EP world each process writes its own payload
+(:func:`rank_path` at its process rank): its expert shard, its model
+slices under a tensor-parallel axis, and the replicated leaves.
 """
 
 from __future__ import annotations

@@ -229,7 +229,7 @@ _LINK_CACHE: dict = {}
 
 def _world_key(world, axis_name: str, sizes_bytes, iters: int) -> tuple:
     return (world.backend, str(world.device), tuple(world.axis_names),
-            tuple(world.axis_sizes), axis_name,
+            tuple(world.axis_sizes), world.model, axis_name,
             tuple(int(s) for s in sizes_bytes), int(iters))
 
 
@@ -243,10 +243,11 @@ def measure_link(world, axis_name: str, *,
     clamps (``alpha >= 0``, ``beta >= 1e-15``).
 
     A collective: every rank of the world calls it with the same
-    arguments.  Each size's time is the world mean of the ranks' readings
-    (one all-reduce), so every rank fits the same numbers and reaches the
-    same chunk count and replan verdict.  Cached per (backend, device,
-    world shape, axis)."""
+    arguments.  Each size's time is the world mean of the readings of
+    every process, the model ranks' too (one all-reduce; under a model
+    axis each model coordinate's EP group times its own links), so every
+    process fits the same numbers and reaches the same chunk count and
+    replan verdict.  Cached per (backend, device, world shape, axis)."""
     key = _world_key(world, axis_name, sizes_bytes, iters)
     if key in _LINK_CACHE:
         return _LINK_CACHE[key]
@@ -272,8 +273,9 @@ def measure_link(world, axis_name: str, *,
             torch.cuda.synchronize(dev)
         times.append((time.perf_counter() - t0) / iters)
         sizes.append(4 * n * w)                          # bytes a rank sends
-    mean = world.all_reduce_sum(torch.tensor(times, dtype=torch.float64,
-                                             device=dev)) / world.size
+    mean = world.all_reduce_sum(
+        torch.tensor(times, dtype=torch.float64, device=dev),
+        world.every_axis) / (world.size * world.model)
     times = [float(t) for t in mean.cpu()]
     beta, alpha = np.polyfit(np.asarray(sizes, np.float64),
                              np.asarray(times, np.float64), 1)

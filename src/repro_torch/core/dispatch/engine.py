@@ -226,7 +226,10 @@ def _staged_a2a(params, x, eng: DispatchEngine, num_chunks: int):
 
     routed = routing.route(params, x, cfg, ep, plan, gate_cfg,
                            world.coords_of(ep.axis_names))
-    kept_unpadded = sum(sel.valid.sum() for _, sel in routed.sels)
+    # a plan whose every stage collapsed (cap 0) keeps nothing
+    kept_unpadded = sum((sel.valid.sum() for _, sel in routed.sels),
+                        torch.zeros((), dtype=torch.int64,
+                                    device=x.device))
     num_chunks = max(1, int(num_chunks))
     topk_idx = routed.gate_out["topk_idx"]
 

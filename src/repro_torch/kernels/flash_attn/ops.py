@@ -108,7 +108,8 @@ def flash_launch(B: int, Sq: int, H: int, K: int,
 #: training length, Whisper's encoder, InternVL2's GQA 6:1 prefill, and a
 #: model rank's heads on a tensor-parallel world of 2
 #: (``layouts.TP_MODEL``): gpt3's 8 of 16, Minitron-4B's 12 of 24 over 4
-#: of 8 KV heads
+#: of 8 KV heads, Whisper's encoder 3 of 6, InternVL2's 24 of 48 over 4 of
+#: 8 KV heads
 SHAPES = (("serve_prefill", 4, 128, 16, 16, 64),
           ("S512", 4, 512, 16, 16, 64),
           ("dense_prefill_hd128", 4, 128, 16, 16, 128),
@@ -116,7 +117,9 @@ SHAPES = (("serve_prefill", 4, 128, 16, 16, 64),
           ("whisper_encoder", 4, 1500, 6, 6, 64),
           ("internvl2_prefill", 4, 384, 48, 8, 128),
           ("tp2_gpt3_prefill", 4, 128, 8, 8, 64),
-          ("tp2_minitron_prefill", 4, 128, 12, 4, 128))
+          ("tp2_minitron_prefill", 4, 128, 12, 4, 128),
+          ("tp2_whisper_encoder", 4, 1500, 3, 3, 64),
+          ("tp2_internvl2_prefill", 4, 384, 24, 4, 128))
 
 
 @backend.register_kernel(KERNEL)

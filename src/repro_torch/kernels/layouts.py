@@ -18,7 +18,12 @@ On a tensor-parallel world (``TP_MODEL`` model ranks) the expert FFN's
 width is ``f / TP_MODEL`` a rank and attention holds ``1 / TP_MODEL`` of
 the heads: K4 and K5 register those layouts beside the others
 (gpt3_medium_moe's f 1024 and 8 of its 16 heads; Minitron-4B's 12 of 24
-heads over 4 of 8 KV heads at 128).
+heads over 4 of 8 KV heads at 128; DeepSeek-V2-Lite's experts at f 704
+and Jamba's at f 7168 through the gather path; Whisper's encoder at 3 of
+6 heads, InternVL2's prefill at 24 of 48 over 4 of 8 KV heads), and on
+the EP x TP world (``EP_TP_SIZES`` x ``TP_MODEL``: data 2, model 2) K1,
+K2, K3 and K7 register rank 0's staged layouts at f 1024
+(``staged(EP_TP_SIZES, model=TP_MODEL)``).
 
 Imports of the model stack happen inside the functions, so importing a
 kernel package stays light.
@@ -33,6 +38,9 @@ ARCH_ID = "gpt3_medium_moe"
 TRAIN_SEQ = 512
 #: the model axis of the tensor-parallel layouts
 TP_MODEL = 2
+#: the hierarchy of the EP x TP world (experts over data 2, each expert's
+#: width over the model axis)
+EP_TP_SIZES = (2,)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,29 +61,31 @@ class Staged:
         return self.seg_offsets[-1]
 
 
-def arch():
+def arch(arch_id: str = ARCH_ID):
     from repro_torch.configs.base import get_config
-    return get_config(ARCH_ID)
+    return get_config(arch_id)
 
 
 @functools.lru_cache(maxsize=None)
 def staged(sizes=(2, 2), global_batch: int = 8,
-           num_chunks: int = 1) -> Staged:
+           num_chunks: int = 1, model: int = 1) -> Staged:
     """Rank 0's layout of the staged plan over the EP world ``sizes``
-    at sequence 512 and ``global_batch`` (chunk 0 of ``num_chunks``)."""
+    at sequence 512 and ``global_batch`` (chunk 0 of ``num_chunks``); a
+    model axis of ``model`` splits each expert's width (the plan is the
+    hierarchy's)."""
     import math
 
     from repro_torch.core import capacity
     from repro_torch.core.dispatch import transport
     from repro_torch.launch import mesh
-    from repro_torch.models import model
+    from repro_torch.models import model as model_lib
 
     a = arch()
     world = mesh.recording_world(sizes)
-    plan = model.make_plan(a, world, TRAIN_SEQ, global_batch, "ta")
+    plan = model_lib.make_plan(a, world, TRAIN_SEQ, global_batch, "ta")
     if num_chunks > 1:
         plan = capacity.align_to_chunks(plan, num_chunks)
-    ep = model.make_ep_spec(a, world)
+    ep = model_lib.make_ep_spec(a, world)
     T = global_batch * TRAIN_SEQ // math.prod(sizes)
     E_l = a.moe.num_experts // ep.ep_world
     widths = []
@@ -85,7 +95,8 @@ def staged(sizes=(2, 2), global_batch: int = 8,
         widths.append((stage.num_dests, cap // num_chunks))
     offs, exps = transport.stage_segments(E_l, tuple(widths))
     return Staged(tokens=T, top_k=a.moe.top_k, d=a.d_model,
-                  f=a.moe.d_ff_expert, seg_offsets=offs, seg_experts=exps)
+                  f=a.moe.d_ff_expert // model, seg_offsets=offs,
+                  seg_experts=exps)
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,10 +118,12 @@ def local(global_batch: int = 4) -> tuple:
     return T, transport.expert_segments(E, width), tuple(range(E))
 
 
-def gathered(tokens: int, ep_world: int = 1) -> tuple:
+def gathered(tokens: int, ep_world: int = 1,
+             arch_id: str = ARCH_ID) -> tuple:
     """``(seg_offsets, seg_experts)`` of the gather path's slot layout:
-    ``E / ep_world`` local experts over ``tokens`` gathered tokens."""
+    ``E / ep_world`` local experts (of ``arch_id``) over ``tokens``
+    gathered tokens."""
     from repro_torch.core.dispatch import transport
 
-    E_l = arch().moe.num_experts // ep_world
+    E_l = arch(arch_id).moe.num_experts // ep_world
     return transport.expert_segments(E_l, tokens), tuple(range(E_l))

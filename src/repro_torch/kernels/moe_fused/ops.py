@@ -483,4 +483,17 @@ def _local_moe_layouts():
         out.append(local_moe_layout(
             f"gather Tg={Tg} E_l={len(exps)} f={f_tp}", offs, exps, Tg, d,
             f_tp))
+    # the families' experts at a model rank's width through the gather
+    # path of serve_tp2_families: DeepSeek-V2-Lite's (swiglu, f 704) at
+    # its decode and prefill rows, Jamba's (swiglu, f 7168) at its decode
+    # rows (its scan prefill steps have the same)
+    for aid, Tgs in (("deepseek_v2_lite_16b", (4, 128)),
+                     ("jamba_v0_1_52b", (4,))):
+        fa = layouts.arch(aid)
+        fd, ff = fa.d_model, fa.moe.d_ff_expert // layouts.TP_MODEL
+        for Tg in Tgs:
+            offs, exps = layouts.gathered(Tg, arch_id=aid)
+            out.append(local_moe_layout(
+                f"{aid} gather Tg={Tg} E_l={len(exps)} f={ff} swiglu", offs,
+                exps, Tg, fd, ff, swiglu=True))
     return out

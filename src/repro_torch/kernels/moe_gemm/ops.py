@@ -608,7 +608,9 @@ def _ragged_layouts():
     from repro_torch.kernels import layouts
     out = []
     for label, lay in (("2x2", layouts.staged()),
-                       ("2x2x2", layouts.staged((2, 2, 2)))):
+                       ("2x2x2", layouts.staged((2, 2, 2))),
+                       ("ep2_tp2 f=1024", layouts.staged(
+                           layouts.EP_TP_SIZES, model=layouts.TP_MODEL))):
         out.append(span_layout(KERNEL, f"{label} R={lay.slots}",
                                lay.seg_offsets, lay.seg_experts, lay.d,
                                lay.f))
@@ -622,9 +624,15 @@ def _ragged_layouts():
 def _quant_layouts():
     from repro_torch.kernels import layouts
     chunk0, whole = layouts.staged(num_chunks=8), layouts.staged()
+    tp0 = layouts.staged(layouts.EP_TP_SIZES, num_chunks=8,
+                         model=layouts.TP_MODEL)
     return [span_layout(KERNEL_QUANT, f"2x2_pipelined_chunk0 R={chunk0.slots}",
                         chunk0.seg_offsets, chunk0.seg_experts, chunk0.d,
                         chunk0.f, quant=True),
+            span_layout(KERNEL_QUANT,
+                        f"ep2_tp2_pipelined_chunk0 R={tp0.slots} f={tp0.f}",
+                        tp0.seg_offsets, tp0.seg_experts, tp0.d, tp0.f,
+                        quant=True),
             span_layout(KERNEL_QUANT, f"2x2 R={whole.slots}",
                         whole.seg_offsets, whole.seg_experts, whole.d,
                         whole.f, quant=True),

@@ -244,10 +244,14 @@ def unpermute_launch(T: int, K: int, bf16: bool = True) -> backend.LaunchDecl:
 
 def _staged_layouts():
     from repro_torch.kernels import layouts
+    ep_tp, m = layouts.EP_TP_SIZES, layouts.TP_MODEL
     for label, lay in (("2x2", layouts.staged()),
                        ("2x2_pipelined_chunk0",
                         layouts.staged(num_chunks=8)),
-                       ("2x2x2", layouts.staged((2, 2, 2)))):
+                       ("2x2x2", layouts.staged((2, 2, 2))),
+                       ("ep2_tp2", layouts.staged(ep_tp, model=m)),
+                       ("ep2_tp2_pipelined_chunk0",
+                        layouts.staged(ep_tp, num_chunks=8, model=m))):
         yield label, lay
 
 

@@ -12,12 +12,12 @@ production hierarchies are the reference's meshes (pod1: ``data`` 16;
 pod2: ``pod`` 2 x ``data`` 16; pod3: ``pod`` 2 x ``node`` 2 x ``data``
 8), each with its 16-wide ``model`` axis: a rank holds its slices of the
 weights (``model.shard_params``) and the step's model-axis collectives
-are logged too.  A family whose layers have no tensor-parallel form in
-the port yet (MLA, Mamba, xLSTM, Whisper, InternVL2:
-``model.tp_refusal``) runs on the hierarchy alone, every dense weight on
-every rank; its record says so (``tensor_parallel`` 1 and the note).  A
-batch smaller than the hierarchy (``long_500k``) is whole on every rank
-with its cache.
+are logged too.  Every family runs on the model axis; one whose split
+widths the axis does not divide (``model.tp_refusal``: xLSTM-350M's 4
+heads at 16) runs on the widest model axis that halving the production
+one leaves and its widths divide, and its record says so
+(``tensor_parallel`` and the note).  A batch smaller than the hierarchy
+(``long_500k``) is whole on every rank with its cache.
 
 The step is the one a user runs: ``trainer.make_train_step`` (forward,
 backward, the gradient sync and AdamW) for ``train``,
@@ -121,8 +121,8 @@ def lower_one(arch_id: str, shape_name: str, mesh="pod1",
     """Returns ``(record, DryRun)``; the record holds every number.
 
     ``mesh``, ``model``: a hierarchy and model axis for
-    :func:`resolve_mesh` (a family without a tensor-parallel form runs
-    at model 1).  ``arch``: an
+    :func:`resolve_mesh` (a family whose split widths the axis does not
+    divide runs on the widest half of it that they do).  ``arch``: an
     ``ArchConfig`` to run instead of ``get_config(arch_id)`` (e.g. a
     ``reduced()`` one).  ``shape``: a dict of ``INPUT_SHAPES``' form to
     run instead of ``INPUT_SHAPES[shape_name]`` (``shape_name`` then
@@ -138,10 +138,14 @@ def lower_one(arch_id: str, shape_name: str, mesh="pod1",
     world, mesh_name = resolve_mesh(mesh, model)
     why = model_lib.tp_refusal(arch0, world.model)
     if why:
-        world, mesh_name = resolve_mesh(mesh, 1)
+        m = world.model // 2
+        while m > 1 and model_lib.tp_refusal(arch0, m):
+            m //= 2
+        why = f"model axis {world.model} -> {max(m, 1)}: {why}"
+        world, mesh_name = resolve_mesh(mesh, max(m, 1))
     arch, note = arch_variant(arch0, shape_name)
     if why:
-        note = "; ".join(filter(None, (note, f"model axis dropped: {why}")))
+        note = "; ".join(filter(None, (note, why)))
     if arch is None or skip_reason(arch0, shape_name):
         return {"arch": arch_id, "shape": shape_name, "mesh": mesh_name,
                 "status": "skipped",

@@ -80,6 +80,12 @@ class EPWorld:
         return self.rank * self.model + self.model_coord
 
     @property
+    def every_axis(self) -> tuple:
+        """Every axis of the world, the ``model`` axis last: the ``axes``
+        of a collective over all of its processes."""
+        return self.axis_names + ("model",)
+
+    @property
     def rank(self) -> int:
         r = 0
         for c, s in zip(self.coords, self.axis_sizes):
@@ -111,11 +117,11 @@ class EPWorld:
 
     def _group(self, live: tuple):
         """The process group over the axes ``live`` (``_live``'s result):
-        None (the default group) when they are every axis of size > 1 of
-        a world without a model axis.  A group's members, in group rank
+        None (the default group) when they are every axis of size > 1,
+        the model axis included.  A group's members, in group rank
         order, run in mixed-radix order over ``live``
         (``make_hierarchical_mesh`` lists them so)."""
-        if live == self._live(None) and self.model == 1:
+        if live == self._live(self.every_axis):
             return None
         return self.groups[live[0] if len(live) == 1 else live]
 

@@ -22,9 +22,11 @@ many.  A tensor-parallel world on the CPU:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt3_medium_moe \
         --reduced --device cpu --mesh-shape 2,2 --streams 4
 
-A model axis above 1 is refused for a family whose layers have no
-tensor-parallel form in the port yet (MLA, Mamba, xLSTM, Whisper,
-InternVL2), by the layer's name.
+Every family runs on a model axis (MLA and the xLSTM mixers by heads,
+Mamba by inner channels, Whisper's encoder and cross-attention and
+InternVL2's projector too).  A model axis above 1 is refused, before any
+rank is spawned, where it does not divide a width the port splits by
+(``model.tp_refusal``, by the leaves' names).
 """
 
 import argparse
@@ -115,7 +117,8 @@ def main(argv=None):
         from repro_torch.configs.base import get_config
         from repro_torch.models.model import tp_refusal
         arch = get_config(args.arch)
-        why = tp_refusal(arch.reduced() if args.reduced else arch, model)
+        why = tp_refusal(arch.reduced() if args.reduced else arch, model,
+                         device=args.device)
         if why:
             ap.error(f"--mesh-shape {args.mesh_shape}: model axis {model}; "
                      f"{why}")

@@ -21,8 +21,11 @@ CPU:
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt3_medium_moe \
         --reduced --device cpu --mesh-shape 2,2 --steps 4 --seq-len 32
 
-A model axis above 1 is refused for a family whose layers have no
-tensor-parallel form in the port yet, and with ``--ckpt``.
+A model axis above 1 is refused, before any rank is spawned, where it
+does not divide a width the port splits by (``model.tp_refusal``: MLA's
+or the xLSTM heads, Mamba's inner dim, an expert width, and on the card a
+model rank's expert width that is not a multiple of 64); ``--ckpt``
+writes one payload a process.
 ``--production`` and ``--multi-pod`` name the reference's TPU meshes and
 are refused.
 """
@@ -118,10 +121,8 @@ def main(argv=None):
         from repro_torch.configs.base import get_config
         from repro_torch.models.model import tp_refusal
         arch = get_config(args.arch)
-        why = tp_refusal(arch.reduced() if args.reduced else arch, model)
-        if args.ckpt:
-            why = why or ("checkpoints under a model axis above 1 are not "
-                          "ported yet")
+        why = tp_refusal(arch.reduced() if args.reduced else arch, model,
+                         device=args.device)
         if why:
             ap.error(f"--mesh-shape {args.mesh_shape}: model axis {model}; "
                      f"{why}")

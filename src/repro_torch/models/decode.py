@@ -8,6 +8,10 @@ for MLA, the recurrent ``{"h", "conv"}`` state for Mamba, ``{"C", "n",
 "m"}`` for mLSTM and ``{"c", "n", "h", "m"}`` for sLSTM; a Whisper
 decoder layer adds a ``"cross"`` part ``{"k", "v"}``, the encoder's K/V
 of ``frontend_len`` rows, written at prefill and read by every step.
+Under a model axis each part holds the rank's share: attention's and the
+cross part's KV heads where attention is split, the rank's heads of an
+mLSTM or sLSTM state and its channels of a Mamba state; MLA's latent
+cache is whole on every rank.
 The batch is axis 0 of every leaf; axis 1 is the position axis of the
 leaves of a part with ``pos``, and only of those (the cross part has
 none).  Decode steps and the slot operations update the cache tensors in
@@ -29,6 +33,7 @@ from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.transformer import (ModelCtx, SubLayer, _moe_block,
                                             _run_encoder, full_logits,
                                             layer_list, splice_patches)
+from repro_torch.sharding import copy_to_model, reduce_from_model
 
 
 def init_cache(ctx: ModelCtx, batch: int, max_len: int, device=None):
@@ -60,7 +65,8 @@ def init_cache(ctx: ModelCtx, batch: int, max_len: int, device=None):
 
 def fill_cross_cache(params, cache, enc_out, ctx: ModelCtx):
     """The encoder output [B, F, d] projected into every cross-attention
-    layer's K/V (new tensors in the cache's dicts); returns the cache."""
+    layer's K/V (new tensors in the cache's dicts; the rank's KV heads
+    under a split attention); returns the cache."""
     a = ctx.attn_cfg
     B, Fn, _ = enc_out.shape
     for p, layer, sub in zip(params["layers"], cache, layer_list(ctx.arch)):
@@ -153,19 +159,20 @@ def cache_evict_slots(cache, slots):
 
 def _decode_sublayer(p, c, x, sub: SubLayer, ctx: ModelCtx, layer_idx=None):
     a = ctx.arch
+    tp = ctx.tp
     h = layers.norm_apply(p["norm1"], x, a.norm)
     if sub.mixer == "mla":
         mix, c["mixer"] = mla_lib.mla_decode(p["mixer"], h, c["mixer"],
-                                             ctx.mla_cfg)
+                                             ctx.mla_cfg, tp=tp)
     elif sub.mixer == "mamba":
         mix, c["mixer"] = mamba_lib.mamba_decode(p["mixer"], h, c["mixer"],
-                                                 ctx.mamba_cfg)
+                                                 ctx.mamba_cfg, tp=tp)
     elif sub.mixer == "mlstm":
         mix, c["mixer"] = xlstm_lib.mlstm_decode(p["mixer"], h, c["mixer"],
-                                                 ctx.xlstm_cfg)
+                                                 ctx.xlstm_cfg, tp=tp)
     elif sub.mixer == "slstm":
         mix, c["mixer"] = xlstm_lib.slstm_decode(p["mixer"], h, c["mixer"],
-                                                 ctx.xlstm_cfg)
+                                                 ctx.xlstm_cfg, tp=tp)
     else:
         mix, c["mixer"] = layers.attn_decode(p["mixer"], h, c["mixer"],
                                              ctx.attn_cfg, tp=ctx.attn_tp)
@@ -174,14 +181,16 @@ def _decode_sublayer(p, c, x, sub: SubLayer, ctx: ModelCtx, layer_idx=None):
         h = layers.norm_apply(p["norm_cross"], x, a.norm)
         cfg = ctx.attn_cfg
         B = x.shape[0]
-        q = (h @ p["cross"]["wq"]).reshape(B, 1, cfg.num_heads, cfg.head_dim)
+        q = (copy_to_model(h, ctx.attn_tp) @ p["cross"]["wq"]).reshape(
+            B, 1, cfg.num_heads, cfg.head_dim)
         k, v = c["cross"]["k"], c["cross"]["v"]
         out = layers._sdpa(q, k, v, causal=False, sliding_window=0,
                            q_positions=torch.zeros((1,), dtype=torch.int64,
                                                    device=x.device),
                            k_positions=torch.arange(k.shape[1],
                                                     device=x.device))
-        x = x + out.reshape(B, 1, -1) @ p["cross"]["wo"]
+        x = x + reduce_from_model(out.reshape(B, 1, -1) @ p["cross"]["wo"],
+                                  ctx.attn_tp)
     if sub.ffn == "mlp":
         h = layers.norm_apply(p["norm2"], x, a.norm)
         x = x + layers.mlp_apply(p["ffn"], h, a.activation, tp=ctx.mlp_tp)
@@ -218,7 +227,7 @@ def _prefill_sublayer(p, c, x, sub: SubLayer, ctx: ModelCtx, lens,
     S = x.shape[1]
     h = layers.norm_apply(p["norm1"], x, a.norm)
     if sub.mixer == "mla":
-        mix, entry = mla_lib.mla_apply(p["mixer"], h, ctx.mla_cfg)
+        mix, entry = mla_lib.mla_apply(p["mixer"], h, ctx.mla_cfg, tp=ctx.tp)
     else:
         mix, (k, v) = layers.attn_apply(p["mixer"], h, ctx.attn_cfg,
                                         tp=ctx.attn_tp)
@@ -313,7 +322,7 @@ def prefill(params, batch, ctx: ModelCtx, *, cache_len: int, lens=None):
 
     x = layers.embed_apply(params["embed"], tokens, ctx.vocab_tp)
     if a.family == "vlm" and "frontend" in batch:
-        x = splice_patches(params, x, batch["frontend"])
+        x = splice_patches(params, x, batch["frontend"], ctx.tp)
     for i, sub in enumerate(layer_list(a)):
         x, cache[i] = _prefill_sublayer(params["layers"][i], cache[i], x, sub,
                                         ctx, lens, layer_idx=i)

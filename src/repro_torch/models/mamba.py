@@ -10,6 +10,16 @@ PyTorch throughout: the reference's Mamba reaches no Pallas kernel.
 
 ``mamba_decode`` returns a fresh state, as the reference does (the
 attention and MLA decodes write their caches in place).
+
+Tensor parallelism (``tp``): the block is split over its inner channels
+``d_inner`` (``cfg.shards`` ranks).  A rank's ``w_in`` holds its slice of
+the ``x`` stripe beside its slice of the ``z`` stripe, and its conv,
+``w_dt``, ``b_dt``, ``A_log``, ``D`` and the rows of ``w_out`` follow the
+same channels, as does the carried decode state.  ``w_x_dbc`` reduces
+over every channel, so it is split by rows: its ``[B, S, rk + 2n]``
+product is summed over the model axis before ``dt``, ``B`` and ``C``
+(one all-reduce), and passes ``copy_to_model`` into the rank's
+channels.  ``w_out``'s product ends in one ``reduce_from_model``.
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.sharding import copy_to_model, reduce_from_model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,10 +45,16 @@ class MambaConfig:
     scan_chunk: int = 0        # > 0: the scan a chunk at a time, the state
                                # carried between chunks (bounds the f32
                                # working set to O(chunk * d_inner * d_state))
+    shards: int = 1            # model ranks splitting d_inner
 
     @property
     def d_inner(self):
         return self.expand * self.d_model
+
+    @property
+    def d_inner_local(self):
+        """The inner channels of one model rank."""
+        return self.d_inner // self.shards
 
     @property
     def dt_rank_(self):
@@ -83,9 +100,11 @@ def _conv_causal(x, w, b, state=None):
     return out + b, new_state
 
 
-def _ssm_params(params, xc, cfg: MambaConfig):
+def _ssm_params(params, xc, cfg: MambaConfig, tp=None):
     n, rk = cfg.d_state, cfg.dt_rank_
     dbc = xc @ params["w_x_dbc"]                       # [B, S, rk + 2n]
+    if tp is not None:
+        dbc = copy_to_model(reduce_from_model(dbc, tp), tp)
     dt = F.softplus(dbc[..., :rk] @ params["w_dt"] + params["b_dt"])
     Bm = dbc[..., rk:rk + n].to(torch.float32)         # [B, S, n]
     Cm = dbc[..., rk + n:].to(torch.float32)           # [B, S, n]
@@ -115,19 +134,19 @@ def _scan(a, b):
     return a, b
 
 
-def mamba_apply(params, x, cfg: MambaConfig):
+def mamba_apply(params, x, cfg: MambaConfig, tp=None):
     """x: [B, S, d] -> [B, S, d] by the parallel scan.
 
     With ``cfg.scan_chunk`` > 0 dividing S (and below it) the time axis
     runs a chunk at a time with the state carried between chunks: the
     scan's float32 intermediates exist for one chunk at a time."""
     B, S, _ = x.shape
-    xz = x @ params["w_in"]
+    xz = copy_to_model(x, tp) @ params["w_in"]
     xc, z = xz.chunk(2, dim=-1)
     xc, _ = _conv_causal(xc, params["conv_w"], params["conv_b"])
     xc = F.silu(xc)
 
-    dt, Bm, Cm, A = _ssm_params(params, xc, cfg)
+    dt, Bm, Cm, A = _ssm_params(params, xc, cfg, tp)
     xf = xc.to(torch.float32)
     # discretize: a_t = exp(dt * A) [B, S, di, n]; b_t = dt * B * x
     a = torch.exp(dt[..., None] * A)
@@ -148,29 +167,32 @@ def mamba_apply(params, x, cfg: MambaConfig):
         _, h = _scan(a, b)
     y = torch.einsum("bsdn,bsn->bsd", h, Cm) + params["D"] * xf
     y = y.to(x.dtype) * F.silu(z)
-    return y @ params["w_out"]
+    return reduce_from_model(y @ params["w_out"], tp)
 
 
 def init_mamba_state(batch: int, cfg: MambaConfig, device="cuda"):
-    return {"h": torch.zeros((batch, cfg.d_inner, cfg.d_state),
+    """Zero state of a rank's ``d_inner_local`` channels."""
+    di = cfg.d_inner_local
+    return {"h": torch.zeros((batch, di, cfg.d_state),
                              dtype=torch.float32, device=device),
-            "conv": torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner),
+            "conv": torch.zeros((batch, cfg.d_conv - 1, di),
                                 dtype=cfg.dtype, device=device)}
 
 
-def mamba_decode(params, x, state, cfg: MambaConfig):
+def mamba_decode(params, x, state, cfg: MambaConfig, tp=None):
     """Single-token recurrent step.  x: [B, 1, d] -> (out [B, 1, d], a
     fresh ``{"h", "conv"}`` state)."""
-    xz = x @ params["w_in"]
+    xz = copy_to_model(x, tp) @ params["w_in"]
     xc, z = xz.chunk(2, dim=-1)
     xc, conv_state = _conv_causal(xc, params["conv_w"], params["conv_b"],
                                   state["conv"])
     xc = F.silu(xc)
-    dt, Bm, Cm, A = _ssm_params(params, xc, cfg)
+    dt, Bm, Cm, A = _ssm_params(params, xc, cfg, tp)
     xf = xc.to(torch.float32)[:, 0]
     a = torch.exp(dt[:, 0, :, None] * A)                       # [B, di, n]
     b = (dt[:, 0] * xf)[..., None] * Bm[:, 0, None, :]
     h = a * state["h"] + b
     y = torch.einsum("bdn,bn->bd", h, Cm[:, 0]) + params["D"] * xf
     y = y[:, None].to(x.dtype) * F.silu(z)
-    return y @ params["w_out"], {"h": h, "conv": conv_state.contiguous()}
+    return (reduce_from_model(y @ params["w_out"], tp),
+            {"h": h, "conv": conv_state.contiguous()})

@@ -11,6 +11,17 @@ differs from its v dim (128), which the flash kernel does not take.
 ``mla_decode`` writes the new latent row into the cache tensors in
 place (the reference returns fresh arrays), as ``layers.attn_decode``
 does.
+
+Tensor parallelism (``tp``, a world with a ``model`` axis): MLA is split
+by heads.  ``cfg.num_heads`` is then the rank's heads, ``w_q`` /
+``w_uq``, ``w_uk`` and ``w_uv`` hold them on their head axis and
+``w_o`` their rows, followed by one ``reduce_from_model``.  The latent
+leaves (``w_dkv``, ``kv_norm``, ``w_kr``, ``w_dq``, ``q_norm``) are whole
+on every rank: each rank computes the whole latent, and the latent
+cache, the same on every rank, saves no memory under tensor
+parallelism.  Where the whole latent feeds the rank's heads it passes
+``copy_to_model``, so its gradient (and the latent leaves') is the sum
+over the heads of every rank.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import layers
+from repro_torch.sharding import copy_to_model, reduce_from_model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,38 +80,42 @@ def init_mla(cfg: MLAConfig, generator, device="cuda"):
     return p
 
 
-def _q_proj(params, x, cfg: MLAConfig):
+def _q_proj(params, x, cfg: MLAConfig, tp=None):
     """x [B, S, d] -> q [B, S, H, qk_dim], through the low-rank branch
     (``w_dq``, ``q_norm``, ``w_uq``) when ``q_lora_rank`` > 0."""
     if cfg.q_lora_rank:
         cq = layers.norm_apply(params["q_norm"], x @ params["w_dq"],
                                "rmsnorm")
-        return torch.einsum("bsr,rhd->bshd", cq, params["w_uq"])
-    return torch.einsum("bsd,dhe->bshe", x, params["w_q"])
+        return torch.einsum("bsr,rhd->bshd", copy_to_model(cq, tp),
+                            params["w_uq"])
+    return torch.einsum("bsd,dhe->bshe", copy_to_model(x, tp),
+                        params["w_q"])
 
 
-def mla_apply(params, x, cfg: MLAConfig, positions=None):
+def mla_apply(params, x, cfg: MLAConfig, positions=None, tp=None):
     """Expanded-form MLA for training and prefill.  x: [B, S, d] ->
     ``(out [B, S, d], {"c_kv": [B, S, r], "k_rope": [B, S, dr]})``, the
-    second the entries a decode cache keeps."""
+    second the entries a decode cache keeps (whole under ``tp``)."""
     B, S, _ = x.shape
     H, dn, dr, dv = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_dim
     if positions is None:
         positions = torch.arange(S, device=x.device)
 
-    q = _q_proj(params, x, cfg)
+    q = _q_proj(params, x, cfg, tp)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = layers.apply_rope(q_rope, positions, cfg.rope_theta)
 
     c_kv = layers.norm_apply(params["kv_norm"], x @ params["w_dkv"],
                              "rmsnorm")
-    k_nope = torch.einsum("bsr,rhd->bshd", c_kv, params["w_uk"])
-    v = torch.einsum("bsr,rhd->bshd", c_kv, params["w_uv"])
+    c_heads = copy_to_model(c_kv, tp)
+    k_nope = torch.einsum("bsr,rhd->bshd", c_heads, params["w_uk"])
+    v = torch.einsum("bsr,rhd->bshd", c_heads, params["w_uv"])
     k_rope = layers.apply_rope((x @ params["w_kr"])[:, :, None, :],
                                positions, cfg.rope_theta)    # [B, S, 1, dr]
+    k_rope_heads = copy_to_model(k_rope, tp)
 
     qf = torch.cat([q_nope, q_rope], -1)
-    kf = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], -1)
+    kf = torch.cat([k_nope, k_rope_heads.expand(B, S, H, dr)], -1)
     if cfg.use_blockwise:
         out = layers._blockwise_sdpa(qf, kf, v, causal=True,
                                      sliding_window=0).to(torch.float32)
@@ -113,7 +129,8 @@ def mla_apply(params, x, cfg: MLAConfig, positions=None):
         w = torch.softmax(logits, dim=-1)
         out = torch.einsum("bhqk,bkhd->bqhd", w, v.to(torch.float32))
     out = out.reshape(B, S, H * dv).to(x.dtype) @ params["w_o"]
-    return out, {"c_kv": c_kv, "k_rope": k_rope[:, :, 0, :]}
+    return reduce_from_model(out, tp), {"c_kv": c_kv,
+                                        "k_rope": k_rope[:, :, 0, :]}
 
 
 def init_mla_cache(batch: int, max_len: int, cfg: MLAConfig, device="cuda"):
@@ -124,7 +141,7 @@ def init_mla_cache(batch: int, max_len: int, cfg: MLAConfig, device="cuda"):
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
-def mla_decode(params, x, cache, cfg: MLAConfig):
+def mla_decode(params, x, cache, cfg: MLAConfig, tp=None):
     """Absorbed-form one-token decode against the compressed cache,
     updated in place.
 
@@ -139,7 +156,7 @@ def mla_decode(params, x, cache, cfg: MLAConfig):
     dn = cfg.qk_nope_dim
     pos = cache["pos"]
 
-    q = _q_proj(params, x, cfg)[:, 0]                     # [B, H, qk_dim]
+    q = _q_proj(params, x, cfg, tp)[:, 0]                 # [B, H, qk_dim]
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = layers.apply_rope(q_rope[:, None], pos[:, None],
                                cfg.rope_theta)[:, 0]
@@ -167,4 +184,5 @@ def mla_decode(params, x, cache, cfg: MLAConfig):
     out = torch.einsum("bhr,rhd->bhd", ctx,
                        params["w_uv"].to(torch.float32))
     out = out.reshape(B, 1, -1).to(x.dtype) @ params["w_o"]
-    return out, {"c_kv": c_kv, "k_rope": k_rope, "pos": pos + 1}
+    return reduce_from_model(out, tp), {"c_kv": c_kv, "k_rope": k_rope,
+                                        "pos": pos + 1}

@@ -152,7 +152,8 @@ def build_ctx(arch: ArchConfig, mesh=None, *, seq_len: int = 0,
     live."""
     if aux_mode not in ("lb", "ta", "hir", "none"):
         raise ValueError(f"unknown aux_mode {aux_mode!r}")
-    why = tp_refusal(arch, model_size(mesh))
+    why = tp_refusal(arch, model_size(mesh), device=device,
+                     use_pallas=use_pallas)
     if why:
         raise ValueError(f"{arch.name} on a model axis of "
                          f"{model_size(mesh)}: {why}")
@@ -188,30 +189,44 @@ def build_ctx(arch: ArchConfig, mesh=None, *, seq_len: int = 0,
         use_pallas=use_pallas, wire_codec=codec, device=str(device))
 
 
-def tp_refusal(arch: ArchConfig, model: int) -> str:
+def tp_refusal(arch: ArchConfig, model: int, *, device=None,
+               use_pallas=None) -> str:
     """Why ``arch`` cannot run on a model axis of ``model`` ("" when it
-    can, and always at 1): a layer with no tensor-parallel form in the
-    port yet (attention, the dense and expert FFNs and the embedding have
-    one), or an expert width the axis does not divide."""
+    can, and always at 1): a width that the port splits by and the axis
+    does not divide, named with its leaves.  MLA's and the xLSTM
+    mixers' heads, Mamba's inner dim, InternVL2's projector width and the
+    expert width must divide (attention and the dense FFN are kept whole
+    where theirs do not: ``ModelCtx.attn_sharded``, ``mlp_tp``).  With
+    the kernels on ``device`` (``backend.kernels_active``) a model rank's
+    expert width must also be a multiple of 64, which K3 and K4 need."""
     if model <= 1:
         return ""
-    subs = transformer.layer_list(arch)
-    missing = ""
-    if any(s.mixer == "mla" for s in subs):
-        missing = "MLA (mixer/w_u[kvq], mixer/w_q)"
-    elif any(s.mixer == "mamba" for s in subs):
-        missing = "Mamba's inner dim (mixer/w_in, mixer/w_out)"
-    elif any(s.mixer in ("mlstm", "slstm") for s in subs):
-        missing = "the xLSTM mixers' inner dims (mixer/w_up, mixer/w_down)"
-    elif any(s.cross for s in subs) or arch.enc_layers:
-        missing = "Whisper's encoder and cross-attention (cross/w*)"
-    elif arch.frontend == "vision":
-        missing = "InternVL2's projector (proj/w1, proj/w2)"
-    if missing:
-        return f"{missing} has no tensor-parallel form in the port yet"
-    if arch.is_moe and arch.moe.d_ff_expert % model:
-        return (f"the expert width {arch.moe.d_ff_expert} does not divide "
-                f"over it")
+    kinds = {s.mixer for s in transformer.layer_list(arch)}
+    H = arch.num_heads
+    if "mla" in kinds and H % model:
+        return (f"MLA's {H} heads (mixer/w_q, mixer/w_u[kvq], mixer/w_o) "
+                f"do not divide over it")
+    if "mamba" in kinds:
+        di = transformer.mamba_inner(arch)
+        if di % model:
+            return (f"Mamba's inner dim {di} (mixer/w_in, mixer/w_out) "
+                    f"does not divide over it")
+    if kinds & {"mlstm", "slstm"} and H % model:
+        return (f"the xLSTM mixers' {H} heads (mixer/w_up, "
+                f"mixer/w_gates) do not divide over it")
+    if arch.frontend == "vision" and arch.d_model % model:
+        return (f"InternVL2's projector width {arch.d_model} (proj/w1, "
+                f"proj/w2) does not divide over it")
+    if arch.is_moe:
+        f = arch.moe.d_ff_expert
+        if f % model:
+            return f"the expert width {f} does not divide over it"
+        from repro_torch.kernels import backend
+        if (device is not None and (f // model) % 64
+                and backend.kernels_active(use_pallas, device)):
+            return (f"a model rank's expert width {f // model} (ffn/w_in, "
+                    f"ffn/w_out) is not a multiple of 64, which K3 and K4 "
+                    f"need")
     return ""
 
 
@@ -260,28 +275,87 @@ _ATTN_LEAF = re.compile(r"(^|/)(mixer|cross)/(w[qkvo]|b[qkv])$")
 #: a dense FFN's leaves (2-D: an expert leaf has the expert axis first)
 _MLP_LEAF = re.compile(r"(^|/)ffn/(w_in|w_gate|w_out)$")
 
+_COLS, _ROWS = (None, "model"), ("model",)
+#: the port's layouts of the mixers other than attention, by the
+#: sublayer's mixer and the leaf's path below ``mixer/``
+#: (:func:`param_specs`); a leaf not named is whole on every rank
+MIXER_LAYOUTS = {
+    # MLA by heads; the latent (w_dkv, kv_norm, w_kr, w_dq, q_norm) whole
+    "mla": {"w_q": _COLS, "w_uq": _COLS, "w_uk": _COLS, "w_uv": _COLS,
+            "w_o": _ROWS},
+    # Mamba by inner channels: w_in's x and z stripes each split
+    "mamba": {"w_in": (None, sharding.Stripes((True, True))),
+              "conv_w": _COLS, "conv_b": _ROWS, "w_x_dbc": _ROWS,
+              "w_dt": _COLS, "b_dt": _ROWS, "A_log": _ROWS, "D": _ROWS,
+              "w_out": _ROWS},
+    # mLSTM by heads: w_up's xu stripe whole (q, k, v and the gates read
+    # all of it), its z stripe split; the per-head ln whole
+    "mlstm": {"w_up": (None, sharding.Stripes((False, True))),
+              "wq": _COLS, "wk": _COLS, "wv": _COLS,
+              "w_if": (None, sharding.Stripes((True, True))),
+              "b_if": (sharding.Stripes((True, True)),), "w_down": _ROWS},
+    # sLSTM by heads: the four gate stripes of w_gates / b_gates each
+    # split; ln (an RMSNorm over all of d) by the heads' channels
+    "slstm": {"w_gates": (None, sharding.Stripes((True,) * 4)),
+              "b_gates": (sharding.Stripes((True,) * 4),),
+              "r_gates": _ROWS, "ln/scale": _ROWS, "w_out": _ROWS},
+}
+
+
+def _mixer_of(path: tuple, subs: list) -> str:
+    """The mixer of the sublayer a leaf path lies in ("" outside one)."""
+    if len(path) > 2 and path[0] == "layers":
+        return subs[int(path[1])].mixer
+    if len(path) > 2 and path[0] == "enc_layers":
+        return "attn"
+    return ""
+
 
 def param_specs(params, ctx: transformer.ModelCtx):
     """The spec of every leaf of ``params`` (the full tree on the model
     dims, any expert shard) on ``ctx``'s world: the reference's rules
-    through ``sharding.build_param_specs``, with two layouts of the
-    port's own.  Attention by heads: its ``wq``/``wk``/``wv`` (and
-    biases) by columns and ``wo`` by rows when the model axis divides the
-    query and the KV heads (``ModelCtx.attn_sharded``), all four
-    replicated otherwise (the reference splits columns whenever they
-    divide, mid-head too).  A dense FFN's ``w_in``/``w_gate`` by columns
-    and ``w_out`` by rows when the axis divides its width (the
-    reference's expert rules match its leaves first, which leaves
-    ``w_in`` whole and splits ``w_out``'s columns)."""
+    through ``sharding.build_param_specs``, with layouts of the port's
+    own where a rule's contiguous split would not run as one rank's
+    part of the layer.
+
+    - Attention (self, cross and the encoder's) by heads: ``wq``/``wk``/
+      ``wv`` (and biases) by columns and ``wo`` by rows when the model
+      axis divides the query and the KV heads (``ModelCtx.attn_sharded``),
+      all four replicated otherwise (the reference splits columns
+      whenever they divide, mid-head too).
+    - A dense FFN's ``w_in``/``w_gate`` by columns and ``w_out`` by rows
+      when the axis divides its width (the reference's expert rules match
+      its leaves first, which leaves ``w_in`` whole and splits ``w_out``'s
+      columns).
+    - The other mixers by :data:`MIXER_LAYOUTS`.  MLA by heads with its
+      latent leaves whole, as the reference's rule has it.  Mamba by
+      inner channels: ``w_in``'s ``x`` and ``z`` stripes each split (the
+      reference's contiguous column split would give one rank all of
+      ``x``), the conv, ``w_dt``, ``b_dt``, ``A_log`` and ``D`` following
+      the channels and ``w_x_dbc`` by rows (the reference keeps those
+      whole).  The mLSTM by heads: ``w_up``'s ``xu`` stripe whole and
+      its ``z`` stripe split, ``wq``/``wk``/``wv`` by head columns and
+      ``w_if``'s two gate stripes split (the reference splits ``w_up``'s
+      columns and keeps ``w_if`` whole).  The sLSTM by heads: the four
+      gate stripes of ``w_gates`` and ``b_gates`` split, ``r_gates`` by
+      heads, ``ln`` by channels (the reference keeps ``w_gates``,
+      ``r_gates`` and ``ln`` whole).  InternVL2's projector keeps the
+      reference's rule (``proj/w1`` by columns, ``proj/w2`` by rows)."""
     shape = sharding.mesh_shape(ctx.mesh) if ctx.mesh is not None else {}
     specs = sharding.build_param_specs(
         params, param_spec_rules(ctx.arch, ctx.ep), shape)
     flat = dict(sharding._leaves_with_paths(specs))
     attn, mlp = ctx.attn_sharded, ctx.mlp_tp is not None
+    tp = ctx.tp is not None
+    subs = transformer.layer_list(ctx.arch)
 
     def fix(path, leaf):
         ps = "/".join(path)
         spec = flat[path]
+        mixer = _mixer_of(path, subs)
+        if mixer in MIXER_LAYOUTS and path[2] == "mixer":
+            return MIXER_LAYOUTS[mixer].get("/".join(path[3:]), ()) \
+                if tp else ()
         m = _ATTN_LEAF.search(ps)
         if m is not None:
             if not attn:
@@ -299,33 +373,27 @@ def param_specs(params, ctx: transformer.ModelCtx):
     return sharding._map_paths(params, fix)
 
 
-def _slice(t: torch.Tensor, spec: tuple, m: int, coord: int):
-    dim = sharding.model_dim(spec)
-    if dim is None:
-        return t
-    n = t.shape[dim] // m
-    return t.narrow(dim, coord * n, n).clone()
-
-
 def shard_params(params, ctx: transformer.ModelCtx):
     """This rank's slice of a parameter tree that is full on the model
     dims (``init_model``'s, or the reference's unstacked by
     ``convert.params_from_numpy``): every leaf :func:`param_specs`
     shards over ``model`` cut to its ``1 / model`` at this rank's model
-    coordinate; the tree itself without a model axis."""
+    coordinate (each split stripe of a ``sharding.Stripes`` dimension
+    cut, each whole one kept); the tree itself without a model axis."""
     m = model_size(ctx.mesh)
     if m == 1:
         return params
     flat = dict(sharding._leaves_with_paths(param_specs(params, ctx)))
     coord = ctx.mesh.model_coord
     return sharding._map_paths(
-        params, lambda path, t: _slice(t, flat[path], m, coord))
+        params,
+        lambda path, t: sharding.slice_for_model(t, flat[path], m, coord))
 
 
 def gather_params(params, ctx: transformer.ModelCtx):
     """The inverse of :func:`shard_params` (a collective over the model
     axis, called by every rank): each model-sharded leaf's slices
-    concatenated in model coordinate order; detached."""
+    concatenated in model coordinate order, stripe by stripe; detached."""
     m = model_size(ctx.mesh)
     if m == 1:
         return params
@@ -333,10 +401,12 @@ def gather_params(params, ctx: transformer.ModelCtx):
         param_specs(full_abstract_params(ctx), ctx)))
 
     def gather(path, t):
-        dim = sharding.model_dim(flat[path])
+        spec = flat[path]
+        dim = sharding.model_dim(spec)
         if dim is None:
             return t.detach()
-        return sharding.gather_from_model(t, ctx.mesh, dim)
+        return sharding.unslice(sharding.gather_from_model(t, ctx.mesh, dim),
+                                spec, m, dim)
 
     return sharding._map_paths(params, gather)
 
@@ -346,9 +416,25 @@ def init_params(ctx: transformer.ModelCtx, generator, device=None):
     live on ``device``, default ``ctx.device``).  Every rank draws the
     whole model from the same generator state and keeps its expert shard
     and its model slices, so replicated tensors agree across ranks and
-    the global model does not depend on the world's shape."""
-    return shard_params(
-        transformer.init_model(ctx, generator, device or ctx.device), ctx)
+    the global model does not depend on the world's shape.  Each layer is
+    cut to the rank's slices as soon as it is drawn: a rank holds one
+    whole layer at a time beside its slices."""
+    m = model_size(ctx.mesh)
+    if m == 1:
+        return transformer.init_model(ctx, generator, device or ctx.device)
+    flat = dict(sharding._leaves_with_paths(
+        param_specs(full_abstract_params(ctx), ctx)))
+    coord = ctx.mesh.model_coord
+
+    def keep(prefix, tree):
+        return sharding._map_paths(
+            tree, lambda path, t: sharding.slice_for_model(
+                t, flat[path], m, coord), prefix)
+
+    params = transformer.init_model(ctx, generator, device or ctx.device,
+                                    keep=keep)
+    return {k: v if k in sharding.LAYER_LISTS else keep((k,), v)
+            for k, v in params.items()}
 
 
 def count_params(params) -> int:

@@ -21,9 +21,12 @@ A world with a ``model`` axis (tensor parallelism, the reference's
 each of its model ranks, each with its slice of the weights
 (``models.model.shard_params``): attention by heads when the axis divides
 the query and the KV heads (``ModelCtx.attn_sharded``; replicated
-otherwise), the dense FFN by its width, the experts and shared experts by
-theirs (``core.dispatch.base``), the embedding table by vocabulary rows,
-whose logits and loss are then vocab-parallel.
+otherwise), Whisper's cross-attention and encoder alike, the dense FFN by
+its width, the experts and shared experts by theirs
+(``core.dispatch.base``), MLA and the xLSTM mixers by heads, Mamba by
+its inner channels, InternVL2's projector by its width, the embedding
+table by vocabulary rows, whose logits and loss are then vocab-parallel.
+Every layer's output and the encoder's are whole on every model rank.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import sharding
+from repro_torch.sharding import copy_to_model, reduce_from_model
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import gating
 from repro_torch.core.dispatch import base as moe_base
@@ -142,7 +146,22 @@ class ModelCtx:
             use_blockwise=self.use_blockwise)
 
     @property
+    def shards(self) -> int:
+        """The model ranks a layer is split over (1 without an axis)."""
+        tp = self.tp
+        return 1 if tp is None else tp.model
+
+    @property
     def mla_cfg(self) -> mla_lib.MLAConfig:
+        """The rank's MLA config: its heads under a model axis."""
+        cfg = self.full_mla_cfg
+        if self.shards > 1:
+            cfg = dataclasses.replace(
+                cfg, num_heads=cfg.num_heads // self.shards)
+        return cfg
+
+    @property
+    def full_mla_cfg(self) -> mla_lib.MLAConfig:
         """MLA's config; it takes no ``use_flash``: MLA attends through
         plain PyTorch (or blockwise), as the reference's does."""
         a = self.arch
@@ -158,7 +177,8 @@ class ModelCtx:
     def mamba_cfg(self) -> mamba_lib.MambaConfig:
         return mamba_lib.MambaConfig(d_model=self.arch.d_model,
                                      dtype=self.arch.torch_dtype,
-                                     scan_chunk=self.mamba_scan_chunk)
+                                     scan_chunk=self.mamba_scan_chunk,
+                                     shards=self.shards)
 
     @property
     def xlstm_cfg(self) -> xlstm_lib.XLSTMConfig:
@@ -166,7 +186,8 @@ class ModelCtx:
         return xlstm_lib.XLSTMConfig(d_model=a.d_model, num_heads=a.num_heads,
                                      slstm_every=a.slstm_every or 8,
                                      dtype=a.torch_dtype,
-                                     chunk_size=self.xlstm_chunk)
+                                     chunk_size=self.xlstm_chunk,
+                                     shards=self.shards)
 
     @property
     def moe_cfg(self) -> moe_base.MoEConfig:
@@ -237,6 +258,11 @@ def encoder_plan(arch: ArchConfig):
     return [SubLayer("attn", "mlp", causal=False)], arch.enc_layers
 
 
+def mamba_inner(arch: ArchConfig) -> int:
+    """Mamba's inner width ``d_inner`` for ``arch``."""
+    return mamba_lib.MambaConfig(d_model=arch.d_model).d_inner
+
+
 def layer_list(arch: ArchConfig) -> list:
     """The flat per-layer SubLayer list: prefix, then the repeated group."""
     prefix, group, n_groups = layer_plan(arch)
@@ -247,7 +273,7 @@ def _init_sublayer(sub: SubLayer, ctx: ModelCtx, generator, device):
     a = ctx.arch
     p = {"norm1": layers.init_norm(a.norm, a.d_model, device)}
     if sub.mixer == "mla":
-        p["mixer"] = mla_lib.init_mla(ctx.mla_cfg, generator, device)
+        p["mixer"] = mla_lib.init_mla(ctx.full_mla_cfg, generator, device)
     elif sub.mixer == "mamba":
         p["mixer"] = mamba_lib.init_mamba(ctx.mamba_cfg, generator, device)
     elif sub.mixer == "mlstm":
@@ -274,18 +300,23 @@ def _init_sublayer(sub: SubLayer, ctx: ModelCtx, generator, device):
     return p
 
 
-def init_model(ctx: ModelCtx, generator, device=None):
+def init_model(ctx: ModelCtx, generator, device=None, keep=None):
     """Fresh parameters: ``{"embed", "final_norm", "layers": [...]}``, and
     a vision model's 2-layer projector ``"proj"`` (ViT width 1024 ->
     d_model), an encoder-decoder's ``"enc_layers": [...]`` and
-    ``"enc_norm"``."""
+    ``"enc_norm"``.  ``keep(path, subtree)`` (``models.model.
+    init_params``' slicing) is applied to each layer as soon as it is
+    drawn, so the whole model is never held at once; the draws are the
+    same."""
     device = device or ctx.device
     a = ctx.arch
+    keep = keep or (lambda path, tree: tree)
     params = {"embed": layers.init_embed(a.vocab_size, a.d_model,
                                          a.torch_dtype, generator, device),
               "final_norm": layers.init_norm(a.norm, a.d_model, device)}
-    params["layers"] = [_init_sublayer(sub, ctx, generator, device)
-                        for sub in layer_list(a)]
+    params["layers"] = [keep(("layers", str(i)),
+                             _init_sublayer(sub, ctx, generator, device))
+                        for i, sub in enumerate(layer_list(a))]
     if a.frontend == "vision":
         w = vlm.VIT_WIDTH
         params["proj"] = {
@@ -295,8 +326,10 @@ def init_model(ctx: ModelCtx, generator, device=None):
                 a.d_model), generator, device).to(a.torch_dtype)}
     if a.enc_layers:
         (esub,), n_enc = encoder_plan(a)
-        params["enc_layers"] = [_init_sublayer(esub, ctx, generator, device)
-                                for _ in range(n_enc)]
+        params["enc_layers"] = [keep(("enc_layers", str(i)),
+                                     _init_sublayer(esub, ctx, generator,
+                                                    device))
+                                for i in range(n_enc)]
         params["enc_norm"] = layers.init_norm(a.norm, a.d_model, device)
     return params
 
@@ -342,14 +375,16 @@ def _apply_sublayer(p, x, sub: SubLayer, ctx: ModelCtx, aux, frac, drop,
     A cross-attention sublayer attends ``enc_out`` when given."""
     a = ctx.arch
     h = layers.norm_apply(p["norm1"], x, a.norm)
+    tp = ctx.tp
     if sub.mixer == "mla":
-        mix, _ = mla_lib.mla_apply(p["mixer"], h, ctx.mla_cfg)
+        mix, _ = mla_lib.mla_apply(p["mixer"], h, ctx.mla_cfg, tp=tp)
     elif sub.mixer == "mamba":
-        mix = mamba_lib.mamba_apply(p["mixer"], h, ctx.mamba_cfg)
+        mix = mamba_lib.mamba_apply(p["mixer"], h, ctx.mamba_cfg, tp=tp)
     elif sub.mixer == "mlstm":
-        mix = xlstm_lib.mlstm_apply(p["mixer"], h, ctx.xlstm_cfg)
+        mix = xlstm_lib.mlstm_apply(p["mixer"], h, ctx.xlstm_cfg, tp=tp)
     elif sub.mixer == "slstm":
-        mix, _ = xlstm_lib.slstm_apply(p["mixer"], h, ctx.xlstm_cfg)
+        mix, _ = xlstm_lib.slstm_apply(p["mixer"], h, ctx.xlstm_cfg,
+                                       tp=tp)
     else:
         cfg = ctx.attn_cfg
         if not sub.causal:
@@ -376,11 +411,15 @@ def _apply_sublayer(p, x, sub: SubLayer, ctx: ModelCtx, aux, frac, drop,
 def _cross_attn(p, x, enc_out, ctx: ModelCtx):
     """Full cross-attention of the decoder stream ``x`` [B, S, d] over the
     encoder output [B, F, d] (Whisper's decoder): no RoPE, no mask,
-    through the plain ``_sdpa`` as in the reference."""
+    through the plain ``_sdpa`` as in the reference.  Split by heads as
+    self-attention is (``ModelCtx.attn_tp``): both inputs pass
+    ``copy_to_model``, ``wo``'s rows end in one ``reduce_from_model``."""
     cfg = ctx.attn_cfg
+    tp = ctx.attn_tp
     B, S, _ = x.shape
     Fn = enc_out.shape[1]
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    x, enc_out = copy_to_model(x, tp), copy_to_model(enc_out, tp)
     q = (x @ p["wq"]).reshape(B, S, H, hd)
     k = (enc_out @ p["wk"]).reshape(B, Fn, K, hd)
     v = (enc_out @ p["wv"]).reshape(B, Fn, K, hd)
@@ -388,7 +427,7 @@ def _cross_attn(p, x, enc_out, ctx: ModelCtx):
     out = layers._sdpa(q, k, v, causal=False, sliding_window=0,
                        q_positions=torch.arange(S, device=dev),
                        k_positions=torch.arange(Fn, device=dev))
-    return out.reshape(B, S, -1) @ p["wo"]
+    return reduce_from_model(out.reshape(B, S, -1) @ p["wo"], tp)
 
 
 def _run_encoder(params, frames, ctx: ModelCtx):
@@ -403,17 +442,20 @@ def _run_encoder(params, frames, ctx: ModelCtx):
     return layers.norm_apply(params["enc_norm"], x, ctx.arch.norm)
 
 
-def splice_patches(params, x, patches):
+def splice_patches(params, x, patches, tp=None):
     """A vision model's input: the projected patches [B, n, 1024] (through
     ``params["proj"]``: gelu between its two layers) in place of the
-    first n token embeddings of ``x`` [B, S, d]."""
+    first n token embeddings of ``x`` [B, S, d].  Under ``tp`` the
+    projector is split by its width (``w1``'s columns, ``w2``'s rows,
+    then one ``reduce_from_model``)."""
     n = patches.shape[1]
     if x.shape[1] < n:
         raise ValueError(f"{x.shape[1]} positions cannot hold the "
                          f"{n} patch embeddings of the frontend")
     proj = params["proj"]
-    emb = F.gelu(patches.to(x.dtype) @ proj["w1"],
+    emb = F.gelu(copy_to_model(patches.to(x.dtype), tp) @ proj["w1"],
                  approximate="tanh") @ proj["w2"]
+    emb = reduce_from_model(emb, tp)
     return torch.cat([emb, x[:, n:]], dim=1)
 
 
@@ -428,7 +470,7 @@ def frontend_inputs(params, batch, x, ctx: ModelCtx):
                              "batch['frontend'] (frame embeddings)")
         return x, _run_encoder(params, batch["frontend"].to(x.dtype), ctx)
     if a.family == "vlm" and "frontend" in batch:
-        return splice_patches(params, x, batch["frontend"]), None
+        return splice_patches(params, x, batch["frontend"], ctx.tp), None
     return x, None
 
 

@@ -10,6 +10,20 @@ keeps the ``(C, n, m)`` recurrent state.  sLSTM runs a Python loop over
 time where the reference scans.  Plain PyTorch throughout: the
 reference's xLSTM reaches no Pallas kernel.  The decodes return fresh
 states, as the reference's do.
+
+Tensor parallelism (``tp``): both mixers are split by heads
+(``cfg.shards`` ranks, ``cfg.local_heads`` a rank), with one collective
+a block forward.  The mLSTM computes the whole ``xu`` half of ``w_up``
+on every rank (its q, k, v and gates read all of it) and passes it
+``copy_to_model``; ``wq``/``wk``/``wv`` hold the rank's head columns,
+``w_if`` its heads' two gate stripes, ``w_up``'s ``z`` stripe its heads'
+channels, and ``w_down`` their rows, followed by one
+``reduce_from_model``.  The per-head ``ln`` scale is whole and passes
+``copy_to_model`` itself.  The sLSTM's ``w_gates`` and ``b_gates`` hold
+the rank's heads in each of the four gate stripes, ``r_gates`` its heads
+and ``w_out`` their rows; its ``ln`` is an RMSNorm over all of ``d``, so
+the sum of squares of the rank's channels is summed over the model axis
+(forward and backward) before the rank scales its own.
 """
 
 from __future__ import annotations
@@ -21,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.sharding import copy_to_model, reduce_from_model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,10 +47,16 @@ class XLSTMConfig:
     dtype: torch.dtype = torch.bfloat16
     chunk_size: int = 0           # > 0: chunkwise mLSTM, O(S * chunk)
                                   # memory instead of the O(S^2) D matrix
+    shards: int = 1               # model ranks splitting the heads
 
     @property
     def d_inner(self):
         return int(self.d_model * self.proj_factor)
+
+    @property
+    def local_heads(self):
+        """The heads of one model rank."""
+        return self.num_heads // self.shards
 
     @property
     def head_dim(self):
@@ -68,6 +89,25 @@ def init_mlstm(cfg: XLSTMConfig, generator, device="cuda"):
     }
 
 
+def _mlstm_up(params, x, cfg: XLSTMConfig, tp):
+    """``(xu, z)`` [B, S, di] and [B, S, di / shards]: the up-projection;
+    under ``tp`` the whole ``xu`` (into the rank's heads through
+    ``copy_to_model``) and the rank's heads' ``z``."""
+    if tp is None:
+        return (x @ params["w_up"]).chunk(2, dim=-1)
+    di = cfg.d_inner
+    w = params["w_up"]
+    return (copy_to_model(x @ w[:, :di], tp),
+            copy_to_model(x, tp) @ w[:, di:])
+
+
+def _head_norm(params, y, tp):
+    """The mLSTM's per-head RMSNorm; under ``tp`` its whole scale's
+    gradient is summed over the ranks' heads."""
+    return layers.norm_apply({"scale": copy_to_model(params["scale"], tp)},
+                             y, "rmsnorm")
+
+
 def _mlstm_gates(params, xu, H):
     """Input-gate preactivation and log forget gate, float32 [..., H]."""
     g = (xu @ params["w_if"]).to(torch.float32) + params["b_if"]
@@ -81,12 +121,12 @@ def _mlstm_qkv(params, xu, shape, hd):
     return q, k, v
 
 
-def mlstm_apply(params, x, cfg: XLSTMConfig):
+def mlstm_apply(params, x, cfg: XLSTMConfig, tp=None):
     """Parallel mLSTM (chunkwise when ``cfg.chunk_size`` divides S and is
     smaller).  x: [B, S, d] -> [B, S, d]."""
     B, S, _ = x.shape
-    H, hd = cfg.num_heads, cfg.head_dim
-    xu, z = (x @ params["w_up"]).chunk(2, dim=-1)        # [B, S, di] each
+    H, hd = cfg.local_heads, cfg.head_dim
+    xu, z = _mlstm_up(params, x, cfg, tp)
     q, k, v = (t.to(torch.float32)
                for t in _mlstm_qkv(params, xu, (B, S, H, hd), hd))
     i_pre, logf = _mlstm_gates(params, xu, H)            # [B, S, H]
@@ -106,9 +146,9 @@ def mlstm_apply(params, x, cfg: XLSTMConfig):
         denom = torch.maximum(w.sum(dim=2, keepdim=True).abs(),
                               torch.exp(-m))             # [B, t, 1, H]
         y = torch.einsum("btsh,bshd->bthd", w / denom, v)
-    y = layers.norm_apply(params["ln"], y, "rmsnorm").reshape(B, S, -1)
+    y = _head_norm(params["ln"], y, tp).reshape(B, S, -1)
     y = y.to(x.dtype) * F.silu(z)
-    return y @ params["w_down"]
+    return reduce_from_model(y @ params["w_down"], tp)
 
 
 def _mlstm_chunkwise(q, k, v, i_pre, logf, chunk: int):
@@ -158,18 +198,18 @@ def _mlstm_chunkwise(q, k, v, i_pre, logf, chunk: int):
 
 
 def init_mlstm_state(batch: int, cfg: XLSTMConfig, device="cuda"):
-    H, hd = cfg.num_heads, cfg.head_dim
+    H, hd = cfg.local_heads, cfg.head_dim
     f32 = dict(dtype=torch.float32, device=device)
     return {"C": torch.zeros((batch, H, hd, hd), **f32),
             "n": torch.zeros((batch, H, hd), **f32),
             "m": torch.full((batch, H), -1e30, **f32)}
 
 
-def mlstm_decode(params, x, state, cfg: XLSTMConfig):
+def mlstm_decode(params, x, state, cfg: XLSTMConfig, tp=None):
     """Recurrent step.  x: [B, 1, d] -> ([B, 1, d], fresh state)."""
     B = x.shape[0]
-    H, hd = cfg.num_heads, cfg.head_dim
-    xu, z = (x @ params["w_up"]).chunk(2, dim=-1)
+    H, hd = cfg.local_heads, cfg.head_dim
+    xu, z = _mlstm_up(params, x, cfg, tp)
     q, k, v = (t.to(torch.float32)
                for t in _mlstm_qkv(params, xu, (B, H, hd), hd))
     i_pre, logf = _mlstm_gates(params, xu, H)
@@ -183,9 +223,10 @@ def mlstm_decode(params, x, state, cfg: XLSTMConfig):
     num = torch.einsum("bhd,bhde->bhe", q, C)
     den = torch.maximum(torch.einsum("bhd,bhd->bh", q, n).abs(),
                         torch.exp(-m_new))[..., None]
-    y = layers.norm_apply(params["ln"], num / den, "rmsnorm")
+    y = _head_norm(params["ln"], num / den, tp)
     y = y.reshape(B, 1, -1).to(x.dtype) * F.silu(z)
-    return y @ params["w_down"], {"C": C, "n": n, "m": m_new}
+    return (reduce_from_model(y @ params["w_down"], tp),
+            {"C": C, "n": n, "m": m_new})
 
 
 # ---------------------------------------------------------------------------
@@ -209,12 +250,23 @@ def init_slstm(cfg: XLSTMConfig, generator, device="cuda"):
     }
 
 
-def slstm_apply(params, x, cfg: XLSTMConfig, state=None):
+def _channel_norm(params, hs, d: int, tp, eps: float = 1e-5):
+    """The sLSTM's RMSNorm over all ``d`` channels of ``hs`` [B, S, d /
+    shards] under ``tp``: the rank's sum of squares summed over the model
+    axis, forward and backward (every rank's channels read it)."""
+    xf = hs.to(torch.float32)
+    sq = torch.sum(xf * xf, -1, keepdim=True)
+    sq = copy_to_model(reduce_from_model(sq, tp), tp)
+    return (xf * torch.rsqrt(sq / d + eps) * params["scale"]).to(hs.dtype)
+
+
+def slstm_apply(params, x, cfg: XLSTMConfig, state=None, tp=None):
     """Sequential sLSTM over time.  x: [B, S, d] -> ([B, S, d], state)."""
     B, S, d = x.shape
-    H = cfg.num_heads
-    hd = d // H
-    wx = (x @ params["w_gates"]).to(torch.float32) + params["b_gates"]
+    H = cfg.local_heads
+    hd = d // cfg.num_heads
+    wx = ((copy_to_model(x, tp) @ params["w_gates"]).to(torch.float32)
+          + params["b_gates"])
     wx = wx.reshape(B, S, 4, H, hd)
     if state is None:
         state = init_slstm_state(B, cfg, x.device)
@@ -234,14 +286,18 @@ def slstm_apply(params, x, cfg: XLSTMConfig, state=None):
         h = torch.sigmoid(o_pre) * c / torch.clamp(n, min=1e-6)
         m = m_new
         hs.append(h)
-    hs = torch.stack(hs, dim=1).reshape(B, S, d)
-    y = layers.norm_apply(params["ln"], hs, "rmsnorm").to(x.dtype)
-    return y @ params["w_out"], {"c": c, "n": n, "h": h, "m": m}
+    hs = torch.stack(hs, dim=1).reshape(B, S, H * hd)
+    if tp is None:
+        y = layers.norm_apply(params["ln"], hs, "rmsnorm").to(x.dtype)
+    else:
+        y = _channel_norm(params["ln"], hs, d, tp).to(x.dtype)
+    return (reduce_from_model(y @ params["w_out"], tp),
+            {"c": c, "n": n, "h": h, "m": m})
 
 
 def init_slstm_state(batch: int, cfg: XLSTMConfig, device="cuda"):
-    H = cfg.num_heads
-    hd = cfg.d_model // H
+    H = cfg.local_heads
+    hd = cfg.d_model // cfg.num_heads
     f32 = dict(dtype=torch.float32, device=device)
     return {"c": torch.zeros((batch, H, hd), **f32),
             "n": torch.zeros((batch, H, hd), **f32),
@@ -249,5 +305,5 @@ def init_slstm_state(batch: int, cfg: XLSTMConfig, device="cuda"):
             "m": torch.full((batch, H, hd), -1e30, **f32)}
 
 
-def slstm_decode(params, x, state, cfg: XLSTMConfig):
-    return slstm_apply(params, x, cfg, state)
+def slstm_decode(params, x, state, cfg: XLSTMConfig, tp=None):
+    return slstm_apply(params, x, cfg, state, tp)

@@ -21,6 +21,7 @@ both run through the world's ``EPWorld`` collectives.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import re
 import threading
 
@@ -187,12 +188,112 @@ def _fit_spec(spec: tuple, dims: tuple, shape: dict | None) -> tuple:
     return tuple(out)
 
 
+@dataclasses.dataclass(frozen=True)
+class Stripes:
+    """A spec entry for a dimension that packs ``len(parts)`` equal
+    stripes side by side (Mamba's ``x`` and ``z`` in ``w_in``, sLSTM's
+    four gates in ``w_gates``): each stripe is split over the ``model``
+    axis (True) or kept whole on every rank (False), and a rank's slice
+    is the concatenation of its stripes in order.  A plain ``"model"``
+    entry is ``Stripes((True,))``."""
+
+    parts: tuple
+
+    def __post_init__(self):
+        if not any(self.parts):
+            raise ValueError("a Stripes entry splits at least one stripe")
+
+
 def model_dim(spec: tuple) -> int | None:
     """The dimension a spec shards over the ``model`` axis, or None."""
     for i, ax in enumerate(spec):
-        if ax == "model" or (isinstance(ax, tuple) and "model" in ax):
+        if ax == "model" or isinstance(ax, Stripes) or (
+                isinstance(ax, tuple) and "model" in ax):
             return i
     return None
+
+
+def stripes_of(spec: tuple) -> tuple:
+    """The stripe pattern of a spec's model dimension (``(True,)`` for a
+    plain split, ``()`` when nothing is split)."""
+    dim = model_dim(spec)
+    if dim is None:
+        return ()
+    ax = spec[dim]
+    return ax.parts if isinstance(ax, Stripes) else (True,)
+
+
+def slice_for_model(t: torch.Tensor, spec: tuple, m: int, coord: int):
+    """Model rank ``coord``'s slice (of ``m``) of a tensor that is full
+    on the model dims: each split stripe of the model dimension cut to
+    its ``1 / m`` at ``coord``, each whole stripe kept; ``t`` itself when
+    the spec splits nothing."""
+    dim = model_dim(spec)
+    if dim is None:
+        return t
+    parts = stripes_of(spec)
+    w = t.shape[dim] // len(parts)
+    out = []
+    for j, split in enumerate(parts):
+        stripe = t.narrow(dim, j * w, w)
+        out.append(stripe.narrow(dim, coord * (w // m), w // m)
+                   if split else stripe)
+    return torch.cat(out, dim).clone() if len(out) > 1 else out[0].clone()
+
+
+def _stripe_spans(parts: tuple, local: int, m: int) -> list:
+    """``(offset, width, split)`` of each stripe within a rank's slice of
+    ``local`` entries: whole stripes ``w`` wide, split ones ``w / m``."""
+    n_split = sum(parts)
+    w = local * m // ((len(parts) - n_split) * m + n_split)
+    spans, off = [], 0
+    for split in parts:
+        width = w // m if split else w
+        spans.append((off, width, split))
+        off += width
+    return spans
+
+
+def unslice(shards: torch.Tensor, spec: tuple, m: int, dim: int):
+    """The full tensor from ``shards``, the ``m`` ranks' slices
+    concatenated on ``dim`` in model coordinate order (what
+    :func:`gather_from_model` returns): split stripes joined across the
+    ranks, whole stripes taken from rank 0."""
+    parts = stripes_of(spec)
+    if parts == (True,):
+        return shards
+    local = shards.shape[dim] // m
+    out = []
+    for off, width, split in _stripe_spans(parts, local, m):
+        if split:
+            out.extend(shards.narrow(dim, r * local + off, width)
+                       for r in range(m))
+        else:
+            out.append(shards.narrow(dim, off, width))
+    return torch.cat(out, dim)
+
+
+def split_squares(g: torch.Tensor, spec: tuple, m: int) -> tuple:
+    """``(split, whole)``: float32 sums of squares of a rank's slice
+    ``g`` (of ``m``) over its split stripes and over its whole ones
+    (None where it has none).  The first sums over the model axis to the
+    full tensor's share; the second is the same on every rank and counts
+    once."""
+    sq = torch.square(g.to(torch.float32))
+    parts = stripes_of(spec)
+    if not parts:
+        return None, sq.sum()
+    if all(parts):
+        return sq.sum(), None
+    dim = model_dim(spec)
+    split = whole = 0.0
+    for off, width, is_split in _stripe_spans(parts, g.shape[dim], m):
+        part = sq.narrow(dim, off, width).sum()
+        if is_split:
+            split = split + part
+        else:
+            whole = whole + part
+    return split, whole
 
 
 # ---------------------------------------------------------------------------

@@ -21,8 +21,14 @@ shard on each of its model ranks, each with its slice of the weights;
 every collective above spans the hierarchy with the model coordinate
 fixed, so the ranks that hold the same slice sum their gradients.  The
 clip norm adds the squares of each model-sharded leaf over the model
-axis and counts every replicated leaf once.  Checkpoints, the guarded
-step and the replan are refused under a model axis above 1.
+axis and counts every replicated leaf (and every whole stripe of a
+``sharding.Stripes`` leaf) once.  Each process writes its own checkpoint
+payload (its model slices and expert shard: ``ckpt.rank_path`` at its
+process rank), a rollback restores only when every process's payload
+verifies, and the guarded step's verdict is agreed over the model axis
+too, so a fault on one model rank makes every rank of its data rank act
+alike.  The replan's link readings are world means over every process
+(``comm_model.measure_link``).
 
 ``RunConfig.microbatch`` ``m < global_batch`` accumulates float32
 gradients over ``global_batch / m`` microbatches and divides by their
@@ -47,6 +53,7 @@ import time
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core.dispatch.base import EXPERT_PARAMS
@@ -72,20 +79,18 @@ def expert_mask(params, ctx: transformer.ModelCtx) -> list:
 _MODEL_SPECS: dict = {}
 
 
-def model_mask(params, ctx: transformer.ModelCtx) -> list:
-    """One bool per leaf of ``params`` (``adamw.tree_leaves`` order): True
-    for the leaves sliced over the model axis (``model.param_specs``, by
-    path, kept a context); all False without one."""
-    from repro_torch import sharding
+def model_specs(params, ctx: transformer.ModelCtx) -> list:
+    """One spec per leaf of ``params`` (``adamw.tree_leaves`` order): its
+    ``model.param_specs`` entry (by path, kept a context), ``()`` for
+    every leaf without a model axis."""
     if ctx.tp is None:
-        return [False] * len(adamw.tree_leaves(params))
+        return [()] * len(adamw.tree_leaves(params))
     hit = _MODEL_SPECS.get(id(ctx))
     if hit is None or hit[0] is not ctx:
         specs = model_lib.param_specs(model_lib.full_abstract_params(ctx),
                                       ctx)
-        hit = _MODEL_SPECS[id(ctx)] = (ctx, {
-            path: sharding.model_dim(s) is not None
-            for path, s in sharding._leaves_with_paths(specs)})
+        hit = _MODEL_SPECS[id(ctx)] = (
+            ctx, dict(sharding._leaves_with_paths(specs)))
     return [hit[1][path] for path, _ in sharding._leaves_with_paths(params)]
 
 
@@ -122,18 +127,23 @@ def sync_grads(params, ctx: transformer.ModelCtx, grads: list | None = None
             grads[i] = flat[off:off + n].reshape(grads[i].shape).to(
                 grads[i].dtype)
             off += n
-    sq = [torch.sum(torch.square(g.to(torch.float32))) for g in grads]
-    sliced = model_mask(params, ctx)
-    norm_sq = sum(s for s, e, m in zip(sq, expert, sliced)
-                  if not e and not m)
-    if any(m and not e for e, m in zip(expert, sliced)):
+    m = 1 if tp is None else tp.model
+    # (split, whole) squares of each leaf: a split part sums over the
+    # model axis, a whole one counts once
+    sq = [sharding.split_squares(g, s, m)
+          for g, s in zip(grads, model_specs(params, ctx))]
+    zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    norm_sq = sum((w for (_, w), e in zip(sq, expert)
+                   if w is not None and not e), zero)
+    split = [s for (s, _), e in zip(sq, expert) if s is not None and not e]
+    if split:
         norm_sq = norm_sq + world.all_reduce_sum(
-            sum(s for s, e, m in zip(sq, expert, sliced)
-                if m and not e).reshape(1), ("model",))[0]
+            sum(split).reshape(1), ("model",))[0]
     if any(expert):
         # over the EP axes, then the model axis (every expert is sliced)
         e_sq = world.all_reduce_sum(
-            sum(s for s, e in zip(sq, expert) if e).reshape(1), ep_axes)
+            sum(s if s is not None else w
+                for (s, w), e in zip(sq, expert) if e).reshape(1), ep_axes)
         norm_sq = norm_sq + world.all_reduce_sum(e_sq, ("model",))[0]
     return _unflatten(params, grads), torch.sqrt(norm_sq)
 
@@ -271,7 +281,14 @@ def make_guarded_train_step(ctx: transformer.ModelCtx, run: RunConfig,
         read = [metrics["nonfinite"], metrics["loss"]]
         if "dropped" in metrics:
             read.append(metrics["dropped"])
-        host = torch.stack(read).tolist()
+        read = torch.stack(read)
+        if ctx.tp is not None:
+            # one verdict for the model ranks of a data rank: a fault on
+            # one of them is every one's (their losses agree bit for bit,
+            # so the mean leaves a healthy loss as it was)
+            read = ctx.tp.all_reduce_sum(read, ("model",)) / ctx.tp.model
+            metrics["nonfinite"] = read[0]
+        host = read.tolist()
         action = classify({"nonfinite": host[0], "loss": host[1],
                            "dropped": host[2] if len(host) > 2 else None})
         if action == "ok":
@@ -317,14 +334,16 @@ def _prune_rolling(rolling: list, keep: int) -> None:
 def _restore_last_good(rolling: list, state: dict, world):
     """Walk the rolling checkpoints newest first and restore the first one
     whose sha256 manifest verifies, into the live tensors of ``state``.
-    On a world a step is taken only if every rank's payload of it verifies
-    (one all-reduce a candidate).  Returns ``(step, state)``."""
+    On a world a step is taken only if every process's payload of it
+    verifies, model ranks included (one all-reduce a candidate).  Returns
+    ``(step, state)``."""
     for step, path in reversed(rolling):
         good = ckpt.verify(path)
-        if world is not None and world.size > 1:
+        if world is not None and world.size * world.model > 1:
             bad = torch.tensor([0.0 if good else 1.0],
                                device=torch.device(world.device))
-            good = float(world.all_reduce_sum(bad)[0]) == 0.0
+            good = float(world.all_reduce_sum(bad, world.every_axis)[0]) \
+                == 0.0
         if good:
             # verify just hashed every leaf: the restore reads without
             # hashing them again
@@ -348,7 +367,7 @@ def train(arch: ArchConfig, run: RunConfig, mesh=None, *, steps: int,
 
     ``ckpt_every > 0`` writes rolling checkpoints (``<base>-<step>.npz``,
     the newest ``ckpt_keep`` kept, each with its sha256 manifest; one
-    payload a rank on a world, ``ckpt.rank_path``) while the policy is
+    payload a process on a world, ``ckpt.rank_path``) while the policy is
     healthy; ``ckpt_path`` also gets the final state.  ``run.resilience``
     (a ``resilience.ResilienceConfig``) switches the loop onto the guarded
     step: skip on non-finite loss or gradients, rollback on a sustained
@@ -372,10 +391,6 @@ def train(arch: ArchConfig, run: RunConfig, mesh=None, *, steps: int,
                               use_pallas=run.use_pallas,
                               wire_codec=run.wire_codec, device=device)
     res = run.resilience
-    if ctx.tp is not None and (res is not None or ckpt_path):
-        raise NotImplementedError(
-            "checkpoints, the guarded step and the replan under a model "
-            "axis above 1 are not ported yet (tensor parallelism part 2)")
     guarded = res is not None
     policy = chaos = None
     if guarded:
@@ -404,7 +419,9 @@ def train(arch: ArchConfig, run: RunConfig, mesh=None, *, steps: int,
                                   global_batch=run.global_batch,
                                   seed=data_seed if data_seed is not None
                                   else run.seed), arch)
-    rank, size = (0, 1) if mesh is None else (mesh.rank, mesh.size)
+    # one checkpoint payload a process: model ranks hold other slices
+    rank, size = ((0, 1) if mesh is None
+                  else (mesh.process_rank, mesh.size * mesh.model))
     micro = run.microbatch if num_microbatches(run) > 1 else 0
     cuda = torch.device(device).type == "cuda"
     losses, history, step_seconds = [], [], []

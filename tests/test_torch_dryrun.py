@@ -327,8 +327,9 @@ def test_production_record_on_the_model_axis():
     a sixteenth of its attention, FFN and table (plus its norms whole),
     logs its model-axis all-reduces, and takes far less memory than on
     the hierarchy alone; Granite's 8 KV heads and odd vocabulary leave
-    attention and the table whole; DeepSeek-V2-Lite (MLA) runs on the
-    hierarchy alone and says why."""
+    attention and the table whole; DeepSeek-V2-Lite (MLA by heads) runs
+    on the 16-wide axis too, and xLSTM-350M, whose 4 heads 16 does not
+    divide, on a model axis of 4, saying why."""
     rec, run = dryrun.lower_one("olmo_1b", "train_4k", "pod1")
     assert rec["tensor_parallel"] == 16 and rec["axis_sizes"] == [16]
     flat, _ = dryrun.lower_one("olmo_1b", "train_4k", "pod1", model=1)
@@ -351,4 +352,7 @@ def test_production_record_on_the_model_axis():
         garch.num_kv_heads * garch.head_dim_
     assert gp["layers"][0]["ffn"]["w_in"].shape[1] == garch.d_ff // 16
     ds, _ = dryrun.lower_one("deepseek_v2_lite_16b", "decode_32k", "pod1")
-    assert ds["tensor_parallel"] == 1 and "MLA" in ds["note"]
+    assert ds["tensor_parallel"] == 16 and ds["note"] == ""
+    xl, _ = dryrun.lower_one("xlstm_350m", "decode_32k", "pod1")
+    assert xl["tensor_parallel"] == 4
+    assert "model axis 16 -> 4" in xl["note"] and "4 heads" in xl["note"]

@@ -341,17 +341,18 @@ def test_serve_launcher_spawns_a_world(capfd):
 
 
 def test_serve_launcher_refuses_a_model_axis(capsys):
-    """``--mesh-shape 2,2`` names a model axis of 2: refused, by the
-    layer's name, for a family whose layers have no tensor-parallel form
-    in the port yet (DeepSeek-V2's MLA); ``tests/
-    test_torch_tensor_parallel.py`` serves gpt3 on that world."""
+    """``--mesh-shape 1,3`` names a model axis of 3, which reduced
+    DeepSeek-V2's 4 MLA heads do not divide: refused before any rank is
+    spawned, by the heads' leaves; ``tests/test_torch_tensor_parallel.py``
+    and ``test_torch_tensor_parallel_families.py`` serve on a model axis
+    of 2."""
     from repro_torch.launch import serve
     with pytest.raises(SystemExit):
         serve.main(["--arch", "deepseek_v2_lite_16b", "--reduced",
-                    "--device", "cpu", "--devices", "4", "--mesh-shape",
-                    "2,2"])
+                    "--device", "cpu", "--devices", "3", "--mesh-shape",
+                    "1,3"])
     err = capsys.readouterr().err
-    assert "model axis 2" in err and "MLA" in err
+    assert "model axis 3" in err and "MLA's 4 heads" in err
 
 
 def test_serving_refuses_slots_that_do_not_divide():

@@ -8,11 +8,16 @@ package's, in one process.
   stacked tree, leaf by leaf.  The meshes are stand-ins with the
   reference mesh's ``axis_names`` and ``shape`` (all the spec code reads),
   so no device is forced.
-- The specs the port shards by (``model.param_specs``) for the configs
-  that run tensor-parallel: equal to the reference's but for the leaves
-  named in ``ATTN`` and ``DENSE_FFN``.
+- The specs the port shards by (``model.param_specs``) for all eleven
+  configs: equal to the reference's but for the leaves named in
+  ``ATTN``, ``DENSE_FFN`` and ``model.MIXER_LAYOUTS``; a model axis that
+  a split width does not divide is refused by name.
+- The port's own layouts pinned by name: Mamba's interleaved ``x`` /
+  ``z`` slice of ``w_in``, sLSTM's four gate stripes, the mLSTM's whole
+  ``xu`` stripe beside its split ``z`` stripe, MLA's whole latent.
 - ``logical_spec``'s divisibility fallback, against the reference's.
-- ``shard_params`` then ``gather_params`` is the identity.
+- ``shard_params`` then ``gather_params`` is the identity, for all
+  eleven configs.
 - The conjugate operations' gradients, on a two-rank model axis emulated
   by two threads, against the unsharded products.
 - The collectives of one decode step on a model axis of 2, counted by a
@@ -38,14 +43,14 @@ from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.models import model, transformer  # noqa: E402
 
 WIDTHS = (2, 16)
-#: the families that run on a model axis above 1 in the port
-TP_IDS = ("gpt3_medium_moe", "olmo_1b", "granite_3_2b", "internlm2_1_8b",
-          "minitron_4b")
+#: every family runs on a model axis above 1 in the port
+TP_IDS = tuple(ARCH_IDS)
 #: leaves the port lays out its own way (``model.param_specs``): attention
 #: by heads (the reference splits columns mid-head), a dense FFN by its
 #: width (the reference's expert rules match its leaves first)
 ATTN = ("mixer/wq", "mixer/wk", "mixer/wv", "mixer/wo")
 DENSE_FFN = ("ffn/w_in", "ffn/w_gate", "ffn/w_out")
+CROSS = ("cross/wq", "cross/wk", "cross/wv", "cross/wo")
 
 
 class _Mesh:
@@ -143,12 +148,21 @@ def test_rule_specs_match_reference(aid, width):
 def test_sharded_specs_match_reference_but_named_leaves(aid, width):
     """``model.param_specs``, the layout the port shards by, against the
     reference's specs: equal everywhere but on the leaves of
-    ``ATTN`` (replicated where the model axis does not divide the query
-    and KV heads, the reference splitting their columns mid-head; by
-    heads where it does) and ``DENSE_FFN`` (a dense FFN by its width:
-    ``w_in``/``w_gate`` columns, ``w_out`` rows)."""
+    ``ATTN`` (self- and cross-attention, replicated where the model axis
+    does not divide the query and KV heads, the reference splitting their
+    columns mid-head; by heads where it does), ``DENSE_FFN`` (a dense FFN
+    by its width: ``w_in``/``w_gate`` columns, ``w_out`` rows) and the
+    other mixers' leaves (``model.MIXER_LAYOUTS``, each as the table
+    names it).  At 16 the reduced MLA and xLSTM models' 4 heads do not
+    divide: ``build_ctx`` refuses them by name."""
     arch = get_config(aid).reduced()
     world = _port_world(width)
+    kinds = {s.mixer for s in transformer.layer_list(arch)}
+    if width > arch.num_heads and kinds & {"mla", "mlstm", "slstm"}:
+        with pytest.raises(ValueError, match="heads"):
+            model.build_ctx(arch, world, seq_len=8, global_batch=1,
+                            device="cpu")
+        return
     ctx = model.build_ctx(arch, world, seq_len=8, global_batch=1,
                           device="cpu")
     tree = model.full_abstract_params(
@@ -158,11 +172,19 @@ def test_sharded_specs_match_reference_but_named_leaves(aid, width):
     heads = arch.num_heads % width == 0 and arch.num_kv_heads % width == 0
     wide = arch.d_ff % width == 0
     flat = dict(sharding._leaves_with_paths(specs))
+    subs = transformer.layer_list(arch)
+    mixed = set()
     for path in flat:
         name = "/".join(path[-2:])
         got = flat[path]
-        if name in ATTN and path[0] == "layers":
-            want = (("model",) if name == "mixer/wo" else (None, "model")) \
+        mixer = subs[int(path[1])].mixer if path[0] == "layers" else ""
+        if mixer in model.MIXER_LAYOUTS and path[2] == "mixer":
+            rest = "/".join(path[3:])
+            assert got == model.MIXER_LAYOUTS[mixer].get(rest, ()), \
+                (path, got)
+            mixed.add("/".join(path))
+        elif name in ATTN + CROSS and path[0] in ("layers", "enc_layers"):
+            want = (("model",) if name.endswith("/wo") else (None, "model")) \
                 if heads else ()
             assert got == want, (path, got)
         elif name in DENSE_FFN and len(path) == 4 and not arch.is_moe:
@@ -170,12 +192,12 @@ def test_sharded_specs_match_reference_but_named_leaves(aid, width):
                 if wide else ()
             assert got == want, (path, got)
     for path in diff:
-        assert "/".join(path.split("/")[-2:]) in ATTN + DENSE_FFN, \
-            (path, diff[path])
+        assert "/".join(path.split("/")[-2:]) in ATTN + CROSS + DENSE_FFN \
+            or path in mixed, (path, diff[path])
     # at 16 the reduced model's 4 heads do not divide: the reference
     # splits them mid-head, the port replicates them
-    if width == 16:
-        assert any(p.endswith("mixer/wq") for p in diff)
+    if width == 16 and "attn" in kinds:
+        assert any(p.endswith("/wq") for p in diff)
 
 
 def test_logical_spec_divisibility_fallback():
@@ -216,11 +238,12 @@ class _PeerWorld:
         return torch.cat(parts, 0)
 
 
-@pytest.mark.parametrize("aid", ("gpt3_medium_moe", "minitron_4b"))
+@pytest.mark.parametrize("aid", ARCH_IDS)
 def test_shard_then_gather_is_identity(aid):
     """``shard_params`` at each model coordinate, then ``gather_params``
     on each: the full tree back, bit for bit; every leaf the specs slice
-    is half as long on its dimension."""
+    holds half of each split stripe of its dimension and all of each
+    whole one."""
     arch = get_config(aid).reduced()
     full_ctx = model.build_ctx(arch, seq_len=8, global_batch=1,
                                device="cpu")
@@ -245,7 +268,10 @@ def test_shard_then_gather_is_identity(aid):
             if dim is None:
                 assert t.shape == f.shape
             else:
-                assert t.shape[dim] * 2 == f.shape[dim]
+                parts = sharding.stripes_of(specs[path])
+                w = f.shape[dim] // len(parts)
+                assert t.shape[dim] == sum(w // 2 if p else w
+                                           for p in parts), path
                 leaves.append(t.movedim(dim, 0).contiguous())
         sliced.append(leaves)
     assert sliced[0], "nothing was sliced"
@@ -256,6 +282,106 @@ def test_shard_then_gather_is_identity(aid):
         for (_, a), (_, b) in zip(sharding._leaves_with_paths(back),
                                   sharding._leaves_with_paths(full)):
             assert torch.equal(a, b)
+
+
+def _rank_slices(aid, **kw):
+    """``(arch, full tree, [rank 0's tree, rank 1's tree])`` of a reduced
+    config on a (data 1, model 2) world."""
+    import dataclasses
+    arch = dataclasses.replace(get_config(aid).reduced(), **kw)
+    full = model.init_params(
+        model.build_ctx(arch, seq_len=8, global_batch=1, device="cpu"),
+        torch.Generator().manual_seed(0), "cpu")
+    trees = []
+    for c in (0, 1):
+        world = mesh.recording_world((1,), model=2)
+        world = type(world)(**{**world.__dict__, "model_coord": c})
+        trees.append(model.shard_params(full, model.build_ctx(
+            arch, world, seq_len=8, global_batch=1, device="cpu")))
+    return arch, full, trees
+
+
+def _halves(t, c, dim=-1):
+    n = t.shape[dim] // 2
+    return t.narrow(dim, c * n, n)
+
+
+def _stripes(t, n, c, dim=-1):
+    """Rank ``c``'s half of each of the ``n`` stripes of ``t``, in order."""
+    return torch.cat([_halves(p, c, dim) for p in t.chunk(n, dim)], dim)
+
+
+@pytest.mark.parametrize("family", ("mamba", "slstm", "mlstm", "mla"))
+def test_port_layouts_pinned_by_name(family):
+    """The layouts the port takes where the reference's rule would not
+    run as one rank's part of the layer, leaf by leaf at each model
+    coordinate ``c`` of 2:
+
+    - Mamba: ``w_in`` [d, 2 di] packs ``x`` and ``z``; a rank takes its
+      half of ``x`` and the matching half of ``z`` (the reference's
+      contiguous split would give rank 0 all of ``x``); the conv, ``w_dt``
+      (columns), ``b_dt``, ``A_log``, ``D`` follow those channels,
+      ``w_x_dbc`` and ``w_out`` split by rows;
+    - sLSTM: ``w_gates`` [d, 4 d] and ``b_gates`` are gate-major, so a
+      rank's heads are four stripes, one a gate; ``r_gates`` by heads,
+      ``ln`` (an RMSNorm over all of d) by channels, ``w_out`` by rows;
+    - mLSTM: ``w_up``'s ``xu`` stripe whole (q, k, v and the gates read
+      all of it), its ``z`` stripe split; ``wq``/``wk``/``wv`` by head
+      columns, ``w_if`` / ``b_if`` the heads' input and forget gates,
+      the per-head ``ln`` whole, ``w_down`` by rows;
+    - MLA: ``w_q``, ``w_uk``, ``w_uv`` on their head axis, ``w_o`` by
+      rows; the latent ``w_dkv``, ``kv_norm``, ``w_kr`` whole."""
+    aid, kw, kind = {
+        "mamba": ("jamba_v0_1_52b", {}, "mamba"),
+        "slstm": ("xlstm_350m", {}, "slstm"),
+        "mlstm": ("xlstm_350m", {}, "mlstm"),
+        "mla": ("deepseek_v2_lite_16b", {}, "mla")}[family]
+    arch, full, trees = _rank_slices(aid, **kw)
+    i = [s.mixer for s in transformer.layer_list(arch)].index(kind)
+    f = full["layers"][i]["mixer"]
+    for c in (0, 1):
+        p = trees[c]["layers"][i]["mixer"]
+        if family == "mamba":
+            want = {"w_in": _stripes(f["w_in"], 2, c),
+                    "conv_w": _halves(f["conv_w"], c),
+                    "conv_b": _halves(f["conv_b"], c),
+                    "w_x_dbc": _halves(f["w_x_dbc"], c, 0),
+                    "w_dt": _halves(f["w_dt"], c),
+                    "b_dt": _halves(f["b_dt"], c),
+                    "A_log": _halves(f["A_log"], c, 0),
+                    "D": _halves(f["D"], c),
+                    "w_out": _halves(f["w_out"], c, 0)}
+            di = f["w_in"].shape[1] // 2
+            assert torch.equal(p["w_in"][:, di // 2:],
+                               f["w_in"][:, di + c * di // 2:
+                                         di + (c + 1) * di // 2])
+        elif family == "slstm":
+            want = {"w_gates": _stripes(f["w_gates"], 4, c),
+                    "b_gates": _stripes(f["b_gates"], 4, c),
+                    "r_gates": _halves(f["r_gates"], c, 0),
+                    "w_out": _halves(f["w_out"], c, 0)}
+            assert torch.equal(p["ln"]["scale"],
+                               _halves(f["ln"]["scale"], c))
+        elif family == "mlstm":
+            di = f["wq"].shape[0]
+            want = {"w_up": torch.cat([f["w_up"][:, :di],
+                                       _halves(f["w_up"][:, di:], c)], 1),
+                    "wq": _halves(f["wq"], c), "wk": _halves(f["wk"], c),
+                    "wv": _halves(f["wv"], c),
+                    "w_if": _stripes(f["w_if"], 2, c),
+                    "b_if": _stripes(f["b_if"], 2, c),
+                    "w_down": _halves(f["w_down"], c, 0)}
+            assert torch.equal(p["ln"]["scale"], f["ln"]["scale"])
+        else:
+            want = {"w_q": _halves(f["w_q"], c, 1),
+                    "w_uk": _halves(f["w_uk"], c, 1),
+                    "w_uv": _halves(f["w_uv"], c, 1),
+                    "w_o": _halves(f["w_o"], c, 0),
+                    "w_dkv": f["w_dkv"], "w_kr": f["w_kr"]}
+            assert torch.equal(p["kv_norm"]["scale"],
+                               f["kv_norm"]["scale"])
+        for name, w in want.items():
+            assert torch.equal(p[name], w), (family, name, c)
 
 
 class _ThreadWorld:

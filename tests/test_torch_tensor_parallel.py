@@ -341,8 +341,9 @@ def test_greedy_tokens_exact(runs):
 def test_launchers_take_a_model_axis(capfd):
     """``launch/serve.py`` and ``launch/train.py`` with ``--mesh-shape
     2,2``: four gloo ranks (data 2 x model 2) serve the streams and take
-    the steps, process 0 reports; a family outside the slice is refused
-    by its layer's name."""
+    the steps, process 0 reports; a model axis that a split width does
+    not divide (reduced Jamba's Mamba inner dim 512 over 3) is refused by
+    that width's name."""
     from repro_torch.launch import serve, train
     assert serve.main(["--arch", "gpt3_medium_moe", "--reduced", "--device",
                        "cpu", "--mesh-shape", "2,2", "--batch", "4",
@@ -357,5 +358,5 @@ def test_launchers_take_a_model_axis(capfd):
     assert "done: 2 steps on 4 rank(s)" in out
     with pytest.raises(SystemExit):
         train.main(["--arch", "jamba_v0_1_52b", "--reduced", "--device",
-                    "cpu", "--mesh-shape", "1,2"])
+                    "cpu", "--mesh-shape", "1,3"])
     assert "Mamba" in capfd.readouterr().err

@@ -479,8 +479,8 @@ def test_train_launcher_runs_on_cpu(capsys, tmp_path):
     """``launch/train.py`` on one rank with accumulation, remat and a
     final checkpoint, as ``test_torch_serving.py::test_launcher_runs_on_cpu``
     drives the serve launcher; the reference's TPU meshes, a world the
-    devices do not fill and a checkpoint on a tensor-parallel model axis
-    are refused."""
+    devices do not fill and a model axis that the expert width does not
+    divide are refused before any rank is spawned."""
     from repro_torch.checkpoint import ckpt
     from repro_torch.launch import train
     path = str(tmp_path / "run.npz")
@@ -493,7 +493,7 @@ def test_train_launcher_runs_on_cpu(capsys, tmp_path):
     assert out.count("step ") == 3
     assert ckpt.verify(path) and ckpt.latest_step(path) == 3
     for bad in (["--production"], ["--multi-pod"],
-                ["--mesh-shape", "2,2", "--ckpt", path], ["--devices", "2"]):
+                ["--mesh-shape", "1,3", "--ckpt", path], ["--devices", "2"]):
         with pytest.raises(SystemExit):
             train.main(["--arch", "gpt3_medium_moe", "--device", "cpu"]
                        + bad)
