@@ -100,7 +100,10 @@ Phases, each printing JSON lines:
    step;
 7. serve_2x2 — the same model (depth cut to WORLD_LAYERS, 2, for the
    time limit: see the constant) and request mix on a (pod x data) = (2, 2)
-   EP world of four spawned ranks sharing the card over gloo, each with
+   EP world of four spawned ranks sharing the card over gloo (one spawn,
+   ``world_session``, runs every 2x2 phase in turn: serve_2x2,
+   train_2x2 and train_2x2_pipelined, train_2x2_replan, and 23.'s
+   serving and training; each job's tensors freed before the next), each with
    its 16 experts a layer, 2 of the 8 slots and one row of each pack of
    4; every MoE layer through the gather path.  Every rank must launch
    K4 once per MoE layer of every prefill pack and decode step, K5 once
@@ -128,14 +131,17 @@ Phases, each printing JSON lines:
    K2 (``spare_row_backwards``), reporting the device time inside each
    profiler range of ``PROFILED_RANGES`` (the backwards; on the pipelined
    phase K7's forward and its weight quantization too);
-10. train_2x2_pipelined — the same world through ``dispatch=
-   "a2a_pipelined"`` with the int8 wire codec and the overlap model's
-   chunk count (8), 2 steps, depth WORLD_LAYERS (2): every rank must
+10. train_2x2_pipelined — the same world (train_2x2's processes, a
+   second run from the same draw: ``train_rank``'s ``then``) through
+   ``dispatch="a2a_pipelined"`` with the int8 wire codec and the overlap
+   model's chunk count (8), 2 steps, depth WORLD_LAYERS (2): every rank must
    launch K1, K2 and K7 32 times each (2 layers x 8 chunks x 2 steps) and
    K3 and K4 never, and
    the first step's loss must agree with the plain path's within
    LOSS_RTOL_INT8;
-11. train_einsum_k6 — in a child process, full-width gpt3_medium_moe on
+11. train_einsum_k6 — in train_1rank's child process (``train_chain``:
+   one process start for the three one-rank gpt3 runs), full-width
+   gpt3_medium_moe on
    one rank through the paper's einsum baseline (``dispatch="einsum"``,
    ``aux_mode="lb"``, ``build_ctx(use_moe_kernel=True)``, capacity 128)
    with ``trainer.make_train_step``: seq 512, batch 4, AdamW, 3 steps,
@@ -143,7 +149,8 @@ Phases, each printing JSON lines:
    times), and the first
    step's loss must agree with the plain path's (``REPRO_TORCH_KERNELS=0``:
    ``grouped_ffn_ref``) on the same weights and batch;
-12. train_1rank_accum_remat — in a child process, ``trainer.train`` of
+12. train_1rank_accum_remat — in train_1rank's child process too,
+   ``trainer.train`` of
    full-width gpt3_medium_moe on one rank with batch 8 accumulated over 2
    microbatches of 4 and ``remat=True`` (every layer recomputed in the
    backward), 3 steps, depth CUT_LAYERS: K4 must launch 6 x 2 x 2 x 3 =
@@ -152,11 +159,13 @@ Phases, each printing JSON lines:
    plain path's; with remat and without, one microbatch's forward reads
    the device memory it holds for the backward and one more step reads
    the peak device memory (``remat_memory``);
-13. train_resilient — in a child process (``resilient_phase``): a
+13. train_resilient — in train_1rank's child process too
+   (``resilient_phase``): a
    1-layer full-width model under chaos with rolling checkpoints (a
    skipped NaN step, a spike rolled back past a corrupted checkpoint to
-   the one before, the restored tensors bit-equal to it; save, verify
-   and the rollback's restore timed), then depth CUT_LAYERS guarded
+   the one before, the restored tensors bit-equal to it; the run's own
+   saves, the rollback's verify and restore timed where the trainer
+   makes them), then depth CUT_LAYERS guarded
    against unguarded on the same weights (losses within LOSS_RTOL, steady
    step walls);
 14. train_2x2_replan — the 2x2 world at full width and depth 2 with the
@@ -207,19 +216,21 @@ Phases, each printing JSON lines:
    d_state 16, dt_rank 256) in 7 of each 8 layers and GQA attention (32
    heads, 8 KV, head dim 128) in the fifth, 16 experts top-2 of f 14336
    (swiglu) in every second layer and a dense FFN of f 14336 in the
-   others, vocab 65536, depth cut 32 -> 8 (one whole group; 13.0 B bf16
-   parameters from seed 0; the 32 layers, 103 GB, do not fit the card,
-   and 16 outgrew the time limit).
-   ``init_jamba_d8``; ``checks_jamba`` (``checks_wide`` on layer 1: K4
+   others, vocab 65536, depth cut 32 -> 4 (``cut_depth``: its group of 8
+   cut to a Mamba layer with a dense FFN, one with the MoE FFN, again,
+   then attention with the MoE FFN; bf16 parameters from seed 0; the 32
+   layers, 103 GB, do not fit the card, and 16, then 8, outgrew the time
+   limit).
+   ``init_jamba_d4``; ``checks_jamba`` (``checks_wide`` on layer 1: K4
    at the decode (8 slots) and prefill-scan step (4 rows) gather layouts
    and the one-rank forward layout (seq 512 x batch 2, 160 slots an
    expert), K1-K3 at the 2x2 plan's rank 0 (4 experts a rank), K7 at
-   pipelined chunk 0); ``serve_jamba_d8``: the kernel path's and the
+   pipelined chunk 0); ``serve_jamba_d4``: the kernel path's and the
    bf16 plain path's logits, then the serve mix prefilled by scanning
-   decode steps as the reference prefills recurrent models: K4 exactly 4
+   decode steps as the reference prefills recurrent models: K4 exactly 2
    x (scan steps + decode steps), K5 and every other kernel never;
-   ``e2e_jamba_d8``: the float32 verdict on those logits, the float32
-   run casting one layer at a time; ``loss_jamba_d8``: one forward and
+   ``e2e_jamba_d4``: the float32 verdict on those logits, the float32
+   run casting one layer at a time; ``loss_jamba_d4``: one forward and
    loss through ``loss_fn`` on the one-rank ``a2a`` path (seq 512, batch
    2, no backward), K4 once a MoE layer, within LOSS_RTOL of the plain
    path's;
@@ -285,9 +296,16 @@ Phases, each printing JSON lines:
    the first-step loss within LOSS_RTOL of the one-rank plain path's,
    a sliced and two replicated leaves' gradients (gathered) within the
    bf16 backward tolerances of the one-rank plain path's, the ranks'
-   losses and picks equal; step walls, busy share, peak memory;
+   losses and picks equal; step walls, busy share, peak memory; then
+   one step of the einsum baseline with ``use_moe_kernel``
+   (``aux_mode="lb"``): K6 once a layer at a model rank's f 1024 (its
+   [64, 128, 1024] buffer checked in ``checks_tp2``), the first-step
+   loss within LOSS_RTOL of the one-rank plain einsum path's;
 22. tensor parallelism on an EP x TP world and on the other families
-   (``ep_tp_family_phases``).  ``checks_ep_tp``:
+   (in ``tp_phases`` too: the (data 1, model 2) world is spawned once
+   for serve_tp2, train_tp2 and serve_tp2_families, ``world_session``,
+   after the main process has built all their references).
+   ``checks_ep_tp``:
    K1, K2, K3 and K7 at rank 0's layouts of a (data 2, model 2) EP x TP
    world (32 experts a rank, each at f 1024: the a2a plan's S = 8192
    and the pipelined int8 plan's chunk 0, S = 1024) against their plain
@@ -312,26 +330,56 @@ Phases, each printing JSON lines:
    E2E_RATIO times the one-rank bf16 plain runs' error, request by
    request (the median of the draws' rows), launches exact, the ranks'
    picks and greedy tokens equal, parameter bytes a rank;
-23. kernels — one ``{"kernels": [...]}`` line for K1-K8, launches
+23. the repo's other two MoE models on the paper's 2x2 EP world: their
+   one-rank references and checks (``ep_family_references``) in the main
+   process after the serve phase's weights are freed, their serving and
+   training as jobs of the 2x2 world's session (``ep_family_jobs``,
+   after train_2x2_replan; ``ep_family_results`` reads them):
+   DeepSeek-V2-Lite at depth 3 (the dense first layer and two MoE
+   layers; 16 routed experts of f 1408 a rank, top-6, 2 shared, MLA)
+   and Jamba at depth 2 (``cut_depth``; 4 experts of f 14336 a rank).
+   ``checks_dsv2_2x2``: K4 at both models' gather layouts of the 2x2
+   serving world (rank 0's experts over 8 gathered decode slots, and a
+   gathered prefill pack of 4 x 128 or a scan step of 4 rows), and K1,
+   K2 (top-6), K3 (swiglu) at DeepSeek-V2-Lite's staged buffer of
+   train_dsv2_2x2 (batch DSV2_22_BATCH: 512 tokens a rank, caps (112,
+   16)) and K7 (swiglu) at chunk 0 of its int8 pipelined plan, each
+   equal to ``kernels/layouts.py``'s registered layout, against its
+   plain version, timed; each model's one-rank bf16 and float32 plain
+   runs of TP_FAMILY_DRAWS draws of the E2E rows.  ``serve_dsv2_2x2``
+   and ``serve_jamba_2x2`` (one spawn of four ranks, ``serve_rank`` a
+   model): the kernel path's median request within E2E_RATIO of the
+   one-rank bf16 run's (``e2e_row_verdict``), EP_FAMILY_REQUESTS of
+   the serve mix through ``ServingEngine.run``, every MoE layer through
+   the gather path (K4 once a MoE layer of every pack, scan step and
+   decode step; K5 never: MLA attends in plain PyTorch, Jamba prefills
+   by scan), the ranks' streams equal; tokens/s, prefill and decode
+   step times.  ``train_dsv2_2x2``: DSV2_22_STEPS steps through a2a
+   (K1, K3, K2 once a MoE layer a step) and DSV2_22_INT8_STEPS through
+   a2a_pipelined over the int8 wire (K1, K7, K2 once a MoE layer a
+   chunk), each first-step loss within LOSS_RTOL (LOSS_RTOL_INT8) of the
+   plain path's, peak memory a rank;
+24. kernels — one ``{"kernels": [...]}`` line for K1-K8, launches
    summed over the main paths (serve, every rank of serve_2x2,
    train_1rank and its fused cross entropy step, every rank of
    train_2x2 and train_2x2_pipelined, train_einsum_k6,
    train_1rank_accum_remat, train_resilient, every rank of
    train_2x2_replan, train_2x2x2 and train_dp, serve_dsv2_lite,
-   train_dsv2_lite_d4, serve_jamba_d8, loss_jamba_d8, the four dense
+   train_dsv2_lite_d4, serve_jamba_d4, loss_jamba_d4, the four dense
    ``serve_<config>``, train_internlm2, the three families'
    ``serve_<config>``, every rank of serve_tp2 (gpt3 and Minitron),
-   train_tp2, train_ep_tp (a2a and pipelined) and each family's
-   serve_tp2_<config>), with DeepSeek-V2-Lite's and Jamba's readings
-   beside each of K1-K4 and K7, the hd-128 readings beside K5's and
-   K8's, the families' shapes beside K5's, the tensor-parallel layouts
-   beside K4's and K5's, and the EP x TP layouts beside K1, K2, K3 and
-   K7's.  K8 lies on no
-   path (no model calls it, as in the reference): its row gives the
-   launches of its checks as ``check_launches``.
+   train_tp2 and its einsum step, train_ep_tp (a2a and pipelined),
+   each family's serve_tp2_<config>, serve_dsv2_2x2, serve_jamba_2x2
+   and train_dsv2_2x2 (a2a and pipelined)), with DeepSeek-V2-Lite's
+   and Jamba's readings beside each of K1-K4 and K7 (one rank's and the
+   2x2 world's), the hd-128 readings beside K5's and K8's, the
+   families' shapes beside K5's, the tensor-parallel layouts beside
+   K4's, K5's and K6's, and the EP x TP layouts beside K1, K2, K3 and
+   K7's.  K8 lies on no path (no model calls it, as in the reference):
+   its row gives the launches of its checks as ``check_launches``.
 
-Every earlier phase must show no launch of K6 and K8, and no training
-phase's plain run may launch any kernel.
+Every phase but the einsum steps must show no launch of K6, and every
+phase none of K8; no training phase's plain run may launch any kernel.
 Any failed phase raises (exit code non-zero).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -505,12 +553,13 @@ DSV2_ID, DSV2_MOE_LAYER, DSV2_CUT_LAYERS = "deepseek_v2_lite_16b", 1, 4
 # 128, Mamba (d_inner 8192, d_state 16, dt_rank 256) in 7 layers of each
 # group of 8 and attention in the fifth, 16 experts top-2 of f 14336
 # (swiglu) in every second layer and a dense FFN of f 14336 in the others,
-# vocab 65536.  Depth cut 32 -> 8 (one whole group, attention at 4; 13.0
-# B parameters): the 32 layers are 51.3 B parameters, 103 GB in bf16,
-# more than the card holds, and 16 (25.8 B) outgrew the time limit.  The checks take layer 1's weights (the
-# first MoE layer); loss_jamba_d8 runs one forward at seq 512, batch 2
-# (1024 tokens, 160 slots an expert at capacity 1.25)
-JAMBA_ID, JAMBA_LAYERS, JAMBA_MOE_LAYER = "jamba_v0_1_52b", 8, 1
+# vocab 65536.  Depth cut 32 -> 4 (``cut_depth``: the group of 8 cut to
+# 4 with each kind of layer kept, attention last): the 32 layers are 51.3
+# B parameters, 103 GB in bf16, more than the card holds, and 16 (25.8
+# B), then 8 (13.0 B), outgrew the time limit.  The checks take layer 1's
+# weights (the first MoE layer); loss_jamba_d4 runs one forward at seq
+# 512, batch 2 (1024 tokens, 160 slots an expert at capacity 1.25)
+JAMBA_ID, JAMBA_LAYERS, JAMBA_MOE_LAYER = "jamba_v0_1_52b", 4, 1
 JAMBA_LOSS_BATCH = 2
 # the dense decoders at full width and full depth, one rank each, after
 # Jamba's weights are freed (bf16 parameters from seed 0: OLMo-1B 1.18 B,
@@ -583,7 +632,28 @@ EP_TP_STEPS, EP_TP_PIPELINED_STEPS = 2, 1
 TP_FAMILY_STEPS, TP_FAMILY_DRAWS = 4, 3
 TP_FAMILIES = (("deepseek_v2_lite_16b", 4), ("jamba_v0_1_52b", 2),
                ("xlstm_350m", 2), ("whisper_tiny", 2), ("internvl2_26b", 2))
-# kernels no earlier phase may launch: K6 runs only on the einsum phase, K8
+# the repo's other two MoE models on the paper's 2x2 EP world (pod x
+# data; four gloo ranks sharing the card, each with a quarter of the
+# experts), after every other model's weights are freed: DeepSeek-V2-Lite
+# at depth 3 (its dense first layer and two MoE layers of 16 experts of f
+# 1408 a rank, top-6, 2 shared: one staged layer feeds another) and
+# Jamba at depth 2 (``cut_depth``: a Mamba layer with a dense FFN, then
+# attention with the MoE FFN, 4 experts of f 14336 a rank).
+# checks_dsv2_2x2: the kernels at rank 0's layouts (the layouts of
+# ``kernels/layouts.py``'s ``dsv2_staged``); serve_dsv2_2x2 and
+# serve_jamba_2x2: ServingEngine.run of EP_FAMILY_REQUESTS of the serve
+# mix (one pack of 4: 1.56 B parameters a rank for Jamba, 3.1 GB), every
+# MoE layer through gather, held by ``e2e_row_verdict`` to the one-rank
+# runs of TP_FAMILY_DRAWS draws of the E2E rows; train_dsv2_2x2:
+# DSV2_22_STEPS steps through a2a, then in the same processes
+# DSV2_22_INT8_STEPS through a2a_pipelined over the int8 wire, at global
+# batch DSV2_22_BATCH (512 tokens a rank; about 0.84 B parameters and 10
+# GB of state a rank).  Jamba does not train on the card's world: with
+# its gradients and AdamW moments it would hold about 19 GB a rank
+EP_FAMILIES = ((DSV2_ID, 3), (JAMBA_ID, 2))
+EP_FAMILY_REQUESTS = 4
+DSV2_22_BATCH, DSV2_22_STEPS, DSV2_22_INT8_STEPS = 4, 2, 1
+# kernels no earlier phase may launch: K6 runs only on the einsum phases, K8
 # on no path
 OFF_PATH = ("moe_gemm.grouped_ffn", "decode_attn.decode_attention")
 # the profiler ranges whose device time a profiled training step reports:
@@ -1873,6 +1943,7 @@ def train_phase(world, out_path: str, global_batch: int,
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.time()
     arch = get_config(arch_id)
     if layers:
         import dataclasses
@@ -1970,9 +2041,28 @@ def train_phase(world, out_path: str, global_batch: int,
         "profiled_step_spare_row_backwards": spare_profiled,
         "microbatch": microbatch, "remat": remat, "step_memory": memory,
         "layers": arch.num_layers, "fused_xent": xent,
-        "experts_sha256": experts_sha256, "state_bytes": held}
+        "experts_sha256": experts_sha256, "state_bytes": held,
+        "run_seconds": time.time() - t_start}
     with open(out_path, "w") as fh:
         json.dump(report, fh)
+
+
+def train_chain(runs, then: tuple = ()) -> None:
+    """One child process for several one-rank ``train_phase`` runs in
+    turn, ``(out_path, global_batch, args, kwargs)`` each, then each of
+    ``then``'s ``(name, args)``: this module's ``name(*args)`` (a phase
+    that writes its own report).  The process start and CUDA context of
+    the first serve the rest (10-15 s each); each run's tensors are freed
+    before the next starts."""
+    import torch
+    for out_path, global_batch, args, kwargs in runs:
+        train_phase(None, out_path, global_batch, *args, **kwargs)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name, args in then:
+        globals()[name](*args)
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def expert_digest(torch, params, ctx) -> str:
@@ -2209,9 +2299,12 @@ def resilient_phase(out_path: str) -> None:
        spike must be rolled back at the last step to the newest
        checkpoint that verifies: the newest (step 5) is corrupted, so the
        step-3 one, whose tensors the returned state must equal bit for
-       bit.  Then ``ckpt.save``, ``verify`` and ``restore_into``
-       (``check_hashes=False``, as the rollback calls it after ``verify``)
-       are timed once each on the final state (bytes and seconds).
+       bit.  The run's own ``ckpt.save``, ``verify`` and
+       ``restore_into`` calls are timed where the trainer makes them
+       (``timed_ckpt_calls``): the saves' mean, and the rollback's
+       ``verify`` of the step-3 checkpoint (which must pass) and its
+       ``restore_into`` (``check_hashes=False``: the verify hashed every
+       leaf), with the checkpoint's bytes.
     2. Depth CUT_LAYERS: the unguarded and the guarded loop (no chaos) on
        the
        same initial weights, in turns (unguarded, guarded, guarded,
@@ -2231,6 +2324,7 @@ def resilient_phase(out_path: str) -> None:
     from repro_torch.training import trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.time()
     full = get_config(ARCH_ID)
     arch = dataclasses.replace(full, num_layers=1)
     base = dict(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH_1,
@@ -2244,10 +2338,11 @@ def resilient_phase(out_path: str) -> None:
         ck = os.path.join(tmp, "ck.npz")
         backend.reset_launches()
         t0 = time.perf_counter()
-        r = trainer.train(arch, RunConfig(resilience=res, **base), None,
-                          steps=RESILIENT_STEPS, log_every=1, verbose=True,
-                          ckpt_path=ck, ckpt_every=2, ckpt_keep=2,
-                          device="cuda")
+        with timed_ckpt_calls(ckpt) as calls:
+            r = trainer.train(arch, RunConfig(resilience=res, **base), None,
+                              steps=RESILIENT_STEPS, log_every=1,
+                              verbose=True, ckpt_path=ck, ckpt_every=2,
+                              ckpt_keep=2, device="cuda")
         run_s = time.perf_counter() - t0
         launches = dict(backend.LAUNCHES)
         if (r.skipped_steps, r.rollbacks) != (1, 1):
@@ -2259,7 +2354,9 @@ def resilient_phase(out_path: str) -> None:
             raise SystemExit("train_resilient: the corrupted step-5 "
                              "checkpoint verifies")
         state = {"params": r.params, "opt": r.opt_state}
-        good = ckpt.restore(os.path.join(tmp, "ck-000003.npz"), state)
+        step3 = os.path.join(tmp, "ck-000003.npz")
+        # the rollback's verify of the step-3 checkpoint hashed every leaf
+        good = ckpt.restore(step3, state, check_hashes=False)
         live = adamw.tree_leaves([state["params"], state["opt"]["mu"],
                                   state["opt"]["nu"]])
         saved = adamw.tree_leaves([good["params"], good["opt"]["mu"],
@@ -2270,23 +2367,20 @@ def resilient_phase(out_path: str) -> None:
             raise SystemExit(f"train_resilient: {unequal} restored tensors "
                              f"differ from the step-3 checkpoint")
         del good, saved
-        torch.cuda.synchronize()
-        timed = os.path.join(tmp, "timed.npz")
-        t0 = time.perf_counter()
-        ckpt.save(timed, state, step=RESILIENT_STEPS)
-        save_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        ok = ckpt.verify(timed)
-        verify_s = time.perf_counter() - t0
-        # as the rollback restores: verify hashed every leaf already
-        t0 = time.perf_counter()
-        ckpt.restore_into(timed, state, check_hashes=False)
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
-        nbytes = os.path.getsize(timed)
-        if not ok:
-            raise SystemExit("train_resilient: a fresh checkpoint does not "
-                             "verify")
+        saves = [c for c in calls if c["call"] == "save"]
+        verifies = {os.path.basename(c["path"]): c for c in calls
+                    if c["call"] == "verify"}
+        restores = [c for c in calls if c["call"] == "restore_into"]
+        rollback_verify = verifies.get("ck-000003.npz")
+        if rollback_verify is None or not rollback_verify["result"] \
+                or len(restores) != 1:
+            raise SystemExit(f"train_resilient: the rollback's verify of the "
+                             f"step-3 checkpoint did not pass, or it "
+                             f"restored {len(restores)} times: {calls}")
+        save_s = sum(c["seconds"] for c in saves) / len(saves)
+        verify_s = rollback_verify["seconds"]
+        restore_s = restores[0]["seconds"]
+        nbytes = os.path.getsize(step3)
         hist = r.metrics_history
         report["chaos"] = {
             "layers": 1, "params": sum(t.numel() for t in
@@ -2298,7 +2392,10 @@ def resilient_phase(out_path: str) -> None:
             "launches": launches, "run_s": run_s,
             "step_wall_s": r.step_seconds,
             "checkpoint_bytes": nbytes, "save_s": save_s,
-            "verify_s": verify_s, "restore_s": restore_s,
+            "saves": len(saves), "verify_s": verify_s,
+            "restore_s": restore_s, "ckpt_calls": [
+                {k: v for k, v in c.items() if k != "path"}
+                | {"file": os.path.basename(c["path"])} for c in calls],
             "restore_check_hashes": False,
             "rollback_s": verify_s + restore_s,
             "save_gb_per_s": nbytes / 1e9 / save_s,
@@ -2347,8 +2444,44 @@ def resilient_phase(out_path: str) -> None:
         "launches": guard_launches}
     report["launches"] = {k: report["chaos"]["launches"][k]
                           + guard_launches[k] for k in guard_launches}
+    report["run_seconds"] = time.time() - t_start
     with open(out_path, "w") as fh:
         json.dump(report, fh)
+
+
+class timed_ckpt_calls:
+    """Within the block, every call of ``ckpt``'s ``save``, ``verify``
+    and ``restore_into`` (module attributes, which the trainer reads at
+    each call) is timed on the host clock, the card synchronized after,
+    and logged as ``{"call", "path", "seconds", "result"}`` (the verify's
+    verdict); the functions are restored after."""
+
+    NAMES = ("save", "verify", "restore_into")
+
+    def __init__(self, ckpt):
+        self.ckpt, self.calls, self.orig = ckpt, [], {}
+
+    def __enter__(self):
+        import torch
+        for name in self.NAMES:
+            fn = self.orig[name] = getattr(self.ckpt, name)
+
+            def timed(path, *a, _fn=fn, _name=name, **kw):
+                t0 = time.perf_counter()
+                out = _fn(path, *a, **kw)
+                torch.cuda.synchronize()
+                self.calls.append({
+                    "call": _name, "path": path,
+                    "seconds": time.perf_counter() - t0,
+                    "result": out if _name == "verify" else None})
+                return out
+            setattr(self.ckpt, name, timed)
+        return self.calls
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.ckpt, name, fn)
+        return False
 
 
 def replan_rank(world, out_dir: str) -> None:
@@ -2378,6 +2511,7 @@ def replan_rank(world, out_dir: str) -> None:
     from repro_torch.training import trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.time()
     arch = dataclasses.replace(get_config(ARCH_ID), num_layers=REPLAN_LAYERS)
     res = ResilienceConfig(chaos=ChaosConfig(**REPLAN_CHAOS),
                            **REPLAN_RESILIENCE)
@@ -2448,7 +2582,7 @@ def replan_rank(world, out_dir: str) -> None:
                    "gb_per_s": 1e-9 / li.beta, "nbytes": list(li.nbytes),
                    "times_s": list(li.times)}
                   for ax, li in links.items()},
-        "log": log.getvalue()}
+        "log": log.getvalue(), "run_seconds": time.time() - t_start}
     with open(os.path.join(out_dir, f"replan{world.rank}.json"), "w") as fh:
         json.dump(report, fh)
 
@@ -2456,10 +2590,24 @@ def replan_rank(world, out_dir: str) -> None:
 def train_rank(world, out_dir: str, global_batch: int, dispatch: str = "a2a",
                wire_codec: str = "", steps: int = TRAIN_STEPS,
                layers: int = 0, spare_row: bool = False,
-               hash_experts: bool = False) -> None:
-    train_phase(world, os.path.join(out_dir, f"rank{world.rank}.json"),
+               hash_experts: bool = False, arch_id: str = ARCH_ID,
+               then: tuple = (), tag: str = "rank") -> None:
+    """One rank of a training world: ``train_phase`` of ``arch_id``
+    (``<tag><rank>.json``), then in the same processes each run of
+    ``then``, ``(tag, dispatch, wire_codec, steps)`` from the same
+    initial weights (``<tag><rank>.json``): a world's second run costs
+    no second spawn."""
+    import torch
+    train_phase(world, os.path.join(out_dir, f"{tag}{world.rank}.json"),
                 global_batch, dispatch, wire_codec, steps, layers=layers,
-                spare_row=spare_row, hash_experts=hash_experts)
+                spare_row=spare_row, hash_experts=hash_experts,
+                arch_id=arch_id)
+    for tag, disp, codec, n in then:
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_phase(world, os.path.join(out_dir, f"{tag}{world.rank}.json"),
+                    global_batch, disp, codec, n, layers=layers,
+                    hash_experts=hash_experts, arch_id=arch_id)
 
 
 def check_training(reports, want: dict, label: str,
@@ -3131,54 +3279,79 @@ def analysis_phase(torch, params, ctx, out_dir: str) -> dict:
             "generate_tokens": plain.tokens.shape[1]}
 
 
-def serve_rank(world, out_dir: str) -> None:
-    """One rank of serve_2x2: full-width gpt3_medium_moe from seed 0 at
-    depth WORLD_LAYERS (the first layers of the 12-layer model's draw; this
-    rank's 16 experts a layer), ``ServeConfig`` as the serve phase's, the
-    batch sharded over the world and every MoE layer through the gather
-    path.  First the end-to-end check: the kernel path's logits for
-    E2E_ROWS prompts (one a rank, gathered) against the one-rank float32
-    and bf16 plain runs the main process saved (``e2e_reference.pt``);
-    then a warm-up request, then the serve phase's 8 requests with the
-    launch counters set to 0 just before and read just after, then the
-    prefill pack's and decode step's times on this rank.  Writes
-    ``serve<rank>.json``."""
+def serve_rank(world, out_dir: str, arch_id: str = ARCH_ID,
+               layers: int = WORLD_LAYERS,
+               requests: int = NUM_REQUESTS) -> None:
+    """One rank of a serving world (serve_2x2, serve_dsv2_2x2,
+    serve_jamba_2x2): full-width ``arch_id`` from seed 0 at depth
+    ``layers`` (``cut_depth``: the first layers of the full model's draw
+    for gpt3_medium_moe and DeepSeek-V2-Lite; Jamba's group cut to a
+    Mamba layer with a dense FFN, then attention with the MoE FFN; this
+    rank's quarter of the experts a layer), ``ServeConfig`` as the serve
+    phase's, the batch sharded over the world and every MoE layer through
+    the gather path.  First the end-to-end check: the kernel path's
+    logits against the one-rank float32 and bf16 plain runs the main
+    process saved, for gpt3_medium_moe E2E_ROWS prompts (one a rank,
+    gathered) by ``e2e_verdict`` (``e2e_reference.pt``), for the other
+    families TP_FAMILY_DRAWS draws of them by ``e2e_row_verdict``
+    (``e2e_<config>.pt``); then a warm-up request, then ``requests`` of
+    the serve phase's mix with the launch counters set to 0 just before
+    and read just after, then the prefill pack's and decode step's times
+    on this rank (a model that prefills by scan: ``profile_steps``'s
+    ``scan``).  Writes ``serve<rank>.json`` (gpt3_medium_moe) or
+    ``serve_<config><rank>.json``."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import backend
+    from repro_torch.models import decode
     from repro_torch.models import model as model_lib
     from repro_torch.serving import engine
 
-    import dataclasses
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    arch = dataclasses.replace(get_config(ARCH_ID), num_layers=WORLD_LAYERS)
+    t_start = time.time()
+    arch = cut_depth(get_config(arch_id), layers)
     ctx = model_lib.build_ctx(arch, world, device="cuda", use_flash=True,
                               aux_mode="none", seq_len=CACHE_LEN,
                               global_batch=NUM_SLOTS)
     params = model_lib.init_params(
         ctx, torch.Generator(device="cuda").manual_seed(0))
-    ref = torch.load(os.path.join(out_dir, "e2e_reference.pt"))
     with torch.no_grad():
-        got = e2e_logits(torch, params, ctx, ref["prompt"].cuda(), world)
-    e2e = e2e_verdict(torch, got, ref["plain_f32"].cuda(),
-                      ref["plain_bf16"].cuda(), "serve_2x2 end to end")
-    del got, ref
+        if arch_id == ARCH_ID:
+            ref = torch.load(os.path.join(out_dir, "e2e_reference.pt"))
+            got = e2e_logits(torch, params, ctx, ref["prompt"].cuda(), world)
+            e2e = e2e_verdict(torch, got, ref["plain_f32"].cuda(),
+                              ref["plain_bf16"].cuda(),
+                              "serve_2x2 end to end")
+        else:
+            draws = torch.load(os.path.join(out_dir, f"e2e_{arch_id}.pt"))
+            got = torch.cat([e2e_logits(torch, params, ctx,
+                                        d["prompt"].cuda(), world)
+                             for d in draws], dim=1)
+            e2e = e2e_row_verdict(
+                torch, got,
+                torch.cat([d["plain_f32"] for d in draws], 1).cuda(),
+                torch.cat([d["plain_bf16"] for d in draws], 1).cuda(),
+                f"serve_{arch_id} 2x2 end to end")
+            e2e["greedy"] = got.argmax(-1).t().tolist()
+    del got
     eng = engine.ServingEngine(params, ctx, engine.ServeConfig(
         num_slots=NUM_SLOTS, cache_len=CACHE_LEN, prefill_pack=PACK,
         prompt_buckets=(BUCKET,)))
     rng = np.random.default_rng(0)
     eng.run(serve_requests(rng, arch.vocab_size, 1))          # warm-up
-    reqs = serve_requests(rng, arch.vocab_size, NUM_REQUESTS)
+    reqs = serve_requests(rng, arch.vocab_size, requests)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     backend.reset_launches()
     report = eng.run(reqs)
     launches = dict(backend.LAUNCHES)
+    scan = decode._needs_scan_prefill(arch)
     with torch.no_grad():
-        prof = profile_steps(torch, params, ctx, world)
+        prof = profile_steps(torch, params, ctx, world, scan=scan)
     out = {"rank": world.rank, "coords": list(world.coords),
+           "arch": arch_id, "layers": arch.num_layers, "scan_prefill": scan,
            "expert_range": list(ctx.expert_range), "end_to_end": e2e,
            "streams": {s.request.uid: s.generated for s in report.streams},
            "budgets": {s.request.uid: s.request.max_new_tokens
@@ -3192,17 +3365,70 @@ def serve_rank(world, out_dir: str) -> None:
            "tokens_per_s": report.tokens_per_sec, "launches": launches,
            "max_memory_allocated_gb":
                torch.cuda.max_memory_allocated() / 1e9,
-           "profile": prof}
-    with open(os.path.join(out_dir, f"serve{world.rank}.json"), "w") as fh:
+           "profile": prof, "run_seconds": time.time() - t_start}
+    name = "serve" if arch_id == ARCH_ID else f"serve_{arch_id}"
+    with open(os.path.join(out_dir, f"{name}{world.rank}.json"), "w") as fh:
         json.dump(out, fh)
 
 
-def deepseek_phases(torch, np) -> tuple:
+def world_session(world, out_dir: str, jobs: tuple) -> None:
+    """One spawn of a world for several phases' rank functions in turn:
+    each job ``(name, args)`` calls this module's ``name(world, out_dir,
+    *args)``, and its tensors are freed before the next.  Every spawn of
+    four gloo ranks costs 10-25 s of process start, CUDA contexts and
+    process groups; the 2x2 phases pay it once."""
+    import torch
+    for name, args in jobs:
+        globals()[name](world, out_dir, *args)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def serve_world_want(arch, r: dict) -> dict:
+    """The launches one rank of a serving world makes for ``arch`` in
+    ``r``'s run: K4 once a MoE layer of every prefill pack (of every scan
+    step, BUCKET a pack, for a model that prefills by scan) and decode
+    step; K5 once an attention layer of every pack, but for MLA (which
+    attends in plain PyTorch) and a scan prefill; nothing else."""
+    from repro_torch.kernels import backend
+    from repro_torch.models import transformer
+    subs = transformer.layer_list(arch)
+    n_moe = sum(s.ffn == "moe" for s in subs)
+    packs = r["prefill_packs"] * (BUCKET if r["scan_prefill"] else 1)
+    want = {k: 0 for k in backend.LAUNCHES}
+    want["moe_fused.local_moe"] = n_moe * (packs + r["decode_steps"])
+    if not r["scan_prefill"]:
+        want["flash_attn.flash_attention"] = r["prefill_packs"] * sum(
+            s.mixer == "attn" for s in subs)
+    return want
+
+
+def check_serving_world(ranks, arch, label: str, requests: int) -> None:
+    """Every rank's streams complete, inside the vocabulary and equal to
+    rank 0's; each rank's launches exactly ``serve_world_want``'s."""
+    for r in ranks:
+        if r["evicted"] or len(r["streams"]) != requests or any(
+                len(toks) != r["budgets"][uid]
+                or not all(0 <= t < arch.vocab_size for t in toks)
+                for uid, toks in r["streams"].items()):
+            raise SystemExit(f"{label} rank {r['rank']}: streams "
+                             f"incomplete or outside the vocabulary")
+        if r["streams"] != ranks[0]["streams"]:
+            raise SystemExit(f"{label} rank {r['rank']}: its streams "
+                             f"differ from rank 0's")
+        want = serve_world_want(arch, r)
+        if r["launches"] != want:
+            raise SystemExit(f"{label} rank {r['rank']}: launches "
+                             f"{r['launches']}, the path needs {want}")
+
+
+def deepseek_phases(torch, np, trained: str) -> tuple:
     """The DeepSeek-V2-Lite phases (DSV2_ID, one rank): its full-width
     weights from seed 0, ``checks_dsv2_lite``, ``serve_dsv2_lite`` and
     ``e2e_dsv2_lite_d4`` in this process; the weights freed, then
-    ``train_dsv2_lite_d4`` in a child process.  Emits each phase's line
-    and returns ``(checks, serve, train report)``."""
+    ``train_dsv2_lite_d4``'s report, ``trained`` (run in train_1rank's
+    child process).  Emits each phase's line and returns ``(checks,
+    serve, train report)``."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import backend
     from repro_torch.models import model as model_lib
@@ -3238,27 +3464,15 @@ def deepseek_phases(torch, np) -> tuple:
     del params_ds
     gc.collect()
     torch.cuda.empty_cache()
-    # one rank, depth cut to DSV2_CUT_LAYERS, in a child process
-    t0 = time.time()
-    tmp_ds = tempfile.mkdtemp(prefix="chip_smoke_dsv2_")
-    child = mp.get_context("spawn").Process(
-        target=train_phase, args=(None, os.path.join(tmp_ds, "train.json"),
-                                  TRAIN_BATCH_1),
-        kwargs={"layers": DSV2_CUT_LAYERS, "arch_id": DSV2_ID})
-    child.start()
-    child.join()
-    if child.exitcode != 0:
-        raise SystemExit(f"train_dsv2_lite_d4: the child process failed "
-                         f"(exit {child.exitcode})")
-    with open(os.path.join(tmp_ds, "train.json")) as fh:
+    # one rank, depth cut to DSV2_CUT_LAYERS (run in train_1rank's child)
+    with open(trained) as fh:
         tds = json.load(fh)
-    shutil.rmtree(tmp_ds, ignore_errors=True)
     n_moe_ds = DSV2_CUT_LAYERS - arch_ds.moe.first_dense
     check_ds = check_training(
         [tds], {k: (n_moe_ds * TRAIN_STEPS if k == "moe_fused.local_moe"
                     else 0) for k in backend.LAUNCHES},
         "train_dsv2_lite_d4")
-    emit({"phase": "train_dsv2_lite_d4", "seconds": time.time() - t0,
+    emit({"phase": "train_dsv2_lite_d4", "seconds": tds["run_seconds"],
           "arch": arch_ds.name, "depth_cut": f"{arch_ds.num_layers} -> "
           f"{DSV2_CUT_LAYERS}: AdamW's float32 moments of 15.5 B "
           f"parameters alone are 124 GB", "aux_mode": "ta",
@@ -3267,7 +3481,7 @@ def deepseek_phases(torch, np) -> tuple:
     return ck_ds, srv_ds, tds
 
 
-def loss_jamba_d8(torch, params, arch) -> dict:
+def loss_jamba(torch, params, arch) -> dict:
     """One forward and loss through ``loss_fn`` on the one-rank ``a2a``
     path (``aux_mode="ta"``, seq TRAIN_SEQ, batch JAMBA_LOSS_BATCH; no
     backward: AdamW's float32 moments alone would not fit), through the
@@ -3308,17 +3522,17 @@ def loss_jamba_d8(torch, params, arch) -> dict:
                          for k, v in metrics.items() if k != "loss"}}
     want = {k: 0 for k in backend.LAUNCHES}
     if runs["plain"]["launches"] != want:
-        raise SystemExit(f"loss_jamba_d8: the plain path launched "
+        raise SystemExit(f"loss_jamba_d4: the plain path launched "
                          f"{runs['plain']['launches']}")
     want["moe_fused.local_moe"] = n_moe
     if runs["kernel"]["launches"] != want:
-        raise SystemExit(f"loss_jamba_d8: launches "
+        raise SystemExit(f"loss_jamba_d4: launches "
                          f"{runs['kernel']['launches']}, the path needs "
                          f"{want}")
     got, ref = runs["kernel"]["loss"], runs["plain"]["loss"]
     rel = abs(got - ref) / abs(ref)
     if not (math.isfinite(got) and rel <= LOSS_RTOL):
-        raise SystemExit(f"loss_jamba_d8: kernel path loss {got}, plain "
+        raise SystemExit(f"loss_jamba_d4: kernel path loss {got}, plain "
                          f"path {ref} (relative {rel}, limit {LOSS_RTOL})")
     return {"seq_len": TRAIN_SEQ, "global_batch": JAMBA_LOSS_BATCH,
             "aux_mode": "ta", "dispatch": "a2a", "caps": list(ctx.plan.caps),
@@ -3329,24 +3543,23 @@ def loss_jamba_d8(torch, params, arch) -> dict:
 def jamba_phases(torch, np) -> tuple:
     """The Jamba phases (JAMBA_ID at depth JAMBA_LAYERS, one rank), after
     every other model's weights are freed: the full-width weights from
-    seed 0 (init_jamba_d8); ``checks_wide`` on layer JAMBA_MOE_LAYER at
+    seed 0 (init_jamba_d4); ``checks_wide`` on layer JAMBA_MOE_LAYER at
     the decode (8 slots) and prefill-scan step (4 rows) gather layouts
     and the one-rank forward layout (checks_jamba); the kernel path's and
     the bf16 plain path's logits on the end-to-end prompt, then
     ``serve_mix``, prefilled by scan: K4 once a MoE layer of every scan
-    step (BUCKET a pack) and decode step, K5 never (serve_jamba_d8); the
+    step (BUCKET a pack) and decode step, K5 never (serve_jamba_d4); the
     float32 verdict on those logits, the float32 run one cast layer at a
-    time (e2e_jamba_d8: a whole float32 copy, 52 GB, beside the bf16
+    time (e2e_jamba_d4: a whole float32 copy beside the bf16
     weights would fill the card); and
-    ``loss_jamba_d8``.  Emits each phase's line and returns ``(checks,
+    ``loss_jamba``.  Emits each phase's line and returns ``(checks,
     serve, loss)``."""
-    import dataclasses
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as model_lib
     from repro_torch.models import transformer
     t0 = time.time()
     full = get_config(JAMBA_ID)
-    arch = dataclasses.replace(full, num_layers=JAMBA_LAYERS)
+    arch = cut_depth(full, JAMBA_LAYERS)
     ctx = model_lib.build_ctx(arch, device="cuda", use_flash=True,
                               aux_mode="none", seq_len=CACHE_LEN,
                               global_batch=NUM_SLOTS)
@@ -3355,7 +3568,7 @@ def jamba_phases(torch, np) -> tuple:
     torch.cuda.synchronize()
     subs = transformer.layer_list(arch)
     n_moe = sum(s.ffn == "moe" for s in subs)
-    emit({"phase": "init_jamba_d8", "arch": arch.name,
+    emit({"phase": "init_jamba_d4", "arch": arch.name,
           "source": arch.source, "layers": arch.num_layers,
           "depth_cut": f"{full.num_layers} -> {JAMBA_LAYERS}: the whole "
           f"model is 51.3 B parameters, 103 GB in bf16",
@@ -3378,10 +3591,10 @@ def jamba_phases(torch, np) -> tuple:
     prompt = e2e_prompt(torch, np, arch.vocab_size)
     with torch.no_grad():
         logits = plain_runs(torch, params, ctx, prompt, f32=False)
-    srv = serve_mix(torch, np, params, ctx, "serve_jamba_d8",
+    srv = serve_mix(torch, np, params, ctx, "serve_jamba_d4",
                     lambda r: n_moe * (r.prefill_calls * BUCKET
                                        + r.decode_steps), scan=True)
-    emit({"phase": "serve_jamba_d8", "seconds": time.time() - t0,
+    emit({"phase": "serve_jamba_d4", "seconds": time.time() - t0,
           "layers": arch.num_layers, "moe_layers": n_moe,
           "scan_steps_per_pack": BUCKET,
           "rel_err_kernel_vs_plain_bf16": rel_err(
@@ -3395,15 +3608,15 @@ def jamba_phases(torch, np) -> tuple:
         f32 = plain_runs(torch, params, ctx, prompt, kernel=False,
                          bf16=False, f32_by_layer=True)["plain_f32"]
     e2e = e2e_verdict(torch, logits["kernel"], f32, logits["plain_bf16"],
-                      "e2e_jamba_d8")
-    emit({"phase": "e2e_jamba_d8", "seconds": time.time() - t0,
+                      "e2e_jamba_d4")
+    emit({"phase": "e2e_jamba_d4", "seconds": time.time() - t0,
           "layers": arch.num_layers, **e2e,
           "max_memory_allocated_gb":
               torch.cuda.max_memory_allocated() / 1e9})
     del logits, f32
     t0 = time.time()
-    loss = loss_jamba_d8(torch, params, arch)
-    emit({"phase": "loss_jamba_d8", "seconds": time.time() - t0, **loss})
+    loss = loss_jamba(torch, params, arch)
+    emit({"phase": "loss_jamba_d4", "seconds": time.time() - t0, **loss})
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3496,7 +3709,7 @@ def serve_dense(torch, np, aid: str) -> dict:
 
 
 def train_dense_phase(out_path: str) -> None:
-    """train_internlm2, in a child process: full-width, full-depth
+    """train_internlm2, in train_1rank's child process: full-width, full-depth
     DENSE_TRAIN_ID on one rank through ``trainer.train`` (AdamW,
     ``aux_mode="none"``, seq TRAIN_SEQ, batch TRAIN_BATCH_1, TRAIN_STEPS
     steps) on the plain ``_sdpa`` path, the launch counters set to 0 just
@@ -3515,6 +3728,7 @@ def train_dense_phase(out_path: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.time()
     arch = get_config(DENSE_TRAIN_ID)
     kw = dict(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH_1, warmup_steps=1,
               aux_mode="none", seed=0)
@@ -3574,16 +3788,17 @@ def train_dense_phase(out_path: str) -> None:
                   accum, loss_rel_diff=abs(got - ref) / abs(ref),
                   loss_rtol=LOSS_RTOL,
                   first_leaf_max_abs_diff_after_step=diff)}
+    report["run_seconds"] = time.time() - t_start
     with open(out_path, "w") as fh:
         json.dump(report, fh)
 
 
-def dense_phases(torch, np) -> tuple:
+def dense_phases(torch, np, trained: str) -> tuple:
     """The dense decoders (DENSE_IDS), after every other model's weights
     are freed: ``checks_dense``; ``serve_dense`` for each config in turn
-    (its weights freed before the next); train_internlm2 in a child
-    process.  Emits each phase's line and returns ``(checks, {config:
-    serve line}, train report)``."""
+    (its weights freed before the next); train_internlm2's report,
+    ``trained`` (run in train_1rank's child process).  Emits each phase's
+    line and returns ``(checks, {config: serve line}, train report)``."""
     from repro_torch.kernels import backend
     t0 = time.time()
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -3593,19 +3808,8 @@ def dense_phases(torch, np) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     srv = {aid: serve_dense(torch, np, aid) for aid in DENSE_IDS}
-    t0 = time.time()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_dense_")
-    path = os.path.join(tmp, "train.json")
-    child = mp.get_context("spawn").Process(target=train_dense_phase,
-                                            args=(path,))
-    child.start()
-    child.join()
-    if child.exitcode != 0:
-        raise SystemExit(f"train_internlm2: the child process failed (exit "
-                         f"{child.exitcode})")
-    with open(path) as fh:
+    with open(trained) as fh:
         tr = json.load(fh)
-    shutil.rmtree(tmp, ignore_errors=True)
     if tr["launches"] != {k: 0 for k in backend.LAUNCHES}:
         raise SystemExit(f"train_internlm2: launches {tr['launches']}, the "
                          f"plain training path needs none")
@@ -3618,7 +3822,7 @@ def dense_phases(torch, np) -> tuple:
                          f"{acc['microbatch']['loss']} against the full "
                          f"batch's {acc['full']['loss']}: relative "
                          f"{acc['loss_rel_diff']} > {LOSS_RTOL}")
-    emit({"phase": "train_internlm2", "seconds": time.time() - t0,
+    emit({"phase": "train_internlm2", "seconds": tr["run_seconds"],
           "aux_mode": "none", "attention": "plain _sdpa (K5 has no "
           "backward)", "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_1,
           "steps": TRAIN_STEPS, **tr})
@@ -3828,6 +4032,7 @@ def serve_tp_rank(world, out_dir: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.time()
     ref = torch.load(os.path.join(out_dir, "tp_reference.pt"))
     arch = dataclasses.replace(get_config(ARCH_ID), num_layers=WORLD_LAYERS)
     ctx = model_lib.build_ctx(arch, world, device="cuda", use_flash=True,
@@ -3902,6 +4107,7 @@ def serve_tp_rank(world, out_dir: str) -> None:
              "vocab_rows": dparams["embed"]["table"].shape[0]}
     out = {"process_rank": world.process_rank,
            "model_coord": world.model_coord, "gpt3": gpt3, "dense": dense}
+    out["run_seconds"] = time.time() - t_start
     with open(os.path.join(out_dir, f"tp{world.process_rank}.json"),
               "w") as fh:
         json.dump(out, fh)
@@ -3921,8 +4127,10 @@ def train_tp_rank(world, out_dir: str) -> None:
     gathered over the model axis, and the top-k picks' digest.  Then
     ``trainer.train`` for TP_TRAIN_STEPS steps with the launch counters
     set to 0 just before and read just after, and one more step under
-    torch.profiler (busy share).  Writes ``train_tp<process rank>.pt``
-    (the gradients) and ``.json``."""
+    torch.profiler (busy share).  Then one step of the einsum baseline
+    with ``use_moe_kernel`` (``aux_mode="lb"``, the first batch, the same
+    draw): K6 once a layer at a model rank's f / 2, its loss and launches.
+    Writes ``train_tp<process rank>.pt`` (the gradients) and ``.json``."""
     import dataclasses
 
     import torch
@@ -3938,6 +4146,7 @@ def train_tp_rank(world, out_dir: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.time()
     arch = dataclasses.replace(get_config(ARCH_ID),
                                num_layers=WORLD_LAYERS)
     run = RunConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH_1,
@@ -3979,33 +4188,60 @@ def train_tp_rank(world, out_dir: str) -> None:
                         verbose=False, params=params, device="cuda")
     launches = dict(backend.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    param_bytes = analysis.tree_bytes(res.params)
     step = trainer.make_train_step(ctx, run)
     profiled = profile_train_step(
         torch, step, res.params, res.opt_state,
         shard_batch(data.batch(TP_TRAIN_STEPS), world, "cuda"))
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one step of the einsum baseline with the dense grouped FFN (K6 at a
+    # model rank's f / 2), from the same draw and the first batch
+    erun = dataclasses.replace(run, aux_mode="lb", dispatch="einsum")
+    ectx = model_lib.build_ctx(arch, world, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH_1, aux_mode="lb",
+                               dispatch="einsum", use_moe_kernel=True,
+                               device="cuda")
+    eparams = model_lib.init_params(
+        ectx, torch.Generator(device="cuda").manual_seed(run.seed))
+    for p in adamw.tree_leaves(eparams):
+        p.requires_grad_(True)
+    eopt = adamw.init_state(eparams)
+    estep = trainer.make_train_step(ectx, erun)
+    torch.cuda.synchronize()
+    backend.reset_launches()
+    t0 = time.perf_counter()
+    _, _, em = estep(eparams, eopt, b0)
+    torch.cuda.synchronize()
+    einsum = {"loss": float(em["loss"]), "launches": dict(backend.LAUNCHES),
+              "step_wall_s": time.perf_counter() - t0}
+    del eparams, eopt, estep
     rank = world.process_rank
     torch.save(got, os.path.join(out_dir, f"train_tp{rank}.pt"))
     with open(os.path.join(out_dir, f"train_tp{rank}.json"), "w") as fh:
         json.dump({"process_rank": rank, "model_coord": world.model_coord,
+                   "run_seconds": time.time() - t_start,
                    "first": first, "losses": res.losses,
                    "grad_norm": [h["grad_norm"]
                                  for h in res.metrics_history],
                    "step_wall_s": res.step_seconds, "launches": launches,
                    "max_memory_allocated_gb": peak_gb,
-                   "param_bytes": analysis.tree_bytes(res.params),
+                   "param_bytes": param_bytes, "einsum": einsum,
                    "profiled_step": {k: profiled[k] for k in (
                        "wall_ms", "device_ms", "device_busy_share",
                        "kernel_launches", "top", "port_kernels")}}, fh)
 
 
 def tp_kernel_checks(torch, params, ctx, gen) -> dict:
-    """K4 and K5 at the layouts a model rank of the model-2 world gives
-    them, against their plain versions, timed: K4 with layer 0's experts
-    cut to their first f / TP_MODEL columns (w_in) and rows (w_out), at
-    the gather path's decode (8 tokens) and prefill (one pack, 512)
-    layouts over all 64 experts and at train_1rank's layout; K5 at gpt3's
-    prefill pack with 8 of its 16 heads and at Minitron-4B's with 12 of
-    24 heads over 4 of 8 KV heads of 128."""
+    """K4, K5 and K6 at the layouts a model rank of the model-2 world
+    gives them, against their plain versions, timed: K4 with layer 0's
+    experts cut to their first f / TP_MODEL columns (w_in) and rows
+    (w_out), at the gather path's decode (8 tokens) and prefill (one
+    pack, 512) layouts over all 64 experts and at train_1rank's layout;
+    K5 at gpt3's prefill pack with 8 of its 16 heads and at Minitron-4B's
+    with 12 of 24 heads over 4 of 8 KV heads of 128; K6 at train_tp2's
+    einsum step ([64, 128, 1024], f 1024)."""
     from repro_torch.configs.base import get_config
 
     def cut(args):
@@ -4027,18 +4263,40 @@ def tp_kernel_checks(torch, params, ctx, gen) -> dict:
           "minitron_prefill": check_k5(
               torch, (PACK, BUCKET, d.num_heads // TP_MODEL, d.head_dim_),
               gen, kv_heads=d.num_kv_heads // TP_MODEL)}
-    return {"K4": k4, "K5": k5}
+    # K6 at train_tp2's einsum step: the [64, 128, 1024] buffer, each
+    # expert's first f / TP_MODEL columns (w_in) and rows (w_out)
+    x6, w_in6, w_out6, filled = einsum_k6_case(torch, params, ctx.arch, gen)
+    f6 = w_in6.shape[2] // TP_MODEL
+    k6 = check_k6(torch, x6, w_in6[..., :f6].contiguous(), None,
+                  w_out6[:, :f6].contiguous(), f"tp2 f={f6}", filled)
+    return {"K4": k4, "K5": k5, "K6": k6}
 
 
 def tp_phases(torch, np) -> tuple:
-    """serve_tp2 and train_tp2 (TP_WORLD x TP_MODEL), after every other
-    model's weights are freed.  The main process first builds the
-    one-rank references: gpt3 at depth WORLD_LAYERS (the TP layouts of K4
-    and K5 checked on its weights; its kernel, bf16 plain and float32
-    plain logits on the E2E rows), Minitron-4B at depth TP_DENSE_LAYERS
-    (bf16 and float32 plain logits), and gpt3 at depth WORLD_LAYERS
-    (the plain path's first-step loss and gradients).  Returns
-    ``(kernel checks, serve ranks, train ranks)``."""
+    """The tensor-parallel phases, after every other model's weights are
+    freed.  The main process first builds the one-rank references:
+    gpt3 at depth WORLD_LAYERS (the TP layouts of K4, K5 and K6 checked
+    on its weights, checks_tp2; its kernel, bf16 plain and float32 plain
+    logits on the E2E rows), Minitron-4B at depth TP_DENSE_LAYERS (bf16
+    and float32 plain logits), gpt3 at depth WORLD_LAYERS (the plain
+    path's first-step loss and gradients, and the plain einsum path's
+    first-step loss), and each of TP_FAMILIES on one rank (its kernel
+    checks at a model rank's layouts and its float32 and bf16 plain runs
+    of the E2E rows, checks_tp2_families).  Then one spawn of the (data
+    1, model 2) world runs serve_tp2, train_tp2 and serve_tp2_families in
+    turn, each held to its references here: launch counts exact, the
+    model ranks' streams, picks and greedy tokens equal, the verdicts,
+    the first-step losses within LOSS_RTOL.  Then ``checks_ep_tp`` (K1,
+    K2, K3 and K7 at the EP x TP world's rank-0 layouts) and
+    ``train_ep_tp`` on the (data 2, model 2) world: launch counts exact,
+    each run's first-step loss within LOSS_RTOL (LOSS_RTOL_INT8 over the
+    int8 wire) of the plain path's, the ranks' world-mean losses equal,
+    the two model ranks of each data rank with bit-equal picks (the data
+    ranks' differ), the checkpoint round trip bit-equal.  Returns
+    ``(TP kernel checks, serve_tp2 ranks, train_tp2 ranks, EP x TP
+    kernel checks, train_ep_tp ranks, family checks, serve_tp2_families
+    ranks)``."""
+
     import dataclasses
 
     from repro_torch.configs.base import RunConfig, get_config
@@ -4098,9 +4356,97 @@ def tp_phases(torch, np) -> tuple:
         del ref
         emit({"phase": "checks_tp2", "seconds": time.time() - t0, **checks})
 
+        # train_tp2's references: the one-rank plain path's first step
+        tarch = dataclasses.replace(get_config(ARCH_ID),
+                                    num_layers=WORLD_LAYERS)
+        run = RunConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH_1,
+                        warmup_steps=1, aux_mode="ta", seed=0)
+        pctx = model_lib.build_ctx(tarch, seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH_1,
+                                   aux_mode="ta", use_pallas=False,
+                                   device="cuda")
+        tparams = model_lib.init_params(
+            pctx, torch.Generator(device="cuda").manual_seed(run.seed))
+        for p in adamw.tree_leaves(tparams):
+            p.requires_grad_(True)
+        data = SyntheticLM(DataConfig(vocab_size=tarch.vocab_size,
+                                      seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH_1,
+                                      seed=run.seed))
+        backend.reset_launches()
+        os.environ[backend.ENV_VAR] = "0"
+        try:
+            loss, _ = transformer.loss_fn(
+                tparams, shard_batch(data.batch(0), None, "cuda"), pctx,
+                aux_weight=run.aux_weight)
+            loss.backward()
+        finally:
+            del os.environ[backend.ENV_VAR]
+        if any(backend.LAUNCHES.values()):
+            raise SystemExit(f"train_tp2's plain path launched "
+                             f"{dict(backend.LAUNCHES)}")
+        plain_loss = float(loss.detach())
+        plain_grads = {"/".join(p): _leaf(tparams, p).grad.float()
+                       for p in TP_GRAD_LEAVES}
+        # the einsum step's first loss on one rank, plain (grouped_ffn_ref)
+        ectx = model_lib.build_ctx(tarch, seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH_1, aux_mode="lb",
+                                   dispatch="einsum", use_moe_kernel=True,
+                                   use_pallas=False, device="cuda")
+        os.environ[backend.ENV_VAR] = "0"
+        try:
+            with torch.no_grad():
+                eloss, _ = transformer.loss_fn(
+                    tparams, shard_batch(data.batch(0), None, "cuda"), ectx,
+                    aux_weight=run.aux_weight)
+        finally:
+            del os.environ[backend.ENV_VAR]
+        if any(backend.LAUNCHES.values()):
+            raise SystemExit(f"train_tp2's plain einsum path launched "
+                             f"{dict(backend.LAUNCHES)}")
+        plain_einsum_loss = float(eloss)
+        del tparams, loss, eloss
+        gc.collect()
+        torch.cuda.empty_cache()
         t0 = time.time()
-        mesh.spawn(serve_tp_rank, TP_WORLD, "gloo", "cuda", args=(tmp,),
-                   model=TP_MODEL)
+        fck, fam_bytes, fam_greedy = {}, {}, {}
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        for aid, depth in TP_FAMILIES:
+            farch = tp_family_of(aid, depth)
+            fctx = model_lib.build_ctx(farch, device="cuda", use_flash=True,
+                                       aux_mode="none", seq_len=CACHE_LEN,
+                                       global_batch=E2E_ROWS)
+            fparams = model_lib.init_params(
+                fctx, torch.Generator(device="cuda").manual_seed(0))
+            draws = []
+            with torch.no_grad():
+                fck[aid] = tp_family_checks(torch, aid, fparams, fctx, gen)
+                for draw in range(TP_FAMILY_DRAWS):
+                    prompt, fe = tp_family_prompt(torch, np, farch, draw)
+                    runs = plain_runs(torch, fparams, fctx, prompt,
+                                      kernel=False, frontend=fe,
+                                      steps=TP_FAMILY_STEPS)
+                    draws.append({"prompt": prompt.cpu(),
+                                  "frontend": None if fe is None else fe.cpu(),
+                                  **{k: v.cpu() for k, v in runs.items()}})
+            fam_bytes[aid] = analysis.tree_bytes(fparams)
+            fam_greedy[aid] = torch.cat([d["plain_f32"] for d in draws],
+                                        1).argmax(-1).t().tolist()
+            torch.save(draws, os.path.join(tmp, f"tp_family_{aid}.pt"))
+            del fparams, runs, draws
+            gc.collect()
+            torch.cuda.empty_cache()
+        emit({"phase": "checks_tp2_families", "seconds": time.time() - t0,
+              **fck})
+
+        # one spawn of the (data 1, model 2) world for serve_tp2, train_tp2
+        # and serve_tp2_families (``world_session``)
+        t0 = time.time()
+        mesh.spawn(world_session, TP_WORLD, "gloo", "cuda", args=(tmp, (
+            ("serve_tp_rank", ()), ("train_tp_rank", ()),
+            ("serve_tp_family_rank", ()))), model=TP_MODEL)
+        session_s = time.time() - t0
+
         srv = []
         for r in range(math.prod(TP_WORLD) * TP_MODEL):
             with open(os.path.join(tmp, f"tp{r}.json")) as fh:
@@ -4139,7 +4485,9 @@ def tp_phases(torch, np) -> tuple:
             if dn["greedy"] != srv[0]["dense"]["greedy"]:
                 raise SystemExit("serve_tp2 minitron: the ranks' greedy "
                                  "tokens differ")
-        emit({"phase": "serve_tp2", "seconds": time.time() - t0,
+        emit({"phase": "serve_tp2",
+              "seconds": max(r["run_seconds"] for r in srv),
+              "session_seconds": session_s,
               "world": list(TP_WORLD), "model": TP_MODEL,
               "backend": "gloo", "layers": WORLD_LAYERS,
               "one_rank_param_bytes": one_rank_bytes,
@@ -4150,44 +4498,6 @@ def tp_phases(torch, np) -> tuple:
                         "greedy_model1_plain_bf16": ref_greedy["dense"]},
               "ranks": srv})
 
-        # train_tp2: the one-rank plain path's first step, then the world
-        t0 = time.time()
-        tarch = dataclasses.replace(get_config(ARCH_ID),
-                                    num_layers=WORLD_LAYERS)
-        run = RunConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH_1,
-                        warmup_steps=1, aux_mode="ta", seed=0)
-        pctx = model_lib.build_ctx(tarch, seq_len=TRAIN_SEQ,
-                                   global_batch=TRAIN_BATCH_1,
-                                   aux_mode="ta", use_pallas=False,
-                                   device="cuda")
-        tparams = model_lib.init_params(
-            pctx, torch.Generator(device="cuda").manual_seed(run.seed))
-        for p in adamw.tree_leaves(tparams):
-            p.requires_grad_(True)
-        data = SyntheticLM(DataConfig(vocab_size=tarch.vocab_size,
-                                      seq_len=TRAIN_SEQ,
-                                      global_batch=TRAIN_BATCH_1,
-                                      seed=run.seed))
-        backend.reset_launches()
-        os.environ[backend.ENV_VAR] = "0"
-        try:
-            loss, _ = transformer.loss_fn(
-                tparams, shard_batch(data.batch(0), None, "cuda"), pctx,
-                aux_weight=run.aux_weight)
-            loss.backward()
-        finally:
-            del os.environ[backend.ENV_VAR]
-        if any(backend.LAUNCHES.values()):
-            raise SystemExit(f"train_tp2's plain path launched "
-                             f"{dict(backend.LAUNCHES)}")
-        plain_loss = float(loss.detach())
-        plain_grads = {"/".join(p): _leaf(tparams, p).grad.float()
-                       for p in TP_GRAD_LEAVES}
-        del tparams, loss
-        gc.collect()
-        torch.cuda.empty_cache()
-        mesh.spawn(train_tp_rank, TP_WORLD, "gloo", "cuda", args=(tmp,),
-                   model=TP_MODEL)
         trn = []
         for r in range(math.prod(TP_WORLD) * TP_MODEL):
             with open(os.path.join(tmp, f"train_tp{r}.json")) as fh:
@@ -4228,17 +4538,160 @@ def tp_phases(torch, np) -> tuple:
             raise SystemExit(f"train_tp2: first-step loss {first} (model 2, "
                              f"kernels) vs {plain_loss} (one rank, plain): "
                              f"relative {rel} > {LOSS_RTOL}")
-        emit({"phase": "train_tp2", "seconds": time.time() - t0,
+        want_e = {k: 0 for k in backend.LAUNCHES}
+        want_e["moe_gemm.grouped_ffn"] = WORLD_LAYERS
+        for rep in trn:
+            e = rep["einsum"]
+            if e["launches"] != want_e or e["loss"] != trn[0]["einsum"]["loss"]:
+                raise SystemExit(f"train_tp2 einsum process "
+                                 f"{rep['process_rank']}: launches "
+                                 f"{e['launches']} (the path needs {want_e}),"
+                                 f" or the model ranks' losses differ")
+        efirst = trn[0]["einsum"]["loss"]
+        erel = abs(efirst - plain_einsum_loss) / abs(plain_einsum_loss)
+        if not erel <= LOSS_RTOL:
+            raise SystemExit(f"train_tp2 einsum: first-step loss {efirst} "
+                             f"(model 2, K6) vs {plain_einsum_loss} (one "
+                             f"rank, plain): relative {erel} > {LOSS_RTOL}")
+        emit({"phase": "train_tp2",
+              "seconds": max(r["run_seconds"] for r in trn),
+              "session_seconds": session_s,
               "world": list(TP_WORLD), "model": TP_MODEL, "backend": "gloo",
               "layers": WORLD_LAYERS, "seq_len": TRAIN_SEQ,
               "global_batch": TRAIN_BATCH_1, "steps": TP_TRAIN_STEPS,
               "first_loss_kernel": first, "first_loss_plain_model1":
               plain_loss, "rel_diff": rel, "rtol": LOSS_RTOL,
+              "einsum": {"aux_mode": "lb", "use_moe_kernel": True,
+                         "first_loss_kernel": efirst,
+                         "first_loss_plain_model1": plain_einsum_loss,
+                         "rel_diff": erel, "want_launches": want_e},
               "grad_atol": BWD_BF16_ATOL, "grad_rtol": BWD_BF16_RTOL,
               "ranks": trn})
+        fam_srv = []
+        for r in range(math.prod(TP_WORLD) * TP_MODEL):
+            with open(os.path.join(tmp, f"fam{r}.json")) as fh:
+                fam_srv.append(json.load(fh))
+        families = {}
+        for aid, depth in TP_FAMILIES:
+            farch = tp_family_of(aid, depth)
+            want = tp_family_want(farch)
+            for r in fam_srv:
+                got = r["families"][aid]
+                if got["launches"] != want:
+                    raise SystemExit(f"serve_tp2_families {aid} process "
+                                     f"{r['process_rank']}: launches "
+                                     f"{got['launches']}, the path needs "
+                                     f"{want}")
+                for key in ("greedy", "picks"):
+                    if got[key] != fam_srv[0]["families"][aid][key]:
+                        raise SystemExit(f"serve_tp2_families {aid}: the "
+                                         f"model ranks' {key} differ")
+            g = fam_srv[0]["families"][aid]
+            if farch.is_moe and g["picks"]["gate_calls"] == 0:
+                raise SystemExit(f"serve_tp2_families {aid}: no gate call "
+                                 f"recorded")
+            families[aid] = {
+                "layers": depth, "want_launches": want,
+                "one_rank_param_bytes": fam_bytes[aid],
+                "param_bytes_share": g["param_bytes"] / fam_bytes[aid],
+                "greedy_model1_f32": fam_greedy[aid]}
+        emit({"phase": "serve_tp2_families",
+              "seconds": max(r["run_seconds"] for r in fam_srv),
+              "session_seconds": session_s,
+              "world": list(TP_WORLD), "model": TP_MODEL, "backend": "gloo",
+              "prompt_rows": E2E_ROWS, "draws": TP_FAMILY_DRAWS,
+              "decode_steps": TP_FAMILY_STEPS,
+              "families": families, "ranks": fam_srv})
+        t0 = time.time()
+        arch = tp_family_of(ARCH_ID, 1)
+        ctx = model_lib.build_ctx(arch, device="cuda", aux_mode="ta",
+                                  seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH_22)
+        params = model_lib.init_params(
+            ctx, torch.Generator(device="cuda").manual_seed(0))
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        with torch.no_grad():
+            ck_ep = ep_tp_kernel_checks(torch, params, arch, gen)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": "checks_ep_tp", "seconds": time.time() - t0,
+              "world": list(EP_TP_WORLD), "model": TP_MODEL, **ck_ep})
+
+        t0 = time.time()
+        mesh.spawn(train_ep_tp_rank, EP_TP_WORLD, "gloo", "cuda",
+                   args=(tmp,), model=TP_MODEL)
+        trn_ep = []
+        for r in range(math.prod(EP_TP_WORLD) * TP_MODEL):
+            with open(os.path.join(tmp, f"ep_tp{r}.json")) as fh:
+                trn_ep.append(json.load(fh))
+        verdicts = {}
+        for label, steps, per, rtol in (
+                ("a2a", EP_TP_STEPS, {"moe_permute.permute": 1,
+                                      "moe_permute.unpermute": 1,
+                                      "moe_gemm.grouped_ffn_ragged": 1},
+                 LOSS_RTOL),
+                ("pipelined_int8", EP_TP_PIPELINED_STEPS,
+                 {"moe_permute.permute": 1, "moe_permute.unpermute": 1,
+                  "moe_gemm.grouped_ffn_ragged_quant": 1},
+                 LOSS_RTOL_INT8)):
+            chunks = trn_ep[0][label]["a2a_num_chunks"]
+            want = {k: per.get(k, 0) * WORLD_LAYERS * steps * chunks
+                    for k in backend.LAUNCHES}
+            for r in trn_ep:
+                rec = r[label]
+                if any(rec["plain_launches"].values()):
+                    raise SystemExit(f"train_ep_tp {label} process "
+                                     f"{r['process_rank']}: the plain path "
+                                     f"launched {rec['plain_launches']}")
+                if rec["launches"] != want:
+                    raise SystemExit(f"train_ep_tp {label} process "
+                                     f"{r['process_rank']}: launches "
+                                     f"{rec['launches']}, the path needs "
+                                     f"{want}")
+                if len(rec["losses"]) != steps or not all(
+                        math.isfinite(v) for v in rec["losses"]):
+                    raise SystemExit(f"train_ep_tp {label}: losses "
+                                     f"{rec['losses']}")
+                if (rec["losses"] != trn_ep[0][label]["losses"]
+                        or rec["a2a_num_chunks"] != chunks):
+                    raise SystemExit(f"train_ep_tp {label}: the processes' "
+                                     f"world-mean losses or chunk counts "
+                                     f"differ")
+            picks = [r[label]["picks"] for r in trn_ep]
+            if (picks[0] != picks[1] or picks[2] != picks[3]
+                    or picks[0] == picks[2]):
+                raise SystemExit(f"train_ep_tp {label}: the model ranks' "
+                                 f"top-k picks differ (or the data ranks' "
+                                 f"agree): {picks}")
+            first = trn_ep[0][label]["losses"][0]
+            plain = trn_ep[0][label]["plain_first_loss"]
+            rel = abs(first - plain) / abs(plain)
+            if not rel <= rtol:
+                raise SystemExit(f"train_ep_tp {label}: first-step loss "
+                                 f"{first} (kernels) vs {plain} (plain): "
+                                 f"relative {rel} > {rtol}")
+            verdicts[label] = {"first_loss_kernel": first,
+                               "first_loss_plain": plain, "rel_diff": rel,
+                               "rtol": rtol, "chunks": chunks,
+                               "want_launches": want}
+        for r in trn_ep:
+            c = r["a2a"]["checkpoint"]
+            if not (c["verified"] and c["bit_equal"]
+                    and c["step"] == c["saved_step"]):
+                raise SystemExit(f"train_ep_tp process {r['process_rank']}: "
+                                 f"checkpoint round trip {c}")
+        emit({"phase": "train_ep_tp", "seconds": time.time() - t0,
+              "world": list(EP_TP_WORLD), "model": TP_MODEL,
+              "backend": "gloo", "layers": WORLD_LAYERS,
+              "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_22,
+              "steps": {"a2a": EP_TP_STEPS,
+                        "pipelined_int8": EP_TP_PIPELINED_STEPS},
+              **verdicts, "ranks": trn_ep})
+
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return checks, srv, trn
+    return checks, srv, trn, ck_ep, trn_ep, fck, fam_srv
 
 
 # ---------------------------------------------------------------------------
@@ -4551,6 +5004,7 @@ def serve_tp_family_rank(world, out_dir: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.time()
     out = {"process_rank": world.process_rank,
            "model_coord": world.model_coord, "families": {}}
     for aid, depth in TP_FAMILIES:
@@ -4593,190 +5047,210 @@ def serve_tp_family_rank(world, out_dir: str) -> None:
         del params, got
         gc.collect()
         torch.cuda.empty_cache()
+    out["run_seconds"] = time.time() - t_start
     with open(os.path.join(out_dir, f"fam{world.process_rank}.json"),
               "w") as fh:
         json.dump(out, fh)
 
 
-def ep_tp_family_phases(torch, np) -> tuple:
-    """train_ep_tp and serve_tp2_families, after every other model's
-    weights are freed.  ``checks_ep_tp``: K1, K2, K3 and K7 at the EP x TP
-    world's rank-0 layouts (``ep_tp_kernel_checks``).  ``train_ep_tp``:
-    the four ranks of ``train_ep_tp_rank``; launch counts exact, each
-    run's first-step loss within LOSS_RTOL (LOSS_RTOL_INT8 over the int8
-    wire) of the plain path's, the ranks' world-mean losses equal, the
-    two model ranks of each data rank with bit-equal picks (the data
-    ranks' differ), the checkpoint round trip bit-equal.  Then each of
-    TP_FAMILIES on one rank (its kernel checks at a model rank's layouts,
-    and its float32 plain run of the E2E rows), and
-    ``serve_tp2_families`` on the (data 1, model 2) world: the verdicts
-    (beside the world's plain path), launch counts, picks and greedy
-    tokens equal across the ranks.
-    Returns ``(kernel checks, train ranks, family checks, serve
-    ranks)``."""
-    from repro_torch.kernels import backend
-    from repro_torch.launch import analysis, mesh
+# ---------------------------------------------------------------------------
+
+
+def ep_family_checks(torch, aid: str, params, ctx, gen) -> dict:
+    """The kernels at rank (0, 0)'s layouts of ``aid`` on the 2x2 EP world
+    at full width, on its first MoE layer's weights, each against its
+    plain version, timed, with bounds: K4 at the serving world's gather
+    layouts (its 16 or 4 experts a rank over the world's 8 gathered decode
+    slots, and one gathered prefill pack of 4 x 128, or for a model that
+    prefills by scan one scan step's 4 rows); for DeepSeek-V2-Lite also
+    K1, K2 (top-6: the generic instantiation) and K3 (swiglu) at
+    train_dsv2_2x2's staged buffer and K7 (swiglu) at chunk 0 of its int8
+    pipelined plan, each layout equal to the one ``kernels/layouts.py``
+    registers (``dsv2_staged``)."""
+    from repro_torch.kernels import layouts
+    from repro_torch.models import decode, transformer
+    arch = ctx.arch
+    layer = [s.ffn for s in transformer.layer_list(arch)].index("moe")
+    ep_world = math.prod(WORLD_22)
+    tgs = {"decode_2x2": NUM_SLOTS}
+    if decode._needs_scan_prefill(arch):
+        tgs["prefill_scan_2x2"] = PACK
+    else:
+        tgs["prefill_2x2"] = PACK * BUCKET
+    out = {"moe_layer": layer, "K4": {}, "K4_compaction": []}
+    for label, Tg in tgs.items():
+        args, act = gather_k4_case(torch, params, ctx, Tg, gen, rank=0,
+                                   ep_world=ep_world, layer=layer)
+        if act != "swiglu":
+            raise SystemExit(f"checks_dsv2_2x2 {aid} {label}: activation "
+                             f"{act}")
+        out["K4"][label] = check_k4(torch, args, act, f"{aid}_{label}")
+        out["K4_compaction"].append(check_compaction(torch, args,
+                                                     f"{aid}_{label}"))
+        del args
+    if aid != DSV2_ID:
+        return out
+
+    def registered(case, lay, label):
+        if (tuple(case["segs"]), tuple(case["exps"])) != (
+                lay.seg_offsets, lay.seg_experts):
+            raise SystemExit(f"checks_dsv2_2x2 {label}: the path's segments "
+                             f"differ from the layout kernels/layouts.py "
+                             f"registers")
+
+    case = staged_case(torch, params, arch, gen, layer=layer,
+                       global_batch=DSV2_22_BATCH)
+    registered(case, layouts.dsv2_staged(), "staged")
+    di = case["di"]
+    out["K1"] = check_k1(torch, case["x"], di.slot_to_token)
+    out["K2"] = check_k2(torch, torch.randn(
+        (di.num_slots, arch.d_model), generator=gen,
+        device="cuda").to(torch.bfloat16), di)
+    out["K3"] = check_k3(torch, case)
+    out["layout_2x2"] = {"caps": list(case["caps"]), "S": di.num_slots,
+                         "T": case["x"].shape[0],
+                         "picks": di.inv_idx.shape[1],
+                         "experts_per_rank": case["w_in"].shape[0]}
+    del case
+    pcase = pipelined_case(torch, params, arch, gen, layer=layer,
+                           chunks=None, global_batch=DSV2_22_BATCH)
+    registered(pcase, layouts.dsv2_staged(pipelined=True), "pipelined")
+    out["K7"] = check_k7(torch, pcase)
+    return out
+
+
+def ep_family_references(torch, np, out_dir: str) -> dict:
+    """checks_dsv2_2x2, before the 2x2 world's session: each of
+    EP_FAMILIES on one rank at its depth (the same draw the world's ranks
+    slice), ``ep_family_checks`` on its weights, and its bf16 and float32
+    plain runs of TP_FAMILY_DRAWS draws of the E2E rows
+    (``e2e_<config>.pt`` in ``out_dir``, which serve_dsv2_2x2 and
+    serve_jamba_2x2 hold their kernel paths to).  Emits the phase's line
+    and returns the checks."""
+    from repro_torch.configs.base import get_config
     from repro_torch.models import model as model_lib
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp2_")
-    try:
-        t0 = time.time()
-        arch = tp_family_of(ARCH_ID, 1)
-        ctx = model_lib.build_ctx(arch, device="cuda", aux_mode="ta",
-                                  seq_len=TRAIN_SEQ,
-                                  global_batch=TRAIN_BATCH_22)
+    t0 = time.time()
+    checks = {}
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    for aid, depth in EP_FAMILIES:
+        arch = cut_depth(get_config(aid), depth)
+        ctx = model_lib.build_ctx(arch, device="cuda", use_flash=True,
+                                  aux_mode="none", seq_len=CACHE_LEN,
+                                  global_batch=NUM_SLOTS)
         params = model_lib.init_params(
             ctx, torch.Generator(device="cuda").manual_seed(0))
-        gen = torch.Generator(device="cuda").manual_seed(12)
+        draws = []
         with torch.no_grad():
-            ck = ep_tp_kernel_checks(torch, params, arch, gen)
-        del params
+            checks[aid] = ep_family_checks(torch, aid, params, ctx, gen)
+            for draw in range(TP_FAMILY_DRAWS):
+                prompt, _ = tp_family_prompt(torch, np, arch, draw)
+                runs = plain_runs(torch, params, ctx, prompt, kernel=False)
+                draws.append({"prompt": prompt.cpu(),
+                              **{k: v.cpu() for k, v in runs.items()}})
+        checks[aid]["layers"] = depth
+        checks[aid]["params"] = model_lib.count_params(params)
+        checks[aid]["greedy_model1_f32"] = torch.cat(
+            [d["plain_f32"] for d in draws], 1).argmax(-1).t().tolist()
+        torch.save(draws, os.path.join(out_dir, f"e2e_{aid}.pt"))
+        del params, runs, draws
         gc.collect()
         torch.cuda.empty_cache()
-        emit({"phase": "checks_ep_tp", "seconds": time.time() - t0,
-              "world": list(EP_TP_WORLD), "model": TP_MODEL, **ck})
+    emit({"phase": "checks_dsv2_2x2", "seconds": time.time() - t0,
+          "world": list(WORLD_22), **checks})
+    return checks
 
-        t0 = time.time()
-        mesh.spawn(train_ep_tp_rank, EP_TP_WORLD, "gloo", "cuda",
-                   args=(tmp,), model=TP_MODEL)
-        trn = []
-        for r in range(math.prod(EP_TP_WORLD) * TP_MODEL):
-            with open(os.path.join(tmp, f"ep_tp{r}.json")) as fh:
-                trn.append(json.load(fh))
-        verdicts = {}
-        for label, steps, per, rtol in (
-                ("a2a", EP_TP_STEPS, {"moe_permute.permute": 1,
-                                      "moe_permute.unpermute": 1,
-                                      "moe_gemm.grouped_ffn_ragged": 1},
-                 LOSS_RTOL),
-                ("pipelined_int8", EP_TP_PIPELINED_STEPS,
-                 {"moe_permute.permute": 1, "moe_permute.unpermute": 1,
-                  "moe_gemm.grouped_ffn_ragged_quant": 1},
-                 LOSS_RTOL_INT8)):
-            chunks = trn[0][label]["a2a_num_chunks"]
-            want = {k: per.get(k, 0) * WORLD_LAYERS * steps * chunks
-                    for k in backend.LAUNCHES}
-            for r in trn:
-                rec = r[label]
-                if any(rec["plain_launches"].values()):
-                    raise SystemExit(f"train_ep_tp {label} process "
-                                     f"{r['process_rank']}: the plain path "
-                                     f"launched {rec['plain_launches']}")
-                if rec["launches"] != want:
-                    raise SystemExit(f"train_ep_tp {label} process "
-                                     f"{r['process_rank']}: launches "
-                                     f"{rec['launches']}, the path needs "
-                                     f"{want}")
-                if len(rec["losses"]) != steps or not all(
-                        math.isfinite(v) for v in rec["losses"]):
-                    raise SystemExit(f"train_ep_tp {label}: losses "
-                                     f"{rec['losses']}")
-                if (rec["losses"] != trn[0][label]["losses"]
-                        or rec["a2a_num_chunks"] != chunks):
-                    raise SystemExit(f"train_ep_tp {label}: the processes' "
-                                     f"world-mean losses or chunk counts "
-                                     f"differ")
-            picks = [r[label]["picks"] for r in trn]
-            if (picks[0] != picks[1] or picks[2] != picks[3]
-                    or picks[0] == picks[2]):
-                raise SystemExit(f"train_ep_tp {label}: the model ranks' "
-                                 f"top-k picks differ (or the data ranks' "
-                                 f"agree): {picks}")
-            first = trn[0][label]["losses"][0]
-            plain = trn[0][label]["plain_first_loss"]
-            rel = abs(first - plain) / abs(plain)
-            if not rel <= rtol:
-                raise SystemExit(f"train_ep_tp {label}: first-step loss "
-                                 f"{first} (kernels) vs {plain} (plain): "
-                                 f"relative {rel} > {rtol}")
-            verdicts[label] = {"first_loss_kernel": first,
-                               "first_loss_plain": plain, "rel_diff": rel,
-                               "rtol": rtol, "chunks": chunks,
-                               "want_launches": want}
-        for r in trn:
-            c = r["a2a"]["checkpoint"]
-            if not (c["verified"] and c["bit_equal"]
-                    and c["step"] == c["saved_step"]):
-                raise SystemExit(f"train_ep_tp process {r['process_rank']}: "
-                                 f"checkpoint round trip {c}")
-        emit({"phase": "train_ep_tp", "seconds": time.time() - t0,
-              "world": list(EP_TP_WORLD), "model": TP_MODEL,
-              "backend": "gloo", "layers": WORLD_LAYERS,
-              "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_22,
-              "steps": {"a2a": EP_TP_STEPS,
-                        "pipelined_int8": EP_TP_PIPELINED_STEPS},
-              **verdicts, "ranks": trn})
 
-        t0 = time.time()
-        fck, one_rank_bytes, ref_greedy = {}, {}, {}
-        gen = torch.Generator(device="cuda").manual_seed(13)
-        for aid, depth in TP_FAMILIES:
-            farch = tp_family_of(aid, depth)
-            fctx = model_lib.build_ctx(farch, device="cuda", use_flash=True,
-                                       aux_mode="none", seq_len=CACHE_LEN,
-                                       global_batch=E2E_ROWS)
-            fparams = model_lib.init_params(
-                fctx, torch.Generator(device="cuda").manual_seed(0))
-            draws = []
-            with torch.no_grad():
-                fck[aid] = tp_family_checks(torch, aid, fparams, fctx, gen)
-                for draw in range(TP_FAMILY_DRAWS):
-                    prompt, fe = tp_family_prompt(torch, np, farch, draw)
-                    runs = plain_runs(torch, fparams, fctx, prompt,
-                                      kernel=False, frontend=fe,
-                                      steps=TP_FAMILY_STEPS)
-                    draws.append({"prompt": prompt.cpu(),
-                                  "frontend": None if fe is None else fe.cpu(),
-                                  **{k: v.cpu() for k, v in runs.items()}})
-            one_rank_bytes[aid] = analysis.tree_bytes(fparams)
-            ref_greedy[aid] = torch.cat([d["plain_f32"] for d in draws],
-                                        1).argmax(-1).t().tolist()
-            torch.save(draws, os.path.join(tmp, f"tp_family_{aid}.pt"))
-            del fparams, runs, draws
-            gc.collect()
-            torch.cuda.empty_cache()
-        emit({"phase": "checks_tp2_families", "seconds": time.time() - t0,
-              **fck})
+def ep_family_jobs() -> tuple:
+    """The 2x2 world session's jobs for the other MoE models: each of
+    EP_FAMILIES served (``serve_rank``), then DeepSeek-V2-Lite trained
+    (``train_rank``: DSV2_22_STEPS a2a steps, then DSV2_22_INT8_STEPS
+    through a2a_pipelined over the int8 wire)."""
+    depth = dict(EP_FAMILIES)[DSV2_ID]
+    return tuple(("serve_rank", (aid, d, EP_FAMILY_REQUESTS))
+                 for aid, d in EP_FAMILIES) + (
+        ("train_rank", (DSV2_22_BATCH, "a2a", "", DSV2_22_STEPS, depth,
+                        False, True, DSV2_ID,
+                        (("dsv2_int8_", "a2a_pipelined", "int8",
+                          DSV2_22_INT8_STEPS),), "dsv2_")),)
 
-        t0 = time.time()
-        mesh.spawn(serve_tp_family_rank, TP_WORLD, "gloo", "cuda",
-                   args=(tmp,), model=TP_MODEL)
-        srv = []
-        for r in range(math.prod(TP_WORLD) * TP_MODEL):
-            with open(os.path.join(tmp, f"fam{r}.json")) as fh:
-                srv.append(json.load(fh))
-        families = {}
-        for aid, depth in TP_FAMILIES:
-            farch = tp_family_of(aid, depth)
-            want = tp_family_want(farch)
-            for r in srv:
-                got = r["families"][aid]
-                if got["launches"] != want:
-                    raise SystemExit(f"serve_tp2_families {aid} process "
-                                     f"{r['process_rank']}: launches "
-                                     f"{got['launches']}, the path needs "
-                                     f"{want}")
-                for key in ("greedy", "picks"):
-                    if got[key] != srv[0]["families"][aid][key]:
-                        raise SystemExit(f"serve_tp2_families {aid}: the "
-                                         f"model ranks' {key} differ")
-            g = srv[0]["families"][aid]
-            if farch.is_moe and g["picks"]["gate_calls"] == 0:
-                raise SystemExit(f"serve_tp2_families {aid}: no gate call "
-                                 f"recorded")
-            families[aid] = {
-                "layers": depth, "want_launches": want,
-                "one_rank_param_bytes": one_rank_bytes[aid],
-                "param_bytes_share": g["param_bytes"] / one_rank_bytes[aid],
-                "greedy_model1_f32": ref_greedy[aid]}
-        emit({"phase": "serve_tp2_families", "seconds": time.time() - t0,
-              "world": list(TP_WORLD), "model": TP_MODEL, "backend": "gloo",
-              "prompt_rows": E2E_ROWS, "draws": TP_FAMILY_DRAWS,
-              "decode_steps": TP_FAMILY_STEPS,
-              "families": families, "ranks": srv})
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    return ck, trn, fck, srv
+
+def ep_family_results(out_dir: str, session_s: float) -> tuple:
+    """serve_dsv2_2x2, serve_jamba_2x2 and train_dsv2_2x2 from the 2x2
+    session's files: each family's verdict (held in the ranks), streams
+    complete and equal on every rank, greedy tokens equal, launches
+    exact; DeepSeek-V2-Lite's two runs' launches exact (K1, K3, K2 once a
+    MoE layer a step; K1, K7, K2 once a MoE layer a chunk a step), each
+    first-step loss within LOSS_RTOL (LOSS_RTOL_INT8) of the plain
+    path's, the ranks' world-mean losses equal; no rank holds another's
+    experts (their digests differ: the world has no data replicas).
+    Emits each phase's line and returns ``(serve ranks by config, a2a
+    ranks, int8 ranks)``."""
+    from repro_torch.configs.base import get_config
+
+    def ranks_of(prefix):
+        out = []
+        for r in range(math.prod(WORLD_22)):
+            with open(os.path.join(out_dir, f"{prefix}{r}.json")) as fh:
+                out.append(json.load(fh))
+        return out
+
+    srv = {}
+    for aid, depth in EP_FAMILIES:
+        arch = cut_depth(get_config(aid), depth)
+        ranks = ranks_of(f"serve_{aid}")
+        label = "serve_dsv2_2x2" if aid == DSV2_ID else "serve_jamba_2x2"
+        check_serving_world(ranks, arch, label, EP_FAMILY_REQUESTS)
+        for r in ranks:
+            if r["end_to_end"]["greedy"] != ranks[0]["end_to_end"]["greedy"]:
+                raise SystemExit(f"{label}: the ranks' greedy tokens differ")
+        srv[aid] = ranks
+        emit({"phase": label,
+              "seconds": max(r["run_seconds"] for r in ranks),
+              "session_seconds": session_s, "world": list(WORLD_22),
+              "backend": "gloo", "arch": aid, "layers": depth,
+              "requests": EP_FAMILY_REQUESTS,
+              "want_launches": serve_world_want(arch, ranks[0]),
+              "ranks": ranks})
+
+    depth = dict(EP_FAMILIES)[DSV2_ID]
+    a2a, int8 = ranks_of("dsv2_"), ranks_of("dsv2_int8_")
+    n_moe = depth - get_config(DSV2_ID).moe.first_dense
+    off = {k: 0 for k in OFF_PATH}
+    staged = ("moe_permute.permute", "moe_permute.unpermute")
+    check_a = check_training(
+        a2a, dict({k: n_moe * DSV2_22_STEPS for k in staged}, **off,
+                  **{"moe_gemm.grouped_ffn_ragged": n_moe * DSV2_22_STEPS,
+                     "moe_fused.local_moe": 0,
+                     "moe_gemm.grouped_ffn_ragged_quant": 0}),
+        "train_dsv2_2x2", LOSS_RTOL, DSV2_22_STEPS)
+    chunks = int8[0]["a2a_num_chunks"]
+    per_chunk = n_moe * chunks * DSV2_22_INT8_STEPS
+    check_i = check_training(
+        int8, dict({k: per_chunk for k in staged}, **off,
+                   **{"moe_gemm.grouped_ffn_ragged_quant": per_chunk,
+                      "moe_gemm.grouped_ffn_ragged": 0,
+                      "moe_fused.local_moe": 0}),
+        "train_dsv2_2x2_int8", LOSS_RTOL_INT8, DSV2_22_INT8_STEPS)
+    digests = [r["experts_sha256"] for r in a2a]
+    if len(set(digests)) != len(digests):
+        raise SystemExit(f"train_dsv2_2x2: two ranks hold the same expert "
+                         f"leaves: {digests}")
+    a2a_s = max(r["run_seconds"] for r in a2a)
+    int8_s = max(r["run_seconds"] for r in int8)
+    emit({"phase": "train_dsv2_2x2", "seconds": a2a_s + int8_s,
+          "session_seconds": session_s, "world": list(WORLD_22),
+          "backend": "gloo", "arch": DSV2_ID, "layers": depth,
+          "moe_layers": n_moe, "seq_len": TRAIN_SEQ,
+          "global_batch": DSV2_22_BATCH,
+          "steps": {"a2a": DSV2_22_STEPS,
+                    "pipelined_int8": DSV2_22_INT8_STEPS},
+          "a2a": {**check_a, "seconds": a2a_s},
+          "pipelined_int8": {**check_i, "chunks": chunks,
+                             "seconds": int8_s},
+          "data_replicas": "none: the experts span both axes",
+          "ranks": a2a, "int8_ranks": int8})
+    return srv, a2a, int8
 
 
 def main() -> int:
@@ -5033,108 +5507,60 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 5. serving on the 2x2 EP world: four ranks share the card over gloo
+    # 5. the 2x2 EP world (pod x data): four ranks share the card over
+    # gloo, spawned once for every 2x2 phase (``world_session``).  First,
+    # in this process, the other MoE models' one-rank references and
+    # checks_dsv2_2x2; then the session: serve_2x2, serve_dsv2_2x2,
+    # serve_jamba_2x2, train_2x2 and its pipelined run, train_2x2_replan
+    # and train_dsv2_2x2
+    ck_e = ep_family_references(torch, np, tmp)
     t0 = time.time()
-    mesh.spawn(serve_rank, WORLD_22, "gloo", "cuda", args=(tmp,))
+    mesh.spawn(world_session, WORLD_22, "gloo", "cuda", args=(tmp, (
+        ("serve_rank", ()),
+        ("train_rank", (TRAIN_BATCH_22, "a2a", "", TRAIN_STEPS, WORLD_LAYERS,
+                        True, False, ARCH_ID,
+                        (("pipelined", "a2a_pipelined", "int8",
+                          PIPELINED_STEPS),))),
+        ("replan_rank", ())) + ep_family_jobs()))
+    session_s = time.time() - t0
     srv = []
     for r in range(math.prod(WORLD_22)):
         with open(os.path.join(tmp, f"serve{r}.json")) as fh:
             srv.append(json.load(fh))
     n_layers = arch.num_layers
-    for r in srv:
-        if r["evicted"] or len(r["streams"]) != NUM_REQUESTS or any(
-                len(toks) != r["budgets"][uid]
-                or not all(0 <= t < arch.vocab_size for t in toks)
-                for uid, toks in r["streams"].items()):
-            raise SystemExit(f"serve_2x2 rank {r['rank']}: streams "
-                             f"incomplete or outside the vocabulary")
-        if r["streams"] != srv[0]["streams"]:
-            raise SystemExit(f"serve_2x2 rank {r['rank']}: its streams "
-                             f"differ from rank 0's")
-        want_s = {k: 0 for k in backend.LAUNCHES}
-        want_s["moe_fused.local_moe"] = WORLD_LAYERS * (r["prefill_packs"]
-                                                        + r["decode_steps"])
-        want_s["flash_attn.flash_attention"] = (WORLD_LAYERS
-                                                * r["prefill_packs"])
-        if r["launches"] != want_s:
-            raise SystemExit(f"serve_2x2 rank {r['rank']}: launches "
-                             f"{r['launches']}, the path needs {want_s}")
-    emit({"phase": "serve_2x2", "seconds": time.time() - t0,
+    check_serving_world(srv, cut_ctx.arch, "serve_2x2", NUM_REQUESTS)
+    emit({"phase": "serve_2x2", "seconds": max(r["run_seconds"] for r in srv),
+          "session_seconds": session_s,
           "world": list(WORLD_22), "backend": "gloo",
           "layers": WORLD_LAYERS, "ranks": srv})
-
-    # 6. training, one rank, in a child process (it frees the card when it
-    # ends); the kernels were built above, so the child only loads them;
-    # after the run, the fused cross entropy on its state
-    t0 = time.time()
-    child = mp.get_context("spawn").Process(
-        target=train_phase, args=(None, os.path.join(tmp, "rank0.json"),
-                                  TRAIN_BATCH_1), kwargs={"fused_xent": True})
-    child.start()
-    child.join()
-    if child.exitcode != 0:
-        raise SystemExit(f"train_1rank: the child process failed (exit "
-                         f"{child.exitcode})")
-    with open(os.path.join(tmp, "rank0.json")) as fh:
-        one = json.load(fh)
     zero = {k: 0 for k in ("moe_permute.permute", "moe_permute.unpermute",
                            "moe_gemm.grouped_ffn_ragged")}
     off = {k: 0 for k in OFF_PATH}
-    check1 = check_training(
-        [one], dict(zero, **off,
-                    **{"moe_fused.local_moe": n_layers * TRAIN_STEPS,
-                       "moe_gemm.grouped_ffn_ragged_quant": 0}),
-        "train_1rank")
-    xent = one["fused_xent"]
-    want_x = {k: 0 for k in backend.LAUNCHES}
-    want_x["moe_fused.local_moe"] = n_layers
-    if not xent["rel_diff"] <= LOSS_RTOL or xent["launches"] != want_x:
-        raise SystemExit(f"train_1rank fused_xent: loss {xent['fused']} "
-                         f"against {xent['default']} (relative "
-                         f"{xent['rel_diff']}, limit {LOSS_RTOL}); launches "
-                         f"{xent['launches']}, the step needs {want_x}")
-    emit({"phase": "train_1rank", "seconds": time.time() - t0,
-          "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_1,
-          "steps": TRAIN_STEPS, **check1, **one})
-    # the meta dry-run's training state at train_1rank's shapes against
-    # the state the run holds (parameters, gradients, AdamW's moments)
-    if one["state_bytes"] != dry_1rank:
-        raise SystemExit(f"dry-run at train_1rank's shapes: {dry_1rank} "
-                         f"bytes, the run holds {one['state_bytes']}")
-    emit({"phase": "dryrun_vs_train_1rank", "dryrun": dry_1rank,
-          "train_1rank": one["state_bytes"], "equal": True})
 
-    # 7. training, 2x2 EP world: four ranks share the card over gloo
-    t0 = time.time()
-    mesh.spawn(train_rank, WORLD_22, "gloo", "cuda",
-               args=(tmp, TRAIN_BATCH_22, "a2a", "", TRAIN_STEPS, WORLD_LAYERS,
-                     True))
-    ranks = []
+    # 7. training, 2x2 EP world (in the session), then in the same
+    # processes train_2x2_pipelined (8.)
+    ranks, pipe = [], []
     for r in range(math.prod(WORLD_22)):
         with open(os.path.join(tmp, f"rank{r}.json")) as fh:
             ranks.append(json.load(fh))
+        with open(os.path.join(tmp, f"pipelined{r}.json")) as fh:
+            pipe.append(json.load(fh))
+    pipe_s = max(r["run_seconds"] for r in pipe)
     per_layer = {k: WORLD_LAYERS * TRAIN_STEPS for k in zero}
     check22 = check_training(
         ranks, dict(per_layer, **off,
                     **{"moe_fused.local_moe": 0,
                        "moe_gemm.grouped_ffn_ragged_quant": 0}),
         "train_2x2")
-    emit({"phase": "train_2x2", "seconds": time.time() - t0,
-          "world": list(WORLD_22), "backend": "gloo", "layers": WORLD_LAYERS,
+    emit({"phase": "train_2x2",
+          "seconds": max(r["run_seconds"] for r in ranks),
+          "session_seconds": session_s, "world": list(WORLD_22),
+          "backend": "gloo", "layers": WORLD_LAYERS,
           "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_22,
           "steps": TRAIN_STEPS, **check22, "ranks": ranks})
 
-    # 8. training, 2x2 EP world, pipelined dispatch over the int8 wire
-    t0 = time.time()
-    pipe_dir = os.path.join(tmp, "pipelined")
-    os.makedirs(pipe_dir)
-    mesh.spawn(train_rank, WORLD_22, "gloo", "cuda",
-               args=(pipe_dir, TRAIN_BATCH_22, "a2a_pipelined", "int8",
-                     PIPELINED_STEPS, WORLD_LAYERS))
-    pipe = []
-    for r in range(math.prod(WORLD_22)):
-        with open(os.path.join(pipe_dir, f"rank{r}.json")) as fh:
-            pipe.append(json.load(fh))
+    # 8. training, 2x2 EP world, pipelined dispatch over the int8 wire (in
+    # train_2x2's processes: its seconds are the run's own)
     for r in pipe:
         if r["a2a_num_chunks"] != PIPELINED_CHUNKS:
             raise SystemExit(f"train_2x2_pipelined rank {r['rank']}: "
@@ -5148,7 +5574,7 @@ def main() -> int:
                    **{"moe_gemm.grouped_ffn_ragged": 0,
                       "moe_fused.local_moe": 0}),
         "train_2x2_pipelined", LOSS_RTOL_INT8, PIPELINED_STEPS)
-    emit({"phase": "train_2x2_pipelined", "seconds": time.time() - t0,
+    emit({"phase": "train_2x2_pipelined", "seconds": pipe_s,
           "world": list(WORLD_22), "backend": "gloo", "wire_codec": "int8",
           "layers": WORLD_LAYERS,
           "overlap_terms": overlap_terms(arch), "seq_len": TRAIN_SEQ,
@@ -5156,79 +5582,7 @@ def main() -> int:
           **check_p,
           "ranks": pipe})
 
-    # 9. training through the einsum baseline with K6, in a child process
-    t0 = time.time()
-    child = mp.get_context("spawn").Process(
-        target=train_phase, args=(None, os.path.join(tmp, "einsum.json"),
-                                  TRAIN_BATCH_1, "einsum", "", TRAIN_STEPS,
-                                  "lb", True), kwargs={"layers": CUT_LAYERS})
-    child.start()
-    child.join()
-    if child.exitcode != 0:
-        raise SystemExit(f"train_einsum_k6: the child process failed (exit "
-                         f"{child.exitcode})")
-    with open(os.path.join(tmp, "einsum.json")) as fh:
-        ein = json.load(fh)
-    check_e = check_training(
-        [ein], {k: (CUT_LAYERS * TRAIN_STEPS if k == "moe_gemm.grouped_ffn"
-                    else 0) for k in backend.LAUNCHES},
-        "train_einsum_k6")
-    emit({"phase": "train_einsum_k6", "seconds": time.time() - t0,
-          "dispatch": "einsum", "aux_mode": "lb", "use_moe_kernel": True,
-          "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_1,
-          "steps": TRAIN_STEPS, **check_e, **ein})
-
-    # 10. one rank, microbatch accumulation with remat, in a child process:
-    # K4 runs once a layer and microbatch forward and again in the
-    # recompute
-    t0 = time.time()
-    child = mp.get_context("spawn").Process(
-        target=train_phase, args=(None, os.path.join(tmp, "accum.json"),
-                                  ACCUM_BATCH),
-        kwargs={"microbatch": ACCUM_MICRO, "remat": True,
-                "layers": CUT_LAYERS})
-    child.start()
-    child.join()
-    if child.exitcode != 0:
-        raise SystemExit(f"train_1rank_accum_remat: the child process failed "
-                         f"(exit {child.exitcode})")
-    with open(os.path.join(tmp, "accum.json")) as fh:
-        acc = json.load(fh)
-    n_micro = ACCUM_BATCH // ACCUM_MICRO
-    check_a = check_training(
-        [acc], dict(zero, **off,
-                    **{"moe_fused.local_moe": CUT_LAYERS * n_micro * 2
-                       * TRAIN_STEPS,
-                       "moe_gemm.grouped_ffn_ragged_quant": 0}),
-        "train_1rank_accum_remat")
-    emit({"phase": "train_1rank_accum_remat", "seconds": time.time() - t0,
-          "seq_len": TRAIN_SEQ, "global_batch": ACCUM_BATCH,
-          "microbatch": ACCUM_MICRO, "remat": True, "steps": TRAIN_STEPS,
-          **check_a, **acc})
-
-    # 11. the resilient runtime on one rank, in a child process
-    t0 = time.time()
-    child = mp.get_context("spawn").Process(
-        target=resilient_phase, args=(os.path.join(tmp, "resilient.json"),))
-    child.start()
-    child.join()
-    if child.exitcode != 0:
-        raise SystemExit(f"train_resilient: the child process failed (exit "
-                         f"{child.exitcode})")
-    with open(os.path.join(tmp, "resilient.json")) as fh:
-        resil = json.load(fh)
-    want_r = {k: 0 for k in backend.LAUNCHES}
-    want_r["moe_fused.local_moe"] = (RESILIENT_STEPS
-                                     + CUT_LAYERS * GUARD_STEPS * 4)
-    if resil["launches"] != want_r:
-        raise SystemExit(f"train_resilient: launches {resil['launches']}, "
-                         f"the path needs {want_r}")
-    emit({"phase": "train_resilient", "seconds": time.time() - t0,
-          "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_1, **resil})
-
-    # 12. the 2x2 world through a degraded-link replan
-    t0 = time.time()
-    mesh.spawn(replan_rank, WORLD_22, "gloo", "cuda", args=(tmp,))
+    # 12. the 2x2 world through a degraded-link replan (in the session)
     rep = []
     for r in range(math.prod(WORLD_22)):
         with open(os.path.join(tmp, f"replan{r}.json")) as fh:
@@ -5264,13 +5618,116 @@ def main() -> int:
                              f"the same state: relative {rel} > "
                              f"{LOSS_RTOL}")
     print(rep[0]["log"], end="", flush=True)
-    emit({"phase": "train_2x2_replan", "seconds": time.time() - t0,
+    emit({"phase": "train_2x2_replan",
+          "seconds": max(r["run_seconds"] for r in rep),
+          "session_seconds": session_s,
           "world": list(WORLD_22), "backend": "gloo",
           "layers": REPLAN_LAYERS, "seq_len": TRAIN_SEQ,
           "global_batch": TRAIN_BATCH_22, "steps": REPLAN_STEPS,
           "resilience": REPLAN_RESILIENCE, "chaos": REPLAN_CHAOS,
           "ranks": [{k: v for k, v in r.items() if k != "log"}
                     for r in rep]})
+
+    # the other MoE models on the 2x2 world (in the session)
+    srv_e, trn_e, trn_e8 = ep_family_results(tmp, session_s)
+
+    # 6. training, one rank, in a child process (it frees the card when it
+    # ends); the kernels were built above, so the child only loads them;
+    # after the run, the fused cross entropy on its state.  The same child
+    # then runs train_einsum_k6 (9.), train_1rank_accum_remat (10.),
+    # train_dsv2_lite_d4 (17.), train_resilient (11.) and train_internlm2
+    # (19.), each from its own draw: one process start for the six, whose
+    # reports the later phases read from ``one_rank``
+    t0 = time.time()
+    one_rank = tempfile.mkdtemp(prefix="chip_smoke_one_rank_")
+    child = mp.get_context("spawn").Process(target=train_chain, args=([
+        (os.path.join(tmp, "train_1rank.json"), TRAIN_BATCH_1, (),
+         {"fused_xent": True}),
+        (os.path.join(tmp, "einsum.json"), TRAIN_BATCH_1,
+         ("einsum", "", TRAIN_STEPS, "lb", True), {"layers": CUT_LAYERS}),
+        (os.path.join(tmp, "accum.json"), ACCUM_BATCH, (),
+         {"microbatch": ACCUM_MICRO, "remat": True, "layers": CUT_LAYERS}),
+        (os.path.join(one_rank, "dsv2_d4.json"), TRAIN_BATCH_1, (),
+         {"layers": DSV2_CUT_LAYERS, "arch_id": DSV2_ID})], (
+        ("resilient_phase", (os.path.join(tmp, "resilient.json"),)),
+        ("train_dense_phase", (os.path.join(one_rank, "internlm2.json"),)))))
+    child.start()
+    child.join()
+    if child.exitcode != 0:
+        raise SystemExit(f"train_1rank (with train_einsum_k6, "
+                         f"train_1rank_accum_remat, train_dsv2_lite_d4, "
+                         f"train_resilient and train_internlm2): the child "
+                         f"process failed (exit {child.exitcode})")
+    chain_s = time.time() - t0
+    with open(os.path.join(tmp, "train_1rank.json")) as fh:
+        one = json.load(fh)
+    check1 = check_training(
+        [one], dict(zero, **off,
+                    **{"moe_fused.local_moe": n_layers * TRAIN_STEPS,
+                       "moe_gemm.grouped_ffn_ragged_quant": 0}),
+        "train_1rank")
+    xent = one["fused_xent"]
+    want_x = {k: 0 for k in backend.LAUNCHES}
+    want_x["moe_fused.local_moe"] = n_layers
+    if not xent["rel_diff"] <= LOSS_RTOL or xent["launches"] != want_x:
+        raise SystemExit(f"train_1rank fused_xent: loss {xent['fused']} "
+                         f"against {xent['default']} (relative "
+                         f"{xent['rel_diff']}, limit {LOSS_RTOL}); launches "
+                         f"{xent['launches']}, the step needs {want_x}")
+    emit({"phase": "train_1rank", "seconds": one["run_seconds"],
+          "child_seconds": chain_s,
+          "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_1,
+          "steps": TRAIN_STEPS, **check1, **one})
+    # the meta dry-run's training state at train_1rank's shapes against
+    # the state the run holds (parameters, gradients, AdamW's moments)
+    if one["state_bytes"] != dry_1rank:
+        raise SystemExit(f"dry-run at train_1rank's shapes: {dry_1rank} "
+                         f"bytes, the run holds {one['state_bytes']}")
+    emit({"phase": "dryrun_vs_train_1rank", "dryrun": dry_1rank,
+          "train_1rank": one["state_bytes"], "equal": True})
+
+    # 9. training through the einsum baseline with K6 (run in
+    # train_1rank's child process)
+    with open(os.path.join(tmp, "einsum.json")) as fh:
+        ein = json.load(fh)
+    check_e = check_training(
+        [ein], {k: (CUT_LAYERS * TRAIN_STEPS if k == "moe_gemm.grouped_ffn"
+                    else 0) for k in backend.LAUNCHES},
+        "train_einsum_k6")
+    emit({"phase": "train_einsum_k6", "seconds": ein["run_seconds"],
+          "dispatch": "einsum", "aux_mode": "lb", "use_moe_kernel": True,
+          "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_1,
+          "steps": TRAIN_STEPS, **check_e, **ein})
+
+    # 10. one rank, microbatch accumulation with remat (run in
+    # train_1rank's child process): K4 runs once a layer and microbatch
+    # forward and again in the recompute
+    with open(os.path.join(tmp, "accum.json")) as fh:
+        acc = json.load(fh)
+    n_micro = ACCUM_BATCH // ACCUM_MICRO
+    check_a = check_training(
+        [acc], dict(zero, **off,
+                    **{"moe_fused.local_moe": CUT_LAYERS * n_micro * 2
+                       * TRAIN_STEPS,
+                       "moe_gemm.grouped_ffn_ragged_quant": 0}),
+        "train_1rank_accum_remat")
+    emit({"phase": "train_1rank_accum_remat", "seconds": acc["run_seconds"],
+          "seq_len": TRAIN_SEQ, "global_batch": ACCUM_BATCH,
+          "microbatch": ACCUM_MICRO, "remat": True, "steps": TRAIN_STEPS,
+          **check_a, **acc})
+
+    # 11. the resilient runtime on one rank (run in train_1rank's child
+    # process)
+    with open(os.path.join(tmp, "resilient.json")) as fh:
+        resil = json.load(fh)
+    want_r = {k: 0 for k in backend.LAUNCHES}
+    want_r["moe_fused.local_moe"] = (RESILIENT_STEPS
+                                     + CUT_LAYERS * GUARD_STEPS * 4)
+    if resil["launches"] != want_r:
+        raise SystemExit(f"train_resilient: launches {resil['launches']}, "
+                         f"the path needs {want_r}")
+    emit({"phase": "train_resilient", "seconds": resil["run_seconds"],
+          "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_1, **resil})
 
     # 13. training on the paper's three-level topology: eight ranks
     t0 = time.time()
@@ -5340,7 +5797,8 @@ def main() -> int:
     # 15. DeepSeek-V2-Lite at full width (MLA, top-6 of 64 experts,
     # swiglu) on one rank; every gpt3_medium_moe tensor of this process was
     # freed before serve_2x2
-    ck_ds, srv_ds, tds = deepseek_phases(torch, np)
+    ck_ds, srv_ds, tds = deepseek_phases(
+        torch, np, os.path.join(one_rank, "dsv2_d4.json"))
 
     # 16. Jamba-v0.1 at full width and depth 16 (Mamba, attention, top-2
     # of 16 experts of f 14336) on one rank, after DeepSeek's weights are
@@ -5349,7 +5807,9 @@ def main() -> int:
 
     # 17. the dense decoders at full width and depth on one rank, after
     # Jamba's weights are freed; K5 at head dim 128 on three of them
-    ck_dn, srv_dn, tr_dn = dense_phases(torch, np)
+    ck_dn, srv_dn, tr_dn = dense_phases(
+        torch, np, os.path.join(one_rank, "internlm2.json"))
+    shutil.rmtree(one_rank, ignore_errors=True)
 
     # 18. xLSTM, Whisper and InternVL2 at full width and depth on one
     # rank, after the dense decoders' weights are freed; K5 non-causal in
@@ -5357,16 +5817,15 @@ def main() -> int:
     ck_fm, srv_fm = family_phases(torch, np)
 
     # 19. tensor parallelism: a (data 1, model 2) world of two ranks
-    # sharing the card serves gpt3_medium_moe and Minitron-4B and trains
-    # gpt3_medium_moe, through K4 and K5 at a model rank's layouts
-    ck_tp, srv_tp, trn_tp = tp_phases(torch, np)
+    # sharing the card serves gpt3_medium_moe and Minitron-4B, trains
+    # gpt3_medium_moe (through K4, and an einsum step through K6) and
+    # serves the other families (MLA, Mamba, the xLSTM mixers, Whisper,
+    # InternVL2), through K4 and K5 at a model rank's layouts; 20. the
+    # paper's staged paths (K1, K2, K3, K7) on a (data 2, model 2) world
+    # with a checkpoint round trip
+    (ck_tp, srv_tp, trn_tp, ck_ep, trn_ep, ck_fam,
+     srv_fam) = tp_phases(torch, np)
 
-    # 20. tensor parallelism on an EP x TP world and the other families:
-    # the paper's staged paths (K1, K2, K3, K7) on a (data 2, model 2)
-    # world with a checkpoint round trip, and the other families on the
-    # (data 1, model 2) world (MLA, Mamba, the xLSTM mixers, Whisper,
-    # InternVL2; K4 and K5 at a model rank's widths)
-    ck_ep, trn_ep, ck_fam, srv_fam = ep_tp_family_phases(torch, np)
 
     # 21. kernels: launches summed over every main path and rank
     def total(name):
@@ -5388,8 +5847,8 @@ def main() -> int:
                 "train_dp": [r["launches"][name] for r in rdp],
                 "serve_dsv2_lite": srv_ds["launches"][name],
                 "train_dsv2_lite_d4": tds["launches"][name],
-                "serve_jamba_d8": srv_jb["launches"][name],
-                "loss_jamba_d8": loss_jb["launches"][name],
+                "serve_jamba_d4": srv_jb["launches"][name],
+                "loss_jamba_d4": loss_jb["launches"][name],
                 **{f"serve_{aid}": r["launches"][name]
                    for aid, r in srv_dn.items()},
                 "train_internlm2": tr_dn["launches"][name],
@@ -5404,7 +5863,18 @@ def main() -> int:
                     r["pipelined_int8"]["launches"][name] for r in trn_ep],
                 **{f"serve_tp2_{aid}": [
                     r["families"][aid]["launches"][name] for r in srv_fam]
-                   for aid, _ in TP_FAMILIES}}
+                   for aid, _ in TP_FAMILIES},
+                "train_tp2_einsum": [r["einsum"]["launches"][name]
+                                     for r in trn_tp],
+                "serve_dsv2_2x2": [r["launches"][name]
+                                   for r in srv_e[DSV2_ID]],
+                "serve_jamba_2x2": [r["launches"][name]
+                                    for r in srv_e[JAMBA_ID]],
+                "train_dsv2_2x2": [r["launches"][name] for r in trn_e],
+                "train_dsv2_2x2_pipelined": [r["launches"][name]
+                                             for r in trn_e8]}
+
+    ck_d22 = ck_e[DSV2_ID]
 
     def dsv2_row(r, extra=()):
         """One reading of ``checks_wide`` (DeepSeek-V2-Lite's or
@@ -5444,7 +5914,8 @@ def main() -> int:
          **pair_row(k1),
          "dsv2_lite_2x2": dsv2_row(ck_ds["K1"], ("call_ms", "host_us")),
          "jamba_2x2": dsv2_row(ck_jb["K1"], ("call_ms", "host_us")),
-         "ep_tp_S=8192": dsv2_row(ck_ep["K1"], ("call_ms", "host_us"))},
+         "ep_tp_S=8192": dsv2_row(ck_ep["K1"], ("call_ms", "host_us")),
+         "dsv2_2x2_batch4": dsv2_row(ck_d22["K1"], ("call_ms", "host_us"))},
         {"name": "moe_permute.unpermute", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_permute.cu",
          "replaces": "src/repro/kernels/moe_permute/kernel.py:88",
@@ -5452,12 +5923,15 @@ def main() -> int:
          "launches_by_path": by_path("moe_permute.unpermute"),
          "max_abs_err": max(e["max_abs_err"]
                             for e in list(k2.values()) + k2_edges
-                            + [ck_ds["K2"], ck_jb["K2"], ck_ep["K2"]]),
+                            + [ck_ds["K2"], ck_jb["K2"], ck_ep["K2"],
+                               ck_d22["K2"]]),
          "backward_max_abs_err": bwd_err("K2"),
          **pair_row(k2),
          "dsv2_lite_2x2": dsv2_row(ck_ds["K2"], ("call_ms", "host_us")),
          "jamba_2x2": dsv2_row(ck_jb["K2"], ("call_ms", "host_us")),
-         "ep_tp_T=2048": dsv2_row(ck_ep["K2"], ("call_ms", "host_us"))},
+         "ep_tp_T=2048": dsv2_row(ck_ep["K2"], ("call_ms", "host_us")),
+         "dsv2_2x2_batch4_top6": dsv2_row(ck_d22["K2"],
+                                          ("call_ms", "host_us"))},
         {"name": "moe_gemm.grouped_ffn_ragged", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_gemm.cu",
          "replaces": "src/repro/kernels/moe_gemm/kernel.py:228",
@@ -5468,7 +5942,8 @@ def main() -> int:
                              k_222["K3_max_abs_err"],
                              ck_ds["K3"]["max_abs_err"],
                              ck_jb["K3"]["max_abs_err"],
-                             ck_ep["K3"]["max_abs_err"]]
+                             ck_ep["K3"]["max_abs_err"],
+                             ck_d22["K3"]["max_abs_err"]]
                             + [e["max_abs_err"] for e in k3e]),
          "backward_max_abs_err": bwd["K3"]["max_abs_err"],
          **{n: k3[n] for n in ("ms", "device_ms", "kernel_device_ms",
@@ -5482,7 +5957,8 @@ def main() -> int:
          "dsv2_lite_2x2": dsv2_row(ck_ds["K3"], ("tiles", "valid_rows")),
          "jamba_2x2": dsv2_row(ck_jb["K3"], ("tiles", "valid_rows")),
          "ep_tp_R8192_f1024": dsv2_row(ck_ep["K3"], ("call_ms", "host_us",
-                                                     "tiles"))},
+                                                     "tiles")),
+         "dsv2_2x2_batch4": dsv2_row(ck_d22["K3"], ("tiles", "valid_rows"))},
         {"name": "moe_gemm.grouped_ffn_ragged_quant", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_gemm.cu",
          "replaces": "src/repro/kernels/moe_gemm/kernel.py:312",
@@ -5491,7 +5967,8 @@ def main() -> int:
          "max_abs_err": max(k7["max_abs_err"], k7_full["max_abs_err"],
                             ck_ds["K7"]["max_abs_err"],
                             ck_jb["K7"]["max_abs_err"],
-                            ck_ep["K7"]["max_abs_err"]),
+                            ck_ep["K7"]["max_abs_err"],
+                            ck_d22["K7"]["max_abs_err"]),
          "backward_max_abs_err": bwd["K7"]["max_abs_err"],
          "ms": k7["ms"], "device_ms": k7["device_ms"],
          "kernel_device_ms": k7["kernel_device_ms"],
@@ -5507,7 +5984,9 @@ def main() -> int:
          "jamba_chunk0": dsv2_row(ck_jb["K7"], ("chunks", "R",
                                                 "valid_rows")),
          "ep_tp_chunk0_f1024": dsv2_row(ck_ep["K7"], ("chunks", "R",
-                                                      "valid_rows"))},
+                                                      "valid_rows")),
+         "dsv2_2x2_batch4_chunk0": dsv2_row(ck_d22["K7"], ("chunks", "R",
+                                                          "valid_rows"))},
         {"name": "moe_fused.local_moe", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_fused.cu",
          "replaces": "src/repro/kernels/moe_fused/kernel.py:123",
@@ -5520,7 +5999,9 @@ def main() -> int:
                             + list(ck_tp["K4"].values())
                             + [r for aid in ck_fam
                                for k, r in ck_fam[aid].items()
-                               if k.startswith("K4")]),
+                               if k.startswith("K4")]
+                            + [r for aid in ck_e
+                               for r in ck_e[aid]["K4"].values()]),
          "backward_max_abs_err": bwd["K4"]["max_abs_err"],
          **{n: kp[n] for n in ("ms", "device_ms", "kernel_device_ms",
                                "call_ms", "host_us", "plain_ms", "bound_ms",
@@ -5549,7 +6030,11 @@ def main() -> int:
                                             "computed_rows", "weighted_rows",
                                             "dense_rows"))
              for aid in ck_fam for label, r in ck_fam[aid].items()
-             if label.startswith("K4")}},
+             if label.startswith("K4")},
+         "ep_family_2x2_layouts": {
+             f"{aid} {label}": dsv2_row(r, ("computed_rows", "weighted_rows",
+                                            "dense_rows"))
+             for aid in ck_e for label, r in ck_e[aid]["K4"].items()}},
         {"name": "flash_attn.flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attn.cu",
          "replaces": "src/repro/kernels/flash_attn/kernel.py:65",
@@ -5591,13 +6076,18 @@ def main() -> int:
          "replaces": "src/repro/kernels/moe_gemm/kernel.py:185",
          "launches": total("moe_gemm.grouped_ffn"),
          "launches_by_path": by_path("moe_gemm.grouped_ffn"),
-         "max_abs_err": max(e["max_abs_err"] for e in [k6] + k6_edges),
+         "max_abs_err": max(e["max_abs_err"]
+                            for e in [k6, ck_tp["K6"]] + k6_edges),
          "backward_max_abs_err": bwd["K6"]["max_abs_err"],
          "ms": k6["ms"], "device_ms": k6["device_ms"],
          "plain_ms": k6["plain_ms"],
          "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
          "library_ms": None, "bmm_chain_ms": k6["bmm_chain_ms"],
-         "bmm_chain_device_ms": k6["bmm_chain_device_ms"]},
+         "bmm_chain_device_ms": k6["bmm_chain_device_ms"],
+         "tp2_f1024": {n: ck_tp["K6"][n] for n in (
+             "shape", "f", "ms", "device_ms", "plain_ms", "bound_ms",
+             "bound_by", "bmm_chain_ms", "bmm_chain_device_ms",
+             "max_abs_err")}},
         {"name": "decode_attn.decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn/kernel.py:65",

@@ -71,6 +71,8 @@ class Scenario:
     path: str
     use_pallas: bool | None
     num_chunks: int = 1
+    a2a_dtype: str = ""           # deprecated cast-only wire (kept for the
+                                  # alias coverage); prefer wire_codec
     wire_codec: str = ""          # registered codec name in dispatch.wire
     tokens: int = 32
     num_experts: int = 16
@@ -89,11 +91,10 @@ class Scenario:
 def default_scenarios() -> tuple:
     """All four dispatch paths on the 2-level (2x2) and 3-level (2x2x2)
     worlds, kernels on and off, plus the pipelined chunking, the fused
-    one-rank zero-collective pin, a cast wire, and the scaled (int8 /
-    fp8e4m3) wire codecs with their scale sidebands: the reference's
-    fifteen.  The reference's ``a2a-2x2-wire-bf16`` takes the deprecated
-    ``a2a_dtype="bfloat16"``; the port's ``bf16`` codec puts the same
-    dtype on the wire."""
+    one-rank zero-collective pin, a cast wire (the deprecated
+    ``a2a_dtype="bfloat16"``, as the reference's takes it), and the scaled
+    (int8 / fp8e4m3) wire codecs with their scale sidebands: the
+    reference's fifteen."""
     return (
         Scenario("a2a-2x2-ref", (2, 2), "a2a", False),
         Scenario("a2a-2x2-kernels", (2, 2), "a2a", True),
@@ -109,7 +110,8 @@ def default_scenarios() -> tuple:
         Scenario("gather-2x2x2-ref", (2, 2, 2), "gather", False),
         Scenario("einsum-2x2x2", (2, 2, 2), "einsum", False),
         Scenario("a2a-unit-mesh-fused", (1,), "a2a", True),
-        Scenario("a2a-2x2-wire-bf16", (2, 2), "a2a", True, wire_codec="bf16"),
+        Scenario("a2a-2x2-wire-bf16", (2, 2), "a2a", True,
+                 a2a_dtype="bfloat16"),
         Scenario("a2a-2x2-wire-int8", (2, 2), "a2a", True,
                  wire_codec="int8"),
         Scenario("a2a-2x2x2-wire-fp8e4m3", (2, 2, 2), "a2a", True,
@@ -167,7 +169,7 @@ def _plan(sc: Scenario):
 
 
 def expected_inventory(sc: Scenario, device="cpu") -> list:
-    from repro_torch.core.dispatch import transport, wire
+    from repro_torch.core.dispatch import transport
     from repro_torch.core.dispatch.base import EPSpec
     from repro_torch.kernels.moe_fused import ops as fused_ops
     from repro_torch.kernels.moe_gemm import ops as gemm_ops
@@ -195,7 +197,7 @@ def expected_inventory(sc: Scenario, device="cpu") -> list:
     stages = transport.plan_stages(plan, EPSpec.from_axes(names, sizes))
     fused_on = fused_ops.use_fused(sc.use_pallas, device)
     ragged = gemm_ops.use_ragged(sc.use_pallas, device)
-    codec = wire.get_codec(sc.wire_codec)
+    codec = scenario_codec(sc)
     wire_dt = hlo_dtype(codec.wire_dtype if codec else sc.dtype)
     scaled = codec is not None and codec.scaled
     nc = max(1, sc.num_chunks)
@@ -249,6 +251,19 @@ def inventory(world) -> list:
             for kind, dtype, n, axes in world.log]
 
 
+def scenario_codec(sc: Scenario):
+    """The scenario's wire codec as ``MoEConfig`` resolves it: the
+    first-class ``wire_codec`` name wins, the deprecated ``a2a_dtype``
+    falls back to the cast-only codec (no warning here: the analysis
+    exercises the alias deliberately)."""
+    from repro_torch.core.dispatch import wire
+    if sc.wire_codec:
+        return wire.get_codec(sc.wire_codec)
+    if sc.a2a_dtype:
+        return wire.cast_codec(sc.a2a_dtype)
+    return None
+
+
 def _scenario_inputs(sc: Scenario, world, *, device="cpu", seed: int = 0):
     """``(engine, params, x)`` of one scenario on ``world`` (rank
     ``world.rank``): the layer's parameters drawn from ``seed`` on every
@@ -267,7 +282,7 @@ def _scenario_inputs(sc: Scenario, world, *, device="cpu", seed: int = 0):
                     num_experts=sc.num_experts, top_k=sc.top_k,
                     capacity_factor=sc.capacity_factor,
                     activation=sc.activation, dtype=dtype,
-                    wire_codec=sc.wire_codec)
+                    wire_codec=scenario_codec(sc))
     ep = EPSpec.from_axes(names, sizes)
     gate_cfg = gating.GateConfig(num_experts=sc.num_experts, top_k=sc.top_k,
                                  aux_mode="lb")

@@ -93,6 +93,32 @@ class DispatchPlan:
         n = len(self.axis_sizes)
         return _prod(self.axis_sizes[n - stage - 1:])
 
+    # --- deprecated 2-level aliases (the reference's near/far surface) ---
+
+    @property
+    def cap_near(self) -> int:
+        """Deprecated: ``caps[0]``."""
+        return self.caps[0]
+
+    @property
+    def cap_far(self) -> int:
+        """Deprecated: ``caps[1]`` (0 when the plan has a single stage)."""
+        return self.caps[1] if len(self.caps) > 1 else 0
+
+    @property
+    def chunk_near(self) -> int:
+        """Deprecated: per-chunk stage-0 capacity."""
+        return self.chunk_cap(0)
+
+    @property
+    def chunk_far(self) -> int:
+        """Deprecated: per-chunk stage-1 capacity."""
+        return self.cap_far // self.num_chunks
+
+
+#: Deprecated name for :class:`DispatchPlan` (the near/far-era class).
+CapacityPlan = DispatchPlan
+
 
 def stage_ratio(ratios, level_sizes, stage: int) -> float:
     """Eq. (7) capacity multiplier for one dispatch stage.

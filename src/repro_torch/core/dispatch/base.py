@@ -10,7 +10,9 @@ ends in ``sharding.reduce_from_model`` exactly where the reference
 psums over the model axis; its differentiable inputs pass
 ``sharding.copy_to_model`` first, so the gradients reaching the
 dispatch and the gate are whole on every model rank.
-``MoEConfig.wire_codec`` resolves through ``core.dispatch.wire``.
+``MoEConfig.wire_codec`` resolves through ``core.dispatch.wire``; the
+deprecated ``a2a_dtype`` keyword resolves there too, to the cast-only
+codec, with a ``DeprecationWarning``.
 """
 
 from __future__ import annotations
@@ -73,11 +75,16 @@ class MoEConfig:
     activation: str = "swiglu"    # "swiglu" | "gelu"
     dtype: torch.dtype = torch.bfloat16
     use_kernel: bool = False      # the dense grouped FFN entry (K6)
+    a2a_dtype: str = ""           # deprecated alias for wire_codec: a raw
+                                  # dtype name resolves to the cast-only
+                                  # codec (DeprecationWarning)
     wire_codec: object = None
 
     def __post_init__(self):
-        object.__setattr__(self, "wire_codec",
-                           wire.get_codec(self.wire_codec))
+        # stacklevel 4: the warning names the caller of MoEConfig(...)
+        object.__setattr__(
+            self, "wire_codec",
+            wire.resolve(self.wire_codec, self.a2a_dtype, stacklevel=4))
 
 
 # ---------------------------------------------------------------------------

@@ -47,11 +47,25 @@ class Selection(NamedTuple):
 
 class Routing(NamedTuple):
     """Output of :func:`route`: ``sels[i]`` is ``(stage_index,
-    Selection)`` for each active plan stage, in stage order."""
+    Selection)`` for each active plan stage, in stage order.  ``near`` /
+    ``far`` are deprecated 2-level views."""
     sels: tuple
     gate_out: dict
     aux: torch.Tensor
     levels: torch.Tensor
+
+    @property
+    def near(self):
+        """Deprecated: the stage-0 selection."""
+        return self.sels[0][1] if self.sels and self.sels[0][0] == 0 else None
+
+    @property
+    def far(self):
+        """Deprecated: the stage-1 selection (None on single-stage plans)."""
+        for s, sel in self.sels:
+            if s == 1:
+                return sel
+        return None
 
 
 def score_matrix(gate_out, num_experts: int):

@@ -22,6 +22,11 @@
   cotangents over the axis and keeps this rank's rows, the sum's
   backward is the same sum.
 
+The deprecated surfaces survive as in the reference: ``wire_a2a``'s and
+``A2ATransport``'s ``wire_dtype=`` (the cast-only codec, with a
+``DeprecationWarning``) and the 2-level ``dispatch_near`` /
+``dispatch_far`` / ``combine_near`` / ``combine_far`` (stage 0 and 1).
+
 Buffer layout contract with the moe_permute dispatch: the payload arrives
 (stage, destination, expert, slot)-sorted, so each stage's delivered rows
 are contiguous per-expert spans (:func:`expert_segments`,
@@ -34,7 +39,55 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.dispatch import wire
 from repro_torch.core.dispatch.base import EPSpec
+
+
+def _tiled_a2a(x, world, axis_name, split_axis: int, concat_axis: int):
+    """JAX's tiled ``all_to_all(split_axis, concat_axis)`` over
+    ``axis_name`` of the EP world: ``split_axis`` cut into one slice a
+    member, slice ``j`` sent to member ``j``, the received slices
+    concatenated on ``concat_axis`` in member order."""
+    n = world.shape[axis_name]
+    if n == 1:
+        return x
+    s, c = split_axis % x.dim(), concat_axis % x.dim()
+    shape = tuple(x.shape)
+    parts = x.reshape(shape[:s] + (n, shape[s] // n) + shape[s + 1:])
+    got = world.all_to_all(parts.movedim(s, 0).contiguous(), axis_name, 0)
+    return torch.cat(got.unbind(0), dim=c)
+
+
+class _WireA2A(torch.autograd.Function):
+    """The tiled all-to-all; backward: the same exchange with split and
+    concat swapped (its transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, world, axis_name, split_axis, concat_axis):
+        ctx.args = (world, axis_name, concat_axis, split_axis)
+        return _tiled_a2a(x, world, axis_name, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _tiled_a2a(g.contiguous(), *ctx.args), None, None, None, None
+
+
+def wire_a2a(x, world, axis_name, *, split_axis, concat_axis,
+             wire_dtype: str = ""):
+    """all_to_all over ``axis_name`` of ``world`` (the EP world) with an
+    optional (deprecated) on-the-wire dtype cast.
+
+    ``wire_dtype=`` resolves to the cast-only codec with a
+    DeprecationWarning; scaled codecs need the segment layout only
+    :class:`A2ATransport` knows, so quantized wire goes through a
+    transport built with ``codec=`` instead of this helper."""
+    codec = wire.resolve(None, wire_dtype)
+    if codec is not None:
+        payload, _ = codec.encode(x)
+        payload = _WireA2A.apply(payload, world, axis_name, split_axis,
+                                 concat_axis)
+        return codec.decode(payload, None, x.dtype)
+    return _WireA2A.apply(x, world, axis_name, split_axis, concat_axis)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,7 +269,9 @@ class A2ATransport:
     """Equal-split staged all-to-all over the EP world's axes.
 
     ``world`` is the ``launch.mesh.EPWorld`` of this rank; ``codec`` a
-    ``wire`` codec (or None for the raw model-dtype wire).  A stage with
+    ``wire`` codec, a registered name, or None for the raw model-dtype
+    wire; ``wire_dtype`` the deprecated stringly alias, resolved to the
+    byte-identical cast codec with a DeprecationWarning.  A stage with
     one destination exchanges nothing: its chain is a plain reshape (the
     scaled codec still encodes and decodes, as the reference's does).
     """
@@ -224,6 +279,12 @@ class A2ATransport:
     ep: EPSpec
     world: object
     codec: object = None
+    wire_dtype: str = ""          # deprecated: use codec=
+
+    def __post_init__(self):
+        object.__setattr__(self, "codec",
+                           wire.resolve(self.codec, self.wire_dtype,
+                                        stacklevel=4))
 
     def _chain(self, fn, scaled, x, stage, plain):
         if self.codec is not None and self.codec.scaled:
@@ -254,6 +315,30 @@ class A2ATransport:
         the same chain and transpose as :meth:`dispatch`, exact (int32, no
         wire cast, no gradient)."""
         return counts_chain(cnt, stage, self.world.all_to_all)
+
+    # --- deprecated near/far wrappers (the reference's 2-level surface) ---
+
+    def _stage2(self, index: int) -> Stage:
+        names, sizes = self.ep.axis_names, self.ep.axis_sizes
+        n = len(names)
+        return Stage(index=index, axis_names=names[n - index - 1:],
+                     axis_sizes=sizes[n - index - 1:], cap=0)
+
+    def dispatch_near(self, buf):
+        """Deprecated: ``dispatch(buf, stage 0)``."""
+        return self.dispatch(buf, self._stage2(0))
+
+    def dispatch_far(self, buf):
+        """Deprecated: ``dispatch(buf, stage 1)``."""
+        return self.dispatch(buf, self._stage2(1))
+
+    def combine_near(self, y):
+        """Deprecated: ``combine(y, stage 0)``."""
+        return self.combine(y, self._stage2(0))
+
+    def combine_far(self, y):
+        """Deprecated: ``combine(y, stage 1)``."""
+        return self.combine(y, self._stage2(1))
 
 
 class _AllGather(torch.autograd.Function):

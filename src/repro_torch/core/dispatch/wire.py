@@ -17,11 +17,16 @@ block's absmax.
 
 Dtype names are those of the reference (``"bfloat16"``, ``"int8"``,
 ``"float8_e4m3fn"``), which are also torch's attribute names.
+
+The deprecated ``wire_dtype=`` / ``a2a_dtype=`` keywords resolve through
+:func:`resolve` to :func:`cast_codec`'s cast-only codec, with the
+reference's ``DeprecationWarning``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import torch
 
@@ -121,3 +126,29 @@ def get_codec(spec) -> WireCodec | None:
             f"unknown wire codec {spec!r}; registered codecs: "
             f"{sorted(CODECS)} (or pass a WireCodec instance)")
     return codec
+
+
+def cast_codec(dtype_str: str) -> CastCodec:
+    """Cast-only codec for a raw dtype name: the deprecated
+    ``wire_dtype=`` / ``a2a_dtype=`` compatibility surface."""
+    if _torch_dtype(dtype_str) is None:
+        raise ValueError(
+            f"unknown wire dtype {dtype_str!r}; not a torch dtype and not a "
+            f"registered codec name {sorted(CODECS)}")
+    return CastCodec(name=f"cast:{dtype_str}", wire_dtype=dtype_str)
+
+
+def resolve(codec, wire_dtype: str, *, stacklevel: int = 3):
+    """One resolved codec from the (codec, deprecated wire_dtype) pair.
+
+    ``codec`` wins when set; a bare ``wire_dtype`` warns and maps to the
+    byte-identical cast codec."""
+    if codec is not None and codec != "":
+        return get_codec(codec)
+    if wire_dtype:
+        warnings.warn(
+            "wire_dtype=/a2a_dtype= is deprecated; pass a wire codec "
+            "(e.g. wire_codec=\"bf16\"|\"int8\"|\"fp8e4m3\") instead",
+            DeprecationWarning, stacklevel=stacklevel)
+        return cast_codec(wire_dtype)
+    return None

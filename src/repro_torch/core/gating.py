@@ -51,6 +51,19 @@ def expert_levels_nd(num_experts: int, experts_per_rank: int, axis_sizes,
     return lvl
 
 
+def expert_levels(num_experts: int, experts_per_rank: int, ep_per_pod: int,
+                  num_pods: int, my_pod, my_data, device="cpu") -> torch.Tensor:
+    """Deprecated 2-level wrapper over :func:`expert_levels_nd`.
+
+    Returns int [N]: 0 = my own experts, 1 = same pod, 2 = other pod."""
+    if num_pods > 1:
+        return expert_levels_nd(num_experts, experts_per_rank,
+                                (num_pods, ep_per_pod), (my_pod, my_data),
+                                device=device)
+    return expert_levels_nd(num_experts, experts_per_rank, (ep_per_pod,),
+                            (my_data,), device=device)
+
+
 def topk_stable(x: torch.Tensor, k: int):
     """``jax.lax.top_k`` semantics: descending values, ties broken toward
     the lower index."""

@@ -25,6 +25,13 @@ the EP x TP world (``EP_TP_SIZES`` x ``TP_MODEL``: data 2, model 2) K1,
 K2, K3 and K7 register rank 0's staged layouts at f 1024
 (``staged(EP_TP_SIZES, model=TP_MODEL)``).
 
+The repo's other two MoE models on the 2x2 EP world register theirs
+too: DeepSeek-V2-Lite's (d 2048, 16 experts of f 1408 a rank, swiglu,
+top-6) at ``staged(arch_id=DSV2_ID, global_batch=DSV2_22_BATCH)`` and its
+pipelined chunk 0 (K1, K2 at top-6, K3, K7), and both models' gather
+layouts of the 2x2 serving world (K4: DeepSeek-V2-Lite's 16 experts a
+rank, Jamba's 4 of f 14336).
+
 Imports of the model stack happen inside the functions, so importing a
 kernel package stays light.
 """
@@ -41,6 +48,11 @@ TP_MODEL = 2
 #: the hierarchy of the EP x TP world (experts over data 2, each expert's
 #: width over the model axis)
 EP_TP_SIZES = (2,)
+#: the other MoE models on the 2x2 EP world: DeepSeek-V2-Lite trains at
+#: global batch DSV2_22_BATCH (512 tokens a rank); both serve 8 slots in
+#: packs of 4 prompts of 128 (Jamba's scan prefill steps gather 4 rows)
+DSV2_ID, JAMBA_ID = "deepseek_v2_lite_16b", "jamba_v0_1_52b"
+DSV2_22_BATCH = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,11 +80,12 @@ def arch(arch_id: str = ARCH_ID):
 
 @functools.lru_cache(maxsize=None)
 def staged(sizes=(2, 2), global_batch: int = 8,
-           num_chunks: int = 1, model: int = 1) -> Staged:
-    """Rank 0's layout of the staged plan over the EP world ``sizes``
-    at sequence 512 and ``global_batch`` (chunk 0 of ``num_chunks``); a
-    model axis of ``model`` splits each expert's width (the plan is the
-    hierarchy's)."""
+           num_chunks: int = 1, model: int = 1,
+           arch_id: str = ARCH_ID) -> Staged:
+    """Rank 0's layout of ``arch_id``'s staged plan over the EP world
+    ``sizes`` at sequence 512 and ``global_batch`` (chunk 0 of
+    ``num_chunks``); a model axis of ``model`` splits each expert's width
+    (the plan is the hierarchy's)."""
     import math
 
     from repro_torch.core import capacity
@@ -80,7 +93,7 @@ def staged(sizes=(2, 2), global_batch: int = 8,
     from repro_torch.launch import mesh
     from repro_torch.models import model as model_lib
 
-    a = arch()
+    a = arch(arch_id)
     world = mesh.recording_world(sizes)
     plan = model_lib.make_plan(a, world, TRAIN_SEQ, global_batch, "ta")
     if num_chunks > 1:
@@ -97,6 +110,28 @@ def staged(sizes=(2, 2), global_batch: int = 8,
     return Staged(tokens=T, top_k=a.moe.top_k, d=a.d_model,
                   f=a.moe.d_ff_expert // model, seg_offsets=offs,
                   seg_experts=exps)
+
+
+@functools.lru_cache(maxsize=None)
+def pipelined_chunks(arch_id: str = ARCH_ID, sizes=(2, 2),
+                     global_batch: int = 8) -> int:
+    """The overlap model's chunk count for ``arch_id``'s pipelined plan
+    over the int8 wire on the EP world ``sizes`` (``model.build_ctx``)."""
+    from repro_torch.launch import mesh
+    from repro_torch.models import model as model_lib
+    return model_lib.build_ctx(
+        arch(arch_id), mesh.recording_world(sizes), seq_len=TRAIN_SEQ,
+        global_batch=global_batch, dispatch="a2a_pipelined",
+        wire_codec="int8", device="cpu").a2a_num_chunks
+
+
+def dsv2_staged(pipelined: bool = False) -> Staged:
+    """DeepSeek-V2-Lite's rank-0 layout on the 2x2 EP world at
+    DSV2_22_BATCH: the a2a plan's, or chunk 0 of the int8 pipelined
+    plan's."""
+    k = (pipelined_chunks(DSV2_ID, (2, 2), DSV2_22_BATCH) if pipelined
+         else 1)
+    return staged((2, 2), DSV2_22_BATCH, num_chunks=k, arch_id=DSV2_ID)
 
 
 @functools.lru_cache(maxsize=None)

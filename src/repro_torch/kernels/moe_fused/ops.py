@@ -496,4 +496,14 @@ def _local_moe_layouts():
             out.append(local_moe_layout(
                 f"{aid} gather Tg={Tg} E_l={len(exps)} f={ff} swiglu", offs,
                 exps, Tg, fd, ff, swiglu=True))
+    # the families on the 2x2 EP world's gather path (serve_dsv2_2x2,
+    # serve_jamba_2x2): 8 decode slots, a prefill pack of 4 x 128
+    # (DeepSeek-V2-Lite) or a scan step of 4 rows (Jamba)
+    for aid, Tgs in ((layouts.DSV2_ID, (8, 512)), (layouts.JAMBA_ID, (8, 4))):
+        fa = layouts.arch(aid)
+        for Tg in Tgs:
+            offs, exps = layouts.gathered(Tg, 4, arch_id=aid)
+            out.append(local_moe_layout(
+                f"{aid} 2x2 gather Tg={Tg} E_l={len(exps)} swiglu", offs,
+                exps, Tg, fa.d_model, fa.moe.d_ff_expert, swiglu=True))
     return out

@@ -617,6 +617,10 @@ def _ragged_layouts():
     lay = layouts.staged()
     out.append(span_layout(KERNEL, "2x2 swiglu", lay.seg_offsets,
                            lay.seg_experts, lay.d, lay.f, swiglu=True))
+    lay = layouts.dsv2_staged()
+    out.append(span_layout(KERNEL, f"dsv2 2x2 R={lay.slots} f={lay.f} swiglu",
+                           lay.seg_offsets, lay.seg_experts, lay.d, lay.f,
+                           swiglu=True))
     return out
 
 
@@ -626,6 +630,7 @@ def _quant_layouts():
     chunk0, whole = layouts.staged(num_chunks=8), layouts.staged()
     tp0 = layouts.staged(layouts.EP_TP_SIZES, num_chunks=8,
                          model=layouts.TP_MODEL)
+    ds0 = layouts.dsv2_staged(pipelined=True)
     return [span_layout(KERNEL_QUANT, f"2x2_pipelined_chunk0 R={chunk0.slots}",
                         chunk0.seg_offsets, chunk0.seg_experts, chunk0.d,
                         chunk0.f, quant=True),
@@ -638,7 +643,11 @@ def _quant_layouts():
                         whole.f, quant=True),
             span_layout(KERNEL_QUANT, "2x2 swiglu", whole.seg_offsets,
                         whole.seg_experts, whole.d, whole.f, swiglu=True,
-                        quant=True)]
+                        quant=True),
+            span_layout(KERNEL_QUANT,
+                        f"dsv2 2x2_pipelined_chunk0 R={ds0.slots} f={ds0.f}"
+                        f" swiglu", ds0.seg_offsets, ds0.seg_experts,
+                        ds0.d, ds0.f, swiglu=True, quant=True)]
 
 
 @backend.register_kernel(KERNEL_DENSE)
@@ -647,11 +656,13 @@ def _dense_layouts():
     a = layouts.arch()
     E, d, f = a.moe.num_experts, a.d_model, a.moe.d_ff_expert
     out = []
-    for C, swiglu in ((128, False), (200, False), (128, True)):
+    # the last: a model rank's f / TP_MODEL on train_tp2's einsum step
+    for C, swiglu, ff in ((128, False, f), (200, False, f), (128, True, f),
+                          (128, False, f // layouts.TP_MODEL)):
         out.append(backend.KernelLayout(
             f"{KERNEL_DENSE}[einsum [{E}, {C}, {d}]"
-            f"{' swiglu' if swiglu else ''}]",
-            dense_launches(E, C, d, f, swiglu),
+            f"{' swiglu' if swiglu else ''}{f' f={ff}' if ff != f else ''}]",
+            dense_launches(E, C, d, ff, swiglu),
             meta={"geometry": ("moe_gemm", "grouped_ffn_dense_geometry",
-                               (E, C, d, f, int(swiglu)))}))
+                               (E, C, d, ff, int(swiglu)))}))
     return out

@@ -251,7 +251,10 @@ def _staged_layouts():
                        ("2x2x2", layouts.staged((2, 2, 2))),
                        ("ep2_tp2", layouts.staged(ep_tp, model=m)),
                        ("ep2_tp2_pipelined_chunk0",
-                        layouts.staged(ep_tp, num_chunks=8, model=m))):
+                        layouts.staged(ep_tp, num_chunks=8, model=m)),
+                       ("dsv2 2x2", layouts.dsv2_staged()),
+                       ("dsv2 2x2_pipelined_chunk0",
+                        layouts.dsv2_staged(pipelined=True))):
         yield label, lay
 
 

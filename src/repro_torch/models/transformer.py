@@ -76,6 +76,7 @@ class ModelCtx:
     # kernel switch of the hot path: None = auto (CUDA kernels for CUDA
     # tensors, plain versions on the CPU); True/False force it
     use_pallas: bool | None = None
+    a2a_dtype: str = ""               # deprecated: use wire_codec
     wire_codec: object = None
     fused_xent: bool = False          # loss through _fused_xent
     use_blockwise: bool = False       # attention by online softmax over
@@ -198,7 +199,8 @@ class ModelCtx:
             capacity_factor=a.moe.capacity_factor,
             num_shared_experts=a.moe.num_shared_experts,
             activation=a.activation, dtype=a.torch_dtype,
-            use_kernel=self.use_moe_kernel, wire_codec=self.wire_codec)
+            use_kernel=self.use_moe_kernel, a2a_dtype=self.a2a_dtype,
+            wire_codec=self.wire_codec)
 
     @property
     def frac_levels(self) -> int:

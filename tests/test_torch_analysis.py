@@ -44,15 +44,12 @@ GATHER_DIFFERS = ("gather-2x2-ref", "gather-2x2-kernels", "gather-2x2x2-ref")
 
 
 def reference_scenario(sc):
-    """The reference's scenario of the same name: its wire-bf16 case takes
-    the deprecated ``a2a_dtype``, the port's the ``bf16`` codec."""
-    kw = dict(name=sc.name, axis_sizes=sc.axis_sizes, path=sc.path,
-              use_pallas=sc.use_pallas, num_chunks=sc.num_chunks)
-    if sc.wire_codec == "bf16":
-        kw["a2a_dtype"] = "bfloat16"
-    elif sc.wire_codec:
-        kw["wire_codec"] = sc.wire_codec
-    return hlo_check.Scenario(**kw)
+    """The reference's scenario of the same name: the wire-bf16 case takes
+    the deprecated ``a2a_dtype`` in both packages."""
+    return hlo_check.Scenario(
+        name=sc.name, axis_sizes=sc.axis_sizes, path=sc.path,
+        use_pallas=sc.use_pallas, num_chunks=sc.num_chunks,
+        a2a_dtype=sc.a2a_dtype, wire_codec=sc.wire_codec)
 
 
 def test_expected_inventory_matches_reference():
