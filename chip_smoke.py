@@ -271,7 +271,19 @@ Phases, each printing JSON lines:
    xLSTM no kernel at all, every other kernel never; xLSTM and Whisper
    prefill by scanning decode steps.  ``e2e_<config>``: the float32
    verdict (xLSTM's kernel path is its plain path; InternVL2's float32
-   run casts one layer at a time);
+   run casts one layer at a time).  The families through the trainer,
+   in train_1rank's child process (``train_chain``), one rank at full
+   width, TRAIN_SEQ x TRAIN_BATCH_1 with their frames or patches:
+   ``train_whisper`` (full depth), ``train_xlstm`` (8 of 24 blocks) and
+   ``train_internvl2_d4`` (4 of 48 layers), ``family_train_phase``: no
+   kernel launched (attention through ``_sdpa``), the first bf16 step's
+   loss and global gradient norm within FAMILY_TRAIN's limits of a
+   float32 step's on the same weights and batch, the loss falling over
+   FAMILY_TRAIN_STEPS steps on that one batch (RunConfig's warmup);
+   ``train_jamba_d2`` (``train_phase`` at JAMBA_TRAIN_LAYERS: a Mamba
+   layer with a dense FFN, then attention with the MoE FFN): K4 once a
+   step, the first-step loss within LOSS_RTOL of the plain path's; each
+   with step walls, busy share and peak memory;
 21. tensor parallelism — a (data 1, model 2) world of two gloo ranks
    sharing the card (``tp_phases``), after every other model's weights
    are freed.  ``checks_tp2``: K4 at a model rank's layouts (layer 0's
@@ -330,14 +342,17 @@ Phases, each printing JSON lines:
    E2E_RATIO times the one-rank bf16 plain runs' error, request by
    request (the median of the draws' rows), launches exact, the ranks'
    picks and greedy tokens equal, parameter bytes a rank;
-23. the repo's other two MoE models on the paper's 2x2 EP world: their
+23. the repo's other MoE models on the paper's 2x2 EP world: their
    one-rank references and checks (``ep_family_references``) in the main
    process after the serve phase's weights are freed, their serving and
    training as jobs of the 2x2 world's session (``ep_family_jobs``,
    after train_2x2_replan; ``ep_family_results`` reads them):
    DeepSeek-V2-Lite at depth 3 (the dense first layer and two MoE
-   layers; 16 routed experts of f 1408 a rank, top-6, 2 shared, MLA)
-   and Jamba at depth 2 (``cut_depth``; 4 experts of f 14336 a rank).
+   layers; 16 routed experts of f 1408 a rank, top-6, 2 shared, MLA),
+   Jamba at depth 2 (``cut_depth``; 4 experts of f 14336 a rank) and
+   DeepSeek-V2-236B at depth 3 (d 5120, 128 MLA heads with the low-rank
+   query branch; 40 routed experts of f 1536 a rank, top-6, 2 shared;
+   the ranks draw its weights in turns, ``init_in_turns``).
    ``checks_dsv2_2x2``: K4 at both models' gather layouts of the 2x2
    serving world (rank 0's experts over 8 gathered decode slots, and a
    gathered prefill pack of 4 x 128 or a scan step of 4 rows), and K1,
@@ -346,8 +361,13 @@ Phases, each printing JSON lines:
    16)) and K7 (swiglu) at chunk 0 of its int8 pipelined plan, each
    equal to ``kernels/layouts.py``'s registered layout, against its
    plain version, timed; each model's one-rank bf16 and float32 plain
-   runs of TP_FAMILY_DRAWS draws of the E2E rows.  ``serve_dsv2_2x2``
-   and ``serve_jamba_2x2`` (one spawn of four ranks, ``serve_rank`` a
+   runs of TP_FAMILY_DRAWS draws of the E2E rows.
+   ``checks_dsv2_236b_2x2``: the same for DeepSeek-V2-236B at the same
+   plan (K1 and K2 at T 512, S 5120; K3 over its 40 experts of f 1536
+   at d 5120; K7 at chunk 0 of 8, R 640; K4 over the 40 experts at the
+   gathered decode slots and pack), its float32 run cast one layer at a
+   time.  ``serve_dsv2_2x2``, ``serve_jamba_2x2`` and
+   ``serve_dsv2_236b_2x2`` (one spawn of four ranks, ``serve_rank`` a
    model): the kernel path's median request within E2E_RATIO of the
    one-rank bf16 run's (``e2e_row_verdict``), EP_FAMILY_REQUESTS of
    the serve mix through ``ServingEngine.run``, every MoE layer through
@@ -369,10 +389,12 @@ Phases, each printing JSON lines:
    ``serve_<config>``, train_internlm2, the three families'
    ``serve_<config>``, every rank of serve_tp2 (gpt3 and Minitron),
    train_tp2 and its einsum step, train_ep_tp (a2a and pipelined),
-   each family's serve_tp2_<config>, serve_dsv2_2x2, serve_jamba_2x2
-   and train_dsv2_2x2 (a2a and pipelined)), with DeepSeek-V2-Lite's
-   and Jamba's readings beside each of K1-K4 and K7 (one rank's and the
-   2x2 world's), the hd-128 readings beside K5's and K8's, the
+   each family's serve_tp2_<config>, serve_dsv2_2x2, serve_jamba_2x2,
+   serve_dsv2_236b_2x2 and train_dsv2_2x2 (a2a and pipelined),
+   train_jamba_d2 and the families' training), with DeepSeek-V2-Lite's,
+   DeepSeek-V2-236B's and Jamba's readings beside each of K1-K4 and K7
+   (one rank's and the 2x2 world's), the hd-128 readings beside K5's
+   and K8's, the
    families' shapes beside K5's, the tensor-parallel layouts beside
    K4's, K5's and K6's, and the EP x TP layouts beside K1, K2, K3 and
    K7's.  K8 lies on no path (no model calls it, as in the reference):
@@ -591,6 +613,47 @@ DENSE_TRAIN_ID, DENSE_MICRO = "internlm2_1_8b", 2
 XLSTM_ID, WHISPER_ID, VLM_ID = "xlstm_350m", "whisper_tiny", "internvl2_26b"
 FAMILY_IDS = (XLSTM_ID, WHISPER_ID, VLM_ID)
 FAMILY_LAYERS = {XLSTM_ID: 8}
+# the families through the trainer on the card, one rank each at full
+# width, in train_1rank's child process (``train_chain``), batch
+# TRAIN_BATCH_1 with their frames or patches from ``SyntheticLM``:
+# Whisper-tiny at full depth, xLSTM-350M at 8 of 24 blocks (one whole
+# group: 7 mLSTM and the sLSTM) and sequence XLSTM_TRAIN_SEQ (its sLSTM
+# steps the positions one by one, about 107 launches a position forward
+# and backward: at 512 a step made 54,754 launches and its profiled step
+# cost 12.6-14.2 s, which took the smoke over its time budget),
+# InternVL2-26B at 4 of 48 layers (2.2 B parameters; with AdamW's
+# float32 moments 37.5 GB at the peak), each (phase, config, depth (0:
+# the full depth), sequence, loss limit, gradient-norm limit).  They run no hand-written kernel in training (attention
+# through ``_sdpa``; K5 is forward-only), so each is held to a float32
+# step of the same weights and batch: the first bf16 step's loss and
+# global gradient norm within the limits (relative); and to a loss that
+# falls over FAMILY_TRAIN_STEPS steps on one repeated batch at the
+# trainer's default warmup (RunConfig's 100 steps: lr 3e-6, then 6e-6).
+# At full lr from the first step (warmup 1) InternVL2's loss doubles
+# after the first update in bf16 and in float32 alike (12.49 -> 25.87
+# and 25.82 on an H100), an overshoot of Adam's first, sign-sized step
+# at d 6144, not a fault of the path.  Sound gaps on an H100 (bf16
+# against float32, loss / gradient norm): Whisper 4.0e-6 / 2.4e-4,
+# InternVL2 7.5e-5 / 1.6e-5, xLSTM 2.3e-5 / 0.083 (at sequence 512 it
+# was 5.1e-5 / 0.46): random-weight xLSTM is ill-conditioned in bf16 (its
+# first blocks' gradients lie a third of their norm from float32; on the
+# CPU at d 512 the reference's own strict bf16 run lies 12% from its
+# float32 gradient norm, the port's 23%), so its gradient-norm limit sits
+# 3x its sound gap, the others' 20x or more, and the loss limits 13x or
+# more.
+XLSTM_TRAIN_SEQ = 128
+FAMILY_TRAIN = (("train_whisper", WHISPER_ID, 0, TRAIN_SEQ, 1e-3, 5e-3),
+                ("train_xlstm", XLSTM_ID, 8, XLSTM_TRAIN_SEQ, 1e-3, 0.25),
+                ("train_internvl2_d4", VLM_ID, 4, TRAIN_SEQ, 1e-3, 5e-3))
+FAMILY_TRAIN_STEPS = 2
+# train_jamba_d2: Jamba at depth JAMBA_TRAIN_LAYERS (``cut_depth``: a
+# Mamba layer with a dense FFN, then attention with the MoE FFN, K4's
+# forward; 65 GB at the peak with AdamW's moments and the eager
+# update's float32 temporaries of the 0.94 B-entry expert leaves, since
+# K4's backward takes one expert's float32 weights at a time) through
+# ``train_phase``, its first-step loss within LOSS_RTOL of the plain
+# path's
+JAMBA_TRAIN_LAYERS = 2
 VLM_BUCKET, VLM_CACHE_LEN = 384, 512
 # tensor parallelism: a (data 1, model 2) world of two gloo ranks sharing
 # the card, each with half of every attention's heads, of every FFN's and
@@ -650,7 +713,25 @@ TP_FAMILIES = (("deepseek_v2_lite_16b", 4), ("jamba_v0_1_52b", 2),
 # batch DSV2_22_BATCH (512 tokens a rank; about 0.84 B parameters and 10
 # GB of state a rank).  Jamba does not train on the card's world: with
 # its gradients and AdamW moments it would hold about 19 GB a rank
-EP_FAMILIES = ((DSV2_ID, 3), (JAMBA_ID, 2))
+# DeepSeek-V2-236B (arXiv:2405.04434), the configuration the paper's
+# topology-aware dispatch exists for (236 B parameters, 470 GB in bf16:
+# no one card holds it), joins them on the 2x2 world: full width (d
+# 5120, 128 MLA heads with the low-rank query branch, q_lora_rank 1536,
+# 160 routed experts top-6 of f 1536 beside 2 shared, vocab 102400) cut
+# to depth 3 (the dense first layer and two MoE layers), 40 experts a
+# rank: about 3.7 B parameters, 7.3 GB a rank; the one-rank references
+# hold 8.8 B (17.6 GB) and cast one layer at a time to float32.  Its
+# kernels are checked at train_dsv2_2x2's plan (checks_dsv2_236b_2x2);
+# it serves (serve_dsv2_236b_2x2) but does not train: at depth 2 a
+# rank's bf16 parameters and gradients and float32 moments would be
+# about 31 GB, 123 GB for the four ranks on one card.  Each rank draws
+# a layer's 160 experts whole before keeping its 40 (about 17 GB of
+# transients), so the ranks of a serving world draw their weights in
+# turns (``init_in_turns``)
+DSV2_236B_ID = "deepseek_v2_236b"
+# (config, depth, the short name of its phases)
+EP_FAMILIES = ((DSV2_ID, 3, "dsv2"), (JAMBA_ID, 2, "jamba"),
+               (DSV2_236B_ID, 3, "dsv2_236b"))
 EP_FAMILY_REQUESTS = 4
 DSV2_22_BATCH, DSV2_22_STEPS, DSV2_22_INT8_STEPS = 4, 2, 1
 # kernels no earlier phase may launch: K6 runs only on the einsum phases, K8
@@ -1946,8 +2027,7 @@ def train_phase(world, out_path: str, global_batch: int,
     t_start = time.time()
     arch = get_config(arch_id)
     if layers:
-        import dataclasses
-        arch = dataclasses.replace(arch, num_layers=layers)
+        arch = cut_depth(arch, layers)
     run = RunConfig(seq_len=TRAIN_SEQ, global_batch=global_batch,
                     warmup_steps=1, aux_mode=aux_mode, dispatch=dispatch,
                     a2a_num_chunks=0, wire_codec=wire_codec, seed=0,
@@ -2063,6 +2143,128 @@ def train_chain(runs, then: tuple = ()) -> None:
         globals()[name](*args)
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def family_train_phase(out_path: str, arch_id: str, layers: int = 0,
+                       seq: int = TRAIN_SEQ) -> None:
+    """One-rank training of ``arch_id`` (a family with no hand-written
+    kernel on its training path) at full width, cut to ``layers`` by
+    ``cut_depth`` (0: full depth), at sequence ``seq``, on
+    ``SyntheticLM``'s batch 0 (with its
+    frames or patches, and for a vision model the loss mask zero over the
+    patches), AdamW at RunConfig's defaults (lr 3e-4 after 100 warmup
+    steps).  First the float32 reference: a
+    float32 copy of the weights, one forward and backward, its loss and
+    global gradient norm (then freed); then FAMILY_TRAIN_STEPS bf16
+    training steps on that batch, each timed after a synchronize, the
+    launch counters set to 0 just before and read just after, the peak
+    device memory; then one more step under the profiler.  Writes the
+    report to ``out_path``; the main process holds it."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import RunConfig, get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch
+    from repro_torch.kernels import backend
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adamw
+    from repro_torch.training import trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.time()
+    arch = get_config(arch_id)
+    if layers:
+        arch = cut_depth(arch, layers)
+    run = RunConfig(seq_len=seq, global_batch=TRAIN_BATCH_1,
+                    aux_mode="none", seed=0)
+    ctx = model_lib.build_ctx(arch, None, seq_len=seq,
+                              global_batch=TRAIN_BATCH_1, aux_mode="none",
+                              device="cuda")
+    params = model_lib.init_params(
+        ctx, torch.Generator(device="cuda").manual_seed(run.seed))
+    host = SyntheticLM(DataConfig(vocab_size=arch.vocab_size,
+                                  seq_len=seq, global_batch=TRAIN_BATCH_1,
+                                  seed=run.seed), arch).batch(0)
+    batch = shard_batch(host, None, "cuda")
+    parts = {"init": time.time() - t_start}
+    f32_ctx = dataclasses.replace(ctx, arch=dataclasses.replace(
+        arch, dtype="float32"))
+    p32 = _cast_params(params, torch.float32)
+    for p in adamw.tree_leaves(p32):
+        p.requires_grad_(True)
+    grads, m32 = trainer._backward(p32, batch, f32_ctx, run)
+    _, gn32 = trainer.sync_grads(p32, f32_ctx, grads)
+    f32 = {"loss": float(m32["loss"].detach()), "grad_norm": float(gn32)}
+    del p32, grads, m32, gn32
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["f32_step"] = time.time() - t_start - sum(parts.values())
+
+    for p in adamw.tree_leaves(params):
+        p.requires_grad_(True)
+    opt_state = adamw.init_state(params)
+    step = trainer.make_train_step(ctx, run)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    backend.reset_launches()
+    losses, gnorms, walls = [], [], []
+    for _ in range(FAMILY_TRAIN_STEPS):
+        ts = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - ts)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    launches = dict(backend.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    parts["bf16_steps"] = time.time() - t_start - sum(parts.values())
+    profiled = profile_train_step(torch, step, params, opt_state, batch,
+                                  device_only=True)
+    parts["profiled_step"] = time.time() - t_start - sum(parts.values())
+    report = {
+        "arch": arch_id, "layers": arch.num_layers,
+        "enc_layers": arch.enc_layers,
+        "params": model_lib.count_params(params), "seq_len": seq,
+        "global_batch": TRAIN_BATCH_1, "steps": FAMILY_TRAIN_STEPS,
+        "frontend": (list(host["frontend"].shape) if "frontend" in host
+                     else None),
+        "loss_mask_zeros": int((host["loss_mask"] == 0).sum()),
+        "f32": f32, "losses": losses, "grad_norm": gnorms,
+        "step_wall_s": walls, "launches": launches,
+        "max_memory_allocated_gb": peak_gb, "profiled_step": profiled,
+        "seconds_by_part": parts, "run_seconds": time.time() - t_start}
+    with open(out_path, "w") as fh:
+        json.dump(report, fh)
+
+
+def check_family_training(r: dict, label: str, loss_rtol: float,
+                          gnorm_rtol: float) -> dict:
+    """A family's one-rank training (``family_train_phase``): no kernel
+    launched, finite losses that fall over the steps on the repeated
+    batch, and the first bf16 step's loss and gradient norm within
+    ``loss_rtol`` and ``gnorm_rtol`` of the float32 step's."""
+    from repro_torch.kernels import backend
+    want = {k: 0 for k in backend.LAUNCHES}
+    if r["launches"] != want:
+        raise SystemExit(f"{label}: launches {r['launches']}, the path "
+                         f"needs none")
+    losses = r["losses"]
+    if not all(math.isfinite(v) for v in losses + r["grad_norm"]) or \
+            not losses[-1] < losses[0]:
+        raise SystemExit(f"{label}: losses {losses} on one repeated batch "
+                         f"(grad norms {r['grad_norm']}): not finite and "
+                         f"falling")
+    gaps = {k: abs(got - r["f32"][k]) / abs(r["f32"][k])
+            for k, got in (("loss", losses[0]),
+                           ("grad_norm", r["grad_norm"][0]))}
+    limits = {"loss": loss_rtol, "grad_norm": gnorm_rtol}
+    for k, gap in gaps.items():
+        if not gap <= limits[k]:
+            raise SystemExit(f"{label}: the bf16 step's {k} lies {gap} "
+                             f"(relative) from the float32 step's "
+                             f"{r['f32'][k]}; limit {limits[k]}")
+    return {"rel_diff_vs_f32": gaps, "limits": limits}
 
 
 def expert_digest(torch, params, ctx) -> str:
@@ -2205,7 +2407,8 @@ def steps_through(torch, ctx, run, params, data, steps: int):
                                step_seconds=step_s)
 
 
-def profile_train_step(torch, step, params, opt_state, batch) -> dict:
+def profile_train_step(torch, step, params, opt_state, batch,
+                       device_only: bool = False) -> dict:
     """One more training step under torch.profiler (not counted): wall
     and device time, busy share, launches, the top kernels, the device
     time of the kernels launched inside each profiler range of
@@ -2214,14 +2417,20 @@ def profile_train_step(torch, step, params, opt_state, batch) -> dict:
     each hand-written kernel's launches and device time by name
     (``port_kernels``).  The profiler credits a range with the PyTorch
     operators' kernels only: a kernel launched through ctypes is in
-    ``port_kernels``, not in its range."""
+    ``port_kernels``, not in its range.  With ``device_only`` the
+    profiler records the card's activity alone (no ranges): a step of
+    tens of thousands of small launches (xLSTM's sLSTM steps its 512
+    positions one by one) otherwise spends half a minute in the host
+    side's events."""
     import re
 
     import chip_ab
     from repro_torch.kernels import backend
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if not device_only:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         step(params, opt_state, batch)
         torch.cuda.synchronize()
@@ -3315,8 +3524,7 @@ def serve_rank(world, out_dir: str, arch_id: str = ARCH_ID,
     ctx = model_lib.build_ctx(arch, world, device="cuda", use_flash=True,
                               aux_mode="none", seq_len=CACHE_LEN,
                               global_batch=NUM_SLOTS)
-    params = model_lib.init_params(
-        ctx, torch.Generator(device="cuda").manual_seed(0))
+    params = init_in_turns(torch, ctx, world)
     with torch.no_grad():
         if arch_id == ARCH_ID:
             ref = torch.load(os.path.join(out_dir, "e2e_reference.pt"))
@@ -3369,6 +3577,26 @@ def serve_rank(world, out_dir: str, arch_id: str = ARCH_ID,
     name = "serve" if arch_id == ARCH_ID else f"serve_{arch_id}"
     with open(os.path.join(out_dir, f"{name}{world.rank}.json"), "w") as fh:
         json.dump(out, fh)
+
+
+def init_in_turns(torch, ctx, world):
+    """``model.init_params`` from seed 0 on each rank of ``world``, one
+    rank after another, each freeing its transients (``empty_cache``)
+    before the next starts: a rank draws every layer whole before it
+    keeps its slice, and four ranks drawing DeepSeek-V2-236B's 160
+    experts a layer at once would hold about 17 GB of transients each on
+    the one card."""
+    from repro_torch.models import model as model_lib
+    params, token = None, torch.zeros(1, device="cuda")
+    for r in range(world.size):
+        if r == world.rank:
+            params = model_lib.init_params(
+                ctx, torch.Generator(device="cuda").manual_seed(0))
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+        world.all_reduce_sum(token)
+    return params
 
 
 def world_session(world, out_dir: str, jobs: tuple) -> None:
@@ -5060,13 +5288,14 @@ def ep_family_checks(torch, aid: str, params, ctx, gen) -> dict:
     """The kernels at rank (0, 0)'s layouts of ``aid`` on the 2x2 EP world
     at full width, on its first MoE layer's weights, each against its
     plain version, timed, with bounds: K4 at the serving world's gather
-    layouts (its 16 or 4 experts a rank over the world's 8 gathered decode
-    slots, and one gathered prefill pack of 4 x 128, or for a model that
-    prefills by scan one scan step's 4 rows); for DeepSeek-V2-Lite also
-    K1, K2 (top-6: the generic instantiation) and K3 (swiglu) at
-    train_dsv2_2x2's staged buffer and K7 (swiglu) at chunk 0 of its int8
-    pipelined plan, each layout equal to the one ``kernels/layouts.py``
-    registers (``dsv2_staged``)."""
+    layouts (its 16, 40 or 4 experts a rank over the world's 8 gathered
+    decode slots, and one gathered prefill pack of 4 x 128, or for a
+    model that prefills by scan one scan step's 4 rows); for the
+    DeepSeek-V2 models also K1, K2 (top-6: the generic instantiation) and
+    K3 (swiglu) at train_dsv2_2x2's staged buffer (DeepSeek-V2-236B's at
+    the same plan, which it does not train) and K7 (swiglu) at chunk 0 of
+    its int8 pipelined plan, each layout equal to the one
+    ``kernels/layouts.py`` registers (``dsv2_staged``)."""
     from repro_torch.kernels import layouts
     from repro_torch.models import decode, transformer
     arch = ctx.arch
@@ -5088,7 +5317,7 @@ def ep_family_checks(torch, aid: str, params, ctx, gen) -> dict:
         out["K4_compaction"].append(check_compaction(torch, args,
                                                      f"{aid}_{label}"))
         del args
-    if aid != DSV2_ID:
+    if arch.mla is None:
         return out
 
     def registered(case, lay, label):
@@ -5100,7 +5329,7 @@ def ep_family_checks(torch, aid: str, params, ctx, gen) -> dict:
 
     case = staged_case(torch, params, arch, gen, layer=layer,
                        global_batch=DSV2_22_BATCH)
-    registered(case, layouts.dsv2_staged(), "staged")
+    registered(case, layouts.dsv2_staged(arch_id=aid), "staged")
     di = case["di"]
     out["K1"] = check_k1(torch, case["x"], di.slot_to_token)
     out["K2"] = check_k2(torch, torch.randn(
@@ -5114,26 +5343,29 @@ def ep_family_checks(torch, aid: str, params, ctx, gen) -> dict:
     del case
     pcase = pipelined_case(torch, params, arch, gen, layer=layer,
                            chunks=None, global_batch=DSV2_22_BATCH)
-    registered(pcase, layouts.dsv2_staged(pipelined=True), "pipelined")
+    registered(pcase, layouts.dsv2_staged(True, aid), "pipelined")
     out["K7"] = check_k7(torch, pcase)
     return out
 
 
 def ep_family_references(torch, np, out_dir: str) -> dict:
-    """checks_dsv2_2x2, before the 2x2 world's session: each of
-    EP_FAMILIES on one rank at its depth (the same draw the world's ranks
-    slice), ``ep_family_checks`` on its weights, and its bf16 and float32
-    plain runs of TP_FAMILY_DRAWS draws of the E2E rows
-    (``e2e_<config>.pt`` in ``out_dir``, which serve_dsv2_2x2 and
-    serve_jamba_2x2 hold their kernel paths to).  Emits the phase's line
-    and returns the checks."""
+    """checks_dsv2_2x2 and checks_dsv2_236b_2x2, before the 2x2 world's
+    session: each of EP_FAMILIES on one rank at its depth (the same draw
+    the world's ranks slice), ``ep_family_checks`` on its weights, and
+    its bf16 and float32 plain runs of TP_FAMILY_DRAWS draws of the E2E
+    rows (``e2e_<config>.pt`` in ``out_dir``, which serve_dsv2_2x2,
+    serve_jamba_2x2 and serve_dsv2_236b_2x2 hold their kernel paths to;
+    DeepSeek-V2-236B's float32 run casts one layer at a time: a whole
+    float32 copy beside its bf16 weights would hold 53 GB).  Emits each
+    phase's line and returns the checks."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as model_lib
 
-    t0 = time.time()
-    checks = {}
+    checks, phases = {}, {}
     gen = torch.Generator(device="cuda").manual_seed(14)
-    for aid, depth in EP_FAMILIES:
+    for aid, depth, _ in EP_FAMILIES:
+        t0 = time.time()
+        torch.cuda.reset_peak_memory_stats()
         arch = cut_depth(get_config(aid), depth)
         ctx = model_lib.build_ctx(arch, device="cuda", use_flash=True,
                                   aux_mode="none", seq_len=CACHE_LEN,
@@ -5145,19 +5377,28 @@ def ep_family_references(torch, np, out_dir: str) -> dict:
             checks[aid] = ep_family_checks(torch, aid, params, ctx, gen)
             for draw in range(TP_FAMILY_DRAWS):
                 prompt, _ = tp_family_prompt(torch, np, arch, draw)
-                runs = plain_runs(torch, params, ctx, prompt, kernel=False)
+                runs = plain_runs(torch, params, ctx, prompt, kernel=False,
+                                  f32_by_layer=aid == DSV2_236B_ID)
                 draws.append({"prompt": prompt.cpu(),
                               **{k: v.cpu() for k, v in runs.items()}})
         checks[aid]["layers"] = depth
         checks[aid]["params"] = model_lib.count_params(params)
         checks[aid]["greedy_model1_f32"] = torch.cat(
             [d["plain_f32"] for d in draws], 1).argmax(-1).t().tolist()
+        checks[aid]["max_memory_allocated_gb"] = (
+            torch.cuda.max_memory_allocated() / 1e9)
         torch.save(draws, os.path.join(out_dir, f"e2e_{aid}.pt"))
         del params, runs, draws
         gc.collect()
         torch.cuda.empty_cache()
-    emit({"phase": "checks_dsv2_2x2", "seconds": time.time() - t0,
-          "world": list(WORLD_22), **checks})
+        name = ("checks_dsv2_236b_2x2" if aid == DSV2_236B_ID
+                else "checks_dsv2_2x2")
+        phase = phases.setdefault(name, {"phase": name, "seconds": 0.0,
+                                         "world": list(WORLD_22)})
+        phase["seconds"] += time.time() - t0
+        phase[aid] = checks[aid]
+    for phase in phases.values():
+        emit(phase)
     return checks
 
 
@@ -5166,17 +5407,23 @@ def ep_family_jobs() -> tuple:
     EP_FAMILIES served (``serve_rank``), then DeepSeek-V2-Lite trained
     (``train_rank``: DSV2_22_STEPS a2a steps, then DSV2_22_INT8_STEPS
     through a2a_pipelined over the int8 wire)."""
-    depth = dict(EP_FAMILIES)[DSV2_ID]
+    depth = ep_depth(DSV2_ID)
     return tuple(("serve_rank", (aid, d, EP_FAMILY_REQUESTS))
-                 for aid, d in EP_FAMILIES) + (
+                 for aid, d, _ in EP_FAMILIES) + (
         ("train_rank", (DSV2_22_BATCH, "a2a", "", DSV2_22_STEPS, depth,
                         False, True, DSV2_ID,
                         (("dsv2_int8_", "a2a_pipelined", "int8",
                           DSV2_22_INT8_STEPS),), "dsv2_")),)
 
 
+def ep_depth(aid: str) -> int:
+    """The depth EP_FAMILIES gives ``aid``."""
+    return next(d for a, d, _ in EP_FAMILIES if a == aid)
+
+
 def ep_family_results(out_dir: str, session_s: float) -> tuple:
-    """serve_dsv2_2x2, serve_jamba_2x2 and train_dsv2_2x2 from the 2x2
+    """serve_dsv2_2x2, serve_jamba_2x2, serve_dsv2_236b_2x2 and
+    train_dsv2_2x2 from the 2x2
     session's files: each family's verdict (held in the ranks), streams
     complete and equal on every rank, greedy tokens equal, launches
     exact; DeepSeek-V2-Lite's two runs' launches exact (K1, K3, K2 once a
@@ -5196,10 +5443,10 @@ def ep_family_results(out_dir: str, session_s: float) -> tuple:
         return out
 
     srv = {}
-    for aid, depth in EP_FAMILIES:
+    for aid, depth, short in EP_FAMILIES:
         arch = cut_depth(get_config(aid), depth)
         ranks = ranks_of(f"serve_{aid}")
-        label = "serve_dsv2_2x2" if aid == DSV2_ID else "serve_jamba_2x2"
+        label = f"serve_{short}_2x2"
         check_serving_world(ranks, arch, label, EP_FAMILY_REQUESTS)
         for r in ranks:
             if r["end_to_end"]["greedy"] != ranks[0]["end_to_end"]["greedy"]:
@@ -5213,7 +5460,7 @@ def ep_family_results(out_dir: str, session_s: float) -> tuple:
               "want_launches": serve_world_want(arch, ranks[0]),
               "ranks": ranks})
 
-    depth = dict(EP_FAMILIES)[DSV2_ID]
+    depth = ep_depth(DSV2_ID)
     a2a, int8 = ranks_of("dsv2_"), ranks_of("dsv2_int8_")
     n_moe = depth - get_config(DSV2_ID).moe.first_dense
     off = {k: 0 for k in OFF_PATH}
@@ -5648,16 +5895,23 @@ def main() -> int:
         (os.path.join(tmp, "accum.json"), ACCUM_BATCH, (),
          {"microbatch": ACCUM_MICRO, "remat": True, "layers": CUT_LAYERS}),
         (os.path.join(one_rank, "dsv2_d4.json"), TRAIN_BATCH_1, (),
-         {"layers": DSV2_CUT_LAYERS, "arch_id": DSV2_ID})], (
+         {"layers": DSV2_CUT_LAYERS, "arch_id": DSV2_ID}),
+        (os.path.join(one_rank, "jamba_d2.json"), TRAIN_BATCH_1, (),
+         {"layers": JAMBA_TRAIN_LAYERS, "arch_id": JAMBA_ID})], (
         ("resilient_phase", (os.path.join(tmp, "resilient.json"),)),
-        ("train_dense_phase", (os.path.join(one_rank, "internlm2.json"),)))))
+        ("train_dense_phase", (os.path.join(one_rank, "internlm2.json"),)))
+        + tuple(("family_train_phase",
+                 (os.path.join(one_rank, f"{label}.json"), aid, depth,
+                  seq))
+                for label, aid, depth, seq, _, _ in FAMILY_TRAIN)))
     child.start()
     child.join()
     if child.exitcode != 0:
         raise SystemExit(f"train_1rank (with train_einsum_k6, "
                          f"train_1rank_accum_remat, train_dsv2_lite_d4, "
-                         f"train_resilient and train_internlm2): the child "
-                         f"process failed (exit {child.exitcode})")
+                         f"train_jamba_d2, train_resilient, train_internlm2 "
+                         f"and the families' training): the child process "
+                         f"failed (exit {child.exitcode})")
     chain_s = time.time() - t0
     with open(os.path.join(tmp, "train_1rank.json")) as fh:
         one = json.load(fh)
@@ -5728,6 +5982,29 @@ def main() -> int:
                          f"the path needs {want_r}")
     emit({"phase": "train_resilient", "seconds": resil["run_seconds"],
           "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH_1, **resil})
+
+    # the families through the trainer (run in train_1rank's child
+    # process): Jamba through K4's forward against its plain path, the
+    # others against a float32 step
+    with open(os.path.join(one_rank, "jamba_d2.json")) as fh:
+        tjb = json.load(fh)
+    check_j = check_training(
+        [tjb], dict(zero, **off,
+                    **{"moe_fused.local_moe": TRAIN_STEPS,
+                       "moe_gemm.grouped_ffn_ragged_quant": 0}),
+        "train_jamba_d2")
+    emit({"phase": "train_jamba_d2", "seconds": tjb["run_seconds"],
+          "arch": JAMBA_ID, "seq_len": TRAIN_SEQ,
+          "global_batch": TRAIN_BATCH_1, "steps": TRAIN_STEPS, **check_j,
+          **tjb})
+    trn_fm = {}
+    for label, _, _, _, loss_rtol, gnorm_rtol in FAMILY_TRAIN:
+        with open(os.path.join(one_rank, f"{label}.json")) as fh:
+            trn_fm[label] = json.load(fh)
+        emit({"phase": label, "seconds": trn_fm[label]["run_seconds"],
+              **check_family_training(trn_fm[label], label, loss_rtol,
+                                      gnorm_rtol),
+              **trn_fm[label]})
 
     # 13. training on the paper's three-level topology: eight ranks
     t0 = time.time()
@@ -5852,6 +6129,9 @@ def main() -> int:
                 **{f"serve_{aid}": r["launches"][name]
                    for aid, r in srv_dn.items()},
                 "train_internlm2": tr_dn["launches"][name],
+                "train_jamba_d2": tjb["launches"][name],
+                **{label: r["launches"][name]
+                   for label, r in trn_fm.items()},
                 **{f"serve_{aid}": r["launches"][name]
                    for aid, r in srv_fm.items()},
                 "serve_tp2": [r["gpt3"]["launches"][name] for r in srv_tp],
@@ -5870,11 +6150,13 @@ def main() -> int:
                                    for r in srv_e[DSV2_ID]],
                 "serve_jamba_2x2": [r["launches"][name]
                                     for r in srv_e[JAMBA_ID]],
+                "serve_dsv2_236b_2x2": [r["launches"][name]
+                                        for r in srv_e[DSV2_236B_ID]],
                 "train_dsv2_2x2": [r["launches"][name] for r in trn_e],
                 "train_dsv2_2x2_pipelined": [r["launches"][name]
                                              for r in trn_e8]}
 
-    ck_d22 = ck_e[DSV2_ID]
+    ck_d22, ck_big = ck_e[DSV2_ID], ck_e[DSV2_236B_ID]
 
     def dsv2_row(r, extra=()):
         """One reading of ``checks_wide`` (DeepSeek-V2-Lite's or
@@ -5915,7 +6197,8 @@ def main() -> int:
          "dsv2_lite_2x2": dsv2_row(ck_ds["K1"], ("call_ms", "host_us")),
          "jamba_2x2": dsv2_row(ck_jb["K1"], ("call_ms", "host_us")),
          "ep_tp_S=8192": dsv2_row(ck_ep["K1"], ("call_ms", "host_us")),
-         "dsv2_2x2_batch4": dsv2_row(ck_d22["K1"], ("call_ms", "host_us"))},
+         "dsv2_2x2_batch4": dsv2_row(ck_d22["K1"], ("call_ms", "host_us")),
+         "dsv2_236b_2x2": dsv2_row(ck_big["K1"], ("call_ms", "host_us"))},
         {"name": "moe_permute.unpermute", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_permute.cu",
          "replaces": "src/repro/kernels/moe_permute/kernel.py:88",
@@ -5924,14 +6207,15 @@ def main() -> int:
          "max_abs_err": max(e["max_abs_err"]
                             for e in list(k2.values()) + k2_edges
                             + [ck_ds["K2"], ck_jb["K2"], ck_ep["K2"],
-                               ck_d22["K2"]]),
+                               ck_d22["K2"], ck_big["K2"]]),
          "backward_max_abs_err": bwd_err("K2"),
          **pair_row(k2),
          "dsv2_lite_2x2": dsv2_row(ck_ds["K2"], ("call_ms", "host_us")),
          "jamba_2x2": dsv2_row(ck_jb["K2"], ("call_ms", "host_us")),
          "ep_tp_T=2048": dsv2_row(ck_ep["K2"], ("call_ms", "host_us")),
          "dsv2_2x2_batch4_top6": dsv2_row(ck_d22["K2"],
-                                          ("call_ms", "host_us"))},
+                                          ("call_ms", "host_us")),
+         "dsv2_236b_2x2_top6": dsv2_row(ck_big["K2"], ("call_ms", "host_us"))},
         {"name": "moe_gemm.grouped_ffn_ragged", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_gemm.cu",
          "replaces": "src/repro/kernels/moe_gemm/kernel.py:228",
@@ -5943,7 +6227,8 @@ def main() -> int:
                              ck_ds["K3"]["max_abs_err"],
                              ck_jb["K3"]["max_abs_err"],
                              ck_ep["K3"]["max_abs_err"],
-                             ck_d22["K3"]["max_abs_err"]]
+                             ck_d22["K3"]["max_abs_err"],
+                             ck_big["K3"]["max_abs_err"]]
                             + [e["max_abs_err"] for e in k3e]),
          "backward_max_abs_err": bwd["K3"]["max_abs_err"],
          **{n: k3[n] for n in ("ms", "device_ms", "kernel_device_ms",
@@ -5958,7 +6243,9 @@ def main() -> int:
          "jamba_2x2": dsv2_row(ck_jb["K3"], ("tiles", "valid_rows")),
          "ep_tp_R8192_f1024": dsv2_row(ck_ep["K3"], ("call_ms", "host_us",
                                                      "tiles")),
-         "dsv2_2x2_batch4": dsv2_row(ck_d22["K3"], ("tiles", "valid_rows"))},
+         "dsv2_2x2_batch4": dsv2_row(ck_d22["K3"], ("tiles", "valid_rows")),
+         "dsv2_236b_2x2": dsv2_row(ck_big["K3"], ("tiles", "valid_rows",
+                                                  "active_experts"))},
         {"name": "moe_gemm.grouped_ffn_ragged_quant", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_gemm.cu",
          "replaces": "src/repro/kernels/moe_gemm/kernel.py:312",
@@ -5968,7 +6255,8 @@ def main() -> int:
                             ck_ds["K7"]["max_abs_err"],
                             ck_jb["K7"]["max_abs_err"],
                             ck_ep["K7"]["max_abs_err"],
-                            ck_d22["K7"]["max_abs_err"]),
+                            ck_d22["K7"]["max_abs_err"],
+                            ck_big["K7"]["max_abs_err"]),
          "backward_max_abs_err": bwd["K7"]["max_abs_err"],
          "ms": k7["ms"], "device_ms": k7["device_ms"],
          "kernel_device_ms": k7["kernel_device_ms"],
@@ -5986,7 +6274,10 @@ def main() -> int:
          "ep_tp_chunk0_f1024": dsv2_row(ck_ep["K7"], ("chunks", "R",
                                                       "valid_rows")),
          "dsv2_2x2_batch4_chunk0": dsv2_row(ck_d22["K7"], ("chunks", "R",
-                                                          "valid_rows"))},
+                                                          "valid_rows")),
+         "dsv2_236b_2x2_chunk0": dsv2_row(ck_big["K7"], ("chunks", "R",
+                                                        "valid_rows",
+                                                        "active_experts"))},
         {"name": "moe_fused.local_moe", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_fused.cu",
          "replaces": "src/repro/kernels/moe_fused/kernel.py:123",

@@ -25,12 +25,13 @@ the EP x TP world (``EP_TP_SIZES`` x ``TP_MODEL``: data 2, model 2) K1,
 K2, K3 and K7 register rank 0's staged layouts at f 1024
 (``staged(EP_TP_SIZES, model=TP_MODEL)``).
 
-The repo's other two MoE models on the 2x2 EP world register theirs
-too: DeepSeek-V2-Lite's (d 2048, 16 experts of f 1408 a rank, swiglu,
-top-6) at ``staged(arch_id=DSV2_ID, global_batch=DSV2_22_BATCH)`` and its
-pipelined chunk 0 (K1, K2 at top-6, K3, K7), and both models' gather
+The repo's other MoE models on the 2x2 EP world register theirs too:
+DeepSeek-V2-Lite's (d 2048, 16 experts of f 1408 a rank, swiglu, top-6)
+and DeepSeek-V2-236B's (d 5120, 40 experts of f 1536 a rank) at
+``staged(arch_id=..., global_batch=DSV2_22_BATCH)`` and their pipelined
+chunk 0 (K1, K2 at top-6, K3, K7; ``dsv2_staged``), and the gather
 layouts of the 2x2 serving world (K4: DeepSeek-V2-Lite's 16 experts a
-rank, Jamba's 4 of f 14336).
+rank, DeepSeek-V2-236B's 40, Jamba's 4 of f 14336).
 
 Imports of the model stack happen inside the functions, so importing a
 kernel package stays light.
@@ -49,9 +50,11 @@ TP_MODEL = 2
 #: width over the model axis)
 EP_TP_SIZES = (2,)
 #: the other MoE models on the 2x2 EP world: DeepSeek-V2-Lite trains at
-#: global batch DSV2_22_BATCH (512 tokens a rank); both serve 8 slots in
+#: global batch DSV2_22_BATCH (512 tokens a rank), and DeepSeek-V2-236B's
+#: kernels are checked at that plan's layouts; all three serve 8 slots in
 #: packs of 4 prompts of 128 (Jamba's scan prefill steps gather 4 rows)
 DSV2_ID, JAMBA_ID = "deepseek_v2_lite_16b", "jamba_v0_1_52b"
+DSV2_236B_ID = "deepseek_v2_236b"
 DSV2_22_BATCH = 4
 
 
@@ -125,13 +128,13 @@ def pipelined_chunks(arch_id: str = ARCH_ID, sizes=(2, 2),
         wire_codec="int8", device="cpu").a2a_num_chunks
 
 
-def dsv2_staged(pipelined: bool = False) -> Staged:
-    """DeepSeek-V2-Lite's rank-0 layout on the 2x2 EP world at
-    DSV2_22_BATCH: the a2a plan's, or chunk 0 of the int8 pipelined
-    plan's."""
-    k = (pipelined_chunks(DSV2_ID, (2, 2), DSV2_22_BATCH) if pipelined
+def dsv2_staged(pipelined: bool = False, arch_id: str = DSV2_ID) -> Staged:
+    """A DeepSeek-V2 model's (``arch_id``: DeepSeek-V2-Lite or -236B)
+    rank-0 layout on the 2x2 EP world at DSV2_22_BATCH: the a2a plan's,
+    or chunk 0 of the int8 pipelined plan's."""
+    k = (pipelined_chunks(arch_id, (2, 2), DSV2_22_BATCH) if pipelined
          else 1)
-    return staged((2, 2), DSV2_22_BATCH, num_chunks=k, arch_id=DSV2_ID)
+    return staged((2, 2), DSV2_22_BATCH, num_chunks=k, arch_id=arch_id)
 
 
 @functools.lru_cache(maxsize=None)

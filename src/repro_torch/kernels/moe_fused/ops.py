@@ -299,12 +299,40 @@ def token_rows(slot_to_token, slot_w, seg_offsets, seg_experts, rows_valid,
     return row_ptr, ix[2 * T + 1:2 * T + 1 + n].clone()
 
 
+#: the float32 expert weights one group of the backward casts at most
+#: (``segment_groups``): autograd through ``local_moe_ref`` casts every
+#: expert the segments name to float32 at once, which at Jamba's 16
+#: experts of d 4096, f 14336 (11.3 GB, beside the bf16 copies and their
+#: gradients) ran one rank's training step out of the card's memory
+BACKWARD_GROUP_BYTES = 1 << 30
+
+
+def segment_groups(seg_experts: tuple, expert_bytes: int,
+                   budget: int = BACKWARD_GROUP_BYTES) -> list:
+    """Contiguous ``(first, end)`` segment ranges, each naming experts
+    whose float32 weights (``expert_bytes`` each) come to at most
+    ``budget``, or one expert: the backward's groups.  A layout whose
+    experts all fit is one group."""
+    per = max(1, budget // max(expert_bytes, 1))
+    groups, start, seen = [], 0, set()
+    for s, e in enumerate(seg_experts):
+        if e not in seen and len(seen) == per:
+            groups.append((start, s))
+            start, seen = s, set()
+        seen.add(e)
+    groups.append((start, len(seg_experts)))
+    return groups
+
+
 class LocalMoE(torch.autograd.Function):
     """``impl(static, x, slot_to_token, slot_w, rows_valid, w_in, w_gate,
     w_out)`` forward (the CUDA kernel, or the plain version when a test
     drives the backward on the CPU); backward: autograd through
-    ``local_moe_ref`` with the cotangent in float32.  ``static`` is
-    ``(seg_offsets, seg_experts, activation)``."""
+    ``local_moe_ref`` with the cotangent in float32, over the segments
+    of one ``segment_groups`` group at a time (each group's experts taken
+    as leaves of their own, their gradients added into the whole
+    tensors'; the input's gradient summed over the groups).  ``static``
+    is ``(seg_offsets, seg_experts, activation)``."""
 
     @staticmethod
     def forward(ctx, x, slot_to_token, slot_w, rows_valid, w_in, w_gate,
@@ -321,21 +349,61 @@ class LocalMoE(torch.autograd.Function):
         x, tok, slot_w, rows_valid, w_in, w_gate, w_out = ctx.saved_tensors
         needs = ctx.needs_input_grad
         wg_in = w_gate if activation == "swiglu" else None
-        inputs = [t.detach().requires_grad_(need) if t is not None else None
-                  for t, need in zip((x, slot_w, w_in, wg_in, w_out),
-                                     (needs[0], needs[2], needs[4], needs[5],
-                                      needs[6]))]
-        with torch.enable_grad():
-            y = ref.local_moe_ref(inputs[0], tok, inputs[1], offs, exps,
-                              rows_valid, inputs[2], inputs[3], inputs[4],
-                              activation=activation)
-            wanted = [t for t in inputs if t is not None and t.requires_grad]
-            grads = iter(torch.autograd.grad(y, wanted, g.to(torch.float32))
-                         if wanted else ())
-        gx, gsw, gwi, gwg, gwo = (next(grads)
-                                  if t is not None and t.requires_grad
-                                  else None for t in inputs)
-        return gx, None, gsw, None, gwi, gwg, gwo, None, None
+        weights = (w_in, wg_in, w_out)
+        want_w = (needs[4], needs[5] and wg_in is not None, needs[6])
+        mats = sum(w is not None for w in weights)
+        groups = segment_groups(exps, 4 * mats * w_in.shape[1]
+                                * w_in.shape[2])
+        gx, gw = None, [None] * 3
+        gsw = torch.zeros_like(slot_w) if needs[2] else None
+        g32 = g.to(torch.float32)
+        for first, end in groups:
+            a, b = offs[first], offs[end]
+            uniq = sorted(set(exps[first:end]))
+            pos = {e: i for i, e in enumerate(uniq)}
+            idx = torch.as_tensor(uniq, dtype=torch.int64, device=x.device)
+            whole = len(uniq) == w_in.shape[0] and uniq == list(
+                range(len(uniq)))
+            xi = x.detach().requires_grad_(needs[0])
+            swi = slot_w[a:b].detach().requires_grad_(needs[2])
+            ws = [None if w is None else
+                  (w if whole else w.index_select(0, idx)).detach()
+                  .requires_grad_(want)
+                  for w, want in zip(weights, want_w)]
+            leaves = [xi, swi] + ws
+            wanted = [t for t in leaves if t is not None and t.requires_grad]
+            if not wanted:
+                break
+            with torch.enable_grad():
+                y = ref.local_moe_ref(
+                    xi, tok[a:b], swi, tuple(o - a for o in
+                                             offs[first:end + 1]),
+                    tuple(pos[e] for e in exps[first:end]),
+                    rows_valid[first:end], ws[0], ws[1], ws[2],
+                    activation=activation)
+                grads = iter(torch.autograd.grad(y, wanted, g32))
+            got = [next(grads) if t is not None and t.requires_grad
+                   else None for t in leaves]
+            del y
+            if got[0] is not None:
+                # summed in float32 over the groups (one group: as is)
+                gx = (got[0] if len(groups) == 1 else
+                      got[0].to(torch.float32) if gx is None
+                      else gx.add_(got[0]))
+            if got[1] is not None:
+                gsw[a:b] = got[1]
+            for i, part in enumerate(got[2:]):
+                if part is None:
+                    continue
+                if whole:
+                    gw[i] = part if gw[i] is None else gw[i].add_(part)
+                else:
+                    if gw[i] is None:
+                        gw[i] = torch.zeros_like(weights[i])
+                    gw[i].index_add_(0, idx, part)
+        if gx is not None:
+            gx = gx.to(x.dtype)
+        return gx, None, gsw, None, gw[0], gw[1], gw[2], None, None
 
 
 def local_moe(x, slot_to_token, slot_w, seg_offsets, seg_experts, rows_valid,
@@ -497,9 +565,12 @@ def _local_moe_layouts():
                 f"{aid} gather Tg={Tg} E_l={len(exps)} f={ff} swiglu", offs,
                 exps, Tg, fd, ff, swiglu=True))
     # the families on the 2x2 EP world's gather path (serve_dsv2_2x2,
-    # serve_jamba_2x2): 8 decode slots, a prefill pack of 4 x 128
-    # (DeepSeek-V2-Lite) or a scan step of 4 rows (Jamba)
-    for aid, Tgs in ((layouts.DSV2_ID, (8, 512)), (layouts.JAMBA_ID, (8, 4))):
+    # serve_dsv2_236b_2x2, serve_jamba_2x2): 8 decode slots, a prefill
+    # pack of 4 x 128 (DeepSeek-V2-Lite and -236B) or a scan step of 4
+    # rows (Jamba)
+    for aid, Tgs in ((layouts.DSV2_ID, (8, 512)),
+                     (layouts.DSV2_236B_ID, (8, 512)),
+                     (layouts.JAMBA_ID, (8, 4))):
         fa = layouts.arch(aid)
         for Tg in Tgs:
             offs, exps = layouts.gathered(Tg, 4, arch_id=aid)

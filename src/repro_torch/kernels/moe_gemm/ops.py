@@ -617,10 +617,12 @@ def _ragged_layouts():
     lay = layouts.staged()
     out.append(span_layout(KERNEL, "2x2 swiglu", lay.seg_offsets,
                            lay.seg_experts, lay.d, lay.f, swiglu=True))
-    lay = layouts.dsv2_staged()
-    out.append(span_layout(KERNEL, f"dsv2 2x2 R={lay.slots} f={lay.f} swiglu",
-                           lay.seg_offsets, lay.seg_experts, lay.d, lay.f,
-                           swiglu=True))
+    for name, aid in (("dsv2", layouts.DSV2_ID),
+                      ("dsv2_236b", layouts.DSV2_236B_ID)):
+        lay = layouts.dsv2_staged(arch_id=aid)
+        out.append(span_layout(
+            KERNEL, f"{name} 2x2 R={lay.slots} f={lay.f} swiglu",
+            lay.seg_offsets, lay.seg_experts, lay.d, lay.f, swiglu=True))
     return out
 
 
@@ -631,6 +633,7 @@ def _quant_layouts():
     tp0 = layouts.staged(layouts.EP_TP_SIZES, num_chunks=8,
                          model=layouts.TP_MODEL)
     ds0 = layouts.dsv2_staged(pipelined=True)
+    big0 = layouts.dsv2_staged(True, layouts.DSV2_236B_ID)
     return [span_layout(KERNEL_QUANT, f"2x2_pipelined_chunk0 R={chunk0.slots}",
                         chunk0.seg_offsets, chunk0.seg_experts, chunk0.d,
                         chunk0.f, quant=True),
@@ -647,7 +650,12 @@ def _quant_layouts():
             span_layout(KERNEL_QUANT,
                         f"dsv2 2x2_pipelined_chunk0 R={ds0.slots} f={ds0.f}"
                         f" swiglu", ds0.seg_offsets, ds0.seg_experts,
-                        ds0.d, ds0.f, swiglu=True, quant=True)]
+                        ds0.d, ds0.f, swiglu=True, quant=True),
+            span_layout(KERNEL_QUANT,
+                        f"dsv2_236b 2x2_pipelined_chunk0 R={big0.slots} "
+                        f"f={big0.f} swiglu", big0.seg_offsets,
+                        big0.seg_experts, big0.d, big0.f, swiglu=True,
+                        quant=True)]
 
 
 @backend.register_kernel(KERNEL_DENSE)

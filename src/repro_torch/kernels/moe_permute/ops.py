@@ -254,7 +254,11 @@ def _staged_layouts():
                         layouts.staged(ep_tp, num_chunks=8, model=m)),
                        ("dsv2 2x2", layouts.dsv2_staged()),
                        ("dsv2 2x2_pipelined_chunk0",
-                        layouts.dsv2_staged(pipelined=True))):
+                        layouts.dsv2_staged(pipelined=True)),
+                       ("dsv2_236b 2x2",
+                        layouts.dsv2_staged(arch_id=layouts.DSV2_236B_ID)),
+                       ("dsv2_236b 2x2_pipelined_chunk0",
+                        layouts.dsv2_staged(True, layouts.DSV2_236B_ID))):
         yield label, lay
 
 

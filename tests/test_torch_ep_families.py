@@ -349,7 +349,12 @@ def test_dsv2_moe_layers_match_reference(runs):
     at this plan's capacities), and the gradients of the input, the gate,
     each rank's routed experts and the shared experts (summed over the
     world)."""
-    ref, ranks = runs
+    check_moe_layers(*runs)
+
+
+def check_moe_layers(ref, ranks):
+    """``ref["moe", layer]`` against every rank's ``["moe", layer,
+    use_pallas]`` on each of MOE_LAYERS (a DeepSeek-V2 model's)."""
     for use_pallas in (False, True):
         for layer in MOE_LAYERS:
             want = ref["moe", layer]

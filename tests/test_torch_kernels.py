@@ -500,6 +500,56 @@ def test_token_rows_entry_on_the_cpu_is_the_plain_version():
     assert all(n == 0 for n in backend.LAUNCHES.values())
 
 
+@pytest.mark.parametrize("activation", ["gelu", "swiglu"])
+@pytest.mark.parametrize("exps,widths", [
+    ((0, 1, 2, 3), (5, 6, 0, 7)),                  # one segment an expert
+    ((0, 1, 2, 3, 0, 1, 2, 3), (3, 2, 4, 1, 2, 2, 3, 5)),   # staged
+])
+def test_k4_backward_by_expert_groups_matches_autograd(activation, exps,
+                                                       widths):
+    """K4's backward taken one group of experts at a time
+    (``segment_groups`` under a budget of one, then two experts' float32
+    weights) gives autograd's gradients through ``local_moe_ref`` for the
+    input, the combine weights and every expert weight (float32, 1e-6);
+    an expert whose segments fall in two groups gets both groups'
+    parts."""
+    T, d, f = 20, 16, 32
+    gen = torch.Generator().manual_seed(4)
+    offs = tuple(int(o) for o in np.cumsum((0,) + widths))
+    S, E = offs[-1], max(exps) + 1
+    tok = torch.randint(0, T + 1, (S,), generator=gen, dtype=torch.int32)
+    w = torch.rand(S, generator=gen) * (tok != T)
+    valid = torch.tensor([max(0, n - 1) for n in widths], dtype=torch.int32)
+    inputs = [torch.randn(s, generator=gen) * 0.3 for s in
+              ((T, d), (E, d, f), (E, d, f), (E, f, d))]
+    if activation == "gelu":
+        inputs[2] = None
+    g = torch.randn((T, d), generator=gen)
+    mats = 3 if activation == "swiglu" else 2
+    one = 4 * mats * d * f
+
+    def grads(run):
+        x, wi, wg, wo = (None if t is None else t.clone().requires_grad_(True)
+                         for t in inputs)
+        sw = w.clone().requires_grad_(True)
+        (run(x, sw, wi, wg, wo) * g).sum().backward()
+        return [t.grad for t in (x, sw, wi, wg, wo) if t is not None]
+
+    want = grads(lambda x, sw, wi, wg, wo: fused_ref.local_moe_ref(
+        x, tok, sw, offs, exps, valid, wi, wg, wo, activation=activation))
+    for budget in (one, 2 * one):
+        assert len(fused_ops.segment_groups(exps, one, budget)) > 1
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(fused_ops, "BACKWARD_GROUP_BYTES", budget)
+            got = grads(lambda x, sw, wi, wg, wo: fused_ops.LocalMoE.apply(
+                x, tok, sw, valid, wi, wg, wo, (offs, exps, activation),
+                lambda st, *t: fused_ref.local_moe_ref(
+                    t[0], t[1], t[2], st[0], st[1], t[3], t[4], t[5], t[6],
+                    activation=st[2])))
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
 def test_k4_layouts_write_disjoint_without_atomics():
     """K4's registered layouts: the source's six launches in order, no
     declared atomic accumulation, and no two blocks of a launch writing
@@ -507,8 +557,9 @@ def test_k4_layouts_write_disjoint_without_atomics():
     from repro_torch.analysis import launch_check
     lays = backend.registered_layouts()[fused_ops.KERNEL]
     # 6; 3 at gpt3's tensor-parallel f / 2; 3 of DeepSeek-V2-Lite's and
-    # Jamba's experts at theirs; 4 of theirs on the 2x2 EP world
-    assert len(lays) == 16
+    # Jamba's experts at theirs; 6 of theirs and DeepSeek-V2-236B's on the
+    # 2x2 EP world
+    assert len(lays) == 18
     for lay in lays:
         assert [ln.kernel.split("<")[0] for ln in lay.launches] == [
             "compact_kernel", "scan_kernel", "fill_kernel", "fused_up_kernel",
