@@ -15,6 +15,19 @@ run.  Then xLSTM's first-step gradients in bf16 against float32, leaf by
 leaf (each leaf's norm in both and the relative norm of the
 difference), the largest leaves first.  Prints the card's name and power
 limit first and last.
+
+    python3 chip_family_train.py --faults
+
+reads instead the faults the smoke's verdicts must see, each planted in
+the bf16 run only, beside the sound bf16 run: the first step's loss and
+global gradient norm against the float32 step's (relative), for each
+``FAULTS`` entry that applies to the family (``grad_dropped``: the middle
+decoder layer's gradients zeroed; ``mixer_skipped``: that layer's mixer
+output projection zeroed; ``frontend_dropped``: the frames or patches
+zeroed; ``patch_mask_ignored``: InternVL2's loss mask one over the
+patches), and the losses of FAMILY_TRAIN_STEPS steps at the smoke's
+warmup with the learning rate negated (``ascent``), which the smoke's
+falling-loss check must refuse.
 """
 
 import argparse
@@ -118,6 +131,91 @@ def leaf_gaps(aid, layers, seq, top: int = 25) -> dict:
             "leaves_by_norm": rows[:top]}
 
 
+#: fault -> the families it applies to (None: every family)
+FAULTS = {"grad_dropped": None, "mixer_skipped": None,
+          "frontend_dropped": ("audio", "vision"),
+          "patch_mask_ignored": ("vision",)}
+#: the mixer output projections ``mixer_skipped`` zeroes: attention's,
+#: the mLSTM's and the sLSTM's
+MIXER_OUT = ("wo", "w_down", "w_out")
+
+
+def first_step(ctx, params, batch, run, zero_grads=()) -> dict:
+    """The first step's loss and global gradient norm, as the step logs
+    them, with the gradients of the leaves at ``zero_grads`` (paths)
+    zeroed before the norm."""
+    import torch
+
+    from repro_torch import sharding
+    from repro_torch.optim import adamw
+    from repro_torch.training import trainer
+    for t in adamw.tree_leaves(params):
+        t.requires_grad_(True)
+    _, m = trainer._backward(params, batch, ctx, run)
+    grads = [torch.zeros_like(t) if t.grad is None
+             or "/".join(k) in zero_grads else t.grad
+             for k, t in sharding._leaves_with_paths(params)]
+    _, gn = trainer.sync_grads(params, ctx, grads)
+    return {"loss": float(m["loss"].detach()), "grad_norm": float(gn)}
+
+
+def fault_readings(aid, layers, seq) -> list:
+    """The sound bf16 first step and each applicable fault's against the
+    float32 step (gaps relative), then the ``ascent`` steps."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch import sharding
+    from repro_torch.optim import adamw
+    from repro_torch.training import trainer
+    from repro_torch.configs.base import RunConfig
+    ctx, params, batch, run = setup(aid, layers, seq,
+                                    RunConfig().warmup_steps)
+    c32, p32 = in_dtype(ctx, cs._clone_tree(params), "float32")
+    f32 = first_step(c32, p32, batch, run)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    mid = f"layers/{ctx.arch.num_layers // 2}/"
+    paths = ["/".join(k) for k, _ in sharding._leaves_with_paths(params)]
+    rows = []
+    for fault in ["sound"] + [f for f, kinds in FAULTS.items()
+                              if kinds is None or ctx.arch.frontend in kinds]:
+        p, b, zero = cs._clone_tree(params), dict(batch), ()
+        if fault == "grad_dropped":
+            zero = tuple(k for k in paths if k.startswith(mid))
+        elif fault == "mixer_skipped":
+            for k, t in sharding._leaves_with_paths(p):
+                if "/".join(k[:-1]) == mid + "mixer" and k[-1] in MIXER_OUT:
+                    t.data.zero_()
+        elif fault == "frontend_dropped":
+            b["frontend"] = torch.zeros_like(b["frontend"])
+        elif fault == "patch_mask_ignored":
+            b["loss_mask"] = torch.ones_like(b["loss_mask"])
+        got = first_step(ctx, p, b, run, zero)
+        rows.append({"arch": aid, "fault": fault, **got,
+                     **{f"gap_{k}": abs(got[k] - f32[k]) / abs(f32[k])
+                        for k in got}, "f32": f32})
+        del p
+        gc.collect()
+        torch.cuda.empty_cache()
+    run = dataclasses.replace(run, learning_rate=-run.learning_rate)
+    for t in adamw.tree_leaves(params):
+        t.requires_grad_(True)
+    opt = adamw.init_state(params)
+    step = trainer.make_train_step(ctx, run)
+    losses = []
+    for _ in range(cs.FAMILY_TRAIN_STEPS):
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    rows.append({"arch": aid, "fault": "ascent", "losses": losses,
+                 "falls": losses[-1] < losses[0]})
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -127,6 +225,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--warmups", type=int, nargs="+", default=[1, 100])
+    ap.add_argument("--faults", action="store_true")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -134,6 +233,12 @@ def main() -> int:
     print(smi, flush=True)
     shapes = {aid: (layers, seq)
               for _, aid, layers, seq, _, _ in cs.FAMILY_TRAIN}
+    if args.faults:
+        for aid, (layers, seq) in shapes.items():
+            for row in fault_readings(aid, layers, seq):
+                print(json.dumps(row), flush=True)
+        print(smi, flush=True)
+        return 0
     for aid, (layers, seq) in shapes.items():
         for warmup in args.warmups:
             for dtype in ("bfloat16", "float32"):

@@ -281,8 +281,11 @@ Phases, each printing JSON lines:
    float32 step's on the same weights and batch, the loss falling over
    FAMILY_TRAIN_STEPS steps on that one batch (RunConfig's warmup);
    ``train_jamba_d2`` (``train_phase`` at JAMBA_TRAIN_LAYERS: a Mamba
-   layer with a dense FFN, then attention with the MoE FFN): K4 once a
-   step, the first-step loss within LOSS_RTOL of the plain path's; each
+   layer with a dense FFN, then attention with the MoE FFN): before the
+   run, K4 against its plain version and its compaction bit-equal at the
+   run's own first-step layout (``own_layout_k4``: seq 512 x batch 4, 16
+   experts of 320 slots), then K4 once a step, the first-step loss within
+   LOSS_RTOL of the plain path's; each
    with step walls, busy share and peak memory;
 21. tensor parallelism — a (data 1, model 2) world of two gloo ranks
    sharing the card (``tp_phases``), after every other model's weights
@@ -632,19 +635,26 @@ FAMILY_LAYERS = {XLSTM_ID: 8}
 # At full lr from the first step (warmup 1) InternVL2's loss doubles
 # after the first update in bf16 and in float32 alike (12.49 -> 25.87
 # and 25.82 on an H100), an overshoot of Adam's first, sign-sized step
-# at d 6144, not a fault of the path.  Sound gaps on an H100 (bf16
-# against float32, loss / gradient norm): Whisper 4.0e-6 / 2.4e-4,
-# InternVL2 7.5e-5 / 1.6e-5, xLSTM 2.3e-5 / 0.083 (at sequence 512 it
-# was 5.1e-5 / 0.46): random-weight xLSTM is ill-conditioned in bf16 (its
-# first blocks' gradients lie a third of their norm from float32; on the
-# CPU at d 512 the reference's own strict bf16 run lies 12% from its
-# float32 gradient norm, the port's 23%), so its gradient-norm limit sits
-# 3x its sound gap, the others' 20x or more, and the loss limits 13x or
-# more.
+# at d 6144, not a fault of the path.  Each limit sits between the sound
+# gap and the nearest fault planted in the bf16 step
+# (``chip_family_train.py --faults``; on an H100, bit-equal over runs and
+# machines), near their geometric mean (bf16 against float32, loss /
+# gradient norm): Whisper sound 4.0e-6 / 2.4e-4, a middle layer's
+# self-attention output zeroed 9.0e-4 / 0.032, its gradients zeroed 0 /
+# 0.029, the frames zeroed 5.6e-3 / 3.6e17; InternVL2 sound 7.5e-5 /
+# 1.6e-5, a layer's attention output zeroed 2.1e-3 / 0.045, its
+# gradients zeroed 0 / 0.051, the patches zeroed 0.025 / 0.41, the
+# patch mask ignored 8.0e-3 / 0.30; xLSTM sound 2.3e-5 / 0.083 (random-
+# weight xLSTM is ill-conditioned in bf16: its first blocks' gradients
+# lie a third of their norm from float32), the middle mLSTM's output
+# zeroed 1.1e-3 / 0.155; its gradients zeroed (0.084) lie within xLSTM's
+# sound gap and no limit sees them.  The learning rate negated makes
+# every family's loss rise over the steps, which the falling-loss check
+# refuses.
 XLSTM_TRAIN_SEQ = 128
-FAMILY_TRAIN = (("train_whisper", WHISPER_ID, 0, TRAIN_SEQ, 1e-3, 5e-3),
-                ("train_xlstm", XLSTM_ID, 8, XLSTM_TRAIN_SEQ, 1e-3, 0.25),
-                ("train_internvl2_d4", VLM_ID, 4, TRAIN_SEQ, 1e-3, 5e-3))
+FAMILY_TRAIN = (("train_whisper", WHISPER_ID, 0, TRAIN_SEQ, 6e-5, 5e-3),
+                ("train_xlstm", XLSTM_ID, 8, XLSTM_TRAIN_SEQ, 1.5e-4, 0.11),
+                ("train_internvl2_d4", VLM_ID, 4, TRAIN_SEQ, 4e-4, 5e-3))
 FAMILY_TRAIN_STEPS = 2
 # train_jamba_d2: Jamba at depth JAMBA_TRAIN_LAYERS (``cut_depth``: a
 # Mamba layer with a dense FFN, then attention with the MoE FFN, K4's
@@ -1985,7 +1995,8 @@ def train_phase(world, out_path: str, global_batch: int,
                 use_moe_kernel: bool = False, microbatch: int = 0,
                 remat: bool = False, layers: int = 0,
                 spare_row: bool = False, fused_xent: bool = False,
-                hash_experts: bool = False, arch_id: str = ARCH_ID) -> None:
+                hash_experts: bool = False, arch_id: str = ARCH_ID,
+                check_k4_layer: int = -1) -> None:
     """Full-width ``arch_id`` (gpt3_medium_moe, or DeepSeek-V2-Lite for
     train_dsv2_lite_d4) on this rank (``world`` None: one rank),
     AdamW, ``steps`` steps, the given dispatch path, wire codec and
@@ -2013,7 +2024,9 @@ def train_phase(world, out_path: str, global_batch: int,
     and batch (``fused_xent_case``), then one training step with it,
     counted on its own.  With ``hash_experts`` the report carries the
     sha256 of this rank's expert leaves after the run, to hold data-
-    parallel replicas to each other."""
+    parallel replicas to each other.  With ``check_k4_layer`` (one rank),
+    first K4 against its plain version at the run's own first-step layout
+    on that MoE layer (``own_layout_k4``), before any count is read."""
     import torch
     from repro_torch.configs.base import RunConfig, get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch
@@ -2052,6 +2065,9 @@ def train_phase(world, out_path: str, global_batch: int,
     data = SyntheticLM(DataConfig(vocab_size=arch.vocab_size,
                                   seq_len=TRAIN_SEQ,
                                   global_batch=global_batch, seed=run.seed))
+    k4_check = (own_layout_k4(torch, params, plain_ctx, data.batch(0),
+                              check_k4_layer, global_batch)
+                if check_k4_layer >= 0 else None)
     backend.reset_launches()
     os.environ[backend.ENV_VAR] = "0"
     with torch.no_grad():
@@ -2122,9 +2138,35 @@ def train_phase(world, out_path: str, global_batch: int,
         "microbatch": microbatch, "remat": remat, "step_memory": memory,
         "layers": arch.num_layers, "fused_xent": xent,
         "experts_sha256": experts_sha256, "state_bytes": held,
-        "run_seconds": time.time() - t_start}
+        "K4_check": k4_check, "run_seconds": time.time() - t_start}
     with open(out_path, "w") as fh:
         json.dump(report, fh)
+
+
+def own_layout_k4(torch, params, ctx, batch: dict, layer: int,
+                  global_batch: int) -> dict:
+    """K4 against its plain version (``check_k4``, timed) and its
+    compaction bit-equal (``check_compaction``) at a one-rank training
+    run's own first-step layout: ``batch``'s tokens through the model's
+    layers before MoE layer ``layer`` and its mixer, routed on the a2a
+    plan (``train1_k4_case``).  Frees what it held."""
+    tokens = batch["tokens"].cuda()
+    with torch.no_grad():
+        args, act = train1_k4_case(torch, params, ctx.arch, None,
+                                   layer=layer,
+                                   x=moe_rows(torch, params, ctx, tokens,
+                                              layer),
+                                   global_batch=global_batch)
+        out = check_k4(torch, args, act, "train_1rank")
+        compaction = check_compaction(torch, args, "train_1rank")
+    T = args[0].shape[0]
+    layout = {"T": T, "slots": args[1].numel(), "segments": len(args[4]),
+              "valid_rows": int(args[5].sum()),
+              "dropped_picks": T * ctx.arch.moe.top_k - int(args[5].sum())}
+    del args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"K4": out, "K4_compaction": compaction, "layout": layout}
 
 
 def train_chain(runs, then: tuple = ()) -> None:
@@ -5897,7 +5939,8 @@ def main() -> int:
         (os.path.join(one_rank, "dsv2_d4.json"), TRAIN_BATCH_1, (),
          {"layers": DSV2_CUT_LAYERS, "arch_id": DSV2_ID}),
         (os.path.join(one_rank, "jamba_d2.json"), TRAIN_BATCH_1, (),
-         {"layers": JAMBA_TRAIN_LAYERS, "arch_id": JAMBA_ID})], (
+         {"layers": JAMBA_TRAIN_LAYERS, "arch_id": JAMBA_ID,
+          "check_k4_layer": JAMBA_TRAIN_LAYERS - 1})], (
         ("resilient_phase", (os.path.join(tmp, "resilient.json"),)),
         ("train_dense_phase", (os.path.join(one_rank, "internlm2.json"),)))
         + tuple(("family_train_phase",
@@ -6081,6 +6124,9 @@ def main() -> int:
     # of 16 experts of f 14336) on one rank, after DeepSeek's weights are
     # freed: 31 GB of them and 51.6 GB of Jamba's do not fit together
     ck_jb, srv_jb, loss_jb = jamba_phases(torch, np)
+    # K4 at train_jamba_d2's own layout, held in its child before the run
+    # (its compaction too: the train_jamba_d2 line)
+    ck_jb["K4"]["train_1rank"] = tjb["K4_check"]["K4"]
 
     # 17. the dense decoders at full width and depth on one rank, after
     # Jamba's weights are freed; K5 at head dim 128 on three of them

@@ -31,7 +31,9 @@ and DeepSeek-V2-236B's (d 5120, 40 experts of f 1536 a rank) at
 ``staged(arch_id=..., global_batch=DSV2_22_BATCH)`` and their pipelined
 chunk 0 (K1, K2 at top-6, K3, K7; ``dsv2_staged``), and the gather
 layouts of the 2x2 serving world (K4: DeepSeek-V2-Lite's 16 experts a
-rank, DeepSeek-V2-236B's 40, Jamba's 4 of f 14336).
+rank, DeepSeek-V2-236B's 40, Jamba's 4 of f 14336).  Jamba's one-rank
+training layout (16 experts of f 14336, ``local(arch_id=JAMBA_ID)``)
+registers K4's too.
 
 Imports of the model stack happen inside the functions, so importing a
 kernel package stays light.
@@ -138,15 +140,15 @@ def dsv2_staged(pipelined: bool = False, arch_id: str = DSV2_ID) -> Staged:
 
 
 @functools.lru_cache(maxsize=None)
-def local(global_batch: int = 4) -> tuple:
-    """``(tokens, seg_offsets, seg_experts)`` of the one-rank fused
-    layout (``engine.local_layout``): one segment an expert, as wide as
-    the clamped capacity."""
+def local(global_batch: int = 4, arch_id: str = ARCH_ID) -> tuple:
+    """``(tokens, seg_offsets, seg_experts)`` of ``arch_id``'s one-rank
+    fused layout (``engine.local_layout``): one segment an expert, as wide
+    as the clamped capacity."""
     from repro_torch.core.dispatch import transport
     from repro_torch.launch import mesh
     from repro_torch.models import model
 
-    a = arch()
+    a = arch(arch_id)
     world = mesh.recording_world((1,))
     plan = model.make_plan(a, world, TRAIN_SEQ, global_batch, "ta")
     T = global_batch * TRAIN_SEQ

@@ -362,13 +362,10 @@ class LocalMoE(torch.autograd.Function):
             uniq = sorted(set(exps[first:end]))
             pos = {e: i for i, e in enumerate(uniq)}
             idx = torch.as_tensor(uniq, dtype=torch.int64, device=x.device)
-            whole = len(uniq) == w_in.shape[0] and uniq == list(
-                range(len(uniq)))
             xi = x.detach().requires_grad_(needs[0])
             swi = slot_w[a:b].detach().requires_grad_(needs[2])
             ws = [None if w is None else
-                  (w if whole else w.index_select(0, idx)).detach()
-                  .requires_grad_(want)
+                  w.index_select(0, idx).detach().requires_grad_(want)
                   for w, want in zip(weights, want_w)]
             leaves = [xi, swi] + ws
             wanted = [t for t in leaves if t is not None and t.requires_grad]
@@ -386,18 +383,13 @@ class LocalMoE(torch.autograd.Function):
                    else None for t in leaves]
             del y
             if got[0] is not None:
-                # summed in float32 over the groups (one group: as is)
-                gx = (got[0] if len(groups) == 1 else
-                      got[0].to(torch.float32) if gx is None
-                      else gx.add_(got[0]))
+                # summed in float32 over the groups
+                part = got[0].to(torch.float32)
+                gx = part if gx is None else gx.add_(part)
             if got[1] is not None:
                 gsw[a:b] = got[1]
             for i, part in enumerate(got[2:]):
-                if part is None:
-                    continue
-                if whole:
-                    gw[i] = part if gw[i] is None else gw[i].add_(part)
-                else:
+                if part is not None:
                     if gw[i] is None:
                         gw[i] = torch.zeros_like(weights[i])
                     gw[i].index_add_(0, idx, part)
@@ -577,4 +569,10 @@ def _local_moe_layouts():
             out.append(local_moe_layout(
                 f"{aid} 2x2 gather Tg={Tg} E_l={len(exps)} swiglu", offs,
                 exps, Tg, fa.d_model, fa.moe.d_ff_expert, swiglu=True))
+    # Jamba's one-rank training step (train_jamba_d2)
+    fa = layouts.arch(layouts.JAMBA_ID)
+    T, offs, exps = layouts.local(arch_id=layouts.JAMBA_ID)
+    out.append(local_moe_layout(
+        f"{layouts.JAMBA_ID} train_1rank S={offs[-1]} swiglu", offs, exps, T,
+        fa.d_model, fa.moe.d_ff_expert, swiglu=True))
     return out

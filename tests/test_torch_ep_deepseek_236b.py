@@ -32,277 +32,37 @@ final params atol 2e-4 (``test_torch_training.py``); picks, dispatch
 indices and greedy tokens exact.
 """
 
-import os
-import pickle
-
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from test_torch_ep_families import (_full_grads, _world,  # noqa: E402
-                                    check_moe_layers, close)
+from test_torch_ep_families import (BATCH, BUDGETS,  # noqa: E402
+                                    HISTORY_KEYS, MOE_LAYERS, SEQ, SIZES,
+                                    STEPS, _arch, _ref_leaves, _world,
+                                    check_moe_layers, close, mixer_leaves,
+                                    run_world)
 
-SIZES = (2, 2)
-SEQ, BATCH, STEPS = 32, 8, 3
-HISTORY_KEYS = ("loss", "nll", "aux", "frac_by_level", "dropped",
-                "grad_norm", "lr")
 # the architecture, as text both packages evaluate on their own configs
 ARCH = ("dataclasses.replace(get_config('deepseek_v2_236b').reduced(), "
         "num_layers=3, moe=dataclasses.replace(get_config("
         "'deepseek_v2_236b').reduced().moe, num_experts=8, top_k=6, "
         "num_shared_experts=2), mla=dataclasses.replace(get_config("
         "'deepseek_v2_236b').reduced().mla, q_lora_rank=32))")
-SERVE = dict(num_slots=8, cache_len=32, prefill_pack=4,
-             prompt_buckets=(8, 16))
-PROMPT_LENS = (3, 8, 12, 5, 16, 1, 9, 7, 14, 4)
-BUDGETS = (4, 6, 3, 9, 5, 2, 7, 8, 4, 6)
-MOE_LAYERS = (1, 2)
+KEY = "dsv2_236b"
 # the low-rank query branch's leaves of every layer's MLA
 Q_LORA = ("w_dq", "w_uq", "q_norm")
-
-REFERENCE = f"""
-import dataclasses, pickle, sys
-import jax, jax.numpy as jnp, numpy as np
-from jax.sharding import PartitionSpec as P
-from repro import sharding
-from repro.compat import make_mesh, shard_map
-from repro.configs.base import RunConfig, get_config
-from repro.core.dispatch import routing
-from repro.models import model, transformer
-from repro.serving import engine
-from repro.serving.scheduler import Request
-from repro.training import trainer
-
-mesh = make_mesh({SIZES + (1,)}, ("pod", "data", "model"))
-smesh = make_mesh((4, 1), ("data", "model"))
-rules, srules = model.default_rules(mesh), model.default_rules(smesh)
-arch = {ARCH}
-rng = np.random.default_rng(6)
-ctx = model.build_ctx(arch, mesh, seq_len={SEQ}, global_batch={BATCH},
-                      aux_mode="ta")
-sctx = model.build_ctx(arch, smesh, seq_len={SERVE["cache_len"]},
-                       global_batch={SERVE["num_slots"]}, aux_mode="none")
-with mesh, sharding.axis_rules(rules):
-    params = model.init_params(jax.random.PRNGKey(0), ctx, rules=rules)
-with smesh, sharding.axis_rules(srules):
-    sparams = model.init_params(jax.random.PRNGKey(0), sctx, rules=srules)
-toks = rng.integers(0, arch.vocab_size, size=({BATCH}, {SEQ} + 1))
-x = rng.standard_normal(({BATCH}, {SEQ}, arch.d_model)).astype(np.float32)
-inputs = {{
-    "params": jax.tree_util.tree_map(np.asarray, params),
-    "serve_params": jax.tree_util.tree_map(np.asarray, sparams),
-    "batch": {{"tokens": toks[:, :-1].astype(np.int32),
-              "labels": toks[:, 1:].astype(np.int32),
-              "loss_mask": (rng.random(({BATCH}, {SEQ})) > 0.1).astype(
-                  np.float32)}},
-    "prompts": [rng.integers(0, arch.vocab_size, size=n).tolist()
-                for n in {PROMPT_LENS}],
-    "x": x, "r": rng.standard_normal(x.shape).astype(np.float32)}}
-dump_inputs(inputs)
-
-out = {{"caps": ctx.plan.caps}}
-hier = ("pod", "data")
-for layer in {MOE_LAYERS}:
-    p = jax.tree_util.tree_map(lambda a: a[layer - 1],
-                               params["groups"])["sub0"]["ffn"]
-
-    def picks(gate, xl):
-        xl = xl.reshape(-1, xl.shape[-1])
-        routed = routing.route({{"gate": gate}}, xl, ctx.moe_cfg, ctx.ep,
-                               ctx.plan, ctx.gate_cfg, with_bufs=False)
-        di = routing.build_indices(routed.sels, routed.gate_out["topk_idx"],
-                                   xl.shape[0])
-        return (routed.gate_out["topk_idx"][None], di.slot_to_token[None],
-                di.inv_idx[None])
-
-    with mesh:
-        got = jax.jit(shard_map(picks, mesh=mesh,
-                                in_specs=(P(), P(hier, None, None)),
-                                out_specs=(P(hier),) * 3, check_vma=False))(
-            p["gate"], jnp.asarray(x))
-    out["picks", layer] = [np.asarray(a) for a in got]
-
-    def loss(p, xx, layer=layer):
-        y, m = transformer._moe_block(p, xx, ctx, decode=False,
-                                      layer_idx=layer)
-        return jnp.sum(y * jnp.asarray(inputs["r"])) + m["aux_loss"], (y, m)
-
-    with mesh:
-        (_, (y, m)), g = jax.jit(jax.value_and_grad(
-            loss, argnums=(0, 1), has_aux=True))(p, jnp.asarray(x))
-    out["moe", layer] = {{
-        "y": np.asarray(y), "metrics": {{k: np.asarray(v)
-                                         for k, v in m.items()}},
-        "grads": jax.tree_util.tree_map(np.asarray, g)}}
-jb = {{k: jnp.asarray(v) for k, v in inputs["batch"].items()}}
-with mesh, sharding.axis_rules(rules):
-    (loss, m), g = jax.jit(jax.value_and_grad(
-        lambda p: transformer.loss_fn(p, jb, ctx), has_aux=True))(params)
-out["loss"] = {{"loss": np.asarray(loss),
-               "metrics": {{k: np.asarray(v) for k, v in m.items()}},
-               "grads": jax.tree_util.tree_map(np.asarray, g)}}
-res = trainer.train(arch, RunConfig(
-    seq_len={SEQ}, global_batch={BATCH}, warmup_steps=1, aux_mode="ta",
-    seed=0, dispatch="a2a"), mesh, steps={STEPS}, log_every=1,
-    verbose=False)
-out["train"] = {{"history": res.metrics_history,
-                "final": jax.tree_util.tree_map(np.asarray, res.params)}}
-with smesh, sharding.axis_rules(srules):
-    reqs = [Request(uid=i, tokens=p, max_new_tokens=n)
-            for i, (p, n) in enumerate(zip(inputs["prompts"], {BUDGETS}))]
-    rep = engine.ServingEngine(sparams, sctx,
-                               engine.ServeConfig(**{SERVE})).run(reqs)
-out["served"] = {{i: rep.tokens_for(i) for i in range(len(reqs))}}
-with open(sys.argv[1], "wb") as f:
-    pickle.dump(out, f)
-"""
-
-
-def _arch():
-    import dataclasses  # noqa: F401 (the text names it)
-    from repro_torch.configs.base import get_config  # noqa: F401
-    return eval(ARCH)
-
-
-def _q_lora_rows(params):
-    """``[(layer, leaf name)]`` of the low-rank query leaves, and one bool a
-    leaf (``adamw.tree_leaves`` order): whether it is one of them."""
-    from repro_torch import sharding
-    paths = [p for p, _ in sharding._leaves_with_paths(params)]
-    is_q = [len(p) > 3 and p[0] == "layers" and p[2] == "mixer"
-            and p[3] in Q_LORA for p in paths]
-    return [(p[1], p[3]) for p, q in zip(paths, is_q) if q], is_q
-
-
-def _rank_main(world, ref_path, out_dir):
-    """One rank of the 2x2 world: the plan, the picks, the MoE layers
-    (kernels wanted and not), the loss with every synced gradient, the
-    trainer (kernels auto and wanted) and serving; its results go to
-    ``rank<r>.pkl``."""
-    torch.set_num_threads(1)
-    from repro_torch.configs.base import RunConfig
-    from repro_torch.core.dispatch import routing
-    from repro_torch.models import model, transformer
-    from repro_torch.models.convert import params_from_numpy
-    from repro_torch.optim import adamw
-    from repro_torch.serving import engine
-    from repro_torch.serving.scheduler import Request
-    from repro_torch.training import trainer
-
-    with open(ref_path, "rb") as f:
-        ref = pickle.load(f)
-    per = BATCH // world.size
-    rows = slice(world.rank * per, (world.rank + 1) * per)
-    arch = _arch()
-    out = {"rank": world.rank, "coords": world.coords}
-    for use_pallas in (False, True):
-        ctx = model.build_ctx(arch, world, seq_len=SEQ, global_batch=BATCH,
-                              aux_mode="ta", use_pallas=use_pallas,
-                              device="cpu")
-        out["caps"], out["expert_range"] = ctx.plan.caps, ctx.expert_range
-        params = params_from_numpy(ref["params"], ctx, "cpu")
-        for layer in MOE_LAYERS:
-            p = {k: (v.requires_grad_(True) if torch.is_tensor(v)
-                     else {kk: vv.requires_grad_(True)
-                           for kk, vv in v.items()})
-                 for k, v in params["layers"][layer]["ffn"].items()}
-            x = torch.from_numpy(ref["x"][rows].copy()).requires_grad_(True)
-            if not use_pallas:
-                flat = x.detach().reshape(-1, arch.d_model)
-                routed = routing.route(p, flat, ctx.moe_cfg, ctx.ep,
-                                       ctx.plan, ctx.gate_cfg, world.coords)
-                di = routing.build_indices(
-                    routed.sels, routed.gate_out["topk_idx"], flat.shape[0])
-                out["picks", layer] = [
-                    t.numpy() for t in (routed.gate_out["topk_idx"],
-                                        di.slot_to_token, di.inv_idx)]
-            y, m = transformer._moe_block(p, x, ctx, decode=False,
-                                          layer_idx=layer)
-            (torch.sum(y * torch.from_numpy(ref["r"][rows].copy()))
-             + m["aux_loss"] / world.size).backward()
-            grads = {k: (world.all_reduce_sum(v.grad)
-                         if k not in ("w_in", "w_gate", "w_out")
-                         else v.grad.clone()).numpy()
-                     for k, v in p.items() if torch.is_tensor(v)}
-            grads["gate"] = world.all_reduce_sum(p["gate"]["w"].grad).numpy()
-            out["moe", layer, use_pallas] = {
-                "y": y.detach().numpy(),
-                "metrics": {k: v.detach().numpy() for k, v in m.items()},
-                "gx": x.grad.numpy(), "grads": grads}
-        batch = {k: torch.from_numpy(v[rows].copy())
-                 for k, v in ref["batch"].items()}
-        params = params_from_numpy(ref["params"], ctx, "cpu")
-        leaves = adamw.tree_leaves(params)
-        for t in leaves:
-            t.requires_grad_(True)
-        loss, m = transformer.loss_fn(params, batch, ctx)
-        (loss / world.size).backward()
-        _, is_q = _q_lora_rows(params)
-        out["loss", use_pallas] = {
-            "metrics": world.mean(m),
-            "local_q_lora": [t.grad.clone().numpy()
-                             for t, q in zip(leaves, is_q) if q],
-            "expert_mask": trainer.expert_mask(params, ctx),
-            "grads": _full_grads(world, params, ctx)}
-
-    for use_pallas in (None, True):
-        run = RunConfig(seq_len=SEQ, global_batch=BATCH, warmup_steps=1,
-                        aux_mode="ta", seed=0, dispatch="a2a",
-                        use_pallas=use_pallas)
-        ctx = model.build_ctx(arch, world, seq_len=SEQ, global_batch=BATCH,
-                              aux_mode="ta", device="cpu")
-        res = trainer.train(arch, run, world, steps=STEPS, log_every=1,
-                            verbose=False,
-                            params=params_from_numpy(ref["params"], ctx,
-                                                     "cpu"), device="cpu")
-        out["train", use_pallas] = {
-            "history": res.metrics_history,
-            "final": [t.detach().numpy()
-                      for t in adamw.tree_leaves(res.params)]}
-    sctx = model.build_ctx(arch, world, seq_len=SERVE["cache_len"],
-                           global_batch=SERVE["num_slots"], aux_mode="none",
-                           device="cpu")
-    sparams = params_from_numpy(ref["serve_params"], sctx, "cpu")
-    reqs = [Request(uid=i, tokens=p, max_new_tokens=n)
-            for i, (p, n) in enumerate(zip(ref["prompts"], BUDGETS))]
-    rep = engine.ServingEngine(sparams, sctx,
-                               engine.ServeConfig(**SERVE)).run(reqs)
-    out["served"] = {i: rep.tokens_for(i) for i in range(len(reqs))}
-    out["serve_expert_range"] = sctx.expert_range
-    with open(os.path.join(out_dir, f"rank{world.rank}.pkl"), "wb") as f:
-        pickle.dump(out, f)
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """(reference results, [rank 0..3 results]) — one JAX subprocess and,
     beside it once it has made the weights, batch and prompts, one
-    4-process gloo world of the port."""
-    from repro_torch.launch import mesh
-    from torch_world_reference import run_beside_world
-    tmp = tmp_path_factory.mktemp("ep_deepseek_236b")
-    ref = run_beside_world(
-        REFERENCE, 4, tmp,
-        lambda inputs: mesh.spawn(_rank_main, SIZES, "gloo", "cpu",
-                                  args=(inputs, str(tmp))))
-    ranks = []
-    for i in range(4):
-        with open(tmp / f"rank{i}.pkl", "rb") as f:
-            ranks.append(pickle.load(f))
-    return ref, ranks
-
-
-def _ref_leaves(tree, world=None):
-    """A reference tree in the port's leaf order (``world``'s rank's
-    expert slice, or every expert without a world)."""
-    from repro_torch.models import model
-    from repro_torch.models.convert import params_from_numpy
-    from repro_torch.optim import adamw
-    ctx = model.build_ctx(_arch(), world, seq_len=SEQ, global_batch=BATCH,
-                          device="cpu")
-    return [t.numpy() for t in adamw.tree_leaves(
-        params_from_numpy(tree, ctx, "cpu"))]
+    4-process gloo world of the port (``test_torch_ep_families.
+    run_world``, with the picks and the ranks' own low-rank query
+    gradients)."""
+    return run_world(tmp_path_factory.mktemp("ep_deepseek_236b"),
+                     {KEY: ARCH}, KEY, 6, picks=True, local_leaves=Q_LORA)
 
 
 def test_plan_and_top6_picks_match_reference(runs):
@@ -311,12 +71,13 @@ def test_plan_and_top6_picks_match_reference(runs):
     and inverse index, exactly; top-6 of 8 at capacity factor 1.25 drops
     picks at this plan's capacities."""
     ref, ranks = runs
-    assert len(ref["caps"]) == 2 and min(ref["caps"]) > 0
+    caps = ref["caps"][KEY]
+    assert len(caps) == 2 and min(caps) > 0
     for r, out in enumerate(ranks):
         assert out["coords"] == divmod(r, SIZES[1])
-        assert out["caps"] == ref["caps"]
-        assert out["expert_range"] == out["serve_expert_range"] == (
-            2 * r, 2 * r + 2)
+        assert out["caps"][KEY] == caps
+        assert out["expert_range"][KEY] == out["serve_expert_range", KEY] \
+            == (2 * r, 2 * r + 2)
     for layer in MOE_LAYERS:
         want = ref["picks", layer]
         assert want[0].shape[-1] == 6
@@ -339,9 +100,9 @@ def _q_lora_index(grads):
     query leaves in the port's order of the reference tree ``grads``."""
     from repro_torch.models import model
     from repro_torch.models.convert import params_from_numpy
-    ctx = model.build_ctx(_arch(), seq_len=SEQ, global_batch=BATCH,
+    ctx = model.build_ctx(_arch(ARCH), seq_len=SEQ, global_batch=BATCH,
                           device="cpu")
-    names, is_q = _q_lora_rows(params_from_numpy(grads, ctx, "cpu"))
+    names, is_q = mixer_leaves(params_from_numpy(grads, ctx, "cpu"), Q_LORA)
     return names, [i for i, q in enumerate(is_q) if q]
 
 
@@ -353,7 +114,7 @@ def test_loss_and_every_synced_gradient_match_reference(runs):
     over the world; the routed experts' gathered over the EP axes)."""
     ref, ranks = runs
     want = ref["loss"]
-    wgrads = _ref_leaves(want["grads"])
+    wgrads = _ref_leaves(ARCH, want["grads"])
     names, _ = _q_lora_index(want["grads"])
     assert sorted({n for _, n in names}) == sorted(Q_LORA)
     assert {layer for layer, _ in names} == {"0", "1", "2"}
@@ -374,7 +135,7 @@ def test_q_lora_leaves_are_replicated_and_summed_over_the_world(runs):
     their synced gradient is the sum of the four ranks' own, equal to the
     reference's full gradient, where one rank's alone is not."""
     ref, ranks = runs
-    wgrads = _ref_leaves(ref["loss"]["grads"])
+    wgrads = _ref_leaves(ARCH, ref["loss"]["grads"])
     _, q_idx = _q_lora_index(ref["loss"]["grads"])
     assert len(q_idx) == 3 * len(Q_LORA)
     for use_pallas in (False, True):
@@ -382,7 +143,7 @@ def test_q_lora_leaves_are_replicated_and_summed_over_the_world(runs):
         mask = got[0]["expert_mask"]
         assert any(mask) and not any(mask[i] for i in q_idx)
         for n, i in enumerate(q_idx):
-            local = [g["local_q_lora"][n] for g in got]
+            local = [g["local"][n] for g in got]
             close(np.sum(local, axis=0), wgrads[i])
             for g in got:
                 close(g["grads"][i], wgrads[i])
@@ -395,15 +156,15 @@ def test_trainer_matches_reference(runs, use_pallas):
     """3 ``a2a`` steps on the world: every logged metric on every rank,
     and each rank's final parameters (atol 2e-4)."""
     ref, ranks = runs
-    want = ref["train"]
+    want = ref["train", KEY]
     assert len(want["history"]) == STEPS
     for out in ranks:
-        got = out["train", use_pallas]
+        got = out["train", KEY, use_pallas]
         assert len(got["history"]) == STEPS
         for a, b in zip(got["history"], want["history"]):
             for k in HISTORY_KEYS:
                 close(a[k], b[k])
-        final = _ref_leaves(want["final"], _world(out))
+        final = _ref_leaves(ARCH, want["final"], _world(out))
         assert len(final) == len(got["final"])
         for a, b in zip(got["final"], final):
             close(a, b, rtol=1e-4, atol=2e-4)
@@ -416,5 +177,5 @@ def test_gather_serving_tokens_match_reference(runs):
     the (4, 1) mesh, exactly."""
     ref, ranks = runs
     for out in ranks:
-        assert out["served"] == ref["served"]
-    assert sum(len(v) for v in ref["served"].values()) == sum(BUDGETS)
+        assert out["served", KEY] == ref["served", KEY]
+    assert sum(len(v) for v in ref["served", KEY].values()) == sum(BUDGETS)

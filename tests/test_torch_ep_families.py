@@ -26,6 +26,9 @@ gloo (one 2x2 world, ``launch.mesh.spawn``), run the same from the same
 weights, each with its 2 experts a layer, the kernels wanted (their
 plain versions on the CPU) and not.  Top-6 of 8 on this plan drops
 picks at both stages: the Eq. (7) per-level capacities are live.
+``reference`` and ``rank_main`` build both sides for any set of models;
+``tests/test_torch_ep_deepseek_236b.py`` runs DeepSeek-V2-236B through
+them in a fixture of its own.
 
 Tolerance: rtol = atol = 1e-4 for outputs, metrics, gradients and
 histories (float32, the sums run in another order); final params atol
@@ -71,12 +74,52 @@ PROMPT_LENS = (3, 8, 12, 5, 16, 1, 9, 7, 14, 4)
 BUDGETS = (4, 6, 3, 9, 5, 2, 7, 8, 4, 6)
 MOE_LAYERS = (1, 2)
 
-REFERENCE = f"""
+def reference(archs: dict, moe: str, seed: int, picks: bool = False,
+              int8: bool = False) -> str:
+    """The reference's script for the 2x2 world: the models of ``archs``
+    (key -> architecture text) with their weights, a masked batch and
+    prompts each from ``np.random.default_rng(seed)``; ``moe``'s MoE
+    layers through ``_moe_block`` (with ``picks``, also every rank's
+    top-k picks and dispatch indices), its ``loss_fn`` and every
+    gradient; 3 ``a2a`` trainer steps of each model (with ``int8``, 3
+    more of ``moe`` through ``a2a_pipelined`` over the int8 wire); greedy
+    ``ServingEngine.run`` of each on the (4, 1) mesh."""
+    picks_text = f"""
+    def picks(gate, xl):
+        xl = xl.reshape(-1, xl.shape[-1])
+        routed = routing.route({{"gate": gate}}, xl, ctx.moe_cfg, ctx.ep,
+                               ctx.plan, ctx.gate_cfg, with_bufs=False)
+        di = routing.build_indices(routed.sels, routed.gate_out["topk_idx"],
+                                   xl.shape[0])
+        return (routed.gate_out["topk_idx"][None], di.slot_to_token[None],
+                di.inv_idx[None])
+
+    with mesh:
+        got = jax.jit(shard_map(picks, mesh=mesh,
+                                in_specs=(P(), P(("pod", "data"), None,
+                                                 None)),
+                                out_specs=(P(("pod", "data")),) * 3,
+                                check_vma=False))(p["gate"], jnp.asarray(x))
+    out["picks", layer] = [np.asarray(a) for a in got]
+""" if picks else ""
+    int8_text = f"""
+res = trainer.train(archs[{moe!r}], RunConfig(
+    dispatch="a2a_pipelined", a2a_num_chunks={PIPELINED_CHUNKS},
+    wire_codec="int8", use_pallas=True, **base), mesh, steps={STEPS},
+    log_every=1, verbose=False)
+out["train_int8"] = {{"history": res.metrics_history,
+                     "final": jax.tree_util.tree_map(np.asarray,
+                                                     res.params)}}
+""" if int8 else ""
+    archs_text = ", ".join(f"{k!r}: {v}" for k, v in archs.items())
+    return f"""
 import dataclasses, pickle, sys
 import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import PartitionSpec as P
 from repro import sharding
-from repro.compat import make_mesh
+from repro.compat import make_mesh, shard_map
 from repro.configs.base import RunConfig, get_config
+from repro.core.dispatch import routing
 from repro.models import model, transformer
 from repro.serving import engine
 from repro.serving.scheduler import Request
@@ -85,8 +128,8 @@ from repro.training import trainer
 mesh = make_mesh({SIZES + (1,)}, ("pod", "data", "model"))
 smesh = make_mesh((4, 1), ("data", "model"))
 rules, srules = model.default_rules(mesh), model.default_rules(smesh)
-archs = {{"dsv2": {DSV2}, "jamba": {JAMBA}}}
-rng = np.random.default_rng(5)
+archs = {{{archs_text}}}
+rng = np.random.default_rng({seed})
 inputs, built = {{}}, {{}}
 for k, arch in archs.items():
     ctx = model.build_ctx(arch, mesh, seq_len={SEQ}, global_batch={BATCH},
@@ -111,18 +154,18 @@ for k, arch in archs.items():
                       np.float32)}},
         "prompts": prompts}}
     built[k] = (ctx, params, sctx, sparams)
-x = rng.standard_normal(({BATCH}, {SEQ}, archs["dsv2"].d_model)).astype(
+x = rng.standard_normal(({BATCH}, {SEQ}, archs[{moe!r}].d_model)).astype(
     np.float32)
 r = rng.standard_normal(x.shape).astype(np.float32)
 inputs["x"], inputs["r"] = x, r
 dump_inputs(inputs)
 
 out = {{"caps": {{}}}}
-ctx, params, _, _ = built["dsv2"]
+ctx, params, _, _ = built[{moe!r}]
 for layer in {MOE_LAYERS}:
     p = jax.tree_util.tree_map(lambda a: a[layer - 1],
                                params["groups"])["sub0"]["ffn"]
-
+{picks_text}
     def loss(p, xx, layer=layer):
         y, m = transformer._moe_block(p, xx, ctx, decode=False,
                                       layer_idx=layer)
@@ -135,7 +178,7 @@ for layer in {MOE_LAYERS}:
         "y": np.asarray(y), "metrics": {{k: np.asarray(v)
                                          for k, v in m.items()}},
         "grads": jax.tree_util.tree_map(np.asarray, g)}}
-jb = {{k: jnp.asarray(v) for k, v in inputs["dsv2"]["batch"].items()}}
+jb = {{k: jnp.asarray(v) for k, v in inputs[{moe!r}]["batch"].items()}}
 with mesh, sharding.axis_rules(rules):
     (loss, m), g = jax.jit(jax.value_and_grad(
         lambda p: transformer.loss_fn(p, jb, ctx), has_aux=True))(params)
@@ -152,13 +195,7 @@ for k, arch in archs.items():
     out["train", k] = {{"history": res.metrics_history,
                        "final": jax.tree_util.tree_map(np.asarray,
                                                        res.params)}}
-res = trainer.train(archs["dsv2"], RunConfig(
-    dispatch="a2a_pipelined", a2a_num_chunks={PIPELINED_CHUNKS},
-    wire_codec="int8", use_pallas=True, **base), mesh, steps={STEPS},
-    log_every=1, verbose=False)
-out["train_int8"] = {{"history": res.metrics_history,
-                     "final": jax.tree_util.tree_map(np.asarray,
-                                                     res.params)}}
+{int8_text}
 for k in archs:
     _, _, sctx, sparams = built[k]
     with smesh, sharding.axis_rules(srules):
@@ -173,10 +210,10 @@ with open(sys.argv[1], "wb") as f:
 """
 
 
-def _arch(key):
+def _arch(text):
     import dataclasses  # noqa: F401 (the texts name it)
     from repro_torch.configs.base import get_config  # noqa: F401
-    return eval(ARCHS[key])
+    return eval(text)
 
 
 def _full_grads(world, params, ctx):
@@ -191,12 +228,29 @@ def _full_grads(world, params, ctx):
     return [t.detach().numpy() for t in leaves]
 
 
-def _rank_main(world, ref_path, out_dir):
-    """One rank of the 2x2 world: DeepSeek's MoE layers (kernels wanted
-    and not), its loss and every synced gradient, the trainers, and both
-    families' serving; its results go to ``rank<r>.pkl``."""
+def mixer_leaves(params, names):
+    """``[(layer, leaf name)]`` of the mixers' leaves named in ``names``,
+    and one bool a leaf (``adamw.tree_leaves`` order): whether it is one
+    of them."""
+    from repro_torch import sharding
+    paths = [p for p, _ in sharding._leaves_with_paths(params)]
+    is_named = [len(p) > 3 and p[0] == "layers" and p[2] == "mixer"
+                and p[3] in names for p in paths]
+    return [(p[1], p[3]) for p, q in zip(paths, is_named) if q], is_named
+
+
+def rank_main(world, ref_path, out_dir, archs, moe, picks=False,
+              int8=False, local_leaves=()):
+    """One rank of the 2x2 world, as ``reference(archs, moe, ...)`` runs
+    the reference: ``moe``'s MoE layers (kernels wanted and not; with
+    ``picks``, its top-k picks and dispatch indices), its loss and every
+    synced gradient (with each rank's own gradient of the mixer leaves
+    named in ``local_leaves`` and ``trainer.expert_mask``), the trainers
+    (kernels auto and wanted) and each model's serving; its results go to
+    ``rank<r>.pkl``."""
     torch.set_num_threads(1)
     from repro_torch.configs.base import RunConfig
+    from repro_torch.core.dispatch import routing
     from repro_torch.models import model, transformer
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.optim import adamw
@@ -210,18 +264,27 @@ def _rank_main(world, ref_path, out_dir):
     rows = slice(world.rank * per, (world.rank + 1) * per)
     out = {"rank": world.rank, "coords": world.coords, "caps": {},
            "expert_range": {}}
-    dsv2 = _arch("dsv2")
+    arch = _arch(archs[moe])
     for use_pallas in (False, True):
-        ctx = model.build_ctx(dsv2, world, seq_len=SEQ, global_batch=BATCH,
+        ctx = model.build_ctx(arch, world, seq_len=SEQ, global_batch=BATCH,
                               aux_mode="ta", use_pallas=use_pallas,
                               device="cpu")
-        params = params_from_numpy(ref["dsv2"]["params"], ctx, "cpu")
+        params = params_from_numpy(ref[moe]["params"], ctx, "cpu")
         for layer in MOE_LAYERS:
             p = {k: (v.requires_grad_(True) if torch.is_tensor(v)
                      else {kk: vv.requires_grad_(True)
                            for kk, vv in v.items()})
                  for k, v in params["layers"][layer]["ffn"].items()}
             x = torch.from_numpy(ref["x"][rows].copy()).requires_grad_(True)
+            if picks and not use_pallas:
+                flat = x.detach().reshape(-1, arch.d_model)
+                routed = routing.route(p, flat, ctx.moe_cfg, ctx.ep,
+                                       ctx.plan, ctx.gate_cfg, world.coords)
+                di = routing.build_indices(
+                    routed.sels, routed.gate_out["topk_idx"], flat.shape[0])
+                out["picks", layer] = [
+                    t.numpy() for t in (routed.gate_out["topk_idx"],
+                                        di.slot_to_token, di.inv_idx)]
             y, m = transformer._moe_block(p, x, ctx, decode=False,
                                           layer_idx=layer)
             (torch.sum(y * torch.from_numpy(ref["r"][rows].copy()))
@@ -236,17 +299,23 @@ def _rank_main(world, ref_path, out_dir):
                 "metrics": {k: v.detach().numpy() for k, v in m.items()},
                 "gx": x.grad.numpy(), "grads": grads}
         batch = {k: torch.from_numpy(v[rows].copy())
-                 for k, v in ref["dsv2"]["batch"].items()}
-        params = params_from_numpy(ref["dsv2"]["params"], ctx, "cpu")
-        for t in adamw.tree_leaves(params):
+                 for k, v in ref[moe]["batch"].items()}
+        params = params_from_numpy(ref[moe]["params"], ctx, "cpu")
+        leaves = adamw.tree_leaves(params)
+        for t in leaves:
             t.requires_grad_(True)
         loss, m = transformer.loss_fn(params, batch, ctx)
         (loss / world.size).backward()
-        out["loss", use_pallas] = {"metrics": world.mean(m),
-                                   "grads": _full_grads(world, params, ctx)}
+        _, named = mixer_leaves(params, local_leaves)
+        out["loss", use_pallas] = {
+            "metrics": world.mean(m),
+            "local": [t.grad.clone().numpy()
+                      for t, q in zip(leaves, named) if q],
+            "expert_mask": trainer.expert_mask(params, ctx),
+            "grads": _full_grads(world, params, ctx)}
 
     def train(key, **kw):
-        arch = _arch(key)
+        arch = _arch(archs[key])
         run = RunConfig(seq_len=SEQ, global_batch=BATCH, warmup_steps=1,
                         aux_mode="ta", seed=0, **kw)
         ctx = model.build_ctx(arch, world, seq_len=SEQ, global_batch=BATCH,
@@ -264,14 +333,15 @@ def _rank_main(world, ref_path, out_dir):
                           for t in adamw.tree_leaves(res.params)]}
 
     for use_pallas in (None, True):
-        for key in ARCHS:
+        for key in archs:
             out["train", key, use_pallas] = train(
                 key, dispatch="a2a", use_pallas=use_pallas)
-    out["train_int8"] = train(
-        "dsv2", dispatch="a2a_pipelined", a2a_num_chunks=PIPELINED_CHUNKS,
-        wire_codec="int8", use_pallas=True)
-    for key in ARCHS:
-        arch = _arch(key)
+    if int8:
+        out["train_int8"] = train(
+            moe, dispatch="a2a_pipelined", a2a_num_chunks=PIPELINED_CHUNKS,
+            wire_codec="int8", use_pallas=True)
+    for key in archs:
+        arch = _arch(archs[key])
         sctx = model.build_ctx(arch, world, seq_len=SERVE["cache_len"],
                                global_batch=SERVE["num_slots"],
                                aux_mode="none", device="cpu")
@@ -287,18 +357,19 @@ def _rank_main(world, ref_path, out_dir):
         pickle.dump(out, f)
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """(reference results, [rank 0..3 results]) — one JAX subprocess and,
-    beside it once it has made both models' weights, batches and prompts,
-    one 4-process gloo world of the port."""
+def run_world(tmp, archs, moe, seed, picks=False, int8=False,
+              local_leaves=()):
+    """(reference results, [rank 0..3 results]) of ``reference(archs, moe,
+    seed, picks, int8)`` and, beside it once it has made the weights,
+    batches and prompts, one 4-process gloo world of the port
+    (``rank_main``)."""
     from repro_torch.launch import mesh
     from torch_world_reference import run_beside_world
-    tmp = tmp_path_factory.mktemp("ep_families")
     ref = run_beside_world(
-        REFERENCE, 4, tmp,
-        lambda inputs: mesh.spawn(_rank_main, SIZES, "gloo", "cpu",
-                                  args=(inputs, str(tmp))))
+        reference(archs, moe, seed, picks, int8), 4, tmp,
+        lambda inputs: mesh.spawn(rank_main, SIZES, "gloo", "cpu",
+                                  args=(inputs, str(tmp), archs, moe, picks,
+                                        int8, tuple(local_leaves))))
     ranks = []
     for i in range(4):
         with open(tmp / f"rank{i}.pkl", "rb") as f:
@@ -306,19 +377,29 @@ def runs(tmp_path_factory):
     return ref, ranks
 
 
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """(reference results, [rank 0..3 results]) — one JAX subprocess and,
+    beside it once it has made both models' weights, batches and prompts,
+    one 4-process gloo world of the port."""
+    return run_world(tmp_path_factory.mktemp("ep_families"), ARCHS, "dsv2",
+                     5, int8=True)
+
+
 def close(got, want, **tol):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                **(tol or TOL))
 
 
-def _ref_leaves(key, tree, world=None):
-    """A reference tree in the port's leaf order (``world``'s rank's
-    expert slice, or every expert without a world)."""
+def _ref_leaves(text, tree, world=None):
+    """A reference tree in the port's leaf order for the architecture
+    ``text`` (``world``'s rank's expert slice, or every expert without a
+    world)."""
     from repro_torch.models import model
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.optim import adamw
-    ctx = model.build_ctx(_arch(key), world, seq_len=SEQ, global_batch=BATCH,
-                          device="cpu")
+    ctx = model.build_ctx(_arch(text), world, seq_len=SEQ,
+                          global_batch=BATCH, device="cpu")
     return [t.numpy() for t in adamw.tree_leaves(
         params_from_numpy(tree, ctx, "cpu"))]
 
@@ -383,7 +464,7 @@ def test_dsv2_loss_and_every_synced_gradient(runs):
     over the EP axes)."""
     ref, ranks = runs
     want = ref["loss"]
-    wgrads = _ref_leaves("dsv2", want["grads"])
+    wgrads = _ref_leaves(DSV2, want["grads"])
     for use_pallas in (False, True):
         for out in ranks:
             got = out["loss", use_pallas]
@@ -409,7 +490,7 @@ def test_trainers_match_reference(runs, use_pallas):
             for a, b in zip(got["history"], want["history"]):
                 for k in HISTORY_KEYS:
                     close(a[k], b[k])
-            final = _ref_leaves(key, want["final"], _world(out))
+            final = _ref_leaves(ARCHS[key], want["final"], _world(out))
             assert len(final) == len(got["final"])
             for a, b in zip(got["final"], final):
                 close(a, b, rtol=1e-4, atol=2e-4)
@@ -432,7 +513,7 @@ def test_dsv2_pipelined_int8_trainer_matches_reference(runs):
                 w = np.asarray(b[k], dtype=np.float64)
                 close_but_flips(a[k], w, level=1e-3 * np.abs(w).max(),
                                 frac=1.0)
-        final = _ref_leaves("dsv2", want["final"], _world(out))
+        final = _ref_leaves(DSV2, want["final"], _world(out))
         for a, b in zip(got["final"], final):
             close_but_flips(a, b, level=2 * LR, frac=1e-3,
                             tol=dict(rtol=1e-4, atol=2e-4))
